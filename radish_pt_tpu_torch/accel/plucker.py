@@ -1,0 +1,361 @@
+"""Plücker closest-hit and shadow sweeps: wrappers, plain versions, prepass.
+
+Port of the main-path engine of ``radish_pt_tpu/accel/pallas_kernels.py``:
+``intersect_plucker_pallas`` (:669, kernel ``_plucker_kernel`` :344) and
+``occlusion_plucker_pallas`` (:805, kernel ``_plucker_occl_kernel`` :463).
+
+Möller–Trumbore's four decision quantities are bilinear in per-ray features
+``f = [d, o x d, o, 1]`` (o centred on ``sweep_center``) and per-triangle
+build-time coefficients ``c [T, 4, 10]`` (pallas_kernels.py:210-225):
+det = c0·f, bx = c1·f, by = c2·f, t·det = c3·f.  With sd = det², a
+triangle is hit when
+
+    min(bx·det, by·det, sd - bx·det - by·det, sd - eps², t·det·det) >= 0
+
+(inclusive edges) at t = t·det·det / sd; a segment with range ``tm`` is
+blocked when min(v, t·det·det, tm·sd - t·det·det) >= 0 for some triangle
+(v the first four terms).  Zero triangles (cluster padding) have det = 0
+and never pass.
+
+Culling: a slab-test prepass (:func:`cluster_mask_words`, the XLA
+``_cluster_mask_bits`` :599) flags, per 128-lane row, every cluster of
+``sub`` consecutive triangles that any ray of the row may hit within its
+``tmax``; the sweep visits only flagged clusters.  Without cluster bounds
+(small scenes) every triangle is swept.
+
+Each sweep has two implementations with one contract:
+* ``*_cuda``: the hand-written kernels of ``csrc/plucker.cu`` (one thread
+  per ray, exact f32 FMA, the winner is the exact minimum t with ties to the
+  lower id);
+* ``*_plain``: the same arithmetic in plain torch (dense, mask-gated).
+``closest_hit`` / ``occlusion`` dispatch on the tensors' device: CPU tensors
+take the plain version, CUDA tensors launch the kernel (or raise) — there is
+no fallback between the two.  ``LAUNCHES`` counts kernel launches and
+``PLAIN_CALLS`` plain-version calls, per sweep kind.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils.math import cross
+from .traverse import FLT_MAX, NULL_PRIMITIVE, segment_rays
+
+PLUCKER_EPS2 = 1.1920929e-07 ** 2  # det² threshold == |det| >= eps
+ROW = 128  # lanes per culling row (one CUDA block)
+
+LAUNCHES = {"closest_hit": 0, "occlusion": 0}
+PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# features and the cluster-mask prepass
+# ---------------------------------------------------------------------------
+
+
+def plucker_features(ray_o, ray_d, center):
+    """Per-ray features [N, 10] = [d, (o-c) x d, o-c, 1]."""
+    o = ray_o - center
+    return torch.cat([ray_d, cross(o, ray_d), o, torch.ones_like(o[:, :1])],
+                     dim=1).contiguous()
+
+
+def cluster_mask_words(cluster_bounds, ray_o, ray_d, tmax):
+    """Per 128-lane row, the clusters any of its rays may hit before tmax
+    (conservative slab test), packed 32 per int32 word: bit j of word w
+    flags cluster 32·w + j.  Returns int32 [ceil(N/128), ceil(C/32)].
+
+    The same f32 arithmetic as the reference prepass, including its padding
+    of the last row (o = 0, d = 1, tmax = 0, or FLT_MAX without tmax)."""
+    n = ray_o.shape[0]
+    n_pad = -(-n // ROW) * ROW
+    pad = n_pad - n
+    dev = ray_o.device
+    o = torch.cat([ray_o, ray_o.new_zeros((pad, 3))])
+    d = torch.cat([ray_d, ray_d.new_ones((pad, 3))])
+    if tmax is None:
+        tm = torch.full((n_pad, 1), FLT_MAX, device=dev)
+    else:
+        tm = torch.cat([tmax, tmax.new_zeros((pad,))])[:, None]
+    cb = cluster_bounds
+    inv = 1.0 / torch.where(torch.abs(d) > 1e-12, d, torch.full_like(d, 1e-12))
+    n_c = cb.shape[0]
+    tn = torch.full((n_pad, n_c), -FLT_MAX, device=dev)
+    tf = torch.full((n_pad, n_c), FLT_MAX, device=dev)
+    for k in range(3):
+        a = (cb[None, :, k] - o[:, k, None]) * inv[:, k, None]
+        b = (cb[None, :, 3 + k] - o[:, k, None]) * inv[:, k, None]
+        tn = torch.maximum(tn, torch.minimum(a, b))
+        tf = torch.minimum(tf, torch.maximum(a, b))
+    hit = (tf >= torch.clamp(tn, min=0.0)) & (tn < tm)  # [n_pad, C]
+    rows = hit.view(n_pad // ROW, ROW, n_c).any(dim=1)  # [rows, C]
+    n_words = -(-n_c // 32)
+    rows = torch.nn.functional.pad(rows, (0, n_words * 32 - n_c))
+    weights = torch.ones(32, dtype=torch.int64, device=dev) << torch.arange(
+        32, device=dev)
+    words = (rows.view(-1, n_words, 32).to(torch.int64) * weights).sum(-1)
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    return words.to(torch.int32).contiguous()
+
+
+def unpack_mask(words, n_clusters):
+    """[rows, W] int32 words -> bool [rows, n_clusters]."""
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)[:, :n_clusters].bool()
+
+
+# ---------------------------------------------------------------------------
+# plain torch versions
+# ---------------------------------------------------------------------------
+
+
+def _planes(coeffs, feats):
+    """(det, bx, by, t·det) [R, T] for feature rows ``feats`` [R, 10]."""
+    if feats.is_cuda:  # the reference planes are full f32, never TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+    t = coeffs.shape[0]
+    q = (feats @ coeffs.reshape(t * 4, 10).t()).view(-1, t, 4)
+    return q.unbind(-1)
+
+
+def _lane_tri_mask(mask, sub, num_tris, lo, hi):
+    """bool [hi-lo, T]: triangle in a cluster flagged for the lane's row."""
+    rows = unpack_mask(mask, num_tris // sub)
+    lane_row = torch.arange(lo, hi, device=mask.device) // ROW
+    return rows[lane_row].repeat_interleave(sub, dim=1)
+
+
+def _chunk_rays(num_tris):
+    """Rays per plain-version chunk (bounds the [R, T] temporaries)."""
+    return max(ROW, ((1 << 25) // max(4 * num_tris, 1)) // ROW * ROW)
+
+
+def closest_hit_plain(coeffs, feats, mask, sub):
+    """Plain torch closest hit.  ``coeffs`` f32 [T, 4, 10], ``feats`` f32
+    [N, 10], ``mask`` int32 [ceil(N/128), W] cluster words (None: sweep
+    every triangle), ``sub`` triangles per cluster.  Returns
+    (prim i32 [N], dist f32 [N]); misses are (-1, FLT_MAX)."""
+    PLAIN_CALLS["closest_hit"] += 1
+    n, num_tris = feats.shape[0], coeffs.shape[0]
+    prim = torch.full((n,), NULL_PRIMITIVE, dtype=torch.int32, device=feats.device)
+    dist = torch.full((n,), FLT_MAX, dtype=torch.float32, device=feats.device)
+    step = _chunk_rays(num_tris)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        det, bx, by, td = _planes(coeffs, feats[lo:hi])
+        sd = det * det
+        bxd = bx * det
+        byd = by * det
+        v = torch.minimum(torch.minimum(bxd, byd), sd - bxd - byd)
+        v = torch.minimum(v, sd - PLUCKER_EPS2)
+        tdd = td * det
+        ok = torch.minimum(v, tdd) >= 0.0
+        if mask is not None:
+            ok &= _lane_tri_mask(mask, sub, num_tris, lo, hi)
+        t = torch.where(ok, tdd / sd, FLT_MAX)
+        best, idx = torch.min(t, dim=1)  # first minimum: lower id on ties
+        hit = best < FLT_MAX
+        prim[lo:hi] = torch.where(hit, idx.to(torch.int32), NULL_PRIMITIVE)
+        dist[lo:hi] = torch.where(hit, best, FLT_MAX)
+    return prim, dist
+
+
+def occlusion_plain(coeffs, feats, tm, mask, sub):
+    """Plain torch any-hit: True where some (flagged) triangle blocks the
+    segment of range ``tm`` f32 [N].  Arguments as :func:`closest_hit_plain`."""
+    PLAIN_CALLS["occlusion"] += 1
+    n, num_tris = feats.shape[0], coeffs.shape[0]
+    occ = torch.zeros((n,), dtype=torch.bool, device=feats.device)
+    step = _chunk_rays(num_tris)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        det, bx, by, td = _planes(coeffs, feats[lo:hi])
+        sd = det * det
+        bxd = bx * det
+        byd = by * det
+        v = torch.minimum(torch.minimum(bxd, byd), sd - bxd - byd)
+        v = torch.minimum(v, sd - PLUCKER_EPS2)
+        tdd = td * det
+        w = torch.minimum(torch.minimum(v, tdd), tm[lo:hi, None] * sd - tdd)
+        hit = w >= 0.0
+        if mask is not None:
+            hit &= _lane_tri_mask(mask, sub, num_tris, lo, hi)
+        occ[lo:hi] = hit.any(dim=1)
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/plucker.cu)
+# ---------------------------------------------------------------------------
+
+
+def _check_inputs(coeffs, feats, mask, sub):
+    if not (coeffs.is_cuda and feats.is_cuda):
+        raise ValueError("the CUDA sweep takes CUDA tensors")
+    if coeffs.dtype != torch.float32 or feats.dtype != torch.float32:
+        raise TypeError("coeffs and feats must be float32")
+    if coeffs.dim() != 3 or coeffs.shape[1:] != (4, 10):
+        raise ValueError(f"coeffs must be [T, 4, 10], got {tuple(coeffs.shape)}")
+    if feats.dim() != 2 or feats.shape[1] != 10:
+        raise ValueError(f"feats must be [N, 10], got {tuple(feats.shape)}")
+    if not (coeffs.is_contiguous() and feats.is_contiguous()):
+        raise ValueError("coeffs and feats must be contiguous")
+    if mask is not None:
+        rows = -(-feats.shape[0] // ROW)
+        if (not mask.is_cuda or mask.dtype != torch.int32 or mask.dim() != 2
+                or mask.shape[0] != rows or not mask.is_contiguous()):
+            raise ValueError("mask must be contiguous int32 [ceil(N/128), W] "
+                             "on the card")
+        if coeffs.shape[0] % sub or mask.shape[1] * 32 < coeffs.shape[0] // sub:
+            raise ValueError("coeffs rows must be whole clusters covered by "
+                             "the mask words")
+
+
+def _launch_args(coeffs, feats, mask, sub):
+    import ctypes
+
+    from ._build import load_plucker_library
+
+    lib = load_plucker_library()
+    n_words = 0 if mask is None else mask.shape[1]
+    mask_ptr = None if mask is None else mask.data_ptr()
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    args = (ctypes.c_void_p(coeffs.data_ptr()), ctypes.c_int(coeffs.shape[0]),
+            ctypes.c_int(sub), ctypes.c_void_p(feats.data_ptr()),
+            ctypes.c_int(feats.shape[0]), ctypes.c_void_p(mask_ptr),
+            ctypes.c_int(n_words))
+    return lib, args, ctypes.c_void_p(stream)
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def closest_hit_cuda(coeffs, feats, mask, sub):
+    """The closest-hit kernel (``plucker_closest_hit`` in csrc/plucker.cu);
+    same contract as :func:`closest_hit_plain`."""
+    _check_inputs(coeffs, feats, mask, sub)
+    n = feats.shape[0]
+    prim = torch.empty((n,), dtype=torch.int32, device=feats.device)
+    dist = torch.empty((n,), dtype=torch.float32, device=feats.device)
+    if n == 0:
+        return prim, dist
+    import ctypes
+
+    lib, args, stream = _launch_args(coeffs, feats, mask, sub)
+    with torch.cuda.device(feats.device):
+        err = lib.plucker_closest_hit(
+            *args, ctypes.c_void_p(prim.data_ptr()),
+            ctypes.c_void_p(dist.data_ptr()), stream)
+    _raise_on(err, "plucker_closest_hit")
+    LAUNCHES["closest_hit"] += 1
+    return prim, dist
+
+
+def occlusion_cuda(coeffs, feats, tm, mask, sub):
+    """The shadow kernel (``plucker_occlusion`` in csrc/plucker.cu); same
+    contract as :func:`occlusion_plain`."""
+    _check_inputs(coeffs, feats, mask, sub)
+    n = feats.shape[0]
+    if not (tm.is_cuda and tm.dtype == torch.float32 and tm.shape == (n,)
+            and tm.is_contiguous()):
+        raise ValueError("tm must be contiguous float32 [N] on the card")
+    occ = torch.empty((n,), dtype=torch.int32, device=feats.device)
+    if n == 0:
+        return occ.bool()
+    import ctypes
+
+    lib, args, stream = _launch_args(coeffs, feats, mask, sub)
+    with torch.cuda.device(feats.device):
+        err = lib.plucker_occlusion(
+            *args, ctypes.c_void_p(tm.data_ptr()),
+            ctypes.c_void_p(occ.data_ptr()), stream)
+    _raise_on(err, "plucker_occlusion")
+    LAUNCHES["occlusion"] += 1
+    return occ.bool()
+
+
+def closest_hit(coeffs, feats, mask, sub):
+    """Closest-hit sweep: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if feats.is_cuda:
+        return closest_hit_cuda(coeffs, feats, mask, sub)
+    return closest_hit_plain(coeffs, feats, mask, sub)
+
+
+def occlusion(coeffs, feats, tm, mask, sub):
+    """Shadow sweep: the kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if feats.is_cuda:
+        return occlusion_cuda(coeffs, feats, tm, mask, sub)
+    return occlusion_plain(coeffs, feats, tm, mask, sub)
+
+
+# ---------------------------------------------------------------------------
+# scene-level entry points
+# ---------------------------------------------------------------------------
+
+
+def intersect_plucker(coeffs, center, cluster_bounds, sub, ray_o, ray_d,
+                      tmax=None, plain: bool = False):
+    """Closest hit of rays against the stored triangles; (prim i32 [N],
+    selector-grade dist f32 [N]).  ``tmax`` (f32 [N]) bounds only the
+    culling prepass (-FLT_MAX marks a dead lane, which flags nothing).
+    ``plain`` selects the plain torch sweep on any device."""
+    feats = plucker_features(ray_o, ray_d, center)
+    mask = None
+    if cluster_bounds is not None:
+        mask = cluster_mask_words(cluster_bounds, ray_o, ray_d, tmax)
+    sweep = closest_hit_plain if plain else closest_hit
+    return sweep(coeffs, feats, mask, sub)
+
+
+def occlusion_plucker(coeffs, center, cluster_bounds, sub, x, y,
+                      plain: bool = False):
+    """True where segment x->y is blocked (bool [N]).  A zero-length
+    segment (y == x, a masked lane) has d = 0, so det = 0: never blocked."""
+    ray_o, ray_d, tm = segment_rays(x, y)
+    feats = plucker_features(ray_o, ray_d, center)
+    mask = None
+    if cluster_bounds is not None:
+        mask = cluster_mask_words(cluster_bounds, ray_o, ray_d, tm)
+    sweep = occlusion_plain if plain else occlusion
+    return sweep(coeffs, feats, tm.contiguous(), mask, sub)
+
+
+def numpy_coeffs(tri_packed: np.ndarray):
+    """Build-time planes in f32 numpy: (coeffs [T, 4, 10], center [3]) —
+    the reference's ``_plucker_coeffs`` (:577) and centre
+    (precompute_sweep_coeffs :2218-2219), without the M-stacking."""
+    tp = np.asarray(tri_packed, np.float32)
+    v0w = tp[:, 0:3]
+    center = (np.float32(0.5) * (v0w.min(axis=0) + v0w.max(axis=0))).astype(
+        np.float32)
+    v0 = v0w - center
+    e1 = tp[:, 3:6]
+    e2 = tp[:, 6:9]
+
+    def cross(a, b):
+        return np.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                         a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                         a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], axis=1)
+
+    n = cross(e1, e2)
+    z3 = np.zeros_like(v0)
+    z1 = np.zeros_like(v0[:, :1])
+    nv = (v0[:, 0] * n[:, 0] + v0[:, 1] * n[:, 1] + v0[:, 2] * n[:, 2])[:, None]
+    c_det = np.concatenate([cross(e2, e1), z3, z3, z1], axis=1)
+    c_bx = np.concatenate([-cross(e2, v0), e2, z3, z1], axis=1)
+    c_by = np.concatenate([cross(e1, v0), -e1, z3, z1], axis=1)
+    c_td = np.concatenate([z3, z3, n, -nv], axis=1)
+    coeffs = np.stack([c_det, c_bx, c_by, c_td], axis=1)  # [T, 4, 10]
+    return np.ascontiguousarray(coeffs, np.float32), center

@@ -1,0 +1,286 @@
+"""Host-side scene build: flatten instances, extract lights, build alias
+tables, BVH leaf order and culling clusters, and assemble the
+:class:`DeviceScene`.
+
+Port of ``radish_pt_tpu/scene/build.py`` in numpy, always producing the
+layout of the reference's ``pallas_mxu`` engine (build.py:296-416):
+
+* triangles stored in BVH leaf (DFS) order, so a winner's position in the
+  stored table IS its primitive id;
+* above 1024 triangles, area-optimal cluster cuts of at most
+  ``cluster_sub_for(T)`` triangles, each padded to a whole cluster of slots
+  with zero triangles (which never hit), with per-cluster AABBs for the
+  culling prepass and the light ids remapped through the padding;
+* the Plücker planes of every stored triangle, in f32, centred on the
+  scene (accel/plucker.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..accel.bvh import build_bvh
+from ..accel.plucker import numpy_coeffs
+from ..accel.traverse import pack_tris
+from ..sampling.alias import build_alias_table
+from ..sampling.sobol import load_sobol_table
+from .camera import Camera, make_camera
+from .device_scene import MAT_LIGHT, NULL_TEXTURE, DeviceScene, pack_textures
+from .parser import SceneDesc
+
+CLUSTER_SUB = 64  # default triangles per culling cluster
+BIG_SCENE_TRIS = 16384
+PLUCKER_MAX_TRIS = 131072  # above this the reference switches engines
+CLUSTER_MIN_TRIS = 1024  # below this every ray sweeps every triangle
+
+
+def cluster_sub_for(num_tris: int) -> int:
+    """Per-scene culling-cluster size (the reference's ``cluster_sub_for``,
+    pallas_kernels.py:2153): 128 up to 6144 triangles, 64 for mid scenes,
+    512 for big ones."""
+    if BIG_SCENE_TRIS < num_tris <= PLUCKER_MAX_TRIS:
+        return 512
+    if num_tris <= 6144:
+        return 128
+    return CLUSTER_SUB
+
+
+def _luminance_np(c: np.ndarray) -> np.ndarray:
+    return 0.2126 * c[..., 0] + 0.7152 * c[..., 1] + 0.0722 * c[..., 2]
+
+
+def _box_area(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    d = np.maximum(hi - lo, 0.0)
+    return 2.0 * (d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2]
+                  + d[..., 0] * d[..., 2])
+
+
+def _cluster_cuts(pmin: np.ndarray, pmax: np.ndarray, sub: int = 64,
+                  lam_frac: float = 0.005, chunk: int = 4096) -> np.ndarray:
+    """Area-optimal segmentation of the leaf-ordered triangles into culling
+    clusters of <= ``sub`` triangles — the numpy DP of the reference's
+    ``_cluster_cuts`` (build.py:97): minimizes sum(segment AABB area) +
+    lambda * n_segments over windows of ``sub``, exactly per ``chunk``.
+    Returns the cut positions, int64 [n_segments + 1] from 0 to T."""
+    T = pmin.shape[0]
+    lam = lam_frac * _box_area(pmin.min(axis=0), pmax.max(axis=0))
+
+    n_chunks = -(-T // chunk)
+    T_pad = n_chunks * chunk
+    # pad with copies of the last triangle: zero extra area, cut dropped
+    pmin_p = np.concatenate([pmin, np.repeat(pmin[-1:], T_pad - T, axis=0)])
+    pmax_p = np.concatenate([pmax, np.repeat(pmax[-1:], T_pad - T, axis=0)])
+
+    # A_k[k, i] = area of (i-k .. i), window boxes by running min/max
+    lo = pmin_p.copy()
+    hi = pmax_p.copy()
+    A_k = np.empty((sub, T_pad), np.float32)
+    A_k[0] = _box_area(lo, hi)
+    for k in range(1, sub):
+        lo[k:] = np.minimum(lo[k:], pmin_p[:-k])
+        hi[k:] = np.maximum(hi[k:], pmax_p[:-k])
+        A_k[k] = _box_area(lo, hi)
+    A_k = A_k.reshape(sub, n_chunks, chunk)
+
+    ks = np.arange(sub)
+    cost = np.zeros((n_chunks, chunk + 1), np.float32)
+    back = np.zeros((n_chunks, chunk + 1), np.int32)
+    rows = np.arange(n_chunks)
+    for i in range(chunk):
+        kmax = min(sub, i + 1)
+        c = cost[:, i - ks[:kmax]] + A_k[:kmax, :, i].T + lam
+        b = np.argmin(c, axis=1)
+        cost[:, i + 1] = c[rows, b]
+        back[:, i + 1] = i - b  # segment start (within chunk)
+
+    cuts = []
+    for ci in range(n_chunks):
+        base = ci * chunk
+        i = chunk
+        cc = []
+        while i > 0:
+            cc.append(base + i)
+            i = back[ci, i]
+        cuts.extend(cc[::-1])
+    cuts = np.asarray([0] + cuts, np.int64)
+    return np.unique(np.minimum(cuts, T))  # drop padded-tail cut points
+
+
+def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
+                       device="cpu") -> tuple[DeviceScene, Camera]:
+    """Build the device scene + camera from a parsed scene."""
+    if scene.env_tex_id != NULL_TEXTURE or scene.aperture_tex_id != NULL_TEXTURE:
+        raise NotImplementedError(
+            "env-map and aperture-mask scenes are not ported yet "
+            "(ROADMAP queue 1, item 2)")
+    verts, norms, uvs, mat_ids = [], [], [], []
+    light_prims, light_radiance, light_power = [], [], []
+
+    prim_base = 0
+    for inst in scene.instances:
+        mesh = inst.mesh
+        M = inst.transform
+        nrm_mat = np.linalg.inv(M[:3, :3]).T
+
+        v = mesh.vertices @ M[:3, :3].T + M[:3, 3]
+        n = mesh.normals @ nrm_mat.T
+        n /= np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+        verts.append(v.astype(np.float32))
+        norms.append(n.astype(np.float32))
+        uvs.append(mesh.texcoords.astype(np.float32))
+
+        t = mesh.num_triangles
+        mat_ids.append(np.full(t, inst.material_id, np.int32))
+
+        mat = scene.materials[inst.material_id]
+        if mat.mtype == MAT_LIGHT:
+            # every light triangle is an emitter record (scene.cpp:204-219)
+            tv = v.reshape(-1, 3, 3)
+            area = np.linalg.norm(
+                np.cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]), axis=-1
+            ) * 0.5
+            rad = np.asarray(mat.base_color, np.float32)
+            power_unit = float(_luminance_np(rad)) * 2.0 * np.pi
+            for k in range(t):
+                light_prims.append(prim_base + k)
+                light_radiance.append(rad)
+                light_power.append(power_unit * float(area[k]))
+        prim_base += t
+
+    if prim_base == 0:
+        raise ValueError("No mesh data loaded")
+
+    tri_v = np.concatenate(verts).reshape(-1, 3, 3)
+    tri_n = np.concatenate(norms).reshape(-1, 3, 3)
+    tri_uv = np.concatenate(uvs).reshape(-1, 3, 2)
+    material_ids = np.concatenate(mat_ids)
+    num_tris = tri_v.shape[0]
+    if num_tris > PLUCKER_MAX_TRIS:
+        raise NotImplementedError(
+            f"{num_tris} triangles: scenes above {PLUCKER_MAX_TRIS} need the "
+            "compact work-list kernels (ROADMAP queue 2, item 4)")
+
+    # ---- light sampler (createLightSampler, scene.cpp:145-169) ----
+    n_area_lights = len(light_prims)
+    if light_power:
+        light_table = build_alias_table(np.asarray(light_power, np.float64))
+        sum_power_inv = 1.0 / max(light_table.total, 1e-12)
+        la_prob, la_idx = light_table.prob, light_table.alias
+    else:
+        sum_power_inv = 0.0
+        la_prob = np.ones(1, np.float32)
+        la_idx = np.zeros(1, np.int32)
+
+    # ---- storage order: BVH leaf (DFS) order ----
+    bvh = build_bvh(tri_v.reshape(-1, 3))
+    lm = np.asarray(bvh.leaf_map)
+    tri_order = lm[lm >= 0].astype(np.int32)
+    assert tri_order.size == num_tris, "leaf_map must cover every triangle"
+    inv_order = np.empty_like(tri_order)
+    inv_order[tri_order] = np.arange(num_tris, dtype=np.int32)
+    tri_v = tri_v[tri_order]
+    tri_n = tri_n[tri_order]
+    tri_uv = tri_uv[tri_order]
+    material_ids = material_ids[tri_order]
+    light_prims = [int(inv_order[p]) for p in light_prims]
+
+    # ---- culling clusters, each padded to ``csub`` slots ----
+    cluster_bounds = None
+    csub = CLUSTER_SUB
+    if num_tris > CLUSTER_MIN_TRIS:
+        csub = cluster_sub_for(num_tris)
+        cuts = _cluster_cuts(tri_v.min(axis=1).astype(np.float32),
+                             tri_v.max(axis=1).astype(np.float32), sub=csub)
+        n_clusters = cuts.size - 1
+        t_pad = n_clusters * csub
+        slot_of_pos = np.empty(num_tris, np.int32)
+        cb = np.empty((n_clusters, 6), np.float32)
+        for ci in range(n_clusters):
+            a, b = int(cuts[ci]), int(cuts[ci + 1])
+            slot_of_pos[a:b] = ci * csub + np.arange(b - a)
+            g = tri_v[a:b].reshape(-1, 3)
+            cb[ci, 0:3] = g.min(axis=0)
+            cb[ci, 3:6] = g.max(axis=0)
+        cluster_bounds = cb
+
+        def _pad(arr):
+            out = np.zeros((t_pad,) + arr.shape[1:], arr.dtype)
+            out[slot_of_pos] = arr
+            return out
+
+        tri_v = _pad(tri_v)
+        tri_n = _pad(tri_n)
+        tri_uv = _pad(tri_uv)
+        material_ids = _pad(material_ids)
+        light_prims = [int(slot_of_pos[p]) for p in light_prims]
+
+    tri_packed = pack_tris(tri_v)
+    coeffs, center = numpy_coeffs(tri_packed)
+    tex_data, tex_off, tex_w, tex_h = pack_textures(scene.textures)
+
+    from .parser import HostMaterial
+
+    mats = scene.materials if scene.materials else [HostMaterial()]
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    tri_attr = np.concatenate(
+        [tri_v.reshape(-1, 9), tri_n.reshape(-1, 9), tri_uv.reshape(-1, 6),
+         # material id as f32 col 24 (exact to 2^24)
+         material_ids.reshape(-1, 1).astype(np.float32)], axis=1)
+    ds = DeviceScene(
+        intersector="plucker",
+        n_area_lights=n_area_lights,
+        has_env=False,
+        has_aperture=False,
+        single_sided=scene.settings.scene_light_single_sided,
+        mat_types=tuple(sorted({m.mtype for m in mats})),
+        cluster_sub=csub,
+        tri_v=f32(tri_v),
+        tri_attr=f32(tri_attr),
+        tri_packed=f32(tri_packed),
+        cluster_bounds=None if cluster_bounds is None else f32(cluster_bounds),
+        sweep_coeffs=f32(coeffs),
+        sweep_center=f32(center),
+        mat_type=i32([m.mtype for m in mats]),
+        mat_base_color=f32([m.base_color for m in mats]),
+        mat_metallic=f32([m.metallic for m in mats]),
+        mat_roughness=f32([m.roughness for m in mats]),
+        mat_ior=f32([m.ior for m in mats]),
+        mat_color_map=i32([m.color_map for m in mats]),
+        mat_normal_map=i32([m.normal_map for m in mats]),
+        mat_metallic_map=i32([m.metallic_map for m in mats]),
+        mat_roughness_map=i32([m.roughness_map for m in mats]),
+        tex_data=f32(tex_data),
+        tex_offset=i32(tex_off),
+        tex_width=i32(tex_w),
+        tex_height=i32(tex_h),
+        light_prim_ids=i32(light_prims if light_prims else [0]),
+        light_radiance=f32(np.asarray(light_radiance, np.float32).reshape(-1, 3)
+                           if light_radiance else np.zeros((1, 3))),
+        sum_light_power_inv=f32(sum_power_inv),
+        light_alias_prob=f32(la_prob),
+        light_alias_idx=i32(la_idx),
+        sobol=(torch.as_tensor(load_sobol_table().astype(np.int64), device=device)
+               if use_sobol else None),
+    )
+    cam = make_camera(scene.width, scene.height, scene.cam_position,
+                      scene.cam_rotation, fov_y=scene.fov_y,
+                      lens_radius=scene.lens_radius,
+                      focal_dist=scene.focal_dist, device=device)
+    return ds, cam
+
+
+def load_scene(path: str, device="cpu"):
+    """Parse + build in one call; returns (DeviceScene, Camera, SceneDesc)."""
+    from .parser import parse_scene
+
+    desc = parse_scene(path)
+    ds, cam = build_device_scene(desc, use_sobol=desc.settings.use_sobol,
+                                 device=device)
+    return ds, cam, desc

@@ -1,0 +1,95 @@
+"""The port's CUDA kernels on the card: build csrc/plucker.cu and hold the
+closest-hit and shadow kernels against their plain torch versions on
+teapot geometry, then a small render through the kernels against the same
+render through the plain sweeps.
+
+Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no jax, so it runs
+on a machine without it:  python -m pytest --noconftest tests/test_torch_cuda.py
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
+FLT_MAX = 3.402823466e38
+
+
+@pytest.fixture(scope="module")
+def teapot_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain sweeps in full f32
+    from radish_pt_tpu_torch.scene.build import load_scene
+    from radish_pt_tpu_torch.scene.camera import sample_rays
+
+    ds, cam, _ = load_scene(os.path.join(SCENES, "teapot.txt"), device="cuda")
+    rng = np.random.default_rng(8)
+    n = 8192
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.integers(0, 800, n // 2).astype(np.int32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 800, n // 2).astype(np.int32)).to(dev)
+    r = torch.from_numpy(rng.uniform(size=(n // 2, 4)).astype(np.float32)).to(dev)
+    o1, d1 = sample_rays(cam, x, y, r)
+    tri = ds.tri_v.cpu().numpy()
+    real = np.flatnonzero(np.abs(tri).sum(axis=(1, 2)) > 0)
+    pick = rng.choice(real, n // 2)
+    w = rng.dirichlet([1, 1, 1], n // 2).astype(np.float32)
+    surf = np.einsum("nk,nkc->nc", w, tri[pick]).astype(np.float32)
+    d2 = rng.normal(size=(n // 2, 3)).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    o = torch.cat([o1, torch.from_numpy(surf + d2 * 1e-3).to(dev)])
+    d = torch.cat([d1, torch.from_numpy(d2).to(dev)])
+    tmax = torch.full((n,), FLT_MAX, device=dev)
+    tmax[::5] = -FLT_MAX
+    return ds, cam, o.contiguous(), d.contiguous(), tmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [True, False])
+def test_kernels_match_plain(teapot_cuda, masked):
+    """Prim ids and occlusion bits agree on >= 99.99% of lanes; a prim
+    mismatch must be a near-tie (both distances within 1e-4 relative)."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    ds, _, o, d, tmax = teapot_cuda
+    feats = plk.plucker_features(o, d, ds.sweep_center)
+    mask = (plk.cluster_mask_words(ds.cluster_bounds, o, d, tmax)
+            if masked else None)
+    pk, dk = plk.closest_hit_cuda(ds.sweep_coeffs, feats, mask, ds.cluster_sub)
+    pp, dp = plk.closest_hit_plain(ds.sweep_coeffs, feats, mask, ds.cluster_sub)
+    torch.cuda.synchronize()
+    pk, pp, dk, dp = (t.cpu().numpy() for t in (pk, pp, dk, dp))
+    diff = pk != pp
+    assert diff.mean() <= 1e-4
+    assert np.all(np.abs(dk[diff] - dp[diff]) <= 1e-4 * np.abs(dp[diff]))
+    hit = (pp >= 0) & ~diff
+    assert hit.mean() > 0.3
+    np.testing.assert_allclose(dk[hit], dp[hit], rtol=1e-5)
+
+    tm = torch.full_like(o[:, 0], 3.0)
+    occ_k = plk.occlusion_cuda(ds.sweep_coeffs, feats, tm, mask, ds.cluster_sub)
+    occ_p = plk.occlusion_plain(ds.sweep_coeffs, feats, tm, mask, ds.cluster_sub)
+    torch.cuda.synchronize()
+    assert (occ_k != occ_p).float().mean().item() <= 1e-4
+    assert 0.05 < occ_p.float().mean().item() < 0.95
+
+
+@pytest.mark.cuda
+def test_render_through_kernels_matches_plain(teapot_cuda):
+    from radish_pt_tpu_torch.accel import plucker as plk
+    from radish_pt_tpu_torch.render import pathtrace as pt
+
+    ds, cam, *_ = teapot_cuda
+    cam = cam.replace(width=64, height=64)
+    plk.reset_counts()
+    d, i = pt.path_trace(ds, cam, 3, 5)
+    assert plk.LAUNCHES["closest_hit"] == 6 and plk.LAUNCHES["occlusion"] == 5
+    assert plk.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
+    dp, ip = pt.path_trace(ds.replace(intersector="plucker_plain"), cam, 3, 5)
+    img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
+    assert np.isfinite(img).all() and img.mean() > 0.05
+    assert np.abs(img - ref).mean() < 2e-3
