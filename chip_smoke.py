@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (radish_pt_tpu_torch) on one GPU.
 
-Drives the port's main path — full-MIS path-traced 800x800 frames, depth 5,
-through ``Renderer`` — on the card, and checks the hand-written CUDA
-kernels of that path against their plain torch versions.  Phases:
+Drives the port's main paths — full-MIS path-traced 800x800 frames, depth
+5, through ``Renderer`` — on the card: cornell and teapot on the Plücker
+engine, teapot_hires on the compact work-list engine (and on the Plücker
+engine its size picks); and checks the hand-written CUDA kernels of those
+paths against their plain torch versions.  Phases:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. cold start: teapot scene load + first 800x800 frame, which builds the
-   kernels from ``radish_pt_tpu_torch/csrc`` with nvcc (build seconds shown);
-3. kernel parity at the main path's shapes (800x800 tile-order primaries,
-   one bounce wavefront with dead lanes, its NEE shadow segments);
-4. the main path: cornell and teapot, loopers 0-7, with kernel launch
-   counts, finite non-zero images and teapot's looper-7 mean radiance
-   against the reference's 800x800 golden;
-5. a 128x128 teapot frame through the kernels against the plain sweeps;
-6. timing with CUDA events: ms/frame and Mrays/s per scene, each kernel
-   against its plain version.
+2. cold start: both kernel sources built with nvcc at once (seconds
+   shown), then each of teapot and teapot_hires (compact) loaded and
+   rendered once at 800x800;
+3. kernel parity at the main paths' shapes (800x800 tile-order primaries,
+   one bounce wavefront with dead lanes, its NEE shadow segments): the
+   Plücker sweeps on teapot; the sphere prepass and compact sweeps on
+   teapot_hires;
+4. the main paths, loopers 0-7, each with the launch counts of its kernels
+   set to 0 just before and read just after, finite non-zero images, and
+   looper-7 mean radiance within 1% of each scene's 800x800 golden (the
+   two teapot_hires engines also within 0.2% of each other);
+5. 128x128 frames through the kernels against the plain versions (teapot,
+   teapot_hires on compact);
+6. timing with CUDA events: ms/frame and Mrays/s per scene and engine,
+   each kernel against its plain version.
 
 Prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit).
@@ -35,14 +42,24 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 RES = 800
 DEPTH = 5
-# mean radiance of the looper-7 frame at 800x800, depth 5 (bench.py
-# MEAN_GOLDEN, measured on the reference)
-MEAN_GOLDEN = {"cornell": 1.00752, "teapot": 0.43335}
-SCENE_FILES = {"cornell": "cornell_box.txt", "teapot": "teapot.txt"}
-KERNEL_SOURCE = "radish_pt_tpu_torch/csrc/plucker.cu"
+# mean radiance of the looper-7 frame at 800x800, depth 5.  teapot and
+# teapot_hires: bench.py MEAN_GOLDEN, measured on the reference at f32-grade
+# precision.  cornell: the reference's exact-f32 brute-force engine on a CPU
+# (JAX_PLATFORMS=cpu; ds, cam, _ = load_scene("scenes/cornell_box.txt");
+# jax.jit(path_trace, static_argnames="max_depth")(ds, cam at 800x800, 7, 5)
+# gives 1.0424516); bench.py's 1.00752 was taken in the TPU's bf16x3 mode,
+# which drops grazing hits.
+MEAN_GOLDEN = {"cornell": 1.04245, "teapot": 0.43335, "teapot_hires": 0.43550}
+SCENE_FILES = {"cornell": "cornell_box.txt", "teapot": "teapot.txt",
+               "teapot_hires": "teapot_hires.txt"}
+SOURCES = {"plucker": "radish_pt_tpu_torch/csrc/plucker.cu",
+           "compact": "radish_pt_tpu_torch/csrc/compact.cu"}
 REPLACES = {
     "plucker_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:344",
     "plucker_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:463",
+    "compact_sphere_flags": "radish_pt_tpu/accel/pallas_kernels.py:1151",
+    "compact_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:1291",
+    "compact_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:1393",
 }
 
 
@@ -75,6 +92,188 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return times[len(times) // 2]
 
 
+def bounce_one(ds, cam):
+    """The main path's wavefronts for a scene: the tile-order primaries,
+    the bounce-1 NEE shadow segments and the bounce-1 extension wavefront
+    (dead lanes included), built as ``path_trace`` builds them."""
+    import torch
+
+    from radish_pt_tpu_torch.accel import plucker as plk
+    from radish_pt_tpu_torch.bsdf import materials as bsdf
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.sampling import rng
+    from radish_pt_tpu_torch.scene import device_scene as dsc
+
+    idx, _ = pt._lanes(ds, cam)  # tile-order lanes
+    sampler = rng.make_sampler(0, idx)
+    ray_o, ray_d, sampler = pt._gen_primary(ds, cam, sampler, idx)
+    it = dsc.intersect(ds, ray_o, ray_d)
+    mat, norm = dsc.get_textured_material(ds, it.mat_id, it.uv, it.norm)
+    active = (it.prim_id >= 0) & (mat.mtype != dsc.MAT_LIGHT)
+    wo = -ray_d
+    norm = torch.where(((norm * wo).sum(-1) < 0)[..., None], -norm, norm)
+    r4, sampler = rng.sample_4d(ds.sobol, sampler)
+    _, wi, dist, pdf = dsc.sample_direct_light_no_vis(ds, it.pos, r4)
+    ok = active & (pdf > 0) & ((norm * wi).sum(-1) > 0)
+    y = torch.where(ok[..., None], it.pos + wi * dist[..., None], it.pos)
+    r3, sampler = rng.sample_3d(ds.sobol, sampler)
+    samp = bsdf.bsdf_sample(mat, norm, wo, r3, types=ds.mat_types)
+    active = active & ~bsdf.is_invalid(samp.type) & (samp.pdf >= 1e-8)
+    return {
+        "primary": (ray_o, ray_d, torch.full_like(ray_d[:, 0], plk.FLT_MAX)),
+        "extension": (it.pos + samp.dir * 1e-5, samp.dir,
+                      torch.where(active, plk.FLT_MAX, -plk.FLT_MAX)),
+        "segments": (it.pos, y, ok),
+    }
+
+
+def plucker_parity(ds, waves, max_err, log):
+    """Phase 3 on a Plücker-engine scene: each kernel against its plain
+    version on the same cluster masks.  Returns the timing inputs."""
+    import torch
+
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    sub = ds.cluster_sub
+    inputs = {}
+    for what in ("primary", "extension"):
+        o, d, tmax = waves[what]
+        live = tmax >= 0
+        feats = plk.plucker_features(o, d, ds.sweep_center)
+        mask = plk.cluster_mask_words(ds.cluster_bounds, o, d,
+                                      None if what == "primary" else tmax)
+        pk, dk = plk.closest_hit_cuda(ds.sweep_coeffs, feats, mask, sub)
+        pp, dp = plk.closest_hit_plain(ds.sweep_coeffs, feats, mask, sub)
+        torch.cuda.synchronize()
+        err = check_closest(pk, dk, pp, dp, live, f"plucker closest hit, {what}", log)
+        max_err["plucker_closest_hit"] = max(max_err["plucker_closest_hit"], err)
+        inputs[what] = (feats, mask)
+    x, y, ok = waves["segments"]
+    so, sd, stm = plk.segment_rays(x, y)
+    feats = plk.plucker_features(so, sd, ds.sweep_center)
+    mask = plk.cluster_mask_words(ds.cluster_bounds, so, sd, stm)
+    stm = stm.contiguous()
+    ok_k = plk.occlusion_cuda(ds.sweep_coeffs, feats, stm, mask, sub)
+    ok_p = plk.occlusion_plain(ds.sweep_coeffs, feats, stm, mask, sub)
+    torch.cuda.synchronize()
+    max_err["plucker_occlusion"] = max(max_err["plucker_occlusion"],
+                                       check_occlusion(ok_k, ok_p, ok, "plucker", log))
+    inputs["segments"] = (feats, stm, mask)
+    return inputs
+
+
+def compact_parity(ds, waves, max_err, log):
+    """Phase 3 on a compact-engine scene: the sphere kernel against its
+    plain version on the same features, then each sweep kernel against its
+    plain version on the kernel's flags.  Returns the timing inputs."""
+    import torch
+
+    from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    inputs = {}
+    for what in ("primary", "extension", "segments"):
+        if what == "segments":
+            x, y, live = waves["segments"]
+            o, d, tmax = plk.segment_rays(x, y)
+            tmax = tmax.contiguous()
+        else:
+            o, d, tmax = waves[what]
+            live = tmax >= 0
+        sph = cpt.sphere_operands(ds.sweep_center, ds.cluster_bounds, o, d, tmax)
+        fk, tk = cpt.sphere_flags_cuda(*sph)
+        fp, tp = cpt.sphere_flags_plain(*sph)
+        torch.cuda.synchronize()
+        both = fk & fp
+        n_flag_diff = int((fk != fp).sum())
+        tn_err = float(torch.abs(tk - tp)[both].max()) if bool(both.any()) else 0.0
+        log(f"[parity] compact sphere flags, {what}: {n_flag_diff} / {fk.numel()} "
+            f"flags differ; flagged {float(fp.float().mean()):.4f} of (row group,"
+            f" unit) pairs, {float(fp.sum(1).float().mean()):.1f} units per row "
+            f"group; max |tn err| {tn_err:.3e}")
+        assert n_flag_diff <= 1e-4 * fk.numel(), "sphere flag parity"
+        assert tn_err <= 1e-4 * max(1.0, float(tp[both].abs().max())), "tn parity"
+        max_err["compact_sphere_flags"] = max(max_err["compact_sphere_flags"], tn_err)
+        feats = plk.plucker_features(o, d, ds.sweep_center)
+        items, item_tn, offsets = cpt.work_list(fk, tk)
+        if what == "segments":
+            ok_k = cpt.occlusion_cuda(ds.sweep_coeffs, feats, tmax, items, offsets, 1)
+            ok_p = cpt.occlusion_plain(ds.sweep_coeffs, feats, tmax, fk, 1)
+            torch.cuda.synchronize()
+            err = check_occlusion(ok_k, ok_p, live, "compact", log)
+            max_err["compact_occlusion"] = max(max_err["compact_occlusion"], err)
+            inputs[what] = (feats, tmax, fk, items, offsets, sph)
+            continue
+        pk, dk = cpt.closest_hit_cuda(ds.sweep_coeffs, feats, tmax, items, item_tn,
+                                      offsets, 1)
+        pp, dp = cpt.closest_hit_plain(ds.sweep_coeffs, feats, tmax, fk, 1)
+        torch.cuda.synchronize()
+        err = check_closest(pk, dk, pp, dp, live, f"compact closest hit, {what}", log)
+        # the compact kernel reads tmax: a dead lane sweeps nothing
+        assert bool((pk[~live] == -1).all()), "compact closest hit: a dead lane hit"
+        max_err["compact_closest_hit"] = max(max_err["compact_closest_hit"], err)
+        inputs[what] = (feats, tmax, fk, items, item_tn, offsets, sph)
+    return inputs
+
+
+def check_closest(pk, dk, pp, dp, live, what, log) -> float:
+    """Kernel vs plain closest hit on the live lanes: <= 1e-4 of prim ids
+    differ, each a near-tie.  Returns max |dist err| where both agree."""
+    import torch
+
+    diff = (pk != pp) & live
+    n_diff, n_lanes = int(diff.sum()), int(live.sum())
+    near_tie = torch.abs(dk - dp) <= 1e-4 * torch.abs(dp)
+    agree = (pk == pp) & (pp >= 0) & live
+    err = float(torch.abs(dk - dp)[agree].max()) if bool(agree.any()) else 0.0
+    log(f"[parity] {what}: {n_diff} / {n_lanes} live prim ids differ "
+        f"({n_diff / max(n_lanes, 1):.2e}), all near-ties: "
+        f"{bool(near_tie[diff].all())}; hits {int(agree.sum())}, "
+        f"max |dist err| {err:.3e}")
+    assert n_diff <= 1e-4 * n_lanes, f"{what}: prim parity"
+    assert bool(near_tie[diff].all()), f"{what}: a prim mismatch is not a near-tie"
+    return err
+
+
+def check_occlusion(ok_k, ok_p, live, what, log) -> float:
+    """Kernel vs plain shadow bits: <= 1e-4 differ.  Returns the share that
+    differs."""
+    n_diff = int((ok_k != ok_p).sum())
+    log(f"[parity] {what} occlusion, NEE segments: {n_diff} / {ok_k.numel()} "
+        f"bits differ; occluded {int(ok_p.sum())} of {int(live.sum())} live")
+    assert n_diff <= 1e-4 * ok_k.numel(), f"{what} occlusion parity"
+    return n_diff / ok_k.numel()
+
+
+def main_path(scenes, names, counters, log):
+    """Loopers 0-7 of each named scene through ``Renderer``, the launch and
+    plain-call counts of the module ``counters`` (LAUNCHES, PLAIN_CALLS)
+    set to 0 just before and read just after.  Returns the launches."""
+    import torch
+
+    from radish_pt_tpu_torch.render.renderer import Renderer
+
+    counters.reset_counts()
+    for name in names:
+        ds, cam = scenes[name]
+        r = Renderer(ds=ds, cam=cam, desc=None, device=ds.device)
+        r.settings.trace_depth = DEPTH
+        for _ in range(8):  # loopers 0-7
+            r.step()
+        img = r.current_image()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(img).all()), f"{name}: non-finite pixels"
+        assert float(img.mean()) > 0.0, f"{name}: black image"
+        log(f"[main path] {name} ({ds.intersector}): {RES}x{RES}, depth {DEPTH}, "
+            f"8 spp accumulated, mean (compressed) {float(img.mean()):.5f}")
+    launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
+    log(f"[main path] {', '.join(names)}: kernel launches {launches}, "
+        f"plain-version calls {plain}")
+    assert all(v > 0 for v in launches.values()), "a kernel was not launched"
+    assert not any(plain.values()), "a plain version ran on the main path"
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -89,15 +288,17 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain sweeps: full f32
 
     from radish_pt_tpu_torch.accel import _build
+    from radish_pt_tpu_torch.accel import compact as cpt
     from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.render import pathtrace as pt
-    from radish_pt_tpu_torch.render.renderer import Renderer
-    from radish_pt_tpu_torch.sampling import rng
-    from radish_pt_tpu_torch.scene import device_scene as dsc
-    from radish_pt_tpu_torch.scene.build import load_scene
+    from radish_pt_tpu_torch.scene.build import build_device_scene, load_scene
+    from radish_pt_tpu_torch.scene.parser import parse_scene
 
     assert "jax" not in sys.modules
     dev = torch.device("cuda")
+
+    def scene_path(name):
+        return os.path.join(REPO, "scenes", SCENE_FILES[name])
 
     # ---- 1. device ----
     card = gpu_name_and_power()
@@ -105,136 +306,109 @@ def main() -> int:
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
 
-    # ---- 2. cold start: scene load + first frame, including the build ----
+    # ---- 2. cold start: kernel builds (one nvcc per source, in parallel),
+    # scene load, first frame ----
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    _build.build_all()
+    t_build = time.perf_counter() - t0
+    for lib in SOURCES:
+        s = _build.BUILD_SECONDS.get(lib)
+        log(f"[build] csrc/{lib}.cu -> "
+            f"{os.path.relpath(_build.library_path(lib), REPO)} in "
+            f"{s if s is None else round(s, 2)} s (None: reused a library built "
+            f"before this run)")
+    log(f"[build] both sources, in parallel: {t_build:.2f} s wall")
     scenes = {}
-    ds, cam, _ = load_scene(os.path.join(REPO, "scenes", SCENE_FILES["teapot"]),
-                            device=dev)
+    ds, cam, _ = load_scene(scene_path("teapot"), device=dev)
     cam = cam.replace(width=RES, height=RES)
-    t_load = time.perf_counter() - t0
-    d, i = pt.path_trace(ds, cam, 0, DEPTH)
+    t_load = time.perf_counter() - t0 - t_build
+    pt.path_trace(ds, cam, 0, DEPTH)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    build_s = _build.BUILD_SECONDS.get("plucker")
     scenes["teapot"] = (ds, cam)
-    log(f"[build] csrc/plucker.cu -> {os.path.relpath(_build.library_path('plucker'), REPO)}"
-        f" in {build_s if build_s is None else round(build_s, 2)} s "
-        f"(None: reused a library built before this run)")
-    log(f"[cold start] teapot: scene load {t_load:.2f} s, load + first "
-        f"{RES}x{RES} frame (build included) {cold_s:.2f} s")
-    ds, cam, _ = load_scene(os.path.join(REPO, "scenes", SCENE_FILES["cornell"]),
-                            device=dev)
+    log(f"[cold start] teapot: scene load {t_load:.2f} s, build + load + first "
+        f"{RES}x{RES} frame {cold_s:.2f} s")
+    ds, cam, _ = load_scene(scene_path("cornell"), device=dev)
     scenes["cornell"] = (ds, cam.replace(width=RES, height=RES))
+    t1 = time.perf_counter()
+    desc = parse_scene(scene_path("teapot_hires"))
+    t_parse = time.perf_counter() - t1
+    ds, cam = build_device_scene(desc, use_sobol=desc.settings.use_sobol,
+                                 device=dev)  # the size picks the engine
+    assert ds.intersector == "plucker", ds.intersector
+    t2 = time.perf_counter()
+    dsc_, cam = build_device_scene(desc, use_sobol=desc.settings.use_sobol,
+                                   device=dev, intersector="compact")
+    cam = cam.replace(width=RES, height=RES)
+    t_hires = time.perf_counter() - t2
+    pt.path_trace(dsc_, cam, 0, DEPTH)
+    torch.cuda.synchronize()
+    cold_hires = t_build + t_parse + (time.perf_counter() - t2)
+    scenes["teapot_hires"] = (dsc_, cam)
+    scenes["teapot_hires_plucker"] = (ds, cam)
+    log(f"[cold start] teapot_hires (compact): parse {t_parse:.2f} s, build "
+        f"{t_hires:.2f} s ({dsc_.num_triangles} stored triangles, "
+        f"{dsc_.cluster_bounds.shape[0]} clusters of {dsc_.cluster_sub}); "
+        f"kernel build + parse + scene build + first {RES}x{RES} frame "
+        f"{cold_hires:.2f} s")
+    log(f"[scene] teapot_hires (plucker, the size's choice): "
+        f"{ds.num_triangles} stored triangles, {ds.cluster_bounds.shape[0]} "
+        f"clusters of {ds.cluster_sub}")
 
     # ---- 3. kernel parity at the main path's shapes ----
+    max_err = dict.fromkeys(REPLACES, 0.0)
     ds, cam = scenes["teapot"]
-    sub = ds.cluster_sub
-    idx, _ = pt._lanes(ds, cam)  # tile-order lanes
-    sampler = rng.make_sampler(0, idx)
-    ray_o, ray_d, sampler = pt._gen_primary(ds, cam, sampler, idx)
-    feats_p = plk.plucker_features(ray_o, ray_d, ds.sweep_center)
-    mask_p = plk.cluster_mask_words(ds.cluster_bounds, ray_o, ray_d, None)
-    it = dsc.intersect(ds, ray_o, ray_d)
-    # one bounce: NEE shadow segments + the extension wavefront
-    mat, norm = dsc.get_textured_material(ds, it.mat_id, it.uv, it.norm)
-    active = (it.prim_id >= 0) & (mat.mtype != dsc.MAT_LIGHT)
-    wo = -ray_d
-    norm = torch.where(((norm * wo).sum(-1) < 0)[..., None], -norm, norm)
-    r4, sampler = rng.sample_4d(ds.sobol, sampler)
-    _, wi, dist, pdf = dsc.sample_direct_light_no_vis(ds, it.pos, r4)
-    ok = active & (pdf > 0) & ((norm * wi).sum(-1) > 0)
-    x = it.pos
-    y = torch.where(ok[..., None], it.pos + wi * dist[..., None], it.pos)
-    so, sd_, stm = plk.segment_rays(x, y)
-    feats_s = plk.plucker_features(so, sd_, ds.sweep_center)
-    mask_s = plk.cluster_mask_words(ds.cluster_bounds, so, sd_, stm)
-    from radish_pt_tpu_torch.bsdf import materials as bsdf
-
-    r3, sampler = rng.sample_3d(ds.sobol, sampler)
-    samp = bsdf.bsdf_sample(mat, norm, wo, r3, types=ds.mat_types)
-    active = active & ~bsdf.is_invalid(samp.type) & (samp.pdf >= 1e-8)
-    eo = it.pos + samp.dir * 1e-5
-    tmax = torch.where(active, plk.FLT_MAX, -plk.FLT_MAX)
-    feats_e = plk.plucker_features(eo, samp.dir, ds.sweep_center)
-    mask_e = plk.cluster_mask_words(ds.cluster_bounds, eo, samp.dir, tmax)
-    stm = stm.contiguous()
+    waves = bounce_one(ds, cam)
     log(f"[parity] teapot {ds.num_triangles} stored triangles, "
-        f"{ds.cluster_bounds.shape[0]} clusters of {sub}; primaries "
-        f"{feats_p.shape[0]}, extension rays live {int(active.sum())}, "
-        f"shadow segments live {int(ok.sum())}")
+        f"{ds.cluster_bounds.shape[0]} clusters of {ds.cluster_sub}; primaries "
+        f"{waves['primary'][0].shape[0]}, extension rays live "
+        f"{int((waves['extension'][2] >= 0).sum())}, shadow segments live "
+        f"{int(waves['segments'][2].sum())}")
+    plk_inputs = plucker_parity(ds, waves, max_err, log)
+    ds, cam = scenes["teapot_hires"]
+    waves = bounce_one(ds, cam)
+    log(f"[parity] teapot_hires (compact): primaries {waves['primary'][0].shape[0]},"
+        f" extension rays live {int((waves['extension'][2] >= 0).sum())}, shadow "
+        f"segments live {int(waves['segments'][2].sum())}")
+    cpt_inputs = compact_parity(ds, waves, max_err, log)
 
-    results = {}
-    max_err = {"plucker_closest_hit": 0.0, "plucker_occlusion": 0.0}
-    for what, feats, mask, live in (("primary", feats_p, mask_p, None),
-                                    ("extension", feats_e, mask_e, active)):
-        pk, dk = plk.closest_hit_cuda(ds.sweep_coeffs, feats, mask, sub)
-        pp, dp = plk.closest_hit_plain(ds.sweep_coeffs, feats, mask, sub)
-        torch.cuda.synchronize()
-        lanes = torch.ones_like(pk, dtype=torch.bool) if live is None else live
-        diff = (pk != pp) & lanes
-        n_diff, n_lanes = int(diff.sum()), int(lanes.sum())
-        near_tie = torch.abs(dk - dp) <= 1e-4 * torch.abs(dp)
-        agree = (pk == pp) & (pp >= 0) & lanes
-        err = float(torch.abs(dk - dp)[agree].max()) if bool(agree.any()) else 0.0
-        max_err["plucker_closest_hit"] = max(max_err["plucker_closest_hit"], err)
-        log(f"[parity] closest hit, {what}: {n_diff} / {n_lanes} prim ids "
-            f"differ ({n_diff / max(n_lanes, 1):.2e}), all near-ties: "
-            f"{bool(near_tie[diff].all())}; hits {int(agree.sum())}, "
-            f"max |dist err| {err:.3e}")
-        assert n_diff <= 1e-4 * n_lanes, "closest-hit prim parity"
-        assert bool(near_tie[diff].all()), "a prim mismatch is not a near-tie"
-        results[f"closest_{what}"] = (feats, mask)
-    ok_k = plk.occlusion_cuda(ds.sweep_coeffs, feats_s, stm, mask_s, sub)
-    ok_p = plk.occlusion_plain(ds.sweep_coeffs, feats_s, stm, mask_s, sub)
-    torch.cuda.synchronize()
-    n_diff = int((ok_k != ok_p).sum())
-    max_err["plucker_occlusion"] = float((ok_k != ok_p).any())
-    log(f"[parity] occlusion, NEE segments: {n_diff} / {ok_k.numel()} bits "
-        f"differ; occluded {int(ok_p.sum())} of {int(ok.sum())} live")
-    assert n_diff <= 1e-4 * ok_k.numel(), "occlusion parity"
-
-    # ---- 4. the main path ----
-    plk.reset_counts()
-    means = {}
-    for name in ("cornell", "teapot"):
-        ds, cam = scenes[name]
-        r = Renderer(ds=ds, cam=cam, desc=None, device=dev)
-        r.settings.trace_depth = DEPTH
-        for _ in range(8):  # loopers 0-7
-            r.step()
-        img = r.current_image()
-        torch.cuda.synchronize()
-        assert bool(torch.isfinite(img).all()), f"{name}: non-finite pixels"
-        assert float(img.mean()) > 0.0, f"{name}: black image"
-        log(f"[main path] {name}: {RES}x{RES}, depth {DEPTH}, 8 spp accumulated,"
-            f" mean (compressed) {float(img.mean()):.5f}")
-    launches = dict(plk.LAUNCHES)
-    plain_calls = dict(plk.PLAIN_CALLS)
-    log(f"[main path] kernel launches {launches}, plain-version calls {plain_calls}")
-    assert launches["closest_hit"] > 0 and launches["occlusion"] > 0
-    assert plain_calls == {"closest_hit": 0, "occlusion": 0}
-    for name in ("cornell", "teapot"):
+    # ---- 4. the main paths ----
+    launches = {"plucker": main_path(scenes, ("cornell", "teapot"), plk, log),
+                "compact": main_path(scenes, ("teapot_hires",), cpt, log)}
+    main_path(scenes, ("teapot_hires_plucker",), plk, log)
+    means, frames = {}, {}
+    for name in ("cornell", "teapot", "teapot_hires", "teapot_hires_plucker"):
         ds, cam = scenes[name]
         d7, i7 = pt.path_trace(ds, cam, 7, DEPTH)
-        means[name] = float((d7 + i7).mean())
-        drift = means[name] / MEAN_GOLDEN[name] - 1.0
-        log(f"[main path] {name} looper-7 mean radiance {means[name]:.5f} vs "
-            f"golden {MEAN_GOLDEN[name]:.5f}: drift {drift * 100:+.3f}%")
-    assert abs(means["teapot"] / MEAN_GOLDEN["teapot"] - 1.0) < 0.01, \
-        "teapot mean radiance drifted more than 1%"
+        frames[name] = d7 + i7
+        means[name] = float(frames[name].mean())
+        golden = MEAN_GOLDEN[name.removesuffix("_plucker")]
+        drift = means[name] / golden - 1.0
+        log(f"[main path] {name} ({ds.intersector}) looper-7 mean radiance "
+            f"{means[name]:.5f} vs golden {golden:.5f}: drift {drift * 100:+.3f}%")
+        assert abs(drift) < 0.01, f"{name} mean radiance drifted more than 1%"
+    a, b = means["teapot_hires"], means["teapot_hires_plucker"]
+    mad = float(torch.abs(frames["teapot_hires"] - frames["teapot_hires_plucker"]).mean())
+    log(f"[main path] teapot_hires, compact vs plucker engine: means differ by "
+        f"{(a / b - 1) * 100:+.4f}%, mean |pixel diff| {mad:.3e}")
+    assert abs(a / b - 1.0) < 0.002, "the two engines' teapot_hires means differ"
+    assert mad < 2e-3, "the two engines' teapot_hires frames differ"
+    del frames
 
-    # ---- 5. kernel path against plain path, 128x128 teapot ----
-    ds, cam = scenes["teapot"]
-    small = cam.replace(width=128, height=128)
-    d, i = pt.path_trace(ds, small, 0, DEPTH)
-    dp, ip = pt.path_trace(ds.replace(intersector="plucker_plain"), small, 0, DEPTH)
-    mad = float(torch.abs((d + i) - (dp + ip)).mean())
-    log(f"[kernel vs plain path] teapot 128x128 mean |pixel diff| {mad:.3e}")
-    assert mad < 2e-3
+    # ---- 5. kernel path against plain path, 128x128 ----
+    for name, plain in (("teapot", "plucker_plain"), ("teapot_hires", "compact_plain")):
+        ds, cam = scenes[name]
+        small = cam.replace(width=128, height=128)
+        d, i = pt.path_trace(ds, small, 0, DEPTH)
+        dp, ip = pt.path_trace(ds.replace(intersector=plain), small, 0, DEPTH)
+        mad = float(torch.abs((d + i) - (dp + ip)).mean())
+        log(f"[kernel vs plain path] {name} ({ds.intersector}) 128x128 mean "
+            f"|pixel diff| {mad:.3e}")
+        assert mad < 2e-3
 
     # ---- 6. timing (CUDA events) ----
-    for name in ("cornell", "teapot"):
+    for name in ("cornell", "teapot", "teapot_hires", "teapot_hires_plucker"):
         ds, cam = scenes[name]
         loopers = iter(range(8, 10_000))
 
@@ -244,35 +418,52 @@ def main() -> int:
 
         ms = cuda_ms(block, reps=3) / 4
         mrays = RES * RES * (1 + 2 * DEPTH) / (ms * 1e-3) / 1e6
-        log(f"[timing] {name} {RES}x{RES} depth {DEPTH} 1 spp: {ms:.3f} ms/frame"
-            f" (median of 3 blocks of 4 frames), {mrays:.2f} Mrays/s ({card})")
-    ds, _ = scenes["teapot"]
+        log(f"[timing] {name} ({ds.intersector}) {RES}x{RES} depth {DEPTH} 1 spp: "
+            f"{ms:.3f} ms/frame (median of 3 blocks of 4 frames), {mrays:.2f} "
+            f"Mrays/s ({card})")
     kernel_ms = {}
+    ds, _ = scenes["teapot"]
+    sub = ds.cluster_sub
     for what in ("primary", "extension"):
-        feats, mask = results[f"closest_{what}"]
+        feats, mask = plk_inputs[what]
         k = cuda_ms(lambda: plk.closest_hit_cuda(ds.sweep_coeffs, feats, mask, sub), 5)
         p = cuda_ms(lambda: plk.closest_hit_plain(ds.sweep_coeffs, feats, mask, sub), 1)
-        kernel_ms[f"closest_{what}"] = (k, p)
-        log(f"[timing] closest hit, teapot {what} wavefront: kernel {k:.3f} ms,"
-            f" plain {p:.3f} ms")
-    k = cuda_ms(lambda: plk.occlusion_cuda(ds.sweep_coeffs, feats_s, stm, mask_s, sub), 5)
-    p = cuda_ms(lambda: plk.occlusion_plain(ds.sweep_coeffs, feats_s, stm, mask_s, sub), 1)
-    kernel_ms["occlusion"] = (k, p)
-    log(f"[timing] occlusion, teapot NEE segments: kernel {k:.3f} ms, plain {p:.3f} ms")
+        kernel_ms[f"plucker_closest_hit/{what}"] = (k, p)
+    feats, stm, mask = plk_inputs["segments"]
+    kernel_ms["plucker_occlusion/segments"] = (
+        cuda_ms(lambda: plk.occlusion_cuda(ds.sweep_coeffs, feats, stm, mask, sub), 5),
+        cuda_ms(lambda: plk.occlusion_plain(ds.sweep_coeffs, feats, stm, mask, sub), 1))
+    ds, _ = scenes["teapot_hires"]
+    c = ds.sweep_coeffs
+    for what in ("primary", "extension", "segments"):
+        sph = cpt_inputs[what][-1]
+        kernel_ms[f"compact_sphere_flags/{what}"] = (
+            cuda_ms(lambda: cpt.sphere_flags_cuda(*sph), 5),
+            cuda_ms(lambda: cpt.sphere_flags_plain(*sph), 1))
+    for what in ("primary", "extension"):
+        feats, tmax, flags, items, item_tn, offsets, _ = cpt_inputs[what]
+        kernel_ms[f"compact_closest_hit/{what}"] = (
+            cuda_ms(lambda: cpt.closest_hit_cuda(c, feats, tmax, items, item_tn,
+                                                 offsets, 1), 5),
+            cuda_ms(lambda: cpt.closest_hit_plain(c, feats, tmax, flags, 1), 1))
+    feats, tm, flags, items, offsets, _ = cpt_inputs["segments"]
+    kernel_ms["compact_occlusion/segments"] = (
+        cuda_ms(lambda: cpt.occlusion_cuda(c, feats, tm, items, offsets, 1), 5),
+        cuda_ms(lambda: cpt.occlusion_plain(c, feats, tm, flags, 1), 1))
+    for key, (k, p) in kernel_ms.items():
+        name, what = key.split("/")
+        scene = "teapot" if name.startswith("plucker") else "teapot_hires"
+        log(f"[timing] {name}, {scene} {what}: kernel {k:.3f} ms, plain {p:.3f} ms")
 
-    print(json.dumps({"kernels": [
-        {"name": "plucker_closest_hit", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES["plucker_closest_hit"],
-         "launches": launches["closest_hit"],
-         "max_abs_err": max_err["plucker_closest_hit"],
-         "ms": kernel_ms["closest_primary"][0],
-         "plain_ms": kernel_ms["closest_primary"][1]},
-        {"name": "plucker_occlusion", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES["plucker_occlusion"],
-         "launches": launches["occlusion"],
-         "max_abs_err": max_err["plucker_occlusion"],
-         "ms": kernel_ms["occlusion"][0], "plain_ms": kernel_ms["occlusion"][1]},
-    ]}), flush=True)
+    rows = []
+    for name in REPLACES:
+        lib, kind = name.split("_", 1)
+        what = "segments" if kind == "occlusion" else "primary"
+        k, p = kernel_ms[f"{name}/{what}"]
+        rows.append({"name": name, "route": "cuda", "source": SOURCES[lib],
+                     "replaces": REPLACES[name], "launches": launches[lib][kind],
+                     "max_abs_err": max_err[name], "ms": k, "plain_ms": p})
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,15 +1,18 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``.  The
-library lands in ``radish_pt_tpu_torch/_build/`` (git-ignored) under a name
-keyed by a hash of the sources and flags, so an edited kernel rebuilds and
-an unchanged one is reused.  Nothing here runs at import time.
+Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+``ctypes``.  The library lands in ``radish_pt_tpu_torch/_build/``
+(git-ignored) under a name keyed by a hash of its source, the shared
+headers and the flags, so an edited kernel rebuilds and an unchanged one is
+reused.  :func:`build_all` starts one ``nvcc`` per source at once.  Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -23,6 +26,27 @@ ARCH = "sm_90a"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# library -> C entry point -> argument types (every entry point returns the
+# launch's cudaGetLastError() as an int)
+SIGNATURES = {
+    "plucker": {
+        # coeffs, T, sub, feats, N, mask, words, (prim, dist | tm, occ), stream
+        "plucker_closest_hit": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P],
+        "plucker_occlusion": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P],
+    },
+    "compact": {
+        # feats, planes, rows, units, flags, tn, stream
+        "compact_sphere_flags": [_P, _P, _I, _I, _P, _P, _P],
+        # coeffs, T, unit_tris, feats, tmax, N, items, item_tn, offsets,
+        # rows, prim, dist, stream
+        "compact_closest_hit": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+        # coeffs, T, unit_tris, feats, tm, N, items, offsets, rows, occ,
+        # stream
+        "compact_occlusion": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P],
+    },
+}
+
 _libs: dict = {}
 BUILD_SECONDS: dict = {}  # library name -> seconds spent compiling
 
@@ -35,50 +59,54 @@ def find_nvcc() -> str:
                        "from csrc/ on a machine with the CUDA toolkit")
 
 
-def _sources(name: str) -> list[str]:
-    return [os.path.join(CSRC, f"{name}.cu")]
-
-
 def library_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(name):
+    for src in [os.path.join(CSRC, f"{name}.cu"),
+                *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build(name: str, verbose: bool = False) -> str:
-    """Compile ``csrc/<name>.cu`` unless the hashed library exists; returns
-    its path.  ``verbose`` adds ``-Xptxas -v`` (registers, spills)."""
-    path = library_path(name)
-    if os.path.exists(path):
-        return path
+def build_all(names=tuple(SIGNATURES), verbose: bool = False) -> dict:
+    """Compile every ``csrc/<name>.cu`` whose hashed library is missing,
+    one ``nvcc`` per source, all started together; returns name -> path.
+    ``verbose`` adds ``-Xptxas -v`` (registers, spills) and prints it."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *_sources(name)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{res.stdout}\n{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr, flush=True)
-    os.replace(tmp, path)
-    BUILD_SECONDS[name] = time.perf_counter() - t0
-    return path
+    jobs = {}
+    for name in names:
+        path = library_path(name)
+        if os.path.exists(path):
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, path, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, path, t0) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{out}")
+            continue
+        if verbose:
+            print(out, flush=True)
+        os.replace(tmp, path)
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: library_path(name) for name in names}
 
 
-def load_plucker_library():
-    """The Plücker sweep library with its C entry points typed."""
-    lib = _libs.get("plucker")
+def load_library(name: str):
+    """The library of ``csrc/<name>.cu`` with its C entry points typed."""
+    lib = _libs.get(name)
     if lib is not None:
         return lib
-    lib = ctypes.CDLL(build("plucker"))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    common = [p, i, i, p, i, p, i]  # coeffs, T, sub, feats, N, mask, words
-    lib.plucker_closest_hit.argtypes = common + [p, p, p]
-    lib.plucker_closest_hit.restype = i
-    lib.plucker_occlusion.argtypes = common + [p, p, p]
-    lib.plucker_occlusion.restype = i
-    _libs["plucker"] = lib
+    lib = ctypes.CDLL(build_all((name,))[name])
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I
+    _libs[name] = lib
     return lib

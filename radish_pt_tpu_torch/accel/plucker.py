@@ -138,6 +138,33 @@ def _chunk_rays(num_tris):
     return max(ROW, ((1 << 25) // max(4 * num_tris, 1)) // ROW * ROW)
 
 
+def _decide(coeffs, feats):
+    """(u, sd, tdd) [R, T] for feature rows ``feats`` [R, 10]: the pair
+    passes when u >= 0, at t = tdd / sd."""
+    det, bx, by, td = _planes(coeffs, feats)
+    sd = det * det
+    bxd = bx * det
+    byd = by * det
+    v = torch.minimum(torch.minimum(bxd, byd), sd - bxd - byd)
+    v = torch.minimum(v, sd - PLUCKER_EPS2)
+    tdd = td * det
+    return torch.minimum(v, tdd), sd, tdd
+
+
+def hit_t(coeffs, feats):
+    """t f32 [R, T] of every (ray, triangle) pair for feature rows ``feats``
+    [R, 10]: tdd / sd where the pair passes, FLT_MAX where it does not."""
+    u, sd, tdd = _decide(coeffs, feats)
+    return torch.where(u >= 0.0, tdd / sd, FLT_MAX)
+
+
+def blocks(coeffs, feats, tm):
+    """bool [R, T]: the triangle blocks the segment of range ``tm`` f32
+    [R] (feature rows ``feats`` [R, 10])."""
+    u, sd, tdd = _decide(coeffs, feats)
+    return torch.minimum(u, tm[:, None] * sd - tdd) >= 0.0
+
+
 def closest_hit_plain(coeffs, feats, mask, sub):
     """Plain torch closest hit.  ``coeffs`` f32 [T, 4, 10], ``feats`` f32
     [N, 10], ``mask`` int32 [ceil(N/128), W] cluster words (None: sweep
@@ -150,17 +177,9 @@ def closest_hit_plain(coeffs, feats, mask, sub):
     step = _chunk_rays(num_tris)
     for lo in range(0, n, step):
         hi = min(n, lo + step)
-        det, bx, by, td = _planes(coeffs, feats[lo:hi])
-        sd = det * det
-        bxd = bx * det
-        byd = by * det
-        v = torch.minimum(torch.minimum(bxd, byd), sd - bxd - byd)
-        v = torch.minimum(v, sd - PLUCKER_EPS2)
-        tdd = td * det
-        ok = torch.minimum(v, tdd) >= 0.0
+        t = hit_t(coeffs, feats[lo:hi])
         if mask is not None:
-            ok &= _lane_tri_mask(mask, sub, num_tris, lo, hi)
-        t = torch.where(ok, tdd / sd, FLT_MAX)
+            t = torch.where(_lane_tri_mask(mask, sub, num_tris, lo, hi), t, FLT_MAX)
         best, idx = torch.min(t, dim=1)  # first minimum: lower id on ties
         hit = best < FLT_MAX
         prim[lo:hi] = torch.where(hit, idx.to(torch.int32), NULL_PRIMITIVE)
@@ -177,15 +196,7 @@ def occlusion_plain(coeffs, feats, tm, mask, sub):
     step = _chunk_rays(num_tris)
     for lo in range(0, n, step):
         hi = min(n, lo + step)
-        det, bx, by, td = _planes(coeffs, feats[lo:hi])
-        sd = det * det
-        bxd = bx * det
-        byd = by * det
-        v = torch.minimum(torch.minimum(bxd, byd), sd - bxd - byd)
-        v = torch.minimum(v, sd - PLUCKER_EPS2)
-        tdd = td * det
-        w = torch.minimum(torch.minimum(v, tdd), tm[lo:hi, None] * sd - tdd)
-        hit = w >= 0.0
+        hit = blocks(coeffs, feats[lo:hi], tm[lo:hi])
         if mask is not None:
             hit &= _lane_tri_mask(mask, sub, num_tris, lo, hi)
         occ[lo:hi] = hit.any(dim=1)
@@ -222,9 +233,9 @@ def _check_inputs(coeffs, feats, mask, sub):
 def _launch_args(coeffs, feats, mask, sub):
     import ctypes
 
-    from ._build import load_plucker_library
+    from ._build import load_library
 
-    lib = load_plucker_library()
+    lib = load_library("plucker")
     n_words = 0 if mask is None else mask.shape[1]
     mask_ptr = None if mask is None else mask.data_ptr()
     stream = torch.cuda.current_stream(feats.device).cuda_stream

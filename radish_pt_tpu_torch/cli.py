@@ -27,6 +27,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None, help="output image path")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
+    p.add_argument("--intersector", choices=["plucker", "compact", "brute"],
+                   default=None,
+                   help="intersection engine (default: plucker up to 131,072 "
+                        "triangles, compact above)")
     return p
 
 
@@ -41,13 +45,14 @@ def main(argv=None) -> int:
 
     device = torch.device(args.device)
     t0 = time.time()
-    ds, cam, desc = load_scene(args.scene, device=device)
+    ds, cam, desc = load_scene(args.scene, device=device,
+                               intersector=args.intersector)
     if args.res is not None:
         cam = cam.replace(width=args.res[0], height=args.res[1])
     r = Renderer(ds=ds, cam=cam, desc=desc, device=device)
     print(f"[scene loaded in {time.time() - t0:.1f}s: {ds.num_triangles} "
           f"tris, {ds.n_area_lights} area lights, {cam.width}x{cam.height}, "
-          f"device {device}]")
+          f"engine {ds.intersector}, device {device}]")
 
     s = r.settings
     s.tone_mapping = {"none": ToneMapping.NONE, "filmic": ToneMapping.FILMIC,

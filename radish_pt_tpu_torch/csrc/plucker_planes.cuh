@@ -1,0 +1,81 @@
+// Plücker decision planes shared by the sweep kernels (plucker.cu,
+// compact.cu).
+//
+// Möller–Trumbore's four decision quantities are planes bilinear in
+// per-ray features f = [d, o x d, o, 1] (o centred on the scene) with
+// build-time per-triangle coefficients c[T][4][10]:
+//   det = c0·f   bx = c1·f   by = c2·f   tdet = c3·f
+// Only 19 of the 40 coefficients can be non-zero (det reads d; bx and by
+// read d and o x d; tdet reads o and 1), so a staged triangle is those 19
+// floats.  With sd = det², bxd = bx·det, byd = by·det, tdd = tdet·det:
+//   closest hit:  min(bxd, byd, sd - bxd - byd, sd - eps², tdd) >= 0,
+//                 t = tdd / sd
+//   shadow:       min(bxd, byd, sd - bxd - byd, sd - eps², tdd,
+//                     tm·sd - tdd) >= 0
+// Zero triangles (cluster padding) have det = 0 and never pass.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTile = 128;    // triangles staged per shared-memory tile
+constexpr int kStride = 20;   // floats per staged triangle (19 used)
+constexpr float kEps2 = 1.1920929e-07f * 1.1920929e-07f;
+constexpr float kFltMax = 3.402823466e38f;
+
+// Stage triangles [base, base + n) as their 19 live coefficients.
+__device__ __forceinline__ void stage_tile(float* s, const float* __restrict__ coeffs,
+                                           int base, int n) {
+  for (int i = threadIdx.x; i < n * kStride; i += blockDim.x) {
+    const int j = i / kStride;
+    const int k = i - j * kStride;
+    const float* c = coeffs + (size_t)(base + j) * 40;
+    float v = 0.f;
+    if (k < 3) v = c[k];                       // det:  c0[0:3]
+    else if (k < 9) v = c[10 + (k - 3)];       // bx:   c1[0:6]
+    else if (k < 15) v = c[20 + (k - 9)];      // by:   c2[0:6]
+    else if (k < 19) v = c[30 + 6 + (k - 15)]; // tdet: c3[6:10]
+    s[i] = v;
+  }
+}
+
+struct Planes {
+  float sd, v, tdd;
+};
+
+// The decision quantities of staged triangle s[0:19] for features f.
+__device__ __forceinline__ Planes planes(const float* s, const float* f) {
+  float det = s[0] * f[0];
+  det = fmaf(s[1], f[1], det);
+  det = fmaf(s[2], f[2], det);
+  float bx = s[3] * f[0];
+  float by = s[9] * f[0];
+#pragma unroll
+  for (int k = 1; k < 6; ++k) {
+    bx = fmaf(s[3 + k], f[k], bx);
+    by = fmaf(s[9 + k], f[k], by);
+  }
+  float td = s[15] * f[6];
+  td = fmaf(s[16], f[7], td);
+  td = fmaf(s[17], f[8], td);
+  td = fmaf(s[18], f[9], td);
+  Planes p;
+  p.sd = det * det;
+  const float bxd = bx * det;
+  const float byd = by * det;
+  float v = fminf(bxd, byd);
+  v = fminf(v, p.sd - bxd - byd);
+  p.v = fminf(v, p.sd - kEps2);
+  p.tdd = td * det;
+  return p;
+}
+
+__device__ __forceinline__ void load_feats(float* f, const float* __restrict__ feats,
+                                           int ray, bool live) {
+#pragma unroll
+  for (int k = 0; k < 10; ++k) f[k] = live ? feats[(size_t)ray * 10 + k] : 0.f;
+}
+
+}  // namespace

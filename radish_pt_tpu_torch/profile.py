@@ -2,10 +2,14 @@
 ``torch.profiler``, kernel time summed by stage.
 
     python -m radish_pt_tpu_torch.profile scenes/teapot.txt [--res 800] [--depth 5]
+        [--intersector plucker|compact|brute]
 
 Prints the card, the frame's wall time (CUDA events, profiler off), the
 device-busy time the profiler saw during a profiled frame, the share of it
-spent in each stage, and the top kernels.  Needs a CUDA device.
+spent in each stage, and the top kernels; then, timed alone with CUDA
+events on the frame's primaries, the culling stages the profiler cannot
+name (the Plücker mask prepass; the compact engine's sphere operands,
+sphere kernel and work list).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -15,10 +19,53 @@ import os
 import subprocess
 
 # a kernel's stage, from the first name fragment it contains (else "other")
+# (compact names first: "closest_hit_kernel" is part of theirs)
 STAGES = (
+    ("sphere_flags_kernel", "sphere prepass kernel"),
+    ("compact_closest_hit_kernel", "compact closest hit"),
+    ("compact_occlusion_kernel", "compact shadow"),
     ("closest_hit_kernel", "closest-hit kernel"),
     ("occlusion_kernel", "shadow kernel"),
 )
+
+
+def culling_stages(ds, cam, start, end, reps: int = 10):
+    """(stage, ms per call) of the culling stages that run before each
+    sweep, on the frame's primaries, each timed alone with CUDA events."""
+    from .accel import compact as cpt
+    from .accel import plucker as plk
+    from .render import pathtrace as pt
+    from .sampling import rng
+    from .scene.device_scene import COMPACT_ENGINES
+
+    if ds.cluster_bounds is None:
+        return []
+    idx, _ = pt._lanes(ds, cam)
+    o, d, _ = pt._gen_primary(ds, cam, rng.make_sampler(0, idx), idx)
+
+    def timed(fn):
+        fn()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    if ds.intersector not in COMPACT_ENGINES:
+        return [("mask prepass", timed(
+            lambda: plk.cluster_mask_words(ds.cluster_bounds, o, d, None)))]
+    center, cb = ds.sweep_center, ds.cluster_bounds
+    sph = cpt.sphere_operands(center, cb, o, d)
+    flags, tn, _ = cpt.prepass(center, cb, o, d)
+    stages = [("work list", timed(lambda: cpt.work_list(flags, tn)))]
+    if cb.shape[0] > cpt.PER_RAY_PREPASS_MAX:
+        stages[:0] = [("sphere operands", timed(
+                          lambda: cpt.sphere_operands(center, cb, o, d))),
+                      ("sphere kernel", timed(lambda: cpt.sphere_flags_cuda(*sph)))]
+    else:
+        stages[:0] = [("slab prepass", timed(lambda: cpt.prepass(center, cb, o, d)))]
+    return stages
 
 
 def main(argv=None) -> int:
@@ -27,6 +74,8 @@ def main(argv=None) -> int:
     p.add_argument("--res", type=int, default=800)
     p.add_argument("--depth", type=int, default=5)
     p.add_argument("--frames", type=int, default=2)
+    p.add_argument("--intersector", choices=["plucker", "compact", "brute"],
+                   default=None, help="engine (default: by scene size)")
     args = p.parse_args(argv)
 
     import torch
@@ -40,7 +89,7 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    ds, cam, _ = load_scene(args.scene, device="cuda")
+    ds, cam, _ = load_scene(args.scene, device="cuda", intersector=args.intersector)
     cam = cam.replace(width=args.res, height=args.res)
     for looper in range(2):  # build + warm up
         pt.path_trace(ds, cam, looper, args.depth)
@@ -76,24 +125,12 @@ def main(argv=None) -> int:
     for stage, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"  {stage:20s} {ms / args.frames:9.3f} ms/frame  "
               f"{100 * ms / args.frames / max(busy, 1e-9):5.1f}% of busy")
-    if ds.cluster_bounds is not None:
-        # the culling prepass runs before each of the frame's 2*depth+1
-        # sweeps; its ops fall under "other" above
-        from .accel import plucker as plk
-        from .sampling import rng
-
-        idx, _ = pt._lanes(ds, cam)
-        o, d, _ = pt._gen_primary(ds, cam, rng.make_sampler(0, idx), idx)
-        plk.cluster_mask_words(ds.cluster_bounds, o, d, None)
-        start.record()
-        for _ in range(10):
-            plk.cluster_mask_words(ds.cluster_bounds, o, d, None)
-        end.record()
-        end.synchronize()
-        one = start.elapsed_time(end) / 10
-        print(f"  mask prepass: {one:.3f} ms per full-frame call, ~"
-              f"{one * (2 * args.depth + 1):.3f} ms/frame over "
-              f"{2 * args.depth + 1} sweeps (inside \"other\")")
+    sweeps = 2 * args.depth + 1
+    for stage, ms in culling_stages(ds, cam, start, end):
+        # each runs before every one of the frame's sweeps; all but the
+        # sphere kernel fall under "other" above
+        print(f"  {stage:20s} {ms:9.3f} ms per full-frame call, ~{ms * sweeps:.3f} "
+              f"ms/frame over {sweeps} sweeps")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
     return 0
 

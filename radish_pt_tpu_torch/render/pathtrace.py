@@ -9,8 +9,9 @@ out, exactly as the reference's dense loop (pathtrace.py:216-313).
 The reference also has a sliced compaction loop and a signature sort of the
 rays; both only reorder independent per-lane work and are pinned bitwise
 equal to the dense loop, so the port's dense loop gives the same pixels.
-On the Plücker engines the lanes run in tile order (each 128-lane culling
-row is an 8x16 pixel tile) and go back to raster order at the end.
+On the Plücker and compact engines the lanes run in tile order (each
+128-lane culling row is an 8x16 pixel tile) and go back to raster order at
+the end.
 """
 
 from __future__ import annotations
@@ -47,10 +48,11 @@ def _untile(x, w: int, h: int):
 
 
 def _lanes(ds, cam):
-    """(pixel index per lane, untile fn | None): tile order on the Plücker
-    engines when the frame divides into tiles, raster order otherwise."""
+    """(pixel index per lane, untile fn | None): tile order on the sweep
+    engines (Plücker, compact) when the frame divides into tiles, raster
+    order otherwise."""
     dev = ds.device
-    if (ds.intersector in dsc.PLUCKER_ENGINES and cam.width % TILE_W == 0
+    if (ds.intersector in dsc.SWEEP_ENGINES and cam.width % TILE_W == 0
             and cam.height % TILE_H == 0):
         perm = torch.from_numpy(_tile_perm(cam.width, cam.height)).to(dev)
         return perm, lambda x: _untile(x, cam.width, cam.height)

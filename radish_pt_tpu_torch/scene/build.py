@@ -2,15 +2,17 @@
 tables, BVH leaf order and culling clusters, and assemble the
 :class:`DeviceScene`.
 
-Port of ``radish_pt_tpu/scene/build.py`` in numpy, always producing the
-layout of the reference's ``pallas_mxu`` engine (build.py:296-416):
+Port of ``radish_pt_tpu/scene/build.py`` in numpy, producing the layout of
+the reference's ``pallas_mxu`` engine (build.py:296-416) or, for the
+compact engine, of its ``pallas_compact`` engine:
 
 * triangles stored in BVH leaf (DFS) order, so a winner's position in the
   stored table IS its primitive id;
-* above 1024 triangles, area-optimal cluster cuts of at most
-  ``cluster_sub_for(T)`` triangles, each padded to a whole cluster of slots
-  with zero triangles (which never hit), with per-cluster AABBs for the
-  culling prepass and the light ids remapped through the padding;
+* above 1024 triangles (always, for the compact engine), area-optimal
+  cluster cuts of at most ``cluster_sub_for(T)`` triangles (64 for the
+  compact engine), each padded to a whole cluster of slots with zero
+  triangles (which never hit), with per-cluster AABBs for the culling
+  prepass and the light ids remapped through the padding;
 * the Plücker planes of every stored triangle, in f32, centred on the
   scene (accel/plucker.py).
 """
@@ -33,6 +35,19 @@ CLUSTER_SUB = 64  # default triangles per culling cluster
 BIG_SCENE_TRIS = 16384
 PLUCKER_MAX_TRIS = 131072  # above this the reference switches engines
 CLUSTER_MIN_TRIS = 1024  # below this every ray sweeps every triangle
+INTERSECTORS = ("plucker", "compact", "brute")
+
+
+def choose_intersector(num_tris: int, intersector: str | None = None) -> str:
+    """The engine for a scene: ``intersector`` if given, else the Plücker
+    sweeps up to ``PLUCKER_MAX_TRIS`` triangles and the compact work-list
+    engine above (the reference's choice, build.py:281-290)."""
+    if intersector is None:
+        return "plucker" if num_tris <= PLUCKER_MAX_TRIS else "compact"
+    if intersector not in INTERSECTORS:
+        raise ValueError(f"unknown intersector {intersector!r}; "
+                         f"choose from {INTERSECTORS}")
+    return intersector
 
 
 def cluster_sub_for(num_tris: int) -> int:
@@ -108,8 +123,10 @@ def _cluster_cuts(pmin: np.ndarray, pmax: np.ndarray, sub: int = 64,
 
 
 def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
-                       device="cpu") -> tuple[DeviceScene, Camera]:
-    """Build the device scene + camera from a parsed scene."""
+                       device="cpu", intersector: str | None = None
+                       ) -> tuple[DeviceScene, Camera]:
+    """Build the device scene + camera from a parsed scene.  ``intersector``
+    names the engine (see :func:`choose_intersector`; None: by size)."""
     if scene.env_tex_id != NULL_TEXTURE or scene.aperture_tex_id != NULL_TEXTURE:
         raise NotImplementedError(
             "env-map and aperture-mask scenes are not ported yet "
@@ -156,10 +173,7 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
     tri_uv = np.concatenate(uvs).reshape(-1, 3, 2)
     material_ids = np.concatenate(mat_ids)
     num_tris = tri_v.shape[0]
-    if num_tris > PLUCKER_MAX_TRIS:
-        raise NotImplementedError(
-            f"{num_tris} triangles: scenes above {PLUCKER_MAX_TRIS} need the "
-            "compact work-list kernels (ROADMAP queue 2, item 4)")
+    intersector = choose_intersector(num_tris, intersector)
 
     # ---- light sampler (createLightSampler, scene.cpp:145-169) ----
     n_area_lights = len(light_prims)
@@ -186,10 +200,12 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
     light_prims = [int(inv_order[p]) for p in light_prims]
 
     # ---- culling clusters, each padded to ``csub`` slots ----
+    # (the compact engine's work list is its cull: it always has clusters,
+    # of the fixed 64-triangle size, as the reference's build.py:321-327)
     cluster_bounds = None
     csub = CLUSTER_SUB
-    if num_tris > CLUSTER_MIN_TRIS:
-        csub = cluster_sub_for(num_tris)
+    if num_tris > CLUSTER_MIN_TRIS or intersector == "compact":
+        csub = CLUSTER_SUB if intersector == "compact" else cluster_sub_for(num_tris)
         cuts = _cluster_cuts(tri_v.min(axis=1).astype(np.float32),
                              tri_v.max(axis=1).astype(np.float32), sub=csub)
         n_clusters = cuts.size - 1
@@ -234,7 +250,7 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
          # material id as f32 col 24 (exact to 2^24)
          material_ids.reshape(-1, 1).astype(np.float32)], axis=1)
     ds = DeviceScene(
-        intersector="plucker",
+        intersector=intersector,
         n_area_lights=n_area_lights,
         has_env=False,
         has_aperture=False,
@@ -276,11 +292,12 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
     return ds, cam
 
 
-def load_scene(path: str, device="cpu"):
-    """Parse + build in one call; returns (DeviceScene, Camera, SceneDesc)."""
+def load_scene(path: str, device="cpu", intersector: str | None = None):
+    """Parse + build in one call; returns (DeviceScene, Camera, SceneDesc).
+    ``intersector`` as :func:`build_device_scene`."""
     from .parser import parse_scene
 
     desc = parse_scene(path)
     ds, cam = build_device_scene(desc, use_sobol=desc.settings.use_sobol,
-                                 device=device)
+                                 device=device, intersector=intersector)
     return ds, cam, desc

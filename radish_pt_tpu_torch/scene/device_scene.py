@@ -14,9 +14,14 @@ Conventions (as in the reference):
 Intersection engines (``intersector``):
 * ``"plucker"``: the Plücker closest-hit / shadow sweeps of
   :mod:`radish_pt_tpu_torch.accel.plucker` — the CUDA kernels for tensors on
-  the card, their plain torch versions for CPU tensors.  The default.
-* ``"plucker_plain"``: the same sweeps, always in plain torch (the
-  reference the kernels are held against, on any device).
+  the card, their plain torch versions for CPU tensors.  The default up to
+  131,072 triangles.
+* ``"compact"``: the compact work-list engine of
+  :mod:`radish_pt_tpu_torch.accel.compact` (sphere prepass, work list,
+  compact sweeps) — kernels on the card, plain versions on the CPU.  The
+  default above 131,072 triangles.
+* ``"plucker_plain"`` / ``"compact_plain"``: the same engines, always in
+  plain torch (the reference the kernels are held against, on any device).
 * ``"brute"``: exhaustive Möller–Trumbore (accel/traverse.py), the oracle.
 """
 
@@ -28,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..accel import compact as cpt
 from ..accel import plucker as plk
 from ..accel import traverse as trv
 from ..sampling.alias import alias_sample
@@ -38,6 +44,9 @@ PROCEDURAL_TEXTURE = -2
 INVALID_PDF = -1.0
 
 PLUCKER_ENGINES = ("plucker", "plucker_plain")
+COMPACT_ENGINES = ("compact", "compact_plain")
+# engines with positional winner ids and culling by lane rows (tile order)
+SWEEP_ENGINES = PLUCKER_ENGINES + COMPACT_ENGINES
 
 MAT_LAMBERTIAN = 0
 MAT_METALLIC_WORKFLOW = 1
@@ -143,13 +152,15 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
     ([t_pad//sub, 4*sub, K]); f32 planes (K=10) are re-laid out to the
     port's [T, 4, 10], bf16-split ones are rebuilt in f32 from
     ``tri_packed`` (the port keeps no bf16 splits).  The JAX engine maps to
-    ``"plucker"`` for the Pallas sweeps and to ``"brute"`` otherwise
-    (the reference's BVH walk returns the brute-force winners); pass
-    ``intersector`` to choose another.
+    ``"compact"`` for ``pallas_compact``, to ``"plucker"`` for the other
+    Pallas sweeps and to ``"brute"`` otherwise (the reference's BVH walk
+    returns the brute-force winners); pass ``intersector`` to choose
+    another.
     """
     if intersector is None:
-        intersector = ("plucker" if str(meta["intersector"]).startswith("pallas_")
-                       else "brute")
+        engine = str(meta["intersector"])
+        intersector = ("compact" if engine == "pallas_compact" else
+                       "plucker" if engine.startswith("pallas_") else "brute")
     kw = {k: meta[k] for k in META_FIELDS if k != "intersector"}
     kw["mat_types"] = None if meta["mat_types"] is None else tuple(meta["mat_types"])
     if kw["has_env"] or kw["has_aperture"]:
@@ -338,18 +349,23 @@ def intersect(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
     scene.h:262-301), dispatched on the scene's engine.
 
     ``active`` (bool [N], optional): lanes marked False are DEAD — the
-    Plücker prepass gets ``tmax = -FLT_MAX`` for them so they flag no
+    sweeps' prepass gets ``tmax = -FLT_MAX`` for them so they flag no
     clusters — and return prim_id -1.
     """
-    if ds.intersector in PLUCKER_ENGINES:
+    if ds.intersector in SWEEP_ENGINES:
         tmax = None
         if active is not None:
             tmax = torch.where(active, plk.FLT_MAX, -plk.FLT_MAX)
-        prim, _ = plk.intersect_plucker(
-            ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds,
-            ds.cluster_sub, ray_o, ray_d, tmax=tmax,
-            plain=ds.intersector == "plucker_plain",
-        )
+        if ds.intersector in COMPACT_ENGINES:
+            prim, _ = cpt.intersect_compact(
+                ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, ray_o,
+                ray_d, tmax=tmax, plain=ds.intersector == "compact_plain")
+        else:
+            prim, _ = plk.intersect_plucker(
+                ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds,
+                ds.cluster_sub, ray_o, ray_d, tmax=tmax,
+                plain=ds.intersector == "plucker_plain",
+            )
         if active is not None:
             prim = torch.where(active, prim, -1)
         pos, norm, uv, mat_id = surface_info_from_t(ds, prim, ray_o, ray_d)
@@ -365,6 +381,10 @@ def intersect(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
 
 def test_occlusion(ds: DeviceScene, x, y):
     """True where segment x->y is blocked (testOcclusion, scene.h:303-334)."""
+    if ds.intersector in COMPACT_ENGINES:
+        return cpt.occlusion_compact(
+            ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, x, y,
+            plain=ds.intersector == "compact_plain")
     if ds.intersector in PLUCKER_ENGINES:
         return plk.occlusion_plucker(
             ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds,

@@ -1,0 +1,394 @@
+"""Port parity: the compact work-list engine (slab and sphere prepasses, the
+work list, the compact closest-hit and shadow sweeps, the scene build that
+picks it, and a frame through it) against the reference's compact
+functions, run in interpret mode on the CPU with f32 planes, and against
+the port's brute-force oracle.
+
+The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
+builds csrc/compact.cu and holds them against the plain versions here.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from torch_port_util import (SCENES, jax_scene_parts, load_jax_scene,  # noqa: E402
+                             t2n)
+
+FLT_MAX = 3.402823466e38
+LANES = 256
+
+
+def _cluster_bounds(tri_packed):
+    """AABBs of consecutive 64-triangle clusters (tests/test_pallas.py)."""
+    tp = np.asarray(tri_packed)
+    v = np.stack([tp[:, 0:3], tp[:, 0:3] + tp[:, 3:6], tp[:, 0:3] + tp[:, 6:9]], 1)
+    n_c = -(-tp.shape[0] // 64)
+    cb = np.empty((n_c, 6), np.float32)
+    for c in range(n_c):
+        g = v[c * 64:(c + 1) * 64].reshape(-1, 3)
+        cb[c, 0:3], cb[c, 3:6] = g.min(axis=0), g.max(axis=0)
+    return cb
+
+
+@pytest.fixture(scope="module")
+def soup():
+    """1,000 triangles in 16 spatial clumps (16 clusters, the last one
+    ragged) and 700 rays (three row groups, the last ragged), each run of
+    64 lanes leaving points 2-5 away from one clump towards points near it
+    (so a row group flags a few clumps, not all); every 7th lane dead
+    (tmax = -FLT_MAX), every 5th bounded by a finite tmax."""
+    from radish_pt_tpu.accel import traverse as jtrv
+    from radish_pt_tpu_torch.accel.plucker import numpy_coeffs
+
+    rng = np.random.default_rng(9)
+    n_tris, n = 1000, 700
+    clumps = rng.uniform(-5, 5, size=(16, 3))
+    centers = clumps.repeat(64, axis=0)[:n_tris, None, :]
+    tri = (centers + rng.normal(scale=0.3, size=(n_tris, 3, 3))).astype(np.float32)
+    tri_packed = jtrv.pack_tris(tri)
+    k = (np.arange(n) // 64) % 16
+    away = rng.normal(size=(n, 3))
+    away /= np.linalg.norm(away, axis=-1, keepdims=True)
+    o = (clumps[k] + away * rng.uniform(2, 5, (n, 1))).astype(np.float32)
+    d = clumps[k] + rng.normal(scale=0.4, size=(n, 3)) - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    tmax = np.full(n, FLT_MAX, np.float32)
+    tmax[::5] = rng.uniform(2.0, 12.0, tmax[::5].shape)
+    tmax[::7] = -FLT_MAX
+    coeffs, center = numpy_coeffs(tri_packed)
+    return dict(tri_packed=tri_packed, cb=_cluster_bounds(tri_packed), o=o, d=d,
+                tmax=tmax, coeffs=coeffs, center=center)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _padded(s):
+    """Both packages' padded rays for the prepass tests."""
+    from radish_pt_tpu_torch.accel import compact as cpt
+
+    rows = -(-s["o"].shape[0] // LANES)
+    o, d, tm = cpt._pad_rays(*_t(s["o"], s["d"], s["tmax"]), rows * LANES)
+    return rows, o, d, tm
+
+
+def test_slab_flags_and_tn_match_reference(soup):
+    """(a) The slab prepass and its entry distances equal the reference's
+    _row_flags(with_tn=True) exactly: the same f32 operations."""
+    from radish_pt_tpu.accel import pallas_kernels as pk
+    from radish_pt_tpu_torch.accel import compact as cpt
+
+    rows, o, d, tm = _padded(soup)
+    flags, tn = cpt._row_flags(torch.from_numpy(soup["cb"]), o, d, tm, rows,
+                               LANES, with_tn=True)
+    jo, jd, jtm = pk._pad_rays(jnp.asarray(soup["o"]), jnp.asarray(soup["d"]),
+                               jnp.asarray(soup["tmax"]), rows * LANES)
+    jf, jtn = pk._row_flags(jnp.asarray(soup["cb"]), jo, jd, jtm, rows, LANES,
+                            with_tn=True)
+    np.testing.assert_array_equal(t2n(flags), np.asarray(jf))
+    np.testing.assert_array_equal(t2n(tn), np.asarray(jtn))
+    assert 0.1 < t2n(flags).mean() < 0.95
+
+
+def _sphere_inputs(s):
+    from radish_pt_tpu_torch.accel import compact as cpt
+
+    rows, o, d, tm = _padded(s)
+    cb, center = _t(s["cb"], s["center"])
+    return (rows, o, d, tm, cb, center, cpt._sphere_feats(o - center, d, tm),
+            cpt._sphere_plane_coeffs(cb, center))
+
+
+def test_sphere_flags_match_reference(soup):
+    """(b) The sphere prepass in f32 against the reference's bf16x3 kernel
+    (interpret mode): a superset of the exact slab flags; the same flag on
+    >= 99.9% of the (row group, unit) entries, each disagreement decided by
+    a lane within one slack term of a plane (the slack covers the bf16
+    split's error, pallas_kernels.py:1109-1111); tn within 1e-4 of the
+    scene scale where both flag (the split's error is relative to the
+    largest term, not to tn)."""
+    from radish_pt_tpu.accel import pallas_kernels as pk
+    from radish_pt_tpu_torch.accel import compact as cpt
+
+    rows, o, d, tm, cb, center, feats, planes = _sphere_inputs(soup)
+    flags, tn = cpt.sphere_flags_plain(feats, planes)
+    slab = cpt._row_flags(cb, o, d, tm, rows, LANES)
+    assert bool((flags | slab).eq(flags).all())  # superset: no false miss
+    assert 0.1 < t2n(flags).mean() < 0.95
+    jf, jtn = pk._sphere_flags(jnp.asarray(soup["cb"]), jnp.asarray(soup["center"]),
+                               jnp.asarray(t2n(o - center)), jnp.asarray(t2n(d)),
+                               jnp.asarray(t2n(tm)), rows, LANES,
+                               interpret=True, with_tn=True)
+    n_c = cb.shape[0]
+    jf, jtn = np.asarray(jf)[:, :n_c], np.asarray(jtn)[:, :n_c]
+    f, tn = t2n(flags), t2n(tn)
+    diff = f != jf
+    assert diff.mean() <= 1e-3
+    if diff.any():
+        # per lane and unit: each plane's value in units of its slack
+        p = t2n(planes).astype(np.float64)
+        fe = t2n(feats).astype(np.float64)
+        vals = np.einsum("nk,pkc->pnc", fe, p)
+        scale = np.max(np.linalg.norm(0.5 * (soup["cb"][:, :3] + soup["cb"][:, 3:])
+                                      - soup["center"], axis=1)
+                       + 0.5 * np.linalg.norm(soup["cb"][:, 3:] - soup["cb"][:, :3],
+                                              axis=1))
+        slack = np.array([2e-4 * scale ** 2 + 1e-12, 2e-4 * scale + 1e-6,
+                          2e-4 * scale + 1e-6])[:, None, None]
+        margin = (vals / slack).min(axis=0).reshape(rows, LANES, n_c).max(axis=1)
+        assert np.all(np.abs(margin[diff]) <= 1.0)
+    both = f & jf
+    np.testing.assert_allclose(tn[both], jtn[both], rtol=0,
+                               atol=1e-4 * max(1.0, float(np.abs(tn[both]).max())))
+
+
+def test_padding_units_never_flag(soup):
+    """Coarsened boxes enclose their clusters, the padding clusters of the
+    last unit (inverted boxes) leaving it unchanged; an inverted-box unit
+    never flags in the sphere prepass and its tn stays FLT_MAX.  (The slab
+    test, as the reference's, does flag an inverted box, but the port's
+    coarsening never makes a unit of padding alone.)"""
+    from radish_pt_tpu_torch.accel import compact as cpt
+
+    rows, o, d, tm, cb, center, feats, _ = _sphere_inputs(soup)
+    coarse = cpt._coarsen_bounds(cb, 6)  # 16 clusters -> 3 units, 2 padding
+    assert coarse.shape == (3, 6)
+    np.testing.assert_array_equal(t2n(coarse[2]), np.concatenate(
+        [soup["cb"][12:, :3].min(0), soup["cb"][12:, 3:].max(0)]))
+    pad_box = torch.tensor([[FLT_MAX] * 3 + [-FLT_MAX] * 3])
+    cull = torch.cat([coarse, pad_box])
+    sph, tn = cpt.sphere_flags_plain(feats, cpt._sphere_plane_coeffs(cull, center))
+    assert not bool(sph[:, -1].any()) and bool(sph[:, 0].any())
+    assert bool((t2n(tn[:, -1]) == FLT_MAX).all())
+
+
+@pytest.mark.parametrize("branch", ["slab", "sphere"])
+def test_work_list_covers_flags_near_to_far(soup, branch):
+    """(c) Each row group's slice holds exactly its flagged units, in
+    ascending tn, with the tn of each (row group, unit) pair."""
+    from radish_pt_tpu_torch.accel import compact as cpt
+
+    rows, o, d, tm, cb, _, feats, planes = _sphere_inputs(soup)
+    if branch == "slab":
+        flags, tn = cpt._row_flags(cb, o, d, tm, rows, LANES, with_tn=True)
+    else:
+        flags, tn = cpt.sphere_flags_plain(feats, planes)
+    items, item_tn, offsets = (t2n(x) for x in cpt.work_list(flags, tn))
+    f, tn = t2n(flags), t2n(tn)
+    assert offsets[0] == 0 and offsets[-1] == items.size == f.sum()
+    for r in range(rows):
+        sl = slice(offsets[r], offsets[r + 1])
+        assert sorted(items[sl]) == list(np.flatnonzero(f[r]))
+        np.testing.assert_array_equal(item_tn[sl], tn[r, items[sl]])
+        assert np.all(np.diff(item_tn[sl]) >= 0)
+
+
+@pytest.fixture
+def variant(request, monkeypatch):
+    """Prepass branch and unit size, set in both packages (trace-time
+    constants in the reference, so its jit caches are cleared around)."""
+    from radish_pt_tpu.accel import pallas_kernels as pk
+    from radish_pt_tpu_torch.accel import compact as cpt
+
+    sphere, unit_max = request.param
+    if sphere:
+        monkeypatch.setattr(cpt, "PER_RAY_PREPASS_MAX", 0)
+        monkeypatch.setattr(pk, "_PER_RAY_PREPASS_MAX", 0)
+    if unit_max:
+        monkeypatch.setattr(cpt, "SPHERE_UNIT_MAX", unit_max)
+        monkeypatch.setattr(pk, "_SPHERE_UNIT_MAX", unit_max)
+    jax.clear_caches()
+    yield request.param
+    jax.clear_caches()
+
+
+VARIANTS = [(False, None), (True, None), (False, 3), (True, 3)]
+VARIANT_IDS = ["slab", "sphere", "slab-g6", "sphere-g6"]
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS, indirect=True)
+def test_intersect_compact_matches_reference(soup, variant):
+    """(d) Closest hit through each prepass branch, with g = 1 and with
+    6-cluster units (the last unit ragged): prim ids exact against the
+    reference's compact function and the brute-force oracle on live lanes;
+    dead lanes miss.  A finite tmax only bounds the prepass, so a hit
+    beyond it depends on how coarsely the engine culls (the reference's
+    sphere branch falls back to its per-lane dense sweep here, its padded
+    plane columns overflowing the work budget): on such lanes the port
+    never returns a hit closer than the true one.  Distances are the exact
+    f32 minimum here and the reference's packed-key t (2^-17 relative), so
+    rtol 1e-4."""
+    from radish_pt_tpu.accel.pallas_kernels import intersect_plucker_compact
+    from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    s = soup
+    coeffs, center, cb, o, d, tmax = _t(s["coeffs"], s["center"], s["cb"], s["o"],
+                                        s["d"], s["tmax"])
+    cpt.reset_counts()
+    prim, dist = cpt.intersect_compact(coeffs, center, cb, o, d, tmax=tmax)
+    assert cpt.PLAIN_CALLS["closest_hit"] == 1
+    assert cpt.PLAIN_CALLS["sphere_flags"] == int(variant[0])
+    p0, d0 = intersect_plucker_compact(
+        jnp.asarray(s["tri_packed"]), jnp.asarray(s["o"]), jnp.asarray(s["d"]),
+        cluster_bounds=jnp.asarray(s["cb"]), tmax=jnp.asarray(s["tmax"]),
+        interpret=True, bf16x3=False)
+    p0, d0 = np.asarray(p0), np.asarray(d0)
+    prim, dist = t2n(prim), t2n(dist)
+    pb, tb, _ = (t2n(x) for x in trv.intersect_brute(*_t(s["tri_packed"], s["o"],
+                                                         s["d"])))
+    live = s["tmax"] > 0
+    assert np.all(prim[~live] == -1) and np.all(dist[~live] == FLT_MAX)
+    within = live & ((s["tmax"] == FLT_MAX) | (tb <= s["tmax"]))
+    assert within.sum() > 0.7 * live.sum()
+    np.testing.assert_array_equal(prim[within], p0[within])
+    np.testing.assert_array_equal(prim[within], pb[within])
+    beyond = live & ~within
+    assert beyond.any()
+    assert np.all((prim[beyond] == pb[beyond]) | (dist[beyond] >= tb[beyond]))
+    hits = within & (p0 >= 0)
+    assert hits.sum() > 0.4 * live.sum()
+    np.testing.assert_allclose(dist[hits], d0[hits], rtol=1e-4)
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS, indirect=True)
+def test_occlusion_compact_matches_reference(soup, variant):
+    """(d) Shadow segments, a seventh of them zero-length (y == x, the
+    masked lanes): bits exact against the reference's compact function and
+    the brute-force oracle."""
+    from radish_pt_tpu.accel.pallas_kernels import occlusion_plucker_compact
+    from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    s = soup
+    rng = np.random.default_rng(4)
+    x = s["o"]
+    y = (x + s["d"] * rng.uniform(1.0, 14.0, (x.shape[0], 1))).astype(np.float32)
+    y[::7] = x[::7]
+    coeffs, center, cb, xt, yt = _t(s["coeffs"], s["center"], s["cb"], x, y)
+    cpt.reset_counts()
+    occ = t2n(cpt.occlusion_compact(coeffs, center, cb, xt, yt))
+    assert cpt.PLAIN_CALLS["occlusion"] == 1
+    want = np.asarray(occlusion_plucker_compact(
+        jnp.asarray(s["tri_packed"]), jnp.asarray(x), jnp.asarray(y),
+        cluster_bounds=jnp.asarray(s["cb"]), interpret=True, bf16x3=False))
+    np.testing.assert_array_equal(occ, want)
+    np.testing.assert_array_equal(
+        occ, t2n(trv.occlusion_brute(torch.from_numpy(s["tri_packed"]), xt, yt)))
+    assert 0.1 < want.mean() < 0.9 and not occ[::7].any()
+
+
+def test_cpu_tensors_take_the_plain_versions(soup):
+    from radish_pt_tpu_torch.accel import compact as cpt
+
+    rows, o, d, tm, cb, center, feats, planes = _sphere_inputs(soup)
+    cpt.reset_counts()
+    flags, tn = cpt.sphere_flags(feats, planes)
+    assert cpt.PLAIN_CALLS["sphere_flags"] == 1
+    assert cpt.LAUNCHES == {"sphere_flags": 0, "closest_hit": 0, "occlusion": 0}
+    with pytest.raises(ValueError):  # the kernels refuse CPU tensors
+        cpt.sphere_flags_cuda(feats, planes)
+    items, item_tn, offsets = cpt.work_list(flags, tn)
+    coeffs, = _t(soup["coeffs"])
+    with pytest.raises(ValueError):
+        cpt.closest_hit_cuda(coeffs, feats[:, :10].contiguous(), tm, items,
+                             item_tn, offsets, 1)
+
+
+def test_choose_intersector_by_count():
+    """(e) The reference's automatic choice (build.py:281-290), on counts."""
+    from radish_pt_tpu_torch.scene.build import choose_intersector
+
+    assert choose_intersector(131072) == "plucker"
+    assert choose_intersector(131073) == "compact"
+    assert choose_intersector(10, "compact") == "compact"
+    assert choose_intersector(200_000, "plucker") == "plucker"
+    with pytest.raises(ValueError):
+        choose_intersector(10, "pallas_compact")
+
+
+@pytest.fixture(scope="module")
+def teapot_compact():
+    """The reference's pallas_compact build of teapot (its numpy host
+    path) and the port's compact build of the same file."""
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    mp = pytest.MonkeyPatch()
+    try:
+        jds, jcam, _ = load_jax_scene(mp, "teapot.txt", "pallas_compact")
+    finally:
+        mp.undo()
+    tds, tcam, _ = load_scene(os.path.join(SCENES, "teapot.txt"),
+                              intersector="compact")
+    return jds, jcam, tds, tcam
+
+
+def test_compact_scene_build_matches_reference(teapot_compact):
+    """(e) The compact layout: 64-triangle clusters, the same stored order,
+    cluster boxes, light ids and planes as the reference's build."""
+    from radish_pt_tpu_torch.scene.device_scene import scene_from_jax
+
+    jds, _, tds, _ = teapot_compact
+    assert tds.intersector == "compact" and jds.intersector == "pallas_compact"
+    assert tds.cluster_sub == jds.cluster_sub == 64
+    np.testing.assert_array_equal(t2n(tds.tri_v), np.asarray(jds.tri_v))
+    np.testing.assert_array_equal(t2n(tds.cluster_bounds),
+                                  np.asarray(jds.cluster_bounds))
+    np.testing.assert_array_equal(t2n(tds.light_prim_ids),
+                                  np.asarray(jds.light_prim_ids))
+    ds = scene_from_jax(*jax_scene_parts(jds))
+    assert ds.intersector == "compact"
+    np.testing.assert_allclose(t2n(ds.sweep_coeffs), t2n(tds.sweep_coeffs),
+                               rtol=1e-6, atol=1e-6 * float(tds.sweep_coeffs.abs().max()))
+
+
+def test_path_trace_compact_matches_reference(teapot_compact):
+    """(f) The whole slice: teapot 16x16, depth 3, loopers 0-1, through the
+    port's compact engine (its plain versions on CPU tensors) against the
+    reference's brute-force frames on the same scene bytes; edge-exact
+    ties may resolve differently, so the bound is on the mean."""
+    from radish_pt_tpu.render import pathtrace as jpt
+    from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.scene.camera import make_camera
+    from radish_pt_tpu_torch.scene.device_scene import scene_from_jax
+
+    jds, jcam, _, _ = teapot_compact
+    res, depth = 16, 3
+    jcam = jcam.replace(width=res, height=res)
+    f = jax.jit(jpt.path_trace, static_argnames=("max_depth",))
+    jbrute = jds.replace(intersector="brute")
+    ds = scene_from_jax(*jax_scene_parts(jds))
+    cam = make_camera(res, res, np.asarray(jcam.position), np.asarray(jcam.rotation),
+                      fov_y=float(jcam.fov_y), lens_radius=float(jcam.lens_radius),
+                      focal_dist=float(jcam.focal_dist))
+    cpt.reset_counts()
+    for lp in (0, 1):
+        jd, ji = (np.asarray(x) for x in f(jbrute, jcam, lp, depth))
+        d, i = pt.path_trace(ds, cam, lp, depth)
+        err = np.abs(t2n(d + i) - (jd + ji)).mean()
+        assert err < 1e-3, err
+        assert (jd + ji).mean() > 1e-2
+    assert cpt.PLAIN_CALLS["closest_hit"] == 2 * (depth + 1)
+    assert cpt.PLAIN_CALLS["occlusion"] == 2 * depth
+    assert cpt.LAUNCHES["closest_hit"] == 0
+
+
+def test_cli_renders_compact_on_cpu(tmp_path, capsys):
+    """(g) The CLI's --intersector flag."""
+    from radish_pt_tpu_torch.cli import main
+
+    out = tmp_path / "t.png"
+    assert main([os.path.join(SCENES, "teapot.txt"), "--spp", "1", "--res", "16",
+                 "16", "--depth", "2", "--device", "cpu", "--intersector",
+                 "compact", "--out", str(out)]) == 0
+    assert "engine compact" in capsys.readouterr().out
+    assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: build csrc/plucker.cu and hold the
-closest-hit and shadow kernels against their plain torch versions on
-teapot geometry, then a small render through the kernels against the same
-render through the plain sweeps.
+"""The port's CUDA kernels on the card: build csrc/plucker.cu and
+csrc/compact.cu and hold the Plücker closest-hit and shadow kernels, the
+sphere prepass and the compact closest-hit and shadow kernels against
+their plain torch versions on teapot geometry, then small renders through
+the kernels against the same renders through the plain versions.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no jax, so it runs
 on a machine without it:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -90,6 +91,110 @@ def test_render_through_kernels_matches_plain(teapot_cuda):
     assert plk.LAUNCHES["closest_hit"] == 6 and plk.LAUNCHES["occlusion"] == 5
     assert plk.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
     dp, ip = pt.path_trace(ds.replace(intersector="plucker_plain"), cam, 3, 5)
+    img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
+    assert np.isfinite(img).all() and img.mean() > 0.05
+    assert np.abs(img - ref).mean() < 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the compact work-list engine (csrc/compact.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def teapot_compact_cuda(teapot_cuda):
+    """Teapot in the compact engine's 64-triangle clusters, with the same
+    rays (tmax FLT_MAX or -FLT_MAX: the main path's two kinds of lane)."""
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    _, _, o, d, tmax = teapot_cuda
+    ds, cam, _ = load_scene(os.path.join(SCENES, "teapot.txt"), device="cuda",
+                            intersector="compact")
+    return ds, cam, o, d, tmax
+
+
+@pytest.fixture(params=["slab", "sphere"])
+def prepass_branch(request, monkeypatch):
+    """Teapot's 78 clusters take the slab prepass; "sphere" lowers the
+    threshold so the sphere kernel runs."""
+    from radish_pt_tpu_torch.accel import compact as cpt
+
+    if request.param == "sphere":
+        monkeypatch.setattr(cpt, "PER_RAY_PREPASS_MAX", 0)
+    return request.param
+
+
+@pytest.mark.cuda
+def test_sphere_flags_kernel_matches_plain(teapot_compact_cuda):
+    """The sphere kernel sums each plane term by term, unfused, in the
+    plain version's order: flags and tn agree bit for bit."""
+    from radish_pt_tpu_torch.accel import compact as cpt
+
+    ds, _, o, d, tmax = teapot_compact_cuda
+    rows = -(-o.shape[0] // cpt.LANES)
+    po, pd, ptm = cpt._pad_rays(o, d, tmax, rows * cpt.LANES)
+    feats = cpt._sphere_feats(po - ds.sweep_center, pd, ptm)
+    planes = cpt._sphere_plane_coeffs(ds.cluster_bounds, ds.sweep_center)
+    cpt.reset_counts()
+    fk, tk = cpt.sphere_flags(feats, planes)
+    fp, tp = cpt.sphere_flags_plain(feats, planes)
+    assert cpt.LAUNCHES["sphere_flags"] == 1
+    assert torch.equal(fk, fp) and torch.equal(tk, tp)
+    assert bool(fk.any()) and not bool(fk.all())
+
+
+@pytest.mark.cuda
+def test_compact_kernels_match_plain(teapot_compact_cuda, prepass_branch):
+    """On the same flags, the compact closest-hit kernel and its plain
+    version agree on >= 99.99% of prim ids, a mismatch being a near-tie;
+    the shadow kernel's bits agree on >= 99.99% of segments."""
+    from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    ds, _, o, d, tmax = teapot_compact_cuda
+    flags, tn, g = cpt.prepass(ds.sweep_center, ds.cluster_bounds, o, d, tmax)
+    feats = plk.plucker_features(o, d, ds.sweep_center)
+    cpt.reset_counts()
+    pk, dk = cpt.closest_hit(ds.sweep_coeffs, feats, tmax, flags, tn, g)
+    pp, dp = cpt.closest_hit_plain(ds.sweep_coeffs, feats, tmax, flags, g)
+    assert cpt.LAUNCHES["closest_hit"] == 1
+    pk, pp, dk, dp = (t.cpu().numpy() for t in (pk, pp, dk, dp))
+    diff = pk != pp
+    assert diff.mean() <= 1e-4
+    assert np.all(np.abs(dk[diff] - dp[diff]) <= 1e-4 * np.abs(dp[diff]))
+    hit = (pp >= 0) & ~diff
+    assert hit.mean() > 0.3
+    np.testing.assert_allclose(dk[hit], dp[hit], rtol=1e-5)
+    assert np.all(pk[tmax.cpu().numpy() < 0] == -1)
+
+    x = o
+    y = o + d * 3.0
+    y[::7] = x[::7]  # zero-length segments, as masked NEE lanes
+    so, sd, stm = plk.segment_rays(x, y)
+    flags, tn, g = cpt.prepass(ds.sweep_center, ds.cluster_bounds, so, sd, stm)
+    feats = plk.plucker_features(so, sd, ds.sweep_center)
+    occ_k = cpt.occlusion(ds.sweep_coeffs, feats, stm.contiguous(), flags, tn, g)
+    occ_p = cpt.occlusion_plain(ds.sweep_coeffs, feats, stm, flags, g)
+    assert cpt.LAUNCHES["occlusion"] == 1
+    assert (occ_k != occ_p).float().mean().item() <= 1e-4
+    assert 0.05 < occ_p.float().mean().item() < 0.95
+    assert not bool(occ_k[::7].any())
+
+
+@pytest.mark.cuda
+def test_render_through_compact_kernels_matches_plain(teapot_compact_cuda,
+                                                      prepass_branch):
+    from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.render import pathtrace as pt
+
+    ds, cam, *_ = teapot_compact_cuda
+    cam = cam.replace(width=64, height=64)
+    cpt.reset_counts()
+    d, i = pt.path_trace(ds, cam, 3, 5)
+    assert cpt.LAUNCHES["closest_hit"] == 6 and cpt.LAUNCHES["occlusion"] == 5
+    assert cpt.LAUNCHES["sphere_flags"] == (11 if prepass_branch == "sphere" else 0)
+    assert cpt.PLAIN_CALLS == {"sphere_flags": 0, "closest_hit": 0, "occlusion": 0}
+    dp, ip = pt.path_trace(ds.replace(intersector="compact_plain"), cam, 3, 5)
     img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
     assert np.isfinite(img).all() and img.mean() > 0.05
     assert np.abs(img - ref).mean() < 2e-3
