@@ -4,29 +4,32 @@
 Drives the port's main paths — full-MIS path-traced 800x800 frames, depth
 5, through ``Renderer`` — on the card: cornell and teapot on the Plücker
 engine, teapot_hires on the compact work-list engine (and on the Plücker
-engine its size picks); and checks the hand-written CUDA kernels of those
-paths against their plain torch versions.  Phases:
+engine its size picks), teapot on the quad engine and teapot_hires on the
+band engine; and checks the hand-written CUDA kernels of those paths
+against their plain torch versions.  Phases:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. cold start: both kernel sources built with nvcc at once (seconds
-   shown), then each of teapot and teapot_hires (compact) loaded and
-   rendered once at 800x800;
+2. cold start: the four kernel sources built with nvcc at once (seconds
+   shown), then teapot and teapot_hires (compact) loaded and rendered once
+   at 800x800, and the quad and band scenes loaded;
 3. kernel parity at the main paths' shapes (800x800 tile-order primaries,
    one bounce wavefront with dead lanes, its NEE shadow segments): the
-   Plücker sweeps on teapot; the sphere prepass and compact sweeps on
-   teapot_hires;
+   Plücker sweeps and the quad sweeps on teapot; the sphere prepass, the
+   compact sweeps and the band sweeps (8 bands a row) on teapot_hires;
 4. the main paths, loopers 0-7, each with the launch counts of its kernels
    set to 0 just before and read just after, finite non-zero images, and
    looper-7 mean radiance within 1% of each scene's 800x800 golden (the
-   two teapot_hires engines also within 0.2% of each other);
-5. 128x128 frames through the kernels against the plain versions (teapot,
-   teapot_hires on compact);
+   teapot_hires engines also within 0.2% of each other, band and compact
+   within 0.05%);
+5. 128x128 frames through the kernels against the plain versions (teapot
+   on Plücker and quad, teapot_hires on compact and band);
 6. timing with CUDA events: ms/frame and Mrays/s per scene and engine,
-   each kernel against its plain version.
+   each kernel against its plain version, and each kernel's least time on
+   the card (bound) for the same work.
 
-Prints a JSON line of per-kernel results, then, as the last line,
-``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit).
-Needs one CUDA device; imports no jax.
+Prints a JSON line of per-kernel results, then the card's name and power
+limit, then, as the last line, ``{"ok": true, "device": {...}}``.  Any
+failure raises (non-zero exit).  Needs one CUDA device; imports no jax.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -42,6 +45,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 RES = 800
 DEPTH = 5
+SMALL_RES = 128  # the kernel-path against plain-path frames (phase 5)
 # mean radiance of the looper-7 frame at 800x800, depth 5.  teapot and
 # teapot_hires: bench.py MEAN_GOLDEN, measured on the reference at f32-grade
 # precision.  cornell: the reference's exact-f32 brute-force engine on a CPU
@@ -53,14 +57,27 @@ MEAN_GOLDEN = {"cornell": 1.04245, "teapot": 0.43335, "teapot_hires": 0.43550}
 SCENE_FILES = {"cornell": "cornell_box.txt", "teapot": "teapot.txt",
                "teapot_hires": "teapot_hires.txt"}
 SOURCES = {"plucker": "radish_pt_tpu_torch/csrc/plucker.cu",
-           "compact": "radish_pt_tpu_torch/csrc/compact.cu"}
+           "compact": "radish_pt_tpu_torch/csrc/compact.cu",
+           "quad": "radish_pt_tpu_torch/csrc/quad.cu",
+           "band": "radish_pt_tpu_torch/csrc/band.cu"}
 REPLACES = {
     "plucker_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:344",
     "plucker_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:463",
     "compact_sphere_flags": "radish_pt_tpu/accel/pallas_kernels.py:1151",
     "compact_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:1291",
     "compact_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:1393",
+    "quad_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:1974",
+    "quad_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:2058",
+    "band_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:2687",
+    "band_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:2777",
 }
+# the scene each engine's kernels are timed and bounded on
+KERNEL_SCENE = {"plucker": "teapot", "compact": "teapot_hires", "quad": "teapot_quad",
+                "band": "teapot_hires_band"}
+# one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32 outside the
+# tensor cores, and device memory
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -90,6 +107,28 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms on the card, what bounds it): the larger of the operations
+    over the f32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def group_pairs(flags, tris_per_flag: int, lanes: int, n: int) -> float:
+    """(lane, triangle) pairs a sweep visits: per lane group of ``lanes``
+    lanes (the last one ragged), its flagged clusters or units (bool
+    [groups, C]) times ``tris_per_flag`` triangles, for each of its lanes."""
+    import torch
+
+    groups = flags.shape[0]
+    lane_counts = (n - torch.arange(groups, device=flags.device) * lanes).clamp(0, lanes)
+    return float((flags.sum(1).double() * lane_counts.double()).sum()) * tris_per_flag
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def bounce_one(ds, cam):
@@ -216,14 +255,98 @@ def compact_parity(ds, waves, max_err, log):
     return inputs
 
 
+def quad_parity(ds, waves, max_err, log):
+    """Phase 3 on a quad-engine scene: each kernel against its plain
+    version on the same cluster masks (the Plücker prepass; the segments
+    carried unnormalized over t in [0, 1]).  Returns the timing inputs."""
+    import torch
+
+    from radish_pt_tpu_torch.accel import plucker as plk
+    from radish_pt_tpu_torch.accel import quad as qd
+
+    sub, n_c = ds.cluster_sub, ds.cluster_bounds.shape[0]
+    inputs = {}
+    for what in ("primary", "extension"):
+        o, d, tmax = waves[what]
+        live = tmax >= 0
+        feats = qd.quad_features(o, d, ds.sweep_center)
+        mask = plk.cluster_mask_words(ds.cluster_bounds, o, d,
+                                      None if what == "primary" else tmax)
+        pk, dk = qd.closest_hit_cuda(ds.quad_coeffs, feats, mask, sub)
+        pp, dp = qd.closest_hit_plain(ds.quad_coeffs, feats, mask, sub)
+        torch.cuda.synchronize()
+        log(f"[parity] quad {what}: {float(plk.unpack_mask(mask, n_c).sum(1).float().mean()):.2f}"
+            f" clusters of {sub} per 128-lane row")
+        err = check_closest(pk, dk, pp, dp, live, f"quad closest hit, {what}", log)
+        max_err["quad_closest_hit"] = max(max_err["quad_closest_hit"], err)
+        inputs[what] = (feats, mask)
+    x, y, ok = waves["segments"]
+    so, seg = qd.quad_segments(x, y)
+    feats = qd.quad_features(so, seg, ds.sweep_center)
+    mask = plk.cluster_mask_words(ds.cluster_bounds, so, seg, torch.ones_like(so[:, 0]))
+    ok_k = qd.occlusion_cuda(ds.quad_coeffs, feats, mask, sub)
+    ok_p = qd.occlusion_plain(ds.quad_coeffs, feats, mask, sub)
+    torch.cuda.synchronize()
+    max_err["quad_occlusion"] = max(max_err["quad_occlusion"],
+                                    check_occlusion(ok_k, ok_p, ok, "quad", log))
+    log(f"[parity] quad occlusion: {int(ok_k[~ok].sum())} of {int((~ok).sum())} "
+        f"masked (zero-length) segments read as blocked, as in the reference")
+    inputs["segments"] = (feats, mask)
+    return inputs
+
+
+def band_parity(ds, waves, max_err, log):
+    """Phase 3 on a band-engine scene: each kernel against its plain
+    version on the same band masks.  Returns the timing inputs."""
+    import torch
+
+    from radish_pt_tpu_torch.accel import band as bnd
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    g, n_c = ds.band_g, ds.cluster_bounds.shape[0]
+    inputs = {}
+    for what in ("primary", "extension", "segments"):
+        if what == "segments":
+            x, y, live = waves["segments"]
+            o, d, tmax = plk.segment_rays(x, y)
+            tmax = tmax.contiguous()
+        else:
+            o, d, tmax = waves[what]
+            live = tmax >= 0
+        feats = plk.plucker_features(o, d, ds.sweep_center)
+        mask = bnd.band_mask_words(ds.cluster_bounds, o, d,
+                                   None if what == "primary" else tmax, g)
+        flags = plk.unpack_mask(mask, n_c)
+        rows = plk.unpack_mask(plk.pack_words(flags.view(-1, g, n_c).any(1)), n_c)
+        log(f"[parity] band {what}: {float(flags.sum(1).float().mean()):.2f} "
+            f"clusters per {plk.ROW // g}-lane band, "
+            f"{float(rows.sum(1).float().mean()):.2f} per 128-lane row")
+        if what == "segments":
+            ok_k = bnd.occlusion_cuda(ds.sweep_coeffs, feats, tmax, mask, g)
+            ok_p = bnd.occlusion_plain(ds.sweep_coeffs, feats, tmax, mask, g)
+            torch.cuda.synchronize()
+            err = check_occlusion(ok_k, ok_p, live, "band", log)
+            max_err["band_occlusion"] = max(max_err["band_occlusion"], err)
+            inputs[what] = (feats, tmax, mask)
+            continue
+        pk, dk = bnd.closest_hit_cuda(ds.sweep_coeffs, feats, mask, g)
+        pp, dp = bnd.closest_hit_plain(ds.sweep_coeffs, feats, mask, g)
+        torch.cuda.synchronize()
+        err = check_closest(pk, dk, pp, dp, live, f"band closest hit, {what}", log)
+        max_err["band_closest_hit"] = max(max_err["band_closest_hit"], err)
+        inputs[what] = (feats, mask)
+    return inputs
+
+
 def check_closest(pk, dk, pp, dp, live, what, log) -> float:
     """Kernel vs plain closest hit on the live lanes: <= 1e-4 of prim ids
-    differ, each a near-tie.  Returns max |dist err| where both agree."""
+    differ, each a near-tie (|dt| <= 1e-5 t).  Returns max |dist err|
+    where both agree."""
     import torch
 
     diff = (pk != pp) & live
     n_diff, n_lanes = int(diff.sum()), int(live.sum())
-    near_tie = torch.abs(dk - dp) <= 1e-4 * torch.abs(dp)
+    near_tie = torch.abs(dk - dp) <= 1e-5 * torch.abs(dp)
     agree = (pk == pp) & (pp >= 0) & live
     err = float(torch.abs(dk - dp)[agree].max()) if bool(agree.any()) else 0.0
     log(f"[parity] {what}: {n_diff} / {n_lanes} live prim ids differ "
@@ -240,7 +363,7 @@ def check_occlusion(ok_k, ok_p, live, what, log) -> float:
     differs."""
     n_diff = int((ok_k != ok_p).sum())
     log(f"[parity] {what} occlusion, NEE segments: {n_diff} / {ok_k.numel()} "
-        f"bits differ; occluded {int(ok_p.sum())} of {int(live.sum())} live")
+        f"bits differ; occluded {int((ok_p & live).sum())} of {int(live.sum())} live")
     assert n_diff <= 1e-4 * ok_k.numel(), f"{what} occlusion parity"
     return n_diff / ok_k.numel()
 
@@ -248,7 +371,7 @@ def check_occlusion(ok_k, ok_p, live, what, log) -> float:
 def main_path(scenes, names, counters, log):
     """Loopers 0-7 of each named scene through ``Renderer``, the launch and
     plain-call counts of the module ``counters`` (LAUNCHES, PLAIN_CALLS)
-    set to 0 just before and read just after.  Returns the launches."""
+    set to 0 just before and read just after.  Returns (launches, frames)."""
     import torch
 
     from radish_pt_tpu_torch.render.renderer import Renderer
@@ -271,7 +394,7 @@ def main_path(scenes, names, counters, log):
         f"plain-version calls {plain}")
     assert all(v > 0 for v in launches.values()), "a kernel was not launched"
     assert not any(plain.values()), "a plain version ran on the main path"
-    return launches
+    return launches, 8 * len(names)
 
 
 def main() -> int:
@@ -288,13 +411,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain sweeps: full f32
 
     from radish_pt_tpu_torch.accel import _build
+    from radish_pt_tpu_torch.accel import band as bnd
     from radish_pt_tpu_torch.accel import compact as cpt
     from radish_pt_tpu_torch.accel import plucker as plk
+    from radish_pt_tpu_torch.accel import quad as qd
     from radish_pt_tpu_torch.render import pathtrace as pt
     from radish_pt_tpu_torch.scene.build import build_device_scene, load_scene
     from radish_pt_tpu_torch.scene.parser import parse_scene
 
     assert "jax" not in sys.modules
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
 
     def scene_path(name):
@@ -318,7 +444,7 @@ def main() -> int:
             f"{os.path.relpath(_build.library_path(lib), REPO)} in "
             f"{s if s is None else round(s, 2)} s (None: reused a library built "
             f"before this run)")
-    log(f"[build] both sources, in parallel: {t_build:.2f} s wall")
+    log(f"[build] all {len(SOURCES)} sources, in parallel: {t_build:.2f} s wall")
     scenes = {}
     ds, cam, _ = load_scene(scene_path("teapot"), device=dev)
     cam = cam.replace(width=RES, height=RES)
@@ -355,6 +481,23 @@ def main() -> int:
     log(f"[scene] teapot_hires (plucker, the size's choice): "
         f"{ds.num_triangles} stored triangles, {ds.cluster_bounds.shape[0]} "
         f"clusters of {ds.cluster_sub}")
+    t3 = time.perf_counter()
+    dsq, camq, _ = load_scene(scene_path("teapot"), device=dev, intersector="quad")
+    scenes["teapot_quad"] = (dsq, camq.replace(width=RES, height=RES))
+    t4 = time.perf_counter()
+    dsb, _ = build_device_scene(desc, use_sobol=desc.settings.use_sobol, device=dev,
+                                intersector="band")
+    scenes["teapot_hires_band"] = (dsb, cam)
+    log(f"[scene] teapot (quad): {dsq.num_triangles} stored triangles, "
+        f"{dsq.cluster_bounds.shape[0]} clusters of {dsq.cluster_sub}, forms "
+        f"{tuple(dsq.quad_coeffs.shape)}, loaded in {t4 - t3:.2f} s; teapot_hires "
+        f"(band, g = {dsb.band_g}): {dsb.num_triangles} stored triangles, "
+        f"{dsb.cluster_bounds.shape[0]} clusters of {dsb.cluster_sub}, built in "
+        f"{time.perf_counter() - t4:.2f} s")
+    # the quad and band scenes share the Plücker teapot's and the compact
+    # teapot_hires' stored triangles: the same wavefronts feed their parity
+    assert torch.equal(dsq.tri_v, scenes["teapot"][0].tri_v)
+    assert torch.equal(dsb.tri_v, dsc_.tri_v)
 
     # ---- 3. kernel parity at the main path's shapes ----
     max_err = dict.fromkeys(REPLACES, 0.0)
@@ -365,50 +508,68 @@ def main() -> int:
         f"{waves['primary'][0].shape[0]}, extension rays live "
         f"{int((waves['extension'][2] >= 0).sum())}, shadow segments live "
         f"{int(waves['segments'][2].sum())}")
-    plk_inputs = plucker_parity(ds, waves, max_err, log)
+    inputs = {"plucker": plucker_parity(ds, waves, max_err, log),
+              "quad": quad_parity(dsq, waves, max_err, log)}
     ds, cam = scenes["teapot_hires"]
     waves = bounce_one(ds, cam)
     log(f"[parity] teapot_hires (compact): primaries {waves['primary'][0].shape[0]},"
         f" extension rays live {int((waves['extension'][2] >= 0).sum())}, shadow "
         f"segments live {int(waves['segments'][2].sum())}")
-    cpt_inputs = compact_parity(ds, waves, max_err, log)
+    inputs["compact"] = compact_parity(ds, waves, max_err, log)
+    inputs["band"] = band_parity(dsb, waves, max_err, log)
+    del waves
 
     # ---- 4. the main paths ----
     launches = {"plucker": main_path(scenes, ("cornell", "teapot"), plk, log),
-                "compact": main_path(scenes, ("teapot_hires",), cpt, log)}
+                "compact": main_path(scenes, ("teapot_hires",), cpt, log),
+                "quad": main_path(scenes, ("teapot_quad",), qd, log),
+                "band": main_path(scenes, ("teapot_hires_band",), bnd, log)}
     main_path(scenes, ("teapot_hires_plucker",), plk, log)
     means, frames = {}, {}
-    for name in ("cornell", "teapot", "teapot_hires", "teapot_hires_plucker"):
+    for name in ("cornell", "teapot", "teapot_quad", "teapot_hires",
+                 "teapot_hires_plucker", "teapot_hires_band"):
         ds, cam = scenes[name]
         d7, i7 = pt.path_trace(ds, cam, 7, DEPTH)
         frames[name] = d7 + i7
         means[name] = float(frames[name].mean())
-        golden = MEAN_GOLDEN[name.removesuffix("_plucker")]
+        golden = MEAN_GOLDEN["teapot_hires" if name.startswith("teapot_hires")
+                             else name.split("_")[0]]
         drift = means[name] / golden - 1.0
         log(f"[main path] {name} ({ds.intersector}) looper-7 mean radiance "
             f"{means[name]:.5f} vs golden {golden:.5f}: drift {drift * 100:+.3f}%")
         assert abs(drift) < 0.01, f"{name} mean radiance drifted more than 1%"
-    a, b = means["teapot_hires"], means["teapot_hires_plucker"]
-    mad = float(torch.abs(frames["teapot_hires"] - frames["teapot_hires_plucker"]).mean())
-    log(f"[main path] teapot_hires, compact vs plucker engine: means differ by "
-        f"{(a / b - 1) * 100:+.4f}%, mean |pixel diff| {mad:.3e}")
-    assert abs(a / b - 1.0) < 0.002, "the two engines' teapot_hires means differ"
-    assert mad < 2e-3, "the two engines' teapot_hires frames differ"
+
+    def compare(a, b, bound_rel, what):
+        rel = means[a] / means[b] - 1.0
+        mad = float(torch.abs(frames[a] - frames[b]).mean())
+        log(f"[main path] {what}: means {means[a]:.5f} vs {means[b]:.5f}, differ by "
+            f"{rel * 100:+.4f}%, mean |pixel diff| {mad:.3e}")
+        assert abs(rel) < bound_rel, f"{what}: the means differ"
+        return mad
+
+    assert compare("teapot_hires", "teapot_hires_plucker", 0.002,
+                   "teapot_hires, compact vs plucker engine") < 2e-3
+    compare("teapot_hires_band", "teapot_hires", 0.0005,
+            "teapot_hires, band vs compact engine")
+    compare("teapot_quad", "teapot", 0.01, "teapot, quad vs plucker engine")
     del frames
 
     # ---- 5. kernel path against plain path, 128x128 ----
-    for name, plain in (("teapot", "plucker_plain"), ("teapot_hires", "compact_plain")):
+    for name, plain in (("teapot", "plucker_plain"), ("teapot_hires", "compact_plain"),
+                        ("teapot_quad", "quad_plain"),
+                        ("teapot_hires_band", "band_plain")):
         ds, cam = scenes[name]
-        small = cam.replace(width=128, height=128)
+        small = cam.replace(width=SMALL_RES, height=SMALL_RES)
         d, i = pt.path_trace(ds, small, 0, DEPTH)
         dp, ip = pt.path_trace(ds.replace(intersector=plain), small, 0, DEPTH)
         mad = float(torch.abs((d + i) - (dp + ip)).mean())
-        log(f"[kernel vs plain path] {name} ({ds.intersector}) 128x128 mean "
+        log(f"[kernel vs plain path] {name} ({ds.intersector}) {SMALL_RES}x{SMALL_RES} mean "
             f"|pixel diff| {mad:.3e}")
         assert mad < 2e-3
 
     # ---- 6. timing (CUDA events) ----
-    for name in ("cornell", "teapot", "teapot_hires", "teapot_hires_plucker"):
+    for name in ("cornell", "teapot", "teapot_quad", "teapot_hires",
+                 "teapot_hires_plucker", "teapot_hires_band"):
         ds, cam = scenes[name]
         loopers = iter(range(8, 10_000))
 
@@ -421,49 +582,128 @@ def main() -> int:
         log(f"[timing] {name} ({ds.intersector}) {RES}x{RES} depth {DEPTH} 1 spp: "
             f"{ms:.3f} ms/frame (median of 3 blocks of 4 frames), {mrays:.2f} "
             f"Mrays/s ({card})")
-    kernel_ms = {}
-    ds, _ = scenes["teapot"]
-    sub = ds.cluster_sub
+    ds, _ = scenes["teapot_hires_band"]
+    o, d, _ = bounce_one(ds, scenes["teapot_hires_band"][1])["primary"]
+    pre_ms = cuda_ms(lambda: bnd.band_mask_words(ds.cluster_bounds, o, d, None,
+                                                 ds.band_g), 3)
+    log(f"[timing] band-mask prepass (torch), teapot_hires primaries, g = "
+        f"{ds.band_g}: {pre_ms:.3f} ms per call, 11 calls a frame")
+
+    # per kernel and wavefront: (kernel ms, plain ms, flops, bytes)
+    timed = {}
+
+    def time_kernel(key, kernel, plain, flops, nbytes_):
+        timed[key] = (cuda_ms(kernel, 5), cuda_ms(plain, 1), flops, nbytes_)
+
+    ds = scenes["teapot"][0]
+    sub, n_c = ds.cluster_sub, ds.cluster_bounds.shape[0]
+    c = ds.sweep_coeffs
     for what in ("primary", "extension"):
-        feats, mask = plk_inputs[what]
-        k = cuda_ms(lambda: plk.closest_hit_cuda(ds.sweep_coeffs, feats, mask, sub), 5)
-        p = cuda_ms(lambda: plk.closest_hit_plain(ds.sweep_coeffs, feats, mask, sub), 1)
-        kernel_ms[f"plucker_closest_hit/{what}"] = (k, p)
-    feats, stm, mask = plk_inputs["segments"]
-    kernel_ms["plucker_occlusion/segments"] = (
-        cuda_ms(lambda: plk.occlusion_cuda(ds.sweep_coeffs, feats, stm, mask, sub), 5),
-        cuda_ms(lambda: plk.occlusion_plain(ds.sweep_coeffs, feats, stm, mask, sub), 1))
-    ds, _ = scenes["teapot_hires"]
+        feats, mask = inputs["plucker"][what]
+        n = feats.shape[0]
+        pairs = group_pairs(plk.unpack_mask(mask, n_c), sub, plk.ROW, n)
+        time_kernel(f"plucker_closest_hit/{what}",
+                    lambda: plk.closest_hit_cuda(c, feats, mask, sub),
+                    lambda: plk.closest_hit_plain(c, feats, mask, sub),
+                    pairs * plk.FLOPS_PER_PAIR["closest_hit"],
+                    nbytes(c, feats, mask) + 8 * n)
+    feats, stm, mask = inputs["plucker"]["segments"]
+    n = feats.shape[0]
+    time_kernel("plucker_occlusion/segments",
+                lambda: plk.occlusion_cuda(c, feats, stm, mask, sub),
+                lambda: plk.occlusion_plain(c, feats, stm, mask, sub),
+                group_pairs(plk.unpack_mask(mask, n_c), sub, plk.ROW, n)
+                * plk.FLOPS_PER_PAIR["occlusion"],
+                nbytes(c, feats, stm, mask) + 4 * n)
+    ds = scenes["teapot_quad"][0]
+    qc = ds.quad_coeffs
+    for what in ("primary", "extension", "segments"):
+        feats, mask = inputs["quad"][what]
+        n = feats.shape[0]
+        pairs = group_pairs(plk.unpack_mask(mask, n_c), sub, plk.ROW, n)
+        if what == "segments":
+            time_kernel("quad_occlusion/segments",
+                        lambda: qd.occlusion_cuda(qc, feats, mask, sub),
+                        lambda: qd.occlusion_plain(qc, feats, mask, sub),
+                        pairs * qd.FLOPS_PER_PAIR["occlusion"],
+                        nbytes(qc, feats, mask) + 4 * n)
+        else:
+            time_kernel(f"quad_closest_hit/{what}",
+                        lambda: qd.closest_hit_cuda(qc, feats, mask, sub),
+                        lambda: qd.closest_hit_plain(qc, feats, mask, sub),
+                        pairs * qd.FLOPS_PER_PAIR["closest_hit"],
+                        nbytes(qc, feats, mask) + 8 * n)
+    ds = scenes["teapot_hires"][0]
     c = ds.sweep_coeffs
     for what in ("primary", "extension", "segments"):
-        sph = cpt_inputs[what][-1]
-        kernel_ms[f"compact_sphere_flags/{what}"] = (
-            cuda_ms(lambda: cpt.sphere_flags_cuda(*sph), 5),
-            cuda_ms(lambda: cpt.sphere_flags_plain(*sph), 1))
+        sph = inputs["compact"][what][-1]
+        rows, units = sph[0].shape[0] // cpt.LANES, sph[1].shape[2]
+        time_kernel(f"compact_sphere_flags/{what}",
+                    lambda: cpt.sphere_flags_cuda(*sph),
+                    lambda: cpt.sphere_flags_plain(*sph),
+                    rows * cpt.LANES * units * cpt.FLOPS_PER_PAIR["sphere_flags"],
+                    nbytes(*sph) + 5 * rows * units)
     for what in ("primary", "extension"):
-        feats, tmax, flags, items, item_tn, offsets, _ = cpt_inputs[what]
-        kernel_ms[f"compact_closest_hit/{what}"] = (
-            cuda_ms(lambda: cpt.closest_hit_cuda(c, feats, tmax, items, item_tn,
-                                                 offsets, 1), 5),
-            cuda_ms(lambda: cpt.closest_hit_plain(c, feats, tmax, flags, 1), 1))
-    feats, tm, flags, items, offsets, _ = cpt_inputs["segments"]
-    kernel_ms["compact_occlusion/segments"] = (
-        cuda_ms(lambda: cpt.occlusion_cuda(c, feats, tm, items, offsets, 1), 5),
-        cuda_ms(lambda: cpt.occlusion_plain(c, feats, tm, flags, 1), 1))
-    for key, (k, p) in kernel_ms.items():
+        feats, tmax, flags, items, item_tn, offsets, _ = inputs["compact"][what]
+        n = feats.shape[0]
+        time_kernel(f"compact_closest_hit/{what}",
+                    lambda: cpt.closest_hit_cuda(c, feats, tmax, items, item_tn,
+                                                 offsets, 1),
+                    lambda: cpt.closest_hit_plain(c, feats, tmax, flags, 1),
+                    group_pairs(flags, cpt.CLUSTER_SUB, cpt.LANES, n)
+                    * cpt.FLOPS_PER_PAIR["closest_hit"],
+                    nbytes(c, feats, tmax, items, item_tn, offsets) + 8 * n)
+    feats, tm, flags, items, offsets, _ = inputs["compact"]["segments"]
+    n = feats.shape[0]
+    time_kernel("compact_occlusion/segments",
+                lambda: cpt.occlusion_cuda(c, feats, tm, items, offsets, 1),
+                lambda: cpt.occlusion_plain(c, feats, tm, flags, 1),
+                group_pairs(flags, cpt.CLUSTER_SUB, cpt.LANES, n)
+                * cpt.FLOPS_PER_PAIR["occlusion"],
+                nbytes(c, feats, tm, items, offsets) + 4 * n)
+    ds = scenes["teapot_hires_band"][0]
+    g, n_c = ds.band_g, ds.cluster_bounds.shape[0]
+    for what in ("primary", "extension"):
+        feats, mask = inputs["band"][what]
+        n = feats.shape[0]
+        time_kernel(f"band_closest_hit/{what}",
+                    lambda: bnd.closest_hit_cuda(c, feats, mask, g),
+                    lambda: bnd.closest_hit_plain(c, feats, mask, g),
+                    group_pairs(plk.unpack_mask(mask, n_c), bnd.CLUSTER_SUB,
+                                plk.ROW // g, n) * bnd.FLOPS_PER_PAIR["closest_hit"],
+                    nbytes(c, feats, mask) + 8 * n)
+    feats, tm, mask = inputs["band"]["segments"]
+    n = feats.shape[0]
+    time_kernel("band_occlusion/segments",
+                lambda: bnd.occlusion_cuda(c, feats, tm, mask, g),
+                lambda: bnd.occlusion_plain(c, feats, tm, mask, g),
+                group_pairs(plk.unpack_mask(mask, n_c), bnd.CLUSTER_SUB,
+                            plk.ROW // g, n) * bnd.FLOPS_PER_PAIR["occlusion"],
+                nbytes(c, feats, tm, mask) + 4 * n)
+    for key, (k, p, flops, nb) in timed.items():
         name, what = key.split("/")
-        scene = "teapot" if name.startswith("plucker") else "teapot_hires"
-        log(f"[timing] {name}, {scene} {what}: kernel {k:.3f} ms, plain {p:.3f} ms")
+        b_ms, b_by = bound(flops, nb)
+        log(f"[timing] {name}, {KERNEL_SCENE[name.split('_')[0]]} {what}: kernel "
+            f"{k:.3f} ms, plain {p:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
+            f"{flops / 1e9:.2f} GFLOP, {nb / 1e6:.2f} MB), kernel at "
+            f"{100 * b_ms / k:.1f}% of it")
 
     rows = []
     for name in REPLACES:
         lib, kind = name.split("_", 1)
         what = "segments" if kind == "occlusion" else "primary"
-        k, p = kernel_ms[f"{name}/{what}"]
+        k, p, flops, nb = timed[f"{name}/{what}"]
+        b_ms, b_by = bound(flops, nb)
+        n_launch, n_frames = launches[lib]
         rows.append({"name": name, "route": "cuda", "source": SOURCES[lib],
-                     "replaces": REPLACES[name], "launches": launches[lib][kind],
-                     "max_abs_err": max_err[name], "ms": k, "plain_ms": p})
+                     "replaces": REPLACES[name], "launches": n_launch[kind],
+                     "launches_per_frame": n_launch[kind] / n_frames,
+                     "max_abs_err": max_err[name], "ms": k, "plain_ms": p,
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     "shape": f"{KERNEL_SCENE[lib]} {what}"})
+    log(f"[done] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -45,6 +45,16 @@ SIGNATURES = {
         # stream
         "compact_occlusion": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P],
     },
+    "quad": {
+        # coeffs, T, sub, feats, N, mask, words, (prim, dist | occ), stream
+        "quad_closest_hit": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P],
+        "quad_occlusion": [_P, _I, _I, _P, _I, _P, _I, _P, _P],
+    },
+    "band": {
+        # coeffs, T, feats, N, mask, words, g, (prim, dist | tm, occ), stream
+        "band_closest_hit": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
+        "band_occlusion": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
+    },
 }
 
 _libs: dict = {}

@@ -37,11 +37,10 @@ building it costs one host sync per sweep.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
-from .plucker import ROW, blocks, hit_t, plucker_features
+from .plucker import (ROW, blocks, hit_t, plucker_features, sweep_any,
+                      sweep_closest)
 from .traverse import FLT_MAX, NULL_PRIMITIVE, segment_rays
 
 CLUSTER_SUB = 64  # triangles per culling cluster
@@ -59,6 +58,10 @@ SPHERE_TERMS = ((0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 15),
                 (10, 11, 12, 13, 15),
                 (10, 11, 12, 13, 14, 15))
 _PLAIN_PAIRS = 1 << 25  # (lane, triangle) pairs per plain-sweep chunk
+# f32 operations per pair: a (lane, unit) pair of the sphere prepass sums
+# 11 + 5 + 6 plane terms unfused (22 multiplies, 19 adds) and C - 2r (1);
+# a (lane, triangle) pair of the sweeps is the Plücker engine's
+FLOPS_PER_PAIR = {"sphere_flags": 42, "closest_hit": 41, "occlusion": 43}
 
 LAUNCHES = {"sphere_flags": 0, "closest_hit": 0, "occlusion": 0}
 PLAIN_CALLS = {"sphere_flags": 0, "closest_hit": 0, "occlusion": 0}
@@ -285,29 +288,6 @@ def work_list(flags, tn):
 # ---------------------------------------------------------------------------
 
 
-def _chunks(flags, n, unit_tris, num_tris):
-    """Chunks of row groups for the plain sweeps: (lo, hi, tri, mask) with
-    lanes [lo, hi), ``tri`` the ascending triangle ids of every unit some
-    row group of the chunk flags, and ``mask`` bool [hi - lo, len(tri)]
-    whether the lane's own row group flags the triangle's unit."""
-    rows = flags.shape[0]
-    per_row = int(flags.sum(1).max()) if rows else 0
-    pairs = LANES * unit_tris * max(per_row, 1)
-    step = max(1, math.isqrt(_PLAIN_PAIRS // pairs))  # union <= step·per_row
-    dev = flags.device
-    for r0 in range(0, rows, step):
-        r1 = min(rows, r0 + step)
-        lo, hi = r0 * LANES, min(n, r1 * LANES)
-        units = torch.nonzero(flags[r0:r1].any(0)).flatten()
-        tri = (units[:, None] * unit_tris
-               + torch.arange(unit_tris, device=dev)).flatten()
-        col = torch.arange(units.numel(), device=dev).repeat_interleave(unit_tris)
-        keep = tri < num_tris
-        tri, col = tri[keep], col[keep]
-        mask = flags[r0:r1][:, units][:, col].repeat_interleave(LANES, 0)
-        yield lo, hi, tri, mask[:hi - lo]
-
-
 def closest_hit_plain(coeffs, feats, tmax, flags, g):
     """Plain torch compact closest hit.  ``coeffs`` f32 [T, 4, 10],
     ``feats`` f32 [N, 10], ``tmax`` f32 [N] (negative: a dead lane),
@@ -316,19 +296,11 @@ def closest_hit_plain(coeffs, feats, tmax, flags, g):
     minimum t over the lane's row-group units, ties to the lower id;
     misses and dead lanes are (-1, FLT_MAX)."""
     PLAIN_CALLS["closest_hit"] += 1
-    n = feats.shape[0]
-    prim = torch.full((n,), NULL_PRIMITIVE, dtype=torch.int32, device=feats.device)
-    dist = torch.full((n,), FLT_MAX, dtype=torch.float32, device=feats.device)
-    for lo, hi, tri, mask in _chunks(flags, n, CLUSTER_SUB * g, coeffs.shape[0]):
-        if tri.numel() == 0:
-            continue
-        t = hit_t(coeffs[tri], feats[lo:hi])
-        t = torch.where(mask & (tmax[lo:hi, None] >= 0.0), t, FLT_MAX)
-        best, idx = torch.min(t, dim=1)  # first minimum: lower id on ties
-        hit = best < FLT_MAX
-        prim[lo:hi] = torch.where(hit, tri[idx].to(torch.int32), NULL_PRIMITIVE)
-        dist[lo:hi] = best
-    return prim, dist
+    prim, dist = sweep_closest(coeffs, feats, flags, LANES, CLUSTER_SUB * g, hit_t,
+                               _PLAIN_PAIRS)
+    live = tmax >= 0.0
+    return (torch.where(live, prim, NULL_PRIMITIVE),
+            torch.where(live, dist, FLT_MAX))
 
 
 def occlusion_plain(coeffs, feats, tm, flags, g):
@@ -336,13 +308,8 @@ def occlusion_plain(coeffs, feats, tm, flags, g):
     row-group units blocks the segment of range ``tm`` f32 [N].  Other
     arguments as :func:`closest_hit_plain`."""
     PLAIN_CALLS["occlusion"] += 1
-    n = feats.shape[0]
-    occ = torch.zeros((n,), dtype=torch.bool, device=feats.device)
-    for lo, hi, tri, mask in _chunks(flags, n, CLUSTER_SUB * g, coeffs.shape[0]):
-        if tri.numel() == 0:
-            continue
-        occ[lo:hi] = (blocks(coeffs[tri], feats[lo:hi], tm[lo:hi]) & mask).any(1)
-    return occ
+    return sweep_any(coeffs, feats, flags, LANES, CLUSTER_SUB * g,
+                     lambda c, f, lo, hi: blocks(c, f, tm[lo:hi]), _PLAIN_PAIRS)
 
 
 # ---------------------------------------------------------------------------

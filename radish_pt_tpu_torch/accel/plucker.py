@@ -27,7 +27,10 @@ Each sweep has two implementations with one contract:
 * ``*_cuda``: the hand-written kernels of ``csrc/plucker.cu`` (one thread
   per ray, exact f32 FMA, the winner is the exact minimum t with ties to the
   lower id);
-* ``*_plain``: the same arithmetic in plain torch (dense, mask-gated).
+* ``*_plain``: the same arithmetic in plain torch, over the triangles of
+  the clusters some row of a chunk of lanes flags, gated per lane
+  (:func:`sweep_closest`, :func:`sweep_any`; the quad, band and compact
+  engines' plain sweeps share them).
 ``closest_hit`` / ``occlusion`` dispatch on the tensors' device: CPU tensors
 take the plain version, CUDA tensors launch the kernel (or raise) — there is
 no fallback between the two.  ``LAUNCHES`` counts kernel launches and
@@ -35,6 +38,8 @@ no fallback between the two.  ``LAUNCHES`` counts kernel launches and
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -44,6 +49,12 @@ from .traverse import FLT_MAX, NULL_PRIMITIVE, segment_rays
 
 PLUCKER_EPS2 = 1.1920929e-07 ** 2  # det² threshold == |det| >= eps
 ROW = 128  # lanes per culling row (one CUDA block)
+
+# f32 operations per (ray, triangle) pair: the planes' 19 products (4
+# multiplies, 15 fused multiply-adds: 34 flops) and the decision terms
+# (det², bx·det, by·det, t·det·det, two subtractions, det² - eps²: 7; the
+# shadow test adds tm·det² - t·det·det: 2); mins and compares not counted
+FLOPS_PER_PAIR = {"closest_hit": 41, "occlusion": 43}
 
 LAUNCHES = {"closest_hit": 0, "occlusion": 0}
 PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
@@ -95,12 +106,18 @@ def cluster_mask_words(cluster_bounds, ray_o, ray_d, tmax):
         tn = torch.maximum(tn, torch.minimum(a, b))
         tf = torch.minimum(tf, torch.maximum(a, b))
     hit = (tf >= torch.clamp(tn, min=0.0)) & (tn < tm)  # [n_pad, C]
-    rows = hit.view(n_pad // ROW, ROW, n_c).any(dim=1)  # [rows, C]
+    return pack_words(hit.view(n_pad // ROW, ROW, n_c).any(dim=1))
+
+
+def pack_words(flags):
+    """bool [R, C] -> int32 [R, ceil(C/32)] words: bit j of word w is
+    flags[:, 32·w + j]."""
+    n_c = flags.shape[1]
     n_words = -(-n_c // 32)
-    rows = torch.nn.functional.pad(rows, (0, n_words * 32 - n_c))
-    weights = torch.ones(32, dtype=torch.int64, device=dev) << torch.arange(
-        32, device=dev)
-    words = (rows.view(-1, n_words, 32).to(torch.int64) * weights).sum(-1)
+    flags = torch.nn.functional.pad(flags, (0, n_words * 32 - n_c))
+    weights = torch.ones(32, dtype=torch.int64, device=flags.device) << torch.arange(
+        32, device=flags.device)
+    words = (flags.view(-1, n_words, 32).to(torch.int64) * weights).sum(-1)
     words = torch.where(words >= 2**31, words - 2**32, words)
     return words.to(torch.int32).contiguous()
 
@@ -110,6 +127,46 @@ def unpack_mask(words, n_clusters):
     shifts = torch.arange(32, device=words.device, dtype=torch.int32)
     bits = (words[:, :, None] >> shifts) & 1
     return bits.reshape(words.shape[0], -1)[:, :n_clusters].bool()
+
+
+def flagged_chunks(flags, lanes: int, sub: int, num_tris: int, n: int,
+                   device, budget: int = 1 << 24):
+    """Chunks of lanes for a plain sweep that visits only flagged clusters:
+    yields (lo, hi, tri, keep) for lanes [lo, hi), with ``tri`` the
+    ascending ids (int64) of the triangles of every cluster of ``sub``
+    triangles that some lane group of the chunk flags, and ``keep`` bool
+    [hi - lo, len(tri)] whether the lane's own group (lane // ``lanes``)
+    flags the triangle's cluster.  ``flags`` is bool [groups, C] (None:
+    every triangle for every lane, ``keep`` None); a chunk holds at most
+    about ``budget`` (lane, triangle) pairs."""
+    if flags is None:
+        step = max(1, budget // max(num_tris, 1))
+        tri = torch.arange(num_tris, device=device)
+        for lo in range(0, n, step):
+            yield lo, min(n, lo + step), tri, None
+        return
+    groups = flags.shape[0]
+    per = int(flags.sum(1).max()) if groups else 0
+    # the union of k groups' clusters is at most k·per: k² · lanes·sub·per
+    # pairs stay within the budget
+    step = max(1, math.isqrt(budget // (lanes * sub * max(per, 1))))
+    for g0 in range(0, groups, step):
+        g1 = min(groups, g0 + step)
+        lo, hi = g0 * lanes, min(n, g1 * lanes)
+        if lo >= hi:
+            break
+        units = torch.nonzero(flags[g0:g1].any(0)).flatten()
+        tri = (units[:, None] * sub + torch.arange(sub, device=device)).flatten()
+        col = torch.arange(units.numel(), device=device).repeat_interleave(sub)
+        real = tri < num_tris  # the last cluster may be ragged
+        tri, col = tri[real], col[real]
+        keep = flags[g0:g1][:, units][:, col].repeat_interleave(lanes, 0)
+        yield lo, hi, tri, keep[:hi - lo]
+
+
+def mask_flags(mask, sub: int, num_tris: int):
+    """Cluster words -> bool [groups, ceil(T / sub)] (None stays None)."""
+    return None if mask is None else unpack_mask(mask, -(-num_tris // sub))
 
 
 # ---------------------------------------------------------------------------
@@ -124,18 +181,6 @@ def _planes(coeffs, feats):
     t = coeffs.shape[0]
     q = (feats @ coeffs.reshape(t * 4, 10).t()).view(-1, t, 4)
     return q.unbind(-1)
-
-
-def _lane_tri_mask(mask, sub, num_tris, lo, hi):
-    """bool [hi-lo, T]: triangle in a cluster flagged for the lane's row."""
-    rows = unpack_mask(mask, num_tris // sub)
-    lane_row = torch.arange(lo, hi, device=mask.device) // ROW
-    return rows[lane_row].repeat_interleave(sub, dim=1)
-
-
-def _chunk_rays(num_tris):
-    """Rays per plain-version chunk (bounds the [R, T] temporaries)."""
-    return max(ROW, ((1 << 25) // max(4 * num_tris, 1)) // ROW * ROW)
 
 
 def _decide(coeffs, feats):
@@ -169,36 +214,57 @@ def closest_hit_plain(coeffs, feats, mask, sub):
     """Plain torch closest hit.  ``coeffs`` f32 [T, 4, 10], ``feats`` f32
     [N, 10], ``mask`` int32 [ceil(N/128), W] cluster words (None: sweep
     every triangle), ``sub`` triangles per cluster.  Returns
-    (prim i32 [N], dist f32 [N]); misses are (-1, FLT_MAX)."""
+    (prim i32 [N], dist f32 [N]): the exact minimum t over the triangles of
+    the clusters the lane's row flags, ties to the lower id; misses are
+    (-1, FLT_MAX)."""
     PLAIN_CALLS["closest_hit"] += 1
-    n, num_tris = feats.shape[0], coeffs.shape[0]
-    prim = torch.full((n,), NULL_PRIMITIVE, dtype=torch.int32, device=feats.device)
-    dist = torch.full((n,), FLT_MAX, dtype=torch.float32, device=feats.device)
-    step = _chunk_rays(num_tris)
-    for lo in range(0, n, step):
-        hi = min(n, lo + step)
-        t = hit_t(coeffs, feats[lo:hi])
-        if mask is not None:
-            t = torch.where(_lane_tri_mask(mask, sub, num_tris, lo, hi), t, FLT_MAX)
-        best, idx = torch.min(t, dim=1)  # first minimum: lower id on ties
-        hit = best < FLT_MAX
-        prim[lo:hi] = torch.where(hit, idx.to(torch.int32), NULL_PRIMITIVE)
-        dist[lo:hi] = torch.where(hit, best, FLT_MAX)
-    return prim, dist
+    return sweep_closest(coeffs, feats, mask_flags(mask, sub, coeffs.shape[0]),
+                         ROW, sub, hit_t)
 
 
 def occlusion_plain(coeffs, feats, tm, mask, sub):
     """Plain torch any-hit: True where some (flagged) triangle blocks the
     segment of range ``tm`` f32 [N].  Arguments as :func:`closest_hit_plain`."""
     PLAIN_CALLS["occlusion"] += 1
-    n, num_tris = feats.shape[0], coeffs.shape[0]
-    occ = torch.zeros((n,), dtype=torch.bool, device=feats.device)
-    step = _chunk_rays(num_tris)
-    for lo in range(0, n, step):
-        hi = min(n, lo + step)
-        hit = blocks(coeffs, feats[lo:hi], tm[lo:hi])
-        if mask is not None:
-            hit &= _lane_tri_mask(mask, sub, num_tris, lo, hi)
+    return sweep_any(coeffs, feats, mask_flags(mask, sub, coeffs.shape[0]),
+                     ROW, sub, lambda c, f, lo, hi: blocks(c, f, tm[lo:hi]))
+
+
+def sweep_closest(coeffs, feats, flags, lanes, sub, t_of, budget: int = 1 << 24):
+    """The plain closest hit over :func:`flagged_chunks`: (prim i32 [N],
+    dist f32 [N]), the minimum of ``t_of(coeffs[tri], feats[lo:hi])``
+    (f32 [R, len(tri)], FLT_MAX for a miss) over each lane's flagged
+    triangles, ties to the lower id."""
+    n, dev = feats.shape[0], feats.device
+    prim = torch.full((n,), NULL_PRIMITIVE, dtype=torch.int32, device=dev)
+    dist = torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev)
+    for lo, hi, tri, keep in flagged_chunks(flags, lanes, sub, coeffs.shape[0], n,
+                                            dev, budget):
+        if tri.numel() == 0:
+            continue
+        t = t_of(coeffs[tri], feats[lo:hi])
+        if keep is not None:
+            t = torch.where(keep, t, FLT_MAX)
+        best, idx = torch.min(t, dim=1)  # first minimum: lower id on ties
+        prim[lo:hi] = torch.where(best < FLT_MAX, tri[idx].to(torch.int32),
+                                  NULL_PRIMITIVE)
+        dist[lo:hi] = best
+    return prim, dist
+
+
+def sweep_any(coeffs, feats, flags, lanes, sub, blocked, budget: int = 1 << 24):
+    """The plain any-hit over :func:`flagged_chunks`: bool [N], True where
+    ``blocked(coeffs[tri], feats[lo:hi], lo, hi)`` (bool [R, len(tri)])
+    holds for one of the lane's flagged triangles."""
+    n, dev = feats.shape[0], feats.device
+    occ = torch.zeros((n,), dtype=torch.bool, device=dev)
+    for lo, hi, tri, keep in flagged_chunks(flags, lanes, sub, coeffs.shape[0], n,
+                                            dev, budget):
+        if tri.numel() == 0:
+            continue
+        hit = blocked(coeffs[tri], feats[lo:hi], lo, hi)
+        if keep is not None:
+            hit &= keep
         occ[lo:hi] = hit.any(dim=1)
     return occ
 

@@ -1,0 +1,319 @@
+"""Quadratic-form closest-hit and shadow sweeps: the opt-in quad engine.
+
+Port of ``radish_pt_tpu/accel/pallas_kernels.py:1810-2506``:
+``intersect_quad_pallas`` (:2288, kernel ``_quad_kernel`` :1974) and
+``occlusion_quad_pallas`` (:2407, kernel ``_quad_occl_kernel`` :2058).
+
+Multiplying Möller–Trumbore's decision quantities through by det makes each
+a quadratic form in the ray's 10 linear features (d, m = o x d, o, 1), that
+is a linear form in 27 monomials (:1814-1829):
+
+    q1 = bx·det >= 0          q2 = by·det >= 0
+    q3 = det² - (bx + by)·det >= 0
+    q4 = det² - eps²·|d|² >= 0
+    q5 = t·det·det >= 0       q6 = det² - t·det·det >= 0  (segments only)
+
+Per-ray features f [N, 28] = [d⊗d sym (6), m⊗d (9), o⊗d (9), d (3), 1]
+(o centred on the scene); per-triangle coefficients c [T, 6, 28], built in
+f32 from ``tri_packed`` (the constant slot's coefficient is always 0).  A
+ray hits a triangle when min(q1..q5) >= 0 (inclusive, as the reference's
+code has it) at t = q5 / (q4 + eps²); a segment x -> y, carried
+unnormalized so that t runs over [0, 1], is blocked when min(q1..q6) >= 0
+for some triangle.  Pad triangles are all-zero triangles, whose q4 is
+-eps²·|d|² < 0: they never pass.  A zero-length segment has all-zero
+features, so every q is 0 and it reads as blocked — the reference's
+behaviour (:2109-2118), kept here.
+
+Culling is the Plücker engine's per-128-lane-row slab prepass
+(:func:`.plucker.cluster_mask_words`, as ``_quad_launch`` calls
+``_cluster_mask_bits``).  Each sweep has a kernel (``csrc/quad.cu``) and a
+plain torch version with one contract: every form is summed over the 27
+live monomials in order, one f32 fused multiply-add per term (the plain
+version forms each exact product in f64, adds and rounds to f32), so the
+two agree to the ulp.  ``closest_hit`` / ``occlusion`` take the plain
+version for CPU tensors and launch the kernel (or raise) for CUDA tensors.
+``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-version calls.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils.math import cross
+from .plucker import (PLUCKER_EPS2, ROW, cluster_mask_words, mask_flags,
+                      sweep_any, sweep_closest)
+from .traverse import FLT_MAX, RAY_OFFSET, SHADOW_EPS
+
+_PLAIN_PAIRS = 1 << 22  # (lane, triangle) pairs per plain-sweep chunk
+
+QUAD_FEATS = 28  # 27 monomials + the constant slot (coefficient 0)
+QUAD_LIVE = 27
+STORED_PLANES = 6  # q1..q6 per triangle; the closest hit reads q1..q5
+CLOSEST_PLANES = 5
+# f32 operations per (ray, triangle) pair: 27 multiply-adds per form
+# (one multiply, 26 fused multiply-adds: 53 flops), the min chain not
+# counted
+FLOPS_PER_PAIR = {"closest_hit": CLOSEST_PLANES * 53,
+                  "occlusion": STORED_PLANES * 53}
+
+LAUNCHES = {"closest_hit": 0, "occlusion": 0}
+PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
+
+
+def reset_counts() -> None:
+    for d in (LAUNCHES, PLAIN_CALLS):
+        for k in d:
+            d[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# features and build-time coefficients
+# ---------------------------------------------------------------------------
+
+
+def quad_features(ray_o, ray_d, center):
+    """Per-ray monomial features f32 [N, 28] (``_quad_features`` :1904)."""
+    o = ray_o - center
+    d = ray_d
+    mm = cross(o, d)
+    dd = torch.stack([d[:, 0] * d[:, 0], d[:, 1] * d[:, 1], d[:, 2] * d[:, 2],
+                      d[:, 0] * d[:, 1], d[:, 0] * d[:, 2], d[:, 1] * d[:, 2]], 1)
+    md = (mm[:, :, None] * d[:, None, :]).reshape(-1, 9)
+    od = (o[:, :, None] * d[:, None, :]).reshape(-1, 9)
+    return torch.cat([dd, md, od, d, torch.ones_like(d[:, :1])], 1).contiguous()
+
+
+def numpy_quad_coeffs(tri_packed: np.ndarray, center: np.ndarray) -> np.ndarray:
+    """Build-time quadratic forms f32 [T, 6, 28] of every stored triangle
+    (``_quad_coeffs(..., with_q6=True)`` :1940, ``_sym_dd`` :1923,
+    ``_outer9`` :1936), in f32 from ``tri_packed`` and the scene centre."""
+    tp = np.asarray(tri_packed, np.float32)
+    v0 = tp[:, 0:3] - np.asarray(center, np.float32)
+    e1, e2 = tp[:, 3:6], tp[:, 6:9]
+
+    def cr(a, b):
+        return np.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                         a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                         a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], axis=1)
+
+    def sym_dd(u, a):  # coefficients of (u·d)(a·d) over the d⊗d monomials
+        return np.stack([u[:, 0] * a[:, 0], u[:, 1] * a[:, 1], u[:, 2] * a[:, 2],
+                         u[:, 0] * a[:, 1] + u[:, 1] * a[:, 0],
+                         u[:, 0] * a[:, 2] + u[:, 2] * a[:, 0],
+                         u[:, 1] * a[:, 2] + u[:, 2] * a[:, 1]], axis=1)
+
+    def outer9(u, a):
+        return (u[:, :, None] * a[:, None, :]).reshape(-1, 9)
+
+    a = cr(e2, e1)  # det = a·d
+    b_d, b_m = -cr(e2, v0), e2  # bx = b_d·d + b_m·m
+    y_d, y_m = cr(e1, v0), -e1  # by = y_d·d + y_m·m
+    n = cr(e1, e2)  # t·det = n·o + t_c
+    t_c = -(v0[:, 0] * n[:, 0] + v0[:, 1] * n[:, 1] + v0[:, 2] * n[:, 2])[:, None]
+    z6 = np.zeros((tp.shape[0], 6), np.float32)
+    z9 = np.zeros((tp.shape[0], 9), np.float32)
+    z3 = np.zeros((tp.shape[0], 3), np.float32)
+
+    def row(dd, md, od, dl):
+        return np.concatenate([dd, md, od, dl, z3[:, :1]], axis=1)
+
+    det2 = sym_dd(a, a)
+    eps_dd = np.zeros((1, 6), np.float32)
+    eps_dd[0, 0:3] = np.float32(PLUCKER_EPS2)
+    rows = [row(sym_dd(b_d, a), outer9(b_m, a), z9, z3),
+            row(sym_dd(y_d, a), outer9(y_m, a), z9, z3),
+            row(det2 - sym_dd(b_d + y_d, a), -outer9(b_m + y_m, a), z9, z3),
+            row(det2 - eps_dd, z9, z9, z3),
+            row(z6, z9, outer9(n, a), t_c * a),
+            row(det2, z9, -outer9(n, a), -t_c * a)]
+    return np.ascontiguousarray(np.stack(rows, axis=1), np.float32)
+
+
+def quad_segments(x, y):
+    """Shadow segment x -> y as (origin, unnormalized direction) with the
+    parameter t in [0, 1] (``occlusion_quad_pallas`` :2415-2420): the origin
+    is inset 1e-5 along the segment and the far end pulled 1e-4 short."""
+    d = y - x
+    dist = torch.sqrt(torch.clamp(torch.sum(d * d, dim=-1), min=1e-24))
+    dirn = d / dist[..., None]
+    return x + dirn * RAY_OFFSET, dirn * (dist - SHADOW_EPS - RAY_OFFSET)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# plain torch versions
+# ---------------------------------------------------------------------------
+
+
+def forms(coeffs, feats, planes: int):
+    """q f32 [R, T, planes] for coefficient rows ``coeffs`` [T, 6, 28] and
+    feature rows ``feats`` [R, 28]: each form summed over the 27 live
+    monomials in order, each step acc = fma(c, f, acc) rounded once to f32
+    (the exact f32·f32 product and the sum are formed in f64), as the
+    kernel sums it."""
+    c = coeffs[:, :planes, :QUAD_LIVE].double().permute(2, 0, 1)
+    c = c.reshape(QUAD_LIVE, -1).contiguous()  # [27, T·planes]
+    f = feats[:, :QUAD_LIVE].double().t().contiguous()  # [27, R]
+    acc = torch.zeros((f.shape[1], c.shape[1]), dtype=torch.float32,
+                      device=feats.device)
+    wide = torch.empty(acc.shape, dtype=torch.float64, device=feats.device)
+    for k in range(QUAD_LIVE):
+        wide.copy_(acc)
+        wide.addr_(f[k], c[k])  # exact product, one f64 rounding of the sum
+        acc.copy_(wide)  # and the one rounding to f32
+    return acc.view(f.shape[1], -1, planes)
+
+
+def hit_t(coeffs, feats):
+    """t f32 [R, T] of every (ray, triangle) pair: q5 / (q4 + eps²) where
+    min(q1..q5) >= 0, FLT_MAX where not."""
+    q = forms(coeffs, feats, CLOSEST_PLANES)
+    t = q[..., 4] / (q[..., 3] + PLUCKER_EPS2)
+    return torch.where(q.amin(-1) >= 0.0, t, FLT_MAX)
+
+
+def closest_hit_plain(coeffs, feats, mask, sub):
+    """Plain torch closest hit.  ``coeffs`` f32 [T, 6, 28], ``feats`` f32
+    [N, 28], ``mask`` int32 [ceil(N/128), W] cluster words of
+    :func:`.plucker.cluster_mask_words` (None: sweep every triangle),
+    ``sub`` triangles per cluster.  Returns (prim i32 [N], dist f32 [N]):
+    the exact minimum t over the triangles of the clusters the lane's row
+    flags, ties to the lower id; misses are (-1, FLT_MAX)."""
+    PLAIN_CALLS["closest_hit"] += 1
+    return sweep_closest(coeffs, feats, mask_flags(mask, sub, coeffs.shape[0]), ROW,
+                         sub, hit_t, _PLAIN_PAIRS)
+
+
+def occlusion_plain(coeffs, feats, mask, sub):
+    """Plain torch any-hit over unit-parameter segments: True where some
+    triangle of a cluster the lane's row flags has min(q1..q6) >= 0.
+    Arguments as :func:`closest_hit_plain`, ``feats`` of the segments."""
+    PLAIN_CALLS["occlusion"] += 1
+    return sweep_any(coeffs, feats, mask_flags(mask, sub, coeffs.shape[0]), ROW, sub,
+                     lambda c, f, lo, hi: forms(c, f, STORED_PLANES).amin(-1) >= 0.0,
+                     _PLAIN_PAIRS)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/quad.cu)
+# ---------------------------------------------------------------------------
+
+
+def _check_inputs(coeffs, feats, mask, sub):
+    if not (coeffs.is_cuda and feats.is_cuda):
+        raise ValueError("the CUDA quad sweep takes CUDA tensors")
+    if coeffs.dtype != torch.float32 or feats.dtype != torch.float32:
+        raise TypeError("coeffs and feats must be float32")
+    if coeffs.dim() != 3 or coeffs.shape[1:] != (STORED_PLANES, QUAD_FEATS):
+        raise ValueError(f"coeffs must be [T, 6, 28], got {tuple(coeffs.shape)}")
+    if feats.dim() != 2 or feats.shape[1] != QUAD_FEATS:
+        raise ValueError(f"feats must be [N, 28], got {tuple(feats.shape)}")
+    if not (coeffs.is_contiguous() and feats.is_contiguous()):
+        raise ValueError("coeffs and feats must be contiguous")
+    if coeffs.data_ptr() % 16 or feats.data_ptr() % 16:
+        raise ValueError("coeffs and feats must be 16-byte aligned")
+    if mask is not None:
+        rows = -(-feats.shape[0] // ROW)
+        if (not mask.is_cuda or mask.dtype != torch.int32 or mask.dim() != 2
+                or mask.shape[0] != rows or not mask.is_contiguous()):
+            raise ValueError("mask must be contiguous int32 [ceil(N/128), W] "
+                             "on the card")
+        if coeffs.shape[0] % sub or mask.shape[1] * 32 < coeffs.shape[0] // sub:
+            raise ValueError("coeffs rows must be whole clusters covered by "
+                             "the mask words")
+
+
+def _launch(fn: str, coeffs, feats, mask, sub, out):
+    import ctypes
+
+    from ._build import load_library
+
+    lib = load_library("quad")
+    p = ctypes.c_void_p
+    stream = torch.cuda.current_stream(feats.device).cuda_stream
+    with torch.cuda.device(feats.device):
+        err = getattr(lib, fn)(
+            p(coeffs.data_ptr()), coeffs.shape[0], sub, p(feats.data_ptr()),
+            feats.shape[0], p(None if mask is None else mask.data_ptr()),
+            0 if mask is None else mask.shape[1],
+            *(p(t.data_ptr()) for t in out), p(stream))
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
+
+
+def closest_hit_cuda(coeffs, feats, mask, sub):
+    """The closest-hit kernel (``quad_closest_hit`` in csrc/quad.cu); same
+    contract as :func:`closest_hit_plain`."""
+    _check_inputs(coeffs, feats, mask, sub)
+    n = feats.shape[0]
+    prim = torch.empty((n,), dtype=torch.int32, device=feats.device)
+    dist = torch.empty((n,), dtype=torch.float32, device=feats.device)
+    if n == 0:
+        return prim, dist
+    _launch("quad_closest_hit", coeffs, feats, mask, sub, (prim, dist))
+    LAUNCHES["closest_hit"] += 1
+    return prim, dist
+
+
+def occlusion_cuda(coeffs, feats, mask, sub):
+    """The shadow kernel (``quad_occlusion`` in csrc/quad.cu); same contract
+    as :func:`occlusion_plain`."""
+    _check_inputs(coeffs, feats, mask, sub)
+    n = feats.shape[0]
+    occ = torch.empty((n,), dtype=torch.int32, device=feats.device)
+    if n == 0:
+        return occ.bool()
+    _launch("quad_occlusion", coeffs, feats, mask, sub, (occ,))
+    LAUNCHES["occlusion"] += 1
+    return occ.bool()
+
+
+def closest_hit(coeffs, feats, mask, sub):
+    """Closest-hit sweep: the kernel for CUDA tensors, the plain version for
+    CPU tensors."""
+    if feats.is_cuda:
+        return closest_hit_cuda(coeffs, feats, mask, sub)
+    return closest_hit_plain(coeffs, feats, mask, sub)
+
+
+def occlusion(coeffs, feats, mask, sub):
+    """Shadow sweep: the kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if feats.is_cuda:
+        return occlusion_cuda(coeffs, feats, mask, sub)
+    return occlusion_plain(coeffs, feats, mask, sub)
+
+
+# ---------------------------------------------------------------------------
+# scene-level entry points
+# ---------------------------------------------------------------------------
+
+
+def intersect_quad(coeffs, center, cluster_bounds, sub, ray_o, ray_d,
+                   tmax=None, plain: bool = False):
+    """Closest hit of rays against the stored triangles' forms ``coeffs``
+    f32 [T, 6, 28]; (prim i32 [N], selector-grade dist f32 [N]).  ``tmax``
+    (f32 [N]) bounds only the culling prepass (-FLT_MAX marks a dead lane,
+    which flags nothing).  ``plain`` selects the plain sweep on any device."""
+    feats = quad_features(ray_o, ray_d, center)
+    mask = None
+    if cluster_bounds is not None:
+        mask = cluster_mask_words(cluster_bounds, ray_o, ray_d, tmax)
+    sweep = closest_hit_plain if plain else closest_hit
+    return sweep(coeffs, feats, mask, sub)
+
+
+def occlusion_quad(coeffs, center, cluster_bounds, sub, x, y,
+                   plain: bool = False):
+    """True where segment x -> y is blocked (bool [N]), over the
+    unit-parameter segments of :func:`quad_segments` (the prepass bounds
+    them at t = 1).  A zero-length segment (y == x, a masked lane) reads as
+    blocked wherever its row sweeps a triangle, as in the reference."""
+    ray_o, seg = quad_segments(x, y)
+    feats = quad_features(ray_o, seg, center)
+    mask = None
+    if cluster_bounds is not None:
+        ones = torch.ones_like(ray_o[:, 0])
+        mask = cluster_mask_words(cluster_bounds, ray_o, seg, ones)
+    sweep = occlusion_plain if plain else occlusion
+    return sweep(coeffs, feats, mask, sub)

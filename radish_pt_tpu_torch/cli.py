@@ -27,10 +27,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None, help="output image path")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
-    p.add_argument("--intersector", choices=["plucker", "compact", "brute"],
+    p.add_argument("--intersector",
+                   choices=["plucker", "compact", "quad", "band", "brute"],
                    default=None,
                    help="intersection engine (default: plucker up to 131,072 "
-                        "triangles, compact above)")
+                        "triangles, compact above; quad and band only by name)")
+    p.add_argument("--band-g", type=int, default=None,
+                   choices=[1, 2, 4, 8, 16, 32, 64, 128],
+                   help="bands per 128-lane row for the band engine (default 8)")
     return p
 
 
@@ -49,6 +53,8 @@ def main(argv=None) -> int:
                                intersector=args.intersector)
     if args.res is not None:
         cam = cam.replace(width=args.res[0], height=args.res[1])
+    if args.band_g is not None:
+        ds = ds.replace(band_g=args.band_g)
     r = Renderer(ds=ds, cam=cam, desc=desc, device=device)
     print(f"[scene loaded in {time.time() - t0:.1f}s: {ds.num_triangles} "
           f"tris, {ds.n_area_lights} area lights, {cam.width}x{cam.height}, "

@@ -1,5 +1,5 @@
 // Plücker decision planes shared by the sweep kernels (plucker.cu,
-// compact.cu).
+// compact.cu, band.cu).
 //
 // Möller–Trumbore's four decision quantities are planes bilinear in
 // per-ray features f = [d, o x d, o, 1] (o centred on the scene) with
@@ -25,10 +25,11 @@ constexpr int kStride = 20;   // floats per staged triangle (19 used)
 constexpr float kEps2 = 1.1920929e-07f * 1.1920929e-07f;
 constexpr float kFltMax = 3.402823466e38f;
 
-// Stage triangles [base, base + n) as their 19 live coefficients.
+// Stage triangles [base, base + n) as their 19 live coefficients, thread
+// ``tid`` of a group of ``threads`` (the whole block by default).
 __device__ __forceinline__ void stage_tile(float* s, const float* __restrict__ coeffs,
-                                           int base, int n) {
-  for (int i = threadIdx.x; i < n * kStride; i += blockDim.x) {
+                                           int base, int n, int tid, int threads) {
+  for (int i = tid; i < n * kStride; i += threads) {
     const int j = i / kStride;
     const int k = i - j * kStride;
     const float* c = coeffs + (size_t)(base + j) * 40;
@@ -39,6 +40,11 @@ __device__ __forceinline__ void stage_tile(float* s, const float* __restrict__ c
     else if (k < 19) v = c[30 + 6 + (k - 15)]; // tdet: c3[6:10]
     s[i] = v;
   }
+}
+
+__device__ __forceinline__ void stage_tile(float* s, const float* __restrict__ coeffs,
+                                           int base, int n) {
+  stage_tile(s, coeffs, base, n, threadIdx.x, blockDim.x);
 }
 
 struct Planes {

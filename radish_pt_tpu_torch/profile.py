@@ -2,14 +2,15 @@
 ``torch.profiler``, kernel time summed by stage.
 
     python -m radish_pt_tpu_torch.profile scenes/teapot.txt [--res 800] [--depth 5]
-        [--intersector plucker|compact|brute]
+        [--intersector plucker|compact|quad|band|brute] [--band-g 8]
 
 Prints the card, the frame's wall time (CUDA events, profiler off), the
 device-busy time the profiler saw during a profiled frame, the share of it
 spent in each stage, and the top kernels; then, timed alone with CUDA
 events on the frame's primaries, the culling stages the profiler cannot
-name (the Plücker mask prepass; the compact engine's sphere operands,
-sphere kernel and work list).  Needs a CUDA device.
+name (the Plücker mask prepass, which the quad engine shares; the band
+engine's band-mask prepass; the compact engine's sphere operands, sphere
+kernel and work list).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -19,8 +20,12 @@ import os
 import subprocess
 
 # a kernel's stage, from the first name fragment it contains (else "other")
-# (compact names first: "closest_hit_kernel" is part of theirs)
+# (engine-prefixed names first: "closest_hit_kernel" is part of theirs)
 STAGES = (
+    ("quad_closest_hit_kernel", "quad closest hit"),
+    ("quad_occlusion_kernel", "quad shadow"),
+    ("band_closest_hit_kernel", "band closest hit"),
+    ("band_occlusion_kernel", "band shadow"),
     ("sphere_flags_kernel", "sphere prepass kernel"),
     ("compact_closest_hit_kernel", "compact closest hit"),
     ("compact_occlusion_kernel", "compact shadow"),
@@ -32,11 +37,12 @@ STAGES = (
 def culling_stages(ds, cam, start, end, reps: int = 10):
     """(stage, ms per call) of the culling stages that run before each
     sweep, on the frame's primaries, each timed alone with CUDA events."""
+    from .accel import band as bnd
     from .accel import compact as cpt
     from .accel import plucker as plk
     from .render import pathtrace as pt
     from .sampling import rng
-    from .scene.device_scene import COMPACT_ENGINES
+    from .scene.device_scene import BAND_ENGINES, COMPACT_ENGINES
 
     if ds.cluster_bounds is None:
         return []
@@ -52,6 +58,9 @@ def culling_stages(ds, cam, start, end, reps: int = 10):
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    if ds.intersector in BAND_ENGINES:
+        return [("band-mask prepass", timed(
+            lambda: bnd.band_mask_words(ds.cluster_bounds, o, d, None, ds.band_g)))]
     if ds.intersector not in COMPACT_ENGINES:
         return [("mask prepass", timed(
             lambda: plk.cluster_mask_words(ds.cluster_bounds, o, d, None)))]
@@ -74,8 +83,11 @@ def main(argv=None) -> int:
     p.add_argument("--res", type=int, default=800)
     p.add_argument("--depth", type=int, default=5)
     p.add_argument("--frames", type=int, default=2)
-    p.add_argument("--intersector", choices=["plucker", "compact", "brute"],
+    p.add_argument("--intersector",
+                   choices=["plucker", "compact", "quad", "band", "brute"],
                    default=None, help="engine (default: by scene size)")
+    p.add_argument("--band-g", type=int, default=None,
+                   help="bands per 128-lane row for the band engine (default 8)")
     args = p.parse_args(argv)
 
     import torch
@@ -91,6 +103,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60).stdout.strip()
     ds, cam, _ = load_scene(args.scene, device="cuda", intersector=args.intersector)
     cam = cam.replace(width=args.res, height=args.res)
+    if args.band_g is not None:
+        ds = ds.replace(band_g=args.band_g)
     for looper in range(2):  # build + warm up
         pt.path_trace(ds, cam, looper, args.depth)
     torch.cuda.synchronize()

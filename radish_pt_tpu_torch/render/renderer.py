@@ -37,7 +37,7 @@ class Renderer:
     """Stateful frame driver around :func:`pathtrace.path_trace`."""
 
     def __init__(self, scene_path: str | None = None, ds=None, cam=None,
-                 desc=None, settings: Settings | None = None, device="cpu"):
+                 desc=None, settings: Settings | None = None, device="cuda"):
         self.device = torch.device(device)
         if scene_path is not None:
             ds, cam, desc = load_scene(scene_path, device=self.device)

@@ -4,17 +4,20 @@ tables, BVH leaf order and culling clusters, and assemble the
 
 Port of ``radish_pt_tpu/scene/build.py`` in numpy, producing the layout of
 the reference's ``pallas_mxu`` engine (build.py:296-416) or, for the
-compact engine, of its ``pallas_compact`` engine:
+compact, quad and band engines, of its ``pallas_compact``, ``pallas_quad``
+and ``pallas_band`` engines:
 
 * triangles stored in BVH leaf (DFS) order, so a winner's position in the
   stored table IS its primitive id;
-* above 1024 triangles (always, for the compact engine), area-optimal
-  cluster cuts of at most ``cluster_sub_for(T)`` triangles (64 for the
-  compact engine), each padded to a whole cluster of slots with zero
-  triangles (which never hit), with per-cluster AABBs for the culling
-  prepass and the light ids remapped through the padding;
+* above 1024 triangles (always, for the compact engine; the band engine
+  refuses smaller scenes), area-optimal cluster cuts of at most
+  ``cluster_sub_for(T)`` triangles (the Plücker and quad engines; 64 for
+  the compact and band engines), each padded to a whole cluster of slots
+  with zero triangles (which never hit), with per-cluster AABBs for the
+  culling prepass and the light ids remapped through the padding;
 * the Plücker planes of every stored triangle, in f32, centred on the
-  scene (accel/plucker.py).
+  scene (accel/plucker.py), and for the quad engine its quadratic forms
+  (accel/quad.py).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from ..accel.bvh import build_bvh
 from ..accel.plucker import numpy_coeffs
+from ..accel.quad import numpy_quad_coeffs
 from ..accel.traverse import pack_tris
 from ..sampling.alias import build_alias_table
 from ..sampling.sobol import load_sobol_table
@@ -35,13 +39,16 @@ CLUSTER_SUB = 64  # default triangles per culling cluster
 BIG_SCENE_TRIS = 16384
 PLUCKER_MAX_TRIS = 131072  # above this the reference switches engines
 CLUSTER_MIN_TRIS = 1024  # below this every ray sweeps every triangle
-INTERSECTORS = ("plucker", "compact", "brute")
+INTERSECTORS = ("plucker", "compact", "quad", "band", "brute")
+# engines stored in the fixed 64-triangle clusters (reference build.py:324-326)
+FIXED_CLUSTER_ENGINES = ("compact", "band")
 
 
 def choose_intersector(num_tris: int, intersector: str | None = None) -> str:
     """The engine for a scene: ``intersector`` if given, else the Plücker
     sweeps up to ``PLUCKER_MAX_TRIS`` triangles and the compact work-list
-    engine above (the reference's choice, build.py:281-290)."""
+    engine above (the reference's choice, build.py:281-290; the quad and
+    band engines are only ever chosen by name)."""
     if intersector is None:
         return "plucker" if num_tris <= PLUCKER_MAX_TRIS else "compact"
     if intersector not in INTERSECTORS:
@@ -123,7 +130,7 @@ def _cluster_cuts(pmin: np.ndarray, pmax: np.ndarray, sub: int = 64,
 
 
 def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
-                       device="cpu", intersector: str | None = None
+                       device="cuda", intersector: str | None = None
                        ) -> tuple[DeviceScene, Camera]:
     """Build the device scene + camera from a parsed scene.  ``intersector``
     names the engine (see :func:`choose_intersector`; None: by size)."""
@@ -174,6 +181,11 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
     material_ids = np.concatenate(mat_ids)
     num_tris = tri_v.shape[0]
     intersector = choose_intersector(num_tris, intersector)
+    if intersector == "band" and num_tris <= CLUSTER_MIN_TRIS:
+        raise ValueError(
+            f"the band engine needs culling clusters, which the reference "
+            f"builds only above {CLUSTER_MIN_TRIS} triangles; this scene has "
+            f"{num_tris}")
 
     # ---- light sampler (createLightSampler, scene.cpp:145-169) ----
     n_area_lights = len(light_prims)
@@ -200,12 +212,14 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
     light_prims = [int(inv_order[p]) for p in light_prims]
 
     # ---- culling clusters, each padded to ``csub`` slots ----
-    # (the compact engine's work list is its cull: it always has clusters,
-    # of the fixed 64-triangle size, as the reference's build.py:321-327)
+    # (the compact engine's work list is its cull: it always has clusters;
+    # it and the band engine take the fixed 64-triangle size, as the
+    # reference's build.py:321-327)
     cluster_bounds = None
     csub = CLUSTER_SUB
     if num_tris > CLUSTER_MIN_TRIS or intersector == "compact":
-        csub = CLUSTER_SUB if intersector == "compact" else cluster_sub_for(num_tris)
+        csub = (CLUSTER_SUB if intersector in FIXED_CLUSTER_ENGINES
+                else cluster_sub_for(num_tris))
         cuts = _cluster_cuts(tri_v.min(axis=1).astype(np.float32),
                              tri_v.max(axis=1).astype(np.float32), sub=csub)
         n_clusters = cuts.size - 1
@@ -233,6 +247,7 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
 
     tri_packed = pack_tris(tri_v)
     coeffs, center = numpy_coeffs(tri_packed)
+    quad = numpy_quad_coeffs(tri_packed, center) if intersector == "quad" else None
     tex_data, tex_off, tex_w, tex_h = pack_textures(scene.textures)
 
     from .parser import HostMaterial
@@ -263,6 +278,7 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
         cluster_bounds=None if cluster_bounds is None else f32(cluster_bounds),
         sweep_coeffs=f32(coeffs),
         sweep_center=f32(center),
+        quad_coeffs=None if quad is None else f32(quad),
         mat_type=i32([m.mtype for m in mats]),
         mat_base_color=f32([m.base_color for m in mats]),
         mat_metallic=f32([m.metallic for m in mats]),
@@ -292,7 +308,7 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
     return ds, cam
 
 
-def load_scene(path: str, device="cpu", intersector: str | None = None):
+def load_scene(path: str, device="cuda", intersector: str | None = None):
     """Parse + build in one call; returns (DeviceScene, Camera, SceneDesc).
     ``intersector`` as :func:`build_device_scene`."""
     from .parser import parse_scene

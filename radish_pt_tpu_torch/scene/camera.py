@@ -54,7 +54,7 @@ def make_camera(
     fov_y: float = 45.0,
     lens_radius: float = 0.0,
     focal_dist: float = 1.0,
-    device="cpu",
+    device="cuda",
 ) -> Camera:
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
     cam = Camera(

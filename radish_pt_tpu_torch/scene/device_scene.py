@@ -20,8 +20,17 @@ Intersection engines (``intersector``):
   :mod:`radish_pt_tpu_torch.accel.compact` (sphere prepass, work list,
   compact sweeps) — kernels on the card, plain versions on the CPU.  The
   default above 131,072 triangles.
-* ``"plucker_plain"`` / ``"compact_plain"``: the same engines, always in
-  plain torch (the reference the kernels are held against, on any device).
+* ``"quad"``: the quadratic-form sweeps of
+  :mod:`radish_pt_tpu_torch.accel.quad` over the Plücker engine's clusters
+  and mask prepass; chosen only by name (the reference's opt-in
+  ``pallas_quad``).
+* ``"band"``: the banded Plücker sweeps of
+  :mod:`radish_pt_tpu_torch.accel.band`, culled per band of 128/``band_g``
+  lanes over fixed 64-triangle clusters; chosen only by name (the
+  reference's opt-in ``pallas_band``), for scenes above 1024 triangles.
+* ``"plucker_plain"`` / ``"compact_plain"`` / ``"quad_plain"`` /
+  ``"band_plain"``: the same engines, always in plain torch (the reference
+  the kernels are held against, on any device).
 * ``"brute"``: exhaustive Möller–Trumbore (accel/traverse.py), the oracle.
 """
 
@@ -33,8 +42,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..accel import band as bnd
 from ..accel import compact as cpt
 from ..accel import plucker as plk
+from ..accel import quad as qd
 from ..accel import traverse as trv
 from ..sampling.alias import alias_sample
 from ..utils import math as m
@@ -45,8 +56,10 @@ INVALID_PDF = -1.0
 
 PLUCKER_ENGINES = ("plucker", "plucker_plain")
 COMPACT_ENGINES = ("compact", "compact_plain")
+QUAD_ENGINES = ("quad", "quad_plain")
+BAND_ENGINES = ("band", "band_plain")
 # engines with positional winner ids and culling by lane rows (tile order)
-SWEEP_ENGINES = PLUCKER_ENGINES + COMPACT_ENGINES
+SWEEP_ENGINES = PLUCKER_ENGINES + COMPACT_ENGINES + QUAD_ENGINES + BAND_ENGINES
 
 MAT_LAMBERTIAN = 0
 MAT_METALLIC_WORKFLOW = 1
@@ -78,6 +91,7 @@ class DeviceScene:
     single_sided: bool = True
     mat_types: tuple = None  # MAT_* types present (None = evaluate all)
     cluster_sub: int = 64  # triangles per culling cluster
+    band_g: int = bnd.DEFAULT_G  # bands per 128-lane row (band engine)
     env_tex: int = NULL_TEXTURE
     aperture_tex: int = NULL_TEXTURE
 
@@ -91,6 +105,9 @@ class DeviceScene:
     # on sweep_center: plane 0 det, 1 bx, 2 by, 3 t*det
     sweep_coeffs: torch.Tensor = None  # f32 [T, 4, 10]
     sweep_center: torch.Tensor = None  # f32 [3]
+    # quad engine: forms q1..q6 over the 27 ray monomials of
+    # accel/quad.py::quad_features (None on the other engines)
+    quad_coeffs: torch.Tensor = None  # f32 [T, 6, 28]
 
     # --- materials SoA ---
     mat_type: torch.Tensor = None  # i32 [M]
@@ -150,17 +167,21 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
 
     The JAX scene stores its Plücker planes M-stacked per cluster
     ([t_pad//sub, 4*sub, K]); f32 planes (K=10) are re-laid out to the
-    port's [T, 4, 10], bf16-split ones are rebuilt in f32 from
-    ``tri_packed`` (the port keeps no bf16 splits).  The JAX engine maps to
-    ``"compact"`` for ``pallas_compact``, to ``"plucker"`` for the other
-    Pallas sweeps and to ``"brute"`` otherwise (the reference's BVH walk
-    returns the brute-force winners); pass ``intersector`` to choose
-    another.
+    port's [T, 4, 10], other layouts (bf16 splits, the quad engine's forms,
+    the band engine's transposed table) are rebuilt in f32 from
+    ``tri_packed`` (the port keeps no bf16 splits), and so are the quad
+    engine's forms.  The JAX engine maps to ``"compact"``, ``"quad"`` and
+    ``"band"`` for ``pallas_compact``, ``pallas_quad`` and ``pallas_band``,
+    to ``"plucker"`` for the other Pallas sweeps and to ``"brute"``
+    otherwise (the reference's BVH walk returns the brute-force winners);
+    pass ``intersector`` to choose another.
     """
     if intersector is None:
         engine = str(meta["intersector"])
-        intersector = ("compact" if engine == "pallas_compact" else
-                       "plucker" if engine.startswith("pallas_") else "brute")
+        named = {"pallas_compact": "compact", "pallas_quad": "quad",
+                 "pallas_band": "band"}
+        intersector = named.get(engine, "plucker" if engine.startswith("pallas_")
+                                else "brute")
     kw = {k: meta[k] for k in META_FIELDS if k != "intersector"}
     kw["mat_types"] = None if meta["mat_types"] is None else tuple(meta["mat_types"])
     if kw["has_env"] or kw["has_aperture"]:
@@ -187,6 +208,9 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
         center = np.asarray(fields["sweep_center"], np.float32)
     else:
         coeffs, center = plk.numpy_coeffs(tri_packed)
+    quad = None
+    if intersector in QUAD_ENGINES:
+        quad = torch.from_numpy(qd.numpy_quad_coeffs(tri_packed, center)).to(device)
     return DeviceScene(
         intersector=intersector, **kw,
         tri_v=t("tri_v", np.float32),
@@ -195,6 +219,7 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
         cluster_bounds=t("cluster_bounds", np.float32),
         sweep_coeffs=torch.from_numpy(np.ascontiguousarray(coeffs)).to(device),
         sweep_center=torch.from_numpy(center).to(device),
+        quad_coeffs=quad,
         mat_type=t("mat_type", np.int32),
         mat_base_color=t("mat_base_color", np.float32),
         mat_metallic=t("mat_metallic", np.float32),
@@ -360,6 +385,15 @@ def intersect(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
             prim, _ = cpt.intersect_compact(
                 ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, ray_o,
                 ray_d, tmax=tmax, plain=ds.intersector == "compact_plain")
+        elif ds.intersector in QUAD_ENGINES:
+            prim, _ = qd.intersect_quad(
+                ds.quad_coeffs, ds.sweep_center, ds.cluster_bounds,
+                ds.cluster_sub, ray_o, ray_d, tmax=tmax,
+                plain=ds.intersector == "quad_plain")
+        elif ds.intersector in BAND_ENGINES:
+            prim, _ = bnd.intersect_band(
+                ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, ds.band_g,
+                ray_o, ray_d, tmax=tmax, plain=ds.intersector == "band_plain")
         else:
             prim, _ = plk.intersect_plucker(
                 ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds,
@@ -385,6 +419,14 @@ def test_occlusion(ds: DeviceScene, x, y):
         return cpt.occlusion_compact(
             ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, x, y,
             plain=ds.intersector == "compact_plain")
+    if ds.intersector in QUAD_ENGINES:
+        return qd.occlusion_quad(
+            ds.quad_coeffs, ds.sweep_center, ds.cluster_bounds, ds.cluster_sub,
+            x, y, plain=ds.intersector == "quad_plain")
+    if ds.intersector in BAND_ENGINES:
+        return bnd.occlusion_band(
+            ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, ds.band_g, x, y,
+            plain=ds.intersector == "band_plain")
     if ds.intersector in PLUCKER_ENGINES:
         return plk.occlusion_plucker(
             ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds,
@@ -492,8 +534,12 @@ def sample_direct_light(ds: DeviceScene, pos, r4, mask=None, shade_normal=None):
     Returns (radiance, wi, pdf); pdf <= 0 when invalid or occluded.
 
     Lanes that cannot use the sample (``mask`` False, or the sample below
-    the horizon of ``shade_normal``) get a zero-length segment, which the
-    sweep's prepass and planes reject (the reference's masked lanes)."""
+    the horizon of ``shade_normal``) get a zero-length segment (the
+    reference's masked lanes).  The Plücker, compact and band engines never
+    block it (its range is negative and its direction zero); the quad
+    engine reports it blocked wherever its row sweeps a triangle, as the
+    reference's quad kernel does (all its forms are 0).  Either way the
+    lane's ``ok`` is False, so its pdf is invalid."""
     radiance, wi, dist, pdf = sample_direct_light_no_vis(ds, pos, r4)
     ok = pdf > 0.0
     if mask is not None:

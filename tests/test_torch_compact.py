@@ -327,7 +327,7 @@ def teapot_compact():
     finally:
         mp.undo()
     tds, tcam, _ = load_scene(os.path.join(SCENES, "teapot.txt"),
-                              intersector="compact")
+                              device="cpu", intersector="compact")
     return jds, jcam, tds, tcam
 
 
@@ -369,7 +369,7 @@ def test_path_trace_compact_matches_reference(teapot_compact):
     ds = scene_from_jax(*jax_scene_parts(jds))
     cam = make_camera(res, res, np.asarray(jcam.position), np.asarray(jcam.rotation),
                       fov_y=float(jcam.fov_y), lens_radius=float(jcam.lens_radius),
-                      focal_dist=float(jcam.focal_dist))
+                      focal_dist=float(jcam.focal_dist), device="cpu")
     cpt.reset_counts()
     for lp in (0, 1):
         jd, ji = (np.asarray(x) for x in f(jbrute, jcam, lp, depth))

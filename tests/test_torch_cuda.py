@@ -1,8 +1,9 @@
-"""The port's CUDA kernels on the card: build csrc/plucker.cu and
-csrc/compact.cu and hold the Plücker closest-hit and shadow kernels, the
-sphere prepass and the compact closest-hit and shadow kernels against
-their plain torch versions on teapot geometry, then small renders through
-the kernels against the same renders through the plain versions.
+"""The port's CUDA kernels on the card: build csrc/plucker.cu,
+csrc/compact.cu, csrc/quad.cu and csrc/band.cu and hold the Plücker
+closest-hit and shadow kernels, the sphere prepass, the compact, quad and
+band closest-hit and shadow kernels against their plain torch versions on
+teapot geometry, then small renders through the kernels against the same
+renders through the plain versions.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no jax, so it runs
 on a machine without it:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -195,6 +196,129 @@ def test_render_through_compact_kernels_matches_plain(teapot_compact_cuda,
     assert cpt.LAUNCHES["sphere_flags"] == (11 if prepass_branch == "sphere" else 0)
     assert cpt.PLAIN_CALLS == {"sphere_flags": 0, "closest_hit": 0, "occlusion": 0}
     dp, ip = pt.path_trace(ds.replace(intersector="compact_plain"), cam, 3, 5)
+    img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
+    assert np.isfinite(img).all() and img.mean() > 0.05
+    assert np.abs(img - ref).mean() < 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the quad engine (csrc/quad.cu) and the band engine (csrc/band.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def teapot_engines_cuda(teapot_cuda):
+    """Teapot built for the quad engine (the Plücker layout: 43 clusters
+    of 128) and for the band engine (64-triangle clusters), with the same
+    rays."""
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    _, _, o, d, tmax = teapot_cuda
+    path = os.path.join(SCENES, "teapot.txt")
+    return {name: load_scene(path, device="cuda", intersector=name)[:2]
+            for name in ("quad", "band")}, o, d, tmax
+
+
+def _check_closest(pk, dk, pp, dp):
+    """>= 99.99% of prim ids equal, a mismatch a near-tie; distances equal
+    to 1e-5 where the prims agree."""
+    pk, pp, dk, dp = (t.cpu().numpy() for t in (pk, pp, dk, dp))
+    diff = pk != pp
+    assert diff.mean() <= 1e-4
+    assert np.all(np.abs(dk[diff] - dp[diff]) <= 1e-5 * np.abs(dp[diff]))
+    hit = (pp >= 0) & ~diff
+    assert hit.mean() > 0.3
+    np.testing.assert_allclose(dk[hit], dp[hit], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_quad_kernels_match_plain(teapot_engines_cuda):
+    """The quad kernels sum every form in the plain version's order with
+    one rounding a term: winners and shadow bits agree; zero-length
+    segments read as blocked in both (the reference's behaviour)."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+    from radish_pt_tpu_torch.accel import quad as qd
+
+    scenes, o, d, tmax = teapot_engines_cuda
+    ds, _ = scenes["quad"]
+    feats = qd.quad_features(o, d, ds.sweep_center)
+    mask = plk.cluster_mask_words(ds.cluster_bounds, o, d, tmax)
+    qd.reset_counts()
+    pk, dk = qd.closest_hit(ds.quad_coeffs, feats, mask, ds.cluster_sub)
+    pp, dp = qd.closest_hit_plain(ds.quad_coeffs, feats, mask, ds.cluster_sub)
+    assert qd.LAUNCHES["closest_hit"] == 1
+    _check_closest(pk, dk, pp, dp)
+
+    y = o + d * 3.0
+    y[::7] = o[::7]  # zero-length segments, as masked NEE lanes
+    so, seg = qd.quad_segments(o, y)
+    sf = qd.quad_features(so, seg, ds.sweep_center)
+    smask = plk.cluster_mask_words(ds.cluster_bounds, so, seg,
+                                   torch.ones_like(so[:, 0]))
+    occ_k = qd.occlusion(ds.quad_coeffs, sf, smask, ds.cluster_sub)
+    occ_p = qd.occlusion_plain(ds.quad_coeffs, sf, smask, ds.cluster_sub)
+    assert qd.LAUNCHES["occlusion"] == 1
+    assert (occ_k != occ_p).float().mean().item() <= 1e-4
+    assert 0.05 < occ_p.float().mean().item() < 0.95
+    rows_swept = plk.unpack_mask(smask, ds.cluster_bounds.shape[0]).any(1)
+    zero = torch.zeros_like(occ_k)
+    zero[::7] = True
+    swept = zero & rows_swept.repeat_interleave(plk.ROW)[:o.shape[0]]
+    assert bool(occ_k[swept].all()) and bool(swept.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 4, 8, 16])
+def test_band_kernels_match_plain(teapot_engines_cuda, g):
+    """The band kernels on the band masks of every width: winners and
+    shadow bits agree with the plain versions; zero-length segments are
+    never blocked."""
+    from radish_pt_tpu_torch.accel import band as bnd
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    scenes, o, d, tmax = teapot_engines_cuda
+    ds, _ = scenes["band"]
+    feats = plk.plucker_features(o, d, ds.sweep_center)
+    mask = bnd.band_mask_words(ds.cluster_bounds, o, d, tmax, g)
+    bnd.reset_counts()
+    pk, dk = bnd.closest_hit(ds.sweep_coeffs, feats, mask, g)
+    pp, dp = bnd.closest_hit_plain(ds.sweep_coeffs, feats, mask, g)
+    assert bnd.LAUNCHES["closest_hit"] == 1
+    _check_closest(pk, dk, pp, dp)
+
+    y = o + d * 3.0
+    y[::7] = o[::7]
+    so, sd, stm = plk.segment_rays(o, y)
+    sf = plk.plucker_features(so, sd, ds.sweep_center)
+    smask = bnd.band_mask_words(ds.cluster_bounds, so, sd, stm, g)
+    stm = stm.contiguous()
+    occ_k = bnd.occlusion(ds.sweep_coeffs, sf, stm, smask, g)
+    occ_p = bnd.occlusion_plain(ds.sweep_coeffs, sf, stm, smask, g)
+    assert bnd.LAUNCHES["occlusion"] == 1
+    assert (occ_k != occ_p).float().mean().item() <= 1e-4
+    assert 0.05 < occ_p.float().mean().item() < 0.95
+    assert not bool(occ_k[::7].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["quad", "band"])
+def test_render_through_engine_kernels_matches_plain(teapot_engines_cuda, engine):
+    """A 64x64 depth-5 teapot frame through the engine's kernels (6
+    closest-hit and 5 shadow launches, no plain call) equals the same frame
+    through its plain versions."""
+    from radish_pt_tpu_torch.accel import band as bnd
+    from radish_pt_tpu_torch.accel import quad as qd
+    from radish_pt_tpu_torch.render import pathtrace as pt
+
+    scenes, *_ = teapot_engines_cuda
+    ds, cam = scenes[engine]
+    cam = cam.replace(width=64, height=64)
+    mod = qd if engine == "quad" else bnd
+    mod.reset_counts()
+    d, i = pt.path_trace(ds, cam, 3, 5)
+    assert mod.LAUNCHES == {"closest_hit": 6, "occlusion": 5}
+    assert mod.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
+    dp, ip = pt.path_trace(ds.replace(intersector=f"{engine}_plain"), cam, 3, 5)
     img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
     assert np.isfinite(img).all() and img.mean() > 0.05
     assert np.abs(img - ref).mean() < 2e-3

@@ -44,7 +44,7 @@ def _port(jds, jcam, intersector):
     cam = make_camera(RES, RES, np.asarray(jcam.position),
                       np.asarray(jcam.rotation), fov_y=float(jcam.fov_y),
                       lens_radius=float(jcam.lens_radius),
-                      focal_dist=float(jcam.focal_dist))
+                      focal_dist=float(jcam.focal_dist), device="cpu")
     return ds, cam
 
 
@@ -95,7 +95,7 @@ def test_renderer_matches_golden():
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.scene.build import load_scene
 
-    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"))
+    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cpu")
     r = Renderer(ds=ds, cam=cam.replace(width=32, height=32), desc=None,
                  settings=Settings(tracer=Tracer.STREAMED, trace_depth=4),
                  device="cpu")
@@ -110,14 +110,14 @@ def test_renderer_refuses_unported_modes():
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.scene.build import load_scene
 
-    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"))
+    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cpu")
     cam = cam.replace(width=16, height=16)
     for s in (Settings(tracer=Tracer.RESTIR_DI), Settings(tracer=Tracer.DIRECT_LIGHT),
               Settings(denoiser=Denoiser.SVGF)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Renderer(ds=ds, cam=cam, settings=s).step()
+            Renderer(ds=ds, cam=cam, settings=s, device="cpu").step()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_scene(os.path.join(SCENES, "glass.txt"))  # env map
+        load_scene(os.path.join(SCENES, "glass.txt"), device="cpu")  # env map
 
 
 def test_cli_renders_on_cpu(tmp_path):

@@ -53,7 +53,7 @@ def teapot():
     from radish_pt_tpu_torch.scene.camera import make_camera
 
     cam = make_camera(800, 800, np.asarray(jcam.position), np.asarray(jcam.rotation),
-                      fov_y=float(jcam.fov_y))
+                      fov_y=float(jcam.fov_y), device="cpu")
     rng = np.random.default_rng(8)
     n = 1024
     x = torch.from_numpy(rng.integers(0, 800, n // 2).astype(np.int32))

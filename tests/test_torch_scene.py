@@ -26,7 +26,7 @@ def scenes():
     try:
         for key, fname in SCENE_FILES.items():
             jds, jcam, _ = load_jax_scene(mp, fname)
-            tds, tcam, _ = load_scene(os.path.join(SCENES, fname))
+            tds, tcam, _ = load_scene(os.path.join(SCENES, fname), device="cpu")
             out[key] = (jds, jcam, tds, tcam)
     finally:
         mp.undo()
@@ -219,7 +219,7 @@ def test_textured_materials_match(monkeypatch):
     from radish_pt_tpu_torch.scene.build import load_scene
 
     jds, _, _ = load_jax_scene(monkeypatch, "textured.txt")
-    tds, _, _ = load_scene(os.path.join(SCENES, "textured.txt"))
+    tds, _, _ = load_scene(os.path.join(SCENES, "textured.txt"), device="cpu")
     assert tds.tex_offset.shape[0] >= 3
     np.testing.assert_array_equal(t2n(tds.tex_data), np.asarray(jds.tex_data))
     rng = np.random.default_rng(7)
