@@ -1,31 +1,42 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (radish_pt_tpu_torch) on one GPU.
 
-Drives the port's main paths — full-MIS path-traced 800x800 frames, depth
-5, through ``Renderer`` — on the card: cornell and teapot on the Plücker
-engine, teapot_hires on the compact work-list engine (and on the Plücker
-engine its size picks), teapot on the quad engine and teapot_hires on the
-band engine; and checks the hand-written CUDA kernels of those paths
-against their plain torch versions.  Phases:
+Drives the port's main paths through ``Renderer`` on the card, at
+800x800: full-MIS path-traced frames, depth 5 — cornell and teapot on the
+Plücker engine, teapot_hires on the compact work-list engine (and on the
+Plücker engine its size picks), teapot on the quad engine, teapot_hires on
+the band engine, cornell and teapot on the dense engine — and the
+interactive direct-lighting path on cornell's dense engine: ReSTIR DI (the
+G-buffer, 32-candidate RIS, temporal and spatial reuse; also on the
+Plücker engine, and with the camera animated), the direct tracer with SVGF,
+and the path tracer with split SVGF.  Checks the hand-written CUDA kernels
+of those paths against their plain torch versions.  Phases:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. cold start: the four kernel sources built with nvcc at once (seconds
+2. cold start: the five kernel sources built with nvcc at once (seconds
    shown), then teapot and teapot_hires (compact) loaded and rendered once
-   at 800x800, and the quad and band scenes loaded;
-3. kernel parity at the main paths' shapes (800x800 tile-order primaries,
-   one bounce wavefront with dead lanes, its NEE shadow segments): the
-   Plücker sweeps and the quad sweeps on teapot; the sphere prepass, the
-   compact sweeps and the band sweeps (8 bands a row) on teapot_hires;
+   at 800x800, and the quad, band and dense scenes loaded;
+3. kernel parity at the main paths' shapes (800x800 primaries, one bounce
+   wavefront with dead lanes, its NEE shadow segments): the Plücker sweeps
+   and the quad sweeps on teapot; the sphere prepass, the compact sweeps
+   and the band sweeps (8 bands a row) on teapot_hires; the dense sweeps
+   on cornell and teapot, bit for bit;
 4. the main paths, loopers 0-7, each with the launch counts of its kernels
    set to 0 just before and read just after, finite non-zero images, and
    looper-7 mean radiance within 1% of each scene's 800x800 golden (the
    teapot_hires engines also within 0.2% of each other, band and compact
-   within 0.05%);
+   within 0.05%); the direct-lighting paths' 8-frame means within 1% of
+   the JAX package's 800x800 goldens (ReSTIR on Plücker within 0.2% of
+   dense), and the animated ReSTIR run's share of valid motion and of
+   accepted temporal neighbours;
 5. 128x128 frames through the kernels against the plain versions (teapot
-   on Plücker and quad, teapot_hires on compact and band);
-6. timing with CUDA events: ms/frame and Mrays/s per scene and engine,
-   each kernel against its plain version, and each kernel's least time on
-   the card (bound) for the same work.
+   on Plücker and quad, teapot_hires on compact and band, cornell and
+   teapot on dense, cornell ReSTIR on dense); then, logged only, the mean
+   squared error of 8 frames of the direct tracer, of ReSTIR without reuse
+   and of ReSTIR with reuse against a 256-frame direct-tracer accumulation;
+6. timing with CUDA events: ms/frame and Mrays/s per scene and engine, the
+   ReSTIR and denoised frames, each kernel against its plain version, and
+   each kernel's least time on the card (bound) for the same work.
 
 Prints a JSON line of per-kernel results, then the card's name and power
 limit, then, as the last line, ``{"ok": true, "device": {...}}``.  Any
@@ -54,12 +65,24 @@ SMALL_RES = 128  # the kernel-path against plain-path frames (phase 5)
 # gives 1.0424516); bench.py's 1.00752 was taken in the TPU's bf16x3 mode,
 # which drops grazing hits.
 MEAN_GOLDEN = {"cornell": 1.04245, "teapot": 0.43335, "teapot_hires": 0.43550}
+# mean of ``Renderer.current_image()`` after loopers 0-7 of cornell at
+# 800x800 on the direct-lighting paths, computed by the JAX package on a
+# CPU (its brute-force engine): JAX_PLATFORMS=cpu; ds, cam, _ =
+# load_scene("scenes/cornell_box.txt"); r = Renderer(ds=ds, cam=cam at
+# 800x800, desc=None, settings=S); 8 x r.step(); r.current_image().mean(),
+# with S = Settings(tracer=Tracer.RESTIR_DI) (T+S reuse, 32 candidates,
+# clamp 20: 0.1643293), Settings(tracer=Tracer.DIRECT_LIGHT,
+# denoiser=Denoiser.SVGF) (0.1584340) and Settings(tracer=Tracer.STREAMED,
+# denoiser=Denoiser.SVGF, trace_depth=5) (split SVGF: 0.2697894)
+PATH_GOLDEN = {"restir": 0.1643293, "direct_svgf": 0.1584340,
+               "pt_split_svgf": 0.2697894}
 SCENE_FILES = {"cornell": "cornell_box.txt", "teapot": "teapot.txt",
                "teapot_hires": "teapot_hires.txt"}
 SOURCES = {"plucker": "radish_pt_tpu_torch/csrc/plucker.cu",
            "compact": "radish_pt_tpu_torch/csrc/compact.cu",
            "quad": "radish_pt_tpu_torch/csrc/quad.cu",
-           "band": "radish_pt_tpu_torch/csrc/band.cu"}
+           "band": "radish_pt_tpu_torch/csrc/band.cu",
+           "dense": "radish_pt_tpu_torch/csrc/dense.cu"}
 REPLACES = {
     "plucker_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:344",
     "plucker_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:463",
@@ -70,10 +93,12 @@ REPLACES = {
     "quad_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:2058",
     "band_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:2687",
     "band_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:2777",
+    "dense_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:37",
+    "dense_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:37",
 }
 # the scene each engine's kernels are timed and bounded on
 KERNEL_SCENE = {"plucker": "teapot", "compact": "teapot_hires", "quad": "teapot_quad",
-                "band": "teapot_hires_band"}
+                "band": "teapot_hires_band", "dense": "cornell_dense"}
 # one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32 outside the
 # tensor cores, and device memory
 PEAK_F32_FLOPS = 67e12
@@ -338,6 +363,111 @@ def band_parity(ds, waves, max_err, log):
     return inputs
 
 
+def max_ulps(a, b) -> int:
+    """Largest distance in units in the last place between two f32 tensors
+    of finite values (0: bit-equal)."""
+    import torch
+
+    def ordered(t):
+        bits = t.contiguous().view(torch.int32).long()
+        return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def dense_parity(ds, waves, max_err, log, scene):
+    """Phase 3 on a dense-engine scene: each kernel against its plain
+    version, which rounds the same operations: prim ids, dist and
+    barycentrics bit for bit on every lane (dead ones too: the dense sweep
+    reads no tmax), shadow bits equal.  Returns the timing inputs."""
+    import torch
+
+    from radish_pt_tpu_torch.accel import dense as dns
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    tri, inputs = ds.tri_packed, {}
+    for what in ("primary", "extension"):
+        o, d = (t.contiguous() for t in waves[what][:2])
+        pk, dk, bk = dns.closest_hit_cuda(tri, o, d)
+        pp, dp, bp = dns.closest_hit_plain(tri, o, d)
+        torch.cuda.synchronize()
+        n_prim = int((pk != pp).sum())
+        ulps = {"dist": max_ulps(dk, dp), "bary": max_ulps(bk, bp)}
+        hit = pp >= 0
+        err = max(float(torch.abs(dk - dp)[hit].max()) if bool(hit.any()) else 0.0,
+                  float(torch.abs(bk - bp).max()))
+        log(f"[parity] dense closest hit, {scene} {what} (N = {o.shape[0]}, T = "
+            f"{tri.shape[0]}): {n_prim} prim ids differ; hits {int(hit.sum())}; "
+            f"largest difference {ulps['dist']} ulp on dist, {ulps['bary']} ulp on "
+            f"bary (max |err| {err:.3e})")
+        assert n_prim == 0, f"dense closest hit, {scene} {what}: prim parity"
+        assert ulps == {"dist": 0, "bary": 0}, f"dense {scene} {what}: not bit-equal"
+        max_err["dense_closest_hit"] = max(max_err["dense_closest_hit"], err)
+        inputs[what] = (o, d)
+    x, y, live = waves["segments"]
+    so, sd, tm = (t.contiguous() for t in trv.segment_rays(x, y))
+    ok_k = dns.occlusion_cuda(tri, so, sd, tm)
+    ok_p = dns.occlusion_plain(tri, so, sd, tm)
+    torch.cuda.synchronize()
+    n_diff = int((ok_k != ok_p).sum())
+    log(f"[parity] dense occlusion, {scene} NEE segments: {n_diff} / {ok_k.numel()} bits "
+        f"differ; occluded {int((ok_p & live).sum())} of {int(live.sum())} live; "
+        f"{int(ok_k[~live].sum())} masked (zero-length) segments read as blocked")
+    assert n_diff == 0, f"dense occlusion, {scene}: shadow parity"
+    assert not bool(ok_k[~live].any()), "a zero-length segment was blocked"
+    max_err["dense_occlusion"] = max(max_err["dense_occlusion"], float(n_diff))
+    inputs["segments"] = (so, sd, tm)
+    return inputs
+
+
+def occlusion_pairs(tri, o, d, tm, chunk: int = 8192) -> float:
+    """(ray, triangle) pairs an any-hit sweep in id order needs on these
+    segments: each lane's triangles up to its first blocking one, all T
+    where none blocks."""
+    import torch
+
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    n, t = o.shape[0], tri.shape[0]
+    cols = [tri[None, :, k] for k in range(9)]
+    total = 0
+    for r0 in range(0, n, chunk):
+        r1 = min(n, r0 + chunk)
+        hit, dist, _, _ = trv._mt_core(*cols, *(o[r0:r1, k:k + 1] for k in range(3)),
+                                       *(d[r0:r1, k:k + 1] for k in range(3)))
+        blk = hit & (dist < tm[r0:r1, None])
+        first = torch.argmax(blk.to(torch.int8), dim=1)  # the first True
+        total += int(torch.where(blk.any(1), first + 1, t).sum())
+    return float(total)
+
+
+def drive(scenes, name, settings, counters, log, what, frames: int = 8):
+    """Loopers 0-``frames - 1`` of scene ``name`` through ``Renderer`` with
+    ``settings``, the launch and plain-call counts of the module
+    ``counters`` set to 0 just before and read just after.  Returns (the
+    renderer, the mean of its current image, the launches)."""
+    import torch
+
+    from radish_pt_tpu_torch.render.renderer import Renderer
+
+    ds, cam = scenes[name]
+    counters.reset_counts()
+    r = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=ds.device)
+    for _ in range(frames):
+        r.step()
+    img = r.current_image()
+    torch.cuda.synchronize()
+    launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
+    mean = float(img.mean())
+    log(f"[main path] {what}, {name} ({ds.intersector}) {RES}x{RES}: {frames} frames, "
+        f"mean {mean:.5f}; kernel launches {launches}, plain-version calls {plain}")
+    assert bool(torch.isfinite(img).all()), f"{what}: non-finite pixels"
+    assert mean > 0.0, f"{what}: black image"
+    assert all(v > 0 for v in launches.values()), f"{what}: a kernel was not launched"
+    assert not any(plain.values()), f"{what}: a plain version ran on the main path"
+    return r, mean, launches
+
+
 def check_closest(pk, dk, pp, dp, live, what, log) -> float:
     """Kernel vs plain closest hit on the live lanes: <= 1e-4 of prim ids
     differ, each a near-tie (|dt| <= 1e-5 t).  Returns max |dist err|
@@ -414,8 +544,14 @@ def main() -> int:
     from radish_pt_tpu_torch.accel import band as bnd
     from radish_pt_tpu_torch.accel import compact as cpt
     from radish_pt_tpu_torch.accel import plucker as plk
+    from radish_pt_tpu_torch.accel import dense as dns
     from radish_pt_tpu_torch.accel import quad as qd
+    from radish_pt_tpu_torch.config import Denoiser, ReservoirReuse, Settings, Tracer
+    from radish_pt_tpu_torch.render import denoise as dn
+    from radish_pt_tpu_torch.render import gbuffer as gb
     from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import restir as rs
+    from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.scene.build import build_device_scene, load_scene
     from radish_pt_tpu_torch.scene.parser import parse_scene
 
@@ -498,6 +634,12 @@ def main() -> int:
     # teapot_hires' stored triangles: the same wavefronts feed their parity
     assert torch.equal(dsq.tri_v, scenes["teapot"][0].tri_v)
     assert torch.equal(dsb.tri_v, dsc_.tri_v)
+    for name in ("cornell", "teapot"):  # the dense engine: by name only
+        ds, cam, _ = load_scene(scene_path(name), device=dev, intersector="dense")
+        scenes[f"{name}_dense"] = (ds, cam.replace(width=RES, height=RES))
+        log(f"[scene] {name} (dense): {ds.num_triangles} stored triangles, "
+            f"{int((ds.tri_packed[:, 3:].abs().sum(1) == 0).sum())} of them zero "
+            f"(cluster padding)")
 
     # ---- 3. kernel parity at the main path's shapes ----
     max_err = dict.fromkeys(REPLACES, 0.0)
@@ -517,6 +659,11 @@ def main() -> int:
         f"segments live {int(waves['segments'][2].sum())}")
     inputs["compact"] = compact_parity(ds, waves, max_err, log)
     inputs["band"] = band_parity(dsb, waves, max_err, log)
+    inputs["dense"] = {}
+    for name in ("cornell", "teapot"):
+        ds, cam = scenes[f"{name}_dense"]
+        waves = bounce_one(ds, cam)  # raster-order lanes: the dense engine culls nothing
+        inputs["dense"][name] = dense_parity(ds, waves, max_err, log, name)
     del waves
 
     # ---- 4. the main paths ----
@@ -525,9 +672,11 @@ def main() -> int:
                 "quad": main_path(scenes, ("teapot_quad",), qd, log),
                 "band": main_path(scenes, ("teapot_hires_band",), bnd, log)}
     main_path(scenes, ("teapot_hires_plucker",), plk, log)
+    main_path(scenes, ("cornell_dense", "teapot_dense"), dns, log)
     means, frames = {}, {}
     for name in ("cornell", "teapot", "teapot_quad", "teapot_hires",
-                 "teapot_hires_plucker", "teapot_hires_band"):
+                 "teapot_hires_plucker", "teapot_hires_band", "cornell_dense",
+                 "teapot_dense"):
         ds, cam = scenes[name]
         d7, i7 = pt.path_trace(ds, cam, 7, DEPTH)
         frames[name] = d7 + i7
@@ -552,7 +701,55 @@ def main() -> int:
     compare("teapot_hires_band", "teapot_hires", 0.0005,
             "teapot_hires, band vs compact engine")
     compare("teapot_quad", "teapot", 0.01, "teapot, quad vs plucker engine")
+    compare("cornell_dense", "cornell", 0.01, "cornell, dense vs plucker engine")
+    compare("teapot_dense", "teapot", 0.01, "teapot, dense vs plucker engine")
     del frames
+
+    # the interactive direct-lighting path on cornell's dense engine
+    restir = Settings(tracer=Tracer.RESTIR_DI)  # T+S reuse, 32 candidates, clamp 20
+    paths = {"restir": ("ReSTIR DI (G-buffer, 32-candidate RIS, T+S reuse)", restir),
+             "direct_svgf": ("the direct tracer + SVGF",
+                             Settings(tracer=Tracer.DIRECT_LIGHT, denoiser=Denoiser.SVGF)),
+             "pt_split_svgf": (f"full MIS, depth {DEPTH}, + split SVGF",
+                               Settings(tracer=Tracer.STREAMED, denoiser=Denoiser.SVGF,
+                                        trace_depth=DEPTH))}
+    renderers, path_means = {}, {}
+    for key, (what, settings) in paths.items():
+        r, path_means[key], n_launch = drive(scenes, "cornell_dense", settings, dns, log,
+                                             what)
+        renderers[key] = r
+        if key == "restir":
+            launches["dense"] = (n_launch, 8)
+        drift = path_means[key] / PATH_GOLDEN[key] - 1.0
+        log(f"[main path] {what}: 8-frame mean {path_means[key]:.5f} vs the JAX "
+            f"package's {PATH_GOLDEN[key]:.5f}: drift {drift * 100:+.3f}%")
+        assert abs(drift) < 0.01, f"{what}: mean drifted more than 1% from its golden"
+    _, m_plk, _ = drive(scenes, "cornell", restir, plk, log, "ReSTIR DI on the Plücker engine")
+    rel = m_plk / path_means["restir"] - 1.0
+    log(f"[main path] ReSTIR DI, Plücker vs dense engine: means {m_plk:.5f} vs "
+        f"{path_means['restir']:.5f}, differ by {rel * 100:+.4f}%")
+    assert abs(rel) < 0.002, "ReSTIR: the Plücker and dense engines' means differ"
+
+    # ReSTIR with the camera animated: the G-buffer's motion reprojection
+    # feeds the temporal reuse; the counts are read after the 8th frame
+    r, _, _ = drive(scenes, "cornell_dense", Settings(tracer=Tracer.RESTIR_DI,
+                                                      animate_camera=True), dns, log,
+                    "ReSTIR DI, camera animated (frames 0-6)", frames=7)
+    dns.reset_counts()
+    last_res, last_frame = r.reservoir, r.gbuf_last
+    r.step()
+    temporal = rs.find_temporal_neighbor(last_res, r.gbuf.motion, r.gbuf.frame, last_frame)
+    torch.cuda.synchronize()
+    assert all(v > 0 for v in dns.LAUNCHES.values()) and not any(dns.PLAIN_CALLS.values())
+    geo = r.gbuf.frame.prim_id > gb.NULL_PRIMITIVE
+    moved = r.gbuf.motion != torch.arange(RES * RES, device=dev)
+    log(f"[main path] ReSTIR DI, camera animated, frame 7: launches {dict(dns.LAUNCHES)}, "
+        f"plain calls {dict(dns.PLAIN_CALLS)}; of {int(geo.sum())} pixels on geometry, "
+        f"{float((geo & (r.gbuf.motion >= 0)).sum() / geo.sum()):.4f} have valid motion "
+        f"({float((geo & moved).sum() / geo.sum()):.4f} reproject to another pixel) and "
+        f"{float((temporal.num > 0).sum() / geo.sum()):.4f} accepted a temporal "
+        f"neighbour; mean {float(r.current_image().mean()):.5f}")
+    assert float((temporal.num > 0).sum()) > 0.5 * float(geo.sum())
 
     # ---- 5. kernel path against plain path, 128x128 ----
     for name, plain in (("teapot", "plucker_plain"), ("teapot_hires", "compact_plain"),
@@ -566,10 +763,48 @@ def main() -> int:
         log(f"[kernel vs plain path] {name} ({ds.intersector}) {SMALL_RES}x{SMALL_RES} mean "
             f"|pixel diff| {mad:.3e}")
         assert mad < 2e-3
+    for name in ("cornell_dense", "teapot_dense"):  # the brute engine: dense's plain path
+        ds, cam = scenes[name]
+        small = cam.replace(width=SMALL_RES, height=SMALL_RES)
+        d, i = pt.path_trace(ds, small, 0, DEPTH)
+        dp, ip = pt.path_trace(ds.replace(intersector="brute"), small, 0, DEPTH)
+        mad = float(torch.abs((d + i) - (dp + ip)).mean())
+        log(f"[kernel vs plain path] {name} full MIS {SMALL_RES}x{SMALL_RES} mean |pixel "
+            f"diff| {mad:.3e}")
+        assert mad < 2e-3
+    ds, cam = scenes["cornell_dense"]
+    imgs = [Renderer(ds=ds.replace(intersector=engine), desc=None, settings=restir,
+                     cam=cam.replace(width=SMALL_RES, height=SMALL_RES),
+                     device=dev).render(spp=2) for engine in ("dense", "brute")]
+    mad = float(abs(imgs[0] - imgs[1]).mean())
+    log(f"[kernel vs plain path] cornell_dense ReSTIR {SMALL_RES}x{SMALL_RES}, 2 frames, "
+        f"mean |pixel diff| {mad:.3e}")
+    assert mad < 2e-3
+
+    # logged only: how near 8 frames of each direct-lighting estimator come
+    # to a 256-frame direct-tracer accumulation (loopers 8-263)
+    ref = Renderer(ds=ds, cam=cam, desc=None, settings=Settings(tracer=Tracer.DIRECT_LIGHT),
+                   device=dev)
+    ref.state.looper = 8
+    t_ref = time.perf_counter()
+    reference = ref.render(spp=256)
+    t_ref = time.perf_counter() - t_ref
+    estimates = {
+        "direct tracer": Renderer(ds=ds, cam=cam, desc=None, device=dev, settings=Settings(
+            tracer=Tracer.DIRECT_LIGHT)).render(spp=8),
+        "ReSTIR, no reuse": Renderer(ds=ds, cam=cam, desc=None, device=dev, settings=Settings(
+            tracer=Tracer.RESTIR_DI, reservoir_reuse=ReservoirReuse.NONE)).render(spp=8),
+        "ReSTIR, T+S reuse": renderers["restir"].current_image().cpu().numpy().reshape(
+            reference.shape)}
+    log(f"[estimators] cornell_dense {RES}x{RES}, 8 frames each against a 256-frame "
+        f"direct-tracer accumulation (mean {float(reference.mean()):.5f}, {t_ref:.1f} s):"
+        f" mean squared error " + ", ".join(
+            f"{k} {float(((v - reference) ** 2).mean()):.4e}" for k, v in estimates.items()))
 
     # ---- 6. timing (CUDA events) ----
     for name in ("cornell", "teapot", "teapot_quad", "teapot_hires",
-                 "teapot_hires_plucker", "teapot_hires_band"):
+                 "teapot_hires_plucker", "teapot_hires_band", "cornell_dense",
+                 "teapot_dense"):
         ds, cam = scenes[name]
         loopers = iter(range(8, 10_000))
 
@@ -588,12 +823,51 @@ def main() -> int:
                                                  ds.band_g), 3)
     log(f"[timing] band-mask prepass (torch), teapot_hires primaries, g = "
         f"{ds.band_g}: {pre_ms:.3f} ms per call, 11 calls a frame")
+    for name in ("cornell_dense", "cornell"):
+        ds, cam = scenes[name]
+        state = {"res": rs.empty_reservoir(RES * RES, device=dev), "first": True}
+        loopers = iter(range(8, 10_000))
+
+        def restir_block():  # bench.py's restir_frame_ms: G-buffer + restir_direct
+            for _ in range(4):
+                g = gb.render_gbuffer(ds, cam, cam)
+                _, state["res"] = rs.restir_direct(
+                    ds, cam, next(loopers), g, g.frame, state["res"], state["first"],
+                    ReservoirReuse.TEMPORAL_SPATIAL, 32, 20)
+                state["first"] = False
+
+        ms = cuda_ms(restir_block, reps=3) / 4
+        g_ms = cuda_ms(lambda: gb.render_gbuffer(ds, cam, cam), reps=3)
+        log(f"[timing] {name} ({ds.intersector}) {RES}x{RES} ReSTIR frame (G-buffer + "
+            f"32-candidate RIS + T+S reuse): {ms:.3f} ms/frame (median of 3 blocks of 4 "
+            f"frames), of which the G-buffer {g_ms:.3f} ms ({card})")
+    ds, cam = scenes["cornell_dense"]
+    for key in ("direct_svgf", "pt_split_svgf"):
+        r = renderers[key]
+
+        def step_block():
+            for _ in range(4):
+                r.step()
+
+        ms = cuda_ms(step_block, reps=3) / 4
+        log(f"[timing] cornell_dense {RES}x{RES} {paths[key][0]}: {ms:.3f} ms/frame "
+            f"(Renderer.step: G-buffer, tracer, accumulation, denoiser, display; "
+            f"median of 3 blocks of 4) ({card})")
+    r = renderers["direct_svgf"]
+    svgf_ms = cuda_ms(lambda: dn.svgf_filter(r.direct, r.svgf_direct, r.gbuf, r.gbuf_last,
+                                             cam, False), reps=3)
+    pair_ms = cuda_ms(lambda: dn.svgf_filter_pair(r.direct, r.direct, r.svgf_direct,
+                                                  r.svgf_direct, r.gbuf, r.gbuf_last,
+                                                  cam, False), reps=3)
+    log(f"[timing] cornell {RES}x{RES} denoisers alone: SVGF {svgf_ms:.3f} ms, split "
+        f"SVGF pair {pair_ms:.3f} ms ({card})")
 
     # per kernel and wavefront: (kernel ms, plain ms, flops, bytes)
     timed = {}
 
-    def time_kernel(key, kernel, plain, flops, nbytes_):
-        timed[key] = (cuda_ms(kernel, 5), cuda_ms(plain, 1), flops, nbytes_)
+    def time_kernel(key, kernel, plain, flops, nbytes_, scene=None):
+        scene = scene or KERNEL_SCENE[key.split("_")[0]]
+        timed[key, scene] = (cuda_ms(kernel, 5), cuda_ms(plain, 1), flops, nbytes_)
 
     ds = scenes["teapot"][0]
     sub, n_c = ds.cluster_sub, ds.cluster_bounds.shape[0]
@@ -680,10 +954,29 @@ def main() -> int:
                 group_pairs(plk.unpack_mask(mask, n_c), bnd.CLUSTER_SUB,
                             plk.ROW // g, n) * bnd.FLOPS_PER_PAIR["occlusion"],
                 nbytes(c, feats, tm, mask) + 4 * n)
-    for key, (k, p, flops, nb) in timed.items():
+    for name in ("cornell", "teapot"):
+        ds = scenes[f"{name}_dense"][0]
+        tri, t = ds.tri_packed, ds.tri_packed.shape[0]
+        for what in ("primary", "extension"):
+            if name == "cornell" and what == "extension":
+                continue
+            o, d = inputs["dense"][name][what]
+            n = o.shape[0]
+            time_kernel(f"dense_closest_hit/{what}",
+                        lambda: dns.closest_hit_cuda(tri, o, d),
+                        lambda: dns.closest_hit_plain(tri, o, d),
+                        n * t * dns.FLOPS_PER_PAIR["closest_hit"],
+                        nbytes(tri, o, d) + 16 * n, f"{name}_dense")
+        so, sd, tm = inputs["dense"][name]["segments"]
+        time_kernel("dense_occlusion/segments",
+                    lambda: dns.occlusion_cuda(tri, so, sd, tm),
+                    lambda: dns.occlusion_plain(tri, so, sd, tm),
+                    occlusion_pairs(tri, so, sd, tm) * dns.FLOPS_PER_PAIR["occlusion"],
+                    nbytes(tri, so, sd, tm) + 4 * so.shape[0], f"{name}_dense")
+    for (key, scene), (k, p, flops, nb) in timed.items():
         name, what = key.split("/")
         b_ms, b_by = bound(flops, nb)
-        log(f"[timing] {name}, {KERNEL_SCENE[name.split('_')[0]]} {what}: kernel "
+        log(f"[timing] {name}, {scene} {what}: kernel "
             f"{k:.3f} ms, plain {p:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
             f"{flops / 1e9:.2f} GFLOP, {nb / 1e6:.2f} MB), kernel at "
             f"{100 * b_ms / k:.1f}% of it")
@@ -692,7 +985,7 @@ def main() -> int:
     for name in REPLACES:
         lib, kind = name.split("_", 1)
         what = "segments" if kind == "occlusion" else "primary"
-        k, p, flops, nb = timed[f"{name}/{what}"]
+        k, p, flops, nb = timed[f"{name}/{what}", KERNEL_SCENE[lib]]
         b_ms, b_by = bound(flops, nb)
         n_launch, n_frames = launches[lib]
         rows.append({"name": name, "route": "cuda", "source": SOURCES[lib],

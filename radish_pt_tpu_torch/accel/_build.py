@@ -55,6 +55,12 @@ SIGNATURES = {
         "band_closest_hit": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
         "band_occlusion": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
     },
+    "dense": {
+        # tri_packed, T, ray_o, ray_d, N, prim, dist, bary, stream
+        "dense_closest_hit": [_P, _I, _P, _P, _I, _P, _P, _P, _P],
+        # tri_packed, T, ray_o, ray_d, tmax, N, occ, stream
+        "dense_occlusion": [_P, _I, _P, _P, _P, _I, _P, _P],
+    },
 }
 
 _libs: dict = {}

@@ -1,9 +1,10 @@
 """Command-line entry point of the port.
 
 ``python -m radish_pt_tpu_torch SCENEFILE.txt --device cuda`` loads the
-scene, renders the scene's ``Sample`` count (or ``--spp``) of full-MIS path
-traced frames on the device and saves the image — the port's form of
-``python -m radish_pt_tpu``.  ``--device`` names where everything runs; it
+scene, renders the scene's ``Sample`` count (or ``--spp``) of frames on the
+device — full-MIS path tracing, direct lighting, ReSTIR DI or the G-buffer
+preview (``--tracer``), optionally denoised (``--denoiser``) — and saves
+the image: the port's form of ``python -m radish_pt_tpu``.  ``--device`` names where everything runs; it
 is never switched behind the user's back.
 """
 
@@ -11,6 +12,14 @@ from __future__ import annotations
 
 import argparse
 import time
+
+
+TRACERS = {"pt": "STREAMED", "direct": "DIRECT_LIGHT", "restir": "RESTIR_DI",
+           "gbuffer": "GBUFFER_PREVIEW"}
+DENOISERS = {"none": "NONE", "gaussian": "GAUSSIAN", "eaw": "EA_WAVELET",
+             "svgf": "SVGF"}
+REUSE = {"none": "NONE", "temporal": "TEMPORAL", "spatial": "SPATIAL",
+         "both": "TEMPORAL_SPATIAL"}
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -23,15 +32,35 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--depth", type=int, default=None, help="override trace depth")
     p.add_argument("--res", type=int, nargs=2, metavar=("W", "H"), default=None,
                    help="override scene resolution")
+    p.add_argument("--tracer", choices=list(TRACERS), default="pt",
+                   help="tracer mode (reference Tracer enum; default pt)")
+    p.add_argument("--denoiser", choices=list(DENOISERS), default="none")
+    p.add_argument("--reuse", choices=list(REUSE), default="both",
+                   help="ReSTIR reservoir reuse mode")
+    p.add_argument("--encode-normal", action="store_true",
+                   help="store G-buffer normals hemi-oct encoded as 2 floats "
+                        "(DENOISER_ENCODE_NORMAL, gBuffer.h:7-13)")
+    p.add_argument("--no-denoiser-split", action="store_true",
+                   help="filter the path tracer's combined image instead of "
+                        "its direct and indirect halves apart")
+    p.add_argument("--sigmas", type=float, nargs=3, metavar=("DEPTH", "NORMAL", "LUM"),
+                   default=None,
+                   help="filter sigmas of the active denoiser (the reference "
+                        "GUI's sliders, preview.cpp:261-267)")
+    p.add_argument("--gbuffer-view", choices=["albedo", "normal", "depth", "motion"],
+                   default="albedo", help="channel of --tracer gbuffer")
+    p.add_argument("--animate-camera", action="store_true",
+                   help="circle the camera about its start, one step a frame")
     p.add_argument("--tonemap", choices=["none", "filmic", "aces"], default="aces")
     p.add_argument("--out", default=None, help="output image path")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
     p.add_argument("--intersector",
-                   choices=["plucker", "compact", "quad", "band", "brute"],
+                   choices=["plucker", "compact", "quad", "band", "dense", "brute"],
                    default=None,
                    help="intersection engine (default: plucker up to 131,072 "
-                        "triangles, compact above; quad and band only by name)")
+                        "triangles, compact above; quad, band and dense only "
+                        "by name)")
     p.add_argument("--band-g", type=int, default=None,
                    choices=[1, 2, 4, 8, 16, 32, 64, 128],
                    help="bands per 128-lane row for the band engine (default 8)")
@@ -43,7 +72,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from .config import ToneMapping
+    from .config import Denoiser, ReservoirReuse, ToneMapping, Tracer
     from .render.renderer import Renderer
     from .scene.build import load_scene
 
@@ -63,10 +92,23 @@ def main(argv=None) -> int:
     s = r.settings
     s.tone_mapping = {"none": ToneMapping.NONE, "filmic": ToneMapping.FILMIC,
                       "aces": ToneMapping.ACES}[args.tonemap]
+    s.tracer = getattr(Tracer, TRACERS[args.tracer])
+    s.denoiser = getattr(Denoiser, DENOISERS[args.denoiser])
+    s.reservoir_reuse = getattr(ReservoirReuse, REUSE[args.reuse])
+    s.encode_normal = args.encode_normal
+    s.denoiser_split = not args.no_denoiser_split
+    s.gbuffer_view = args.gbuffer_view
+    s.animate_camera = args.animate_camera
+    if args.sigmas:
+        if s.denoiser == Denoiser.EA_WAVELET:
+            s.eaw_sig_depth, s.eaw_sig_normal, s.eaw_sig_luminance = args.sigmas
+        else:
+            s.svgf_sig_depth, s.svgf_sig_normal, s.svgf_sig_luminance = args.sigmas
     if args.depth is not None:
         s.trace_depth = args.depth
     spp = args.spp or r.state.iterations
-    print(f"[rendering {spp} spp, depth={s.trace_depth}]")
+    print(f"[rendering {spp} spp, tracer={args.tracer}, denoiser={args.denoiser}, "
+          f"depth={s.trace_depth}]")
 
     t0 = time.time()
     for i in range(spp):

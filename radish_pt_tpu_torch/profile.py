@@ -1,8 +1,13 @@
-"""Where a frame's device time goes: one path-traced frame under
-``torch.profiler``, kernel time summed by stage.
+"""Where a frame's device time goes: one frame under ``torch.profiler``,
+kernel time summed by stage.
 
     python -m radish_pt_tpu_torch.profile scenes/teapot.txt [--res 800] [--depth 5]
-        [--intersector plucker|compact|quad|band|brute] [--band-g 8]
+        [--intersector plucker|compact|quad|band|dense|brute] [--band-g 8]
+        [--tracer pt|direct|restir]
+
+The frame is one ``path_trace`` call for ``--tracer pt`` (the default), and
+one ``Renderer.step`` (G-buffer, tracer, accumulation, display) for the
+direct-light tracer and for ReSTIR DI (T+S reuse, 32 candidates).
 
 Prints the card, the frame's wall time (CUDA events, profiler off), the
 device-busy time the profiler saw during a profiled frame, the share of it
@@ -22,6 +27,8 @@ import subprocess
 # a kernel's stage, from the first name fragment it contains (else "other")
 # (engine-prefixed names first: "closest_hit_kernel" is part of theirs)
 STAGES = (
+    ("dense_closest_hit_kernel", "dense closest hit"),
+    ("dense_occlusion_kernel", "dense shadow"),
     ("quad_closest_hit_kernel", "quad closest hit"),
     ("quad_occlusion_kernel", "quad shadow"),
     ("band_closest_hit_kernel", "band closest hit"),
@@ -42,10 +49,10 @@ def culling_stages(ds, cam, start, end, reps: int = 10):
     from .accel import plucker as plk
     from .render import pathtrace as pt
     from .sampling import rng
-    from .scene.device_scene import BAND_ENGINES, COMPACT_ENGINES
+    from .scene.device_scene import BAND_ENGINES, COMPACT_ENGINES, SWEEP_ENGINES
 
-    if ds.cluster_bounds is None:
-        return []
+    if ds.cluster_bounds is None or ds.intersector not in SWEEP_ENGINES:
+        return []  # no culling: every ray sweeps every triangle
     idx, _ = pt._lanes(ds, cam)
     o, d, _ = pt._gen_primary(ds, cam, rng.make_sampler(0, idx), idx)
 
@@ -84,8 +91,9 @@ def main(argv=None) -> int:
     p.add_argument("--depth", type=int, default=5)
     p.add_argument("--frames", type=int, default=2)
     p.add_argument("--intersector",
-                   choices=["plucker", "compact", "quad", "band", "brute"],
+                   choices=["plucker", "compact", "quad", "band", "dense", "brute"],
                    default=None, help="engine (default: by scene size)")
+    p.add_argument("--tracer", choices=["pt", "direct", "restir"], default="pt")
     p.add_argument("--band-g", type=int, default=None,
                    help="bands per 128-lane row for the band engine (default 8)")
     args = p.parse_args(argv)
@@ -93,7 +101,9 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from .config import Settings, Tracer
     from .render import pathtrace as pt
+    from .render.renderer import Renderer
     from .scene.build import load_scene
 
     if not torch.cuda.is_available():
@@ -105,14 +115,23 @@ def main(argv=None) -> int:
     cam = cam.replace(width=args.res, height=args.res)
     if args.band_g is not None:
         ds = ds.replace(band_g=args.band_g)
+    if args.tracer == "pt":
+        def frame(looper):
+            pt.path_trace(ds, cam, looper, args.depth)
+    else:
+        tracer = Tracer.RESTIR_DI if args.tracer == "restir" else Tracer.DIRECT_LIGHT
+        r = Renderer(ds=ds, cam=cam, settings=Settings(tracer=tracer), device="cuda")
+
+        def frame(looper):  # the renderer keeps its own looper
+            r.step()
     for looper in range(2):  # build + warm up
-        pt.path_trace(ds, cam, looper, args.depth)
+        frame(looper)
     torch.cuda.synchronize()
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for k in range(args.frames):
-        pt.path_trace(ds, cam, 2 + k, args.depth)
+        frame(2 + k)
     end.record()
     end.synchronize()
     frame_ms = start.elapsed_time(end) / args.frames
@@ -120,26 +139,31 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for k in range(args.frames):
             with record_function("frame"):
-                pt.path_trace(ds, cam, 2 + args.frames + k, args.depth)
+                frame(2 + args.frames + k)
         torch.cuda.synchronize()
     # device-side events, less the "frame" range annotation itself
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.key != "frame"]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / args.frames
+    launches = sum(e.count for e in kernels) / args.frames
     stages: dict = {}
     for e in kernels:
         stage = next((s for frag, s in STAGES if frag in e.key), "other")
         stages[stage] = stages.get(stage, 0.0) + e.self_device_time_total / 1e3
     name = os.path.basename(args.scene)
     print(f"{card}")
-    print(f"{name} {args.res}x{args.res} depth {args.depth}: {frame_ms:.3f} ms/frame "
+    print(f"{name} {args.res}x{args.res} tracer {args.tracer} depth {args.depth}: "
+          f"{frame_ms:.3f} ms/frame "
           f"(profiler off); device busy {busy:.3f} ms/frame under the profiler "
-          f"({100 * (1 - busy / frame_ms):.1f}% idle against the unprofiled frame)")
+          f"({100 * (1 - busy / frame_ms):.1f}% idle against the unprofiled frame), "
+          f"{launches:.0f} device operations a frame")
     for stage, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"  {stage:20s} {ms / args.frames:9.3f} ms/frame  "
               f"{100 * ms / args.frames / max(busy, 1e-9):5.1f}% of busy")
-    sweeps = 2 * args.depth + 1
+    # closest hits and shadow sweeps a frame (ReSTIR: the G-buffer's, the
+    # primaries' and the winners' shadow test)
+    sweeps = {"pt": 2 * args.depth + 1, "direct": 2, "restir": 3}[args.tracer]
     for stage, ms in culling_stages(ds, cam, start, end):
         # each runs before every one of the frame's sweeps; all but the
         # sphere kernel fall under "other" above

@@ -178,6 +178,42 @@ def path_trace(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper: int,
     return direct, indirect
 
 
+def path_trace_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper: int):
+    """One-bounce direct lighting — ``PTDirectKernel`` (pathtrace.cu:293-345):
+    primary-visible emission plus one NEE sample per pixel.  Returns
+    direct [N, 3] in raster order."""
+    idx, untile = _lanes(ds, cam)
+    sampler = rng.make_sampler(looper, idx)
+
+    ray_o, ray_d, sampler = _gen_primary(ds, cam, sampler, idx)
+    it = dsc.intersect(ds, ray_o, ray_d)
+    hit = it.prim_id != NULL_PRIMITIVE
+    direct = _mask3(~hit, dsc.env_radiance(ds, ray_d))
+
+    mat, norm = dsc.get_textured_material(ds, it.mat_id, it.uv, it.norm)
+    is_light = hit & (mat.mtype == dsc.MAT_LIGHT)
+    light_vis = _light_visible_side(ds, norm, ray_d)
+    direct = direct + _mask3(is_light & light_vis, mat.base_color)
+
+    wo = -ray_d
+    is_delta_bsdf = mat.mtype == dsc.MAT_DIELECTRIC
+    flip = (~is_delta_bsdf) & (m.dot(norm, wo) < 0.0)
+    norm = torch.where(flip[..., None], -norm, norm)
+
+    shade = hit & ~is_light & ~is_delta_bsdf
+    r4, sampler = rng.sample_4d(ds.sobol, sampler)
+    li, wi, light_pdf = dsc.sample_direct_light(ds, it.pos, r4, mask=shade,
+                                                shade_normal=norm)
+    ok = shade & (light_pdf > 0.0)
+    f = bsdf.bsdf_eval(mat, norm, wo, wi, types=ds.mat_types)
+    contrib = f * li * (m.sat_dot(norm, wi)
+                        / torch.clamp(light_pdf, min=1e-12))[..., None]
+    direct = direct + _mask3(ok, contrib)
+    if untile is not None:
+        direct = untile(direct)
+    return direct
+
+
 def scrub_and_compress(img):
     """NaN/Inf guard + HDR->LDR range compression before accumulation
     (pathtrace.cu:279-286)."""

@@ -1,0 +1,317 @@
+"""ReSTIR direct illumination: RIS + temporal + spatial reservoir reuse.
+
+Port of ``radish_pt_tpu/render/restir.py`` (reference
+``ReSTIRDirectKernel`` + ``Reservoir<T>``, restir.cu:97-233,
+restir.h:10-101).  Reservoirs are image-shaped tensors; each stage —
+candidate RIS, the winner's shadow test, temporal merge, spatial merge,
+shading — is a function over the whole wavefront, in raster order.  The
+spatial pass reads a *completed* post-temporal reservoir image, so every
+neighbour is from this frame (the reference's per-block ``__syncthreads``
+race, restir.cu:177-181, cannot happen).
+
+The weighted-reservoir update uses the correct rule ``rand * weight < w``
+everywhere; the reference's ``Reservoir::update`` (restir.h:21) tests the
+truthiness of a float instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+from ..bsdf import materials as bsdf
+from ..config import ReservoirReuse
+from ..sampling import rng
+from ..scene import camera as cam_mod
+from ..scene import device_scene as dsc
+from ..utils import math as m
+from . import gbuffer as gb
+from .gbuffer import NULL_PRIMITIVE, GBufferFrame, GBufferOut
+
+
+@dataclass
+class DirectReservoir:
+    """Per-pixel light-sample reservoir — ``Reservoir<LightLiSample>``
+    (restir.h:90-101) as tensors."""
+
+    li: torch.Tensor  # f32 [N, 3] candidate radiance
+    wi: torch.Tensor  # f32 [N, 3] direction to the light
+    dist: torch.Tensor  # f32 [N] distance to the light sample
+    num: torch.Tensor  # f32 [N] effective sample count M
+    weight: torch.Tensor  # f32 [N] sum of RIS weights
+
+    def replace(self, **kw) -> "DirectReservoir":
+        return dataclasses.replace(self, **kw)
+
+
+def empty_reservoir(n: int, device="cuda") -> DirectReservoir:
+    z = torch.zeros((n,), dtype=torch.float32, device=device)
+    z3 = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    return DirectReservoir(li=z3, wi=z3, dist=z, num=z, weight=z)
+
+
+def _update(res: DirectReservoir, li, wi, dist, w, rand) -> DirectReservoir:
+    """WRS update (the correct rule; cf. restir.h:17-24)."""
+    weight = res.weight + w
+    take = rand * weight < w
+    return DirectReservoir(
+        li=torch.where(take[..., None], li, res.li),
+        wi=torch.where(take[..., None], wi, res.wi),
+        dist=torch.where(take, dist, res.dist),
+        num=res.num + 1.0,
+        weight=weight,
+    )
+
+
+def _merge(res: DirectReservoir, rhs: DirectReservoir, rand, enable) -> DirectReservoir:
+    """Reservoir merge (restir.h:51-58), masked by ``enable``."""
+    weight = res.weight + rhs.weight
+    num = res.num + rhs.num
+    take = enable & (rand * weight < rhs.weight)
+    return DirectReservoir(
+        li=torch.where(take[..., None], rhs.li, res.li),
+        wi=torch.where(take[..., None], rhs.wi, res.wi),
+        dist=torch.where(take, rhs.dist, res.dist),
+        num=torch.where(enable, num, res.num),
+        weight=torch.where(enable, weight, res.weight),
+    )
+
+
+def _pre_clamped_merge(res, rhs, rand, enable, clamp: int):
+    """``preClampedMerge<M>``: clamp the history of ``rhs`` to (M - 1) x
+    ours before merging (restir.h:70-78)."""
+    big = (rhs.num > (clamp - 1) * res.num) & (res.num > 0) & (rhs.num > 0)
+    scale = torch.where(big, (clamp - 1) * res.num / torch.clamp(rhs.num, min=1e-12),
+                        torch.ones_like(res.num))
+    rhs = rhs.replace(weight=rhs.weight * scale, num=rhs.num * scale)
+    return _merge(res, rhs, rand, enable)
+
+
+def _invalid(res: DirectReservoir):
+    return ~torch.isfinite(res.weight) | (res.weight < 0.0)
+
+
+def _check_validity(res: DirectReservoir) -> DirectReservoir:
+    bad = _invalid(res)
+    zero = torch.zeros_like(res.weight)
+    return res.replace(weight=torch.where(bad, zero, res.weight),
+                       num=torch.where(bad, zero, res.num))
+
+
+def _p_hat(res: DirectReservoir, mat, norm, wo, types=None):
+    """Target function p^ = Li * f * cos (restir.h:31-35)."""
+    f = bsdf.bsdf_eval(mat, norm, wo, res.wi, types=types)
+    return res.li * f * m.sat_dot(norm, res.wi)[..., None]
+
+
+def _big_w(res: DirectReservoir, p_hat_vec):
+    """Unbiased contribution weight W (restir.h:37-40); toScalar = length."""
+    scalar = m.length(p_hat_vec)
+    return res.weight / torch.clamp(scalar * res.num, min=1e-12)
+
+
+def _pack(res: DirectReservoir, *extra):
+    """Reservoir (+ extra columns) as one [N, 9+] tensor, so a neighbour
+    fetch is one gather or one roll."""
+    cols = [res.li, res.wi, res.dist[:, None], res.num[:, None],
+            res.weight[:, None]]
+    cols += [e if e.dim() == 2 else e[:, None] for e in extra]
+    return torch.cat(cols, dim=1)
+
+
+def _unpack(row) -> DirectReservoir:
+    return DirectReservoir(li=row[..., 0:3], wi=row[..., 3:6], dist=row[..., 6],
+                           num=row[..., 7], weight=row[..., 8])
+
+
+def _mask_empty(res: DirectReservoir, valid) -> DirectReservoir:
+    """Invalid lanes become an empty reservoir (the ``T()`` the reference's
+    neighbour finders return)."""
+    v3 = valid[..., None]
+    return DirectReservoir(
+        li=torch.where(v3, res.li, torch.zeros_like(res.li)),
+        wi=torch.where(v3, res.wi, torch.zeros_like(res.wi)),
+        dist=torch.where(valid, res.dist, torch.zeros_like(res.dist)),
+        num=torch.where(valid, res.num, torch.zeros_like(res.num)),
+        weight=torch.where(valid, res.weight, torch.zeros_like(res.weight)),
+    )
+
+
+def find_temporal_neighbor(reservoir: DirectReservoir, motion, cur: GBufferFrame,
+                           last: GBufferFrame) -> DirectReservoir:
+    """Last frame's reservoirs gathered through the motion indices, with the
+    geometric tests of findTemporalNeighbor (restir.cu:20-40) — one packed
+    gather."""
+    n = reservoir.weight.shape[0]
+    last_idx = torch.clamp(motion, 0, n - 1).long()
+    packed = _pack(reservoir, gb.decoded_normal(last),
+                   last.prim_id.to(torch.float32))
+    row = packed[last_idx]
+    ok = (motion >= 0) & (motion < n)
+    ok &= cur.prim_id > NULL_PRIMITIVE
+    ok &= row[..., 12].to(torch.int32) == cur.prim_id
+    ok &= m.abs_dot(gb.decoded_normal(cur), row[..., 9:12]) >= 0.1
+    return _mask_empty(_unpack(row), ok)
+
+
+def _neighbor_ok(row, px, py, p_idx, width, height, cur: GBufferFrame):
+    """The geometric tests of a spatial neighbour's fetched row [N, 15]."""
+    ok = (px >= 0) & (px < width) & (py >= 0) & (py < height)
+    # exact fetched-row identity: rejects clamped or wrapped rows
+    ok &= row[..., 14].to(torch.int32) == p_idx
+    ok &= row[..., 13].to(torch.int32) == cur.prim_id
+    ok &= m.dot(row[..., 9:12], gb.decoded_normal(cur)) >= 0.1
+    ok &= torch.abs(row[..., 12] - cur.depth) <= cur.depth * 0.1
+    return ok
+
+
+def _spatial_neighbor(packed, x, y, width: int, height: int, cur: GBufferFrame,
+                      rand2):
+    """One disk-sampled spatial neighbour with geometry tests
+    (findSpatialNeighborDisk, restir.cu:43-80) — one gather."""
+    p = m.concentric_sample_disk(rand2[..., 0], rand2[..., 1]) * 5.0
+    px = (x.to(torch.float32) + 0.5 + p[..., 0]).to(torch.int32)
+    py = (y.to(torch.float32) + 0.5 + p[..., 1]).to(torch.int32)
+    p_idx = py * width + px
+    row = packed[torch.clamp(p_idx, 0, packed.shape[0] - 1).long()]
+    ok = _neighbor_ok(row, px, py, p_idx, width, height, cur)
+    ok &= ~((px == x) & (py == y))
+    return _mask_empty(_unpack(row), ok)
+
+
+def _shared_offset(looper: int, k: int):
+    """Neighbour ``k``'s disk offset (dx, dy) shared by every pixel of frame
+    ``looper``: a hash of (looper, k) through the disk warp, rounded half
+    to even.  Host arithmetic in f32, as the reference's traced scalars."""
+    a = torch.tensor([(int(looper) * 31 + 2 * k + 1) & m.U32], dtype=torch.int64)
+    h1 = m.utilhash(a)
+    h2 = m.utilhash(h1 ^ 0x9E3779B9)
+    p = m.concentric_sample_disk(m.u32_to_unit(h1), m.u32_to_unit(h2)) * 5.0
+    d = torch.round(p[0]).to(torch.int32)
+    return int(d[0]), int(d[1])
+
+
+def merge_spatial(temp: DirectReservoir, cur: GBufferFrame, width: int, height: int,
+                  sampler, table, num_neighbors: int = 5, looper=None):
+    """Merge 5 disk neighbours of the COMPLETED post-temporal reservoir image
+    (mergeSpatialNeighborDirect, restir.cu:82-95).
+
+    With ``looper`` (the renderer's branch), each neighbour's disk offset is
+    shared by all pixels and turned per (frame, neighbour) by a hash, so the
+    fetch is a roll of the packed image; without it, each pixel draws its
+    own offsets (two draws a neighbour) and gathers."""
+    n = temp.weight.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=temp.weight.device)
+    x = idx % width
+    y = idx // width
+    packed = _pack(temp, gb.decoded_normal(cur), cur.depth,
+                   cur.prim_id.to(torch.float32), idx.to(torch.float32))
+    out = empty_reservoir(n, device=temp.weight.device)
+    if looper is None:
+        for _ in range(num_neighbors):
+            r2, sampler = rng.sample_2d(table, sampler)
+            nb = _spatial_neighbor(packed, x, y, width, height, cur, r2)
+            r1, sampler = rng.sample_1d(table, sampler)
+            out = _merge(out, nb, r1, ~_invalid(nb) & (nb.num > 0))
+        return out, sampler
+
+    img = packed.reshape(-1, width, packed.shape[1])
+    for k in range(num_neighbors):
+        dx, dy = _shared_offset(looper, k)
+        row = torch.roll(img, shifts=(-dy, -dx), dims=(0, 1)).reshape(n, -1)
+        px, py = x + dx, y + dy
+        ok = _neighbor_ok(row, px, py, py * width + px, width, height, cur)
+        if dx == 0 and dy == 0:
+            ok = torch.zeros_like(ok)
+        nb = _mask_empty(_unpack(row), ok)
+        r1, sampler = rng.sample_1d(table, sampler)
+        out = _merge(out, nb, r1, ~_invalid(nb) & (nb.num > 0))
+    return out, sampler
+
+
+def restir_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper: int,
+                  gbuf: GBufferOut, last_frame: GBufferFrame,
+                  last_reservoir: DirectReservoir, first_frame: bool, reuse: int,
+                  reservoir_size: int = 32, temporal_clamp: int = 20):
+    """The ReSTIR DI pass (ReSTIRDirectKernel, restir.cu:97-203).
+
+    Returns (direct [N, 3] shaded with white albedo and re-modulated by the
+    G-buffer's, reservoir_out): ``reservoir_out`` is the post-temporal,
+    pre-spatial reservoir the next frame reuses (the reference's
+    ``tempReservoir``, restir.cu:173,186-187)."""
+    from .pathtrace import _gen_primary
+
+    n = cam.width * cam.height
+    idx = torch.arange(n, dtype=torch.int32, device=ds.device)
+    sampler = rng.make_sampler(looper, idx)
+    table = ds.sobol
+
+    ray_o, ray_d, sampler = _gen_primary(ds, cam, sampler, idx)
+    it = dsc.intersect(ds, ray_o, ray_d)
+    hit = it.prim_id != NULL_PRIMITIVE
+    direct = torch.where(hit[..., None], torch.zeros_like(ray_d),
+                         dsc.env_radiance(ds, ray_d))
+
+    mat, norm = dsc.get_textured_material(ds, it.mat_id, it.uv, it.norm)
+    # demodulate: shade with white albedo; the G-buffer's albedo
+    # re-modulates at the end (restir.cu:125,200)
+    mat = dataclasses.replace(mat, base_color=torch.ones_like(mat.base_color))
+    is_light = hit & (mat.mtype == dsc.MAT_LIGHT)
+    direct = direct + torch.where(is_light[..., None], mat.base_color,
+                                  torch.zeros_like(direct))
+
+    wo = -ray_d
+    is_delta = mat.mtype == dsc.MAT_DIELECTRIC
+    flip = (~is_delta) & (m.dot(norm, wo) < 0.0)
+    norm = torch.where(flip[..., None], -norm, norm)
+    shade = hit & ~is_light
+
+    # ---- candidate RIS over ``reservoir_size`` light samples without
+    # visibility ----
+    res = empty_reservoir(n, device=ds.device)
+    for _ in range(reservoir_size):
+        r4, sampler = rng.sample_4d(table, sampler)
+        li, wi, dist, pdf = dsc.sample_direct_light_no_vis(ds, it.pos, r4)
+        f = bsdf.bsdf_eval(mat, norm, wo, wi, types=ds.mat_types)
+        p_hat = li * f * m.sat_dot(norm, wi)[..., None]
+        w = m.length(p_hat) / torch.clamp(pdf, min=1e-12)
+        w = torch.where(torch.isfinite(w) & (pdf > 0.0), w, torch.zeros_like(w))
+        r1, sampler = rng.sample_1d(table, sampler)
+        res = _update(res, li, wi, dist, w, r1)
+
+    # ---- one shadow test, on the winner (restir.cu:158-163); lanes that
+    # cannot shade get zero-length segments and zero weight ----
+    vis = shade & (res.weight > 0.0)
+    target = it.pos + res.wi * res.dist[..., None]
+    occluded = dsc.test_occlusion(ds, it.pos, torch.where(vis[..., None], target, it.pos))
+    res = res.replace(weight=torch.where(vis & ~occluded, res.weight,
+                                         torch.zeros_like(res.weight)))
+
+    # ---- temporal reuse ----
+    if reuse & ReservoirReuse.TEMPORAL:
+        temporal = find_temporal_neighbor(last_reservoir, gbuf.motion, gbuf.frame,
+                                          last_frame)
+        r1, sampler = rng.sample_1d(table, sampler)
+        ok = ~_invalid(temporal) & (temporal.num > 0) & (not first_frame)
+        res = _pre_clamped_merge(res, temporal, r1, ok, temporal_clamp)
+
+    reservoir_out = _check_validity(res)
+
+    # ---- spatial reuse on the completed post-temporal image ----
+    if reuse & ReservoirReuse.SPATIAL:
+        spatial, sampler = merge_spatial(reservoir_out, gbuf.frame, cam.width,
+                                         cam.height, sampler, table, looper=looper)
+        r1, sampler = rng.sample_1d(table, sampler)
+        ok = ~_invalid(spatial) & (spatial.num > 0) & ~_invalid(res)
+        res = _merge(res, spatial, r1, ok)
+
+    # ---- shade (restir.cu:189-194) ----
+    p_hat = _p_hat(res, mat, norm, wo, types=ds.mat_types)
+    contrib = p_hat * _big_w(res, p_hat)[..., None]
+    ok = shade & ~_invalid(res) & (res.num > 0)
+    contrib = torch.where(ok[..., None], contrib, torch.zeros_like(contrib))
+    bad = torch.any(~torch.isfinite(contrib), dim=-1, keepdim=True)
+    direct = direct + torch.where(bad, torch.zeros_like(contrib), contrib)
+    return direct * gbuf.albedo, reservoir_out

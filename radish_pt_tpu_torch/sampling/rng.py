@@ -60,6 +60,10 @@ def sample_nd(table, state: SamplerState, n: int):
     return torch.stack(rs, dim=-1), state
 
 
+def sample_2d(table, state):
+    return sample_nd(table, state, 2)
+
+
 def sample_3d(table, state):
     return sample_nd(table, state, 3)
 

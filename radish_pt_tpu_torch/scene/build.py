@@ -39,7 +39,7 @@ CLUSTER_SUB = 64  # default triangles per culling cluster
 BIG_SCENE_TRIS = 16384
 PLUCKER_MAX_TRIS = 131072  # above this the reference switches engines
 CLUSTER_MIN_TRIS = 1024  # below this every ray sweeps every triangle
-INTERSECTORS = ("plucker", "compact", "quad", "band", "brute")
+INTERSECTORS = ("plucker", "compact", "quad", "band", "dense", "brute")
 # engines stored in the fixed 64-triangle clusters (reference build.py:324-326)
 FIXED_CLUSTER_ENGINES = ("compact", "band")
 
@@ -47,8 +47,8 @@ FIXED_CLUSTER_ENGINES = ("compact", "band")
 def choose_intersector(num_tris: int, intersector: str | None = None) -> str:
     """The engine for a scene: ``intersector`` if given, else the Plücker
     sweeps up to ``PLUCKER_MAX_TRIS`` triangles and the compact work-list
-    engine above (the reference's choice, build.py:281-290; the quad and
-    band engines are only ever chosen by name)."""
+    engine above (the reference's choice, build.py:281-290; the quad, band
+    and dense engines are only ever chosen by name)."""
     if intersector is None:
         return "plucker" if num_tris <= PLUCKER_MAX_TRIS else "compact"
     if intersector not in INTERSECTORS:

@@ -124,3 +124,35 @@ def sample_rays(cam: Camera, x, y, r, p_aperture=None):
     origins = (cam.position + cam.right * p_lens[..., 0:1]
                + cam.up * p_lens[..., 1:2])
     return origins.expand_as(directions).contiguous(), directions
+
+
+def pinhole_rays(cam: Camera, x, y):
+    """Center-of-pixel pinhole rays (no jitter, no lens) — the G-buffer
+    pass's rays (gBuffer.cu:11-26)."""
+    r = torch.full(x.shape + (4,), 0.5, dtype=torch.float32, device=x.device)
+    zero_ap = torch.zeros(x.shape + (2,), dtype=torch.float32, device=x.device)
+    return sample_rays(cam, x, y, r, p_aperture=zero_ap)
+
+
+def raster_uv(cam: Camera, pos):
+    """World position -> this camera's raster uv in [0, 1]^2 — reference
+    ``Camera::getRasterUV`` (sceneStructs.h:22-43)."""
+    dir = m.normalize(pos - cam.position)
+    d = 1.0 / m.dot(dir, cam.view)
+    p = dir * d[..., None]
+    # rotationMatInv is the transpose of [right|up|view] (orthonormal)
+    px = m.dot(p, cam.right)
+    py = m.dot(p, cam.up)
+    aspect = torch.tensor(cam.aspect, dtype=torch.float32, device=pos.device)
+    ndc_x = -(px / (aspect * cam.tan_fov_y))
+    ndc_y = -(py / cam.tan_fov_y)
+    return torch.stack([ndc_x, ndc_y], dim=-1) * 0.5 + 0.5
+
+
+def raster_coord(cam: Camera, pos):
+    """Integer raster coords — reference ``getRasterCoord``
+    (sceneStructs.h:45-48).  May be out of bounds: callers range-check."""
+    uv = raster_uv(cam, pos)
+    res = torch.tensor([cam.width, cam.height], dtype=torch.float32,
+                       device=pos.device)
+    return torch.floor(uv * res).to(torch.int32)

@@ -31,6 +31,10 @@ Intersection engines (``intersector``):
 * ``"plucker_plain"`` / ``"compact_plain"`` / ``"quad_plain"`` /
   ``"band_plain"``: the same engines, always in plain torch (the reference
   the kernels are held against, on any device).
+* ``"dense"``: exhaustive Möller–Trumbore through the kernels of
+  :mod:`radish_pt_tpu_torch.accel.dense` (the reference's opt-in
+  ``pallas_brute``); winners come with barycentrics.  Chosen only by name;
+  its plain path is ``"brute"``.
 * ``"brute"``: exhaustive Möller–Trumbore (accel/traverse.py), the oracle.
 """
 
@@ -44,6 +48,7 @@ import torch
 
 from ..accel import band as bnd
 from ..accel import compact as cpt
+from ..accel import dense as dns
 from ..accel import plucker as plk
 from ..accel import quad as qd
 from ..accel import traverse as trv
@@ -170,16 +175,16 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
     port's [T, 4, 10], other layouts (bf16 splits, the quad engine's forms,
     the band engine's transposed table) are rebuilt in f32 from
     ``tri_packed`` (the port keeps no bf16 splits), and so are the quad
-    engine's forms.  The JAX engine maps to ``"compact"``, ``"quad"`` and
-    ``"band"`` for ``pallas_compact``, ``pallas_quad`` and ``pallas_band``,
-    to ``"plucker"`` for the other Pallas sweeps and to ``"brute"``
-    otherwise (the reference's BVH walk returns the brute-force winners);
+    engine's forms.  The JAX engine maps to ``"compact"``, ``"quad"``,
+    ``"band"`` and ``"dense"`` for ``pallas_compact``, ``pallas_quad``,
+    ``pallas_band`` and ``pallas_brute``, to ``"plucker"`` for the other
+    Pallas sweeps and to ``"brute"`` otherwise (the reference's BVH walk returns the brute-force winners);
     pass ``intersector`` to choose another.
     """
     if intersector is None:
         engine = str(meta["intersector"])
         named = {"pallas_compact": "compact", "pallas_quad": "quad",
-                 "pallas_band": "band"}
+                 "pallas_band": "band", "pallas_brute": "dense"}
         intersector = named.get(engine, "plucker" if engine.startswith("pallas_")
                                 else "brute")
     kw = {k: meta[k] for k in META_FIELDS if k != "intersector"}
@@ -404,9 +409,12 @@ def intersect(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
             prim = torch.where(active, prim, -1)
         pos, norm, uv, mat_id = surface_info_from_t(ds, prim, ray_o, ray_d)
         return Interaction(prim_id=prim, mat_id=mat_id, pos=pos, norm=norm, uv=uv)
-    if ds.intersector != "brute":
+    if ds.intersector == "dense":
+        prim, _, bary = dns.intersect_dense(ds.tri_packed, ray_o, ray_d)
+    elif ds.intersector == "brute":
+        prim, _, bary = trv.intersect_brute(ds.tri_packed, ray_o, ray_d)
+    else:
         raise ValueError(f"unknown intersector {ds.intersector!r}")
-    prim, _, bary = trv.intersect_brute(ds.tri_packed, ray_o, ray_d)
     if active is not None:
         prim = torch.where(active, prim, -1)
     pos, norm, uv, mat_id = surface_info(ds, prim, bary)
@@ -432,6 +440,8 @@ def test_occlusion(ds: DeviceScene, x, y):
             ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds,
             ds.cluster_sub, x, y, plain=ds.intersector == "plucker_plain",
         )
+    if ds.intersector == "dense":
+        return dns.occlusion_dense(ds.tri_packed, x, y)
     if ds.intersector != "brute":
         raise ValueError(f"unknown intersector {ds.intersector!r}")
     return trv.occlusion_brute(ds.tri_packed, x, y)

@@ -134,6 +134,13 @@ def hdr_to_ldr(c):
     return c / (c + 1.0)
 
 
+def ldr_to_hdr(c):
+    """Inverse of :func:`hdr_to_ldr`, guarded at c -> 1 (the reference's
+    ``LDRToHDR``, mathUtil.h:53-56, returns its input unchanged; the JAX
+    package takes the true inverse, and so does the port)."""
+    return c / torch.clamp(1.0 - c, min=1e-4)
+
+
 # ---------------------------------------------------------------------------
 # sampling warps (mathUtil.h:132-166)
 # ---------------------------------------------------------------------------
@@ -237,6 +244,26 @@ def u32_to_unit(bits):
     """u32 bits (int64) -> f32 in [0, 1]: f32(bits) * 2^-32, rounding like
     the reference's u32 -> f32 convert."""
     return bits.to(torch.float32) * INV_2_32
+
+
+# ---------------------------------------------------------------------------
+# normal hemi-octahedral encoding (mathUtil.h:38-47)
+# ---------------------------------------------------------------------------
+
+
+def encode_normal_hemioct(n):
+    """Unit normal [..., 3] (z >= 0 hemisphere) -> 2 components."""
+    denom = (torch.abs(n[..., 0]) + torch.abs(n[..., 1])
+             + torch.clamp(n[..., 2], min=1e-12))
+    p = n[..., :2] / denom[..., None]
+    return torch.stack([p[..., 0] + p[..., 1], p[..., 0] - p[..., 1]], dim=-1)
+
+
+def decode_normal_hemioct(e):
+    tx = (e[..., 0] + e[..., 1]) * 0.5
+    ty = (e[..., 0] - e[..., 1]) * 0.5
+    tz = 1.0 - torch.abs(tx) - torch.abs(ty)
+    return normalize(torch.stack([tx, ty, tz], dim=-1))
 
 
 # ---------------------------------------------------------------------------

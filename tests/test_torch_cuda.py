@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card: build csrc/plucker.cu,
-csrc/compact.cu, csrc/quad.cu and csrc/band.cu and hold the Plücker
-closest-hit and shadow kernels, the sphere prepass, the compact, quad and
-band closest-hit and shadow kernels against their plain torch versions on
-teapot geometry, then small renders through the kernels against the same
-renders through the plain versions.
+csrc/compact.cu, csrc/quad.cu, csrc/band.cu and csrc/dense.cu and hold the
+Plücker closest-hit and shadow kernels, the sphere prepass, the compact,
+quad, band and dense closest-hit and shadow kernels against their plain
+torch versions on teapot geometry, then small renders through the kernels
+against the same renders through the plain versions.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no jax, so it runs
 on a machine without it:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -322,3 +322,62 @@ def test_render_through_engine_kernels_matches_plain(teapot_engines_cuda, engine
     img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
     assert np.isfinite(img).all() and img.mean() > 0.05
     assert np.abs(img - ref).mean() < 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the dense engine (csrc/dense.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_dense_kernels_match_plain(teapot_cuda):
+    """Every operation rounds on its own on both sides: prim ids, distances,
+    barycentrics and shadow bits are equal, bit for bit, on the teapot's
+    stored triangles (zero padding triangles included)."""
+    from radish_pt_tpu_torch.accel import dense as dns
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    ds, _, o, d, _ = teapot_cuda
+    pk, dk, bk = dns.closest_hit_cuda(ds.tri_packed, o, d)
+    pp, dp, bp = dns.closest_hit_plain(ds.tri_packed, o, d)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp) and torch.equal(dk, dp) and torch.equal(bk, bp)
+    assert float((pp >= 0).float().mean()) > 0.3
+    y = o + d * torch.linspace(0.5, 6.0, o.shape[0], device=o.device)[:, None]
+    y[::7] = o[::7]  # zero-length segments: never blocked
+    so, sd, tm = trv.segment_rays(o, y)
+    so, sd, tm = so.contiguous(), sd.contiguous(), tm.contiguous()
+    ok = dns.occlusion_cuda(ds.tri_packed, so, sd, tm)
+    op = dns.occlusion_plain(ds.tri_packed, so, sd, tm)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, op) and not bool(ok[::7].any())
+    assert 0.05 < float(op.float().mean()) < 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracer", ["pt", "restir"])
+def test_render_through_dense_kernels_matches_plain(tracer):
+    """Cornell at 64x64 on the dense engine against the brute engine (its
+    plain path): equal frames, the kernels launched and no plain call."""
+    from radish_pt_tpu_torch.accel import dense as dns
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cuda",
+                            intersector="dense")
+    cam = cam.replace(width=64, height=64)
+    settings = Settings(tracer=Tracer.STREAMED if tracer == "pt" else Tracer.RESTIR_DI)
+    imgs = []
+    for engine in ("dense", "brute"):
+        dns.reset_counts()
+        r = Renderer(ds=ds.replace(intersector=engine), cam=cam, settings=settings,
+                     device="cuda")
+        imgs.append(r.render(spp=2))
+        if engine == "dense":
+            assert dns.LAUNCHES["closest_hit"] > 0 and dns.LAUNCHES["occlusion"] > 0
+            assert dns.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
+    assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.05
+    assert np.abs(imgs[0] - imgs[1]).mean() < 2e-3
