@@ -14,13 +14,16 @@ of those paths against their plain torch versions.  Phases:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. cold start: the five kernel sources built with nvcc at once (seconds
-   shown), then teapot and teapot_hires (compact) loaded and rendered once
+   shown, and each kernel's registers and spills as ptxas reports them),
+   then teapot and teapot_hires (compact) loaded and rendered once
    at 800x800, and the quad, band and dense scenes loaded;
 3. kernel parity at the main paths' shapes (800x800 primaries, one bounce
    wavefront with dead lanes, its NEE shadow segments): the Plücker sweeps
    and the quad sweeps on teapot; the sphere prepass, the compact sweeps
    and the band sweeps (8 bands a row) on teapot_hires; the dense sweeps
-   on cornell and teapot, bit for bit;
+   on cornell and teapot, bit for bit; for the compact closest hit also
+   the (lane, triangle) pairs its wavefronts need when culled per row
+   group, per warp and per lane;
 4. the main paths, loopers 0-7, each with the launch counts of its kernels
    set to 0 just before and read just after, finite non-zero images, and
    looper-7 mean radiance within 1% of each scene's 800x800 golden (the
@@ -268,15 +271,27 @@ def compact_parity(ds, waves, max_err, log):
             max_err["compact_occlusion"] = max(max_err["compact_occlusion"], err)
             inputs[what] = (feats, tmax, fk, items, offsets, sph)
             continue
-        pk, dk = cpt.closest_hit_cuda(ds.sweep_coeffs, feats, tmax, items, item_tn,
-                                      offsets, 1)
+        pk, dk = cpt.closest_hit_cuda(ds.sweep_packed, ds.unit_spheres, feats, tmax,
+                                      items, item_tn, offsets, 1)
         pp, dp = cpt.closest_hit_plain(ds.sweep_coeffs, feats, tmax, fk, 1)
         torch.cuda.synchronize()
         err = check_closest(pk, dk, pp, dp, live, f"compact closest hit, {what}", log)
         # the compact kernel reads tmax: a dead lane sweeps nothing
         assert bool((pk[~live] == -1).all()), "compact closest hit: a dead lane hit"
         max_err["compact_closest_hit"] = max(max_err["compact_closest_hit"], err)
-        inputs[what] = (feats, tmax, fk, items, item_tn, offsets, sph)
+        # what culling finer than the row group can save, and the floor
+        pairs = cpt.pair_counts(ds.unit_spheres, feats, tmax, fk, dk, 1,
+                                ds.num_triangles)
+        log(f"[pairs] compact closest hit, {what}: (lane, triangle) pairs culled per "
+            f"{cpt.LANES}-lane row group {pairs['row']:.4e}, per {cpt.WARP}-lane warp "
+            f"{pairs['warp']:.4e} ({pairs['warp'] / pairs['row']:.4f} of it), per lane "
+            f"{pairs['lane']:.4e} ({pairs['lane'] / pairs['row']:.4f}); with each unit "
+            f"cut at the lane's final t: row group {pairs['row_cut']:.4e}, warp "
+            f"{pairs['warp_cut']:.4e}, lane {pairs['lane_cut']:.4e} "
+            f"({pairs['lane_cut'] / pairs['row']:.4f}: what the data needs)")
+        assert pairs["lane"] <= pairs["warp"] <= pairs["row"]
+        assert pairs["lane_cut"] <= pairs["warp_cut"] <= pairs["row_cut"]
+        inputs[what] = (feats, tmax, fk, items, item_tn, offsets, pairs, sph)
     return inputs
 
 
@@ -297,9 +312,13 @@ def quad_parity(ds, waves, max_err, log):
         feats = qd.quad_features(o, d, ds.sweep_center)
         mask = plk.cluster_mask_words(ds.cluster_bounds, o, d,
                                       None if what == "primary" else tmax)
-        pk, dk = qd.closest_hit_cuda(ds.quad_coeffs, feats, mask, sub)
+        pk, dk = qd.closest_hit_cuda(ds.quad_packed, feats, mask, sub)
         pp, dp = qd.closest_hit_plain(ds.quad_coeffs, feats, mask, sub)
         torch.cuda.synchronize()
+        n_val = int(((dk != dp) & live).sum())
+        log(f"[parity] quad closest hit, {what}: dist differs by value on {n_val} live "
+            f"lanes (the plain version emulates each fused multiply-add in f64, which "
+            f"can round twice; the terms the kernel drops add exact zeros)")
         log(f"[parity] quad {what}: {float(plk.unpack_mask(mask, n_c).sum(1).float().mean()):.2f}"
             f" clusters of {sub} per 128-lane row")
         err = check_closest(pk, dk, pp, dp, live, f"quad closest hit, {what}", log)
@@ -572,7 +591,7 @@ def main() -> int:
     # scene load, first frame ----
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.build_all(verbose=True)
     t_build = time.perf_counter() - t0
     for lib in SOURCES:
         s = _build.BUILD_SECONDS.get(lib)
@@ -581,6 +600,11 @@ def main() -> int:
             f"{s if s is None else round(s, 2)} s (None: reused a library built "
             f"before this run)")
     log(f"[build] all {len(SOURCES)} sources, in parallel: {t_build:.2f} s wall")
+    for lib in SOURCES:  # ptxas -v: empty when the library was built before
+        for kernel, use in _build.kernel_resources(lib).items():
+            log(f"[build] {lib}: {kernel}: {use['registers']} registers, spills "
+                f"{use['spill_stores']} B stored / {use['spill_loads']} B loaded, "
+                f"{use['smem']} B static shared memory")
     scenes = {}
     ds, cam, _ = load_scene(scene_path("teapot"), device=dev)
     cam = cam.replace(width=RES, height=RES)
@@ -890,7 +914,8 @@ def main() -> int:
                 * plk.FLOPS_PER_PAIR["occlusion"],
                 nbytes(c, feats, stm, mask) + 4 * n)
     ds = scenes["teapot_quad"][0]
-    qc = ds.quad_coeffs
+    qc, qp = ds.quad_coeffs, ds.quad_packed
+    other_bounds = {}  # (key, scene) -> a named second bound, logged beside the first
     for what in ("primary", "extension", "segments"):
         feats, mask = inputs["quad"][what]
         n = feats.shape[0]
@@ -902,11 +927,16 @@ def main() -> int:
                         pairs * qd.FLOPS_PER_PAIR["occlusion"],
                         nbytes(qc, feats, mask) + 4 * n)
         else:
+            # the operations of the live terms; beside it the bound of all
+            # 5 x 27 terms (a sweep that also multiplies the structural zeros)
             time_kernel(f"quad_closest_hit/{what}",
-                        lambda: qd.closest_hit_cuda(qc, feats, mask, sub),
+                        lambda: qd.closest_hit_cuda(qp, feats, mask, sub),
                         lambda: qd.closest_hit_plain(qc, feats, mask, sub),
                         pairs * qd.FLOPS_PER_PAIR["closest_hit"],
-                        nbytes(qc, feats, mask) + 8 * n)
+                        nbytes(qp, feats, mask) + 8 * n)
+            other_bounds[f"quad_closest_hit/{what}", "teapot_quad"] = (
+                "all 135 terms", bound(pairs * qd.CLOSEST_FLOPS_ALL_TERMS,
+                                       nbytes(qc, feats, mask) + 8 * n)[0])
     ds = scenes["teapot_hires"][0]
     c = ds.sweep_coeffs
     for what in ("primary", "extension", "segments"):
@@ -917,16 +947,24 @@ def main() -> int:
                     lambda: cpt.sphere_flags_plain(*sph),
                     rows * cpt.LANES * units * cpt.FLOPS_PER_PAIR["sphere_flags"],
                     nbytes(*sph) + 5 * rows * units)
+    cp, us = ds.sweep_packed, ds.unit_spheres
     for what in ("primary", "extension"):
-        feats, tmax, flags, items, item_tn, offsets, _ = inputs["compact"][what]
+        feats, tmax, flags, items, item_tn, offsets, pairs, _ = inputs["compact"][what]
         n = feats.shape[0]
+        nb = nbytes(cp, us, feats, tmax, items, item_tn, offsets) + 8 * n
+        # the pairs the data needs: per lane, the units its own sphere test
+        # flags with entry within reach of the lane's final t; beside it
+        # the bound over the row group's flagged units (a sweep that culls
+        # per row group only)
         time_kernel(f"compact_closest_hit/{what}",
-                    lambda: cpt.closest_hit_cuda(c, feats, tmax, items, item_tn,
+                    lambda: cpt.closest_hit_cuda(cp, us, feats, tmax, items, item_tn,
                                                  offsets, 1),
                     lambda: cpt.closest_hit_plain(c, feats, tmax, flags, 1),
-                    group_pairs(flags, cpt.CLUSTER_SUB, cpt.LANES, n)
-                    * cpt.FLOPS_PER_PAIR["closest_hit"],
-                    nbytes(c, feats, tmax, items, item_tn, offsets) + 8 * n)
+                    pairs["lane_cut"] * cpt.FLOPS_PER_PAIR["closest_hit"], nb)
+        assert pairs["row"] == group_pairs(flags, cpt.CLUSTER_SUB, cpt.LANES, n)
+        other_bounds[f"compact_closest_hit/{what}", "teapot_hires"] = (
+            "the row group's flagged units",
+            bound(pairs["row"] * cpt.FLOPS_PER_PAIR["closest_hit"], nb)[0])
     feats, tm, flags, items, offsets, _ = inputs["compact"]["segments"]
     n = feats.shape[0]
     time_kernel("compact_occlusion/segments",
@@ -976,10 +1014,14 @@ def main() -> int:
     for (key, scene), (k, p, flops, nb) in timed.items():
         name, what = key.split("/")
         b_ms, b_by = bound(flops, nb)
+        also = ""
+        if (key, scene) in other_bounds:
+            o_name, o_ms = other_bounds[key, scene]
+            also = f"; bound over {o_name} {o_ms:.3f} ms"
         log(f"[timing] {name}, {scene} {what}: kernel "
             f"{k:.3f} ms, plain {p:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
             f"{flops / 1e9:.2f} GFLOP, {nb / 1e6:.2f} MB), kernel at "
-            f"{100 * b_ms / k:.1f}% of it")
+            f"{100 * b_ms / k:.1f}% of it{also}")
 
     rows = []
     for name in REPLACES:
@@ -994,6 +1036,9 @@ def main() -> int:
                      "max_abs_err": max_err[name], "ms": k, "plain_ms": p,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                      "shape": f"{KERNEL_SCENE[lib]} {what}"})
+        if (f"{name}/{what}", KERNEL_SCENE[lib]) in other_bounds:
+            o_name, o_ms = other_bounds[f"{name}/{what}", KERNEL_SCENE[lib]]
+            rows[-1]["other_bound"] = {"over": o_name, "ms": o_ms}
     log(f"[done] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

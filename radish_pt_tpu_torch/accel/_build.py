@@ -15,6 +15,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -38,9 +39,9 @@ SIGNATURES = {
     "compact": {
         # feats, planes, rows, units, flags, tn, stream
         "compact_sphere_flags": [_P, _P, _I, _I, _P, _P, _P],
-        # coeffs, T, unit_tris, feats, tmax, N, items, item_tn, offsets,
-        # rows, prim, dist, stream
-        "compact_closest_hit": [_P, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+        # packed, T, unit_tris, spheres, feats, tmax, N, items, item_tn,
+        # offsets, rows, prim, dist, stream
+        "compact_closest_hit": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P],
         # coeffs, T, unit_tris, feats, tm, N, items, offsets, rows, occ,
         # stream
         "compact_occlusion": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P],
@@ -65,6 +66,7 @@ SIGNATURES = {
 
 _libs: dict = {}
 BUILD_SECONDS: dict = {}  # library name -> seconds spent compiling
+PTXAS_LOG: dict = {}  # library name -> nvcc's output of a verbose build
 
 
 def find_nvcc() -> str:
@@ -75,8 +77,8 @@ def find_nvcc() -> str:
                        "from csrc/ on a machine with the CUDA toolkit")
 
 
-def library_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, defines: tuple = ()) -> str:
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
     for src in [os.path.join(CSRC, f"{name}.cu"),
                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
         with open(src, "rb") as f:
@@ -84,18 +86,22 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build_all(names=tuple(SIGNATURES), verbose: bool = False) -> dict:
+def build_all(names=tuple(SIGNATURES), verbose: bool = False,
+              defines: tuple = ()) -> dict:
     """Compile every ``csrc/<name>.cu`` whose hashed library is missing,
     one ``nvcc`` per source, all started together; returns name -> path.
-    ``verbose`` adds ``-Xptxas -v`` (registers, spills) and prints it."""
+    ``verbose`` adds ``-Xptxas -v`` and keeps what it prints in
+    :data:`PTXAS_LOG` (registers, spills per kernel).  ``defines`` are
+    extra ``-DNAME=value`` flags (a tuning variant: its own library)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = {}
     for name in names:
-        path = library_path(name)
+        path = library_path(name, defines)
         if os.path.exists(path):
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [find_nvcc(), *NVCC_FLAGS, *defines,
+               *(["-Xptxas", "-v"] if verbose else []),
                "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -107,22 +113,49 @@ def build_all(names=tuple(SIGNATURES), verbose: bool = False) -> dict:
             failed.append(f"nvcc failed for {name}:\n{out}")
             continue
         if verbose:
-            print(out, flush=True)
+            PTXAS_LOG[name] = out
         os.replace(tmp, path)
         BUILD_SECONDS[name] = time.perf_counter() - t0
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: library_path(name) for name in names}
+    return {name: library_path(name, defines) for name in names}
 
 
-def load_library(name: str):
-    """The library of ``csrc/<name>.cu`` with its C entry points typed."""
-    lib = _libs.get(name)
+def kernel_resources(name: str) -> dict:
+    """Per kernel of ``csrc/<name>.cu``, what ``ptxas -v`` reported in a
+    verbose build of this process: {mangled kernel name: {"registers",
+    "spill_stores", "spill_loads", "smem"}} (bytes; empty if the library
+    was not built verbosely here)."""
+    out, entry = {}, None
+    for line in PTXAS_LOG.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = out.setdefault(m.group(1), {"registers": None, "spill_stores": 0,
+                                                "spill_loads": 0, "smem": 0})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entry["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def load_library(name: str, defines: tuple = ()):
+    """The library of ``csrc/<name>.cu`` with its C entry points typed
+    (``defines``: a tuning variant, not cached)."""
+    lib = None if defines else _libs.get(name)
     if lib is not None:
         return lib
-    lib = ctypes.CDLL(build_all((name,))[name])
+    lib = ctypes.CDLL(build_all((name,), defines=defines)[name])
     for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _I
-    _libs[name] = lib
+    if not defines:
+        _libs[name] = lib
     return lib

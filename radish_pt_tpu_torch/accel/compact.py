@@ -20,7 +20,15 @@ in row groups of ``LANES`` = 256.  Per sweep:
 2. :func:`work_list` compacts the flagged pairs into per-row-group slices
    ordered near to far;
 3. the sweep visits only those pairs (:func:`closest_hit`,
-   :func:`occlusion`), with the decision planes of :mod:`.plucker`.
+   :func:`occlusion`), with the decision planes of :mod:`.plucker`.  The
+   closest-hit kernel culls once more inside the walk, per lane: each lane
+   tests its own ray against the unit's bounding sphere
+   (:func:`unit_spheres`, :func:`lane_unit_flags_plain`) and wants the
+   unit only if it can still find a nearer hit there; a warp sweeps a
+   unit with all its lanes when most want it, and one wanting ray at a
+   time, its threads spread over the unit's triangles, when few do.  It
+   reads the triangles' live coefficients from the packed table
+   (:func:`.plucker.numpy_packed_coeffs`).  Both are built once per scene.
 
 Each of the three kernels (``csrc/compact.cu``) has a plain torch version in
 this module with one contract; the dispatchers take the plain version for
@@ -39,8 +47,8 @@ from __future__ import annotations
 
 import torch
 
-from .plucker import (ROW, blocks, hit_t, plucker_features, sweep_any,
-                      sweep_closest)
+from .plucker import (PACKED_WIDTH, ROW, blocks, hit_t, plucker_features,
+                      sweep_any, sweep_closest)
 from .traverse import FLT_MAX, NULL_PRIMITIVE, segment_rays
 
 CLUSTER_SUB = 64  # triangles per culling cluster
@@ -52,6 +60,10 @@ PER_RAY_PREPASS_MAX = 256
 # above this many clusters, g consecutive clusters merge into one unit (:981)
 SPHERE_UNIT_MAX = 4096
 SPHERE_NEG = -1e37  # a plane constant that never flags (:1075)
+WARP = 32  # lanes of one warp of the closest-hit kernel
+# a unit is skipped once the best t, widened by this margin, is below its
+# entry distance (the reference's test, :1389; kSkipMargin in the kernel)
+SKIP_MARGIN = 1.0 + 1e-4
 # the non-zero terms of each sphere plane (A, C, E), in summation order;
 # term 15 is the constant (feature 15 is 1)
 SPHERE_TERMS = ((0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 15),
@@ -265,6 +277,89 @@ def prepass(center, cluster_bounds, ray_o, ray_d, tmax=None, plain=False):
     return flags, tn, g
 
 
+def unit_spheres(cluster_bounds, center):
+    """Per-unit bounding spheres f32 [U, 4] = (centre relative to
+    ``center``, radius): the unit AABB's centre and half diagonal plus the
+    prepass's slack (2e-4 of the scene's scale + 1e-6, as plane C of
+    :func:`_sphere_plane_coeffs`), far above f32 rounding.  Padding units
+    get radius -1 and never pass.  Built once per scene."""
+    cull, _ = _units(cluster_bounds)
+    lo, hi = cull[:, 0:3], cull[:, 3:6]
+    valid = torch.all(hi >= lo, dim=1)
+    lo = torch.where(valid[:, None], lo, 0.0)
+    hi = torch.where(valid[:, None], hi, 0.0)
+    p = 0.5 * (lo + hi) - center[None]
+    r = 0.5 * torch.linalg.norm(hi - lo, dim=1)
+    scale = torch.max(torch.where(valid, torch.linalg.norm(p, dim=1) + r, 0.0))
+    rl = torch.where(valid, r + 2e-4 * scale + 1e-6, -1.0)
+    return torch.cat([p, rl[:, None]], 1).contiguous()
+
+
+def lane_unit_flags_plain(spheres, feats, tmax, with_entry: bool = False):
+    """Each lane's own sphere test, bool [N, U]: the plain twin of the
+    closest-hit kernel's ``lane_passes``.  ``spheres`` f32 [U, 4] of
+    :func:`unit_spheres`, ``feats`` f32 [N, 10] Plücker features (unit
+    directions, origins relative to the scene centre), ``tmax`` f32 [N]: a
+    negative one marks a dead lane, which flags nothing; it bounds nothing
+    else, as the sweep's contract does not bound hits by it.  With q =
+    centre - o a lane flags a unit when |q x d|² <= r² and q.d + r >= 0;
+    ``with_entry`` also returns max(q.d - r, 0) f32 [N, U], a lower bound
+    of t over the sphere.  Unfused f32 operations in the kernel's order:
+    bit-equal to it.  Materializes [N, U]: chunk large wavefronts."""
+    d, o = feats[:, None, 0:3], feats[:, None, 6:9]
+    q = spheres[None, :, 0:3] - o
+    r = spheres[None, :, 3]
+    ts = q[..., 0] * d[..., 0] + q[..., 1] * d[..., 1] + q[..., 2] * d[..., 2]
+    wx = q[..., 1] * d[..., 2] - q[..., 2] * d[..., 1]
+    wy = q[..., 2] * d[..., 0] - q[..., 0] * d[..., 2]
+    wz = q[..., 0] * d[..., 1] - q[..., 1] * d[..., 0]
+    d2 = wx * wx + wy * wy + wz * wz
+    flags = ((r >= 0.0) & (d2 <= r * r) & (ts + r >= 0.0)
+             & (tmax >= 0.0)[:, None])
+    if not with_entry:
+        return flags
+    return flags, torch.clamp(ts - r, min=0.0)
+
+
+def pair_counts(spheres, feats, tmax, flags, dist, g: int, num_tris: int,
+                chunk_rows: int = 32) -> dict:
+    """The (lane, triangle) pairs a closest-hit sweep of this wavefront
+    visits when it culls per row group of :data:`LANES` lanes (``row``: the
+    units of ``flags`` bool [rows, U], for every lane of the group), per
+    warp of :data:`WARP` lanes (``warp``: the listed units some lane of the
+    warp flags itself, :func:`lane_unit_flags_plain`) and per lane
+    (``lane``); and the same three with a unit counted only for lanes whose
+    own entry distance is within reach of their final ``dist`` f32 [N]
+    (``row_cut``, ``warp_cut``, ``lane_cut``: what a walk that knew each
+    lane's answer would visit; ``lane_cut`` is what the data needs).  A
+    measurement helper: floats, one host sync per chunk."""
+    n, n_units = feats.shape[0], spheres.shape[0]
+    unit_tris = CLUSTER_SUB * g
+    tris = torch.clamp(num_tris - torch.arange(n_units, device=feats.device)
+                       * unit_tris, 0, unit_tris).double()
+    out = dict.fromkeys(("row", "warp", "lane", "row_cut", "warp_cut", "lane_cut"),
+                        0.0)
+    reach = dist * SKIP_MARGIN  # FLT_MAX (a miss) overflows to inf: any unit
+    for r0 in range(0, flags.shape[0], chunk_rows):
+        r1 = min(flags.shape[0], r0 + chunk_rows)
+        lo, hi = r0 * LANES, min(n, r1 * LANES)
+        pad = (r1 - r0) * LANES - (hi - lo)
+        own, entry = lane_unit_flags_plain(spheres, feats[lo:hi], tmax[lo:hi], True)
+        cut = own & (entry <= reach[lo:hi, None])
+        real = torch.nn.functional.pad(
+            torch.ones(hi - lo, dtype=torch.bool, device=feats.device), (0, pad))
+        for key, lane in (("", own), ("_cut", cut)):
+            lane = torch.nn.functional.pad(lane, (0, 0, 0, pad))
+            lane = lane & flags[r0:r1].repeat_interleave(LANES, 0)
+            for name, size in (("row", LANES), ("warp", WARP), ("lane", 1)):
+                grp = lane.view(-1, size, n_units).any(1)
+                if name == "row" and not key:
+                    grp = flags[r0:r1]  # every listed unit, as the list has it
+                lanes = real.view(-1, size).sum(1).double()
+                out[name + key] += float((grp.double() * tris).sum(1) @ lanes)
+    return out
+
+
 def work_list(flags, tn):
     """Compact the flagged (row group, unit) pairs into a row-major,
     near-to-far work list: (items i32 [W] unit ids, item_tn f32 [W],
@@ -332,14 +427,21 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _check_sweep(coeffs, feats, lane_f32, items, offsets, g):
+def _check_sweep(coeffs, feats, lane_f32, items, offsets, g, packed=False):
+    """``coeffs`` is the plane table [T, 4, 10], or with ``packed`` the
+    packed table [T, 20], which the kernel reads 16 bytes at a time."""
     tensors = (coeffs, feats, lane_f32, items, offsets)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("the CUDA compact sweep takes CUDA tensors")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the compact sweep's inputs must be contiguous")
     n = feats.shape[0]
-    if (coeffs.dtype != torch.float32 or coeffs.dim() != 3
+    if packed:
+        if (coeffs.dtype != torch.float32 or coeffs.dim() != 2
+                or coeffs.shape[1] != PACKED_WIDTH or coeffs.data_ptr() % 16):
+            raise ValueError(f"the packed table must be 16-byte aligned f32 "
+                             f"[T, {PACKED_WIDTH}], got {tuple(coeffs.shape)}")
+    elif (coeffs.dtype != torch.float32 or coeffs.dim() != 3
             or coeffs.shape[1:] != (4, 10)):
         raise ValueError(f"coeffs must be f32 [T, 4, 10], got {tuple(coeffs.shape)}")
     if feats.dtype != torch.float32 or feats.dim() != 2 or feats.shape[1] != 10:
@@ -354,15 +456,22 @@ def _check_sweep(coeffs, feats, lane_f32, items, offsets, g):
         raise ValueError("g must be >= 1")
 
 
-def closest_hit_cuda(coeffs, feats, tmax, items, item_tn, offsets, g):
+def closest_hit_cuda(packed, spheres, feats, tmax, items, item_tn, offsets, g):
     """The compact closest-hit kernel (``compact_closest_hit`` in
     csrc/compact.cu) over the work list ``items, item_tn, offsets`` of
-    :func:`work_list`; same results as :func:`closest_hit_plain` on the
-    flags the list was built from."""
-    _check_sweep(coeffs, feats, tmax, items, offsets, g)
+    :func:`work_list`, on the scene's packed table ``packed`` f32 [T, 20]
+    and unit spheres ``spheres`` f32 [U, 4]; same results as
+    :func:`closest_hit_plain` on the flags the list was built from."""
+    _check_sweep(packed, feats, tmax, items, offsets, g, packed=True)
     if not (item_tn.is_cuda and item_tn.dtype == torch.float32
             and item_tn.shape == items.shape and item_tn.is_contiguous()):
         raise ValueError("item_tn must be contiguous f32 on the card, one per item")
+    n_units = -(-packed.shape[0] // (CLUSTER_SUB * g))
+    if not (spheres.is_cuda and spheres.dtype == torch.float32
+            and spheres.shape == (n_units, 4) and spheres.is_contiguous()
+            and spheres.data_ptr() % 16 == 0):
+        raise ValueError(f"spheres must be 16-byte aligned contiguous f32 "
+                         f"[{n_units}, 4] on the card, one per unit")
     n = feats.shape[0]
     prim = torch.empty((n,), dtype=torch.int32, device=feats.device)
     dist = torch.empty((n,), dtype=torch.float32, device=feats.device)
@@ -371,9 +480,9 @@ def closest_hit_cuda(coeffs, feats, tmax, items, item_tn, offsets, g):
     lib, stream, p = _lib(feats)
     with torch.cuda.device(feats.device):
         err = lib.compact_closest_hit(
-            p(coeffs), coeffs.shape[0], CLUSTER_SUB * g, p(feats), p(tmax), n,
-            p(items), p(item_tn), p(offsets), offsets.shape[0] - 1, p(prim),
-            p(dist), stream)
+            p(packed), packed.shape[0], CLUSTER_SUB * g, p(spheres), p(feats),
+            p(tmax), n, p(items), p(item_tn), p(offsets), offsets.shape[0] - 1,
+            p(prim), p(dist), stream)
     _raise_on(err, "compact_closest_hit")
     LAUNCHES["closest_hit"] += 1
     return prim, dist
@@ -398,11 +507,16 @@ def occlusion_cuda(coeffs, feats, tm, items, offsets, g):
     return occ.bool()
 
 
-def closest_hit(coeffs, feats, tmax, flags, tn, g):
-    """Compact closest hit: the work list and the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+def closest_hit(coeffs, feats, tmax, flags, tn, g, packed=None, spheres=None):
+    """Compact closest hit: the work list and the kernel for CUDA tensors
+    (on the scene's ``packed`` table and unit ``spheres``, which it then
+    needs), the plain version for CPU tensors."""
     if feats.is_cuda:
-        return closest_hit_cuda(coeffs, feats, tmax, *work_list(flags, tn), g)
+        if packed is None or spheres is None:
+            raise ValueError("the CUDA compact closest hit needs the scene's "
+                             "packed table and unit spheres")
+        return closest_hit_cuda(packed, spheres, feats, tmax,
+                                *work_list(flags, tn), g)
     return closest_hit_plain(coeffs, feats, tmax, flags, g)
 
 
@@ -421,18 +535,21 @@ def occlusion(coeffs, feats, tm, flags, tn, g):
 
 
 def intersect_compact(coeffs, center, cluster_bounds, ray_o, ray_d, tmax=None,
-                      plain: bool = False):
+                      plain: bool = False, packed=None, spheres=None):
     """Closest hit through the compact engine: (prim i32 [N] positional
     ids, selector-grade dist f32 [N]).  ``tmax`` (f32 [N]) bounds the
     prepass; a lane with negative tmax (the engines pass -FLT_MAX) is dead
-    and misses.  ``plain`` selects the plain versions on any device."""
+    and misses.  ``plain`` selects the plain versions on any device;
+    ``packed`` and ``spheres`` are the scene's packed table and unit
+    spheres, which the kernel reads."""
     if tmax is None:
         tmax = torch.full((ray_o.shape[0],), FLT_MAX, device=ray_o.device)
     flags, tn, g = prepass(center, cluster_bounds, ray_o, ray_d, tmax, plain)
     feats = plucker_features(ray_o, ray_d, center)
     if plain:
         return closest_hit_plain(coeffs, feats, tmax, flags, g)
-    return closest_hit(coeffs, feats, tmax.contiguous(), flags, tn, g)
+    return closest_hit(coeffs, feats, tmax.contiguous(), flags, tn, g, packed,
+                       spheres)
 
 
 def occlusion_compact(coeffs, center, cluster_bounds, x, y, plain: bool = False):

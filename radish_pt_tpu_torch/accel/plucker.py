@@ -55,6 +55,11 @@ ROW = 128  # lanes per culling row (one CUDA block)
 # (det², bx·det, by·det, t·det·det, two subtractions, det² - eps²: 7; the
 # shadow test adds tm·det² - t·det·det: 2); mins and compares not counted
 FLOPS_PER_PAIR = {"closest_hit": 41, "occlusion": 43}
+# the 19 coefficients of ``coeffs`` [T, 4, 10] (flattened to 40) that can be
+# non-zero, in the kernels' staging order: det reads d, bx and by read d and
+# o x d, t·det reads o and 1
+LIVE_SLOTS = (*range(0, 3), *range(10, 16), *range(20, 26), *range(36, 40))
+PACKED_WIDTH = 20  # floats per packed triangle: the live slots and one zero
 
 LAUNCHES = {"closest_hit": 0, "occlusion": 0}
 PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
@@ -436,3 +441,14 @@ def numpy_coeffs(tri_packed: np.ndarray):
     c_td = np.concatenate([z3, z3, n, -nv], axis=1)
     coeffs = np.stack([c_det, c_bx, c_by, c_td], axis=1)  # [T, 4, 10]
     return np.ascontiguousarray(coeffs, np.float32), center
+
+
+def numpy_packed_coeffs(coeffs: np.ndarray) -> np.ndarray:
+    """The live coefficients of ``coeffs`` [T, 4, 10] packed to f32
+    [T, 20]: :data:`LIVE_SLOTS` in order, slot 19 zero — one triangle is 80
+    bytes, 16-byte aligned, read by a kernel as five ``float4``
+    (``csrc/plucker_planes.cuh``)."""
+    flat = np.asarray(coeffs, np.float32).reshape(-1, 40)
+    out = np.zeros((flat.shape[0], PACKED_WIDTH), np.float32)
+    out[:, :len(LIVE_SLOTS)] = flat[:, list(LIVE_SLOTS)]
+    return out

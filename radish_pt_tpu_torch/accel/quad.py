@@ -28,9 +28,13 @@ Culling is the Plücker engine's per-128-lane-row slab prepass
 (:func:`.plucker.cluster_mask_words`, as ``_quad_launch`` calls
 ``_cluster_mask_bits``).  Each sweep has a kernel (``csrc/quad.cu``) and a
 plain torch version with one contract: every form is summed over the 27
-live monomials in order, one f32 fused multiply-add per term (the plain
+monomials in order, one f32 fused multiply-add per term (the plain
 version forms each exact product in f64, adds and rounds to f32), so the
-two agree to the ulp.  ``closest_hit`` / ``occlusion`` take the plain
+two agree to the ulp.  The closest-hit kernel leaves out the terms whose
+coefficient is zero by construction (72 of q1..q5's 135; it reads the 63
+live ones from the packed table of :func:`numpy_quad_packed`): a dropped
+term adds an exact zero, so its values are the plain version's
+(:func:`forms_live` is its summation in plain torch).  ``closest_hit`` / ``occlusion`` take the plain
 version for CPU tensors and launch the kernel (or raise) for CUDA tensors.
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-version calls.
 """
@@ -51,11 +55,26 @@ QUAD_FEATS = 28  # 27 monomials + the constant slot (coefficient 0)
 QUAD_LIVE = 27
 STORED_PLANES = 6  # q1..q6 per triangle; the closest hit reads q1..q5
 CLOSEST_PLANES = 5
-# f32 operations per (ray, triangle) pair: 27 multiply-adds per form
-# (one multiply, 26 fused multiply-adds: 53 flops), the min chain not
-# counted
-FLOPS_PER_PAIR = {"closest_hit": CLOSEST_PLANES * 53,
+# the monomials whose coefficient can be non-zero, per form (the ranges of
+# :func:`numpy_quad_coeffs`' ``row``): q1..q3 read d⊗d and m⊗d, q4 d⊗d, q5
+# o⊗d and d (q6, the shadow test's, d⊗d, o⊗d and d)
+LIVE_TERMS = (range(0, 15), range(0, 15), range(0, 15), range(0, 6),
+              range(15, 27), (*range(0, 6), *range(15, 27)))
+# the closest hit's 63 live coefficients of q1..q5 as slots of the
+# flattened [6 * 28] row, form by form in monomial order: the packed
+# table's layout, one zero slot appended (64 floats, sixteen float4)
+LIVE_SLOTS = tuple(p * QUAD_FEATS + k for p in range(CLOSEST_PLANES)
+                   for k in LIVE_TERMS[p])
+PACKED_WIDTH = 64
+# f32 operations per (ray, triangle) pair, the min chain not counted.  The
+# closest hit sums only the live terms, one multiply and then fused
+# multiply-adds per form: 3 x 29 + 11 + 23; the shadow test sums all 27
+# monomials of its six forms (53 flops a form; CLOSEST_FLOPS_ALL_TERMS is
+# that count for the closest hit's five)
+FLOPS_PER_PAIR = {"closest_hit": sum(2 * len(LIVE_TERMS[p]) - 1
+                                     for p in range(CLOSEST_PLANES)),
                   "occlusion": STORED_PLANES * 53}
+CLOSEST_FLOPS_ALL_TERMS = CLOSEST_PLANES * 53
 
 LAUNCHES = {"closest_hit": 0, "occlusion": 0}
 PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
@@ -130,6 +149,18 @@ def numpy_quad_coeffs(tri_packed: np.ndarray, center: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.stack(rows, axis=1), np.float32)
 
 
+def numpy_quad_packed(coeffs: np.ndarray) -> np.ndarray:
+    """The closest hit's live coefficients of ``coeffs`` [T, 6, 28] packed
+    to f32 [T, 64]: :data:`LIVE_SLOTS` in order (q1 0-14, q2 15-29, q3
+    30-44, q4 45-50, q5 51-62), slot 63 zero.  A triangle is 256 bytes,
+    16-byte aligned; the kernel reads it as sixteen ``float4``, each
+    feeding four fused multiply-adds."""
+    flat = np.asarray(coeffs, np.float32).reshape(-1, STORED_PLANES * QUAD_FEATS)
+    out = np.zeros((flat.shape[0], PACKED_WIDTH), np.float32)
+    out[:, :len(LIVE_SLOTS)] = flat[:, list(LIVE_SLOTS)]
+    return out
+
+
 def quad_segments(x, y):
     """Shadow segment x -> y as (origin, unnormalized direction) with the
     parameter t in [0, 1] (``occlusion_quad_pallas`` :2415-2420): the origin
@@ -162,6 +193,28 @@ def forms(coeffs, feats, planes: int):
         wide.addr_(f[k], c[k])  # exact product, one f64 rounding of the sum
         acc.copy_(wide)  # and the one rounding to f32
     return acc.view(f.shape[1], -1, planes)
+
+
+def forms_live(packed, feats):
+    """q1..q5 f32 [R, T, 5] from the packed table ``packed`` [T, 64] as the
+    closest-hit kernel sums them: each form over its live monomials only
+    (:data:`LIVE_TERMS`), in order, one fused multiply-add per term from 0.
+    Equal by value to ``forms(coeffs, feats, 5)``: a dropped term adds an
+    exact zero."""
+    f = feats.double()
+    c = packed.double()
+    wide = torch.empty((f.shape[0], c.shape[0]), dtype=torch.float64,
+                       device=feats.device)
+    out, slot = [], 0
+    for p in range(CLOSEST_PLANES):
+        acc = torch.zeros(wide.shape, dtype=torch.float32, device=feats.device)
+        for k in LIVE_TERMS[p]:
+            wide.copy_(acc)
+            wide.addr_(f[:, k], c[:, slot])  # exact product, one f64 rounding
+            acc.copy_(wide)  # and the one rounding to f32
+            slot += 1
+        out.append(acc)
+    return torch.stack(out, -1)
 
 
 def hit_t(coeffs, feats):
@@ -199,12 +252,18 @@ def occlusion_plain(coeffs, feats, mask, sub):
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(coeffs, feats, mask, sub):
+def _check_inputs(coeffs, feats, mask, sub, packed=False):
+    """``coeffs`` is the form table [T, 6, 28], or with ``packed`` the
+    closest hit's packed table [T, 64]."""
     if not (coeffs.is_cuda and feats.is_cuda):
         raise ValueError("the CUDA quad sweep takes CUDA tensors")
     if coeffs.dtype != torch.float32 or feats.dtype != torch.float32:
         raise TypeError("coeffs and feats must be float32")
-    if coeffs.dim() != 3 or coeffs.shape[1:] != (STORED_PLANES, QUAD_FEATS):
+    if packed:
+        if coeffs.dim() != 2 or coeffs.shape[1] != PACKED_WIDTH:
+            raise ValueError(f"the packed table must be [T, {PACKED_WIDTH}], "
+                             f"got {tuple(coeffs.shape)}")
+    elif coeffs.dim() != 3 or coeffs.shape[1:] != (STORED_PLANES, QUAD_FEATS):
         raise ValueError(f"coeffs must be [T, 6, 28], got {tuple(coeffs.shape)}")
     if feats.dim() != 2 or feats.shape[1] != QUAD_FEATS:
         raise ValueError(f"feats must be [N, 28], got {tuple(feats.shape)}")
@@ -241,16 +300,18 @@ def _launch(fn: str, coeffs, feats, mask, sub, out):
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
 
 
-def closest_hit_cuda(coeffs, feats, mask, sub):
-    """The closest-hit kernel (``quad_closest_hit`` in csrc/quad.cu); same
-    contract as :func:`closest_hit_plain`."""
-    _check_inputs(coeffs, feats, mask, sub)
+def closest_hit_cuda(packed, feats, mask, sub):
+    """The closest-hit kernel (``quad_closest_hit`` in csrc/quad.cu) on the
+    scene's packed table ``packed`` f32 [T, 64]
+    (:func:`numpy_quad_packed`); same results as :func:`closest_hit_plain`
+    on the forms it was packed from."""
+    _check_inputs(packed, feats, mask, sub, packed=True)
     n = feats.shape[0]
     prim = torch.empty((n,), dtype=torch.int32, device=feats.device)
     dist = torch.empty((n,), dtype=torch.float32, device=feats.device)
     if n == 0:
         return prim, dist
-    _launch("quad_closest_hit", coeffs, feats, mask, sub, (prim, dist))
+    _launch("quad_closest_hit", packed, feats, mask, sub, (prim, dist))
     LAUNCHES["closest_hit"] += 1
     return prim, dist
 
@@ -268,11 +329,15 @@ def occlusion_cuda(coeffs, feats, mask, sub):
     return occ.bool()
 
 
-def closest_hit(coeffs, feats, mask, sub):
-    """Closest-hit sweep: the kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+def closest_hit(coeffs, feats, mask, sub, packed=None):
+    """Closest-hit sweep: the kernel for CUDA tensors (on the scene's
+    ``packed`` table, which it then needs), the plain version for CPU
+    tensors."""
     if feats.is_cuda:
-        return closest_hit_cuda(coeffs, feats, mask, sub)
+        if packed is None:
+            raise ValueError("the CUDA quad closest hit needs the scene's "
+                             "packed table")
+        return closest_hit_cuda(packed, feats, mask, sub)
     return closest_hit_plain(coeffs, feats, mask, sub)
 
 
@@ -290,17 +355,19 @@ def occlusion(coeffs, feats, mask, sub):
 
 
 def intersect_quad(coeffs, center, cluster_bounds, sub, ray_o, ray_d,
-                   tmax=None, plain: bool = False):
+                   tmax=None, plain: bool = False, packed=None):
     """Closest hit of rays against the stored triangles' forms ``coeffs``
     f32 [T, 6, 28]; (prim i32 [N], selector-grade dist f32 [N]).  ``tmax``
     (f32 [N]) bounds only the culling prepass (-FLT_MAX marks a dead lane,
-    which flags nothing).  ``plain`` selects the plain sweep on any device."""
+    which flags nothing).  ``plain`` selects the plain sweep on any device;
+    ``packed`` is the scene's packed table, which the kernel reads."""
     feats = quad_features(ray_o, ray_d, center)
     mask = None
     if cluster_bounds is not None:
         mask = cluster_mask_words(cluster_bounds, ray_o, ray_d, tmax)
-    sweep = closest_hit_plain if plain else closest_hit
-    return sweep(coeffs, feats, mask, sub)
+    if plain:
+        return closest_hit_plain(coeffs, feats, mask, sub)
+    return closest_hit(coeffs, feats, mask, sub, packed)
 
 
 def occlusion_quad(coeffs, center, cluster_bounds, sub, x, y,

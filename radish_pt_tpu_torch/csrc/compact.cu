@@ -10,10 +10,12 @@
 // 2. The work list (plain torch, accel/compact.py::work_list): the flagged
 //    (row group, unit) pairs, row-major, each row's units near to far, with
 //    offsets[row]..offsets[row+1] the row group's slice.
-// 3. compact_closest_hit_kernel / compact_occlusion_kernel: one block per
-//    row group walks its slice; each unit's triangles are staged in shared
-//    memory and every thread sweeps them against its own ray with the
-//    decision planes of plucker_planes.cuh.
+// 3. compact_closest_hit_kernel / compact_occlusion_kernel: a block walks
+//    its row group's slice (the shadow test one block per row group, the
+//    closest hit one per 64 of its lanes); each unit's triangles are staged
+//    in shared memory and swept against the block's rays with the decision
+//    planes of plucker_planes.cuh.  The closest hit culls again per lane inside the
+//    walk; the shadow test sweeps every staged unit with every lane.
 //
 // Launched on the caller's stream; the C entry points return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -25,10 +27,28 @@
 
 namespace {
 
-constexpr int kGroup = 256;   // lanes per row group == threads per block
+constexpr int kGroup = 256;   // lanes per row group
 constexpr int kSphereK = 16;  // sphere-test features per ray
-// A unit is skipped once every lane's best t, widened by this margin, is
-// below its entry distance (the reference's test, pallas_kernels.py:1389).
+constexpr int kCluster = 64;  // triangles per culling cluster == per staged tile
+// The closest-hit kernel's shape: the lanes of the row group one block
+// walks (32, 64, 128 or 256: the group's slice is walked by 256 /
+// kBlockLanes blocks, each for its own lanes), and from how many wanting
+// lanes on a warp sweeps a unit with every lane against its own ray
+// instead of one wanting ray at a time (1: always; 33: never).
+// -DCOMPACT_BLOCK_LANES / -DCOMPACT_LOCKSTEP build another shape for a
+// measurement (radish_pt_tpu_torch/tune.py).
+#ifndef COMPACT_BLOCK_LANES
+#define COMPACT_BLOCK_LANES 64
+#endif
+#ifndef COMPACT_LOCKSTEP
+#define COMPACT_LOCKSTEP 12
+#endif
+constexpr int kBlockLanes = COMPACT_BLOCK_LANES;
+constexpr int kLockstep = COMPACT_LOCKSTEP;
+static_assert(kGroup % kBlockLanes == 0 && kBlockLanes % 32 == 0,
+              "a block is whole warps of a row group");
+// A unit is skipped once a lane's best t, widened by this margin, is below
+// its entry distance (the reference's test, pallas_kernels.py:1389).
 constexpr float kSkipMargin = 1.f + 1e-4f;
 
 __device__ __forceinline__ float term(float acc, float f, float c) {
@@ -104,57 +124,184 @@ sphere_flags_kernel(const float* __restrict__ feats, const float* __restrict__ p
   tn_out[row * n_units + u] = tn;
 }
 
+// One lane's own test of a unit's bounding sphere ``sp`` = (centre relative
+// to the scene centre, radius with slack; accel/compact.py::unit_spheres)
+// against its ray, from the Plücker features f = [d, o x d, o, 1] (unit d):
+// with q = centre - o, the ray passes the sphere when |q x d|² <= r² and
+// t* + r >= 0 for t* = q.d, and every hit inside the sphere has t >= t* - r
+// (``entry``, clamped at 0).  Unfused multiplies and adds in the order of
+// lane_unit_flags_plain, so the two agree bit for bit.  The slack in r
+// (2e-4 of the scene's scale) is far above the rounding of this test and
+// of the triangle planes: a lane skips a unit only if none of its
+// triangles can pass.
+__device__ __forceinline__ bool lane_passes(const float4 sp, const float* f, float& entry) {
+  const float qx = __fsub_rn(sp.x, f[6]);
+  const float qy = __fsub_rn(sp.y, f[7]);
+  const float qz = __fsub_rn(sp.z, f[8]);
+  const float ts = __fadd_rn(__fadd_rn(__fmul_rn(qx, f[0]), __fmul_rn(qy, f[1])),
+                             __fmul_rn(qz, f[2]));
+  const float wx = __fsub_rn(__fmul_rn(qy, f[2]), __fmul_rn(qz, f[1]));
+  const float wy = __fsub_rn(__fmul_rn(qz, f[0]), __fmul_rn(qx, f[2]));
+  const float wz = __fsub_rn(__fmul_rn(qx, f[1]), __fmul_rn(qy, f[0]));
+  const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(wx, wx), __fmul_rn(wy, wy)),
+                             __fmul_rn(wz, wz));
+  entry = fmaxf(__fsub_rn(ts, sp.w), 0.f);
+  return sp.w >= 0.f && d2 <= __fmul_rn(sp.w, sp.w) && __fadd_rn(ts, sp.w) >= 0.f;
+}
+
 // Replaces _plucker_compact_kernel (radish_pt_tpu/accel/pallas_kernels.py),
 // the closest hit of every primary and extension ray above 131,072
 // triangles.
-// Bound on the card: FMA issue, ~40 f32 operations per (ray, triangle)
-// pair, as the Plücker sweep.  What the list adds is culling: a block
-// sweeps only the units its row group flagged, near to far, and before
-// each unit the block votes (__syncthreads_or) whether any live lane's
-// best t could still reach the unit's entry tn; once none can, no later
-// unit can either (tn rises along the slice) and the block stops.  The
-// walk is not in id order, so a tie keeps the lower id explicitly.
-// A lane with negative tmax is dead: it neither sweeps nor votes, and
-// returns a miss.
-__global__ void __launch_bounds__(kGroup)
-compact_closest_hit_kernel(const float* __restrict__ coeffs, int num_tris, int unit_tris,
+// Bound on the card: instruction throughput, ~40 instructions per (ray,
+// triangle) pair around the planes' 26 f32 operations — over the pairs the
+// data needs, which are far fewer than the row group's: 256 bounce rays
+// point everywhere, so a row group flags half of the scene's units while
+// one ray passes a few.  The design, kParts blocks per row group, each
+// walking the group's near-to-far slice for its own kBlockLanes lanes:
+//  * culling per lane: for each item every lane tests its own ray against
+//    the unit's sphere (lane_passes) and wants the unit only if its best t,
+//    widened by kSkipMargin, reaches its own entry distance and the
+//    item's tn.  A lane whose best t is below the item's tn is finished
+//    for good (tn rises along the slice); the block leaves the slice once
+//    every lane is finished or dead, and stages no unit that no lane
+//    wants;
+//  * two ways through a staged unit, chosen per warp by the number of its
+//    lanes that want it.  Many (coherent primaries): every lane sweeps the
+//    64 triangles against its own ray.  Few (bounce rays: three of a
+//    warp's 32 on average): the warp turns round and takes one wanting
+//    ray at a time — its features broadcast by shuffle, each thread two of
+//    the unit's triangles, the nearest hit reduced across the warp and
+//    handed to the ray's lane — so a warp does the work of the lanes that
+//    want the unit, not of all 32;
+//  * operands packed and aligned: a unit's 64 triangles are one contiguous
+//    5,120-byte block of the packed table, copied with 16-byte cp.async
+//    into one of two buffers — the next wanted unit's copy is in flight
+//    while this one is swept — and read as five LDS.128 per triangle
+//    (consecutive threads' triangles 80 bytes apart: no bank conflict).
+// Neither walk is in id order, so a tie keeps the lower id explicitly.  A
+// lane with negative tmax is dead: its features are zero, so no triangle
+// passes, it wants nothing, and it returns a miss.
+__global__ void __launch_bounds__(kBlockLanes)
+compact_closest_hit_kernel(const float4* __restrict__ packed, int num_tris, int unit_tris,
+                           const float4* __restrict__ spheres,
                            const float* __restrict__ feats, const float* __restrict__ tmax,
                            int n, const int* __restrict__ items,
                            const float* __restrict__ item_tn,
                            const int* __restrict__ offsets, int* __restrict__ prim_out,
                            float* __restrict__ dist_out) {
-  __shared__ float s[kTile * kStride];
-  const int ray = blockIdx.x * kGroup + threadIdx.x;
+  constexpr unsigned kFull = 0xffffffffu;
+  __shared__ float4 s[2][kCluster * kPackVec];
+  const int row = blockIdx.x / (kGroup / kBlockLanes);
+  const int ray = blockIdx.x * kBlockLanes + threadIdx.x;
+  const int lane = threadIdx.x & 31;
   const bool live = ray < n && tmax[ray] >= 0.f;
   float f[10];
   load_feats(f, feats, ray, live);
   float best = kFltMax;
   int best_id = -1;
-  const int end = offsets[blockIdx.x + 1];
-  for (int w = offsets[blockIdx.x]; w < end; ++w) {
-    // also orders the previous unit's shared-memory reads before restaging
-    if (!__syncthreads_or(live && best * kSkipMargin >= item_tn[w])) break;
-    const int lo = items[w] * unit_tris;
-    const int hi = min(lo + unit_tris, num_tris);
-    for (int base = lo; base < hi; base += kTile) {
-      const int cnt = min(kTile, hi - base);
-      if (base != lo) __syncthreads();
-      stage_tile(s, coeffs, base, cnt);
+  const int end = offsets[row + 1];
+
+  // whether this lane wants item w / is not yet finished at it
+  auto wants = [&](int w) {
+    const float reach = best * kSkipMargin;
+    float entry;
+    const bool pass = lane_passes(spheres[items[w]], f, entry);
+    return live && reach >= item_tn[w] && pass && reach >= entry;
+  };
+  // the first item from w on that some lane of the block wants; ``end``
+  // once every lane is finished.  Block-uniform; at least one barrier when
+  // w < end.
+  auto scan = [&](int w) {
+    for (; w < end; ++w) {
+      if (__syncthreads_or(wants(w))) return w;
+      if (!__syncthreads_or(live && best * kSkipMargin >= item_tn[w])) return end;
+    }
+    return end;
+  };
+  auto stage = [&](int buf, int w, int chunk) {
+    const int lo = items[w] * unit_tris + chunk * kCluster;
+    const int hi = min(items[w] * unit_tris + unit_tris, num_tris);
+    stage_packed(s[buf], packed, lo, min(kCluster, hi - lo), threadIdx.x, kBlockLanes);
+  };
+  auto take = [&](float tt, int id) {  // ties to the lower id
+    if (tt < best || (tt == best && id < best_id)) {
+      best = tt;
+      best_id = id;
+    }
+  };
+
+  int w = scan(offsets[row]);
+  int chunk = 0;  // the 64-triangle tile of unit items[w] in flight
+  int buf = 0;
+  if (w < end) stage(0, w, 0);
+  cp_async_commit();
+  while (w < end) {
+    const int base = items[w] * unit_tris + chunk * kCluster;
+    const int hi = min(items[w] * unit_tris + unit_tris, num_tris);
+    // the tile after this one; the barrier (scan's, or the explicit one)
+    // orders the last sweep of the other buffer before its restaging
+    int nw = w, nchunk = chunk + 1;
+    if (base + kCluster < hi) {
       __syncthreads();
-      if (!live) continue;
+    } else {
+      nw = scan(w + 1);
+      nchunk = 0;
+    }
+    if (nw < end) stage(buf ^ 1, nw, nchunk);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's part of the current tile has landed
+    __syncthreads();     // and everyone's
+    const int cnt = min(kCluster, hi - base);
+    const float4* tile = s[buf];
+    unsigned wanting = __ballot_sync(kFull, wants(w));
+    if (__popc(wanting) >= kLockstep) {
+      // every lane against its own ray
+#pragma unroll 4
       for (int j = 0; j < cnt; ++j) {
-        const Planes p = planes(s + j * kStride, f);
-        if (fminf(p.v, p.tdd) >= 0.f) {
-          const float t = __fdiv_rn(p.tdd, p.sd);
-          const int id = base + j;
-          if (t < best || (t == best && id < best_id)) {
-            best = t;
-            best_id = id;
+        const Planes p = planes(load_packed(tile + j * kPackVec), f);
+        if (fminf(p.v, p.tdd) >= 0.f) take(__fdiv_rn(p.tdd, p.sd), base + j);
+      }
+    } else {
+      // one wanting ray at a time, the warp's threads across its triangles
+      while (wanting) {
+        const int owner = __ffs(wanting) - 1;
+        wanting &= wanting - 1;
+        float g[10];
+#pragma unroll
+        for (int k = 0; k < 10; ++k) g[k] = __shfl_sync(kFull, f[k], owner);
+        float tb = kFltMax;
+        int ib = -1;
+        for (int j = lane; j < cnt; j += 32) {  // ids rise: strict < keeps the lower
+          const Planes p = planes(load_packed(tile + j * kPackVec), g);
+          if (fminf(p.v, p.tdd) >= 0.f) {
+            const float tt = __fdiv_rn(p.tdd, p.sd);
+            if (tt < tb) {
+              tb = tt;
+              ib = base + j;
+            }
           }
+        }
+        if (__any_sync(kFull, ib >= 0)) {
+          // the warp's nearest hit, ties to the lower id (-1, no hit, is
+          // the largest id unsigned and t = FLT_MAX: it never wins)
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            const float to = __shfl_xor_sync(kFull, tb, o);
+            const int io = __shfl_xor_sync(kFull, ib, o);
+            if (to < tb || (to == tb && (unsigned)io < (unsigned)ib)) {
+              tb = to;
+              ib = io;
+            }
+          }
+          if (lane == owner) take(tb, ib);
         }
       }
     }
+    w = nw;
+    chunk = nchunk;
+    buf ^= 1;
   }
+  cp_async_wait<0>();
   if (ray < n) {
     prim_out[ray] = best < kFltMax ? best_id : -1;
     dist_out[ray] = best;
@@ -219,13 +366,15 @@ int compact_sphere_flags(const float* feats, const float* planes, int rows, int 
   return (int)cudaGetLastError();
 }
 
-int compact_closest_hit(const float* coeffs, int num_tris, int unit_tris,
-                        const float* feats, const float* tmax, int n, const int* items,
-                        const float* item_tn, const int* offsets, int rows,
-                        int* prim_out, float* dist_out, void* stream) {
-  compact_closest_hit_kernel<<<rows, kGroup, 0, (cudaStream_t)stream>>>(
-      coeffs, num_tris, unit_tris, feats, tmax, n, items, item_tn, offsets, prim_out,
-      dist_out);
+int compact_closest_hit(const float* packed, int num_tris, int unit_tris,
+                        const float* spheres, const float* feats, const float* tmax, int n,
+                        const int* items, const float* item_tn, const int* offsets,
+                        int rows, int* prim_out, float* dist_out, void* stream) {
+  compact_closest_hit_kernel
+      <<<rows * (kGroup / kBlockLanes), kBlockLanes, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(packed), num_tris, unit_tris,
+      reinterpret_cast<const float4*>(spheres), feats, tmax, n, items, item_tn, offsets,
+      prim_out, dist_out);
   return (int)cudaGetLastError();
 }
 

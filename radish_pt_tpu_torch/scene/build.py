@@ -26,8 +26,9 @@ import numpy as np
 import torch
 
 from ..accel.bvh import build_bvh
-from ..accel.plucker import numpy_coeffs
-from ..accel.quad import numpy_quad_coeffs
+from ..accel.compact import unit_spheres
+from ..accel.plucker import numpy_coeffs, numpy_packed_coeffs
+from ..accel.quad import numpy_quad_coeffs, numpy_quad_packed
 from ..accel.traverse import pack_tris
 from ..sampling.alias import build_alias_table
 from ..sampling.sobol import load_sobol_table
@@ -264,6 +265,7 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
         [tri_v.reshape(-1, 9), tri_n.reshape(-1, 9), tri_uv.reshape(-1, 6),
          # material id as f32 col 24 (exact to 2^24)
          material_ids.reshape(-1, 1).astype(np.float32)], axis=1)
+    bounds = None if cluster_bounds is None else f32(cluster_bounds)
     ds = DeviceScene(
         intersector=intersector,
         n_area_lights=n_area_lights,
@@ -275,10 +277,13 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
         tri_v=f32(tri_v),
         tri_attr=f32(tri_attr),
         tri_packed=f32(tri_packed),
-        cluster_bounds=None if cluster_bounds is None else f32(cluster_bounds),
+        cluster_bounds=bounds,
         sweep_coeffs=f32(coeffs),
         sweep_center=f32(center),
+        sweep_packed=f32(numpy_packed_coeffs(coeffs)),
+        unit_spheres=None if bounds is None else unit_spheres(bounds, f32(center)),
         quad_coeffs=None if quad is None else f32(quad),
+        quad_packed=None if quad is None else f32(numpy_quad_packed(quad)),
         mat_type=i32([m.mtype for m in mats]),
         mat_base_color=f32([m.base_color for m in mats]),
         mat_metallic=f32([m.metallic for m in mats]),

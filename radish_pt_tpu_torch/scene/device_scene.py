@@ -110,9 +110,18 @@ class DeviceScene:
     # on sweep_center: plane 0 det, 1 bx, 2 by, 3 t*det
     sweep_coeffs: torch.Tensor = None  # f32 [T, 4, 10]
     sweep_center: torch.Tensor = None  # f32 [3]
+    # the planes' 19 live coefficients, 80 aligned bytes a triangle
+    # (accel/plucker.py::numpy_packed_coeffs): the compact closest hit's
+    # operand
+    sweep_packed: torch.Tensor = None  # f32 [T, 20]
+    # bounding spheres of the compact engine's units, centred on
+    # sweep_center (accel/compact.py::unit_spheres; None without clusters)
+    unit_spheres: torch.Tensor = None  # f32 [U, 4]
     # quad engine: forms q1..q6 over the 27 ray monomials of
-    # accel/quad.py::quad_features (None on the other engines)
+    # accel/quad.py::quad_features, and the closest hit's 63 live
+    # coefficients packed (None on the other engines)
     quad_coeffs: torch.Tensor = None  # f32 [T, 6, 28]
+    quad_packed: torch.Tensor = None  # f32 [T, 64]
 
     # --- materials SoA ---
     mat_type: torch.Tensor = None  # i32 [M]
@@ -169,6 +178,9 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
     """The port's scene from a JAX ``DeviceScene`` whose array leaves were
     pulled to numpy (``fields``: name -> ndarray) and whose static fields
     are in ``meta`` — both packages then compute on identical scene bytes.
+    It has a JAX scene to start from, so it runs only where JAX runs, the
+    parity tests on a CPU: unlike the entry points, ``device`` defaults to
+    ``"cpu"``.
 
     The JAX scene stores its Plücker planes M-stacked per cluster
     ([t_pad//sub, 4*sub, K]); f32 planes (K=10) are re-laid out to the
@@ -213,18 +225,26 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
         center = np.asarray(fields["sweep_center"], np.float32)
     else:
         coeffs, center = plk.numpy_coeffs(tri_packed)
-    quad = None
+    quad = quad_packed = None
     if intersector in QUAD_ENGINES:
-        quad = torch.from_numpy(qd.numpy_quad_coeffs(tri_packed, center)).to(device)
+        quad = qd.numpy_quad_coeffs(tri_packed, center)
+        quad_packed = torch.from_numpy(qd.numpy_quad_packed(quad)).to(device)
+        quad = torch.from_numpy(quad).to(device)
+    bounds = t("cluster_bounds", np.float32)
+    center_t = torch.from_numpy(center).to(device)
     return DeviceScene(
         intersector=intersector, **kw,
         tri_v=t("tri_v", np.float32),
         tri_attr=t("tri_attr", np.float32),
         tri_packed=t("tri_packed", np.float32),
-        cluster_bounds=t("cluster_bounds", np.float32),
+        cluster_bounds=bounds,
         sweep_coeffs=torch.from_numpy(np.ascontiguousarray(coeffs)).to(device),
-        sweep_center=torch.from_numpy(center).to(device),
+        sweep_center=center_t,
+        sweep_packed=torch.from_numpy(plk.numpy_packed_coeffs(coeffs)).to(device),
+        unit_spheres=(None if bounds is None
+                      else cpt.unit_spheres(bounds, center_t)),
         quad_coeffs=quad,
+        quad_packed=quad_packed,
         mat_type=t("mat_type", np.int32),
         mat_base_color=t("mat_base_color", np.float32),
         mat_metallic=t("mat_metallic", np.float32),
@@ -389,12 +409,13 @@ def intersect(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
         if ds.intersector in COMPACT_ENGINES:
             prim, _ = cpt.intersect_compact(
                 ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, ray_o,
-                ray_d, tmax=tmax, plain=ds.intersector == "compact_plain")
+                ray_d, tmax=tmax, plain=ds.intersector == "compact_plain",
+                packed=ds.sweep_packed, spheres=ds.unit_spheres)
         elif ds.intersector in QUAD_ENGINES:
             prim, _ = qd.intersect_quad(
                 ds.quad_coeffs, ds.sweep_center, ds.cluster_bounds,
                 ds.cluster_sub, ray_o, ray_d, tmax=tmax,
-                plain=ds.intersector == "quad_plain")
+                plain=ds.intersector == "quad_plain", packed=ds.quad_packed)
         elif ds.intersector in BAND_ENGINES:
             prim, _ = bnd.intersect_band(
                 ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, ds.band_g,

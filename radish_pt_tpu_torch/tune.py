@@ -1,0 +1,145 @@
+"""Time the closest-hit kernels' compile-time shapes on one GPU.
+
+The compact and the quad closest-hit kernels have compile-time shapes: the
+lanes a block walks and the count of wanting lanes from which a warp sweeps
+in lockstep (``COMPACT_BLOCK_LANES``, ``COMPACT_LOCKSTEP`` in
+csrc/compact.cu), rays a thread and resident blocks asked of the compiler
+(``QUAD_RAYS``, ``QUAD_MIN_BLOCKS`` in csrc/quad.cu).  This tool builds
+each variant as its own library (``-DCOMPACT_LOCKSTEP=n ...``), holds it
+against the plain version on the main path's wavefronts (800x800 primaries
+and the bounce-1 extension rays of teapot_hires for compact, of teapot for
+quad, built as ``chip_smoke.py`` builds them) and times it with CUDA
+events, the variants in turns.  It
+prints registers and spills per variant, the times, and the card's name and
+power limit.  The default in the source is the variant that won.
+
+Run from the repository root:  python -m radish_pt_tpu_torch.tune
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+# each variant: the -D flags of its build
+COMPACT_VARIANTS = (("-DCOMPACT_BLOCK_LANES=64", "-DCOMPACT_LOCKSTEP=1"),
+                    ("-DCOMPACT_BLOCK_LANES=64", "-DCOMPACT_LOCKSTEP=12"),
+                    ("-DCOMPACT_BLOCK_LANES=64", "-DCOMPACT_LOCKSTEP=33"),
+                    ("-DCOMPACT_BLOCK_LANES=32", "-DCOMPACT_LOCKSTEP=12"),
+                    ("-DCOMPACT_BLOCK_LANES=128", "-DCOMPACT_LOCKSTEP=12"),
+                    ("-DCOMPACT_BLOCK_LANES=256", "-DCOMPACT_LOCKSTEP=12"),
+                    ("-DCOMPACT_BLOCK_LANES=256", "-DCOMPACT_LOCKSTEP=1"))
+QUAD_VARIANTS = (("-DQUAD_RAYS=1", "-DQUAD_MIN_BLOCKS=1"),
+                 ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=1"),
+                 ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=8"),
+                 ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=10"),
+                 ("-DQUAD_RAYS=4", "-DQUAD_MIN_BLOCKS=1"))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("tune: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs  # the wavefronts, the timer and the parity check
+
+    from .accel import _build
+    from .accel import compact as cpt
+    from .accel import plucker as plk
+    from .accel import quad as qd
+    from .scene.build import load_scene
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = cs.gpu_name_and_power()
+    print(card, flush=True)
+
+    def variants(lib, flag_sets):
+        """The variants' libraries, built verbosely, by their flags."""
+        out = {}
+        for defines in flag_sets:
+            _build.PTXAS_LOG.pop(lib, None)
+            _build.build_all((lib,), verbose=True, defines=defines)
+            for kernel, use in _build.kernel_resources(lib).items():
+                if "closest_hit" in kernel:
+                    print(f"[build] {lib} {' '.join(defines)}: {use['registers']} "
+                          f"registers, spills {use['spill_stores']} B stored / "
+                          f"{use['spill_loads']} B loaded, {use['smem']} B static "
+                          f"shared memory", flush=True)
+            out[" ".join(defines)] = _build.load_library(lib, defines)
+        return out
+
+    def run(lib, variant, fn):
+        """``fn()`` with ``variant`` standing in for library ``lib``."""
+        _build._libs[lib] = variant
+        try:
+            return fn()
+        finally:
+            _build._libs.pop(lib, None)
+
+    def scene(name, engine):
+        ds, cam, _ = load_scene(os.path.join(cs.REPO, "scenes", cs.SCENE_FILES[name]),
+                                device=dev, intersector=engine)
+        return ds, cam.replace(width=cs.RES, height=cs.RES)
+
+    # ---- compact, teapot_hires ----
+    libs = variants("compact", COMPACT_VARIANTS)
+    ds, cam = scene("teapot_hires", "compact")
+    waves = run("compact", next(iter(libs.values())), lambda: cs.bounce_one(ds, cam))
+    for what in ("primary", "extension"):
+        o, d, tmax = waves[what]
+        live = tmax >= 0
+        flags, tn, g = run("compact", next(iter(libs.values())), lambda: cpt.prepass(
+            ds.sweep_center, ds.cluster_bounds, o, d, tmax))
+        feats = plk.plucker_features(o, d, ds.sweep_center)
+        items, item_tn, offsets = cpt.work_list(flags, tn)
+        pp, dp = cpt.closest_hit_plain(ds.sweep_coeffs, feats, tmax, flags, g)
+
+        def kernel():
+            return cpt.closest_hit_cuda(ds.sweep_packed, ds.unit_spheres, feats, tmax,
+                                        items, item_tn, offsets, g)
+
+        for r, lib in libs.items():
+            pk, dk = run("compact", lib, kernel)
+            torch.cuda.synchronize()
+            cs.check_closest(pk, dk, pp, dp, live,
+                             f"compact closest hit, {r}, {what}", print)
+            assert bool((pk[~live] == -1).all())
+        for turn in range(2):  # the variants in turns, twice
+            for r, lib in libs.items():
+                ms = run("compact", lib, lambda: cs.cuda_ms(kernel, 5))
+                print(f"[timing] compact closest hit, teapot_hires {what}, {r}, "
+                      f"turn {turn}: {ms:.3f} ms ({card})", flush=True)
+
+    # ---- quad, teapot ----
+    libs = variants("quad", QUAD_VARIANTS)
+    ds, cam = scene("teapot", "quad")
+    waves = run("quad", next(iter(libs.values())), lambda: cs.bounce_one(ds, cam))
+    for what in ("primary", "extension"):
+        o, d, tmax = waves[what]
+        feats = qd.quad_features(o, d, ds.sweep_center)
+        mask = plk.cluster_mask_words(ds.cluster_bounds, o, d,
+                                      None if what == "primary" else tmax)
+        pp, dp = qd.closest_hit_plain(ds.quad_coeffs, feats, mask, ds.cluster_sub)
+
+        def kernel():
+            return qd.closest_hit_cuda(ds.quad_packed, feats, mask, ds.cluster_sub)
+
+        for r, lib in libs.items():
+            pk, dk = run("quad", lib, kernel)
+            torch.cuda.synchronize()
+            cs.check_closest(pk, dk, pp, dp, tmax >= 0,
+                             f"quad closest hit, {r}, {what}", print)
+        for turn in range(2):
+            for r, lib in libs.items():
+                ms = run("quad", lib, lambda: cs.cuda_ms(kernel, 5))
+                print(f"[timing] quad closest hit, teapot {what}, {r}, "
+                      f"turn {turn}: {ms:.3f} ms ({card})", flush=True)
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

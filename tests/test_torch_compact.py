@@ -298,9 +298,13 @@ def test_cpu_tensors_take_the_plain_versions(soup):
         cpt.sphere_flags_cuda(feats, planes)
     items, item_tn, offsets = cpt.work_list(flags, tn)
     coeffs, = _t(soup["coeffs"])
+    from radish_pt_tpu_torch.accel.plucker import numpy_packed_coeffs
+
+    packed, = _t(numpy_packed_coeffs(soup["coeffs"]))
     with pytest.raises(ValueError):
-        cpt.closest_hit_cuda(coeffs, feats[:, :10].contiguous(), tm, items,
-                             item_tn, offsets, 1)
+        cpt.closest_hit_cuda(packed, cpt.unit_spheres(cb, center),
+                             feats[:, :10].contiguous(), tm, items, item_tn,
+                             offsets, 1)
 
 
 def test_choose_intersector_by_count():
@@ -392,3 +396,159 @@ def test_cli_renders_compact_on_cpu(tmp_path, capsys):
                  "compact", "--out", str(out)]) == 0
     assert "engine compact" in capsys.readouterr().out
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+# ---------------------------------------------------------------------------
+# the closest-hit kernel's operands and per-lane culling, in plain torch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("scene", ["soup", "teapot"])
+def test_packed_table_holds_the_live_coefficients(soup, teapot_compact, scene):
+    """The packed [T, 20] table is the 19 live slots of the planes in the
+    kernels' staging order and one zero; the 21 slots it drops are exactly
+    0 on every triangle, so no product is lost."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    if scene == "soup":
+        coeffs = soup["coeffs"]
+        packed = plk.numpy_packed_coeffs(coeffs)
+    else:
+        tds = teapot_compact[2]
+        coeffs, packed = t2n(tds.sweep_coeffs), t2n(tds.sweep_packed)
+    flat = coeffs.reshape(-1, 40)
+    live = list(plk.LIVE_SLOTS)
+    dropped = sorted(set(range(40)) - set(live))
+    assert len(live) == 19 and len(dropped) == 21
+    assert packed.shape == (flat.shape[0], 20) and packed.dtype == np.float32
+    np.testing.assert_array_equal(packed[:, :19], flat[:, live])
+    assert not packed[:, 19].any()
+    assert not flat[:, dropped].any()
+    assert np.abs(packed).sum() > 0
+    # the order plucker_planes.cuh reads: det, bx, by, t·det
+    np.testing.assert_array_equal(packed[:, 0:3], coeffs[:, 0, 0:3])
+    np.testing.assert_array_equal(packed[:, 3:9], coeffs[:, 1, 0:6])
+    np.testing.assert_array_equal(packed[:, 9:15], coeffs[:, 2, 0:6])
+    np.testing.assert_array_equal(packed[:, 15:19], coeffs[:, 3, 6:10])
+
+
+def _lane_culling(s, g_clusters=None):
+    """The soup's wavefront through the prepass and the per-lane test."""
+    from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.accel.plucker import plucker_features
+
+    coeffs, center, cb, o, d, tmax = _t(s["coeffs"], s["center"], s["cb"], s["o"],
+                                        s["d"], s["tmax"])
+    flags, tn, g = cpt.prepass(center, cb, o, d, tmax)
+    feats = plucker_features(o, d, center)
+    spheres = cpt.unit_spheres(cb, center)
+    own, entry = cpt.lane_unit_flags_plain(spheres, feats, tmax, with_entry=True)
+    return coeffs, feats, tmax, flags, g, spheres, own, entry
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS, indirect=True)
+def test_lane_flags_are_conservative(soup, variant):
+    """(c) Every live lane's brute-force winner lies in a unit the lane
+    flags itself, at or beyond the lane's entry distance for that unit; a
+    dead lane flags nothing; and the closest hit restricted to each lane's
+    own flags (what the kernel's per-warp culling may at most leave out)
+    gives the prim ids and distances of the row group's flags on every
+    lane, bit for bit, and the reference's compact function's on the lanes
+    test_intersect_compact_matches_reference compares (prim ids exact,
+    dist rtol 1e-4: the reference's packed-key t)."""
+    from radish_pt_tpu.accel.pallas_kernels import intersect_plucker_compact
+    from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.accel import traverse as trv
+    from radish_pt_tpu_torch.accel.plucker import hit_t, sweep_closest
+
+    s = soup
+    coeffs, feats, tmax, flags, g, spheres, own, entry = _lane_culling(s)
+    assert spheres.shape == (flags.shape[1], 4)
+    pb, tb, _ = (t2n(x) for x in trv.intersect_brute(*_t(s["tri_packed"], s["o"],
+                                                         s["d"])))
+    live = s["tmax"] >= 0
+    assert not bool(own[torch.from_numpy(~live)].any())
+    hit = live & (pb >= 0)
+    assert hit.sum() > 0.4 * live.sum()
+    lanes = np.flatnonzero(hit)
+    unit = pb[lanes] // (cpt.CLUSTER_SUB * g)
+    assert bool(own[lanes, unit].all())
+    assert np.all(t2n(entry)[lanes, unit] <= tb[lanes] * (1 + 1e-6))
+    if g == 1:  # fewer units per lane than per row group: the test bites
+        assert float(own.float().sum(1).mean()) < 0.5 * float(flags.float().sum(1).mean())
+
+    p_row, d_row = cpt.closest_hit_plain(coeffs, feats, tmax, flags, g)
+    mine = own & flags.repeat_interleave(cpt.LANES, 0)[:own.shape[0]]
+    p_own, d_own = sweep_closest(coeffs, feats, mine, 1, cpt.CLUSTER_SUB * g, hit_t)
+    np.testing.assert_array_equal(t2n(p_own), t2n(p_row))
+    np.testing.assert_array_equal(t2n(d_own), t2n(d_row))
+    p0, d0 = intersect_plucker_compact(
+        jnp.asarray(s["tri_packed"]), jnp.asarray(s["o"]), jnp.asarray(s["d"]),
+        cluster_bounds=jnp.asarray(s["cb"]), tmax=jnp.asarray(s["tmax"]),
+        interpret=True, bf16x3=False)
+    p0, d0 = np.asarray(p0), np.asarray(d0)
+    within = (s["tmax"] > 0) & ((s["tmax"] == FLT_MAX) | (tb <= s["tmax"]))
+    np.testing.assert_array_equal(t2n(p_own)[within], p0[within])
+    hits = within & (p0 >= 0)
+    np.testing.assert_allclose(t2n(d_own)[hits], d0[hits], rtol=1e-4)
+
+
+def test_lane_flags_on_teapot_keep_every_winner(teapot_compact):
+    """(c) on teapot's 86 clusters: camera rays and rays leaving surface
+    points; every lane's plain winner over the row group's flags lies in a
+    unit the lane flags itself."""
+    from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.accel.plucker import plucker_features
+    from radish_pt_tpu_torch.scene.camera import sample_rays
+
+    _, _, tds, tcam = teapot_compact
+    rng = np.random.default_rng(21)
+    n = 512
+    cam = tcam.replace(width=800, height=800)
+    x = torch.from_numpy(rng.integers(0, 800, n // 2).astype(np.int32))
+    y = torch.from_numpy(rng.integers(0, 800, n // 2).astype(np.int32))
+    o1, d1 = sample_rays(cam, x, y, torch.from_numpy(
+        rng.uniform(size=(n // 2, 4)).astype(np.float32)))
+    tri = t2n(tds.tri_v)
+    real = np.flatnonzero(np.abs(tri).sum(axis=(1, 2)) > 0)
+    w = rng.dirichlet([1, 1, 1], n // 2).astype(np.float32)
+    surf = np.einsum("nk,nkc->nc", w, tri[rng.choice(real, n // 2)])
+    d2 = rng.normal(size=(n // 2, 3))
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    o = torch.cat([o1, torch.from_numpy((surf + d2 * 1e-3).astype(np.float32))])
+    d = torch.cat([d1, torch.from_numpy(d2.astype(np.float32))])
+    tmax = torch.full((n,), FLT_MAX)
+    tmax[::5] = -FLT_MAX
+    flags, _, g = cpt.prepass(tds.sweep_center, tds.cluster_bounds, o, d, tmax)
+    feats = plucker_features(o, d, tds.sweep_center)
+    assert tds.unit_spheres.shape == (tds.cluster_bounds.shape[0], 4) and g == 1
+    own = cpt.lane_unit_flags_plain(tds.unit_spheres, feats, tmax)
+    prim, _ = cpt.closest_hit_plain(tds.sweep_coeffs, feats, tmax, flags, g)
+    hit = torch.nonzero(prim >= 0).flatten()
+    assert hit.numel() > 0.4 * n
+    assert bool(own[hit, (prim[hit] // cpt.CLUSTER_SUB).long()].all())
+    assert not bool(own[::5].any())
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS, indirect=True)
+def test_pair_counts_are_ordered(soup, variant):
+    """(d) Culling finer never adds work: lane <= warp <= row group, with
+    and without the cut at each lane's final t; the cut never adds either;
+    the row-group count is the work list's."""
+    from radish_pt_tpu_torch.accel import compact as cpt
+
+    coeffs, feats, tmax, flags, g, spheres, _, _ = _lane_culling(soup)
+    _, dist = cpt.closest_hit_plain(coeffs, feats, tmax, flags, g)
+    n_tris = coeffs.shape[0]
+    c = cpt.pair_counts(spheres, feats, tmax, flags, dist, g, n_tris, chunk_rows=2)
+    assert 0 < c["lane"] <= c["warp"] <= c["row"]
+    assert 0 < c["lane_cut"] <= c["warp_cut"] <= c["row_cut"]
+    for k in ("row", "warp", "lane"):
+        assert c[k + "_cut"] <= c[k]
+    if g == 1:
+        assert c["lane"] < 0.5 * c["row"]
+    unit_tris = cpt.CLUSTER_SUB * g
+    tris = np.minimum(unit_tris, n_tris - np.arange(flags.shape[1]) * unit_tris)
+    lanes = np.minimum(cpt.LANES, feats.shape[0] - np.arange(flags.shape[0]) * cpt.LANES)
+    assert c["row"] == float((t2n(flags) * tris).sum(1) @ lanes)
+    assert c == cpt.pair_counts(spheres, feats, tmax, flags, dist, g, n_tris)

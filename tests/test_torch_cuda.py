@@ -97,6 +97,36 @@ def test_render_through_kernels_matches_plain(teapot_cuda):
     assert np.abs(img - ref).mean() < 2e-3
 
 
+def _mixed_wavefront(o, d, tmax, center):
+    """A wavefront that interleaves the fixture's rays (camera rays, rays
+    leaving surfaces, dead lanes) with rays that start far outside the
+    scene and point away from its centre (they miss everything), lane by
+    lane, and ends in a ragged row: 2N - 19 lanes."""
+    out = torch.nn.functional.normalize(o - center + 1e-3, dim=1)
+    mo = torch.stack([o, center + 100.0 * out], 1).reshape(-1, 3)[:-19].contiguous()
+    md = torch.stack([d, out], 1).reshape(-1, 3)[:-19].contiguous()
+    mtm = torch.stack([tmax, torch.full_like(tmax, FLT_MAX)], 1).reshape(-1)
+    return mo, md, mtm[:-19].contiguous()
+
+
+def _check_mixed(pk, dk, pp, dp, tmax, dead_miss=True):
+    """Kernel against plain on a mixed wavefront: prim ids equal but for
+    near-ties (<= 1e-4 of lanes), distances equal to 1e-5, some lanes hit
+    and some miss; with ``dead_miss`` every dead lane is (-1, FLT_MAX)."""
+    pk, pp, dk, dp, tmax = (t.cpu().numpy() for t in (pk, pp, dk, dp, tmax))
+    live = tmax >= 0
+    diff = (pk != pp) & live
+    assert diff.mean() <= 1e-4
+    assert np.all(np.abs(dk[diff] - dp[diff]) <= 1e-5 * np.abs(dp[diff]))
+    hit = (pp >= 0) & live & ~diff
+    assert 0.1 < hit.mean() < 0.9 and (live & (pp < 0)).mean() > 0.3
+    np.testing.assert_allclose(dk[hit], dp[hit], rtol=1e-5)
+    assert np.all(dk[live & (pp < 0)] == FLT_MAX)
+    if dead_miss:
+        assert (~live).any()
+        assert np.all(pk[~live] == -1) and np.all(dk[~live] == FLT_MAX)
+
+
 # ---------------------------------------------------------------------------
 # the compact work-list engine (csrc/compact.cu)
 # ---------------------------------------------------------------------------
@@ -156,9 +186,12 @@ def test_compact_kernels_match_plain(teapot_compact_cuda, prepass_branch):
     flags, tn, g = cpt.prepass(ds.sweep_center, ds.cluster_bounds, o, d, tmax)
     feats = plk.plucker_features(o, d, ds.sweep_center)
     cpt.reset_counts()
-    pk, dk = cpt.closest_hit(ds.sweep_coeffs, feats, tmax, flags, tn, g)
+    pk, dk = cpt.closest_hit(ds.sweep_coeffs, feats, tmax, flags, tn, g,
+                             ds.sweep_packed, ds.unit_spheres)
     pp, dp = cpt.closest_hit_plain(ds.sweep_coeffs, feats, tmax, flags, g)
     assert cpt.LAUNCHES["closest_hit"] == 1
+    with pytest.raises(ValueError):  # no packed table: no launch, no fallback
+        cpt.closest_hit(ds.sweep_coeffs, feats, tmax, flags, tn, g)
     pk, pp, dk, dp = (t.cpu().numpy() for t in (pk, pp, dk, dp))
     diff = pk != pp
     assert diff.mean() <= 1e-4
@@ -167,6 +200,18 @@ def test_compact_kernels_match_plain(teapot_compact_cuda, prepass_branch):
     assert hit.mean() > 0.3
     np.testing.assert_allclose(dk[hit], dp[hit], rtol=1e-5)
     assert np.all(pk[tmax.cpu().numpy() < 0] == -1)
+
+    # a wavefront whose row groups and warps mix dead lanes, lanes that miss
+    # the scene and lanes that hit it, with a ragged last row group and
+    # warp: the per-warp vote, the per-lane finish and the block exit
+    mo, md, mtm = _mixed_wavefront(o, d, tmax, ds.sweep_center)
+    flags, tn, g = cpt.prepass(ds.sweep_center, ds.cluster_bounds, mo, md, mtm)
+    feats = plk.plucker_features(mo, md, ds.sweep_center)
+    pk, dk = cpt.closest_hit(ds.sweep_coeffs, feats, mtm, flags, tn, g,
+                             ds.sweep_packed, ds.unit_spheres)
+    pp, dp = cpt.closest_hit_plain(ds.sweep_coeffs, feats, mtm, flags, g)
+    assert mo.shape[0] % cpt.LANES % cpt.WARP != 0
+    _check_mixed(pk, dk, pp, dp, mtm)
 
     x = o
     y = o + d * 3.0
@@ -180,6 +225,28 @@ def test_compact_kernels_match_plain(teapot_compact_cuda, prepass_branch):
     assert (occ_k != occ_p).float().mean().item() <= 1e-4
     assert 0.05 < occ_p.float().mean().item() < 0.95
     assert not bool(occ_k[::7].any())
+
+
+@pytest.mark.cuda
+def test_compact_closest_hit_walks_merged_units(teapot_compact_cuda, monkeypatch):
+    """Units of three clusters, the last one ragged, as scenes above 4,096
+    clusters have them: the kernel stages a unit as several 64-triangle
+    tiles, on the mixed wavefront with its ragged last row group."""
+    from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    ds, _, o, d, tmax = teapot_compact_cuda
+    monkeypatch.setattr(cpt, "SPHERE_UNIT_MAX", 30)
+    mo, md, mtm = _mixed_wavefront(o, d, tmax, ds.sweep_center)
+    flags, tn, g = cpt.prepass(ds.sweep_center, ds.cluster_bounds, mo, md, mtm)
+    spheres = cpt.unit_spheres(ds.cluster_bounds, ds.sweep_center)
+    assert g == 3 and ds.cluster_bounds.shape[0] % g != 0
+    assert spheres.shape == (flags.shape[1], 4)
+    feats = plk.plucker_features(mo, md, ds.sweep_center)
+    pk, dk = cpt.closest_hit(ds.sweep_coeffs, feats, mtm, flags, tn, g,
+                             ds.sweep_packed, spheres)
+    pp, dp = cpt.closest_hit_plain(ds.sweep_coeffs, feats, mtm, flags, g)
+    _check_mixed(pk, dk, pp, dp, mtm)
 
 
 @pytest.mark.cuda
@@ -244,10 +311,26 @@ def test_quad_kernels_match_plain(teapot_engines_cuda):
     feats = qd.quad_features(o, d, ds.sweep_center)
     mask = plk.cluster_mask_words(ds.cluster_bounds, o, d, tmax)
     qd.reset_counts()
-    pk, dk = qd.closest_hit(ds.quad_coeffs, feats, mask, ds.cluster_sub)
+    pk, dk = qd.closest_hit(ds.quad_coeffs, feats, mask, ds.cluster_sub,
+                            ds.quad_packed)
     pp, dp = qd.closest_hit_plain(ds.quad_coeffs, feats, mask, ds.cluster_sub)
     assert qd.LAUNCHES["closest_hit"] == 1
+    with pytest.raises(ValueError):  # no packed table: no launch, no fallback
+        qd.closest_hit(ds.quad_coeffs, feats, mask, ds.cluster_sub)
     _check_closest(pk, dk, pp, dp)
+
+    # dead, missing and hitting lanes mixed in every row, and a ragged last
+    # row that leaves some threads with fewer rays than others; with the
+    # row masks and without (every triangle)
+    mo, md, mtm = _mixed_wavefront(o, d, tmax, ds.sweep_center)
+    feats = qd.quad_features(mo, md, ds.sweep_center)
+    for mask in (plk.cluster_mask_words(ds.cluster_bounds, mo, md, mtm), None):
+        pk, dk = qd.closest_hit(ds.quad_coeffs, feats, mask, ds.cluster_sub,
+                                ds.quad_packed)
+        pp, dp = qd.closest_hit_plain(ds.quad_coeffs, feats, mask, ds.cluster_sub)
+        assert mo.shape[0] % plk.ROW % 32 != 0
+        # the quad sweep reads no tmax: every lane sweeps its row's clusters
+        _check_mixed(pk, dk, pp, dp, torch.ones_like(mtm), dead_miss=False)
 
     y = o + d * 3.0
     y[::7] = o[::7]  # zero-length segments, as masked NEE lanes

@@ -287,8 +287,9 @@ def test_cpu_tensors_take_the_plain_versions(soup):
     qd.occlusion(coeffs, feats, None, 64)
     assert qd.PLAIN_CALLS == {"closest_hit": 1, "occlusion": 1}
     assert qd.LAUNCHES == {"closest_hit": 0, "occlusion": 0}
+    packed = torch.from_numpy(qd.numpy_quad_packed(t2n(coeffs)))
     with pytest.raises(ValueError):  # the kernels refuse CPU tensors
-        qd.closest_hit_cuda(coeffs, feats, None, 64)
+        qd.closest_hit_cuda(packed, feats, None, 64)
     with pytest.raises(ValueError):
         qd.occlusion_cuda(coeffs, feats, None, 64)
 
@@ -315,3 +316,68 @@ def test_cli_renders_quad_on_cpu(tmp_path, capsys):
                  "--out", str(out)]) == 0
     assert "engine quad" in capsys.readouterr().out
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+# ---------------------------------------------------------------------------
+# the closest-hit kernel's live terms, in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _forms_of(scene, soup, teapot_quad):
+    """(forms [T, 6, 28], packed [T, 64], centre) of the soup or of teapot."""
+    from radish_pt_tpu_torch.accel import quad as qd
+
+    if scene == "soup":
+        coeffs, center = _port_planes(soup["tp"])
+        return coeffs, torch.from_numpy(qd.numpy_quad_packed(t2n(coeffs))), center
+    own = teapot_quad[3]
+    return own.quad_coeffs, own.quad_packed, own.sweep_center
+
+
+@pytest.mark.parametrize("scene", ["soup", "teapot"])
+def test_dropped_terms_are_structural_zeros(soup, teapot_quad, scene):
+    """Of the 135 coefficients of q1..q5, the 72 the closest-hit kernel
+    leaves out are exactly 0 on every triangle (81 of q1..q6's 162), and
+    the packed [T, 64] table is the other 63, form by form in monomial
+    order, and one zero."""
+    from radish_pt_tpu_torch.accel import quad as qd
+
+    coeffs, packed, _ = _forms_of(scene, soup, teapot_quad)
+    c, packed = t2n(coeffs), t2n(packed)
+    live = np.zeros((6, 28), bool)
+    for p, terms in enumerate(qd.LIVE_TERMS):
+        live[p, list(terms)] = True
+    assert live[:5].sum() == 63 and (~live[:5, :27]).sum() == 72
+    assert live.sum() == 81 and (~live[:, :27]).sum() == 81
+    assert not c[:, ~live].any()
+    assert all(np.abs(c[:, p][:, live[p]]).sum() > 0 for p in range(6))
+    assert qd.FLOPS_PER_PAIR["closest_hit"] == 3 * 29 + 11 + 23 == 121
+    assert packed.shape == (c.shape[0], 64) and packed.dtype == np.float32
+    assert len(qd.LIVE_SLOTS) == 63 and not packed[:, 63].any()
+    np.testing.assert_array_equal(packed[:, :63], c.reshape(-1, 168)[:, list(qd.LIVE_SLOTS)])
+    for p, lo in enumerate((0, 15, 30)):  # the kernel's slot ranges
+        np.testing.assert_array_equal(packed[:, lo:lo + 15], c[:, p, 0:15])
+    np.testing.assert_array_equal(packed[:, 45:51], c[:, 3, 0:6])
+    np.testing.assert_array_equal(packed[:, 51:63], c[:, 4, 15:27])
+
+
+@pytest.mark.parametrize("scene", ["soup", "teapot"])
+def test_live_terms_give_the_forms_by_value(soup, teapot_quad, scene):
+    """Each form summed over its live monomials only, in order, equals the
+    sum over all 27 (``forms``) by value on seeded rays: a dropped term
+    adds an exact zero.  So the kernel's winners are the plain version's."""
+    from radish_pt_tpu_torch.accel import quad as qd
+
+    coeffs, packed, center = _forms_of(scene, soup, teapot_quad)
+    rng = np.random.default_rng(5)
+    n = 96
+    o = rng.uniform(-7, 7, size=(n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    feats = qd.quad_features(torch.from_numpy(o), torch.from_numpy(d), center)
+    tris = slice(0, 640)
+    full = qd.forms(coeffs[tris], feats, qd.CLOSEST_PLANES)
+    live = qd.forms_live(packed[tris], feats)
+    assert live.shape == full.shape and live.dtype == torch.float32
+    assert bool((live == full).all())
+    assert float(full.abs().sum()) > 0 and bool((full.amin(-1) >= 0).any())
