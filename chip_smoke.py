@@ -19,13 +19,18 @@ of those paths against their plain torch versions.  Phases:
    at 800x800, and the quad, band and dense scenes loaded;
 3. kernel parity at the main paths' shapes (800x800 primaries, one bounce
    wavefront with dead lanes, its NEE shadow segments): the Plücker sweeps
-   and the quad sweeps on teapot; the sphere prepass, the compact sweeps
+   on teapot and on teapot_hires' Plücker build, against the plain
+   versions culled per 32-lane warp as the kernels cull (and, logged, the
+   lanes that differ from the plain versions culled per 128-lane row); the
+   quad sweeps on teapot; the sphere prepass, the compact sweeps
    and the band sweeps (8 bands a row) on teapot_hires; the dense sweeps
-   on cornell and teapot, bit for bit; for the compact closest hit also
-   the (lane, triangle) pairs its wavefronts need when culled per row
-   group, per warp and per lane;
+   on cornell and teapot, bit for bit; for the Plücker sweeps and the
+   compact closest hit also the (lane, triangle) pairs their wavefronts
+   need when culled per row (group), per warp and per lane;
 4. the main paths, loopers 0-7, each with the launch counts of its kernels
-   set to 0 just before and read just after, finite non-zero images, and
+   set to 0 just before and read just after (a Plücker frame: 6 closest
+   hits, 5 shadow sweeps, no plain call, no mask prepass), finite non-zero
+   images, and
    looper-7 mean radiance within 1% of each scene's 800x800 golden (the
    teapot_hires engines also within 0.2% of each other, band and compact
    within 0.05%); the direct-lighting paths' 8-frame means within 1% of
@@ -194,38 +199,73 @@ def bounce_one(ds, cam):
     }
 
 
-def plucker_parity(ds, waves, max_err, log):
-    """Phase 3 on a Plücker-engine scene: each kernel against its plain
-    version on the same cluster masks.  Returns the timing inputs."""
+def plucker_parity(ds, waves, max_err, log, scene):
+    """Phase 3 on a Plücker-engine scene: each kernel (which culls per
+    warp from the cluster boxes) against its plain version on the prepass
+    words of the same 32-lane groups: prim ids equal on every live lane,
+    dist equal by value, shadow bits equal.  Logged beside it: the lanes
+    that differ from the plain version culled per 128-lane row, and the
+    (lane, triangle) pairs per row, warp and lane.  Returns the timing
+    inputs."""
     import torch
 
     from radish_pt_tpu_torch.accel import plucker as plk
 
-    sub = ds.cluster_sub
+    sub, cb, c, packed = ds.cluster_sub, ds.cluster_bounds, ds.sweep_coeffs, ds.sweep_packed
     inputs = {}
-    for what in ("primary", "extension"):
-        o, d, tmax = waves[what]
-        live = tmax >= 0
+    for what in ("primary", "extension", "segments"):
+        if what == "segments":
+            x, y, live = waves["segments"]
+            o, d, tmax = (t.contiguous() for t in plk.segment_rays(x, y))
+        else:
+            o, d, tmax = (t.contiguous() for t in waves[what])
+            live = tmax >= 0
+            if what == "primary":
+                tmax = None  # as the path's first closest hit: no range
         feats = plk.plucker_features(o, d, ds.sweep_center)
-        mask = plk.cluster_mask_words(ds.cluster_bounds, o, d,
-                                      None if what == "primary" else tmax)
-        pk, dk = plk.closest_hit_cuda(ds.sweep_coeffs, feats, mask, sub)
-        pp, dp = plk.closest_hit_plain(ds.sweep_coeffs, feats, mask, sub)
-        torch.cuda.synchronize()
-        err = check_closest(pk, dk, pp, dp, live, f"plucker closest hit, {what}", log)
-        max_err["plucker_closest_hit"] = max(max_err["plucker_closest_hit"], err)
-        inputs[what] = (feats, mask)
-    x, y, ok = waves["segments"]
-    so, sd, stm = plk.segment_rays(x, y)
-    feats = plk.plucker_features(so, sd, ds.sweep_center)
-    mask = plk.cluster_mask_words(ds.cluster_bounds, so, sd, stm)
-    stm = stm.contiguous()
-    ok_k = plk.occlusion_cuda(ds.sweep_coeffs, feats, stm, mask, sub)
-    ok_p = plk.occlusion_plain(ds.sweep_coeffs, feats, stm, mask, sub)
-    torch.cuda.synchronize()
-    max_err["plucker_occlusion"] = max(max_err["plucker_occlusion"],
-                                       check_occlusion(ok_k, ok_p, ok, "plucker", log))
-    inputs["segments"] = (feats, stm, mask)
+        words = {g: plk.cluster_mask_words(cb, o, d, tmax, g) for g in (plk.GROUP, plk.ROW)}
+        pairs = plk.pair_counts(cb, o, d, tmax, sub, ds.num_triangles)
+        log(f"[pairs] plucker {what}, {scene}: (lane, triangle) pairs culled per "
+            f"{plk.ROW}-lane row {pairs['row']:.4e}, per {plk.GROUP}-lane warp "
+            f"{pairs['warp']:.4e} ({pairs['warp'] / pairs['row']:.4f} of it), per lane "
+            f"{pairs['lane']:.4e} ({pairs['lane'] / pairs['row']:.4f}: what the data "
+            f"needs under this culling)")
+        assert pairs["lane"] <= pairs["warp"] <= pairs["row"]
+        if what == "segments":
+            ok_k = plk.occlusion_cuda(packed, feats, cb, o, d, tmax, sub)
+            ok_p = plk.occlusion_plain(c, feats, tmax, words[plk.GROUP], sub)
+            ok_r = plk.occlusion_plain(c, feats, tmax, words[plk.ROW], sub, plk.ROW)
+            torch.cuda.synchronize()
+            n_diff = int((ok_k != ok_p).sum())
+            log(f"[parity] plucker occlusion, {scene} NEE segments: {n_diff} / "
+                f"{ok_k.numel()} bits differ from the plain version culled per warp; "
+                f"occluded {int((ok_p & live).sum())} of {int(live.sum())} live; "
+                f"{int((ok_k != ok_r).sum())} bits differ from the plain version culled "
+                f"per {plk.ROW}-lane row")
+            assert n_diff == 0, f"plucker occlusion, {scene}: shadow parity"
+            assert not bool(ok_k[~live].any()), "a masked segment was blocked"
+            max_err["plucker_occlusion"] = max(max_err["plucker_occlusion"], float(n_diff))
+        else:
+            pk, dk = plk.closest_hit_cuda(packed, feats, cb, o, d, tmax, sub)
+            pp, dp = plk.closest_hit_plain(c, feats, words[plk.GROUP], sub,
+                                           dead=plk.dead_lanes(tmax))
+            pr, _ = plk.closest_hit_plain(c, feats, words[plk.ROW], sub, plk.ROW)
+            torch.cuda.synchronize()
+            n_prim, n_val = int((pk != pp).sum()), int((dk != dp).sum())
+            hit = (pp >= 0) & live
+            err = float(torch.abs(dk - dp)[hit].max()) if bool(hit.any()) else 0.0
+            log(f"[parity] plucker closest hit, {scene} {what}: {n_prim} / {pk.numel()} "
+                f"prim ids differ from the plain version culled per warp (dead lanes "
+                f"included), dist differs by value on {n_val} lanes (max |dist err| "
+                f"{err:.3e}); live {int(live.sum())}, hits {int(hit.sum())}; "
+                f"{int((~live).sum())} dead lanes, all misses; "
+                f"{int(((pk != pr) & live).sum())} live prim ids differ from the plain "
+                f"version culled per {plk.ROW}-lane row")
+            assert bool((pk[~live] == -1).all()), "plucker closest hit: a dead lane hit"
+            assert n_prim == 0, f"plucker closest hit, {scene} {what}: prim parity"
+            assert n_val == 0, f"plucker closest hit, {scene} {what}: dist parity"
+            max_err["plucker_closest_hit"] = max(max_err["plucker_closest_hit"], err)
+        inputs[what] = (feats, o, d, tmax, words[plk.GROUP], pairs)
     return inputs
 
 
@@ -674,8 +714,11 @@ def main() -> int:
         f"{waves['primary'][0].shape[0]}, extension rays live "
         f"{int((waves['extension'][2] >= 0).sum())}, shadow segments live "
         f"{int(waves['segments'][2].sum())}")
-    inputs = {"plucker": plucker_parity(ds, waves, max_err, log),
+    inputs = {"plucker": {"teapot": plucker_parity(ds, waves, max_err, log, "teapot")},
               "quad": quad_parity(dsq, waves, max_err, log)}
+    ds, cam = scenes["teapot_hires_plucker"]
+    inputs["plucker"]["teapot_hires_plucker"] = plucker_parity(
+        ds, bounce_one(ds, cam), max_err, log, "teapot_hires_plucker")
     ds, cam = scenes["teapot_hires"]
     waves = bounce_one(ds, cam)
     log(f"[parity] teapot_hires (compact): primaries {waves['primary'][0].shape[0]},"
@@ -691,11 +734,19 @@ def main() -> int:
     del waves
 
     # ---- 4. the main paths ----
-    launches = {"plucker": main_path(scenes, ("cornell", "teapot"), plk, log),
+    def plucker_path(names):
+        """A Plücker frame is 6 closest hits and 5 shadow sweeps, each one
+        launch that culls for itself: no mask prepass."""
+        n_launch, n_frames = main_path(scenes, names, plk, log)
+        assert n_launch == {"closest_hit": 6 * n_frames, "occlusion": 5 * n_frames}, n_launch
+        assert not any(plk.PREPASS_CALLS.values()), "the mask prepass ran on the card path"
+        return n_launch, n_frames
+
+    launches = {"plucker": plucker_path(("cornell", "teapot")),
                 "compact": main_path(scenes, ("teapot_hires",), cpt, log),
                 "quad": main_path(scenes, ("teapot_quad",), qd, log),
                 "band": main_path(scenes, ("teapot_hires_band",), bnd, log)}
-    main_path(scenes, ("teapot_hires_plucker",), plk, log)
+    launches_hires_plucker = plucker_path(("teapot_hires_plucker",))
     main_path(scenes, ("cornell_dense", "teapot_dense"), dns, log)
     means, frames = {}, {}
     for name in ("cornell", "teapot", "teapot_quad", "teapot_hires",
@@ -891,31 +942,39 @@ def main() -> int:
 
     def time_kernel(key, kernel, plain, flops, nbytes_, scene=None):
         scene = scene or KERNEL_SCENE[key.split("_")[0]]
-        timed[key, scene] = (cuda_ms(kernel, 5), cuda_ms(plain, 1), flops, nbytes_)
+        # the plain version ran in phase 3: timed once, without a warm-up
+        timed[key, scene] = (cuda_ms(kernel, 5), cuda_ms(plain, 1, warmup=0), flops, nbytes_)
 
-    ds = scenes["teapot"][0]
-    sub, n_c = ds.cluster_sub, ds.cluster_bounds.shape[0]
-    c = ds.sweep_coeffs
-    for what in ("primary", "extension"):
-        feats, mask = inputs["plucker"][what]
-        n = feats.shape[0]
-        pairs = group_pairs(plk.unpack_mask(mask, n_c), sub, plk.ROW, n)
-        time_kernel(f"plucker_closest_hit/{what}",
-                    lambda: plk.closest_hit_cuda(c, feats, mask, sub),
-                    lambda: plk.closest_hit_plain(c, feats, mask, sub),
-                    pairs * plk.FLOPS_PER_PAIR["closest_hit"],
-                    nbytes(c, feats, mask) + 8 * n)
-    feats, stm, mask = inputs["plucker"]["segments"]
-    n = feats.shape[0]
-    time_kernel("plucker_occlusion/segments",
-                lambda: plk.occlusion_cuda(c, feats, stm, mask, sub),
-                lambda: plk.occlusion_plain(c, feats, stm, mask, sub),
-                group_pairs(plk.unpack_mask(mask, n_c), sub, plk.ROW, n)
-                * plk.FLOPS_PER_PAIR["occlusion"],
-                nbytes(c, feats, stm, mask) + 4 * n)
-    ds = scenes["teapot_quad"][0]
-    qc, qp = ds.quad_coeffs, ds.quad_packed
     other_bounds = {}  # (key, scene) -> a named second bound, logged beside the first
+    for scene in ("teapot", "teapot_hires_plucker"):
+        ds = scenes[scene][0]
+        sub, cb, c, pk = ds.cluster_sub, ds.cluster_bounds, ds.sweep_coeffs, ds.sweep_packed
+        for what in ("primary", "extension", "segments"):
+            feats, o, d, tmax, words, pairs = inputs["plucker"][scene][what]
+            n = feats.shape[0]
+            kind = "occlusion" if what == "segments" else "closest_hit"
+            nb = (nbytes(pk, cb, feats, o, d) + (0 if tmax is None else nbytes(tmax))
+                  + (4 if what == "segments" else 8) * n)
+            # the pairs the data needs under this culling: each lane's own
+            # flagged clusters; beside it the bound over the 128-lane row's
+            # flags (what a sweep that culls per row visits)
+            if what == "segments":
+                time_kernel("plucker_occlusion/segments",
+                            lambda: plk.occlusion_cuda(pk, feats, cb, o, d, tmax, sub),
+                            lambda: plk.occlusion_plain(c, feats, tmax, words, sub),
+                            pairs["lane"] * plk.FLOPS_PER_PAIR[kind], nb, scene)
+            else:
+                time_kernel(f"plucker_closest_hit/{what}",
+                            lambda: plk.closest_hit_cuda(pk, feats, cb, o, d, tmax, sub),
+                            lambda: plk.closest_hit_plain(c, feats, words, sub,
+                                                          dead=plk.dead_lanes(tmax)),
+                            pairs["lane"] * plk.FLOPS_PER_PAIR[kind], nb, scene)
+            other_bounds[f"plucker_{kind}/{what}", scene] = (
+                f"the {plk.ROW}-lane row's flagged clusters",
+                bound(pairs["row"] * plk.FLOPS_PER_PAIR[kind], nb)[0])
+    ds = scenes["teapot_quad"][0]
+    sub, n_c = ds.cluster_sub, ds.cluster_bounds.shape[0]
+    qc, qp = ds.quad_coeffs, ds.quad_packed
     for what in ("primary", "extension", "segments"):
         feats, mask = inputs["quad"][what]
         n = feats.shape[0]
@@ -1039,6 +1098,16 @@ def main() -> int:
         if (f"{name}/{what}", KERNEL_SCENE[lib]) in other_bounds:
             o_name, o_ms = other_bounds[f"{name}/{what}", KERNEL_SCENE[lib]]
             rows[-1]["other_bound"] = {"over": o_name, "ms": o_ms}
+        if lib == "plucker":  # the same kernel on the largest scene of its engine
+            scene = "teapot_hires_plucker"
+            k, p, flops, nb = timed[f"{name}/{what}", scene]
+            n_launch, n_frames = launches_hires_plucker
+            rows[-1]["also"] = {
+                "shape": f"{scene} {what}", "launches": n_launch[kind],
+                "launches_per_frame": n_launch[kind] / n_frames, "ms": k, "plain_ms": p,
+                "bound_ms": bound(flops, nb)[0], "bound_by": bound(flops, nb)[1],
+                "other_bound": {"over": other_bounds[f"{name}/{what}", scene][0],
+                                "ms": other_bounds[f"{name}/{what}", scene][1]}}
     log(f"[done] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

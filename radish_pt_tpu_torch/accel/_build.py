@@ -32,9 +32,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # launch's cudaGetLastError() as an int)
 SIGNATURES = {
     "plucker": {
-        # coeffs, T, sub, feats, N, mask, words, (prim, dist | tm, occ), stream
-        "plucker_closest_hit": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P],
-        "plucker_occlusion": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P],
+        # packed, T, sub, bounds, clusters, ray_o, ray_d, tmax | tm, feats, N,
+        # (prim, dist | occ), stream
+        "plucker_closest_hit": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+        "plucker_occlusion": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P],
     },
     "compact": {
         # feats, planes, rows, units, flags, tn, stream

@@ -17,24 +17,40 @@ blocked when min(v, t·det·det, tm·sd - t·det·det) >= 0 for some triangle
 (v the first four terms).  Zero triangles (cluster padding) have det = 0
 and never pass.
 
-Culling: a slab-test prepass (:func:`cluster_mask_words`, the XLA
-``_cluster_mask_bits`` :599) flags, per 128-lane row, every cluster of
-``sub`` consecutive triangles that any ray of the row may hit within its
-``tmax``; the sweep visits only flagged clusters.  Without cluster bounds
-(small scenes) every triangle is swept.
+Culling: a slab test (:func:`lane_cluster_flags_plain`, the XLA
+``_cluster_mask_bits`` :599) says, per lane, which clusters of ``sub``
+consecutive triangles its ray may hit within its ``tmax``; a group of
+``lanes`` consecutive lanes shares the decision (the OR of its lanes'
+flags, :func:`cluster_mask_words`) and the sweep visits only the clusters
+the lane's group flags.  The group is one warp, :data:`GROUP` = 32 lanes,
+on this engine's path on either device; the reference culls per
+:data:`ROW` = 128 lanes, which the plain versions reproduce with
+``lanes=ROW``.  Without cluster bounds (small scenes) every triangle is
+swept.
 
 Each sweep has two implementations with one contract:
-* ``*_cuda``: the hand-written kernels of ``csrc/plucker.cu`` (one thread
-  per ray, exact f32 FMA, the winner is the exact minimum t with ties to the
-  lower id);
+* ``*_cuda``: the hand-written kernels of ``csrc/plucker.cu`` (each warp
+  runs the slab test on its own 32 rays, votes its own cluster words and
+  sweeps the tiles it flags, triangles across its threads, its rays one at
+  a time, a ray passing over the tiles it cannot gain from
+  (:func:`lane_skip_flags_plain`: no result moves); exact f32 FMA, the
+  winner is the exact minimum t with ties to the lower id);
 * ``*_plain``: the same arithmetic in plain torch, over the triangles of
-  the clusters some row of a chunk of lanes flags, gated per lane
+  the clusters some group of a chunk of lanes flags, gated per lane
   (:func:`sweep_closest`, :func:`sweep_any`; the quad, band and compact
-  engines' plain sweeps share them).
+  engines' plain sweeps share them), on the words of
+  :func:`cluster_mask_words`.
 ``closest_hit`` / ``occlusion`` dispatch on the tensors' device: CPU tensors
 take the plain version, CUDA tensors launch the kernel (or raise) — there is
-no fallback between the two.  ``LAUNCHES`` counts kernel launches and
-``PLAIN_CALLS`` plain-version calls, per sweep kind.
+no fallback between the two.  ``LAUNCHES`` counts kernel launches,
+``PLAIN_CALLS`` plain-version calls, per sweep kind, and ``PREPASS_CALLS``
+calls of :func:`cluster_mask_words`, which the kernels' path never makes.
+
+Dead lanes (a negative ``tmax``; ``intersect`` passes -FLT_MAX) flag
+nothing, are swept by nothing and return a miss, (-1, FLT_MAX), on this
+engine's path, in kernel and plain version alike (``dead`` of
+:func:`closest_hit_plain`); the reference, and the plain version without
+``dead``, return for them what their group's clusters give.
 """
 
 from __future__ import annotations
@@ -48,7 +64,15 @@ from ..utils.math import cross
 from .traverse import FLT_MAX, NULL_PRIMITIVE, segment_rays
 
 PLUCKER_EPS2 = 1.1920929e-07 ** 2  # det² threshold == |det| >= eps
-ROW = 128  # lanes per culling row (one CUDA block)
+ROW = 128  # lanes per culling row of the reference (and of the quad engine)
+GROUP = 32  # lanes that share a culling decision on this engine: one warp
+MAX_CLUSTERS = 1024  # the kernels keep a warp's words in shared memory
+# a ray of the kernels passes over a cluster whose box, grown by SKIP_SLACK
+# times the scene's scale, it misses or enters beyond its reach (best t so
+# far, or the segment's range) widened by SKIP_MARGIN
+# (:func:`lane_skip_flags_plain`; kSkipSlack, kSkipMargin in the kernels)
+SKIP_SLACK = 2e-4
+SKIP_MARGIN = 1.0 + 1e-4
 
 # f32 operations per (ray, triangle) pair: the planes' 19 products (4
 # multiplies, 15 fused multiply-adds: 34 flops) and the decision terms
@@ -63,10 +87,11 @@ PACKED_WIDTH = 20  # floats per packed triangle: the live slots and one zero
 
 LAUNCHES = {"closest_hit": 0, "occlusion": 0}
 PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
+PREPASS_CALLS = {"cluster_mask_words": 0}
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, PLAIN_CALLS, PREPASS_CALLS):
         for k in d:
             d[k] = 0
 
@@ -83,35 +108,110 @@ def plucker_features(ray_o, ray_d, center):
                      dim=1).contiguous()
 
 
-def cluster_mask_words(cluster_bounds, ray_o, ray_d, tmax):
-    """Per 128-lane row, the clusters any of its rays may hit before tmax
-    (conservative slab test), packed 32 per int32 word: bit j of word w
-    flags cluster 32·w + j.  Returns int32 [ceil(N/128), ceil(C/32)].
-
-    The same f32 arithmetic as the reference prepass, including its padding
-    of the last row (o = 0, d = 1, tmax = 0, or FLT_MAX without tmax)."""
+def _pad_rays(ray_o, ray_d, tmax, n_pad: int):
+    """Rays padded to ``n_pad`` lanes as the reference pads a ragged last
+    group: o = 0, d = 1, tmax = 0 (FLT_MAX without tmax).  Returns
+    (o [n_pad, 3], d [n_pad, 3], tm [n_pad])."""
     n = ray_o.shape[0]
-    n_pad = -(-n // ROW) * ROW
     pad = n_pad - n
-    dev = ray_o.device
     o = torch.cat([ray_o, ray_o.new_zeros((pad, 3))])
     d = torch.cat([ray_d, ray_d.new_ones((pad, 3))])
     if tmax is None:
-        tm = torch.full((n_pad, 1), FLT_MAX, device=dev)
+        tm = torch.full((n_pad,), FLT_MAX, device=ray_o.device)
     else:
-        tm = torch.cat([tmax, tmax.new_zeros((pad,))])[:, None]
-    cb = cluster_bounds
+        tm = torch.cat([tmax, tmax.new_zeros((pad,))])
+    return o, d, tm
+
+
+def lane_cluster_flags_plain(cluster_bounds, ray_o, ray_d, tmax):
+    """bool [N, C]: the clusters whose box ``cluster_bounds`` f32 [C, 6]
+    (lo, hi) each lane's own ray may hit before its ``tmax`` f32 [N] (None:
+    FLT_MAX) — the conservative slab test of the reference prepass, in its
+    f32 operations: 1 / d after clamping |d| <= 1e-12 to +1e-12 (the sign
+    is lost, as there), (bound - o) * inv, the near and far planes by
+    min / max, and ``tf >= max(tn, 0) and tn < tmax``.  The twin of the
+    kernels' per-lane test (csrc/slab_cull.cuh)."""
+    o, d, cb = ray_o, ray_d, cluster_bounds
+    tm = FLT_MAX if tmax is None else tmax[:, None]
     inv = 1.0 / torch.where(torch.abs(d) > 1e-12, d, torch.full_like(d, 1e-12))
-    n_c = cb.shape[0]
-    tn = torch.full((n_pad, n_c), -FLT_MAX, device=dev)
-    tf = torch.full((n_pad, n_c), FLT_MAX, device=dev)
+    n, n_c = o.shape[0], cb.shape[0]
+    tn = torch.full((n, n_c), -FLT_MAX, device=o.device)
+    tf = torch.full((n, n_c), FLT_MAX, device=o.device)
     for k in range(3):
         a = (cb[None, :, k] - o[:, k, None]) * inv[:, k, None]
         b = (cb[None, :, 3 + k] - o[:, k, None]) * inv[:, k, None]
         tn = torch.maximum(tn, torch.minimum(a, b))
         tf = torch.minimum(tf, torch.maximum(a, b))
-    hit = (tf >= torch.clamp(tn, min=0.0)) & (tn < tm)  # [n_pad, C]
-    return pack_words(hit.view(n_pad // ROW, ROW, n_c).any(dim=1))
+    return (tf >= torch.clamp(tn, min=0.0)) & (tn < tm)
+
+
+def lane_skip_flags_plain(cluster_bounds, ray_o, ray_d, reach):
+    """bool [N, C]: the clusters a single ray of the kernels does not pass
+    over when its reach is ``reach`` f32 [N] (a closest hit's best t so
+    far, a segment's range): the slab test on boxes grown on every side by
+    :data:`SKIP_SLACK` times the scene's scale (the largest extent of the
+    boxes' union along an axis), entered no later than ``reach`` widened
+    by :data:`SKIP_MARGIN`.  The twin of ``slab_reach`` in
+    csrc/slab_cull.cuh.  The kernels' results do not depend on it as long
+    as it is conservative: no triangle of an unflagged cluster passes the
+    f32 planes at a t within ``reach`` (tests/test_torch_plucker.py)."""
+    cb = cluster_bounds
+    slack = SKIP_SLACK * (cb[:, 3:].amax(0) - cb[:, :3].amin(0)).max()
+    grown = torch.cat([cb[:, :3] - slack, cb[:, 3:] + slack], dim=1)
+    d = ray_d
+    inv = 1.0 / torch.where(torch.abs(d) > 1e-12, d, torch.full_like(d, 1e-12))
+    lo = (grown[None, :, :3] - ray_o[:, None, :]) * inv[:, None, :]
+    hi = (grown[None, :, 3:] - ray_o[:, None, :]) * inv[:, None, :]
+    tn = torch.minimum(lo, hi).amax(-1)
+    tf = torch.maximum(lo, hi).amin(-1)
+    return (tf >= torch.clamp(tn, min=0.0)) & (tn <= (reach * SKIP_MARGIN)[:, None])
+
+
+def cluster_mask_words(cluster_bounds, ray_o, ray_d, tmax, lanes: int = ROW):
+    """Per group of ``lanes`` consecutive lanes, the clusters any of its
+    rays may hit before tmax (:func:`lane_cluster_flags_plain`), packed 32
+    per int32 word: bit j of word w flags cluster 32·w + j.  Returns int32
+    [ceil(N/lanes), ceil(C/32)].
+
+    The same f32 arithmetic as the reference prepass (which groups 128
+    lanes), including its padding of the last group (o = 0, d = 1,
+    tmax = 0, or FLT_MAX without tmax)."""
+    PREPASS_CALLS["cluster_mask_words"] += 1
+    n_pad = -(-ray_o.shape[0] // lanes) * lanes
+    o, d, tm = _pad_rays(ray_o, ray_d, tmax, n_pad)
+    hit = lane_cluster_flags_plain(cluster_bounds, o, d, tm)  # [n_pad, C]
+    return pack_words(hit.view(n_pad // lanes, lanes, -1).any(dim=1))
+
+
+def pair_counts(cluster_bounds, ray_o, ray_d, tmax, sub: int, num_tris: int,
+                chunk_rows: int = 512) -> dict:
+    """(lane, triangle) pairs a sweep of these rays visits when a cluster
+    is swept by every lane of a group that flags it: per :data:`ROW`-lane
+    row (``row``), per :data:`GROUP`-lane warp (``warp``) and per lane
+    (``lane``: each lane's own flagged clusters, what the data needs under
+    this culling).  Padding lanes vote, as in the sweeps, and are not
+    counted.  Without cluster bounds every lane visits every triangle.  A
+    measurement helper: floats, one host sync per chunk of rows."""
+    n = ray_o.shape[0]
+    if cluster_bounds is None:
+        return dict.fromkeys(("row", "warp", "lane"), float(n) * num_tris)
+    n_c = cluster_bounds.shape[0]
+    tris = torch.clamp(num_tris - torch.arange(n_c, device=ray_o.device) * sub,
+                       0, sub).double()
+    out = dict.fromkeys(("row", "warp", "lane"), 0.0)
+    step = chunk_rows * ROW
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        n_pad = -(-(hi - lo) // ROW) * ROW
+        o, d, tm = _pad_rays(ray_o[lo:hi], ray_d[lo:hi],
+                             None if tmax is None else tmax[lo:hi], n_pad)
+        own = lane_cluster_flags_plain(cluster_bounds, o, d, tm)
+        real = (torch.arange(n_pad, device=o.device) < hi - lo)
+        for name, size in (("row", ROW), ("warp", GROUP), ("lane", 1)):
+            grp = own.view(-1, size, n_c).any(1)
+            lanes = real.view(-1, size).sum(1).double()
+            out[name] += float((grp.double() @ tris) @ lanes)
+    return out
 
 
 def pack_words(flags):
@@ -179,10 +279,20 @@ def mask_flags(mask, sub: int, num_tris: int):
 # ---------------------------------------------------------------------------
 
 
+def unpack_coeffs(packed):
+    """The packed table f32 [T, 20] back as planes f32 [T, 4, 10]."""
+    flat = packed.new_zeros((packed.shape[0], 40))
+    flat[:, list(LIVE_SLOTS)] = packed[:, :len(LIVE_SLOTS)]
+    return flat.view(-1, 4, 10)
+
+
 def _planes(coeffs, feats):
-    """(det, bx, by, t·det) [R, T] for feature rows ``feats`` [R, 10]."""
+    """(det, bx, by, t·det) [R, T] for feature rows ``feats`` [R, 10] and
+    planes ``coeffs`` [T, 4, 10] (or packed, [T, 20])."""
     if feats.is_cuda:  # the reference planes are full f32, never TF32
         torch.backends.cuda.matmul.allow_tf32 = False
+    if coeffs.dim() == 2:
+        coeffs = unpack_coeffs(coeffs)
     t = coeffs.shape[0]
     q = (feats @ coeffs.reshape(t * 4, 10).t()).view(-1, t, 4)
     return q.unbind(-1)
@@ -215,24 +325,36 @@ def blocks(coeffs, feats, tm):
     return torch.minimum(u, tm[:, None] * sd - tdd) >= 0.0
 
 
-def closest_hit_plain(coeffs, feats, mask, sub):
-    """Plain torch closest hit.  ``coeffs`` f32 [T, 4, 10], ``feats`` f32
-    [N, 10], ``mask`` int32 [ceil(N/128), W] cluster words (None: sweep
-    every triangle), ``sub`` triangles per cluster.  Returns
-    (prim i32 [N], dist f32 [N]): the exact minimum t over the triangles of
-    the clusters the lane's row flags, ties to the lower id; misses are
-    (-1, FLT_MAX)."""
+def dead_lanes(tmax):
+    """bool [N]: the lanes a negative ``tmax`` marks dead (None: none)."""
+    return None if tmax is None else tmax < 0
+
+
+def closest_hit_plain(coeffs, feats, mask, sub, lanes: int = GROUP, dead=None):
+    """Plain torch closest hit.  ``coeffs`` f32 [T, 4, 10] (or the packed
+    table f32 [T, 20]), ``feats`` f32 [N, 10], ``mask`` int32
+    [ceil(N/lanes), W] cluster words of :func:`cluster_mask_words` at the
+    same ``lanes`` (None: sweep every triangle), ``sub`` triangles per
+    cluster.  Returns (prim i32 [N], dist f32 [N]): the exact minimum t
+    over the triangles of the clusters the lane's group flags, ties to the
+    lower id; misses are (-1, FLT_MAX), and so are the lanes of ``dead``
+    (bool [N], :func:`dead_lanes`; None: a dead lane gets what its group's
+    clusters give, as in the reference)."""
     PLAIN_CALLS["closest_hit"] += 1
-    return sweep_closest(coeffs, feats, mask_flags(mask, sub, coeffs.shape[0]),
-                         ROW, sub, hit_t)
+    prim, dist = sweep_closest(coeffs, feats, mask_flags(mask, sub, coeffs.shape[0]),
+                               lanes, sub, hit_t)
+    if dead is not None:
+        prim = torch.where(dead, NULL_PRIMITIVE, prim)
+        dist = torch.where(dead, FLT_MAX, dist)
+    return prim, dist
 
 
-def occlusion_plain(coeffs, feats, tm, mask, sub):
+def occlusion_plain(coeffs, feats, tm, mask, sub, lanes: int = GROUP):
     """Plain torch any-hit: True where some (flagged) triangle blocks the
     segment of range ``tm`` f32 [N].  Arguments as :func:`closest_hit_plain`."""
     PLAIN_CALLS["occlusion"] += 1
     return sweep_any(coeffs, feats, mask_flags(mask, sub, coeffs.shape[0]),
-                     ROW, sub, lambda c, f, lo, hi: blocks(c, f, tm[lo:hi]))
+                     lanes, sub, lambda c, f, lo, hi: blocks(c, f, tm[lo:hi]))
 
 
 def sweep_closest(coeffs, feats, flags, lanes, sub, t_of, budget: int = 1 << 24):
@@ -279,106 +401,134 @@ def sweep_any(coeffs, feats, flags, lanes, sub, blocked, budget: int = 1 << 24):
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(coeffs, feats, mask, sub):
-    if not (coeffs.is_cuda and feats.is_cuda):
-        raise ValueError("the CUDA sweep takes CUDA tensors")
-    if coeffs.dtype != torch.float32 or feats.dtype != torch.float32:
-        raise TypeError("coeffs and feats must be float32")
-    if coeffs.dim() != 3 or coeffs.shape[1:] != (4, 10):
-        raise ValueError(f"coeffs must be [T, 4, 10], got {tuple(coeffs.shape)}")
-    if feats.dim() != 2 or feats.shape[1] != 10:
-        raise ValueError(f"feats must be [N, 10], got {tuple(feats.shape)}")
-    if not (coeffs.is_contiguous() and feats.is_contiguous()):
-        raise ValueError("coeffs and feats must be contiguous")
-    if mask is not None:
-        rows = -(-feats.shape[0] // ROW)
-        if (not mask.is_cuda or mask.dtype != torch.int32 or mask.dim() != 2
-                or mask.shape[0] != rows or not mask.is_contiguous()):
-            raise ValueError("mask must be contiguous int32 [ceil(N/128), W] "
-                             "on the card")
-        if coeffs.shape[0] % sub or mask.shape[1] * 32 < coeffs.shape[0] // sub:
-            raise ValueError("coeffs rows must be whole clusters covered by "
-                             "the mask words")
+def _check_inputs(packed, feats, cluster_bounds, ray_o, ray_d, tmax, sub):
+    """Raise on what the kernels do not take; returns (triangles per
+    cluster, clusters) as the kernels count them: without bounds, one
+    cluster of every triangle."""
+    n, num_tris = feats.shape[0], packed.shape[0]
+    lane_inputs = [("feats", feats, (n, 10)), ("ray_o", ray_o, (n, 3)),
+                   ("ray_d", ray_d, (n, 3))]
+    if tmax is not None:
+        lane_inputs.append(("tmax", tmax, (n,)))
+    for name, t, shape in lane_inputs:
+        if not (t.is_cuda and t.dtype == torch.float32 and t.shape == shape
+                and t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {list(shape)} on "
+                             f"the card")
+    if not (packed.is_cuda and packed.dtype == torch.float32 and packed.dim() == 2
+            and packed.shape[1] == PACKED_WIDTH and packed.is_contiguous()
+            and packed.data_ptr() % 16 == 0):
+        raise ValueError(f"the packed table must be 16-byte aligned contiguous "
+                         f"float32 [T, {PACKED_WIDTH}] on the card, got "
+                         f"{tuple(packed.shape)}")
+    if cluster_bounds is None:
+        return max(num_tris, 1), 1
+    n_c = -(-num_tris // sub) if sub >= 1 else -1
+    cb = cluster_bounds
+    if not (cb.is_cuda and cb.dtype == torch.float32 and cb.shape == (n_c, 6)
+            and cb.is_contiguous()):
+        raise ValueError(f"cluster_bounds must be contiguous float32 [{n_c}, 6] on "
+                         f"the card: one box per cluster of {sub} triangles")
+    if n_c > MAX_CLUSTERS:
+        raise ValueError(f"the Plücker kernels take at most {MAX_CLUSTERS} "
+                         f"clusters, got {n_c}")
+    return sub, n_c
 
 
-def _launch_args(coeffs, feats, mask, sub):
+def _launch(entry, packed, feats, cluster_bounds, ray_o, ray_d, tmax, sub, outs):
+    """Launch C entry point ``entry`` of csrc/plucker.cu on the current
+    stream; raises if the launch is refused."""
     import ctypes
 
     from ._build import load_library
 
+    sub, n_c = _check_inputs(packed, feats, cluster_bounds, ray_o, ray_d, tmax, sub)
+
+    def p(t):
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
+
     lib = load_library("plucker")
-    n_words = 0 if mask is None else mask.shape[1]
-    mask_ptr = None if mask is None else mask.data_ptr()
     stream = torch.cuda.current_stream(feats.device).cuda_stream
-    args = (ctypes.c_void_p(coeffs.data_ptr()), ctypes.c_int(coeffs.shape[0]),
-            ctypes.c_int(sub), ctypes.c_void_p(feats.data_ptr()),
-            ctypes.c_int(feats.shape[0]), ctypes.c_void_p(mask_ptr),
-            ctypes.c_int(n_words))
-    return lib, args, ctypes.c_void_p(stream)
-
-
-def _raise_on(err: int, what: str):
+    with torch.cuda.device(feats.device):
+        err = getattr(lib, entry)(
+            p(packed), packed.shape[0], sub, p(cluster_bounds), n_c, p(ray_o),
+            p(ray_d), p(tmax), p(feats), feats.shape[0], *(p(t) for t in outs),
+            ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err}")
 
 
-def closest_hit_cuda(coeffs, feats, mask, sub):
-    """The closest-hit kernel (``plucker_closest_hit`` in csrc/plucker.cu);
-    same contract as :func:`closest_hit_plain`."""
-    _check_inputs(coeffs, feats, mask, sub)
+def closest_hit_cuda(packed, feats, cluster_bounds, ray_o, ray_d, tmax, sub):
+    """The closest-hit kernel (``plucker_closest_hit`` in csrc/plucker.cu)
+    on the scene's packed table ``packed`` f32 [T, 20]: each warp runs the
+    slab test of ``ray_o``, ``ray_d`` f32 [N, 3] and ``tmax`` f32 [N]
+    (None: FLT_MAX) against ``cluster_bounds`` f32 [C, 6] (None: every
+    triangle is swept) and sweeps the clusters it flags; a lane with a
+    negative ``tmax`` misses.  Same results as :func:`closest_hit_plain`
+    on ``cluster_mask_words(..., lanes=GROUP)`` with
+    ``dead=dead_lanes(tmax)``."""
     n = feats.shape[0]
     prim = torch.empty((n,), dtype=torch.int32, device=feats.device)
     dist = torch.empty((n,), dtype=torch.float32, device=feats.device)
     if n == 0:
         return prim, dist
-    import ctypes
-
-    lib, args, stream = _launch_args(coeffs, feats, mask, sub)
-    with torch.cuda.device(feats.device):
-        err = lib.plucker_closest_hit(
-            *args, ctypes.c_void_p(prim.data_ptr()),
-            ctypes.c_void_p(dist.data_ptr()), stream)
-    _raise_on(err, "plucker_closest_hit")
+    _launch("plucker_closest_hit", packed, feats, cluster_bounds, ray_o, ray_d,
+            tmax, sub, (prim, dist))
     LAUNCHES["closest_hit"] += 1
     return prim, dist
 
 
-def occlusion_cuda(coeffs, feats, tm, mask, sub):
-    """The shadow kernel (``plucker_occlusion`` in csrc/plucker.cu); same
-    contract as :func:`occlusion_plain`."""
-    _check_inputs(coeffs, feats, mask, sub)
+def occlusion_cuda(packed, feats, cluster_bounds, ray_o, ray_d, tm, sub):
+    """The shadow kernel (``plucker_occlusion`` in csrc/plucker.cu):
+    arguments as :func:`closest_hit_cuda`, with the segments' range ``tm``
+    f32 [N] bounding both the culling and the hits.  Same results as
+    :func:`occlusion_plain` on ``cluster_mask_words(..., lanes=GROUP)``."""
+    if tm is None:
+        raise ValueError("the shadow kernel needs the segments' range tm")
     n = feats.shape[0]
-    if not (tm.is_cuda and tm.dtype == torch.float32 and tm.shape == (n,)
-            and tm.is_contiguous()):
-        raise ValueError("tm must be contiguous float32 [N] on the card")
     occ = torch.empty((n,), dtype=torch.int32, device=feats.device)
     if n == 0:
         return occ.bool()
-    import ctypes
-
-    lib, args, stream = _launch_args(coeffs, feats, mask, sub)
-    with torch.cuda.device(feats.device):
-        err = lib.plucker_occlusion(
-            *args, ctypes.c_void_p(tm.data_ptr()),
-            ctypes.c_void_p(occ.data_ptr()), stream)
-    _raise_on(err, "plucker_occlusion")
+    _launch("plucker_occlusion", packed, feats, cluster_bounds, ray_o, ray_d, tm,
+            sub, (occ,))
     LAUNCHES["occlusion"] += 1
     return occ.bool()
 
 
-def closest_hit(coeffs, feats, mask, sub):
-    """Closest-hit sweep: the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    if feats.is_cuda:
-        return closest_hit_cuda(coeffs, feats, mask, sub)
-    return closest_hit_plain(coeffs, feats, mask, sub)
+def _group_words(cluster_bounds, ray_o, ray_d, tmax, lanes):
+    if cluster_bounds is None:
+        return None
+    return cluster_mask_words(cluster_bounds, ray_o, ray_d, tmax, lanes)
 
 
-def occlusion(coeffs, feats, tm, mask, sub):
-    """Shadow sweep: the kernel for CUDA tensors, the plain version for CPU
-    tensors."""
-    if feats.is_cuda:
-        return occlusion_cuda(coeffs, feats, tm, mask, sub)
+def closest_hit(coeffs, feats, cluster_bounds, ray_o, ray_d, tmax, sub, packed=None,
+                plain: bool = False):
+    """Closest-hit sweep culled per :data:`GROUP` lanes: the kernel for
+    CUDA tensors (on the scene's ``packed`` table, which it then needs),
+    the plain version on the prepass words for CPU tensors, or with
+    ``plain`` on any device."""
+    if feats.is_cuda and not plain:
+        if packed is None:
+            raise ValueError("the CUDA Plücker closest hit needs the scene's "
+                             "packed table")
+        return closest_hit_cuda(packed, feats, cluster_bounds, ray_o.contiguous(),
+                                ray_d.contiguous(), tmax, sub)
+    mask = _group_words(cluster_bounds, ray_o, ray_d, tmax, GROUP)
+    return closest_hit_plain(coeffs, feats, mask, sub, dead=dead_lanes(tmax))
+
+
+def occlusion(coeffs, feats, cluster_bounds, ray_o, ray_d, tm, sub, packed=None,
+              plain: bool = False):
+    """Shadow sweep culled per :data:`GROUP` lanes: the kernel for CUDA
+    tensors (on the scene's ``packed`` table), the plain version on the
+    prepass words for CPU tensors, or with ``plain`` on any device."""
+    if feats.is_cuda and not plain:
+        if packed is None:
+            raise ValueError("the CUDA Plücker shadow sweep needs the scene's "
+                             "packed table")
+        return occlusion_cuda(packed, feats, cluster_bounds, ray_o.contiguous(),
+                              ray_d.contiguous(), tm, sub)
+    mask = _group_words(cluster_bounds, ray_o, ray_d, tm, GROUP)
     return occlusion_plain(coeffs, feats, tm, mask, sub)
 
 
@@ -388,30 +538,26 @@ def occlusion(coeffs, feats, tm, mask, sub):
 
 
 def intersect_plucker(coeffs, center, cluster_bounds, sub, ray_o, ray_d,
-                      tmax=None, plain: bool = False):
+                      tmax=None, plain: bool = False, packed=None):
     """Closest hit of rays against the stored triangles; (prim i32 [N],
     selector-grade dist f32 [N]).  ``tmax`` (f32 [N]) bounds only the
-    culling prepass (-FLT_MAX marks a dead lane, which flags nothing).
-    ``plain`` selects the plain torch sweep on any device."""
+    culling (-FLT_MAX marks a dead lane, which flags nothing and
+    misses).  ``plain`` selects the plain
+    torch sweep on any device; ``packed`` is the scene's packed table,
+    which the kernel reads."""
     feats = plucker_features(ray_o, ray_d, center)
-    mask = None
-    if cluster_bounds is not None:
-        mask = cluster_mask_words(cluster_bounds, ray_o, ray_d, tmax)
-    sweep = closest_hit_plain if plain else closest_hit
-    return sweep(coeffs, feats, mask, sub)
+    return closest_hit(coeffs, feats, cluster_bounds, ray_o, ray_d, tmax, sub, packed,
+                       plain)
 
 
 def occlusion_plucker(coeffs, center, cluster_bounds, sub, x, y,
-                      plain: bool = False):
+                      plain: bool = False, packed=None):
     """True where segment x->y is blocked (bool [N]).  A zero-length
     segment (y == x, a masked lane) has d = 0, so det = 0: never blocked."""
     ray_o, ray_d, tm = segment_rays(x, y)
     feats = plucker_features(ray_o, ray_d, center)
-    mask = None
-    if cluster_bounds is not None:
-        mask = cluster_mask_words(cluster_bounds, ray_o, ray_d, tm)
-    sweep = occlusion_plain if plain else occlusion
-    return sweep(coeffs, feats, tm.contiguous(), mask, sub)
+    return occlusion(coeffs, feats, cluster_bounds, ray_o, ray_d, tm.contiguous(), sub,
+                     packed, plain)
 
 
 def numpy_coeffs(tri_packed: np.ndarray):

@@ -1,6 +1,6 @@
 // Asynchronous 16-byte copies from device to shared memory (cp.async),
 // shared by the kernels that stage packed operands through two buffers
-// (compact.cu through plucker_planes.cuh, quad.cu).
+// (plucker.cu and compact.cu through plucker_planes.cuh, quad.cu).
 
 #pragma once
 

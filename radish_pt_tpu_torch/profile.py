@@ -13,9 +13,10 @@ Prints the card, the frame's wall time (CUDA events, profiler off), the
 device-busy time the profiler saw during a profiled frame, the share of it
 spent in each stage, and the top kernels; then, timed alone with CUDA
 events on the frame's primaries, the culling stages the profiler cannot
-name (the Plücker mask prepass, which the quad engine shares; the band
-engine's band-mask prepass; the compact engine's sphere operands, sphere
-kernel and work list).  Needs a CUDA device.
+name (the quad engine's mask prepass; the band engine's band-mask prepass;
+the compact engine's sphere operands, sphere kernel and work list; none
+for the Plücker engine, whose kernels cull for themselves).  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -49,10 +50,13 @@ def culling_stages(ds, cam, start, end, reps: int = 10):
     from .accel import plucker as plk
     from .render import pathtrace as pt
     from .sampling import rng
-    from .scene.device_scene import BAND_ENGINES, COMPACT_ENGINES, SWEEP_ENGINES
+    from .scene.device_scene import (BAND_ENGINES, COMPACT_ENGINES,
+                                     PLUCKER_ENGINES, SWEEP_ENGINES)
 
     if ds.cluster_bounds is None or ds.intersector not in SWEEP_ENGINES:
         return []  # no culling: every ray sweeps every triangle
+    if ds.intersector in PLUCKER_ENGINES:
+        return []  # the sweep kernels run the slab test themselves
     idx, _ = pt._lanes(ds, cam)
     o, d, _ = pt._gen_primary(ds, cam, rng.make_sampler(0, idx), idx)
 
@@ -68,7 +72,7 @@ def culling_stages(ds, cam, start, end, reps: int = 10):
     if ds.intersector in BAND_ENGINES:
         return [("band-mask prepass", timed(
             lambda: bnd.band_mask_words(ds.cluster_bounds, o, d, None, ds.band_g)))]
-    if ds.intersector not in COMPACT_ENGINES:
+    if ds.intersector not in COMPACT_ENGINES:  # the quad engine
         return [("mask prepass", timed(
             lambda: plk.cluster_mask_words(ds.cluster_bounds, o, d, None)))]
     center, cb = ds.sweep_center, ds.cluster_bounds

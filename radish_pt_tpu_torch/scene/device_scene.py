@@ -111,8 +111,8 @@ class DeviceScene:
     sweep_coeffs: torch.Tensor = None  # f32 [T, 4, 10]
     sweep_center: torch.Tensor = None  # f32 [3]
     # the planes' 19 live coefficients, 80 aligned bytes a triangle
-    # (accel/plucker.py::numpy_packed_coeffs): the compact closest hit's
-    # operand
+    # (accel/plucker.py::numpy_packed_coeffs): the operand of the Plücker
+    # kernels and of the compact closest hit
     sweep_packed: torch.Tensor = None  # f32 [T, 20]
     # bounding spheres of the compact engine's units, centred on
     # sweep_center (accel/compact.py::unit_spheres; None without clusters)
@@ -399,7 +399,7 @@ def intersect(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
     scene.h:262-301), dispatched on the scene's engine.
 
     ``active`` (bool [N], optional): lanes marked False are DEAD — the
-    sweeps' prepass gets ``tmax = -FLT_MAX`` for them so they flag no
+    sweeps' culling gets ``tmax = -FLT_MAX`` for them so they flag no
     clusters — and return prim_id -1.
     """
     if ds.intersector in SWEEP_ENGINES:
@@ -424,8 +424,7 @@ def intersect(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
             prim, _ = plk.intersect_plucker(
                 ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds,
                 ds.cluster_sub, ray_o, ray_d, tmax=tmax,
-                plain=ds.intersector == "plucker_plain",
-            )
+                plain=ds.intersector == "plucker_plain", packed=ds.sweep_packed)
         if active is not None:
             prim = torch.where(active, prim, -1)
         pos, norm, uv, mat_id = surface_info_from_t(ds, prim, ray_o, ray_d)
@@ -460,7 +459,7 @@ def test_occlusion(ds: DeviceScene, x, y):
         return plk.occlusion_plucker(
             ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds,
             ds.cluster_sub, x, y, plain=ds.intersector == "plucker_plain",
-        )
+            packed=ds.sweep_packed)
     if ds.intersector == "dense":
         return dns.occlusion_dense(ds.tri_packed, x, y)
     if ds.intersector != "brute":

@@ -50,34 +50,124 @@ def teapot_cuda():
     return ds, cam, o.contiguous(), d.contiguous(), tmax
 
 
+def _plucker_pair(ds, o, d, tmax, bounds="scene", num_tris=None):
+    """(kernel, plain) closest hits of the Plücker engine on the scene's
+    first ``num_tris`` stored triangles: the kernel culls per warp from the
+    cluster boxes, the plain version sweeps the prepass words of the same
+    32-lane groups; a lane with a negative ``tmax`` is dead and misses in
+    both."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    t = ds.num_triangles if num_tris is None else num_tris
+    cb = ds.cluster_bounds[: -(-t // ds.cluster_sub)] if bounds == "scene" else None
+    feats = plk.plucker_features(o, d, ds.sweep_center)
+    words = None if cb is None else plk.cluster_mask_words(cb, o, d, tmax, plk.GROUP)
+    got = plk.closest_hit_cuda(ds.sweep_packed[:t], feats, cb, o, d, tmax, ds.cluster_sub)
+    want = plk.closest_hit_plain(ds.sweep_coeffs[:t], feats, words, ds.cluster_sub,
+                                 dead=plk.dead_lanes(tmax))
+    torch.cuda.synchronize()
+    return got, want
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [True, False])
 def test_kernels_match_plain(teapot_cuda, masked):
-    """Prim ids and occlusion bits agree on >= 99.99% of lanes; a prim
-    mismatch must be a near-tie (both distances within 1e-4 relative)."""
+    """The kernels cull per warp from the cluster boxes (``masked``) or
+    sweep every triangle: prim ids, distances by value and occlusion bits
+    equal the plain versions' on the same 32-lane groups, on every lane
+    (a dead lane misses in both, whatever its warp sweeps)."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    ds, _, o, d, tmax = teapot_cuda
+    plk.reset_counts()
+    (pk, dk), (pp, dp) = _plucker_pair(ds, o, d, tmax, "scene" if masked else None)
+    assert plk.LAUNCHES["closest_hit"] == 1
+    assert torch.equal(pk, pp) and torch.equal(dk, dp)
+    live = tmax >= 0
+    assert float((pp[live] >= 0).float().mean()) > 0.3
+    assert bool((~live).any()) and bool((pk[~live] == -1).all())
+    assert bool((dk[~live] == FLT_MAX).all())
+    if masked:  # a whole warp of dead lanes flags nothing and misses
+        dead = tmax.clone()
+        dead[64:96] = -FLT_MAX
+        (pk, dk), (pp, dp) = _plucker_pair(ds, o, d, dead)
+        assert torch.equal(pk, pp) and torch.equal(dk, dp)
+        assert bool((pk[64:96] == -1).all()) and bool((dk[64:96] == FLT_MAX).all())
+
+    feats = plk.plucker_features(o, d, ds.sweep_center)
+    cb = ds.cluster_bounds if masked else None
+    tm = torch.full_like(o[:, 0], 3.0)
+    tm[::7] = -1e-4  # masked NEE lanes: a negative range
+    words = plk.cluster_mask_words(cb, o, d, tm, plk.GROUP) if masked else None
+    occ_k = plk.occlusion_cuda(ds.sweep_packed, feats, cb, o, d, tm, ds.cluster_sub)
+    occ_p = plk.occlusion_plain(ds.sweep_coeffs, feats, tm, words, ds.cluster_sub)
+    torch.cuda.synchronize()
+    assert plk.LAUNCHES["occlusion"] == 1 and torch.equal(occ_k, occ_p)
+    assert 0.05 < occ_p.float().mean().item() < 0.95
+    assert not bool(occ_k[::7].any())
+    assert plk.PLAIN_CALLS == {"closest_hit": 2 if masked else 1, "occlusion": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounds", ["scene", None])
+def test_plucker_mixed_ragged_wavefront(teapot_cuda, bounds):
+    """Dead, missing and hitting lanes mixed in every warp, and a last
+    warp (and 128-lane block) that is ragged: the padding lanes vote with
+    the reference's padding values; with the cluster boxes and without
+    (every triangle swept, no culling set-up), with a range per lane and
+    with none (the padding then flags every box it points at)."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    ds, _, o, d, tmax = teapot_cuda
+    mo, md, mtm = _mixed_wavefront(o, d, tmax, ds.sweep_center)
+    assert mo.shape[0] % plk.ROW % plk.GROUP != 0
+    for tm in (mtm, None):
+        (pk, dk), (pp, dp) = _plucker_pair(ds, mo, md, tm, bounds)
+        assert torch.equal(pk, pp) and torch.equal(dk, dp)
+        # every lane is held to the plain version; with a range per lane
+        # the dead lanes miss, without one no lane is dead
+        _check_mixed(pk, dk, pp, dp, mtm, dead_miss=tm is not None)
+
+
+@pytest.mark.cuda
+def test_plucker_ragged_last_cluster(teapot_cuda):
+    """A table whose last cluster is ragged (not a whole ``sub``
+    triangles), and a wavefront shorter than a warp."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    ds, _, o, d, tmax = teapot_cuda
+    t = ds.num_triangles - ds.cluster_sub - 37
+    assert t % ds.cluster_sub
+    (pk, dk), (pp, dp) = _plucker_pair(ds, o, d, tmax, num_tris=t)
+    assert torch.equal(pk, pp) and torch.equal(dk, dp)
+    assert int(pk.max()) < t and float((pp >= 0).float().mean()) > 0.3
+    (pk, dk), (pp, dp) = _plucker_pair(ds, o[:19], d[:19], tmax[:19], num_tris=t)
+    assert torch.equal(pk, pp) and torch.equal(dk, dp)
+
+
+@pytest.mark.cuda
+def test_plucker_wrappers_refuse(teapot_cuda):
+    """CUDA tensors launch or raise: no packed table, a misaligned or
+    mis-shaped table, boxes that do not match the clusters, CPU rays."""
     from radish_pt_tpu_torch.accel import plucker as plk
 
     ds, _, o, d, tmax = teapot_cuda
     feats = plk.plucker_features(o, d, ds.sweep_center)
-    mask = (plk.cluster_mask_words(ds.cluster_bounds, o, d, tmax)
-            if masked else None)
-    pk, dk = plk.closest_hit_cuda(ds.sweep_coeffs, feats, mask, ds.cluster_sub)
-    pp, dp = plk.closest_hit_plain(ds.sweep_coeffs, feats, mask, ds.cluster_sub)
-    torch.cuda.synchronize()
-    pk, pp, dk, dp = (t.cpu().numpy() for t in (pk, pp, dk, dp))
-    diff = pk != pp
-    assert diff.mean() <= 1e-4
-    assert np.all(np.abs(dk[diff] - dp[diff]) <= 1e-4 * np.abs(dp[diff]))
-    hit = (pp >= 0) & ~diff
-    assert hit.mean() > 0.3
-    np.testing.assert_allclose(dk[hit], dp[hit], rtol=1e-5)
-
-    tm = torch.full_like(o[:, 0], 3.0)
-    occ_k = plk.occlusion_cuda(ds.sweep_coeffs, feats, tm, mask, ds.cluster_sub)
-    occ_p = plk.occlusion_plain(ds.sweep_coeffs, feats, tm, mask, ds.cluster_sub)
-    torch.cuda.synchronize()
-    assert (occ_k != occ_p).float().mean().item() <= 1e-4
-    assert 0.05 < occ_p.float().mean().item() < 0.95
+    cb, sub, pk = ds.cluster_bounds, ds.cluster_sub, ds.sweep_packed
+    with pytest.raises(ValueError):  # the dispatcher without the packed table
+        plk.closest_hit(ds.sweep_coeffs, feats, cb, o, d, tmax, sub)
+    with pytest.raises(ValueError):
+        plk.occlusion(ds.sweep_coeffs, feats, cb, o, d, tmax, sub)
+    with pytest.raises(ValueError):  # the plane table is not the packed one
+        plk.closest_hit_cuda(ds.sweep_coeffs, feats, cb, o, d, tmax, sub)
+    with pytest.raises(ValueError):  # 4 bytes off a 16-byte boundary
+        plk.closest_hit_cuda(pk.flatten()[1:-19].view(-1, 20), feats, None, o, d, tmax, sub)
+    with pytest.raises(ValueError):  # one box too few
+        plk.closest_hit_cuda(pk, feats, cb[:-1], o, d, tmax, sub)
+    with pytest.raises(ValueError):
+        plk.closest_hit_cuda(pk, feats, cb, o.cpu(), d, tmax, sub)
+    with pytest.raises(ValueError):
+        plk.occlusion_cuda(pk, feats, cb, o, d, None, sub)
 
 
 @pytest.mark.cuda
@@ -91,6 +181,7 @@ def test_render_through_kernels_matches_plain(teapot_cuda):
     d, i = pt.path_trace(ds, cam, 3, 5)
     assert plk.LAUNCHES["closest_hit"] == 6 and plk.LAUNCHES["occlusion"] == 5
     assert plk.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
+    assert plk.PREPASS_CALLS == {"cluster_mask_words": 0}  # the kernels cull
     dp, ip = pt.path_trace(ds.replace(intersector="plucker_plain"), cam, 3, 5)
     img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
     assert np.isfinite(img).all() and img.mean() > 0.05

@@ -86,6 +86,8 @@ def test_path_trace_plucker_matches_reference(cornell_frames):
         assert err < 1e-3, err
     assert plk.PLAIN_CALLS["closest_hit"] == 2 * (DEPTH + 1)
     assert plk.PLAIN_CALLS["occlusion"] == 2 * DEPTH
+    # cornell has no clusters: every triangle is swept, no culling prepass
+    assert plk.PREPASS_CALLS == {"cluster_mask_words": 0}
 
 
 def test_renderer_matches_golden():
