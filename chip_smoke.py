@@ -23,14 +23,17 @@ of those paths against their plain torch versions.  Phases:
    versions culled per 32-lane warp as the kernels cull (and, logged, the
    lanes that differ from the plain versions culled per 128-lane row); the
    quad sweeps on teapot; the sphere prepass, the compact sweeps
-   and the band sweeps (8 bands a row) on teapot_hires; the dense sweeps
-   on cornell and teapot, bit for bit; for the Plücker sweeps and the
-   compact closest hit also the (lane, triangle) pairs their wavefronts
-   need when culled per row (group), per warp and per lane;
+   and the band sweeps (8 bands a row; the closest hit, which votes its
+   bands' words itself, against the plain version on the band-mask
+   prepass's words) on teapot_hires; the dense sweeps on cornell and
+   teapot, bit for bit; for the Plücker sweeps, the compact sweeps and the
+   band closest hit also the (lane, triangle) pairs their wavefronts need
+   when culled per row (group, band), per warp and per lane;
 4. the main paths, loopers 0-7, each with the launch counts of its kernels
-   set to 0 just before and read just after (a Plücker frame: 6 closest
-   hits, 5 shadow sweeps, no plain call, no mask prepass), finite non-zero
-   images, and
+   set to 0 just before and read just after (a Plücker or compact frame: 6
+   closest hits, 5 shadow sweeps, no plain call, on Plücker no mask
+   prepass; a band frame also 5 band-mask prepass calls, for its shadow
+   sweeps), finite non-zero images, and
    looper-7 mean radiance within 1% of each scene's 800x800 golden (the
    teapot_hires engines also within 0.2% of each other, band and compact
    within 0.05%); the direct-lighting paths' 8-frame means within 1% of
@@ -304,31 +307,36 @@ def compact_parity(ds, waves, max_err, log):
         feats = plk.plucker_features(o, d, ds.sweep_center)
         items, item_tn, offsets = cpt.work_list(fk, tk)
         if what == "segments":
-            ok_k = cpt.occlusion_cuda(ds.sweep_coeffs, feats, tmax, items, offsets, 1)
+            ok_k = cpt.occlusion_cuda(ds.sweep_packed, ds.unit_spheres, feats, tmax,
+                                      items, item_tn, offsets, 1)
             ok_p = cpt.occlusion_plain(ds.sweep_coeffs, feats, tmax, fk, 1)
             torch.cuda.synchronize()
             err = check_occlusion(ok_k, ok_p, live, "compact", log)
+            assert int((ok_k != ok_p).sum()) == 0, "compact occlusion: shadow parity"
+            assert not bool(ok_k[~live].any()), "a masked segment was blocked"
             max_err["compact_occlusion"] = max(max_err["compact_occlusion"], err)
-            inputs[what] = (feats, tmax, fk, items, offsets, sph)
-            continue
-        pk, dk = cpt.closest_hit_cuda(ds.sweep_packed, ds.unit_spheres, feats, tmax,
-                                      items, item_tn, offsets, 1)
-        pp, dp = cpt.closest_hit_plain(ds.sweep_coeffs, feats, tmax, fk, 1)
-        torch.cuda.synchronize()
-        err = check_closest(pk, dk, pp, dp, live, f"compact closest hit, {what}", log)
-        # the compact kernel reads tmax: a dead lane sweeps nothing
-        assert bool((pk[~live] == -1).all()), "compact closest hit: a dead lane hit"
-        max_err["compact_closest_hit"] = max(max_err["compact_closest_hit"], err)
+            reach = tmax  # a segment's reach is its range
+        else:
+            pk, dk = cpt.closest_hit_cuda(ds.sweep_packed, ds.unit_spheres, feats, tmax,
+                                          items, item_tn, offsets, 1)
+            pp, dp = cpt.closest_hit_plain(ds.sweep_coeffs, feats, tmax, fk, 1)
+            torch.cuda.synchronize()
+            err = check_closest(pk, dk, pp, dp, live, f"compact closest hit, {what}", log)
+            # the compact kernel reads tmax: a dead lane sweeps nothing
+            assert bool((pk[~live] == -1).all()), "compact closest hit: a dead lane hit"
+            max_err["compact_closest_hit"] = max(max_err["compact_closest_hit"], err)
+            reach = dk  # a ray's reach is its final t
         # what culling finer than the row group can save, and the floor
-        pairs = cpt.pair_counts(ds.unit_spheres, feats, tmax, fk, dk, 1,
+        pairs = cpt.pair_counts(ds.unit_spheres, feats, tmax, fk, reach, 1,
                                 ds.num_triangles)
-        log(f"[pairs] compact closest hit, {what}: (lane, triangle) pairs culled per "
+        log(f"[pairs] compact {what}: (lane, triangle) pairs culled per "
             f"{cpt.LANES}-lane row group {pairs['row']:.4e}, per {cpt.WARP}-lane warp "
             f"{pairs['warp']:.4e} ({pairs['warp'] / pairs['row']:.4f} of it), per lane "
             f"{pairs['lane']:.4e} ({pairs['lane'] / pairs['row']:.4f}); with each unit "
-            f"cut at the lane's final t: row group {pairs['row_cut']:.4e}, warp "
-            f"{pairs['warp_cut']:.4e}, lane {pairs['lane_cut']:.4e} "
-            f"({pairs['lane_cut'] / pairs['row']:.4f}: what the data needs)")
+            f"cut at the lane's reach ({'range' if what == 'segments' else 'final t'}): "
+            f"row group {pairs['row_cut']:.4e}, warp {pairs['warp_cut']:.4e}, lane "
+            f"{pairs['lane_cut']:.4e} ({pairs['lane_cut'] / pairs['row']:.4f}: what the "
+            f"data needs)")
         assert pairs["lane"] <= pairs["warp"] <= pairs["row"]
         assert pairs["lane_cut"] <= pairs["warp_cut"] <= pairs["row_cut"]
         inputs[what] = (feats, tmax, fk, items, item_tn, offsets, pairs, sph)
@@ -380,26 +388,30 @@ def quad_parity(ds, waves, max_err, log):
 
 
 def band_parity(ds, waves, max_err, log):
-    """Phase 3 on a band-engine scene: each kernel against its plain
-    version on the same band masks.  Returns the timing inputs."""
+    """Phase 3 on a band-engine scene: the closest-hit kernel, which votes
+    its bands' words itself from the boxes and the rays, against its plain
+    version on the band-mask prepass's words (winners and distances equal
+    on every live lane, dead lanes missing); the shadow kernel against its
+    plain version on the same words.  Logged beside it: the (lane,
+    triangle) pairs per band, warp and lane.  Returns the timing inputs."""
     import torch
 
     from radish_pt_tpu_torch.accel import band as bnd
     from radish_pt_tpu_torch.accel import plucker as plk
 
-    g, n_c = ds.band_g, ds.cluster_bounds.shape[0]
+    g, n_c, cb, wb = ds.band_g, ds.cluster_bounds.shape[0], ds.cluster_bounds, ds.word_bounds
     inputs = {}
     for what in ("primary", "extension", "segments"):
         if what == "segments":
             x, y, live = waves["segments"]
-            o, d, tmax = plk.segment_rays(x, y)
-            tmax = tmax.contiguous()
+            o, d, tmax = (t.contiguous() for t in plk.segment_rays(x, y))
         else:
-            o, d, tmax = waves[what]
+            o, d, tmax = (t.contiguous() for t in waves[what])
             live = tmax >= 0
+            if what == "primary":
+                tmax = None  # as the path's first closest hit: no range
         feats = plk.plucker_features(o, d, ds.sweep_center)
-        mask = bnd.band_mask_words(ds.cluster_bounds, o, d,
-                                   None if what == "primary" else tmax, g)
+        mask = bnd.band_mask_words(cb, o, d, tmax, g)
         flags = plk.unpack_mask(mask, n_c)
         rows = plk.unpack_mask(plk.pack_words(flags.view(-1, g, n_c).any(1)), n_c)
         log(f"[parity] band {what}: {float(flags.sum(1).float().mean()):.2f} "
@@ -413,12 +425,29 @@ def band_parity(ds, waves, max_err, log):
             max_err["band_occlusion"] = max(max_err["band_occlusion"], err)
             inputs[what] = (feats, tmax, mask)
             continue
-        pk, dk = bnd.closest_hit_cuda(ds.sweep_coeffs, feats, mask, g)
-        pp, dp = bnd.closest_hit_plain(ds.sweep_coeffs, feats, mask, g)
+        pk, dk = bnd.closest_hit_cuda(ds.sweep_packed, feats, cb, wb, o, d, tmax, g)
+        pp, dp = bnd.closest_hit_plain(ds.sweep_coeffs, feats, mask, g,
+                                       dead=plk.dead_lanes(tmax))
         torch.cuda.synchronize()
-        err = check_closest(pk, dk, pp, dp, live, f"band closest hit, {what}", log)
+        n_prim, n_val = int(((pk != pp) & live).sum()), int(((dk != dp) & live).sum())
+        hit = (pp >= 0) & live
+        err = float(torch.abs(dk - dp)[hit].max()) if bool(hit.any()) else 0.0
+        log(f"[parity] band closest hit, {what}: {n_prim} / {int(live.sum())} live prim "
+            f"ids and {n_val} distances differ from the plain version on the prepass's "
+            f"words (max |dist err| {err:.3e}); hits {int(hit.sum())}; "
+            f"{int((~live).sum())} dead lanes, all misses")
+        assert n_prim == 0 and n_val == 0, f"band closest hit, {what}: parity"
+        assert bool((pk[~live] == -1).all()), "band closest hit: a dead lane hit"
         max_err["band_closest_hit"] = max(max_err["band_closest_hit"], err)
-        inputs[what] = (feats, mask)
+        pairs = bnd.pair_counts(cb, o, d, tmax, g, ds.num_triangles, dk)
+        log(f"[pairs] band closest hit, {what}: (lane, triangle) pairs culled per "
+            f"{plk.ROW // g}-lane band {pairs['band']:.4e}, per {bnd.WARP}-lane warp "
+            f"{pairs['warp']:.4e} ({pairs['warp'] / pairs['band']:.4f} of it), per lane "
+            f"{pairs['lane']:.4e} ({pairs['lane'] / pairs['band']:.4f}); each lane's "
+            f"clusters its grown box admits at its final t {pairs['lane_cut']:.4e} "
+            f"({pairs['lane_cut'] / pairs['band']:.4f}: what the data needs)")
+        assert pairs["lane_cut"] <= pairs["lane"] <= min(pairs["band"], pairs["warp"])
+        inputs[what] = (feats, o, d, tmax, mask, pairs)
     return inputs
 
 
@@ -734,18 +763,32 @@ def main() -> int:
     del waves
 
     # ---- 4. the main paths ----
+    def sweep_path(names, counters):
+        """6 closest hits and 5 shadow sweeps a frame, each one launch."""
+        n_launch, n_frames = main_path(scenes, names, counters, log)
+        assert n_launch["closest_hit"] == 6 * n_frames, n_launch
+        assert n_launch["occlusion"] == 5 * n_frames, n_launch
+        return n_launch, n_frames
+
     def plucker_path(names):
-        """A Plücker frame is 6 closest hits and 5 shadow sweeps, each one
-        launch that culls for itself: no mask prepass."""
-        n_launch, n_frames = main_path(scenes, names, plk, log)
-        assert n_launch == {"closest_hit": 6 * n_frames, "occlusion": 5 * n_frames}, n_launch
+        """A Plücker frame's sweeps cull for themselves: no mask prepass."""
+        n_launch, n_frames = sweep_path(names, plk)
         assert not any(plk.PREPASS_CALLS.values()), "the mask prepass ran on the card path"
         return n_launch, n_frames
 
+    def band_path(names):
+        """A band frame: the closest hits vote their bands' words in the
+        kernel; the band-mask prepass runs for the 5 shadow sweeps only."""
+        n_launch, n_frames = sweep_path(names, bnd)
+        log(f"[main path] {', '.join(names)}: band-mask prepass calls "
+            f"{dict(bnd.PREPASS_CALLS)}")
+        assert bnd.PREPASS_CALLS == {"band_mask_words": 5 * n_frames}, bnd.PREPASS_CALLS
+        return n_launch, n_frames
+
     launches = {"plucker": plucker_path(("cornell", "teapot")),
-                "compact": main_path(scenes, ("teapot_hires",), cpt, log),
+                "compact": sweep_path(("teapot_hires",), cpt),
                 "quad": main_path(scenes, ("teapot_quad",), qd, log),
-                "band": main_path(scenes, ("teapot_hires_band",), bnd, log)}
+                "band": band_path(("teapot_hires_band",))}
     launches_hires_plucker = plucker_path(("teapot_hires_plucker",))
     main_path(scenes, ("cornell_dense", "teapot_dense"), dns, log)
     means, frames = {}, {}
@@ -897,7 +940,7 @@ def main() -> int:
     pre_ms = cuda_ms(lambda: bnd.band_mask_words(ds.cluster_bounds, o, d, None,
                                                  ds.band_g), 3)
     log(f"[timing] band-mask prepass (torch), teapot_hires primaries, g = "
-        f"{ds.band_g}: {pre_ms:.3f} ms per call, 11 calls a frame")
+        f"{ds.band_g}: {pre_ms:.3f} ms per call, 5 calls a frame (the shadow sweeps')")
     for name in ("cornell_dense", "cornell"):
         ds, cam = scenes[name]
         state = {"res": rs.empty_reservoir(RES * RES, device=dev), "first": True}
@@ -1024,25 +1067,40 @@ def main() -> int:
         other_bounds[f"compact_closest_hit/{what}", "teapot_hires"] = (
             "the row group's flagged units",
             bound(pairs["row"] * cpt.FLOPS_PER_PAIR["closest_hit"], nb)[0])
-    feats, tm, flags, items, offsets, _ = inputs["compact"]["segments"]
+    feats, tm, flags, items, item_tn, offsets, pairs, _ = inputs["compact"]["segments"]
     n = feats.shape[0]
+    nb = nbytes(cp, us, feats, tm, items, item_tn, offsets) + 4 * n
+    # the pairs the data needs: per lane, the units its own sphere test
+    # flags with entry within its range (a segment that no triangle blocks
+    # sweeps them all); beside it the bound over the row group's units
     time_kernel("compact_occlusion/segments",
-                lambda: cpt.occlusion_cuda(c, feats, tm, items, offsets, 1),
+                lambda: cpt.occlusion_cuda(cp, us, feats, tm, items, item_tn, offsets, 1),
                 lambda: cpt.occlusion_plain(c, feats, tm, flags, 1),
-                group_pairs(flags, cpt.CLUSTER_SUB, cpt.LANES, n)
-                * cpt.FLOPS_PER_PAIR["occlusion"],
-                nbytes(c, feats, tm, items, offsets) + 4 * n)
+                pairs["lane_cut"] * cpt.FLOPS_PER_PAIR["occlusion"], nb)
+    assert pairs["row"] == group_pairs(flags, cpt.CLUSTER_SUB, cpt.LANES, n)
+    other_bounds["compact_occlusion/segments", "teapot_hires"] = (
+        "the row group's flagged units",
+        bound(pairs["row"] * cpt.FLOPS_PER_PAIR["occlusion"], nb)[0])
     ds = scenes["teapot_hires_band"][0]
-    g, n_c = ds.band_g, ds.cluster_bounds.shape[0]
+    g, cb, wb, bp = ds.band_g, ds.cluster_bounds, ds.word_bounds, ds.sweep_packed
+    n_c = cb.shape[0]
     for what in ("primary", "extension"):
-        feats, mask = inputs["band"][what]
+        feats, o, d, tmax, mask, pairs = inputs["band"][what]
         n = feats.shape[0]
+        nb = (nbytes(bp, cb, wb, feats, o, d) + (0 if tmax is None else nbytes(tmax))
+              + 8 * n)
+        # the pairs the data needs: each lane's own flagged clusters that its
+        # grown box admits at its final t; beside it the bound over its
+        # band's flags (the contract: what a sweep without the per-ray skip
+        # visits)
         time_kernel(f"band_closest_hit/{what}",
-                    lambda: bnd.closest_hit_cuda(c, feats, mask, g),
-                    lambda: bnd.closest_hit_plain(c, feats, mask, g),
-                    group_pairs(plk.unpack_mask(mask, n_c), bnd.CLUSTER_SUB,
-                                plk.ROW // g, n) * bnd.FLOPS_PER_PAIR["closest_hit"],
-                    nbytes(c, feats, mask) + 8 * n)
+                    lambda: bnd.closest_hit_cuda(bp, feats, cb, wb, o, d, tmax, g),
+                    lambda: bnd.closest_hit_plain(c, feats, mask, g,
+                                                  dead=plk.dead_lanes(tmax)),
+                    pairs["lane_cut"] * bnd.FLOPS_PER_PAIR["closest_hit"], nb)
+        other_bounds[f"band_closest_hit/{what}", "teapot_hires_band"] = (
+            f"the {plk.ROW // g}-lane band's flagged clusters",
+            bound(pairs["band"] * bnd.FLOPS_PER_PAIR["closest_hit"], nb)[0])
     feats, tm, mask = inputs["band"]["segments"]
     n = feats.shape[0]
     time_kernel("band_occlusion/segments",

@@ -40,12 +40,10 @@ SIGNATURES = {
     "compact": {
         # feats, planes, rows, units, flags, tn, stream
         "compact_sphere_flags": [_P, _P, _I, _I, _P, _P, _P],
-        # packed, T, unit_tris, spheres, feats, tmax, N, items, item_tn,
-        # offsets, rows, prim, dist, stream
+        # packed, T, unit_tris, spheres, feats, tmax | tm, N, items, item_tn,
+        # offsets, rows, (prim, dist | occ), stream
         "compact_closest_hit": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P],
-        # coeffs, T, unit_tris, feats, tm, N, items, offsets, rows, occ,
-        # stream
-        "compact_occlusion": [_P, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P],
+        "compact_occlusion": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P],
     },
     "quad": {
         # coeffs, T, sub, feats, N, mask, words, (prim, dist | occ), stream
@@ -53,8 +51,10 @@ SIGNATURES = {
         "quad_occlusion": [_P, _I, _I, _P, _I, _P, _I, _P, _P],
     },
     "band": {
-        # coeffs, T, feats, N, mask, words, g, (prim, dist | tm, occ), stream
-        "band_closest_hit": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
+        # packed, T, bounds, word_bounds, clusters, ray_o, ray_d, tmax, feats,
+        # N, g, prim, dist, stream
+        "band_closest_hit": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P],
+        # coeffs, T, feats, N, mask, words, g, tm, occ, stream
         "band_occlusion": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
     },
     "dense": {

@@ -20,8 +20,18 @@ det = 0: never blocked).
 
 Each sweep has a kernel (``csrc/band.cu``) and a plain torch version with
 one contract; ``closest_hit`` / ``occlusion`` take the plain version for
-CPU tensors and launch the kernel (or raise) for CUDA tensors.
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-version calls.
+CPU tensors and launch the kernel (or raise) for CUDA tensors.  The
+closest-hit kernel votes its bands' words itself from the cluster boxes
+and the rays (:func:`band_words_plain` is its vote in plain torch, equal
+to :func:`band_mask_words` bit for bit) and sweeps the packed table with
+triangles across a warp's threads and the rays one at a time, a ray
+passing over the clusters its own grown box cannot reach
+(:func:`.plucker.lane_skip_flags_plain`: no result moves).  The shadow
+kernel still reads :func:`band_mask_words`' words.  Dead lanes (a negative
+``tmax``) flag nothing, are swept by nothing and miss, in the kernel and
+in ``closest_hit_plain(..., dead=...)`` alike.  ``LAUNCHES`` counts kernel
+launches, ``PLAIN_CALLS`` plain-version calls and ``PREPASS_CALLS`` calls
+of :func:`band_mask_words`.
 
 Not carried over from the TPU: the pass split (``_band_pass_split``), the
 16-bit SMEM words, the union guard and the concatenated [G*16, 256]
@@ -36,12 +46,15 @@ import torch
 
 from . import compact as cpt
 # the sweeps do the Plücker engine's arithmetic, FLOPS_PER_PAIR included
-from .plucker import (FLOPS_PER_PAIR, ROW, blocks, hit_t,  # noqa: F401
-                      mask_flags, pack_words, plucker_features, sweep_any,
-                      sweep_closest)
-from .traverse import segment_rays
+from .plucker import (FLOPS_PER_PAIR, PACKED_WIDTH, ROW, blocks,  # noqa: F401
+                      dead_lanes, hit_t, lane_cluster_flags_plain,
+                      lane_skip_flags_plain, mask_flags, pack_words,
+                      plucker_features, sweep_any, sweep_closest)
+from .traverse import FLT_MAX, NULL_PRIMITIVE, segment_rays
 
 CLUSTER_SUB = 64  # triangles per culling cluster (fixed for this engine)
+WORD = 32  # clusters per mask word
+WARP = 32  # lanes of a warp of the closest-hit kernel
 DEFAULT_G = 8  # bands per 128-lane row (BAND_TUNING, :2551)
 MIN_TRIS = 1024  # at or below this the reference builds no clusters
 _PREPASS_ELEMS = 1 << 25  # (lane, cluster) pairs per prepass chunk
@@ -49,10 +62,11 @@ _PLAIN_PAIRS = 1 << 24  # (lane, triangle) pairs per plain-sweep chunk
 
 LAUNCHES = {"closest_hit": 0, "occlusion": 0}
 PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
+PREPASS_CALLS = {"band_mask_words": 0}
 
 
 def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
+    for d in (LAUNCHES, PLAIN_CALLS, PREPASS_CALLS):
         for k in d:
             d[k] = 0
 
@@ -78,6 +92,7 @@ def band_mask_words(cluster_bounds, ray_o, ray_d, tmax, g: int):
     padded to whole rows as the reference pads them (``_pad_rays``: o = 0,
     d = 1, tmax = -FLT_MAX, so padding lanes flag nothing); ``tmax`` None
     means FLT_MAX.  Chunked over bands to bound the [lanes, C] temporaries."""
+    PREPASS_CALLS["band_mask_words"] += 1
     lanes = ROW // check_g(g)
     n_pad = -(-ray_o.shape[0] // ROW) * ROW
     o, d, tm = cpt._pad_rays(ray_o, ray_d, tmax, n_pad)
@@ -89,21 +104,106 @@ def band_mask_words(cluster_bounds, ray_o, ray_d, tmax, g: int):
     return pack_words(torch.cat(flags))
 
 
+def word_bounds(cluster_bounds):
+    """f32 [ceil(C/32), 6]: per word of 32 clusters (the last ragged), the
+    box (lo, hi) that encloses their boxes ``cluster_bounds`` f32 [C, 6],
+    each taken as (min(lo, hi), max(lo, hi)) per axis — the slab test reads
+    a box's two planes per axis alike, so that box flags what the cluster's
+    does.  The closest-hit kernel's first level of its vote; built once per
+    scene."""
+    pad = -cluster_bounds.shape[0] % WORD
+    lo = torch.minimum(cluster_bounds[:, :3], cluster_bounds[:, 3:])
+    hi = torch.maximum(cluster_bounds[:, :3], cluster_bounds[:, 3:])
+    lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=FLT_MAX)
+    hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-FLT_MAX)
+    return torch.cat([lo.view(-1, WORD, 3).amin(1), hi.view(-1, WORD, 3).amax(1)],
+                     1).contiguous()
+
+
+def _padded_rows(ray_o, ray_d, tmax):
+    """Rays padded to whole 128-lane rows as :func:`band_mask_words` pads
+    them (padding lanes flag nothing), and the count of real lanes."""
+    n_pad = -(-ray_o.shape[0] // ROW) * ROW
+    return (*cpt._pad_rays(ray_o, ray_d, tmax, n_pad), ray_o.shape[0])
+
+
+def band_words_plain(cluster_bounds, words_box, ray_o, ray_d, tmax, g: int):
+    """The closest-hit kernel's vote in plain torch: int32 band words as
+    :func:`band_mask_words` returns them.  Per warp of :data:`WARP` lanes,
+    each lane's slab test of each word's box ``words_box`` (:func:`word_bounds`);
+    the word's 32 cluster boxes are tested only where some lane of the warp
+    passes it; a band's flags are the OR of its lanes'.  Equal to
+    :func:`band_mask_words` bit for bit: a lane that passes a cluster's box
+    passes its word's box (the slab test is monotone under box containment
+    in f32)."""
+    lanes = ROW // check_g(g)
+    o, d, tm, _ = _padded_rows(ray_o, ray_d, tmax)
+    n_c = cluster_bounds.shape[0]
+    passes = lane_cluster_flags_plain(words_box, o, d, tm)  # [lanes, W]
+    warp_passes = passes.view(-1, WARP, passes.shape[1]).any(1).repeat_interleave(WARP, 0)
+    own = lane_cluster_flags_plain(cluster_bounds, o, d, tm)
+    own &= warp_passes[:, torch.arange(n_c, device=o.device) // WORD]
+    return pack_words(own.view(-1, lanes, n_c).any(1))
+
+
+def pair_counts(cluster_bounds, ray_o, ray_d, tmax, g: int, num_tris: int, dist=None,
+                chunk_rows: int = 256) -> dict:
+    """(lane, triangle) pairs a closest-hit sweep of these rays visits when
+    a cluster is swept by every lane of a group that flags it: per band of
+    128/g lanes (``band``: the engine's contract), per warp of :data:`WARP`
+    lanes (``warp``: what a lane of a sweep with rays across the threads
+    idles through) and per lane (``lane``: each lane's own flagged
+    clusters, which hold its winner); with ``dist`` f32 [N] (each lane's
+    final t) also ``lane_cut``: each lane's own flagged clusters that its
+    grown box test admits at that t (:func:`.plucker.lane_skip_flags_plain`;
+    what a walk that knew each lane's answer sweeps for it).  Padding lanes
+    flag nothing and are not counted.  A measurement helper: floats, one
+    host sync per chunk of rows."""
+    n_c, dev = cluster_bounds.shape[0], ray_o.device
+    tris = torch.clamp(num_tris - torch.arange(n_c, device=dev) * CLUSTER_SUB, 0,
+                       CLUSTER_SUB).double()
+    out = dict.fromkeys(("band", "warp", "lane") + (() if dist is None else ("lane_cut",)),
+                        0.0)
+    step = chunk_rows * ROW
+    for lo in range(0, ray_o.shape[0], step):
+        hi = min(ray_o.shape[0], lo + step)
+        o, d, tm, n = _padded_rows(ray_o[lo:hi], ray_d[lo:hi],
+                                   None if tmax is None else tmax[lo:hi])
+        own = lane_cluster_flags_plain(cluster_bounds, o, d, tm)
+        real = (torch.arange(o.shape[0], device=dev) < n).double()
+        groups = (("band", ROW // g), ("warp", WARP), ("lane", 1))
+        if dist is not None:
+            reach = torch.nn.functional.pad(dist[lo:hi], (0, o.shape[0] - n))
+            cut = own & lane_skip_flags_plain(cluster_bounds, o, d, reach)
+            groups += (("lane_cut", 1),)
+        for name, size in groups:
+            grp = (cut if name == "lane_cut" else own).view(-1, size, n_c).any(1)
+            out[name] += float((grp.double() @ tris) @ real.view(-1, size).sum(1))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # plain torch versions
 # ---------------------------------------------------------------------------
 
 
-def closest_hit_plain(coeffs, feats, mask, g):
+def closest_hit_plain(coeffs, feats, mask, g, dead=None):
     """Plain torch banded closest hit.  ``coeffs`` f32 [T, 4, 10] (T whole
     64-triangle clusters), ``feats`` f32 [N, 10], ``mask`` int32 band words
     of :func:`band_mask_words`, ``g`` bands per row.  Returns (prim i32 [N],
     dist f32 [N]): the exact minimum t over the triangles of the clusters
-    the lane's band flags, ties to the lower id; misses are (-1, FLT_MAX)."""
+    the lane's band flags, ties to the lower id; misses are (-1, FLT_MAX),
+    and so are the lanes of ``dead`` (bool [N], :func:`.plucker.dead_lanes`;
+    None: a dead lane gets what its band's clusters give, as in the
+    reference)."""
     PLAIN_CALLS["closest_hit"] += 1
     flags = mask_flags(mask, CLUSTER_SUB, coeffs.shape[0])
-    return sweep_closest(coeffs, feats, flags, ROW // g, CLUSTER_SUB, hit_t,
-                         _PLAIN_PAIRS)
+    prim, dist = sweep_closest(coeffs, feats, flags, ROW // g, CLUSTER_SUB, hit_t,
+                               _PLAIN_PAIRS)
+    if dead is not None:
+        prim = torch.where(dead, NULL_PRIMITIVE, prim)
+        dist = torch.where(dead, FLT_MAX, dist)
+    return prim, dist
 
 
 def occlusion_plain(coeffs, feats, tm, mask, g):
@@ -142,33 +242,59 @@ def _check_inputs(coeffs, feats, mask, g):
                          "by the mask words")
 
 
-def _launch(fn: str, coeffs, feats, mask, g, extra):
+def _launch(fn: str, *args):
+    """C entry point ``fn`` of csrc/band.cu on the current stream: tensors
+    go as their data pointers (None as null), ints as they are; raises if
+    the launch is refused."""
     import ctypes
 
     from ._build import load_library
 
     lib = load_library("band")
-    p = ctypes.c_void_p
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    with torch.cuda.device(feats.device):
-        err = getattr(lib, fn)(
-            p(coeffs.data_ptr()), coeffs.shape[0], p(feats.data_ptr()),
-            feats.shape[0], p(mask.data_ptr()), mask.shape[1], g,
-            *(p(t.data_ptr()) for t in extra), p(stream))
+    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    conv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+            else ctypes.c_void_p(None) if a is None else a for a in args]
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn)(*conv, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
 
 
-def closest_hit_cuda(coeffs, feats, mask, g):
-    """The banded closest-hit kernel (``band_closest_hit`` in
-    csrc/band.cu); same contract as :func:`closest_hit_plain`."""
-    _check_inputs(coeffs, feats, mask, g)
-    n = feats.shape[0]
+def closest_hit_cuda(packed, feats, cluster_bounds, words_box, ray_o, ray_d, tmax, g):
+    """The banded closest-hit kernel (``band_closest_hit`` in csrc/band.cu)
+    on the scene's packed table ``packed`` f32 [T, 20]: each band votes its
+    words from ``cluster_bounds`` f32 [C, 6], ``words_box`` f32
+    [ceil(C/32), 6] (:func:`word_bounds`) and its rays ``ray_o``, ``ray_d``
+    f32 [N, 3], ``tmax`` f32 [N] (None: FLT_MAX), and each lane sweeps its
+    band's clusters.  Same results as :func:`closest_hit_plain` on
+    :func:`band_mask_words` with ``dead=dead_lanes(tmax)``."""
+    check_g(g)
+    n, num_tris = feats.shape[0], packed.shape[0]
+    n_c = cluster_bounds.shape[0] if cluster_bounds is not None else -1
+    lane_inputs = [("feats", feats, (n, 10)), ("ray_o", ray_o, (n, 3)),
+                   ("ray_d", ray_d, (n, 3)), ("cluster_bounds", cluster_bounds, (n_c, 6)),
+                   ("words_box", words_box, (-(-n_c // WORD), 6))]
+    if tmax is not None:
+        lane_inputs.append(("tmax", tmax, (n,)))
+    for name, t, shape in lane_inputs:
+        if not (t is not None and t.is_cuda and t.dtype == torch.float32
+                and t.shape == shape and t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {list(shape)} on the card")
+    if not (packed.is_cuda and packed.dtype == torch.float32 and packed.dim() == 2
+            and packed.shape[1] == PACKED_WIDTH and packed.is_contiguous()
+            and packed.data_ptr() % 16 == 0):
+        raise ValueError(f"the packed table must be 16-byte aligned contiguous float32 "
+                         f"[T, {PACKED_WIDTH}] on the card, got {tuple(packed.shape)}")
+    if num_tris % CLUSTER_SUB or num_tris // CLUSTER_SUB != n_c:
+        raise ValueError(f"the packed table must be {n_c} whole clusters of "
+                         f"{CLUSTER_SUB} triangles, one per box")
     prim = torch.empty((n,), dtype=torch.int32, device=feats.device)
     dist = torch.empty((n,), dtype=torch.float32, device=feats.device)
     if n == 0:
         return prim, dist
-    _launch("band_closest_hit", coeffs, feats, mask, g, (prim, dist))
+    _launch("band_closest_hit", packed, num_tris, cluster_bounds, words_box, n_c, ray_o,
+            ray_d, tmax, feats, n, g, prim, dist)
     LAUNCHES["closest_hit"] += 1
     return prim, dist
 
@@ -184,17 +310,26 @@ def occlusion_cuda(coeffs, feats, tm, mask, g):
     occ = torch.empty((n,), dtype=torch.int32, device=feats.device)
     if n == 0:
         return occ.bool()
-    _launch("band_occlusion", coeffs, feats, mask, g, (tm, occ))
+    _launch("band_occlusion", coeffs, coeffs.shape[0], feats, n, mask, mask.shape[1], g,
+            tm, occ)
     LAUNCHES["occlusion"] += 1
     return occ.bool()
 
 
-def closest_hit(coeffs, feats, mask, g):
-    """Banded closest hit: the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+def closest_hit(coeffs, feats, cluster_bounds, ray_o, ray_d, tmax, g, packed=None,
+                words_box=None):
+    """Banded closest hit: the kernel for CUDA tensors (on the scene's
+    ``packed`` table and word boxes ``words_box``, which it then needs),
+    the plain version on :func:`band_mask_words` for CPU tensors; dead
+    lanes miss."""
     if feats.is_cuda:
-        return closest_hit_cuda(coeffs, feats, mask, g)
-    return closest_hit_plain(coeffs, feats, mask, g)
+        if packed is None or words_box is None:
+            raise ValueError("the CUDA band closest hit needs the scene's packed table "
+                             "and word boxes")
+        return closest_hit_cuda(packed, feats, cluster_bounds, words_box,
+                                ray_o.contiguous(), ray_d.contiguous(), tmax, g)
+    mask = band_mask_words(cluster_bounds, ray_o, ray_d, tmax, g)
+    return closest_hit_plain(coeffs, feats, mask, g, dead=dead_lanes(tmax))
 
 
 def occlusion(coeffs, feats, tm, mask, g):
@@ -217,16 +352,20 @@ def _require_clusters(cluster_bounds):
 
 
 def intersect_band(coeffs, center, cluster_bounds, g, ray_o, ray_d, tmax=None,
-                   plain: bool = False):
+                   plain: bool = False, packed=None, words_box=None):
     """Closest hit through the band engine: (prim i32 [N] positional ids,
     selector-grade dist f32 [N]).  ``tmax`` (f32 [N]) bounds only the
-    prepass (-FLT_MAX marks a dead lane, which flags nothing).  ``plain``
-    selects the plain versions on any device."""
+    culling (-FLT_MAX marks a dead lane, which flags nothing and misses).
+    ``plain`` selects the plain versions on any device; ``packed`` and
+    ``words_box`` are the scene's packed table and word boxes, which the
+    kernel reads."""
     _require_clusters(cluster_bounds)
     feats = plucker_features(ray_o, ray_d, center)
-    mask = band_mask_words(cluster_bounds, ray_o, ray_d, tmax, g)
-    sweep = closest_hit_plain if plain else closest_hit
-    return sweep(coeffs, feats, mask, g)
+    if plain:
+        mask = band_mask_words(cluster_bounds, ray_o, ray_d, tmax, g)
+        return closest_hit_plain(coeffs, feats, mask, g, dead=dead_lanes(tmax))
+    return closest_hit(coeffs, feats, cluster_bounds, ray_o, ray_d, tmax, g, packed,
+                       words_box)
 
 
 def occlusion_band(coeffs, center, cluster_bounds, g, x, y, plain: bool = False):

@@ -20,14 +20,14 @@ in row groups of ``LANES`` = 256.  Per sweep:
 2. :func:`work_list` compacts the flagged pairs into per-row-group slices
    ordered near to far;
 3. the sweep visits only those pairs (:func:`closest_hit`,
-   :func:`occlusion`), with the decision planes of :mod:`.plucker`.  The
-   closest-hit kernel culls once more inside the walk, per lane: each lane
-   tests its own ray against the unit's bounding sphere
-   (:func:`unit_spheres`, :func:`lane_unit_flags_plain`) and wants the
-   unit only if it can still find a nearer hit there; a warp sweeps a
-   unit with all its lanes when most want it, and one wanting ray at a
-   time, its threads spread over the unit's triangles, when few do.  It
-   reads the triangles' live coefficients from the packed table
+   :func:`occlusion`), with the decision planes of :mod:`.plucker`.  Both
+   kernels cull once more inside the walk, per lane: each lane tests its
+   own ray against the unit's bounding sphere (:func:`unit_spheres`,
+   :func:`lane_unit_flags_plain`) and wants the unit only if it can still
+   find a nearer hit (a blocker, within its segment) there; a warp sweeps
+   a unit with all its lanes when most want it, and one wanting ray at a
+   time, its threads spread over the unit's triangles, when few do.  They
+   read the triangles' live coefficients from the packed table
    (:func:`.plucker.numpy_packed_coeffs`).  Both are built once per scene.
 
 Each of the three kernels (``csrc/compact.cu``) has a plain torch version in
@@ -323,16 +323,17 @@ def lane_unit_flags_plain(spheres, feats, tmax, with_entry: bool = False):
 
 def pair_counts(spheres, feats, tmax, flags, dist, g: int, num_tris: int,
                 chunk_rows: int = 32) -> dict:
-    """The (lane, triangle) pairs a closest-hit sweep of this wavefront
-    visits when it culls per row group of :data:`LANES` lanes (``row``: the
-    units of ``flags`` bool [rows, U], for every lane of the group), per
-    warp of :data:`WARP` lanes (``warp``: the listed units some lane of the
-    warp flags itself, :func:`lane_unit_flags_plain`) and per lane
-    (``lane``); and the same three with a unit counted only for lanes whose
-    own entry distance is within reach of their final ``dist`` f32 [N]
-    (``row_cut``, ``warp_cut``, ``lane_cut``: what a walk that knew each
-    lane's answer would visit; ``lane_cut`` is what the data needs).  A
-    measurement helper: floats, one host sync per chunk."""
+    """The (lane, triangle) pairs a sweep of this wavefront visits when it
+    culls per row group of :data:`LANES` lanes (``row``: the units of
+    ``flags`` bool [rows, U], for every lane of the group), per warp of
+    :data:`WARP` lanes (``warp``: the listed units some lane of the warp
+    flags itself, :func:`lane_unit_flags_plain`) and per lane (``lane``);
+    and the same three with a unit counted only for lanes whose own entry
+    distance is within reach of their ``dist`` f32 [N], a closest hit's
+    final t or a shadow segment's range (``row_cut``, ``warp_cut``,
+    ``lane_cut``: what a walk that knew each lane's answer would visit;
+    ``lane_cut`` is what the data needs).  A measurement helper: floats,
+    one host sync per chunk."""
     n, n_units = feats.shape[0], spheres.shape[0]
     unit_tris = CLUSTER_SUB * g
     tris = torch.clamp(num_tris - torch.arange(n_units, device=feats.device)
@@ -427,33 +428,48 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def _check_sweep(coeffs, feats, lane_f32, items, offsets, g, packed=False):
-    """``coeffs`` is the plane table [T, 4, 10], or with ``packed`` the
-    packed table [T, 20], which the kernel reads 16 bytes at a time."""
-    tensors = (coeffs, feats, lane_f32, items, offsets)
+def _launch_sweep(entry, packed, spheres, feats, lane_f32, items, item_tn, offsets, g,
+                  outs):
+    """Check a sweep kernel's inputs and launch C entry point ``entry`` on
+    them: the scene's packed table ``packed`` f32 [T, 20] (read 16 bytes at
+    a time) and unit spheres ``spheres`` f32 [U, 4], the per-lane range
+    ``lane_f32`` f32 [N] and the work list of :func:`work_list`."""
+    tensors = (packed, spheres, feats, lane_f32, items, item_tn, offsets)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("the CUDA compact sweep takes CUDA tensors")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the compact sweep's inputs must be contiguous")
     n = feats.shape[0]
-    if packed:
-        if (coeffs.dtype != torch.float32 or coeffs.dim() != 2
-                or coeffs.shape[1] != PACKED_WIDTH or coeffs.data_ptr() % 16):
-            raise ValueError(f"the packed table must be 16-byte aligned f32 "
-                             f"[T, {PACKED_WIDTH}], got {tuple(coeffs.shape)}")
-    elif (coeffs.dtype != torch.float32 or coeffs.dim() != 3
-            or coeffs.shape[1:] != (4, 10)):
-        raise ValueError(f"coeffs must be f32 [T, 4, 10], got {tuple(coeffs.shape)}")
+    if (packed.dtype != torch.float32 or packed.dim() != 2
+            or packed.shape[1] != PACKED_WIDTH or packed.data_ptr() % 16):
+        raise ValueError(f"the packed table must be 16-byte aligned f32 "
+                         f"[T, {PACKED_WIDTH}], got {tuple(packed.shape)}")
     if feats.dtype != torch.float32 or feats.dim() != 2 or feats.shape[1] != 10:
         raise ValueError(f"feats must be f32 [N, 10], got {tuple(feats.shape)}")
     if lane_f32.dtype != torch.float32 or lane_f32.shape != (n,):
         raise ValueError("the per-lane range must be f32 [N]")
     if items.dtype != torch.int32 or offsets.dtype != torch.int32:
         raise TypeError("items and offsets must be int32")
+    if item_tn.dtype != torch.float32 or item_tn.shape != items.shape:
+        raise ValueError("item_tn must be f32, one per item")
     if offsets.shape != (-(-n // LANES) + 1,):
         raise ValueError(f"offsets must be [ceil(N / {LANES}) + 1]")
     if g < 1:
         raise ValueError("g must be >= 1")
+    n_units = -(-packed.shape[0] // (CLUSTER_SUB * g))
+    if (spheres.dtype != torch.float32 or spheres.shape != (n_units, 4)
+            or spheres.data_ptr() % 16):
+        raise ValueError(f"spheres must be 16-byte aligned f32 [{n_units}, 4], "
+                         f"one per unit")
+    if n == 0:
+        return
+    lib, stream, p = _lib(feats)
+    with torch.cuda.device(feats.device):
+        err = getattr(lib, entry)(
+            p(packed), packed.shape[0], CLUSTER_SUB * g, p(spheres), p(feats),
+            p(lane_f32), n, p(items), p(item_tn), p(offsets), offsets.shape[0] - 1,
+            *(p(t) for t in outs), stream)
+    _raise_on(err, entry)
 
 
 def closest_hit_cuda(packed, spheres, feats, tmax, items, item_tn, offsets, g):
@@ -462,47 +478,25 @@ def closest_hit_cuda(packed, spheres, feats, tmax, items, item_tn, offsets, g):
     :func:`work_list`, on the scene's packed table ``packed`` f32 [T, 20]
     and unit spheres ``spheres`` f32 [U, 4]; same results as
     :func:`closest_hit_plain` on the flags the list was built from."""
-    _check_sweep(packed, feats, tmax, items, offsets, g, packed=True)
-    if not (item_tn.is_cuda and item_tn.dtype == torch.float32
-            and item_tn.shape == items.shape and item_tn.is_contiguous()):
-        raise ValueError("item_tn must be contiguous f32 on the card, one per item")
-    n_units = -(-packed.shape[0] // (CLUSTER_SUB * g))
-    if not (spheres.is_cuda and spheres.dtype == torch.float32
-            and spheres.shape == (n_units, 4) and spheres.is_contiguous()
-            and spheres.data_ptr() % 16 == 0):
-        raise ValueError(f"spheres must be 16-byte aligned contiguous f32 "
-                         f"[{n_units}, 4] on the card, one per unit")
     n = feats.shape[0]
     prim = torch.empty((n,), dtype=torch.int32, device=feats.device)
     dist = torch.empty((n,), dtype=torch.float32, device=feats.device)
-    if n == 0:
-        return prim, dist
-    lib, stream, p = _lib(feats)
-    with torch.cuda.device(feats.device):
-        err = lib.compact_closest_hit(
-            p(packed), packed.shape[0], CLUSTER_SUB * g, p(spheres), p(feats),
-            p(tmax), n, p(items), p(item_tn), p(offsets), offsets.shape[0] - 1,
-            p(prim), p(dist), stream)
-    _raise_on(err, "compact_closest_hit")
+    _launch_sweep("compact_closest_hit", packed, spheres, feats, tmax, items, item_tn,
+                  offsets, g, (prim, dist))
     LAUNCHES["closest_hit"] += 1
     return prim, dist
 
 
-def occlusion_cuda(coeffs, feats, tm, items, offsets, g):
-    """The compact shadow kernel (``compact_occlusion`` in
-    csrc/compact.cu) over the work list of :func:`work_list`; same results
-    as :func:`occlusion_plain` on the flags the list was built from."""
-    _check_sweep(coeffs, feats, tm, items, offsets, g)
-    n = feats.shape[0]
-    occ = torch.empty((n,), dtype=torch.int32, device=feats.device)
-    if n == 0:
-        return occ.bool()
-    lib, stream, p = _lib(feats)
-    with torch.cuda.device(feats.device):
-        err = lib.compact_occlusion(
-            p(coeffs), coeffs.shape[0], CLUSTER_SUB * g, p(feats), p(tm), n,
-            p(items), p(offsets), offsets.shape[0] - 1, p(occ), stream)
-    _raise_on(err, "compact_occlusion")
+def occlusion_cuda(packed, spheres, feats, tm, items, item_tn, offsets, g):
+    """The compact shadow kernel (``compact_occlusion`` in csrc/compact.cu)
+    over the work list of :func:`work_list`, on the scene's packed table
+    and unit spheres, as :func:`closest_hit_cuda`: each lane sweeps only
+    the listed units its own segment of range ``tm`` f32 [N] can reach.
+    Same results as :func:`occlusion_plain` on the flags the list was built
+    from; a segment of negative range is never blocked."""
+    occ = torch.empty((feats.shape[0],), dtype=torch.int32, device=feats.device)
+    _launch_sweep("compact_occlusion", packed, spheres, feats, tm, items, item_tn,
+                  offsets, g, (occ,))
     LAUNCHES["occlusion"] += 1
     return occ.bool()
 
@@ -512,21 +506,26 @@ def closest_hit(coeffs, feats, tmax, flags, tn, g, packed=None, spheres=None):
     (on the scene's ``packed`` table and unit ``spheres``, which it then
     needs), the plain version for CPU tensors."""
     if feats.is_cuda:
-        if packed is None or spheres is None:
-            raise ValueError("the CUDA compact closest hit needs the scene's "
-                             "packed table and unit spheres")
+        _require_tables(packed, spheres, "closest hit")
         return closest_hit_cuda(packed, spheres, feats, tmax,
                                 *work_list(flags, tn), g)
     return closest_hit_plain(coeffs, feats, tmax, flags, g)
 
 
-def occlusion(coeffs, feats, tm, flags, tn, g):
-    """Compact shadow sweep: the work list and the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+def occlusion(coeffs, feats, tm, flags, tn, g, packed=None, spheres=None):
+    """Compact shadow sweep: the work list and the kernel for CUDA tensors
+    (on the scene's ``packed`` table and unit ``spheres``, which it then
+    needs), the plain version for CPU tensors."""
     if feats.is_cuda:
-        items, _, offsets = work_list(flags, tn)
-        return occlusion_cuda(coeffs, feats, tm, items, offsets, g)
+        _require_tables(packed, spheres, "shadow sweep")
+        return occlusion_cuda(packed, spheres, feats, tm, *work_list(flags, tn), g)
     return occlusion_plain(coeffs, feats, tm, flags, g)
+
+
+def _require_tables(packed, spheres, what):
+    if packed is None or spheres is None:
+        raise ValueError(f"the CUDA compact {what} needs the scene's packed table "
+                         f"and unit spheres")
 
 
 # ---------------------------------------------------------------------------
@@ -552,13 +551,15 @@ def intersect_compact(coeffs, center, cluster_bounds, ray_o, ray_d, tmax=None,
                        spheres)
 
 
-def occlusion_compact(coeffs, center, cluster_bounds, x, y, plain: bool = False):
+def occlusion_compact(coeffs, center, cluster_bounds, x, y, plain: bool = False,
+                      packed=None, spheres=None):
     """True where segment x->y is blocked (bool [N]), the segment inset as
     :func:`segment_rays` does.  A zero-length segment (y == x) has a
-    negative range and flags nothing: never blocked."""
+    negative range and flags nothing: never blocked.  ``plain``, ``packed``
+    and ``spheres`` as for :func:`intersect_compact`."""
     ray_o, ray_d, tm = segment_rays(x, y)
     flags, tn, g = prepass(center, cluster_bounds, ray_o, ray_d, tm, plain)
     feats = plucker_features(ray_o, ray_d, center)
     if plain:
         return occlusion_plain(coeffs, feats, tm, flags, g)
-    return occlusion(coeffs, feats, tm.contiguous(), flags, tn, g)
+    return occlusion(coeffs, feats, tm.contiguous(), flags, tn, g, packed, spheres)

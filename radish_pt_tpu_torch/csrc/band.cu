@@ -3,21 +3,23 @@
 //
 // The planes are those of plucker_planes.cuh, bit-identical to the Plücker
 // kernels'.  What differs is the culling: each 128-lane row is cut into g
-// bands of 128/g lanes (g a power of two, 1 to 128), the prepass
-// (accel/band.py::band_mask_words) flags 64-triangle clusters per band, and
-// every lane sweeps exactly the clusters of its own band.  The mask holds
-// int32 words [rows * g][n_words]: band b of row r at r * g + b, bit j of
-// word w = cluster 32w + j; cluster c is triangles [64c, 64c + 64), so a
-// winner's id is 64c + its place in the cluster.
+// bands of 128/g lanes (g a power of two, 1 to 128), a band flags the
+// 64-triangle clusters any of its rays may hit (the slab test of
+// slab_cull.cuh), and every lane sweeps exactly the clusters of its own
+// band.  Words hold 32 clusters: bit j of word w = cluster 32w + j; cluster
+// c is triangles [64c, 64c + 64), so a winner's id is 64c + its place in
+// the cluster.
 //
-// Layout: one thread per ray, one 128-thread block per 128-lane row, and
-// each warp on its own: it walks the OR of its lanes' band words (for
-// g <= 4 one band covers whole warps, so that is the band's own word; for
-// g >= 8 a warp holds g/4 bands), stages each cluster in its own slice of
-// shared memory (64 triangles x 19 live coefficients, 5 KB) between
-// __syncwarp()s, and a lane sweeps the cluster only if its own band's bit
-// is set.  So the visited set per lane is exactly its band's flags, as in
-// the plain version, not the warp's superset.
+// The closest hit votes its bands' words itself (no prepass, no mask in
+// device memory) and sweeps as the Plücker closest hit does (ray_sweep.cuh:
+// the packed table staged block-wide through cp.async into two buffers,
+// triangles across a warp's threads, its rays one at a time).  The shadow
+// sweep still reads the words of the prepass accel/band.py::band_mask_words
+// (int32 [rows * g][n_words], band b of row r at r * g + b): one thread per
+// ray, each warp walking the OR of its lanes' band words and staging each
+// cluster in its own slice of shared memory (64 triangles x 19 live
+// coefficients, 5 KB) between __syncwarp()s; a lane sweeps the cluster only
+// if its own band's bit is set.
 //
 // Launched on the caller's stream; the C entry points return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -26,14 +28,178 @@
 #include <stdint.h>
 
 #include "plucker_planes.cuh"
+#include "ray_sweep.cuh"
+#include "slab_cull.cuh"
 
 namespace {
 
-constexpr int kRow = 128;  // threads per block == lanes per row
+constexpr int kRow = 128;  // lanes per row (and threads per shadow block)
 constexpr int kWarp = 32;
 constexpr int kWarps = kRow / kWarp;
 constexpr int kCluster = 64;  // triangles per culling cluster
 constexpr unsigned kFull = 0xffffffffu;
+
+// The closest hit's shape: lanes a block (64 or 128; a band of 128 lanes,
+// g = 1, takes a block of 128), triangles a thread holds at a time, and
+// whether the vote first tests each word's union box (two levels) or
+// every cluster's box (one).  -DBAND_BLOCK_LANES / -DBAND_TRIS /
+// -DBAND_TWO_LEVEL build another shape for a measurement
+// (radish_pt_tpu_torch/tune.py).
+#ifndef BAND_BLOCK_LANES
+#define BAND_BLOCK_LANES 64
+#endif
+#ifndef BAND_TRIS
+#define BAND_TRIS 2
+#endif
+#ifndef BAND_TWO_LEVEL
+#define BAND_TWO_LEVEL 1
+#endif
+constexpr int kBlockLanes = BAND_BLOCK_LANES;
+constexpr int kTris = BAND_TRIS;
+constexpr bool kTwoLevel = BAND_TWO_LEVEL != 0;
+static_assert(kBlockLanes == 64 || kBlockLanes == kRow, "a block is 64 or 128 lanes");
+static_assert(kCluster % (32 * kTris) == 0, "a cluster is whole passes");
+// A ray passes over a cluster whose box, grown by kSkipSlack times the
+// scene's scale, it enters beyond its best t widened by kSkipMargin
+// (accel/plucker.py: SKIP_SLACK, SKIP_MARGIN).
+constexpr float kSkipSlack = 2e-4f;
+constexpr float kSkipMargin = 1.f + 1e-4f;
+
+// The calling lane's band's cluster words (``band_words``, n_words long)
+// and the block's union (``uni``), both zero on entry.  Each lane tests
+// its own ray (``votes``: a live lane; padding and dead lanes flag
+// nothing) against each box with slab_hit; a band's bit is the OR over its
+// lanes: __reduce_or_sync over the band's lanes of this warp (the whole
+// warp from 32 lanes up), then an atomicOr into the band's shared word,
+// which a band of several warps (g <= 2) ORs across them.  With kTwoLevel
+// a warp first tests the box of each word's 32 clusters (``word_bounds``)
+// and tests the 32 only where one of its lanes passes it.  That moves no
+// bit: the slab test is monotone under box containment in f32 too —
+// (bound - o) * inv rounds monotonically in the bound — so a lane that
+// passes a cluster's box passes its word's box.  Returns the slack of the
+// per-ray test: kSkipSlack times the boxes' largest extent along an axis.
+__device__ __forceinline__ float vote_band_words(unsigned* band_words, unsigned* uni,
+                                                 const float* __restrict__ bounds,
+                                                 const float* __restrict__ word_bounds,
+                                                 int n_clusters, const SlabRay& r, bool votes,
+                                                 int band_lanes) {
+  const int lane = threadIdx.x & 31;
+  const int seg = min(band_lanes, kWarp);  // the band's lanes in this warp
+  const unsigned seg_mask = seg == kWarp ? kFull : ((1u << seg) - 1u) << (lane & ~(seg - 1));
+  const bool leader = (lane & (seg - 1)) == 0;
+  const bool warp_votes = __any_sync(kFull, votes);
+  float lo[3] = {kSlabFltMax, kSlabFltMax, kSlabFltMax};
+  float hi[3] = {-kSlabFltMax, -kSlabFltMax, -kSlabFltMax};
+  for (int w = 0; w < (n_clusters + 31) >> 5; ++w) {
+    const float* wb = word_bounds + (size_t)w * 6;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      lo[k] = fminf(lo[k], wb[k]);
+      hi[k] = fmaxf(hi[k], wb[3 + k]);
+    }
+    if (!warp_votes) continue;
+    if (kTwoLevel && !__any_sync(kFull, votes && slab_hit(r, wb))) continue;
+    const int c0 = w << 5;
+    const int cnt = min(32, n_clusters - c0);
+    unsigned mine = 0;
+    for (int j = 0; j < cnt; ++j) {
+      if (slab_hit(r, bounds + (size_t)(c0 + j) * 6)) mine |= 1u << j;
+    }
+    if (!votes) mine = 0;
+    const unsigned word = __reduce_or_sync(seg_mask, mine);
+    if (leader && word) atomicOr(band_words + w, word);
+    const unsigned any = __reduce_or_sync(kFull, mine);
+    if (lane == 0 && any) atomicOr(uni + w, any);
+  }
+  return kSkipSlack * fmaxf(fmaxf(hi[0] - lo[0], hi[1] - lo[1]), hi[2] - lo[2]);
+}
+
+// Replaces _band_kernel (radish_pt_tpu/accel/pallas_kernels.py) and the
+// band-mask prepass in front of it (_band_mask_bits), the closest hit of
+// every primary and extension ray on the band engine.
+// Bound on the card: the f32 pipe — 41 flops per (ray, triangle) pair —
+// over the pairs the culling leaves, plus the vote: each lane's slab test
+// of each word's box and of the 32 clusters of the words its warp passes.
+// The design (see the head of the file):
+//  1. the block's bands vote their words into shared memory
+//     (vote_band_words), equal bit for bit to band_mask_words';
+//  2. the block walks the union of its bands' words in id order, one
+//     64-triangle cluster a tile, staged once per block from the packed
+//     table, the next tile's copy in flight while this one is swept;
+//  3. a ray goes by a tile only if its own band flags the cluster and its
+//     own grown box test admits it (slab_reach: entered no later than its
+//     best t so far, widened by kSkipMargin), triangles across the warp's
+//     threads, kTris a thread, the rays one at a time (ray_sweep.cuh): one
+//     vote a ray and pass, a branch-free choice inside, ties to the lower
+//     id.  The skip is conservative, so it moves no result.
+// ``tmax`` (null: FLT_MAX) bounds the vote; a lane with a negative tmax is
+// dead: it flags nothing, is swept by nothing and misses.
+template <int kLanes>
+__global__ void __launch_bounds__(kLanes)
+band_closest_hit_kernel(const float4* __restrict__ packed, int num_tris,
+                        const float* __restrict__ bounds,
+                        const float* __restrict__ word_bounds, int n_clusters,
+                        const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+                        const float* __restrict__ tmax, const float* __restrict__ feats,
+                        int n, int g, int* __restrict__ prim_out,
+                        float* __restrict__ dist_out) {
+  // the block's bands' words [kLanes / band_lanes][n_words], then their union
+  extern __shared__ unsigned band_smem[];
+  __shared__ float4 s[2][kCluster * kPackVec];
+  __shared__ float4 recs[kLanes / kWarp][kWarp * kRecVec];
+  const int n_words = (n_clusters + 31) >> 5;
+  const int band_lanes = kRow / g;
+  unsigned* uni = band_smem + (kLanes / band_lanes) * n_words;
+  for (int i = threadIdx.x; i < (kLanes / band_lanes + 1) * n_words; i += kLanes) {
+    band_smem[i] = 0u;
+  }
+  unsigned* own = band_smem + (threadIdx.x / band_lanes) * n_words;
+  const int ray = blockIdx.x * kLanes + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  float4* rec = recs[threadIdx.x / kWarp];
+  const SlabRay sr = slab_ray(ray_o, ray_d, tmax, ray, n);
+  const bool live = ray < n && sr.tm >= 0.f;  // not past the end, not dead
+  {
+    float f[10];
+    load_feats(f, feats, ray, ray < n);
+    // a record's result: best t so far, and its triangle's id as bits
+    write_record(rec + lane * kRecVec, f, kFltMax, __int_as_float(-1));
+  }
+  __syncthreads();  // the words are zero
+  const float slack =
+      vote_band_words(own, uni, bounds, word_bounds, n_clusters, sr, live, band_lanes);
+  __syncthreads();
+
+  auto union_word = [&](int w) { return uni[w]; };
+  TileWalk<kCluster> walk{n_words, kCluster, num_tris};
+  bool more = walk.next(union_word);
+  if (more) stage_packed(s[0], packed, walk.base, walk.count(), threadIdx.x, kLanes);
+  cp_async_commit();
+  for (int buf = 0; more; buf ^= 1) {
+    const int base = walk.base, cnt = walk.count(), c = walk.c;
+    const bool mine = live && ((own[c >> 5] >> (c & 31)) & 1u);  // my band flags c
+    cp_async_wait<0>();  // this thread's part of the tile has landed
+    // everyone's part has, and the other buffer's sweep is over
+    __syncthreads();
+    more = walk.next(union_word);
+    if (more) stage_packed(s[buf ^ 1], packed, walk.base, walk.count(), threadIdx.x, kLanes);
+    cp_async_commit();
+    if (!__any_sync(kFull, mine)) continue;
+    // the rays that can still gain from this tile: only a nearer t counts
+    const unsigned rays = __ballot_sync(
+        kFull, mine && slab_reach(sr, bounds + (size_t)c * 6, slack,
+                                  rec[lane * kRecVec + 2].z * kSkipMargin));
+    if (rays == 0) continue;
+    sweep_closest_tile<kTris>(rec, s[buf], cnt, base, rays);
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+  if (ray < n) {
+    const float4 rc = rec[lane * kRecVec + 2];
+    prim_out[ray] = rc.z < kFltMax ? __float_as_int(rc.w) : -1;
+    dist_out[ray] = rc.z;
+  }
+}
 
 // Stage cluster c into this warp's slice of shared memory; returns its
 // triangle count.  Warp-uniform: every lane of the warp calls it.
@@ -45,59 +211,6 @@ __device__ __forceinline__ int stage_cluster(float* s, const float* __restrict__
   stage_tile(s, coeffs, base, cnt, lane, kWarp);
   __syncwarp();
   return cnt;
-}
-
-// Replaces _band_kernel (radish_pt_tpu/accel/pallas_kernels.py), the
-// closest hit of every primary and extension ray on the band engine.
-// Bound on the card: FMA throughput — ~41 f32 operations per (ray, triangle)
-// pair over the triangles of the band's flagged clusters.  What the bands
-// buy is culling: a lane sweeps its band's clusters, not its row's union
-// (the reference measured 97 -> 41 sweeps a row at g = 8 on teapot_hires
-// bounce rays).  The price here is redundant staging: each warp stages its
-// own copy of a cluster (a quarter of the block-wide staging's reuse), and
-// for g >= 8 the lanes of a warp whose band did not flag a cluster idle
-// while the others sweep it.
-__global__ void __launch_bounds__(kRow)
-band_closest_hit_kernel(const float* __restrict__ coeffs, int num_tris,
-                        const float* __restrict__ feats, int n,
-                        const int* __restrict__ mask, int n_words, int g,
-                        int* __restrict__ prim_out, float* __restrict__ dist_out) {
-  __shared__ float s[kWarps][kCluster * kStride];
-  const int lane = threadIdx.x & (kWarp - 1);
-  float* sw = s[threadIdx.x / kWarp];
-  const int ray = blockIdx.x * kRow + threadIdx.x;
-  const bool live = ray < n;
-  float f[10];
-  load_feats(f, feats, ray, live);
-  const int band = threadIdx.x / (kRow / g);
-  const int* words = mask + ((size_t)blockIdx.x * g + band) * n_words;
-  float best = kFltMax;
-  int best_id = -1;
-  for (int w = 0; w < n_words; ++w) {
-    const unsigned own = (unsigned)words[w];
-    unsigned bits = __reduce_or_sync(kFull, own);
-    while (bits) {
-      const int b = __ffs(bits) - 1;
-      bits &= bits - 1;
-      const int c = w * 32 + b;
-      const int cnt = stage_cluster(sw, coeffs, c, num_tris, lane);
-      if (!((own >> b) & 1u)) continue;
-      for (int j = 0; j < cnt; ++j) {
-        const Planes p = planes(sw + j * kStride, f);
-        if (fminf(p.v, p.tdd) >= 0.f) {
-          const float t = __fdiv_rn(p.tdd, p.sd);
-          if (t < best) {  // ids rise through the walk: ties keep the lower
-            best = t;
-            best_id = c * kCluster + j;
-          }
-        }
-      }
-    }
-  }
-  if (live) {
-    prim_out[ray] = best < kFltMax ? best_id : -1;
-    dist_out[ray] = best;
-  }
 }
 
 // Replaces _band_occl_kernel (radish_pt_tpu/accel/pallas_kernels.py), the
@@ -148,17 +261,36 @@ band_occlusion_kernel(const float* __restrict__ coeffs, int num_tris,
   if (live) occ_out[ray] = occ;
 }
 
+template <int kLanes>
+int launch_closest_hit(const float* packed, int num_tris, const float* bounds,
+                       const float* word_bounds, int n_clusters, const float* ray_o,
+                       const float* ray_d, const float* tmax, const float* feats, int n, int g,
+                       int* prim_out, float* dist_out, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)(kLanes / (kRow / g) + 1) * ((n_clusters + 31) >> 5) * sizeof(unsigned);
+  const cudaError_t err = cudaFuncSetAttribute(
+      band_closest_hit_kernel<kLanes>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + kLanes - 1) / kLanes;
+  band_closest_hit_kernel<kLanes><<<blocks, kLanes, smem, stream>>>(
+      reinterpret_cast<const float4*>(packed), num_tris, bounds, word_bounds, n_clusters,
+      ray_o, ray_d, tmax, feats, n, g, prim_out, dist_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int band_closest_hit(const float* coeffs, int num_tris, const float* feats, int n,
-                     const int* mask, int n_words, int g, int* prim_out, float* dist_out,
-                     void* stream) {
-  const int blocks = (n + kRow - 1) / kRow;
-  band_closest_hit_kernel<<<blocks, kRow, 0, (cudaStream_t)stream>>>(
-      coeffs, num_tris, feats, n, mask, n_words, g, prim_out, dist_out);
-  return (int)cudaGetLastError();
+int band_closest_hit(const float* packed, int num_tris, const float* bounds,
+                     const float* word_bounds, int n_clusters, const float* ray_o,
+                     const float* ray_d, const float* tmax, const float* feats, int n, int g,
+                     int* prim_out, float* dist_out, void* stream) {
+  // a block holds whole bands
+  auto launch = kRow / g > kBlockLanes ? &launch_closest_hit<kRow>
+                                       : &launch_closest_hit<kBlockLanes>;
+  return launch(packed, num_tris, bounds, word_bounds, n_clusters, ray_o, ray_d, tmax, feats,
+                n, g, prim_out, dist_out, (cudaStream_t)stream);
 }
 
 int band_occlusion(const float* coeffs, int num_tris, const float* feats, int n,

@@ -10,12 +10,12 @@
 // 2. The work list (plain torch, accel/compact.py::work_list): the flagged
 //    (row group, unit) pairs, row-major, each row's units near to far, with
 //    offsets[row]..offsets[row+1] the row group's slice.
-// 3. compact_closest_hit_kernel / compact_occlusion_kernel: a block walks
-//    its row group's slice (the shadow test one block per row group, the
-//    closest hit one per 64 of its lanes); each unit's triangles are staged
-//    in shared memory and swept against the block's rays with the decision
-//    planes of plucker_planes.cuh.  The closest hit culls again per lane inside the
-//    walk; the shadow test sweeps every staged unit with every lane.
+// 3. compact_closest_hit_kernel / compact_occlusion_kernel: one walk
+//    (compact_sweep) for both: a block walks its row group's slice for 64
+//    of its lanes, culling again per lane against each unit's bounding
+//    sphere; each wanted unit's triangles are staged from the packed table
+//    in shared memory and swept against the rays that want them with the
+//    decision planes of plucker_planes.cuh.
 //
 // Launched on the caller's stream; the C entry points return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -30,23 +30,30 @@ namespace {
 constexpr int kGroup = 256;   // lanes per row group
 constexpr int kSphereK = 16;  // sphere-test features per ray
 constexpr int kCluster = 64;  // triangles per culling cluster == per staged tile
-// The closest-hit kernel's shape: the lanes of the row group one block
-// walks (32, 64, 128 or 256: the group's slice is walked by 256 /
-// kBlockLanes blocks, each for its own lanes), and from how many wanting
-// lanes on a warp sweeps a unit with every lane against its own ray
-// instead of one wanting ray at a time (1: always; 33: never).
-// -DCOMPACT_BLOCK_LANES / -DCOMPACT_LOCKSTEP build another shape for a
-// measurement (radish_pt_tpu_torch/tune.py).
+// Each sweep kernel's shape: the lanes of the row group one block walks
+// (32, 64, 128 or 256: the group's slice is walked by 256 / lanes blocks,
+// each for its own lanes), and from how many wanting lanes on a warp
+// sweeps a unit with every lane against its own ray instead of one wanting
+// ray at a time (1: always; 33: never).  -DCOMPACT_BLOCK_LANES /
+// -DCOMPACT_LOCKSTEP (closest hit) and -DCOMPACT_OCCL_BLOCK_LANES /
+// -DCOMPACT_OCCL_LOCKSTEP (shadow) build another shape for a measurement
+// (radish_pt_tpu_torch/tune.py).
 #ifndef COMPACT_BLOCK_LANES
 #define COMPACT_BLOCK_LANES 64
 #endif
 #ifndef COMPACT_LOCKSTEP
 #define COMPACT_LOCKSTEP 12
 #endif
+#ifndef COMPACT_OCCL_BLOCK_LANES
+#define COMPACT_OCCL_BLOCK_LANES 64
+#endif
+#ifndef COMPACT_OCCL_LOCKSTEP
+#define COMPACT_OCCL_LOCKSTEP 12
+#endif
 constexpr int kBlockLanes = COMPACT_BLOCK_LANES;
 constexpr int kLockstep = COMPACT_LOCKSTEP;
-static_assert(kGroup % kBlockLanes == 0 && kBlockLanes % 32 == 0,
-              "a block is whole warps of a row group");
+constexpr int kOcclLanes = COMPACT_OCCL_BLOCK_LANES;
+constexpr int kOcclLockstep = COMPACT_OCCL_LOCKSTEP;
 // A unit is skipped once a lane's best t, widened by this margin, is below
 // its entry distance (the reference's test, pallas_kernels.py:1389).
 constexpr float kSkipMargin = 1.f + 1e-4f;
@@ -149,56 +156,56 @@ __device__ __forceinline__ bool lane_passes(const float4 sp, const float* f, flo
   return sp.w >= 0.f && d2 <= __fmul_rn(sp.w, sp.w) && __fadd_rn(ts, sp.w) >= 0.f;
 }
 
-// Replaces _plucker_compact_kernel (radish_pt_tpu/accel/pallas_kernels.py),
-// the closest hit of every primary and extension ray above 131,072
-// triangles.
-// Bound on the card: instruction throughput, ~40 instructions per (ray,
-// triangle) pair around the planes' 26 f32 operations — over the pairs the
-// data needs, which are far fewer than the row group's: 256 bounce rays
-// point everywhere, so a row group flags half of the scene's units while
-// one ray passes a few.  The design, kParts blocks per row group, each
-// walking the group's near-to-far slice for its own kBlockLanes lanes:
+// The walk both compact sweeps share, for the kLanes lanes of a row group
+// that one block takes (the group's slice is walked by kGroup / kLanes
+// blocks, each for its own lanes):
 //  * culling per lane: for each item every lane tests its own ray against
-//    the unit's sphere (lane_passes) and wants the unit only if its best t,
-//    widened by kSkipMargin, reaches its own entry distance and the
-//    item's tn.  A lane whose best t is below the item's tn is finished
-//    for good (tn rises along the slice); the block leaves the slice once
-//    every lane is finished or dead, and stages no unit that no lane
-//    wants;
-//  * two ways through a staged unit, chosen per warp by the number of its
-//    lanes that want it.  Many (coherent primaries): every lane sweeps the
-//    64 triangles against its own ray.  Few (bounce rays: three of a
-//    warp's 32 on average): the warp turns round and takes one wanting
-//    ray at a time — its features broadcast by shuffle, each thread two of
-//    the unit's triangles, the nearest hit reduced across the warp and
-//    handed to the ray's lane — so a warp does the work of the lanes that
-//    want the unit, not of all 32;
-//  * operands packed and aligned: a unit's 64 triangles are one contiguous
-//    5,120-byte block of the packed table, copied with 16-byte cp.async
-//    into one of two buffers — the next wanted unit's copy is in flight
-//    while this one is swept — and read as five LDS.128 per triangle
-//    (consecutive threads' triangles 80 bytes apart: no bank conflict).
-// Neither walk is in id order, so a tie keeps the lower id explicitly.  A
-// lane with negative tmax is dead: its features are zero, so no triangle
-// passes, it wants nothing, and it returns a miss.
-__global__ void __launch_bounds__(kBlockLanes)
-compact_closest_hit_kernel(const float4* __restrict__ packed, int num_tris, int unit_tris,
-                           const float4* __restrict__ spheres,
-                           const float* __restrict__ feats, const float* __restrict__ tmax,
-                           int n, const int* __restrict__ items,
-                           const float* __restrict__ item_tn,
-                           const int* __restrict__ offsets, int* __restrict__ prim_out,
-                           float* __restrict__ dist_out) {
+//    the unit's sphere (lane_passes) and wants the unit only if it is open
+//    (live and, for the any-hit, not yet blocked) and its reach — the
+//    closest hit's best t, the segment's range, widened by kSkipMargin —
+//    reaches its own entry distance and the item's tn.  A lane whose reach
+//    is below the item's tn is finished for good (tn rises along the
+//    slice); the block leaves the slice once every lane is finished,
+//    blocked or dead, and stages no unit that no lane wants;
+//  * two ways through a staged 64-triangle tile, chosen per warp by the
+//    number of its lanes that want it.  From kLock on, every wanting lane
+//    sweeps the tile against its own ray.  Below, the warp turns round and
+//    takes one wanting ray at a time — its features (and range) broadcast
+//    by shuffle, each thread two of the tile's triangles — so a warp does
+//    the work of the lanes that want the unit, not of all 32: the closest
+//    hit reduces the warp's nearest hit and hands it to the ray's lane, the
+//    any-hit settles the segment with one __any_sync;
+//  * operands packed and aligned: a unit's triangles are one contiguous
+//    block of the packed table (5,120 bytes a 64-triangle tile), copied with
+//    16-byte cp.async into one of two buffers — the next wanted tile's copy
+//    is in flight while this one is swept — and read as five LDS.128 per
+//    triangle (consecutive threads' triangles 80 bytes apart: no bank
+//    conflict).  A merged unit (g > 1) is walked tile by tile.
+// Neither walk is in id order, so the closest hit keeps the lower id of a
+// tie explicitly.  A lane with a negative range is dead: its features are
+// zero, so no triangle passes, it wants nothing and it returns a miss
+// (closest hit) or unblocked (any-hit).
+template <bool kAnyHit, int kLanes, int kLock>
+__device__ __forceinline__ void compact_sweep(
+    const float4* __restrict__ packed, int num_tris, int unit_tris,
+    const float4* __restrict__ spheres, const float* __restrict__ feats,
+    const float* __restrict__ range, int n, const int* __restrict__ items,
+    const float* __restrict__ item_tn, const int* __restrict__ offsets,
+    int* __restrict__ out, float* __restrict__ dist_out) {
+  static_assert(kGroup % kLanes == 0 && kLanes % 32 == 0,
+                "a block is whole warps of a row group");
   constexpr unsigned kFull = 0xffffffffu;
   __shared__ float4 s[2][kCluster * kPackVec];
-  const int row = blockIdx.x / (kGroup / kBlockLanes);
-  const int ray = blockIdx.x * kBlockLanes + threadIdx.x;
+  const int row = blockIdx.x / (kGroup / kLanes);
+  const int ray = blockIdx.x * kLanes + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  const bool live = ray < n && tmax[ray] >= 0.f;
+  const bool live = ray < n && range[ray] >= 0.f;
   float f[10];
   load_feats(f, feats, ray, live);
-  float best = kFltMax;
+  // the closest hit's best t so far and its id; the any-hit's range
+  float best = kAnyHit && live ? range[ray] : kFltMax;
   int best_id = -1;
+  bool open = live;  // the any-hit closes a lane once its segment is blocked
   const int end = offsets[row + 1];
 
   // whether this lane wants item w / is not yet finished at it
@@ -206,7 +213,7 @@ compact_closest_hit_kernel(const float4* __restrict__ packed, int num_tris, int 
     const float reach = best * kSkipMargin;
     float entry;
     const bool pass = lane_passes(spheres[items[w]], f, entry);
-    return live && reach >= item_tn[w] && pass && reach >= entry;
+    return open && reach >= item_tn[w] && pass && reach >= entry;
   };
   // the first item from w on that some lane of the block wants; ``end``
   // once every lane is finished.  Block-uniform; at least one barrier when
@@ -214,20 +221,24 @@ compact_closest_hit_kernel(const float4* __restrict__ packed, int num_tris, int 
   auto scan = [&](int w) {
     for (; w < end; ++w) {
       if (__syncthreads_or(wants(w))) return w;
-      if (!__syncthreads_or(live && best * kSkipMargin >= item_tn[w])) return end;
+      if (!__syncthreads_or(open && best * kSkipMargin >= item_tn[w])) return end;
     }
     return end;
   };
   auto stage = [&](int buf, int w, int chunk) {
     const int lo = items[w] * unit_tris + chunk * kCluster;
     const int hi = min(items[w] * unit_tris + unit_tris, num_tris);
-    stage_packed(s[buf], packed, lo, min(kCluster, hi - lo), threadIdx.x, kBlockLanes);
+    stage_packed(s[buf], packed, lo, min(kCluster, hi - lo), threadIdx.x, kLanes);
   };
   auto take = [&](float tt, int id) {  // ties to the lower id
     if (tt < best || (tt == best && id < best_id)) {
       best = tt;
       best_id = id;
     }
+  };
+  // the segment of range tm is blocked at these planes
+  auto blocks = [](const Planes& p, float tm) {
+    return fminf(fminf(p.v, p.tdd), tm * p.sd - p.tdd) >= 0.f;
   };
 
   int w = scan(offsets[row]);
@@ -254,12 +265,24 @@ compact_closest_hit_kernel(const float4* __restrict__ packed, int num_tris, int 
     const int cnt = min(kCluster, hi - base);
     const float4* tile = s[buf];
     unsigned wanting = __ballot_sync(kFull, wants(w));
-    if (__popc(wanting) >= kLockstep) {
+    if (__popc(wanting) >= kLock) {
       // every lane against its own ray
+      if constexpr (kAnyHit) {
+        if ((wanting >> lane) & 1u) {
 #pragma unroll 4
-      for (int j = 0; j < cnt; ++j) {
-        const Planes p = planes(load_packed(tile + j * kPackVec), f);
-        if (fminf(p.v, p.tdd) >= 0.f) take(__fdiv_rn(p.tdd, p.sd), base + j);
+          for (int j = 0; j < cnt; ++j) {
+            if (blocks(planes(load_packed(tile + j * kPackVec), f), best)) {
+              open = false;
+              break;
+            }
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int j = 0; j < cnt; ++j) {
+          const Planes p = planes(load_packed(tile + j * kPackVec), f);
+          if (fminf(p.v, p.tdd) >= 0.f) take(__fdiv_rn(p.tdd, p.sd), base + j);
+        }
       }
     } else {
       // one wanting ray at a time, the warp's threads across its triangles
@@ -269,31 +292,40 @@ compact_closest_hit_kernel(const float4* __restrict__ packed, int num_tris, int 
         float g[10];
 #pragma unroll
         for (int k = 0; k < 10; ++k) g[k] = __shfl_sync(kFull, f[k], owner);
-        float tb = kFltMax;
-        int ib = -1;
-        for (int j = lane; j < cnt; j += 32) {  // ids rise: strict < keeps the lower
-          const Planes p = planes(load_packed(tile + j * kPackVec), g);
-          if (fminf(p.v, p.tdd) >= 0.f) {
-            const float tt = __fdiv_rn(p.tdd, p.sd);
-            if (tt < tb) {
-              tb = tt;
-              ib = base + j;
+        if constexpr (kAnyHit) {
+          const float tm = __shfl_sync(kFull, best, owner);
+          bool hit = false;
+          for (int j = lane; j < cnt; j += 32) {
+            hit |= blocks(planes(load_packed(tile + j * kPackVec), g), tm);
+          }
+          if (__any_sync(kFull, hit) && lane == owner) open = false;
+        } else {
+          float tb = kFltMax;
+          int ib = -1;
+          for (int j = lane; j < cnt; j += 32) {  // ids rise: strict < keeps the lower
+            const Planes p = planes(load_packed(tile + j * kPackVec), g);
+            if (fminf(p.v, p.tdd) >= 0.f) {
+              const float tt = __fdiv_rn(p.tdd, p.sd);
+              if (tt < tb) {
+                tb = tt;
+                ib = base + j;
+              }
             }
           }
-        }
-        if (__any_sync(kFull, ib >= 0)) {
-          // the warp's nearest hit, ties to the lower id (-1, no hit, is
-          // the largest id unsigned and t = FLT_MAX: it never wins)
+          if (__any_sync(kFull, ib >= 0)) {
+            // the warp's nearest hit, ties to the lower id (-1, no hit, is
+            // the largest id unsigned and t = FLT_MAX: it never wins)
 #pragma unroll
-          for (int o = 16; o > 0; o >>= 1) {
-            const float to = __shfl_xor_sync(kFull, tb, o);
-            const int io = __shfl_xor_sync(kFull, ib, o);
-            if (to < tb || (to == tb && (unsigned)io < (unsigned)ib)) {
-              tb = to;
-              ib = io;
+            for (int o = 16; o > 0; o >>= 1) {
+              const float to = __shfl_xor_sync(kFull, tb, o);
+              const int io = __shfl_xor_sync(kFull, ib, o);
+              if (to < tb || (to == tb && (unsigned)io < (unsigned)ib)) {
+                tb = to;
+                ib = io;
+              }
             }
+            if (lane == owner) take(tb, ib);
           }
-          if (lane == owner) take(tb, ib);
         }
       }
     }
@@ -302,56 +334,59 @@ compact_closest_hit_kernel(const float4* __restrict__ packed, int num_tris, int 
     buf ^= 1;
   }
   cp_async_wait<0>();
-  if (ray < n) {
-    prim_out[ray] = best < kFltMax ? best_id : -1;
+  if (ray >= n) return;
+  if constexpr (kAnyHit) {
+    out[ray] = live && !open;
+  } else {
+    out[ray] = best < kFltMax ? best_id : -1;
     dist_out[ray] = best;
   }
+}
+
+// Replaces _plucker_compact_kernel (radish_pt_tpu/accel/pallas_kernels.py),
+// the closest hit of every primary and extension ray above 131,072
+// triangles.
+// Bound on the card: instruction throughput, ~40 instructions per (ray,
+// triangle) pair around the planes' 26 f32 operations — over the pairs the
+// data needs, which are far fewer than the row group's: 256 bounce rays
+// point everywhere, so a row group flags half of the scene's units while
+// one ray passes a few.  The walk (compact_sweep) culls per lane and
+// sweeps one wanting ray at a time where few lanes of a warp want a unit
+// (bounce rays: three of a warp's 32 on average).
+__global__ void __launch_bounds__(kBlockLanes)
+compact_closest_hit_kernel(const float4* __restrict__ packed, int num_tris, int unit_tris,
+                           const float4* __restrict__ spheres,
+                           const float* __restrict__ feats, const float* __restrict__ tmax,
+                           int n, const int* __restrict__ items,
+                           const float* __restrict__ item_tn,
+                           const int* __restrict__ offsets, int* __restrict__ prim_out,
+                           float* __restrict__ dist_out) {
+  compact_sweep<false, kBlockLanes, kLockstep>(packed, num_tris, unit_tris, spheres, feats,
+                                               tmax, n, items, item_tn, offsets, prim_out,
+                                               dist_out);
 }
 
 // Replaces _plucker_compact_occl_kernel (radish_pt_tpu/accel/
 // pallas_kernels.py), the any-hit test of every NEE shadow segment above
 // 131,072 triangles.
-// Bound on the card: FMA issue, as the closest hit, minus the division.  A
-// thread stops testing once its segment is blocked; the block leaves its
-// slice (one __syncthreads_and per staged tile) once every lane is settled:
-// blocked, or with a negative range, which no triangle can block.
-__global__ void __launch_bounds__(kGroup)
-compact_occlusion_kernel(const float* __restrict__ coeffs, int num_tris, int unit_tris,
-                         const float* __restrict__ feats, const float* __restrict__ tm_in,
+// Bound on the card: as the closest hit, minus the division, over each
+// lane's own units within its range.  Most segments are never blocked (on
+// teapot 38,236 of 617,239 live ones), so the early exit alone settles
+// little: the walk (compact_sweep) wants a unit for a lane only if its
+// own segment can reach the unit's sphere, finishes a lane once its range
+// is below the items' tn, and sweeps one wanting segment at a time where
+// few lanes of a warp want a unit.  A segment of negative range (a masked
+// lane) is settled from the start and never blocked.
+__global__ void __launch_bounds__(kOcclLanes)
+compact_occlusion_kernel(const float4* __restrict__ packed, int num_tris, int unit_tris,
+                         const float4* __restrict__ spheres,
+                         const float* __restrict__ feats, const float* __restrict__ tm,
                          int n, const int* __restrict__ items,
+                         const float* __restrict__ item_tn,
                          const int* __restrict__ offsets, int* __restrict__ occ_out) {
-  __shared__ float s[kTile * kStride];
-  const int ray = blockIdx.x * kGroup + threadIdx.x;
-  const bool live = ray < n;
-  float f[10];
-  load_feats(f, feats, ray, live);
-  const float tm = live ? tm_in[ray] : -1.f;
-  int occ = 0;
-  bool settled = !(tm >= 0.f);
-  bool done = false;
-  const int end = offsets[blockIdx.x + 1];
-  for (int w = offsets[blockIdx.x]; w < end && !done; ++w) {
-    const int lo = items[w] * unit_tris;
-    const int hi = min(lo + unit_tris, num_tris);
-    for (int base = lo; base < hi; base += kTile) {
-      // also orders the previous tile's reads before the restage
-      done = __syncthreads_and(settled);
-      if (done) break;
-      const int cnt = min(kTile, hi - base);
-      stage_tile(s, coeffs, base, cnt);
-      __syncthreads();
-      if (settled) continue;
-      for (int j = 0; j < cnt; ++j) {
-        const Planes p = planes(s + j * kStride, f);
-        if (fminf(fminf(p.v, p.tdd), tm * p.sd - p.tdd) >= 0.f) {
-          occ = 1;
-          settled = true;
-          break;
-        }
-      }
-    }
-  }
-  if (live) occ_out[ray] = occ;
+  compact_sweep<true, kOcclLanes, kOcclLockstep>(packed, num_tris, unit_tris, spheres, feats,
+                                                 tm, n, items, item_tn, offsets, occ_out,
+                                                 nullptr);
 }
 
 }  // namespace
@@ -378,11 +413,15 @@ int compact_closest_hit(const float* packed, int num_tris, int unit_tris,
   return (int)cudaGetLastError();
 }
 
-int compact_occlusion(const float* coeffs, int num_tris, int unit_tris,
-                      const float* feats, const float* tm, int n, const int* items,
-                      const int* offsets, int rows, int* occ_out, void* stream) {
-  compact_occlusion_kernel<<<rows, kGroup, 0, (cudaStream_t)stream>>>(
-      coeffs, num_tris, unit_tris, feats, tm, n, items, offsets, occ_out);
+int compact_occlusion(const float* packed, int num_tris, int unit_tris,
+                      const float* spheres, const float* feats, const float* tm, int n,
+                      const int* items, const float* item_tn, const int* offsets, int rows,
+                      int* occ_out, void* stream) {
+  compact_occlusion_kernel
+      <<<rows * (kGroup / kOcclLanes), kOcclLanes, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(packed), num_tris, unit_tris,
+      reinterpret_cast<const float4*>(spheres), feats, tm, n, items, item_tn, offsets,
+      occ_out);
   return (int)cudaGetLastError();
 }
 

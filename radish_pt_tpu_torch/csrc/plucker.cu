@@ -15,7 +15,8 @@
 //     one of two buffers: the next tile lands while this one is swept, one
 //     block barrier a tile.
 //  3. A warp sweeps a staged tile only if its own bit is set (a
-//     warp-uniform branch), triangles across its threads: each thread
+//     warp-uniform branch), triangles across its threads (ray_sweep.cuh,
+//     shared with the band closest hit): each thread
 //     takes kTris triangles of the tile into registers (five LDS.128 each,
 //     80 bytes apart across the warp: no bank conflict), then the warp's
 //     rays go by one at a time, a ray's record (its ten features and its
@@ -43,6 +44,7 @@
 #include <stdint.h>
 
 #include "plucker_planes.cuh"
+#include "ray_sweep.cuh"
 #include "slab_cull.cuh"
 
 namespace {
@@ -66,7 +68,6 @@ constexpr int kSweepTile = PLUCKER_TILE;
 constexpr int kTris = PLUCKER_TRIS;
 constexpr int kPass = 32 * kTris;  // triangles a warp holds at a time
 constexpr int kMaxWords = 32;      // 1,024 clusters (accel/plucker.py::MAX_CLUSTERS)
-constexpr int kRecVec = 3;         // float4 per ray record
 // A ray passes over a cluster whose box, grown by kSkipSlack times the
 // scene's scale, it enters beyond its reach widened by kSkipMargin
 // (accel/plucker.py: SKIP_SLACK, SKIP_MARGIN).
@@ -101,60 +102,20 @@ __device__ __forceinline__ unsigned rays_in_reach(unsigned rays, const float* __
   return rays & __ballot_sync(kFullWarp, slab_reach(r, bounds + (size_t)c * 6, slack, reach));
 }
 
-// Step 2's order: the tiles of the clusters some warp of the block flags,
-// clusters in id order, block-uniform.
-struct TileWalk {
+// Step 2's walk: the block's union word w is the OR of its warps' words.
+struct WarpWords {
   unsigned (*words)[kMaxWords];
-  int n_words, sub, num_tris;
-  int w = -1, c = -1, base = 0, hi = 0;
-  unsigned bits = 0;
-
-  __device__ __forceinline__ bool next() {
-    if (base + kSweepTile < hi) {
-      base += kSweepTile;
-      return true;
-    }
-    while (bits == 0) {
-      if (++w >= n_words) return false;
+  __device__ __forceinline__ unsigned operator()(int w) const {
+    unsigned bits = 0;
 #pragma unroll
-      for (int k = 0; k < kWarps; ++k) bits |= words[k][w];
-    }
-    c = (w << 5) + __ffs(bits) - 1;
-    bits &= bits - 1;
-    base = c * sub;
-    hi = min(base + sub, num_tris);
-    return true;
+    for (int k = 0; k < kWarps; ++k) bits |= words[k][w];
+    return bits;
   }
-  __device__ __forceinline__ int count() const { return min(kSweepTile, hi - base); }
-  // whether the calling warp flags the current cluster
-  __device__ __forceinline__ bool mine() const {
+  // whether the calling warp flags cluster c
+  __device__ __forceinline__ bool mine(int c) const {
     return (words[threadIdx.x >> 5][c >> 5] >> (c & 31)) & 1u;
   }
 };
-
-// The calling thread's ray record: features f[0:10], then two words of the
-// ray's running result.
-__device__ __forceinline__ void write_record(float4* rec, const float* f, float r0, float r1) {
-  rec[0] = make_float4(f[0], f[1], f[2], f[3]);
-  rec[1] = make_float4(f[4], f[5], f[6], f[7]);
-  rec[2] = make_float4(f[8], f[9], r0, r1);
-}
-
-// The calling thread's kTris triangles of a pass that starts at triangle
-// ``p0`` of a staged tile of ``cnt``: triangle p0 + 32k + lane; past the
-// end, a zero triangle (det = 0: it never passes).
-__device__ __forceinline__ void load_pass(Packed* tri, const float4* tile, int p0, int cnt) {
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int k = 0; k < kTris; ++k) {
-    const int j = p0 + 32 * k + (threadIdx.x & 31);
-    if (j < cnt) {
-      tri[k] = load_packed(tile + j * kPackVec);
-    } else {
-      tri[k] = Packed{zero, zero, zero, zero, zero};
-    }
-  }
-}
 
 // Replaces _plucker_kernel (radish_pt_tpu/accel/pallas_kernels.py) and the
 // slab-test prepass in front of it (_cluster_mask_bits), the closest hit of
@@ -194,17 +155,18 @@ closest_hit_kernel(const float4* __restrict__ packed, int num_tris, int sub,
   const float slack = vote_words(words[warp], bounds, n_clusters, sr, live != 0);
   __syncthreads();
 
-  TileWalk walk{words, (n_clusters + 31) >> 5, sub, num_tris};
-  bool more = walk.next();
+  const WarpWords union_of{words};
+  TileWalk<kSweepTile> walk{(n_clusters + 31) >> 5, sub, num_tris};
+  bool more = walk.next(union_of);
   if (more) stage_packed(s[0], packed, walk.base, walk.count(), threadIdx.x, kBlockLanes);
   cp_async_commit();
   for (int buf = 0; more; buf ^= 1) {
     const int base = walk.base, cnt = walk.count(), c = walk.c;
-    const bool sweep = walk.mine();
+    const bool sweep = union_of.mine(c);
     cp_async_wait<0>();  // this thread's part of the tile has landed
     // everyone's part has, and the other buffer's sweep is over
     __syncthreads();
-    more = walk.next();
+    more = walk.next(union_of);
     if (more) {
       stage_packed(s[buf ^ 1], packed, walk.base, walk.count(), threadIdx.x, kBlockLanes);
     }
@@ -214,54 +176,7 @@ closest_hit_kernel(const float4* __restrict__ packed, int num_tris, int sub,
     const unsigned rays = rays_in_reach(live, bounds, c, sr, slack,
                                         rec[lane * kRecVec + 2].z * kSkipMargin);
     if (rays == 0) continue;
-    for (int p0 = 0; p0 < cnt; p0 += kPass) {
-      Packed tri[kTris];
-      load_pass(tri, s[buf], p0, cnt);
-      const int id0 = base + p0 + lane;
-      for (unsigned m = rays; m; m &= m - 1) {
-        const int r = __ffs(m) - 1;
-        const float4 ra = rec[r * kRecVec], rb = rec[r * kRecVec + 1],
-                     rc = rec[r * kRecVec + 2];
-        const float f[10] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w, rc.x, rc.y};
-        // the common case is that no triangle of the pass passes: one
-        // vote, and no branch inside the planes
-        Planes p[kTris];
-        bool any = false;
-#pragma unroll
-        for (int k = 0; k < kTris; ++k) {
-          p[k] = planes(tri[k], f);
-          any |= fminf(p[k].v, p[k].tdd) >= 0.f;
-        }
-        if (!__any_sync(kFullWarp, any)) continue;
-        float tb = rc.z;  // the ray's best so far: only a nearer t counts
-        int ib = -1;
-#pragma unroll
-        for (int k = 0; k < kTris; ++k) {
-          if (fminf(p[k].v, p[k].tdd) >= 0.f) {
-            const float t = __fdiv_rn(p[k].tdd, p[k].sd);
-            if (t < tb) {  // ids rise with k and through the walk: ties keep the lower
-              tb = t;
-              ib = id0 + 32 * k;
-            }
-          }
-        }
-        if (__any_sync(kFullWarp, ib >= 0)) {
-          // the warp's nearest, ties to the lower id (-1, no candidate, is
-          // the largest id unsigned, and its t is the old best: it never wins)
-#pragma unroll
-          for (int o = 16; o > 0; o >>= 1) {
-            const float to = __shfl_xor_sync(kFullWarp, tb, o);
-            const int io = __shfl_xor_sync(kFullWarp, ib, o);
-            if (to < tb || (to == tb && (unsigned)io < (unsigned)ib)) {
-              tb = to;
-              ib = io;
-            }
-          }
-          if (lane == 0) rec[r * kRecVec + 2] = make_float4(rc.x, rc.y, tb, __int_as_float(ib));
-          __syncwarp();
-        }
-      }
-    }
+    sweep_closest_tile<kTris>(rec, s[buf], cnt, base, rays);
   }
   cp_async_wait<0>();
   __syncwarp();
@@ -308,17 +223,18 @@ occlusion_kernel(const float4* __restrict__ packed, int num_tris, int sub,
   const float slack = vote_words(words[warp], bounds, n_clusters, sr, open != 0);
   __syncthreads();
 
-  TileWalk walk{words, (n_clusters + 31) >> 5, sub, num_tris};
-  bool more = walk.next();
+  const WarpWords union_of{words};
+  TileWalk<kSweepTile> walk{(n_clusters + 31) >> 5, sub, num_tris};
+  bool more = walk.next(union_of);
   if (more) stage_packed(s[0], packed, walk.base, walk.count(), threadIdx.x, kBlockLanes);
   cp_async_commit();
   for (int buf = 0; more; buf ^= 1) {
     const int cnt = walk.count(), c = walk.c;
-    const bool sweep = walk.mine();
+    const bool sweep = union_of.mine(c);
     cp_async_wait<0>();
     // the tile's barrier, and whether every warp of the block is done
     if (__syncthreads_and(open == 0)) break;
-    more = walk.next();
+    more = walk.next(union_of);
     if (more) {
       stage_packed(s[buf ^ 1], packed, walk.base, walk.count(), threadIdx.x, kBlockLanes);
     }
@@ -328,7 +244,7 @@ occlusion_kernel(const float4* __restrict__ packed, int num_tris, int sub,
     unsigned rays = rays_in_reach(open, bounds, c, sr, slack, sr.tm * kSkipMargin);
     for (int p0 = 0; p0 < cnt && rays != 0; p0 += kPass) {
       Packed tri[kTris];
-      load_pass(tri, s[buf], p0, cnt);
+      load_pass<kTris>(tri, s[buf], p0, cnt);
       for (unsigned m = rays; m; m &= m - 1) {
         const int r = __ffs(m) - 1;
         const float4 ra = rec[r * kRecVec], rb = rec[r * kRecVec + 1],

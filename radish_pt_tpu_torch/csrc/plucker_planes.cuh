@@ -1,7 +1,7 @@
 // Plücker decision planes shared by the sweep kernels (plucker.cu,
-// compact.cu, band.cu).  plucker.cu and the compact closest hit read the
-// packed table (stage_packed, planes(Packed)); band.cu and the compact
-// shadow sweep still stage from c[T][4][10] (stage_tile, planes(float*)).
+// compact.cu, band.cu).  plucker.cu, compact.cu and the band closest hit
+// read the packed table (stage_packed, planes(Packed)); the band shadow
+// sweep still stages from c[T][4][10] (stage_tile, planes(float*)).
 //
 // Möller–Trumbore's four decision quantities are planes bilinear in
 // per-ray features f = [d, o x d, o, 1] (o centred on the scene) with

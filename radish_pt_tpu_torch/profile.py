@@ -11,9 +11,13 @@ direct-light tracer and for ReSTIR DI (T+S reuse, 32 candidates).
 
 Prints the card, the frame's wall time (CUDA events, profiler off), the
 device-busy time the profiler saw during a profiled frame, the share of it
-spent in each stage, and the top kernels; then, timed alone with CUDA
+spent in each stage, each sweep kernel's time per call in launch order (for
+``--tracer pt`` a frame's closest hits are the primaries' and bounces
+1-depth's, its shadow sweeps bounces 1-depth's), and the top kernels;
+then, timed alone with CUDA
 events on the frame's primaries, the culling stages the profiler cannot
-name (the quad engine's mask prepass; the band engine's band-mask prepass;
+name (the quad engine's mask prepass; the band engine's band-mask prepass,
+which its shadow sweeps read;
 the compact engine's sphere operands, sphere kernel and work list; none
 for the Plücker engine, whose kernels cull for themselves).  Needs a CUDA
 device.
@@ -40,6 +44,20 @@ STAGES = (
     ("closest_hit_kernel", "closest-hit kernel"),
     ("occlusion_kernel", "shadow kernel"),
 )
+
+
+def sweep_calls(prof) -> dict:
+    """stage -> device ms of each launch of its kernel under ``prof``, in
+    launch order, for the sweep kernels (the stages of :data:`STAGES`)."""
+    import torch
+
+    calls: dict = {}
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        stage = next((s for frag, s in STAGES if frag in e.name), None)
+        if stage is not None:
+            calls.setdefault(stage, []).append(e.time_range.elapsed_us() / 1e3)
+    return calls
 
 
 def culling_stages(ds, cam, start, end, reps: int = 10):
@@ -69,7 +87,7 @@ def culling_stages(ds, cam, start, end, reps: int = 10):
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    if ds.intersector in BAND_ENGINES:
+    if ds.intersector in BAND_ENGINES:  # the shadow sweeps' prepass
         return [("band-mask prepass", timed(
             lambda: bnd.band_mask_words(ds.cluster_bounds, o, d, None, ds.band_g)))]
     if ds.intersector not in COMPACT_ENGINES:  # the quad engine
@@ -109,6 +127,7 @@ def main(argv=None) -> int:
     from .render import pathtrace as pt
     from .render.renderer import Renderer
     from .scene.build import load_scene
+    from .scene.device_scene import BAND_ENGINES
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -165,9 +184,18 @@ def main(argv=None) -> int:
     for stage, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"  {stage:20s} {ms / args.frames:9.3f} ms/frame  "
               f"{100 * ms / args.frames / max(busy, 1e-9):5.1f}% of busy")
+    for stage, ms in sweep_calls(prof).items():
+        per = len(ms) // args.frames
+        print(f"  {stage} ms per call, {per} a frame, frame by frame: " + "; ".join(
+            ", ".join(f"{x:.3f}" for x in ms[k * per:(k + 1) * per])
+            for k in range(args.frames)))
     # closest hits and shadow sweeps a frame (ReSTIR: the G-buffer's, the
-    # primaries' and the winners' shadow test)
+    # primaries' and the winners' shadow test); on the band engine the
+    # closest hits vote their words themselves: the prepass runs before
+    # the shadow sweeps alone
     sweeps = {"pt": 2 * args.depth + 1, "direct": 2, "restir": 3}[args.tracer]
+    if ds.intersector in BAND_ENGINES:
+        sweeps = {"pt": args.depth, "direct": 1, "restir": 1}[args.tracer]
     for stage, ms in culling_stages(ds, cam, start, end):
         # each runs before every one of the frame's sweeps; all but the
         # sphere kernel fall under "other" above

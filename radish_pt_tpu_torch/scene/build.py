@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..accel.band import word_bounds
 from ..accel.bvh import build_bvh
 from ..accel.compact import unit_spheres
 from ..accel.plucker import numpy_coeffs, numpy_packed_coeffs
@@ -282,6 +283,7 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
         sweep_center=f32(center),
         sweep_packed=f32(numpy_packed_coeffs(coeffs)),
         unit_spheres=None if bounds is None else unit_spheres(bounds, f32(center)),
+        word_bounds=None if bounds is None else word_bounds(bounds),
         quad_coeffs=None if quad is None else f32(quad),
         quad_packed=None if quad is None else f32(numpy_quad_packed(quad)),
         mat_type=i32([m.mtype for m in mats]),

@@ -112,11 +112,15 @@ class DeviceScene:
     sweep_center: torch.Tensor = None  # f32 [3]
     # the planes' 19 live coefficients, 80 aligned bytes a triangle
     # (accel/plucker.py::numpy_packed_coeffs): the operand of the Plücker
-    # kernels and of the compact closest hit
+    # kernels, the compact sweeps and the band closest hit
     sweep_packed: torch.Tensor = None  # f32 [T, 20]
     # bounding spheres of the compact engine's units, centred on
     # sweep_center (accel/compact.py::unit_spheres; None without clusters)
     unit_spheres: torch.Tensor = None  # f32 [U, 4]
+    # per word of 32 clusters, the box of their boxes
+    # (accel/band.py::word_bounds): the first level of the band closest
+    # hit's vote (None without clusters)
+    word_bounds: torch.Tensor = None  # f32 [W, 6]
     # quad engine: forms q1..q6 over the 27 ray monomials of
     # accel/quad.py::quad_features, and the closest hit's 63 live
     # coefficients packed (None on the other engines)
@@ -243,6 +247,7 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
         sweep_packed=torch.from_numpy(plk.numpy_packed_coeffs(coeffs)).to(device),
         unit_spheres=(None if bounds is None
                       else cpt.unit_spheres(bounds, center_t)),
+        word_bounds=None if bounds is None else bnd.word_bounds(bounds),
         quad_coeffs=quad,
         quad_packed=quad_packed,
         mat_type=t("mat_type", np.int32),
@@ -419,7 +424,8 @@ def intersect(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
         elif ds.intersector in BAND_ENGINES:
             prim, _ = bnd.intersect_band(
                 ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, ds.band_g,
-                ray_o, ray_d, tmax=tmax, plain=ds.intersector == "band_plain")
+                ray_o, ray_d, tmax=tmax, plain=ds.intersector == "band_plain",
+                packed=ds.sweep_packed, words_box=ds.word_bounds)
         else:
             prim, _ = plk.intersect_plucker(
                 ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds,
@@ -446,7 +452,8 @@ def test_occlusion(ds: DeviceScene, x, y):
     if ds.intersector in COMPACT_ENGINES:
         return cpt.occlusion_compact(
             ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, x, y,
-            plain=ds.intersector == "compact_plain")
+            plain=ds.intersector == "compact_plain", packed=ds.sweep_packed,
+            spheres=ds.unit_spheres)
     if ds.intersector in QUAD_ENGINES:
         return qd.occlusion_quad(
             ds.quad_coeffs, ds.sweep_center, ds.cluster_bounds, ds.cluster_sub,

@@ -1,25 +1,29 @@
 """Time the sweep kernels' compile-time shapes on one GPU.
 
-The Plücker kernels, the compact and the quad closest-hit kernels have
-compile-time shapes: lanes a block, triangles a staged tile and triangles a
-thread holds at a time (``PLUCKER_BLOCK_LANES``, ``PLUCKER_TILE``,
-``PLUCKER_TRIS`` in csrc/plucker.cu); the lanes a
-block walks and the count of wanting lanes from which a warp sweeps
-in lockstep (``COMPACT_BLOCK_LANES``, ``COMPACT_LOCKSTEP`` in
-csrc/compact.cu), rays a thread and resident blocks asked of the compiler
-(``QUAD_RAYS``, ``QUAD_MIN_BLOCKS`` in csrc/quad.cu).  This tool builds
-each variant as its own library (``-DCOMPACT_LOCKSTEP=n ...``), holds it
-against the plain version on the main path's wavefronts (800x800 primaries
-and the bounce-1 extension rays, for Plücker also the bounce-1 shadow
-segments; teapot and teapot_hires for Plücker, teapot_hires for compact,
+The Plücker kernels, the compact sweeps, the quad and the band closest-hit
+kernels have compile-time shapes: lanes a block, triangles a staged tile
+and triangles a thread holds at a time (``PLUCKER_BLOCK_LANES``,
+``PLUCKER_TILE``, ``PLUCKER_TRIS`` in csrc/plucker.cu); the lanes a block
+walks and the count of wanting lanes from which a warp sweeps in lockstep,
+for the closest hit and for the shadow sweep (``COMPACT_BLOCK_LANES``,
+``COMPACT_LOCKSTEP``, ``COMPACT_OCCL_BLOCK_LANES``,
+``COMPACT_OCCL_LOCKSTEP`` in csrc/compact.cu); rays a thread and resident
+blocks asked of the compiler (``QUAD_RAYS``, ``QUAD_MIN_BLOCKS`` in
+csrc/quad.cu); lanes a block, triangles a thread and a one- or two-level
+vote (``BAND_BLOCK_LANES``, ``BAND_TRIS``, ``BAND_TWO_LEVEL`` in
+csrc/band.cu).  This tool builds each variant as its own library
+(``-DCOMPACT_LOCKSTEP=n ...``), holds it against the plain version on the
+main path's wavefronts (800x800 primaries and the bounce-1 extension rays;
+for Plücker and the compact shadow sweep the bounce-1 shadow segments;
+teapot and teapot_hires for Plücker, teapot_hires for compact and band,
 teapot for quad, built as ``chip_smoke.py`` builds them) and times it with
-CUDA events, the variants in turns.  It
-prints registers and spills per variant, the times, and the card's name and
-power limit.  The default in the source is the variant that won.
+CUDA events, the variants in turns.  It prints registers and spills per
+variant, the times, and the card's name and power limit.  The default in
+the source is the variant that won.
 
 Run from the repository root:
-    python -m radish_pt_tpu_torch.tune [plucker] [compact] [quad]
-(no argument: all three).
+    python -m radish_pt_tpu_torch.tune [plucker] [compact] [quad] [band]
+(no argument: all four).
 """
 
 from __future__ import annotations
@@ -44,6 +48,19 @@ COMPACT_VARIANTS = (("-DCOMPACT_BLOCK_LANES=64", "-DCOMPACT_LOCKSTEP=1"),
                     ("-DCOMPACT_BLOCK_LANES=128", "-DCOMPACT_LOCKSTEP=12"),
                     ("-DCOMPACT_BLOCK_LANES=256", "-DCOMPACT_LOCKSTEP=12"),
                     ("-DCOMPACT_BLOCK_LANES=256", "-DCOMPACT_LOCKSTEP=1"))
+COMPACT_OCCL_VARIANTS = (
+    ("-DCOMPACT_OCCL_BLOCK_LANES=64", "-DCOMPACT_OCCL_LOCKSTEP=12"),
+    ("-DCOMPACT_OCCL_BLOCK_LANES=64", "-DCOMPACT_OCCL_LOCKSTEP=1"),
+    ("-DCOMPACT_OCCL_BLOCK_LANES=64", "-DCOMPACT_OCCL_LOCKSTEP=6"),
+    ("-DCOMPACT_OCCL_BLOCK_LANES=64", "-DCOMPACT_OCCL_LOCKSTEP=20"),
+    ("-DCOMPACT_OCCL_BLOCK_LANES=64", "-DCOMPACT_OCCL_LOCKSTEP=33"),
+    ("-DCOMPACT_OCCL_BLOCK_LANES=32", "-DCOMPACT_OCCL_LOCKSTEP=12"),
+    ("-DCOMPACT_OCCL_BLOCK_LANES=128", "-DCOMPACT_OCCL_LOCKSTEP=12"),
+    ("-DCOMPACT_OCCL_BLOCK_LANES=256", "-DCOMPACT_OCCL_LOCKSTEP=12"))
+BAND_VARIANTS = (("-DBAND_BLOCK_LANES=64", "-DBAND_TRIS=2", "-DBAND_TWO_LEVEL=1"),
+                 ("-DBAND_BLOCK_LANES=64", "-DBAND_TRIS=2", "-DBAND_TWO_LEVEL=0"),
+                 ("-DBAND_BLOCK_LANES=128", "-DBAND_TRIS=2", "-DBAND_TWO_LEVEL=1"),
+                 ("-DBAND_BLOCK_LANES=64", "-DBAND_TRIS=1", "-DBAND_TWO_LEVEL=1"))
 QUAD_VARIANTS = (("-DQUAD_RAYS=1", "-DQUAD_MIN_BLOCKS=1"),
                  ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=1"),
                  ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=8"),
@@ -54,9 +71,10 @@ QUAD_VARIANTS = (("-DQUAD_RAYS=1", "-DQUAD_MIN_BLOCKS=1"),
 def main(argv=None) -> int:
     import torch
 
-    engines = (sys.argv[1:] if argv is None else argv) or ["plucker", "compact", "quad"]
-    if set(engines) - {"plucker", "compact", "quad"}:
-        print("tune: engines are plucker, compact, quad", file=sys.stderr)
+    engines = (sys.argv[1:] if argv is None else argv) or ["plucker", "compact", "quad",
+                                                             "band"]
+    if set(engines) - {"plucker", "compact", "quad", "band"}:
+        print("tune: engines are plucker, compact, quad, band", file=sys.stderr)
         return 2
 
     if not torch.cuda.is_available():
@@ -66,6 +84,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs  # the wavefronts, the timer and the parity check
 
     from .accel import _build
+    from .accel import band as bnd
     from .accel import compact as cpt
     from .accel import plucker as plk
     from .accel import quad as qd
@@ -104,6 +123,14 @@ def main(argv=None) -> int:
                                 device=dev, intersector=engine)
         return ds, cam.replace(width=cs.RES, height=cs.RES)
 
+    def race(lib, libs, what, kernel):
+        """The variants of ``lib`` timed on ``kernel`` in turns, twice."""
+        for turn in range(2):
+            for r, variant in libs.items():
+                ms = run(lib, variant, lambda: cs.cuda_ms(kernel, 5))
+                print(f"[timing] {lib}, {what}, {r}, turn {turn}: {ms:.3f} ms ({card})",
+                      flush=True)
+
     # ---- plucker, teapot and teapot_hires ----
     libs = variants("plucker", PLUCKER_VARIANTS, "_kernel") if "plucker" in engines else {}
     for name in ("teapot", "teapot_hires") if libs else ():
@@ -139,11 +166,7 @@ def main(argv=None) -> int:
                 else:
                     cs.check_closest(*got, pp, dp, live,
                                      f"plucker closest hit, {r}, {name} {what}", print)
-            for turn in range(2):  # the variants in turns, twice
-                for r, lib in libs.items():
-                    ms = run("plucker", lib, lambda: cs.cuda_ms(kernel, 5))
-                    print(f"[timing] plucker, {name} {what}, {r}, turn {turn}: "
-                          f"{ms:.3f} ms ({card})", flush=True)
+            race("plucker", libs, f"{name} {what}", kernel)
 
     # ---- compact, teapot_hires ----
     if "compact" in engines:
@@ -169,11 +192,26 @@ def main(argv=None) -> int:
                 cs.check_closest(pk, dk, pp, dp, live,
                                  f"compact closest hit, {r}, {what}", print)
                 assert bool((pk[~live] == -1).all())
-            for turn in range(2):  # the variants in turns, twice
-                for r, lib in libs.items():
-                    ms = run("compact", lib, lambda: cs.cuda_ms(kernel, 5))
-                    print(f"[timing] compact closest hit, teapot_hires {what}, {r}, "
-                          f"turn {turn}: {ms:.3f} ms ({card})", flush=True)
+            race("compact", libs, f"closest hit, teapot_hires {what}", kernel)
+        # the shadow sweep on the bounce-1 segments
+        libs = variants("compact", COMPACT_OCCL_VARIANTS, "occlusion")
+        x, y, live = waves["segments"]
+        o, d, tm = (t.contiguous() for t in plk.segment_rays(x, y))
+        flags, tn, g = cpt.prepass(ds.sweep_center, ds.cluster_bounds, o, d, tm)
+        feats = plk.plucker_features(o, d, ds.sweep_center)
+        items, item_tn, offsets = cpt.work_list(flags, tn)
+        want = cpt.occlusion_plain(ds.sweep_coeffs, feats, tm, flags, g)
+
+        def shadow():
+            return cpt.occlusion_cuda(ds.sweep_packed, ds.unit_spheres, feats, tm, items,
+                                      item_tn, offsets, g)
+
+        for r, lib in libs.items():
+            got = run("compact", lib, shadow)
+            torch.cuda.synchronize()
+            cs.check_occlusion(got, want, live, f"compact, {r}", print)
+            assert torch.equal(got, want)
+        race("compact", libs, "shadow, teapot_hires segments", shadow)
 
     # ---- quad, teapot ----
     if "quad" in engines:
@@ -195,11 +233,32 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
                 cs.check_closest(pk, dk, pp, dp, tmax >= 0,
                                  f"quad closest hit, {r}, {what}", print)
-            for turn in range(2):
-                for r, lib in libs.items():
-                    ms = run("quad", lib, lambda: cs.cuda_ms(kernel, 5))
-                    print(f"[timing] quad closest hit, teapot {what}, {r}, "
-                          f"turn {turn}: {ms:.3f} ms ({card})", flush=True)
+            race("quad", libs, f"closest hit, teapot {what}", kernel)
+
+    # ---- band, teapot_hires (8 bands a row) ----
+    if "band" in engines:
+        libs = variants("band", BAND_VARIANTS)
+        ds, cam = scene("teapot_hires", "band")
+        waves = run("band", next(iter(libs.values())), lambda: cs.bounce_one(ds, cam))
+        cb, wb, g = ds.cluster_bounds, ds.word_bounds, ds.band_g
+        for what in ("primary", "extension"):
+            o, d, tmax = (t.contiguous() for t in waves[what])
+            live = tmax >= 0
+            if what == "primary":
+                tmax = None
+            feats = plk.plucker_features(o, d, ds.sweep_center)
+            mask = bnd.band_mask_words(cb, o, d, tmax, g)
+            pp, dp = bnd.closest_hit_plain(ds.sweep_coeffs, feats, mask, g,
+                                           dead=plk.dead_lanes(tmax))
+
+            def kernel():
+                return bnd.closest_hit_cuda(ds.sweep_packed, feats, cb, wb, o, d, tmax, g)
+
+            for r, lib in libs.items():
+                pk, dk = run("band", lib, kernel)
+                torch.cuda.synchronize()
+                assert torch.equal(pk[live], pp[live]) and torch.equal(dk[live], dp[live]), r
+            race("band", libs, f"closest hit, teapot_hires {what}", kernel)
     print(card, flush=True)
     return 0
 

@@ -128,14 +128,15 @@ def ref_closest(soup):
 
 @pytest.mark.parametrize("g", GS)
 def test_closest_hit_matches_reference_soup(soup, ref_closest, g):
-    """Prim ids equal to the reference's on every lane whose reference
-    winner lies in a cluster its band flags (or that misses): all live
-    unbounded lanes, and equal to the brute-force oracle's there.  The
-    reference's band walk also sweeps its pass's cluster 0 for a band that
-    ran out of clusters (:2663-2666), which can hand a dead or bounded lane
-    a hit its band never flagged; the port sweeps only the band's flags.
-    dist within rtol 1e-4 (exact f32 minimum against the reference's
-    64-ulp packed key)."""
+    """Prim ids equal to the reference's on every live lane whose
+    reference winner lies in a cluster its band flags (or that misses):
+    all live unbounded lanes, and equal to the brute-force oracle's there.
+    The reference's band walk also sweeps its pass's cluster 0 for a band
+    that ran out of clusters (:2663-2666), which can hand a dead or bounded
+    lane a hit its band never flagged; the port sweeps only the band's
+    flags, and a dead lane misses (the reference gives it what its band's
+    clusters give).  dist within rtol 1e-4 (exact f32 minimum against the
+    reference's 64-ulp packed key)."""
     from radish_pt_tpu_torch.accel import band as bnd
     from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.accel import traverse as trv
@@ -150,10 +151,12 @@ def test_closest_hit_matches_reference_soup(soup, ref_closest, g):
     p0, d0 = ref_closest[g]
     flags = t2n(plk.unpack_mask(bnd.band_mask_words(cb, o, d, tmax, g), 5))
     band = np.arange(256) // (128 // g)
-    own = (p0 < 0) | flags[band, np.maximum(p0, 0) // 64]
+    alive = s["tmax"] >= 0
+    own = ((p0 < 0) | flags[band, np.maximum(p0, 0) // 64]) & alive
     live = s["tmax"] == FLT_MAX
-    assert own[live].all() and own.mean() > 0.9
+    assert own[live].all() and own[alive].mean() > 0.9
     np.testing.assert_array_equal(prim[own], p0[own])
+    assert np.all(prim[~alive] == -1) and np.all(dist[~alive] == FLT_MAX)
     pb, _, _ = trv.intersect_brute(*_t(s["tp"], s["o"], s["d"]))
     np.testing.assert_array_equal(prim[live], t2n(pb)[live])
     hits = own & (p0 >= 0)
@@ -226,7 +229,8 @@ def teapot_band():
 
 def test_teapot_matches_reference(teapot_band):
     """Teapot's 77 clusters of 64 at the default g = 8: winners as in the
-    soup test (every lane whose reference winner its band flagged), and
+    soup test (every live lane whose reference winner its band flagged;
+    dead lanes miss), and
     the scene carried across from the reference and the port's own build
     give the same winners; shadow bits equal, dead lanes' zero-length
     segments never blocked.  dist within rtol 1e-4, and within 1e-5
@@ -250,9 +254,11 @@ def test_teapot_matches_reference(teapot_band):
     n_c = ds.cluster_bounds.shape[0]
     flags = t2n(plk.unpack_mask(bnd.band_mask_words(ds.cluster_bounds, ot, dt, tt, 8),
                                 n_c))
-    own_lane = (p0 < 0) | flags[np.arange(256) // 16, np.maximum(p0, 0) // 64]
-    assert own_lane[tmax == FLT_MAX].all() and own_lane.mean() > 0.9
+    alive = tmax >= 0
+    own_lane = ((p0 < 0) | flags[np.arange(256) // 16, np.maximum(p0, 0) // 64]) & alive
+    assert own_lane[tmax == FLT_MAX].all() and own_lane[alive].mean() > 0.9
     np.testing.assert_array_equal(prim[own_lane], p0[own_lane])
+    assert np.all(prim[~alive] == -1)  # dead lanes miss
     hits = own_lane & (p0 >= 0)
     assert hits[tmax > 0].mean() > 0.3
     np.testing.assert_allclose(dist[hits], d0[hits], rtol=1e-4, atol=1e-5)
@@ -340,12 +346,13 @@ def test_cpu_tensors_take_the_plain_versions(soup):
     mask = bnd.band_mask_words(cb, o, d, None, 8)
     tm = torch.full((256,), 5.0)
     bnd.reset_counts()
-    bnd.closest_hit(coeffs, feats, mask, 8)
+    bnd.closest_hit(coeffs, feats, cb, o, d, None, 8)
     bnd.occlusion(coeffs, feats, tm, mask, 8)
     assert bnd.PLAIN_CALLS == {"closest_hit": 1, "occlusion": 1}
     assert bnd.LAUNCHES == {"closest_hit": 0, "occlusion": 0}
     with pytest.raises(ValueError):  # the kernels refuse CPU tensors
-        bnd.closest_hit_cuda(coeffs, feats, mask, 8)
+        bnd.closest_hit_cuda(_t(plk.numpy_packed_coeffs(s["coeffs"]))[0], feats, cb,
+                             bnd.word_bounds(cb), o, d, None, 8)
     with pytest.raises(ValueError):
         bnd.occlusion_cuda(coeffs, feats, tm, mask, 8)
 
@@ -360,3 +367,143 @@ def test_cli_renders_band_on_cpu(tmp_path, capsys):
                  "--band-g", "4", "--out", str(out)]) == 0
     assert "engine band" in capsys.readouterr().out
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+# ---------------------------------------------------------------------------
+# the closest-hit kernel's vote, skip and dead lanes, in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _vote_cases(s, teapot_band):
+    """(cluster boxes, ray_o, ray_d, tmax) the vote is held on: the soup's
+    rays (dead and bounded lanes) and segments, and the teapot's rays with
+    and without a range (77 clusters of 64: three words)."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    cb, o, d, tmax = _t(s["cb"], s["o"], s["d"], s["tmax"])
+    so, sd, stm = plk.segment_rays(*_t(s["x"], s["y"]))
+    _, _, ds, _, to, td, ttmax = teapot_band
+    to, td, ttmax = _t(to, td, ttmax)
+    return [(cb, o, d, tmax), (cb, so, sd, stm), (ds.cluster_bounds, to, td, ttmax),
+            (ds.cluster_bounds, to, td, None)]
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_kernel_vote_equals_band_mask_words(soup, teapot_band, g):
+    """The closest-hit kernel's vote in plain torch (band_words_plain: each
+    lane's slab test, the 32 clusters of a word tested only where a lane of
+    the warp passes the word's box, ORed per band) gives band_mask_words'
+    words bit for bit at every band width, on rays with dead and bounded
+    lanes, on segments and without a range."""
+    from radish_pt_tpu_torch.accel import band as bnd
+
+    for cb, o, d, tmax in _vote_cases(soup, teapot_band):
+        want = bnd.band_mask_words(cb, o, d, tmax, g)
+        got = bnd.band_words_plain(cb, bnd.word_bounds(cb), o, d, tmax, g)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(t2n(got), t2n(want))
+
+
+def test_word_boxes_keep_every_cluster(soup, teapot_band):
+    """A lane that passes a cluster's box passes its word's box (the slab
+    test is monotone under box containment in f32), so the vote's first
+    level drops no cluster; on the teapot the word test does rule words
+    out: live lanes miss some of the three word boxes (a warp whose lanes
+    all miss one skips its 32 clusters)."""
+    from radish_pt_tpu_torch.accel import band as bnd
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    skipped = 0
+    for cb, o, d, tmax in _vote_cases(soup, teapot_band):
+        wb = bnd.word_bounds(cb)
+        assert wb.shape == (-(-cb.shape[0] // bnd.WORD), 6)
+        own = plk.lane_cluster_flags_plain(cb, o, d, tmax)
+        word = plk.lane_cluster_flags_plain(wb, o, d, tmax)
+        assert not bool((own & ~word[:, torch.arange(cb.shape[0]) // bnd.WORD]).any())
+        live = slice(None) if tmax is None else tmax >= 0
+        skipped += int((~word[live]).sum())
+    assert skipped > 0
+
+
+@pytest.mark.parametrize("case", ["soup", "teapot"])
+def test_lane_skip_is_conservative_on_bands(soup, teapot_band, case):
+    """The kernel's per-ray skip on the band layout's 64-triangle clusters
+    (slab_reach, the twin of plucker.lane_skip_flags_plain): every (ray,
+    triangle) pair that passes the f32 planes at t lies in a cluster the
+    skip keeps at reach t, on the case's rays and on rays that leave its
+    surfaces 1e-3 away; the skip does pass over clusters."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    if case == "soup":
+        coeffs, center, cb, o, d, tp = _t(soup["coeffs"], soup["center"], soup["cb"],
+                                          soup["o"], soup["d"], soup["tp"])
+    else:
+        _, _, ds, _, o, d, _ = teapot_band
+        coeffs, center, cb, tp = ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, \
+            ds.tri_packed
+        o, d = _t(o, d)
+    rng = np.random.default_rng(5)
+    tri = t2n(tp)
+    real = np.flatnonzero(np.abs(tri[:, 3:]).sum(1) > 0)
+    pick = tri[rng.choice(real, 256)]
+    w = rng.dirichlet([1, 1, 1], 256).astype(np.float32)
+    surf = pick[:, 0:3] + w[:, 1:2] * pick[:, 3:6] + w[:, 2:3] * pick[:, 6:9]
+    sd = rng.normal(size=(256, 3)).astype(np.float32)
+    sd /= np.linalg.norm(sd, axis=-1, keepdims=True)
+    n_c = cb.shape[0]
+    for ro, rd in ((o, d), _t(surf + sd * 1e-3, sd)):
+        t = plk.hit_t(coeffs, plk.plucker_features(ro, rd, center))  # [N, T]
+        assert int((t < FLT_MAX).sum()) > ro.shape[0] // 4
+        pad = n_c * 64 - t.shape[1]
+        near = torch.nn.functional.pad(t, (0, pad), value=FLT_MAX).view(-1, n_c, 64).amin(-1)
+        kept = 0.0
+        for c_id in range(n_c):
+            flagged = plk.lane_skip_flags_plain(cb, ro, rd, near[:, c_id])[:, c_id]
+            assert not bool(((near[:, c_id] < FLT_MAX) & ~flagged).any())
+            kept += float(plk.lane_skip_flags_plain(cb, ro, rd, torch.full_like(
+                near[:, 0], 6.0))[:, c_id].float().mean())
+        assert kept / n_c < 0.9
+
+
+def test_closest_hit_plain_dead_lanes_miss(soup):
+    """With ``dead`` the plain closest hit returns (-1, FLT_MAX) for the
+    dead lanes (what the kernel returns) and what it returns without
+    ``dead`` for the others."""
+    from radish_pt_tpu_torch.accel import band as bnd
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    s = soup
+    coeffs, center, cb, o, d, tmax = _t(s["coeffs"], s["center"], s["cb"], s["o"], s["d"],
+                                        s["tmax"])
+    feats = plk.plucker_features(o, d, center)
+    tmax = tmax.clone()
+    tmax[1::3] = FLT_MAX  # dead lanes among hitting ones: every 7th
+    mask = bnd.band_mask_words(cb, o, d, None, 8)  # the dead lanes' bands flag
+    dead = plk.dead_lanes(tmax)
+    p0, d0 = bnd.closest_hit_plain(coeffs, feats, mask, 8)
+    p1, d1 = bnd.closest_hit_plain(coeffs, feats, mask, 8, dead=dead)
+    assert bool((p0[dead] >= 0).any())  # they would have hit
+    assert bool((p1[dead] == -1).all()) and bool((d1[dead] == FLT_MAX).all())
+    assert torch.equal(p1[~dead], p0[~dead]) and torch.equal(d1[~dead], d0[~dead])
+
+
+@pytest.mark.parametrize("g", [1, 8])
+def test_pair_counts_are_ordered(soup, teapot_band, g):
+    """Per lane never more than per band or per warp, and the cut at each
+    lane's final t never more than per lane; padding lanes uncounted."""
+    from radish_pt_tpu_torch.accel import band as bnd
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    _, _, ds, _, o, d, tmax = teapot_band
+    o, d, tmax = _t(o[:200], d[:200], tmax[:200])  # a ragged last row
+    feats = plk.plucker_features(o, d, ds.sweep_center)
+    mask = bnd.band_mask_words(ds.cluster_bounds, o, d, tmax, g)
+    _, dist = bnd.closest_hit_plain(ds.sweep_coeffs, feats, mask, g,
+                                    dead=plk.dead_lanes(tmax))
+    c = bnd.pair_counts(ds.cluster_bounds, o, d, tmax, g, ds.num_triangles, dist,
+                        chunk_rows=1)
+    assert 0 < c["lane_cut"] <= c["lane"] <= min(c["band"], c["warp"])
+    flags = plk.unpack_mask(mask, ds.cluster_bounds.shape[0])
+    lanes = np.minimum(128 // g, 200 - np.arange(flags.shape[0]) * (128 // g)).clip(0)
+    assert c["band"] == float((t2n(flags).sum(1) * 64) @ lanes)
+    assert c == bnd.pair_counts(ds.cluster_bounds, o, d, tmax, g, ds.num_triangles, dist)

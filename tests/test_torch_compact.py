@@ -269,10 +269,7 @@ def test_occlusion_compact_matches_reference(soup, variant):
     from radish_pt_tpu_torch.accel import traverse as trv
 
     s = soup
-    rng = np.random.default_rng(4)
-    x = s["o"]
-    y = (x + s["d"] * rng.uniform(1.0, 14.0, (x.shape[0], 1))).astype(np.float32)
-    y[::7] = x[::7]
+    x, y = _soup_segments(s)
     coeffs, center, cb, xt, yt = _t(s["coeffs"], s["center"], s["cb"], x, y)
     cpt.reset_counts()
     occ = t2n(cpt.occlusion_compact(coeffs, center, cb, xt, yt))
@@ -301,10 +298,13 @@ def test_cpu_tensors_take_the_plain_versions(soup):
     from radish_pt_tpu_torch.accel.plucker import numpy_packed_coeffs
 
     packed, = _t(numpy_packed_coeffs(soup["coeffs"]))
+    spheres = cpt.unit_spheres(cb, center)
     with pytest.raises(ValueError):
-        cpt.closest_hit_cuda(packed, cpt.unit_spheres(cb, center),
-                             feats[:, :10].contiguous(), tm, items, item_tn,
-                             offsets, 1)
+        cpt.closest_hit_cuda(packed, spheres, feats[:, :10].contiguous(), tm, items,
+                             item_tn, offsets, 1)
+    with pytest.raises(ValueError):
+        cpt.occlusion_cuda(packed, spheres, feats[:, :10].contiguous(), tm, items,
+                           item_tn, offsets, 1)
 
 
 def test_choose_intersector_by_count():
@@ -493,6 +493,63 @@ def test_lane_flags_are_conservative(soup, variant):
     np.testing.assert_allclose(t2n(d_own)[hits], d0[hits], rtol=1e-4)
 
 
+def _soup_segments(s):
+    """The soup's shadow segments, as test_occlusion_compact_matches_reference
+    makes them: a seventh zero-length (the masked lanes)."""
+    rng = np.random.default_rng(4)
+    x = s["o"]
+    y = (x + s["d"] * rng.uniform(1.0, 14.0, (x.shape[0], 1))).astype(np.float32)
+    y[::7] = x[::7]
+    return x, y
+
+
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS, indirect=True)
+def test_lane_segment_flags_are_conservative(soup, variant):
+    """(c) for the shadow kernel: every blocking (segment, triangle) pair
+    lies in a unit the lane flags itself, at an entry distance no later
+    than its range tm widened by SKIP_MARGIN, and in a unit its row group
+    lists with an item tn no later than that (so the kernel's finish test
+    drops no blocker); a segment of negative range flags nothing; and the
+    any-hit restricted to each lane's own units, each cut at its range,
+    gives the bits of the row group's flags on every lane, bit for bit, and
+    the reference's compact function's on every lane (those
+    test_occlusion_compact_matches_reference compares)."""
+    from radish_pt_tpu.accel.pallas_kernels import occlusion_plucker_compact
+    from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.accel.plucker import (blocks, plucker_features,
+                                                   segment_rays, sweep_any)
+
+    s = soup
+    x, y = _soup_segments(s)
+    coeffs, center, cb, xt, yt = _t(s["coeffs"], s["center"], s["cb"], x, y)
+    o, d, tm = segment_rays(xt, yt)
+    flags, tn, g = cpt.prepass(center, cb, o, d, tm)
+    feats = plucker_features(o, d, center)
+    spheres = cpt.unit_spheres(cb, center)
+    own, entry = cpt.lane_unit_flags_plain(spheres, feats, tm, with_entry=True)
+    assert not bool(own[tm < 0].any())
+    reach = tm * cpt.SKIP_MARGIN
+    lane, tri = torch.nonzero(blocks(coeffs, feats, tm), as_tuple=True)
+    unit, row = tri // (cpt.CLUSTER_SUB * g), lane // cpt.LANES
+    assert lane.unique().numel() > 0.1 * o.shape[0]
+    assert bool(own[lane, unit].all())
+    assert bool((entry[lane, unit] <= reach[lane]).all())
+    assert bool(flags[row, unit].all()) and bool((tn[row, unit] <= reach[lane]).all())
+    if g == 1:  # fewer units per lane than per row group: the test bites
+        assert float(own.float().sum(1).mean()) < 0.5 * float(flags.float().sum(1).mean())
+
+    mine = (own & (entry <= reach[:, None])
+            & flags.repeat_interleave(cpt.LANES, 0)[:own.shape[0]])
+    occ_own = sweep_any(coeffs, feats, mine, 1, cpt.CLUSTER_SUB * g,
+                        lambda c, f, lo, hi: blocks(c, f, tm[lo:hi]))
+    np.testing.assert_array_equal(t2n(occ_own),
+                                  t2n(cpt.occlusion_plain(coeffs, feats, tm, flags, g)))
+    want = np.asarray(occlusion_plucker_compact(
+        jnp.asarray(s["tri_packed"]), jnp.asarray(x), jnp.asarray(y),
+        cluster_bounds=jnp.asarray(s["cb"]), interpret=True, bf16x3=False))
+    np.testing.assert_array_equal(t2n(occ_own), want)
+
+
 def test_lane_flags_on_teapot_keep_every_winner(teapot_compact):
     """(c) on teapot's 86 clusters: camera rays and rays leaving surface
     points; every lane's plain winner over the row group's flags lies in a
@@ -530,15 +587,24 @@ def test_lane_flags_on_teapot_keep_every_winner(teapot_compact):
     assert not bool(own[::5].any())
 
 
+@pytest.mark.parametrize("kind", ["rays", "segments"])
 @pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS, indirect=True)
-def test_pair_counts_are_ordered(soup, variant):
+def test_pair_counts_are_ordered(soup, variant, kind):
     """(d) Culling finer never adds work: lane <= warp <= row group, with
-    and without the cut at each lane's final t; the cut never adds either;
-    the row-group count is the work list's."""
+    and without the cut at each lane's reach (a ray's final t, a segment's
+    range); the cut never adds either; the row-group count is the work
+    list's."""
     from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.accel.plucker import plucker_features, segment_rays
 
     coeffs, feats, tmax, flags, g, spheres, _, _ = _lane_culling(soup)
-    _, dist = cpt.closest_hit_plain(coeffs, feats, tmax, flags, g)
+    if kind == "rays":
+        _, dist = cpt.closest_hit_plain(coeffs, feats, tmax, flags, g)
+    else:
+        center, cb, x, y = _t(soup["center"], soup["cb"], *_soup_segments(soup))
+        o, d, tmax = segment_rays(x, y)
+        flags, _, g = cpt.prepass(center, cb, o, d, tmax)
+        feats, dist = plucker_features(o, d, center), tmax
     n_tris = coeffs.shape[0]
     c = cpt.pair_counts(spheres, feats, tmax, flags, dist, g, n_tris, chunk_rows=2)
     assert 0 < c["lane"] <= c["warp"] <= c["row"]

@@ -269,7 +269,8 @@ def test_sphere_flags_kernel_matches_plain(teapot_compact_cuda):
 def test_compact_kernels_match_plain(teapot_compact_cuda, prepass_branch):
     """On the same flags, the compact closest-hit kernel and its plain
     version agree on >= 99.99% of prim ids, a mismatch being a near-tie;
-    the shadow kernel's bits agree on >= 99.99% of segments."""
+    the shadow kernel (on the packed table and the unit spheres) gives the
+    plain version's bits on every segment."""
     from radish_pt_tpu_torch.accel import compact as cpt
     from radish_pt_tpu_torch.accel import plucker as plk
 
@@ -310,12 +311,15 @@ def test_compact_kernels_match_plain(teapot_compact_cuda, prepass_branch):
     so, sd, stm = plk.segment_rays(x, y)
     flags, tn, g = cpt.prepass(ds.sweep_center, ds.cluster_bounds, so, sd, stm)
     feats = plk.plucker_features(so, sd, ds.sweep_center)
-    occ_k = cpt.occlusion(ds.sweep_coeffs, feats, stm.contiguous(), flags, tn, g)
+    occ_k = cpt.occlusion(ds.sweep_coeffs, feats, stm.contiguous(), flags, tn, g,
+                          ds.sweep_packed, ds.unit_spheres)
     occ_p = cpt.occlusion_plain(ds.sweep_coeffs, feats, stm, flags, g)
     assert cpt.LAUNCHES["occlusion"] == 1
-    assert (occ_k != occ_p).float().mean().item() <= 1e-4
+    assert torch.equal(occ_k, occ_p)
     assert 0.05 < occ_p.float().mean().item() < 0.95
     assert not bool(occ_k[::7].any())
+    with pytest.raises(ValueError):  # no packed table: no launch, no fallback
+        cpt.occlusion(ds.sweep_coeffs, feats, stm.contiguous(), flags, tn, g)
 
 
 @pytest.mark.cuda
@@ -338,6 +342,30 @@ def test_compact_closest_hit_walks_merged_units(teapot_compact_cuda, monkeypatch
                              ds.sweep_packed, spheres)
     pp, dp = cpt.closest_hit_plain(ds.sweep_coeffs, feats, mtm, flags, g)
     _check_mixed(pk, dk, pp, dp, mtm)
+
+
+@pytest.mark.cuda
+def test_compact_occlusion_walks_merged_units(teapot_compact_cuda, monkeypatch):
+    """The shadow kernel on units of three clusters, the last one ragged:
+    segments of the mixed wavefront (dead lanes zero-length, a ragged last
+    row group and warp) give the plain version's bits."""
+    from radish_pt_tpu_torch.accel import compact as cpt
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    ds, _, o, d, tmax = teapot_compact_cuda
+    monkeypatch.setattr(cpt, "SPHERE_UNIT_MAX", 30)
+    mo, md, mtm = _mixed_wavefront(o, d, tmax, ds.sweep_center)
+    y = torch.where((mtm >= 0)[:, None], mo + md * 3.0, mo)
+    so, sd, stm = plk.segment_rays(mo, y)
+    flags, tn, g = cpt.prepass(ds.sweep_center, ds.cluster_bounds, so, sd, stm)
+    spheres = cpt.unit_spheres(ds.cluster_bounds, ds.sweep_center)
+    assert g == 3 and spheres.shape == (flags.shape[1], 4)
+    feats = plk.plucker_features(so, sd, ds.sweep_center)
+    occ_k = cpt.occlusion(ds.sweep_coeffs, feats, stm.contiguous(), flags, tn, g,
+                          ds.sweep_packed, spheres)
+    occ_p = cpt.occlusion_plain(ds.sweep_coeffs, feats, stm, flags, g)
+    assert torch.equal(occ_k, occ_p)
+    assert 0.02 < occ_p.float().mean().item() < 0.95 and not bool(occ_k[mtm < 0].any())
 
 
 @pytest.mark.cuda
@@ -442,23 +470,53 @@ def test_quad_kernels_match_plain(teapot_engines_cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("g", [1, 4, 8, 16])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32, 64, 128])
 def test_band_kernels_match_plain(teapot_engines_cuda, g):
-    """The band kernels on the band masks of every width: winners and
-    shadow bits agree with the plain versions; zero-length segments are
+    """The band kernels at every width.  The closest hit, which votes its
+    bands' words itself from the boxes and the rays, against the plain
+    version on band_mask_words' words, on the fixture's rays, on the mixed
+    wavefront with its ragged last row and without a range: >= 99.99% of
+    winners equal, a mismatch a near-tie, distances within 1e-5 where the
+    winners agree, every dead lane a miss.  (The plain version's plane
+    products go through cuBLAS, whose summation order changes with the
+    shapes its chunks take at each width and can move the last bit; the
+    kernel's arithmetic does not depend on the width: where its winner is
+    the one it finds at g = 8, its distance is bit-equal to that one.)
+    The shadow kernel's bits on the words agree; zero-length segments are
     never blocked."""
     from radish_pt_tpu_torch.accel import band as bnd
     from radish_pt_tpu_torch.accel import plucker as plk
 
     scenes, o, d, tmax = teapot_engines_cuda
     ds, _ = scenes["band"]
-    feats = plk.plucker_features(o, d, ds.sweep_center)
-    mask = bnd.band_mask_words(ds.cluster_bounds, o, d, tmax, g)
+    cb, wb = ds.cluster_bounds, ds.word_bounds
+    mo, md, mtm = _mixed_wavefront(o, d, tmax, ds.sweep_center)
     bnd.reset_counts()
-    pk, dk = bnd.closest_hit(ds.sweep_coeffs, feats, mask, g)
-    pp, dp = bnd.closest_hit_plain(ds.sweep_coeffs, feats, mask, g)
-    assert bnd.LAUNCHES["closest_hit"] == 1
-    _check_closest(pk, dk, pp, dp)
+    for ro, rd, rt in ((o, d, tmax), (mo, md, mtm), (o, d, None)):
+        feats = plk.plucker_features(ro, rd, ds.sweep_center)
+        pk, dk = bnd.closest_hit(ds.sweep_coeffs, feats, cb, ro, rd, rt, g,
+                                 ds.sweep_packed, wb)
+        p8, d8 = bnd.closest_hit_cuda(ds.sweep_packed, feats, cb, wb, ro.contiguous(),
+                                      rd.contiguous(), rt, 8)
+        mask = bnd.band_mask_words(cb, ro, rd, rt, g)
+        pp, dp = bnd.closest_hit_plain(ds.sweep_coeffs, feats, mask, g,
+                                       dead=plk.dead_lanes(rt))
+        torch.cuda.synchronize()
+        live = torch.ones_like(pk, dtype=torch.bool) if rt is None else rt >= 0
+        pk_, pp_, dk_, dp_, live_ = (t.cpu().numpy() for t in (pk, pp, dk, dp, live))
+        diff = (pk_ != pp_) & live_
+        assert diff.mean() <= 1e-4
+        assert np.all(np.abs(dk_[diff] - dp_[diff]) <= 1e-5 * np.abs(dp_[diff]))
+        hit = (pp_ >= 0) & live_ & ~diff
+        assert hit.mean() > 0.1
+        np.testing.assert_allclose(dk_[hit], dp_[hit], rtol=1e-5)
+        assert np.all(dk_[live_ & (pp_ < 0)] == FLT_MAX)
+        assert np.all(pk_[~live_] == -1) and np.all(dk_[~live_] == FLT_MAX)
+        same = pk == p8
+        assert torch.equal(dk[same], d8[same])
+    assert bnd.LAUNCHES["closest_hit"] == 6
+    with pytest.raises(ValueError):  # no packed table: no launch, no fallback
+        bnd.closest_hit(ds.sweep_coeffs, feats, cb, o, d, None, g)
 
     y = o + d * 3.0
     y[::7] = o[::7]
@@ -478,7 +536,8 @@ def test_band_kernels_match_plain(teapot_engines_cuda, g):
 @pytest.mark.parametrize("engine", ["quad", "band"])
 def test_render_through_engine_kernels_matches_plain(teapot_engines_cuda, engine):
     """A 64x64 depth-5 teapot frame through the engine's kernels (6
-    closest-hit and 5 shadow launches, no plain call) equals the same frame
+    closest-hit and 5 shadow launches, no plain call; on the band engine 5
+    band-mask prepass calls, for the shadow sweeps) equals the same frame
     through its plain versions."""
     from radish_pt_tpu_torch.accel import band as bnd
     from radish_pt_tpu_torch.accel import quad as qd
@@ -492,6 +551,8 @@ def test_render_through_engine_kernels_matches_plain(teapot_engines_cuda, engine
     d, i = pt.path_trace(ds, cam, 3, 5)
     assert mod.LAUNCHES == {"closest_hit": 6, "occlusion": 5}
     assert mod.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
+    if engine == "band":  # the closest hit votes its words itself
+        assert bnd.PREPASS_CALLS == {"band_mask_words": 5}
     dp, ip = pt.path_trace(ds.replace(intersector=f"{engine}_plain"), cam, 3, 5)
     img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
     assert np.isfinite(img).all() and img.mean() > 0.05
