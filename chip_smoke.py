@@ -22,18 +22,20 @@ of those paths against their plain torch versions.  Phases:
    on teapot and on teapot_hires' Plücker build, against the plain
    versions culled per 32-lane warp as the kernels cull (and, logged, the
    lanes that differ from the plain versions culled per 128-lane row); the
-   quad sweeps on teapot; the sphere prepass, the compact sweeps
-   and the band sweeps (8 bands a row; the closest hit, which votes its
-   bands' words itself, against the plain version on the band-mask
-   prepass's words) on teapot_hires; the dense sweeps on cornell and
-   teapot, bit for bit; for the Plücker sweeps, the compact sweeps and the
-   band closest hit also the (lane, triangle) pairs their wavefronts need
-   when culled per row (group, band), per warp and per lane;
+   quad sweeps on teapot (the shadow kernel, which votes its rows' words
+   itself, against the plain version on the row-mask prepass's words);
+   the sphere prepass, the compact sweeps and the band sweeps (8 bands a
+   row; both kernels vote their bands' words themselves, held against the
+   plain versions on the band-mask prepass's words) on teapot_hires; the
+   dense sweeps on cornell and teapot, bit for bit; for the Plücker
+   sweeps, the compact sweeps, the band sweeps and the quad shadow sweep
+   also the (lane, triangle) pairs their wavefronts need when culled per
+   row (group, band), per warp and per lane;
 4. the main paths, loopers 0-7, each with the launch counts of its kernels
-   set to 0 just before and read just after (a Plücker or compact frame: 6
-   closest hits, 5 shadow sweeps, no plain call, on Plücker no mask
-   prepass; a band frame also 5 band-mask prepass calls, for its shadow
-   sweeps), finite non-zero images, and
+   set to 0 just before and read just after (a frame: 6 closest hits, 5
+   shadow sweeps, no plain call; on Plücker and band no mask prepass, on
+   quad the closest hits' 6 row-mask prepass calls), finite non-zero
+   images, and
    looper-7 mean radiance within 1% of each scene's 800x800 golden (the
    teapot_hires engines also within 0.2% of each other, band and compact
    within 0.05%); the direct-lighting paths' 8-frame means within 1% of
@@ -47,7 +49,9 @@ of those paths against their plain torch versions.  Phases:
    and of ReSTIR with reuse against a 256-frame direct-tracer accumulation;
 6. timing with CUDA events: ms/frame and Mrays/s per scene and engine, the
    ReSTIR and denoised frames, each kernel against its plain version, and
-   each kernel's least time on the card (bound) for the same work.
+   each kernel's least time on the card (bound) for the same work (the
+   dense kernels, which issue only unfused f32 operations, at the
+   instruction rate: half the f32 peak that counts an FMA as two).
 
 Prints a JSON line of per-kernel results, then the card's name and power
 limit, then, as the last line, ``{"ok": true, "device": {...}}``.  Any
@@ -111,9 +115,12 @@ REPLACES = {
 KERNEL_SCENE = {"plucker": "teapot", "compact": "teapot_hires", "quad": "teapot_quad",
                 "band": "teapot_hires_band", "dense": "cornell_dense"}
 # one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32 outside the
-# tensor cores, and device memory
+# tensor cores (an FMA counted as two flops), and device memory
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# f32 instructions a second: what a kernel of unfused single operations
+# (the dense sweeps' __fmul_rn / __fadd_rn / __fsub_rn) can issue
+PEAK_F32_OPS_UNFUSED = PEAK_F32_FLOPS / 2
 
 
 def log(msg: str) -> None:
@@ -145,10 +152,10 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return times[len(times) // 2]
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     """(least ms on the card, what bounds it): the larger of the operations
-    over the f32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    over the f32 peak ``peak`` and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -372,28 +379,45 @@ def quad_parity(ds, waves, max_err, log):
         err = check_closest(pk, dk, pp, dp, live, f"quad closest hit, {what}", log)
         max_err["quad_closest_hit"] = max(max_err["quad_closest_hit"], err)
         inputs[what] = (feats, mask)
+    # the shadow kernel votes its rows' words itself and culls per segment
     x, y, ok = waves["segments"]
-    so, seg = qd.quad_segments(x, y)
+    so, seg = (t.contiguous() for t in qd.quad_segments(x, y))
     feats = qd.quad_features(so, seg, ds.sweep_center)
-    mask = plk.cluster_mask_words(ds.cluster_bounds, so, seg, torch.ones_like(so[:, 0]))
-    ok_k = qd.occlusion_cuda(ds.quad_coeffs, feats, mask, sub)
+    ones = torch.ones_like(so[:, 0])
+    mask = plk.cluster_mask_words(ds.cluster_bounds, so, seg, ones)
+    ok_k = qd.occlusion_cuda(ds.quad_occl_packed, feats, ds.cluster_bounds, so, seg, sub)
     ok_p = qd.occlusion_plain(ds.quad_coeffs, feats, mask, sub)
     torch.cuda.synchronize()
     max_err["quad_occlusion"] = max(max_err["quad_occlusion"],
                                     check_occlusion(ok_k, ok_p, ok, "quad", log))
+    zero = qd.zero_segments(feats)
+    swept = plk.unpack_mask(mask, n_c).any(1).repeat_interleave(plk.ROW)[:so.shape[0]]
     log(f"[parity] quad occlusion: {int(ok_k[~ok].sum())} of {int((~ok).sum())} "
-        f"masked (zero-length) segments read as blocked, as in the reference")
-    inputs["segments"] = (feats, mask)
+        f"masked (zero-length) segments read as blocked, as in the reference; "
+        f"{int(zero.sum())} segments zero-length, blocked exactly where their row "
+        f"sweeps a triangle: {bool(torch.equal(ok_k[zero], swept[zero]))}")
+    assert torch.equal(ok_k[zero], swept[zero]), "quad occlusion: a zero-length segment"
+    # what the data needs: each non-zero segment's own clusters at reach 1
+    pairs = plk.pair_counts(ds.cluster_bounds, so, seg, ones, sub, ds.num_triangles)
+    pairs["lane"] = plk.pair_counts(ds.cluster_bounds, so[~zero], seg[~zero], ones[~zero],
+                                    sub, ds.num_triangles)["lane"]
+    log(f"[pairs] quad occlusion: (lane, triangle) pairs culled per {plk.ROW}-lane row "
+        f"{pairs['row']:.4e}, per {plk.GROUP}-lane warp {pairs['warp']:.4e} "
+        f"({pairs['warp'] / pairs['row']:.4f} of it), per non-zero lane "
+        f"{pairs['lane']:.4e} ({pairs['lane'] / pairs['row']:.4f}: what the data needs)")
+    assert pairs["lane"] <= pairs["warp"] <= pairs["row"]
+    inputs["segments"] = (feats, so, seg, mask, pairs)
     return inputs
 
 
 def band_parity(ds, waves, max_err, log):
-    """Phase 3 on a band-engine scene: the closest-hit kernel, which votes
-    its bands' words itself from the boxes and the rays, against its plain
-    version on the band-mask prepass's words (winners and distances equal
-    on every live lane, dead lanes missing); the shadow kernel against its
-    plain version on the same words.  Logged beside it: the (lane,
-    triangle) pairs per band, warp and lane.  Returns the timing inputs."""
+    """Phase 3 on a band-engine scene: each kernel, which votes its bands'
+    words itself from the boxes and the rays, against its plain version on
+    the band-mask prepass's words (closest hit: winners and distances equal
+    on every live lane, dead lanes missing; shadow: <= 1e-4 of bits differ,
+    masked and zero-length segments never blocked).  Logged beside it: the
+    (lane, triangle) pairs per band, warp and lane.  Returns the timing
+    inputs."""
     import torch
 
     from radish_pt_tpu_torch.accel import band as bnd
@@ -418,12 +442,24 @@ def band_parity(ds, waves, max_err, log):
             f"clusters per {plk.ROW // g}-lane band, "
             f"{float(rows.sum(1).float().mean()):.2f} per 128-lane row")
         if what == "segments":
-            ok_k = bnd.occlusion_cuda(ds.sweep_coeffs, feats, tmax, mask, g)
+            ok_k = bnd.occlusion_cuda(ds.sweep_packed, feats, cb, wb, o, d, tmax, g)
             ok_p = bnd.occlusion_plain(ds.sweep_coeffs, feats, tmax, mask, g)
             torch.cuda.synchronize()
             err = check_occlusion(ok_k, ok_p, live, "band", log)
+            log(f"[parity] band occlusion: {int(ok_k[~live].sum())} of {int((~live).sum())} "
+                f"masked segments and {int(ok_k[tmax < 0].sum())} of "
+                f"{int((tmax < 0).sum())} with a negative range read as blocked")
+            assert not bool(ok_k[~live | (tmax < 0)].any()), "a masked segment was blocked"
             max_err["band_occlusion"] = max(max_err["band_occlusion"], err)
-            inputs[what] = (feats, tmax, mask)
+            pairs = bnd.pair_counts(cb, o, d, tmax, g, ds.num_triangles, tmax)
+            log(f"[pairs] band occlusion: (lane, triangle) pairs culled per "
+                f"{plk.ROW // g}-lane band {pairs['band']:.4e}, per {bnd.WARP}-lane warp "
+                f"{pairs['warp']:.4e} ({pairs['warp'] / pairs['band']:.4f} of it), per lane "
+                f"{pairs['lane']:.4e} ({pairs['lane'] / pairs['band']:.4f}); each lane's "
+                f"clusters its grown box admits within its range {pairs['lane_cut']:.4e} "
+                f"({pairs['lane_cut'] / pairs['band']:.4f}: what the data needs)")
+            assert pairs["lane_cut"] <= pairs["lane"] <= min(pairs["band"], pairs["warp"])
+            inputs[what] = (feats, o, d, tmax, mask, pairs)
             continue
         pk, dk = bnd.closest_hit_cuda(ds.sweep_packed, feats, cb, wb, o, d, tmax, g)
         pp, dp = bnd.closest_hit_plain(ds.sweep_coeffs, feats, mask, g,
@@ -777,17 +813,27 @@ def main() -> int:
         return n_launch, n_frames
 
     def band_path(names):
-        """A band frame: the closest hits vote their bands' words in the
-        kernel; the band-mask prepass runs for the 5 shadow sweeps only."""
+        """A band frame: every sweep votes its bands' words in the kernel,
+        no band-mask prepass."""
         n_launch, n_frames = sweep_path(names, bnd)
         log(f"[main path] {', '.join(names)}: band-mask prepass calls "
             f"{dict(bnd.PREPASS_CALLS)}")
-        assert bnd.PREPASS_CALLS == {"band_mask_words": 5 * n_frames}, bnd.PREPASS_CALLS
+        assert bnd.PREPASS_CALLS == {"band_mask_words": 0}, bnd.PREPASS_CALLS
+        return n_launch, n_frames
+
+    def quad_path(names):
+        """A quad frame: the shadow sweeps vote their rows' words in the
+        kernel; the row-mask prepass runs for the 6 closest hits only."""
+        plk.reset_counts()
+        n_launch, n_frames = sweep_path(names, qd)
+        log(f"[main path] {', '.join(names)}: row-mask prepass calls "
+            f"{dict(plk.PREPASS_CALLS)}")
+        assert plk.PREPASS_CALLS == {"cluster_mask_words": 6 * n_frames}, plk.PREPASS_CALLS
         return n_launch, n_frames
 
     launches = {"plucker": plucker_path(("cornell", "teapot")),
                 "compact": sweep_path(("teapot_hires",), cpt),
-                "quad": main_path(scenes, ("teapot_quad",), qd, log),
+                "quad": quad_path(("teapot_quad",)),
                 "band": band_path(("teapot_hires_band",))}
     launches_hires_plucker = plucker_path(("teapot_hires_plucker",))
     main_path(scenes, ("cornell_dense", "teapot_dense"), dns, log)
@@ -935,12 +981,6 @@ def main() -> int:
         log(f"[timing] {name} ({ds.intersector}) {RES}x{RES} depth {DEPTH} 1 spp: "
             f"{ms:.3f} ms/frame (median of 3 blocks of 4 frames), {mrays:.2f} "
             f"Mrays/s ({card})")
-    ds, _ = scenes["teapot_hires_band"]
-    o, d, _ = bounce_one(ds, scenes["teapot_hires_band"][1])["primary"]
-    pre_ms = cuda_ms(lambda: bnd.band_mask_words(ds.cluster_bounds, o, d, None,
-                                                 ds.band_g), 3)
-    log(f"[timing] band-mask prepass (torch), teapot_hires primaries, g = "
-        f"{ds.band_g}: {pre_ms:.3f} ms per call, 5 calls a frame (the shadow sweeps')")
     for name in ("cornell_dense", "cornell"):
         ds, cam = scenes[name]
         state = {"res": rs.empty_reservoir(RES * RES, device=dev), "first": True}
@@ -980,15 +1020,18 @@ def main() -> int:
     log(f"[timing] cornell {RES}x{RES} denoisers alone: SVGF {svgf_ms:.3f} ms, split "
         f"SVGF pair {pair_ms:.3f} ms ({card})")
 
-    # per kernel and wavefront: (kernel ms, plain ms, flops, bytes)
+    # per kernel and wavefront: (kernel ms, plain ms, flops, bytes, peak)
     timed = {}
 
-    def time_kernel(key, kernel, plain, flops, nbytes_, scene=None):
+    def time_kernel(key, kernel, plain, flops, nbytes_, scene=None, peak=PEAK_F32_FLOPS):
         scene = scene or KERNEL_SCENE[key.split("_")[0]]
         # the plain version ran in phase 3: timed once, without a warm-up
-        timed[key, scene] = (cuda_ms(kernel, 5), cuda_ms(plain, 1, warmup=0), flops, nbytes_)
+        timed[key, scene] = (cuda_ms(kernel, 5), cuda_ms(plain, 1, warmup=0), flops, nbytes_,
+                             peak)
 
-    other_bounds = {}  # (key, scene) -> a named second bound, logged beside the first
+    # (key, scene) -> [(what a further bound is over, its ms)], logged and
+    # written beside the first
+    other_bounds = {}
     for scene in ("teapot", "teapot_hires_plucker"):
         ds = scenes[scene][0]
         sub, cb, c, pk = ds.cluster_sub, ds.cluster_bounds, ds.sweep_coeffs, ds.sweep_packed
@@ -1012,33 +1055,42 @@ def main() -> int:
                             lambda: plk.closest_hit_plain(c, feats, words, sub,
                                                           dead=plk.dead_lanes(tmax)),
                             pairs["lane"] * plk.FLOPS_PER_PAIR[kind], nb, scene)
-            other_bounds[f"plucker_{kind}/{what}", scene] = (
+            other_bounds[f"plucker_{kind}/{what}", scene] = [(
                 f"the {plk.ROW}-lane row's flagged clusters",
-                bound(pairs["row"] * plk.FLOPS_PER_PAIR[kind], nb)[0])
+                bound(pairs["row"] * plk.FLOPS_PER_PAIR[kind], nb)[0])]
     ds = scenes["teapot_quad"][0]
-    sub, n_c = ds.cluster_sub, ds.cluster_bounds.shape[0]
-    qc, qp = ds.quad_coeffs, ds.quad_packed
-    for what in ("primary", "extension", "segments"):
+    sub, n_c, cb = ds.cluster_sub, ds.cluster_bounds.shape[0], ds.cluster_bounds
+    qc, qp, qo = ds.quad_coeffs, ds.quad_packed, ds.quad_occl_packed
+    for what in ("primary", "extension"):
         feats, mask = inputs["quad"][what]
         n = feats.shape[0]
         pairs = group_pairs(plk.unpack_mask(mask, n_c), sub, plk.ROW, n)
-        if what == "segments":
-            time_kernel("quad_occlusion/segments",
-                        lambda: qd.occlusion_cuda(qc, feats, mask, sub),
-                        lambda: qd.occlusion_plain(qc, feats, mask, sub),
-                        pairs * qd.FLOPS_PER_PAIR["occlusion"],
-                        nbytes(qc, feats, mask) + 4 * n)
-        else:
-            # the operations of the live terms; beside it the bound of all
-            # 5 x 27 terms (a sweep that also multiplies the structural zeros)
-            time_kernel(f"quad_closest_hit/{what}",
-                        lambda: qd.closest_hit_cuda(qp, feats, mask, sub),
-                        lambda: qd.closest_hit_plain(qc, feats, mask, sub),
-                        pairs * qd.FLOPS_PER_PAIR["closest_hit"],
-                        nbytes(qp, feats, mask) + 8 * n)
-            other_bounds[f"quad_closest_hit/{what}", "teapot_quad"] = (
-                "all 135 terms", bound(pairs * qd.CLOSEST_FLOPS_ALL_TERMS,
-                                       nbytes(qc, feats, mask) + 8 * n)[0])
+        # the operations of the live terms; beside it the bound of all
+        # 5 x 27 terms (a sweep that also multiplies the structural zeros)
+        time_kernel(f"quad_closest_hit/{what}",
+                    lambda: qd.closest_hit_cuda(qp, feats, mask, sub),
+                    lambda: qd.closest_hit_plain(qc, feats, mask, sub),
+                    pairs * qd.FLOPS_PER_PAIR["closest_hit"],
+                    nbytes(qp, feats, mask) + 8 * n)
+        other_bounds[f"quad_closest_hit/{what}", "teapot_quad"] = [(
+            "all 135 terms", bound(pairs * qd.CLOSEST_FLOPS_ALL_TERMS,
+                                   nbytes(qc, feats, mask) + 8 * n)[0])]
+    feats, so, seg, mask, pairs = inputs["quad"]["segments"]
+    n = feats.shape[0]
+    nb = nbytes(qo, cb, feats, so, seg) + 4 * n
+    assert pairs["row"] == group_pairs(plk.unpack_mask(mask, n_c), sub, plk.ROW, n)
+    # the pairs the data needs: each non-zero segment's own clusters at
+    # reach 1, over the 81 live terms; beside it the row's flagged clusters
+    # at the live terms and at all 162 (the bound until this kernel)
+    time_kernel("quad_occlusion/segments",
+                lambda: qd.occlusion_cuda(qo, feats, cb, so, seg, sub),
+                lambda: qd.occlusion_plain(qc, feats, mask, sub),
+                pairs["lane"] * qd.FLOPS_PER_PAIR["occlusion"], nb)
+    other_bounds["quad_occlusion/segments", "teapot_quad"] = [
+        ("the 128-lane row's flagged clusters",
+         bound(pairs["row"] * qd.FLOPS_PER_PAIR["occlusion"], nb)[0]),
+        ("the row's flagged clusters, all 162 terms",
+         bound(pairs["row"] * qd.OCCL_FLOPS_ALL_TERMS, nb)[0])]
     ds = scenes["teapot_hires"][0]
     c = ds.sweep_coeffs
     for what in ("primary", "extension", "segments"):
@@ -1064,9 +1116,9 @@ def main() -> int:
                     lambda: cpt.closest_hit_plain(c, feats, tmax, flags, 1),
                     pairs["lane_cut"] * cpt.FLOPS_PER_PAIR["closest_hit"], nb)
         assert pairs["row"] == group_pairs(flags, cpt.CLUSTER_SUB, cpt.LANES, n)
-        other_bounds[f"compact_closest_hit/{what}", "teapot_hires"] = (
+        other_bounds[f"compact_closest_hit/{what}", "teapot_hires"] = [(
             "the row group's flagged units",
-            bound(pairs["row"] * cpt.FLOPS_PER_PAIR["closest_hit"], nb)[0])
+            bound(pairs["row"] * cpt.FLOPS_PER_PAIR["closest_hit"], nb)[0])]
     feats, tm, flags, items, item_tn, offsets, pairs, _ = inputs["compact"]["segments"]
     n = feats.shape[0]
     nb = nbytes(cp, us, feats, tm, items, item_tn, offsets) + 4 * n
@@ -1078,9 +1130,9 @@ def main() -> int:
                 lambda: cpt.occlusion_plain(c, feats, tm, flags, 1),
                 pairs["lane_cut"] * cpt.FLOPS_PER_PAIR["occlusion"], nb)
     assert pairs["row"] == group_pairs(flags, cpt.CLUSTER_SUB, cpt.LANES, n)
-    other_bounds["compact_occlusion/segments", "teapot_hires"] = (
+    other_bounds["compact_occlusion/segments", "teapot_hires"] = [(
         "the row group's flagged units",
-        bound(pairs["row"] * cpt.FLOPS_PER_PAIR["occlusion"], nb)[0])
+        bound(pairs["row"] * cpt.FLOPS_PER_PAIR["occlusion"], nb)[0])]
     ds = scenes["teapot_hires_band"][0]
     g, cb, wb, bp = ds.band_g, ds.cluster_bounds, ds.word_bounds, ds.sweep_packed
     n_c = cb.shape[0]
@@ -1098,74 +1150,86 @@ def main() -> int:
                     lambda: bnd.closest_hit_plain(c, feats, mask, g,
                                                   dead=plk.dead_lanes(tmax)),
                     pairs["lane_cut"] * bnd.FLOPS_PER_PAIR["closest_hit"], nb)
-        other_bounds[f"band_closest_hit/{what}", "teapot_hires_band"] = (
+        other_bounds[f"band_closest_hit/{what}", "teapot_hires_band"] = [(
             f"the {plk.ROW // g}-lane band's flagged clusters",
-            bound(pairs["band"] * bnd.FLOPS_PER_PAIR["closest_hit"], nb)[0])
-    feats, tm, mask = inputs["band"]["segments"]
+            bound(pairs["band"] * bnd.FLOPS_PER_PAIR["closest_hit"], nb)[0])]
+    feats, o, d, tm, mask, pairs = inputs["band"]["segments"]
     n = feats.shape[0]
+    nb = nbytes(bp, cb, wb, feats, o, d, tm) + 4 * n
+    assert pairs["band"] == group_pairs(plk.unpack_mask(mask, n_c), bnd.CLUSTER_SUB,
+                                        plk.ROW // g, n)
+    # the pairs the data needs: each lane's own clusters its grown box
+    # admits within its range; beside it the bound over its band's flags
+    # (the bound until this kernel)
     time_kernel("band_occlusion/segments",
-                lambda: bnd.occlusion_cuda(c, feats, tm, mask, g),
+                lambda: bnd.occlusion_cuda(bp, feats, cb, wb, o, d, tm, g),
                 lambda: bnd.occlusion_plain(c, feats, tm, mask, g),
-                group_pairs(plk.unpack_mask(mask, n_c), bnd.CLUSTER_SUB,
-                            plk.ROW // g, n) * bnd.FLOPS_PER_PAIR["occlusion"],
-                nbytes(c, feats, tm, mask) + 4 * n)
+                pairs["lane_cut"] * bnd.FLOPS_PER_PAIR["occlusion"], nb)
+    other_bounds["band_occlusion/segments", "teapot_hires_band"] = [(
+        f"the {plk.ROW // g}-lane band's flagged clusters",
+        bound(pairs["band"] * bnd.FLOPS_PER_PAIR["occlusion"], nb)[0])]
+    # the dense kernels issue unfused single operations: bounded at the
+    # instruction rate; beside it the bound at the f32 peak that counts an
+    # FMA as two flops
     for name in ("cornell", "teapot"):
         ds = scenes[f"{name}_dense"][0]
         tri, t = ds.tri_packed, ds.tri_packed.shape[0]
+        work = {}
         for what in ("primary", "extension"):
             if name == "cornell" and what == "extension":
                 continue
             o, d = inputs["dense"][name][what]
             n = o.shape[0]
-            time_kernel(f"dense_closest_hit/{what}",
-                        lambda: dns.closest_hit_cuda(tri, o, d),
-                        lambda: dns.closest_hit_plain(tri, o, d),
-                        n * t * dns.FLOPS_PER_PAIR["closest_hit"],
-                        nbytes(tri, o, d) + 16 * n, f"{name}_dense")
+            work[f"dense_closest_hit/{what}"] = (
+                lambda o=o, d=d: dns.closest_hit_cuda(tri, o, d),
+                lambda o=o, d=d: dns.closest_hit_plain(tri, o, d),
+                n * t * dns.FLOPS_PER_PAIR["closest_hit"], nbytes(tri, o, d) + 16 * n)
         so, sd, tm = inputs["dense"][name]["segments"]
-        time_kernel("dense_occlusion/segments",
-                    lambda: dns.occlusion_cuda(tri, so, sd, tm),
-                    lambda: dns.occlusion_plain(tri, so, sd, tm),
-                    occlusion_pairs(tri, so, sd, tm) * dns.FLOPS_PER_PAIR["occlusion"],
-                    nbytes(tri, so, sd, tm) + 4 * so.shape[0], f"{name}_dense")
-    for (key, scene), (k, p, flops, nb) in timed.items():
+        work["dense_occlusion/segments"] = (
+            lambda: dns.occlusion_cuda(tri, so, sd, tm),
+            lambda: dns.occlusion_plain(tri, so, sd, tm),
+            occlusion_pairs(tri, so, sd, tm) * dns.FLOPS_PER_PAIR["occlusion"],
+            nbytes(tri, so, sd, tm) + 4 * so.shape[0])
+        for key, (kernel, plain, flops, nb) in work.items():
+            time_kernel(key, kernel, plain, flops, nb, f"{name}_dense", PEAK_F32_OPS_UNFUSED)
+            other_bounds[key, f"{name}_dense"] = [
+                ("the f32 peak counting an FMA as two flops", bound(flops, nb)[0])]
+    for (key, scene), (k, p, flops, nb, peak) in timed.items():
         name, what = key.split("/")
-        b_ms, b_by = bound(flops, nb)
-        also = ""
-        if (key, scene) in other_bounds:
-            o_name, o_ms = other_bounds[key, scene]
-            also = f"; bound over {o_name} {o_ms:.3f} ms"
+        b_ms, b_by = bound(flops, nb, peak)
+        also = "".join(f"; bound over {o_name} {o_ms:.3f} ms"
+                       for o_name, o_ms in other_bounds.get((key, scene), ()))
         log(f"[timing] {name}, {scene} {what}: kernel "
             f"{k:.3f} ms, plain {p:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
-            f"{flops / 1e9:.2f} GFLOP, {nb / 1e6:.2f} MB), kernel at "
-            f"{100 * b_ms / k:.1f}% of it{also}")
+            f"{flops / 1e9:.2f} G operations at {peak / 1e12:.1f} T/s, {nb / 1e6:.2f} MB), "
+            f"kernel at {100 * b_ms / k:.1f}% of it{also} ({card})")
+
+    def other(key, scene):
+        return [{"over": o_name, "ms": o_ms} for o_name, o_ms in other_bounds.get((key, scene), ())]
 
     rows = []
     for name in REPLACES:
         lib, kind = name.split("_", 1)
         what = "segments" if kind == "occlusion" else "primary"
-        k, p, flops, nb = timed[f"{name}/{what}", KERNEL_SCENE[lib]]
-        b_ms, b_by = bound(flops, nb)
+        k, p, flops, nb, peak = timed[f"{name}/{what}", KERNEL_SCENE[lib]]
+        b_ms, b_by = bound(flops, nb, peak)
         n_launch, n_frames = launches[lib]
         rows.append({"name": name, "route": "cuda", "source": SOURCES[lib],
                      "replaces": REPLACES[name], "launches": n_launch[kind],
                      "launches_per_frame": n_launch[kind] / n_frames,
                      "max_abs_err": max_err[name], "ms": k, "plain_ms": p,
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                     "shape": f"{KERNEL_SCENE[lib]} {what}"})
-        if (f"{name}/{what}", KERNEL_SCENE[lib]) in other_bounds:
-            o_name, o_ms = other_bounds[f"{name}/{what}", KERNEL_SCENE[lib]]
-            rows[-1]["other_bound"] = {"over": o_name, "ms": o_ms}
+                     "shape": f"{KERNEL_SCENE[lib]} {what}",
+                     "other_bounds": other(f"{name}/{what}", KERNEL_SCENE[lib])})
         if lib == "plucker":  # the same kernel on the largest scene of its engine
             scene = "teapot_hires_plucker"
-            k, p, flops, nb = timed[f"{name}/{what}", scene]
+            k, p, flops, nb, peak = timed[f"{name}/{what}", scene]
             n_launch, n_frames = launches_hires_plucker
             rows[-1]["also"] = {
                 "shape": f"{scene} {what}", "launches": n_launch[kind],
                 "launches_per_frame": n_launch[kind] / n_frames, "ms": k, "plain_ms": p,
-                "bound_ms": bound(flops, nb)[0], "bound_by": bound(flops, nb)[1],
-                "other_bound": {"over": other_bounds[f"{name}/{what}", scene][0],
-                                "ms": other_bounds[f"{name}/{what}", scene][1]}}
+                "bound_ms": bound(flops, nb, peak)[0], "bound_by": bound(flops, nb, peak)[1],
+                "other_bounds": other(f"{name}/{what}", scene)}
     log(f"[done] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

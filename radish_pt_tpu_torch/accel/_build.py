@@ -46,16 +46,16 @@ SIGNATURES = {
         "compact_occlusion": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P],
     },
     "quad": {
-        # coeffs, T, sub, feats, N, mask, words, (prim, dist | occ), stream
+        # packed, T, sub, feats, N, mask, words, prim, dist, stream
         "quad_closest_hit": [_P, _I, _I, _P, _I, _P, _I, _P, _P, _P],
-        "quad_occlusion": [_P, _I, _I, _P, _I, _P, _I, _P, _P],
+        # packed, T, sub, bounds, clusters, ray_o, seg, feats, N, occ, stream
+        "quad_occlusion": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P],
     },
     "band": {
-        # packed, T, bounds, word_bounds, clusters, ray_o, ray_d, tmax, feats,
-        # N, g, prim, dist, stream
+        # packed, T, bounds, word_bounds, clusters, ray_o, ray_d, tmax | tm,
+        # feats, N, g, (prim, dist | occ), stream
         "band_closest_hit": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P],
-        # coeffs, T, feats, N, mask, words, g, tm, occ, stream
-        "band_occlusion": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P],
+        "band_occlusion": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
     },
     "dense": {
         # tri_packed, T, ray_o, ray_d, N, prim, dist, bary, stream

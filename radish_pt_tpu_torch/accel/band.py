@@ -19,19 +19,21 @@ min(v, t·det·det, tm·det² - t·det·det) >= 0 for one of them, with
 det = 0: never blocked).
 
 Each sweep has a kernel (``csrc/band.cu``) and a plain torch version with
-one contract; ``closest_hit`` / ``occlusion`` take the plain version for
-CPU tensors and launch the kernel (or raise) for CUDA tensors.  The
-closest-hit kernel votes its bands' words itself from the cluster boxes
-and the rays (:func:`band_words_plain` is its vote in plain torch, equal
-to :func:`band_mask_words` bit for bit) and sweeps the packed table with
+one contract: the plain version on :func:`band_mask_words`' words.
+``closest_hit`` / ``occlusion`` take the plain version for CPU tensors and
+launch the kernel (or raise) for CUDA tensors.  Both kernels vote their
+bands' words themselves from the cluster boxes and the rays
+(:func:`band_words_plain` is the vote in plain torch, equal to
+:func:`band_mask_words` bit for bit) and sweep the packed table with
 triangles across a warp's threads and the rays one at a time, a ray
-passing over the clusters its own grown box cannot reach
-(:func:`.plucker.lane_skip_flags_plain`: no result moves).  The shadow
-kernel still reads :func:`band_mask_words`' words.  Dead lanes (a negative
-``tmax``) flag nothing, are swept by nothing and miss, in the kernel and
-in ``closest_hit_plain(..., dead=...)`` alike.  ``LAUNCHES`` counts kernel
-launches, ``PLAIN_CALLS`` plain-version calls and ``PREPASS_CALLS`` calls
-of :func:`band_mask_words`.
+passing over the clusters its own grown box cannot reach within its best
+t or its segment's range (:func:`.plucker.lane_skip_flags_plain`: no
+result moves), so the card path calls :func:`band_mask_words` never.
+Dead lanes (a negative ``tmax``) flag nothing, are swept by nothing and
+miss, in the kernel and in ``closest_hit_plain(..., dead=...)`` alike; a
+segment with a negative range (zero-length) is never blocked.
+``LAUNCHES`` counts kernel launches, ``PLAIN_CALLS`` plain-version calls
+and ``PREPASS_CALLS`` calls of :func:`band_mask_words`.
 
 Not carried over from the TPU: the pass split (``_band_pass_split``), the
 16-bit SMEM words, the union guard and the concatenated [G*16, 256]
@@ -54,7 +56,7 @@ from .traverse import FLT_MAX, NULL_PRIMITIVE, segment_rays
 
 CLUSTER_SUB = 64  # triangles per culling cluster (fixed for this engine)
 WORD = 32  # clusters per mask word
-WARP = 32  # lanes of a warp of the closest-hit kernel
+WARP = 32  # lanes of a warp of the kernels
 DEFAULT_G = 8  # bands per 128-lane row (BAND_TUNING, :2551)
 MIN_TRIS = 1024  # at or below this the reference builds no clusters
 _PREPASS_ELEMS = 1 << 25  # (lane, cluster) pairs per prepass chunk
@@ -128,7 +130,7 @@ def _padded_rows(ray_o, ray_d, tmax):
 
 
 def band_words_plain(cluster_bounds, words_box, ray_o, ray_d, tmax, g: int):
-    """The closest-hit kernel's vote in plain torch: int32 band words as
+    """The kernels' vote in plain torch: int32 band words as
     :func:`band_mask_words` returns them.  Per warp of :data:`WARP` lanes,
     each lane's slab test of each word's box ``words_box`` (:func:`word_bounds`);
     the word's 32 cluster boxes are tested only where some lane of the warp
@@ -148,17 +150,20 @@ def band_words_plain(cluster_bounds, words_box, ray_o, ray_d, tmax, g: int):
 
 def pair_counts(cluster_bounds, ray_o, ray_d, tmax, g: int, num_tris: int, dist=None,
                 chunk_rows: int = 256) -> dict:
-    """(lane, triangle) pairs a closest-hit sweep of these rays visits when
-    a cluster is swept by every lane of a group that flags it: per band of
-    128/g lanes (``band``: the engine's contract), per warp of :data:`WARP`
-    lanes (``warp``: what a lane of a sweep with rays across the threads
-    idles through) and per lane (``lane``: each lane's own flagged
-    clusters, which hold its winner); with ``dist`` f32 [N] (each lane's
-    final t) also ``lane_cut``: each lane's own flagged clusters that its
-    grown box test admits at that t (:func:`.plucker.lane_skip_flags_plain`;
-    what a walk that knew each lane's answer sweeps for it).  Padding lanes
-    flag nothing and are not counted.  A measurement helper: floats, one
-    host sync per chunk of rows."""
+    """(lane, triangle) pairs a sweep of these rays (or segments, ``tmax``
+    their range) visits when a cluster is swept by every lane of a group
+    that flags it: per band of 128/g lanes (``band``: the engine's
+    contract), per warp of :data:`WARP` lanes (``warp``: what a lane of a
+    sweep with rays across the threads idles through) and per lane
+    (``lane``: each lane's own flagged clusters, which hold its winner or
+    its blocker); with ``dist`` f32 [N] (each lane's final t, or a
+    segment's range) also ``lane_cut``: each lane's own flagged clusters
+    that its grown box test admits at that reach
+    (:func:`.plucker.lane_skip_flags_plain`; what a walk that knew each
+    lane's answer sweeps for it).  Padding lanes flag nothing and are not
+    counted; a lane with a negative ``tmax`` (dead, or a zero-length
+    segment) is settled before any sweep and counts no pair of its own.  A
+    measurement helper: floats, one host sync per chunk of rows."""
     n_c, dev = cluster_bounds.shape[0], ray_o.device
     tris = torch.clamp(num_tris - torch.arange(n_c, device=dev) * CLUSTER_SUB, 0,
                        CLUSTER_SUB).double()
@@ -171,6 +176,7 @@ def pair_counts(cluster_bounds, ray_o, ray_d, tmax, g: int, num_tris: int, dist=
                                    None if tmax is None else tmax[lo:hi])
         own = lane_cluster_flags_plain(cluster_bounds, o, d, tm)
         real = (torch.arange(o.shape[0], device=dev) < n).double()
+        settles = (real > 0) & (tm >= 0)  # the lanes a sweep must settle
         groups = (("band", ROW // g), ("warp", WARP), ("lane", 1))
         if dist is not None:
             reach = torch.nn.functional.pad(dist[lo:hi], (0, o.shape[0] - n))
@@ -178,7 +184,8 @@ def pair_counts(cluster_bounds, ray_o, ray_d, tmax, g: int, num_tris: int, dist=
             groups += (("lane_cut", 1),)
         for name, size in groups:
             grp = (cut if name == "lane_cut" else own).view(-1, size, n_c).any(1)
-            out[name] += float((grp.double() @ tris) @ real.view(-1, size).sum(1))
+            lanes = settles.double() if size == 1 else real.view(-1, size).sum(1)
+            out[name] += float((grp.double() @ tris) @ lanes)
     return out
 
 
@@ -221,25 +228,32 @@ def occlusion_plain(coeffs, feats, tm, mask, g):
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(coeffs, feats, mask, g):
+def _check_inputs(packed, feats, cluster_bounds, words_box, ray_o, ray_d, tmax, g):
+    """Raise on what the kernels do not take: the packed table ``packed``
+    f32 [T, 20] of whole 64-triangle clusters, one box of ``cluster_bounds``
+    [C, 6] each, the word boxes ``words_box`` [ceil(C/32), 6], and per lane
+    ``feats`` [N, 10], ``ray_o``, ``ray_d`` [N, 3], ``tmax`` [N] (None: no
+    range), all contiguous float32 on the card."""
     check_g(g)
-    if not (coeffs.is_cuda and feats.is_cuda and mask.is_cuda):
-        raise ValueError("the CUDA band sweep takes CUDA tensors")
-    if coeffs.dtype != torch.float32 or feats.dtype != torch.float32:
-        raise TypeError("coeffs and feats must be float32")
-    if coeffs.dim() != 3 or coeffs.shape[1:] != (4, 10):
-        raise ValueError(f"coeffs must be [T, 4, 10], got {tuple(coeffs.shape)}")
-    if feats.dim() != 2 or feats.shape[1] != 10:
-        raise ValueError(f"feats must be [N, 10], got {tuple(feats.shape)}")
-    if not (coeffs.is_contiguous() and feats.is_contiguous() and mask.is_contiguous()):
-        raise ValueError("coeffs, feats and mask must be contiguous")
-    bands = -(-feats.shape[0] // ROW) * g
-    if mask.dtype != torch.int32 or mask.dim() != 2 or mask.shape[0] != bands:
-        raise ValueError(f"mask must be int32 [ceil(N/128)·g, W] = [{bands}, W], "
-                         f"got {mask.dtype} {tuple(mask.shape)}")
-    if coeffs.shape[0] % CLUSTER_SUB or mask.shape[1] * 32 < coeffs.shape[0] // CLUSTER_SUB:
-        raise ValueError("coeffs rows must be whole 64-triangle clusters covered "
-                         "by the mask words")
+    n, num_tris = feats.shape[0], packed.shape[0]
+    n_c = cluster_bounds.shape[0] if cluster_bounds is not None else -1
+    lane_inputs = [("feats", feats, (n, 10)), ("ray_o", ray_o, (n, 3)),
+                   ("ray_d", ray_d, (n, 3)), ("cluster_bounds", cluster_bounds, (n_c, 6)),
+                   ("words_box", words_box, (-(-n_c // WORD), 6))]
+    if tmax is not None:
+        lane_inputs.append(("tmax", tmax, (n,)))
+    for name, t, shape in lane_inputs:
+        if not (t is not None and t.is_cuda and t.dtype == torch.float32
+                and t.shape == shape and t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {list(shape)} on the card")
+    if not (packed.is_cuda and packed.dtype == torch.float32 and packed.dim() == 2
+            and packed.shape[1] == PACKED_WIDTH and packed.is_contiguous()
+            and packed.data_ptr() % 16 == 0):
+        raise ValueError(f"the packed table must be 16-byte aligned contiguous float32 "
+                         f"[T, {PACKED_WIDTH}] on the card, got {tuple(packed.shape)}")
+    if num_tris % CLUSTER_SUB or num_tris // CLUSTER_SUB != n_c:
+        raise ValueError(f"the packed table must be {n_c} whole clusters of "
+                         f"{CLUSTER_SUB} triangles, one per box")
 
 
 def _launch(fn: str, *args):
@@ -269,49 +283,33 @@ def closest_hit_cuda(packed, feats, cluster_bounds, words_box, ray_o, ray_d, tma
     f32 [N, 3], ``tmax`` f32 [N] (None: FLT_MAX), and each lane sweeps its
     band's clusters.  Same results as :func:`closest_hit_plain` on
     :func:`band_mask_words` with ``dead=dead_lanes(tmax)``."""
-    check_g(g)
-    n, num_tris = feats.shape[0], packed.shape[0]
-    n_c = cluster_bounds.shape[0] if cluster_bounds is not None else -1
-    lane_inputs = [("feats", feats, (n, 10)), ("ray_o", ray_o, (n, 3)),
-                   ("ray_d", ray_d, (n, 3)), ("cluster_bounds", cluster_bounds, (n_c, 6)),
-                   ("words_box", words_box, (-(-n_c // WORD), 6))]
-    if tmax is not None:
-        lane_inputs.append(("tmax", tmax, (n,)))
-    for name, t, shape in lane_inputs:
-        if not (t is not None and t.is_cuda and t.dtype == torch.float32
-                and t.shape == shape and t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 {list(shape)} on the card")
-    if not (packed.is_cuda and packed.dtype == torch.float32 and packed.dim() == 2
-            and packed.shape[1] == PACKED_WIDTH and packed.is_contiguous()
-            and packed.data_ptr() % 16 == 0):
-        raise ValueError(f"the packed table must be 16-byte aligned contiguous float32 "
-                         f"[T, {PACKED_WIDTH}] on the card, got {tuple(packed.shape)}")
-    if num_tris % CLUSTER_SUB or num_tris // CLUSTER_SUB != n_c:
-        raise ValueError(f"the packed table must be {n_c} whole clusters of "
-                         f"{CLUSTER_SUB} triangles, one per box")
+    _check_inputs(packed, feats, cluster_bounds, words_box, ray_o, ray_d, tmax, g)
+    n = feats.shape[0]
     prim = torch.empty((n,), dtype=torch.int32, device=feats.device)
     dist = torch.empty((n,), dtype=torch.float32, device=feats.device)
     if n == 0:
         return prim, dist
-    _launch("band_closest_hit", packed, num_tris, cluster_bounds, words_box, n_c, ray_o,
-            ray_d, tmax, feats, n, g, prim, dist)
+    _launch("band_closest_hit", packed, packed.shape[0], cluster_bounds, words_box,
+            cluster_bounds.shape[0], ray_o, ray_d, tmax, feats, n, g, prim, dist)
     LAUNCHES["closest_hit"] += 1
     return prim, dist
 
 
-def occlusion_cuda(coeffs, feats, tm, mask, g):
-    """The banded shadow kernel (``band_occlusion`` in csrc/band.cu); same
-    contract as :func:`occlusion_plain`."""
-    _check_inputs(coeffs, feats, mask, g)
+def occlusion_cuda(packed, feats, cluster_bounds, words_box, ray_o, ray_d, tm, g):
+    """The banded shadow kernel (``band_occlusion`` in csrc/band.cu):
+    arguments as :func:`closest_hit_cuda`, with the segments' range ``tm``
+    f32 [N] bounding both the vote and the hits.  Same results as
+    :func:`occlusion_plain` on ``band_mask_words(cluster_bounds, ray_o,
+    ray_d, tm, g)``."""
+    if tm is None:
+        raise ValueError("the band shadow kernel needs the segments' range tm")
+    _check_inputs(packed, feats, cluster_bounds, words_box, ray_o, ray_d, tm, g)
     n = feats.shape[0]
-    if not (tm.is_cuda and tm.dtype == torch.float32 and tm.shape == (n,)
-            and tm.is_contiguous()):
-        raise ValueError("tm must be contiguous float32 [N] on the card")
     occ = torch.empty((n,), dtype=torch.int32, device=feats.device)
     if n == 0:
         return occ.bool()
-    _launch("band_occlusion", coeffs, coeffs.shape[0], feats, n, mask, mask.shape[1], g,
-            tm, occ)
+    _launch("band_occlusion", packed, packed.shape[0], cluster_bounds, words_box,
+            cluster_bounds.shape[0], ray_o, ray_d, tm, feats, n, g, occ)
     LAUNCHES["occlusion"] += 1
     return occ.bool()
 
@@ -332,11 +330,19 @@ def closest_hit(coeffs, feats, cluster_bounds, ray_o, ray_d, tmax, g, packed=Non
     return closest_hit_plain(coeffs, feats, mask, g, dead=dead_lanes(tmax))
 
 
-def occlusion(coeffs, feats, tm, mask, g):
-    """Banded shadow sweep: the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+def occlusion(coeffs, feats, cluster_bounds, ray_o, ray_d, tm, g, packed=None,
+              words_box=None):
+    """Banded shadow sweep of the segments (``ray_o``, ``ray_d``, range
+    ``tm``): the kernel for CUDA tensors (on the scene's ``packed`` table
+    and word boxes ``words_box``, which it then needs), the plain version
+    on :func:`band_mask_words` for CPU tensors."""
     if feats.is_cuda:
-        return occlusion_cuda(coeffs, feats, tm, mask, g)
+        if packed is None or words_box is None:
+            raise ValueError("the CUDA band shadow sweep needs the scene's packed table "
+                             "and word boxes")
+        return occlusion_cuda(packed, feats, cluster_bounds, words_box, ray_o.contiguous(),
+                              ray_d.contiguous(), tm, g)
+    mask = band_mask_words(cluster_bounds, ray_o, ray_d, tm, g)
     return occlusion_plain(coeffs, feats, tm, mask, g)
 
 
@@ -368,13 +374,18 @@ def intersect_band(coeffs, center, cluster_bounds, g, ray_o, ray_d, tmax=None,
                        words_box)
 
 
-def occlusion_band(coeffs, center, cluster_bounds, g, x, y, plain: bool = False):
+def occlusion_band(coeffs, center, cluster_bounds, g, x, y, plain: bool = False,
+                   packed=None, words_box=None):
     """True where segment x -> y is blocked (bool [N]), the segment inset
     as :func:`.traverse.segment_rays` does.  A zero-length segment (y == x)
-    has a negative range and d = 0: never blocked."""
+    has a negative range and d = 0: never blocked.  ``plain`` selects the
+    plain version on any device; ``packed`` and ``words_box`` are the
+    scene's packed table and word boxes, which the kernel reads."""
     _require_clusters(cluster_bounds)
     ray_o, ray_d, tm = segment_rays(x, y)
     feats = plucker_features(ray_o, ray_d, center)
-    mask = band_mask_words(cluster_bounds, ray_o, ray_d, tm, g)
-    sweep = occlusion_plain if plain else occlusion
-    return sweep(coeffs, feats, tm.contiguous(), mask, g)
+    tm = tm.contiguous()
+    if plain:
+        mask = band_mask_words(cluster_bounds, ray_o, ray_d, tm, g)
+        return occlusion_plain(coeffs, feats, tm, mask, g)
+    return occlusion(coeffs, feats, cluster_bounds, ray_o, ray_d, tm, g, packed, words_box)

@@ -24,19 +24,26 @@ for some triangle.  Pad triangles are all-zero triangles, whose q4 is
 features, so every q is 0 and it reads as blocked — the reference's
 behaviour (:2109-2118), kept here.
 
-Culling is the Plücker engine's per-128-lane-row slab prepass
+Culling is the Plücker engine's per-128-lane-row slab test
 (:func:`.plucker.cluster_mask_words`, as ``_quad_launch`` calls
-``_cluster_mask_bits``).  Each sweep has a kernel (``csrc/quad.cu``) and a
-plain torch version with one contract: every form is summed over the 27
-monomials in order, one f32 fused multiply-add per term (the plain
-version forms each exact product in f64, adds and rounds to f32), so the
-two agree to the ulp.  The closest-hit kernel leaves out the terms whose
-coefficient is zero by construction (72 of q1..q5's 135; it reads the 63
-live ones from the packed table of :func:`numpy_quad_packed`): a dropped
-term adds an exact zero, so its values are the plain version's
-(:func:`forms_live` is its summation in plain torch).  ``closest_hit`` / ``occlusion`` take the plain
-version for CPU tensors and launch the kernel (or raise) for CUDA tensors.
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-version calls.
+``_cluster_mask_bits``): the closest hit reads the prepass's row words,
+the shadow kernel votes its row's words itself (:func:`occl_words_plain`
+is its vote in plain torch, equal to the prepass bit for bit), so the
+shadow path calls no prepass on the card.  Each sweep has a kernel
+(``csrc/quad.cu``) and a plain torch version with one contract: every
+form is summed over the 27 monomials in order, one f32 fused
+multiply-add per term (the plain version forms each exact product in
+f64, adds and rounds to f32), so the two agree to the ulp.  The kernels
+leave out the terms whose coefficient is zero by construction (72 of
+q1..q5's 135, 81 of q1..q6's 162; they read the live ones from the packed
+tables of :func:`numpy_quad_packed` and :func:`numpy_quad_occl_packed`): a
+dropped term adds an exact zero, so their values are the plain version's
+(:func:`forms_live` is their summation in plain torch).  Inside the shadow
+sweep a segment passes over the clusters its own grown box cannot reach
+at t = 1 (:func:`.plucker.lane_skip_flags_plain`: no result moves).
+``closest_hit`` / ``occlusion`` take the plain version for CPU tensors
+and launch the kernel (or raise) for CUDA tensors.  ``LAUNCHES`` counts
+kernel launches and ``PLAIN_CALLS`` plain-version calls.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ import numpy as np
 import torch
 
 from ..utils.math import cross
-from .plucker import (PLUCKER_EPS2, ROW, cluster_mask_words, mask_flags,
+from .plucker import (GROUP, PLUCKER_EPS2, ROW, cluster_mask_words,
+                      lane_cluster_flags_plain, mask_flags, pack_words,
                       sweep_any, sweep_closest)
 from .traverse import FLT_MAX, RAY_OFFSET, SHADOW_EPS
 
@@ -66,15 +74,21 @@ LIVE_TERMS = (range(0, 15), range(0, 15), range(0, 15), range(0, 6),
 LIVE_SLOTS = tuple(p * QUAD_FEATS + k for p in range(CLOSEST_PLANES)
                    for k in LIVE_TERMS[p])
 PACKED_WIDTH = 64
-# f32 operations per (ray, triangle) pair, the min chain not counted.  The
-# closest hit sums only the live terms, one multiply and then fused
-# multiply-adds per form: 3 x 29 + 11 + 23; the shadow test sums all 27
-# monomials of its six forms (53 flops a form; CLOSEST_FLOPS_ALL_TERMS is
-# that count for the closest hit's five)
-FLOPS_PER_PAIR = {"closest_hit": sum(2 * len(LIVE_TERMS[p]) - 1
-                                     for p in range(CLOSEST_PLANES)),
-                  "occlusion": STORED_PLANES * 53}
+# the shadow sweep's 81 live coefficients of q1..q6, in the same order:
+# the packed shadow table's layout, three zero slots appended (84 floats,
+# twenty-one float4)
+OCCL_SLOTS = tuple(p * QUAD_FEATS + k for p in range(STORED_PLANES)
+                   for k in LIVE_TERMS[p])
+OCCL_PACKED_WIDTH = 84
+# f32 operations per (ray, triangle) pair, the min chain not counted: each
+# form over its live terms, one multiply and then fused multiply-adds:
+# 3 x 29 + 11 + 23 for the closest hit's five, + 35 for q6.  Summed over
+# all 27 monomials a form is 53 flops (the *_ALL_TERMS counts)
+FLOPS_PER_PAIR = {kind: sum(2 * len(LIVE_TERMS[p]) - 1 for p in range(planes))
+                  for kind, planes in (("closest_hit", CLOSEST_PLANES),
+                                       ("occlusion", STORED_PLANES))}
 CLOSEST_FLOPS_ALL_TERMS = CLOSEST_PLANES * 53
+OCCL_FLOPS_ALL_TERMS = STORED_PLANES * 53
 
 LAUNCHES = {"closest_hit": 0, "occlusion": 0}
 PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
@@ -161,6 +175,18 @@ def numpy_quad_packed(coeffs: np.ndarray) -> np.ndarray:
     return out
 
 
+def numpy_quad_occl_packed(coeffs: np.ndarray) -> np.ndarray:
+    """The shadow sweep's live coefficients of ``coeffs`` [T, 6, 28] packed
+    to f32 [T, 84]: :data:`OCCL_SLOTS` in order (q1..q5 in the slots of
+    :func:`numpy_quad_packed`, q6 63-80), slots 81-83 zero.  A triangle is
+    336 bytes, 16-byte aligned, read by the kernel as twenty-one
+    ``float4``."""
+    flat = np.asarray(coeffs, np.float32).reshape(-1, STORED_PLANES * QUAD_FEATS)
+    out = np.zeros((flat.shape[0], OCCL_PACKED_WIDTH), np.float32)
+    out[:, :len(OCCL_SLOTS)] = flat[:, list(OCCL_SLOTS)]
+    return out
+
+
 def quad_segments(x, y):
     """Shadow segment x -> y as (origin, unnormalized direction) with the
     parameter t in [0, 1] (``occlusion_quad_pallas`` :2415-2420): the origin
@@ -195,18 +221,19 @@ def forms(coeffs, feats, planes: int):
     return acc.view(f.shape[1], -1, planes)
 
 
-def forms_live(packed, feats):
-    """q1..q5 f32 [R, T, 5] from the packed table ``packed`` [T, 64] as the
-    closest-hit kernel sums them: each form over its live monomials only
+def forms_live(packed, feats, planes: int = CLOSEST_PLANES):
+    """The first ``planes`` forms f32 [R, T, planes] from a packed table as
+    the kernels sum them (``packed`` [T, 64] for q1..q5, the shadow table
+    [T, 84] for q1..q6): each form over its live monomials only
     (:data:`LIVE_TERMS`), in order, one fused multiply-add per term from 0.
-    Equal by value to ``forms(coeffs, feats, 5)``: a dropped term adds an
-    exact zero."""
+    Equal by value to ``forms(coeffs, feats, planes)``: a dropped term adds
+    an exact zero."""
     f = feats.double()
     c = packed.double()
     wide = torch.empty((f.shape[0], c.shape[0]), dtype=torch.float64,
                        device=feats.device)
     out, slot = [], 0
-    for p in range(CLOSEST_PLANES):
+    for p in range(planes):
         acc = torch.zeros(wide.shape, dtype=torch.float32, device=feats.device)
         for k in LIVE_TERMS[p]:
             wide.copy_(acc)
@@ -215,6 +242,30 @@ def forms_live(packed, feats):
             slot += 1
         out.append(acc)
     return torch.stack(out, -1)
+
+
+def occl_words_plain(cluster_bounds, ray_o, seg):
+    """The shadow kernel's vote in plain torch: int32 row words as
+    ``cluster_mask_words(cluster_bounds, ray_o, seg, ones)`` returns them.
+    Each lane's slab test of its unit-parameter segment at range 1 (a
+    padding lane: o = 0, d = 1, range 0, as the prepass pads it), ORed per
+    warp of :data:`.plucker.GROUP` lanes, then over the row's four warps."""
+    n = ray_o.shape[0]
+    n_pad = -(-n // ROW) * ROW
+    pad = n_pad - n
+    o = torch.cat([ray_o, ray_o.new_zeros((pad, 3))])
+    d = torch.cat([seg, seg.new_ones((pad, 3))])
+    tm = torch.cat([ray_o.new_ones((n,)), ray_o.new_zeros((pad,))])
+    lanes = lane_cluster_flags_plain(cluster_bounds, o, d, tm)
+    warps = lanes.view(-1, GROUP, lanes.shape[1]).any(1)
+    return pack_words(warps.view(-1, ROW // GROUP, lanes.shape[1]).any(1))
+
+
+def zero_segments(feats):
+    """bool [N]: the segments whose 27 monomial features are all 0 (a
+    zero-length segment): every form of every triangle is 0 for them, so
+    each reads as blocked wherever its row sweeps a triangle."""
+    return ~feats[:, :QUAD_LIVE].bool().any(1)
 
 
 def hit_t(coeffs, feats):
@@ -252,50 +303,34 @@ def occlusion_plain(coeffs, feats, mask, sub):
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(coeffs, feats, mask, sub, packed=False):
-    """``coeffs`` is the form table [T, 6, 28], or with ``packed`` the
-    closest hit's packed table [T, 64]."""
-    if not (coeffs.is_cuda and feats.is_cuda):
-        raise ValueError("the CUDA quad sweep takes CUDA tensors")
-    if coeffs.dtype != torch.float32 or feats.dtype != torch.float32:
-        raise TypeError("coeffs and feats must be float32")
-    if packed:
-        if coeffs.dim() != 2 or coeffs.shape[1] != PACKED_WIDTH:
-            raise ValueError(f"the packed table must be [T, {PACKED_WIDTH}], "
-                             f"got {tuple(coeffs.shape)}")
-    elif coeffs.dim() != 3 or coeffs.shape[1:] != (STORED_PLANES, QUAD_FEATS):
-        raise ValueError(f"coeffs must be [T, 6, 28], got {tuple(coeffs.shape)}")
-    if feats.dim() != 2 or feats.shape[1] != QUAD_FEATS:
-        raise ValueError(f"feats must be [N, 28], got {tuple(feats.shape)}")
-    if not (coeffs.is_contiguous() and feats.is_contiguous()):
-        raise ValueError("coeffs and feats must be contiguous")
-    if coeffs.data_ptr() % 16 or feats.data_ptr() % 16:
-        raise ValueError("coeffs and feats must be 16-byte aligned")
-    if mask is not None:
-        rows = -(-feats.shape[0] // ROW)
-        if (not mask.is_cuda or mask.dtype != torch.int32 or mask.dim() != 2
-                or mask.shape[0] != rows or not mask.is_contiguous()):
-            raise ValueError("mask must be contiguous int32 [ceil(N/128), W] "
-                             "on the card")
-        if coeffs.shape[0] % sub or mask.shape[1] * 32 < coeffs.shape[0] // sub:
-            raise ValueError("coeffs rows must be whole clusters covered by "
-                             "the mask words")
+def _check_inputs(packed, feats, width, sub):
+    """Raise on what the kernels do not take: the packed table ``packed``
+    f32 [T, width] and the features ``feats`` f32 [N, 28], contiguous,
+    16-byte aligned, on the card."""
+    for name, t, cols in (("the packed table", packed, width), ("feats", feats, QUAD_FEATS)):
+        if not (t.is_cuda and t.dtype == torch.float32 and t.dim() == 2
+                and t.shape[1] == cols and t.is_contiguous() and t.data_ptr() % 16 == 0):
+            raise ValueError(f"{name} must be 16-byte aligned contiguous float32 "
+                             f"[-, {cols}] on the card, got {t.dtype} {tuple(t.shape)}")
+    if sub < 1:
+        raise ValueError(f"triangles per cluster must be positive, got {sub}")
 
 
-def _launch(fn: str, coeffs, feats, mask, sub, out):
+def _launch(fn: str, *args):
+    """C entry point ``fn`` of csrc/quad.cu on the current stream: tensors
+    go as their data pointers (None as null), ints as they are; raises if
+    the launch is refused."""
     import ctypes
 
     from ._build import load_library
 
     lib = load_library("quad")
-    p = ctypes.c_void_p
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    with torch.cuda.device(feats.device):
-        err = getattr(lib, fn)(
-            p(coeffs.data_ptr()), coeffs.shape[0], sub, p(feats.data_ptr()),
-            feats.shape[0], p(None if mask is None else mask.data_ptr()),
-            0 if mask is None else mask.shape[1],
-            *(p(t.data_ptr()) for t in out), p(stream))
+    dev = next(a for a in args if isinstance(a, torch.Tensor)).device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    conv = [ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+            else ctypes.c_void_p(None) if a is None else a for a in args]
+    with torch.cuda.device(dev):
+        err = getattr(lib, fn)(*conv, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {err}")
 
@@ -305,26 +340,51 @@ def closest_hit_cuda(packed, feats, mask, sub):
     scene's packed table ``packed`` f32 [T, 64]
     (:func:`numpy_quad_packed`); same results as :func:`closest_hit_plain`
     on the forms it was packed from."""
-    _check_inputs(packed, feats, mask, sub, packed=True)
+    _check_inputs(packed, feats, PACKED_WIDTH, sub)
+    if mask is not None:
+        rows = -(-feats.shape[0] // ROW)
+        if (not mask.is_cuda or mask.dtype != torch.int32 or mask.dim() != 2
+                or mask.shape[0] != rows or not mask.is_contiguous()):
+            raise ValueError("mask must be contiguous int32 [ceil(N/128), W] on the card")
+        if packed.shape[0] % sub or mask.shape[1] * 32 < packed.shape[0] // sub:
+            raise ValueError("the packed table must be whole clusters covered by the "
+                             "mask words")
     n = feats.shape[0]
     prim = torch.empty((n,), dtype=torch.int32, device=feats.device)
     dist = torch.empty((n,), dtype=torch.float32, device=feats.device)
     if n == 0:
         return prim, dist
-    _launch("quad_closest_hit", packed, feats, mask, sub, (prim, dist))
+    _launch("quad_closest_hit", packed, packed.shape[0], sub, feats, n, mask,
+            0 if mask is None else mask.shape[1], prim, dist)
     LAUNCHES["closest_hit"] += 1
     return prim, dist
 
 
-def occlusion_cuda(coeffs, feats, mask, sub):
-    """The shadow kernel (``quad_occlusion`` in csrc/quad.cu); same contract
-    as :func:`occlusion_plain`."""
-    _check_inputs(coeffs, feats, mask, sub)
-    n = feats.shape[0]
+def occlusion_cuda(packed, feats, cluster_bounds, ray_o, seg, sub):
+    """The shadow kernel (``quad_occlusion`` in csrc/quad.cu) on the
+    scene's packed shadow table ``packed`` f32 [T, 84]
+    (:func:`numpy_quad_occl_packed`): each 128-lane row votes its cluster
+    words from ``cluster_bounds`` f32 [C, 6] (None: every triangle is
+    swept) and its unit-parameter segments ``ray_o``, ``seg`` f32 [N, 3]
+    (:func:`quad_segments`), then sweeps them.  Same results as
+    :func:`occlusion_plain` on ``cluster_mask_words(cluster_bounds, ray_o,
+    seg, ones)``."""
+    _check_inputs(packed, feats, OCCL_PACKED_WIDTH, sub)
+    n, num_tris = feats.shape[0], packed.shape[0]
+    n_c = -(-num_tris // sub)
+    shapes = [("ray_o", ray_o, (n, 3)), ("seg", seg, (n, 3))]
+    if cluster_bounds is not None:
+        shapes.append(("cluster_bounds", cluster_bounds, (n_c, 6)))
+    for name, t, shape in shapes:
+        if not (t.is_cuda and t.dtype == torch.float32 and t.shape == shape
+                and t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 {list(shape)} on the "
+                             f"card (one box per cluster of {sub} triangles)")
     occ = torch.empty((n,), dtype=torch.int32, device=feats.device)
     if n == 0:
         return occ.bool()
-    _launch("quad_occlusion", coeffs, feats, mask, sub, (occ,))
+    _launch("quad_occlusion", packed, num_tris, sub, cluster_bounds,
+            0 if cluster_bounds is None else n_c, ray_o, seg, feats, n, occ)
     LAUNCHES["occlusion"] += 1
     return occ.bool()
 
@@ -341,12 +401,26 @@ def closest_hit(coeffs, feats, mask, sub, packed=None):
     return closest_hit_plain(coeffs, feats, mask, sub)
 
 
-def occlusion(coeffs, feats, mask, sub):
-    """Shadow sweep: the kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+def _row_words(cluster_bounds, ray_o, seg):
+    """The prepass's row words of unit-parameter segments (None without
+    cluster boxes)."""
+    if cluster_bounds is None:
+        return None
+    return cluster_mask_words(cluster_bounds, ray_o, seg, torch.ones_like(ray_o[:, 0]))
+
+
+def occlusion(coeffs, feats, cluster_bounds, ray_o, seg, sub, packed=None):
+    """Shadow sweep of the unit-parameter segments ``ray_o``, ``seg``: the
+    kernel for CUDA tensors (on the scene's packed shadow table
+    ``packed``, which it then needs), the plain version on the prepass's
+    row words for CPU tensors."""
     if feats.is_cuda:
-        return occlusion_cuda(coeffs, feats, mask, sub)
-    return occlusion_plain(coeffs, feats, mask, sub)
+        if packed is None:
+            raise ValueError("the CUDA quad shadow sweep needs the scene's packed "
+                             "shadow table")
+        return occlusion_cuda(packed, feats, cluster_bounds, ray_o.contiguous(),
+                              seg.contiguous(), sub)
+    return occlusion_plain(coeffs, feats, _row_words(cluster_bounds, ray_o, seg), sub)
 
 
 # ---------------------------------------------------------------------------
@@ -371,16 +445,15 @@ def intersect_quad(coeffs, center, cluster_bounds, sub, ray_o, ray_d,
 
 
 def occlusion_quad(coeffs, center, cluster_bounds, sub, x, y,
-                   plain: bool = False):
+                   plain: bool = False, packed=None):
     """True where segment x -> y is blocked (bool [N]), over the
-    unit-parameter segments of :func:`quad_segments` (the prepass bounds
+    unit-parameter segments of :func:`quad_segments` (the culling bounds
     them at t = 1).  A zero-length segment (y == x, a masked lane) reads as
-    blocked wherever its row sweeps a triangle, as in the reference."""
+    blocked wherever its row sweeps a triangle, as in the reference.
+    ``plain`` selects the plain version on any device; ``packed`` is the
+    scene's packed shadow table, which the kernel reads."""
     ray_o, seg = quad_segments(x, y)
     feats = quad_features(ray_o, seg, center)
-    mask = None
-    if cluster_bounds is not None:
-        ones = torch.ones_like(ray_o[:, 0])
-        mask = cluster_mask_words(cluster_bounds, ray_o, seg, ones)
-    sweep = occlusion_plain if plain else occlusion
-    return sweep(coeffs, feats, mask, sub)
+    if plain:
+        return occlusion_plain(coeffs, feats, _row_words(cluster_bounds, ray_o, seg), sub)
+    return occlusion(coeffs, feats, cluster_bounds, ray_o, seg, sub, packed)

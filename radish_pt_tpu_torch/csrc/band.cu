@@ -10,16 +10,11 @@
 // c is triangles [64c, 64c + 64), so a winner's id is 64c + its place in
 // the cluster.
 //
-// The closest hit votes its bands' words itself (no prepass, no mask in
-// device memory) and sweeps as the Plücker closest hit does (ray_sweep.cuh:
-// the packed table staged block-wide through cp.async into two buffers,
-// triangles across a warp's threads, its rays one at a time).  The shadow
-// sweep still reads the words of the prepass accel/band.py::band_mask_words
-// (int32 [rows * g][n_words], band b of row r at r * g + b): one thread per
-// ray, each warp walking the OR of its lanes' band words and staging each
-// cluster in its own slice of shared memory (64 triangles x 19 live
-// coefficients, 5 KB) between __syncwarp()s; a lane sweeps the cluster only
-// if its own band's bit is set.
+// Both kernels vote their bands' words themselves (no prepass, no mask in
+// device memory) and sweep as the Plücker kernels do (ray_sweep.cuh: the
+// packed table staged block-wide through cp.async into two buffers,
+// triangles across a warp's threads, its rays one at a time, each ray
+// passing over the clusters its own grown box cannot reach).
 //
 // Launched on the caller's stream; the C entry points return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
@@ -33,13 +28,12 @@
 
 namespace {
 
-constexpr int kRow = 128;  // lanes per row (and threads per shadow block)
+constexpr int kRow = 128;  // lanes per row
 constexpr int kWarp = 32;
-constexpr int kWarps = kRow / kWarp;
 constexpr int kCluster = 64;  // triangles per culling cluster
 constexpr unsigned kFull = 0xffffffffu;
 
-// The closest hit's shape: lanes a block (64 or 128; a band of 128 lanes,
+// The kernels' shape: lanes a block (64 or 128; a band of 128 lanes,
 // g = 1, takes a block of 128), triangles a thread holds at a time, and
 // whether the vote first tests each word's union box (two levels) or
 // every cluster's box (one).  -DBAND_BLOCK_LANES / -DBAND_TRIS /
@@ -60,15 +54,17 @@ constexpr bool kTwoLevel = BAND_TWO_LEVEL != 0;
 static_assert(kBlockLanes == 64 || kBlockLanes == kRow, "a block is 64 or 128 lanes");
 static_assert(kCluster % (32 * kTris) == 0, "a cluster is whole passes");
 // A ray passes over a cluster whose box, grown by kSkipSlack times the
-// scene's scale, it enters beyond its best t widened by kSkipMargin
+// scene's scale, it enters beyond its reach (best t so far, or the
+// segment's range) widened by kSkipMargin
 // (accel/plucker.py: SKIP_SLACK, SKIP_MARGIN).
 constexpr float kSkipSlack = 2e-4f;
 constexpr float kSkipMargin = 1.f + 1e-4f;
 
 // The calling lane's band's cluster words (``band_words``, n_words long)
-// and the block's union (``uni``), both zero on entry.  Each lane tests
-// its own ray (``votes``: a live lane; padding and dead lanes flag
-// nothing) against each box with slab_hit; a band's bit is the OR over its
+// and the block's union (``uni``), both zero on entry.  Each lane that
+// ``votes`` (the closest hit's live lanes, the shadow sweep's real ones;
+// padding lanes flag nothing) tests its own ray against each box with
+// slab_hit; a band's bit is the OR over its
 // lanes: __reduce_or_sync over the band's lanes of this warp (the whole
 // warp from 32 lanes up), then an atomicOr into the band's shared word,
 // which a band of several warps (g <= 2) ORs across them.  With kTwoLevel
@@ -201,64 +197,95 @@ band_closest_hit_kernel(const float4* __restrict__ packed, int num_tris,
   }
 }
 
-// Stage cluster c into this warp's slice of shared memory; returns its
-// triangle count.  Warp-uniform: every lane of the warp calls it.
-__device__ __forceinline__ int stage_cluster(float* s, const float* __restrict__ coeffs,
-                                             int c, int num_tris, int lane) {
-  const int base = c * kCluster;
-  const int cnt = min(kCluster, num_tris - base);
-  __syncwarp();  // the previous cluster's reads are done
-  stage_tile(s, coeffs, base, cnt, lane, kWarp);
-  __syncwarp();
-  return cnt;
+// Replaces _band_occl_kernel (radish_pt_tpu/accel/pallas_kernels.py) and
+// the band-mask prepass in front of it, the any-hit test of every NEE
+// shadow segment on the band engine.
+// Bound on the card: the f32 pipe — 43 flops per (segment, triangle) pair —
+// over the pairs the culling leaves, plus the vote.  The design is the
+// closest hit's with the segment's range as the fixed reach:
+//  1. the block's bands vote their words into shared memory with each
+//     segment's range as its tmax, equal bit for bit to
+//     band_mask_words(cluster_bounds, segment_rays(x, y), g); every real
+//     lane votes, one with a negative range too, as the prepass has it;
+//  2. the block walks the union of its bands' words in id order, one
+//     64-triangle cluster a tile, staged from the packed table through
+//     cp.async, the next tile's copy in flight;
+//  3. a segment goes by a tile only if its own band flags the cluster and
+//     its own grown box test admits it within its range (slab_reach at
+//     tm·kSkipMargin); triangles across the warp's threads, the segments one
+//     at a time (sweep_any_tile), one __any_sync settling a segment.
+// A segment with a negative range (zero-length: a masked lane) can be
+// blocked by no triangle: it is settled from the start.  Settled segments
+// leave the walk's ballots; the block leaves its walk through
+// __syncthreads_and once every segment is settled.
+template <int kLanes>
+__global__ void __launch_bounds__(kLanes)
+band_occlusion_kernel(const float4* __restrict__ packed, int num_tris,
+                      const float* __restrict__ bounds,
+                      const float* __restrict__ word_bounds, int n_clusters,
+                      const float* __restrict__ ray_o, const float* __restrict__ ray_d,
+                      const float* __restrict__ tm_in, const float* __restrict__ feats,
+                      int n, int g, int* __restrict__ occ_out) {
+  extern __shared__ unsigned band_smem[];
+  __shared__ float4 s[2][kCluster * kPackVec];
+  __shared__ float4 recs[kLanes / kWarp][kWarp * kRecVec];
+  const int n_words = (n_clusters + 31) >> 5;
+  const int band_lanes = kRow / g;
+  unsigned* uni = band_smem + (kLanes / band_lanes) * n_words;
+  for (int i = threadIdx.x; i < (kLanes / band_lanes + 1) * n_words; i += kLanes) {
+    band_smem[i] = 0u;
+  }
+  unsigned* own = band_smem + (threadIdx.x / band_lanes) * n_words;
+  const int ray = blockIdx.x * kLanes + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  float4* rec = recs[threadIdx.x / kWarp];
+  const SlabRay sr = slab_ray(ray_o, ray_d, tm_in, ray, n);
+  {
+    float f[10];
+    load_feats(f, feats, ray, ray < n);
+    // a record's third word: the segment's range
+    write_record(rec + lane * kRecVec, f, sr.tm, 0.f);
+  }
+  // the warp's segments still to settle, and those found blocked, a bit a lane
+  unsigned open = __ballot_sync(kFull, ray < n && sr.tm >= 0.f);
+  unsigned blocked_rays = 0;
+  __syncthreads();  // the words are zero
+  const float slack =
+      vote_band_words(own, uni, bounds, word_bounds, n_clusters, sr, ray < n, band_lanes);
+  __syncthreads();
+
+  auto union_word = [&](int w) { return uni[w]; };
+  TileWalk<kCluster> walk{n_words, kCluster, num_tris};
+  bool more = walk.next(union_word);
+  if (more) stage_packed(s[0], packed, walk.base, walk.count(), threadIdx.x, kLanes);
+  cp_async_commit();
+  for (int buf = 0; more; buf ^= 1) {
+    const int cnt = walk.count(), c = walk.c;
+    const bool mine = (open >> lane) & (own[c >> 5] >> (c & 31)) & 1u;  // my band flags c
+    cp_async_wait<0>();
+    // the tile's barrier, and whether every segment of the block is settled
+    if (__syncthreads_and(open == 0)) break;
+    more = walk.next(union_word);
+    if (more) stage_packed(s[buf ^ 1], packed, walk.base, walk.count(), threadIdx.x, kLanes);
+    cp_async_commit();
+    if (!__any_sync(kFull, mine)) continue;
+    // the open segments that reach this tile's cluster
+    const unsigned rays = __ballot_sync(
+        kFull, mine && slab_reach(sr, bounds + (size_t)c * 6, slack, sr.tm * kSkipMargin));
+    if (rays == 0) continue;
+    const unsigned hit = sweep_any_tile<kTris>(rec, s[buf], cnt, rays);
+    open &= ~hit;
+    blocked_rays |= hit;
+  }
+  cp_async_wait<0>();
+  if (ray < n) occ_out[ray] = (blocked_rays >> lane) & 1u;
 }
 
-// Replaces _band_occl_kernel (radish_pt_tpu/accel/pallas_kernels.py), the
-// any-hit test of every NEE shadow segment on the band engine.
-// Bound on the card: FMA throughput, as the closest hit, minus the division.  A
-// lane stops testing once its segment is blocked, and a warp leaves its
-// walk once all its lanes are settled (__all_sync before each cluster):
-// blocked, padding, or with a negative range, which no triangle can block.
-__global__ void __launch_bounds__(kRow)
-band_occlusion_kernel(const float* __restrict__ coeffs, int num_tris,
-                      const float* __restrict__ feats, int n,
-                      const int* __restrict__ mask, int n_words, int g,
-                      const float* __restrict__ tm_in, int* __restrict__ occ_out) {
-  __shared__ float s[kWarps][kCluster * kStride];
-  const int lane = threadIdx.x & (kWarp - 1);
-  float* sw = s[threadIdx.x / kWarp];
-  const int ray = blockIdx.x * kRow + threadIdx.x;
-  const bool live = ray < n;
-  float f[10];
-  load_feats(f, feats, ray, live);
-  const float tm = live ? tm_in[ray] : -1.f;
-  const int band = threadIdx.x / (kRow / g);
-  const int* words = mask + ((size_t)blockIdx.x * g + band) * n_words;
-  int occ = 0;
-  bool settled = !(tm >= 0.f);
-  bool done = false;
-  for (int w = 0; w < n_words && !done; ++w) {
-    const unsigned own = (unsigned)words[w];
-    unsigned bits = __reduce_or_sync(kFull, own);
-    while (bits) {
-      done = __all_sync(kFull, settled);
-      if (done) break;
-      const int b = __ffs(bits) - 1;
-      bits &= bits - 1;
-      const int c = w * 32 + b;
-      const int cnt = stage_cluster(sw, coeffs, c, num_tris, lane);
-      if (settled || !((own >> b) & 1u)) continue;
-      for (int j = 0; j < cnt; ++j) {
-        const Planes p = planes(sw + j * kStride, f);
-        if (fminf(fminf(p.v, p.tdd), tm * p.sd - p.tdd) >= 0.f) {
-          occ = 1;
-          settled = true;
-          break;
-        }
-      }
-    }
-  }
-  if (live) occ_out[ray] = occ;
+// Dynamic shared memory of either kernel: the block's bands' words, then
+// their union.
+template <int kLanes>
+size_t words_smem(int n_clusters, int g) {
+  return (size_t)(kLanes / (kRow / g) + 1) * ((n_clusters + 31) >> 5) * sizeof(unsigned);
 }
 
 template <int kLanes>
@@ -266,8 +293,7 @@ int launch_closest_hit(const float* packed, int num_tris, const float* bounds,
                        const float* word_bounds, int n_clusters, const float* ray_o,
                        const float* ray_d, const float* tmax, const float* feats, int n, int g,
                        int* prim_out, float* dist_out, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(kLanes / (kRow / g) + 1) * ((n_clusters + 31) >> 5) * sizeof(unsigned);
+  const size_t smem = words_smem<kLanes>(n_clusters, g);
   const cudaError_t err = cudaFuncSetAttribute(
       band_closest_hit_kernel<kLanes>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -275,6 +301,22 @@ int launch_closest_hit(const float* packed, int num_tris, const float* bounds,
   band_closest_hit_kernel<kLanes><<<blocks, kLanes, smem, stream>>>(
       reinterpret_cast<const float4*>(packed), num_tris, bounds, word_bounds, n_clusters,
       ray_o, ray_d, tmax, feats, n, g, prim_out, dist_out);
+  return (int)cudaGetLastError();
+}
+
+template <int kLanes>
+int launch_occlusion(const float* packed, int num_tris, const float* bounds,
+                     const float* word_bounds, int n_clusters, const float* ray_o,
+                     const float* ray_d, const float* tm, const float* feats, int n, int g,
+                     int* occ_out, cudaStream_t stream) {
+  const size_t smem = words_smem<kLanes>(n_clusters, g);
+  const cudaError_t err = cudaFuncSetAttribute(
+      band_occlusion_kernel<kLanes>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + kLanes - 1) / kLanes;
+  band_occlusion_kernel<kLanes><<<blocks, kLanes, smem, stream>>>(
+      reinterpret_cast<const float4*>(packed), num_tris, bounds, word_bounds, n_clusters,
+      ray_o, ray_d, tm, feats, n, g, occ_out);
   return (int)cudaGetLastError();
 }
 
@@ -293,13 +335,13 @@ int band_closest_hit(const float* packed, int num_tris, const float* bounds,
                 n, g, prim_out, dist_out, (cudaStream_t)stream);
 }
 
-int band_occlusion(const float* coeffs, int num_tris, const float* feats, int n,
-                   const int* mask, int n_words, int g, const float* tm, int* occ_out,
-                   void* stream) {
-  const int blocks = (n + kRow - 1) / kRow;
-  band_occlusion_kernel<<<blocks, kRow, 0, (cudaStream_t)stream>>>(
-      coeffs, num_tris, feats, n, mask, n_words, g, tm, occ_out);
-  return (int)cudaGetLastError();
+int band_occlusion(const float* packed, int num_tris, const float* bounds,
+                   const float* word_bounds, int n_clusters, const float* ray_o,
+                   const float* ray_d, const float* tm, const float* feats, int n, int g,
+                   int* occ_out, void* stream) {
+  auto launch = kRow / g > kBlockLanes ? &launch_occlusion<kRow> : &launch_occlusion<kBlockLanes>;
+  return launch(packed, num_tris, bounds, word_bounds, n_clusters, ray_o, ray_d, tm, feats, n,
+                g, occ_out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

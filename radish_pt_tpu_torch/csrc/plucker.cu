@@ -16,7 +16,7 @@
 //     block barrier a tile.
 //  3. A warp sweeps a staged tile only if its own bit is set (a
 //     warp-uniform branch), triangles across its threads (ray_sweep.cuh,
-//     shared with the band closest hit): each thread
+//     shared with the band kernels): each thread
 //     takes kTris triangles of the tile into registers (five LDS.128 each,
 //     80 bytes apart across the warp: no bank conflict), then the warp's
 //     rays go by one at a time, a ray's record (its ten features and its
@@ -241,30 +241,11 @@ occlusion_kernel(const float4* __restrict__ packed, int num_tris, int sub,
     cp_async_commit();
     if (!sweep) continue;
     // the open rays whose segment reaches this tile's cluster
-    unsigned rays = rays_in_reach(open, bounds, c, sr, slack, sr.tm * kSkipMargin);
-    for (int p0 = 0; p0 < cnt && rays != 0; p0 += kPass) {
-      Packed tri[kTris];
-      load_pass<kTris>(tri, s[buf], p0, cnt);
-      for (unsigned m = rays; m; m &= m - 1) {
-        const int r = __ffs(m) - 1;
-        const float4 ra = rec[r * kRecVec], rb = rec[r * kRecVec + 1],
-                     rc = rec[r * kRecVec + 2];
-        const float f[10] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w, rc.x, rc.y};
-        const float tm = rc.z;
-        bool blocked = false;
-#pragma unroll
-        for (int k = 0; k < kTris; ++k) {
-          const Planes p = planes(tri[k], f);
-          blocked |= fminf(fminf(p.v, p.tdd), tm * p.sd - p.tdd) >= 0.f;
-        }
-        if (__any_sync(kFullWarp, blocked)) {
-          const unsigned bit = 1u << r;
-          rays &= ~bit;
-          open &= ~bit;
-          blocked_rays |= bit;
-        }
-      }
-    }
+    const unsigned rays = rays_in_reach(open, bounds, c, sr, slack, sr.tm * kSkipMargin);
+    if (rays == 0) continue;
+    const unsigned hit = sweep_any_tile<kTris>(rec, s[buf], cnt, rays);
+    open &= ~hit;
+    blocked_rays |= hit;
   }
   cp_async_wait<0>();
   if (ray < n) occ_out[ray] = (blocked_rays >> lane) & 1u;

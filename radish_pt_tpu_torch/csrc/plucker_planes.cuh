@@ -1,16 +1,15 @@
 // Plücker decision planes shared by the sweep kernels (plucker.cu,
-// compact.cu, band.cu).  plucker.cu, compact.cu and the band closest hit
-// read the packed table (stage_packed, planes(Packed)); the band shadow
-// sweep still stages from c[T][4][10] (stage_tile, planes(float*)).
+// compact.cu, band.cu), which read the packed table (stage_packed,
+// planes(Packed)).
 //
 // Möller–Trumbore's four decision quantities are planes bilinear in
 // per-ray features f = [d, o x d, o, 1] (o centred on the scene) with
 // build-time per-triangle coefficients c[T][4][10]:
 //   det = c0·f   bx = c1·f   by = c2·f   tdet = c3·f
 // Only 19 of the 40 coefficients can be non-zero (det reads d; bx and by
-// read d and o x d; tdet reads o and 1), so a staged triangle is those 19
-// floats (staged from c[T][4][10] by stage_tile, or read as five float4 from
-// the packed table [T][20]).  With sd = det², bxd = bx·det, byd = by·det, tdd = tdet·det:
+// read d and o x d; tdet reads o and 1), so a packed triangle is those 19
+// floats and one zero, read as five float4 from the packed table [T][20].
+// With sd = det², bxd = bx·det, byd = by·det, tdd = tdet·det:
 //   closest hit:  min(bxd, byd, sd - bxd - byd, sd - eps², tdd) >= 0,
 //                 t = tdd / sd
 //   shadow:       min(bxd, byd, sd - bxd - byd, sd - eps², tdd,
@@ -25,32 +24,8 @@
 
 namespace {
 
-constexpr int kTile = 128;    // triangles staged per shared-memory tile
-constexpr int kStride = 20;   // floats per staged triangle (19 used)
 constexpr float kEps2 = 1.1920929e-07f * 1.1920929e-07f;
 constexpr float kFltMax = 3.402823466e38f;
-
-// Stage triangles [base, base + n) as their 19 live coefficients, thread
-// ``tid`` of a group of ``threads`` (the whole block by default).
-__device__ __forceinline__ void stage_tile(float* s, const float* __restrict__ coeffs,
-                                           int base, int n, int tid, int threads) {
-  for (int i = tid; i < n * kStride; i += threads) {
-    const int j = i / kStride;
-    const int k = i - j * kStride;
-    const float* c = coeffs + (size_t)(base + j) * 40;
-    float v = 0.f;
-    if (k < 3) v = c[k];                       // det:  c0[0:3]
-    else if (k < 9) v = c[10 + (k - 3)];       // bx:   c1[0:6]
-    else if (k < 15) v = c[20 + (k - 9)];      // by:   c2[0:6]
-    else if (k < 19) v = c[30 + 6 + (k - 15)]; // tdet: c3[6:10]
-    s[i] = v;
-  }
-}
-
-__device__ __forceinline__ void stage_tile(float* s, const float* __restrict__ coeffs,
-                                           int base, int n) {
-  stage_tile(s, coeffs, base, n, threadIdx.x, blockDim.x);
-}
 
 struct Planes {
   float sd, v, tdd;
@@ -67,25 +42,6 @@ __device__ __forceinline__ Planes decide(float det, float bx, float by, float td
   p.v = fminf(v, p.sd - kEps2);
   p.tdd = td * det;
   return p;
-}
-
-// The decision quantities of staged triangle s[0:19] for features f.
-__device__ __forceinline__ Planes planes(const float* s, const float* f) {
-  float det = s[0] * f[0];
-  det = fmaf(s[1], f[1], det);
-  det = fmaf(s[2], f[2], det);
-  float bx = s[3] * f[0];
-  float by = s[9] * f[0];
-#pragma unroll
-  for (int k = 1; k < 6; ++k) {
-    bx = fmaf(s[3 + k], f[k], bx);
-    by = fmaf(s[9 + k], f[k], by);
-  }
-  float td = s[15] * f[6];
-  td = fmaf(s[16], f[7], td);
-  td = fmaf(s[17], f[8], td);
-  td = fmaf(s[18], f[9], td);
-  return decide(det, bx, by, td);
 }
 
 // ---- packed operands: a triangle's 19 live coefficients as five float4
@@ -109,8 +65,8 @@ __device__ __forceinline__ Packed load_packed(const float4* s) {
   return t;
 }
 
-// planes() on a packed triangle: the same products and fused multiply-adds
-// in the same order.
+// The decision quantities of a packed triangle for features f: det, bx, by
+// and tdet each a product then fused multiply-adds, in slot order.
 __device__ __forceinline__ Planes planes(const Packed& t, const float* f) {
   float det = t.a.x * f[0];
   det = fmaf(t.a.y, f[1], det);

@@ -1,5 +1,5 @@
 // The sweep with triangles across a warp's threads and its rays one at a
-// time, shared by the Plücker kernels (plucker.cu) and the band closest hit
+// time, shared by the Plücker kernels (plucker.cu) and the band kernels
 // (band.cu).
 //
 // A block walks the tiles of the clusters some culling group of it flags,
@@ -139,6 +139,39 @@ __device__ __forceinline__ void sweep_closest_tile(float4* rec, const float4* ti
       }
     }
   }
+}
+
+// The any-hit of a staged tile (``cnt`` triangles) for the calling warp's
+// open segments in ``rays`` (a bit a lane), whose records (``rec``) hold
+// their range in the third word: returns the segments one of the tile's
+// triangles blocks.  One vote a segment and pass; a segment blocked in one
+// pass goes by no later pass.
+template <int kTris>
+__device__ __forceinline__ unsigned sweep_any_tile(const float4* rec, const float4* tile,
+                                                   int cnt, unsigned rays) {
+  constexpr int kPass = 32 * kTris;
+  unsigned blocked_rays = 0;
+  for (int p0 = 0; p0 < cnt && rays != 0; p0 += kPass) {
+    Packed tri[kTris];
+    load_pass<kTris>(tri, tile, p0, cnt);
+    for (unsigned m = rays; m; m &= m - 1) {
+      const int r = __ffs(m) - 1;
+      const float4 ra = rec[r * kRecVec], rb = rec[r * kRecVec + 1], rc = rec[r * kRecVec + 2];
+      const float f[10] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w, rc.x, rc.y};
+      const float tm = rc.z;
+      bool blocked = false;
+#pragma unroll
+      for (int k = 0; k < kTris; ++k) {
+        const Planes p = planes(tri[k], f);
+        blocked |= fminf(fminf(p.v, p.tdd), tm * p.sd - p.tdd) >= 0.f;
+      }
+      if (__any_sync(kWarpAll, blocked)) {
+        rays &= ~(1u << r);
+        blocked_rays |= 1u << r;
+      }
+    }
+  }
+  return blocked_rays;
 }
 
 }  // namespace

@@ -101,10 +101,12 @@ __device__ __forceinline__ bool slab_reach(const SlabRay& r, const float* __rest
 // The calling warp's cluster words: bit j of words[w] is set when some
 // lane's ray may hit box 32·w + j of ``bounds`` [n_clusters][6].  Every
 // lane of the warp calls it with its own ray; lane 0 writes the words
-// (``words`` is the warp's own, ceil(n_clusters / 32) long).  The boxes are
-// read at one address by the whole warp: one broadcast load each.  Returns
-// the largest extent of the boxes' union along an axis (the scene's scale,
-// the same in every lane).
+// (``words`` is the warp's own, ceil(n_clusters / 32) long), or with
+// ``kOr`` ORs them into ``words`` shared by the block's warps and zeroed
+// before.  The boxes are read at one address by the whole warp: one
+// broadcast load each.  Returns the largest extent of the boxes' union
+// along an axis (the scene's scale, the same in every lane).
+template <bool kOr = false>
 __device__ __forceinline__ float warp_cluster_words(unsigned* words,
                                                     const float* __restrict__ bounds,
                                                     int n_clusters, const SlabRay& r) {
@@ -124,7 +126,13 @@ __device__ __forceinline__ float warp_cluster_words(unsigned* words,
       }
     }
     const unsigned word = __reduce_or_sync(kFullWarp, mine);
-    if (lane == 0) words[c0 >> 5] = word;
+    if (lane == 0) {
+      if (!kOr) {
+        words[c0 >> 5] = word;
+      } else if (word) {
+        atomicOr(words + (c0 >> 5), word);
+      }
+    }
   }
   return fmaxf(fmaxf(hi[0] - lo[0], hi[1] - lo[1]), hi[2] - lo[2]);
 }

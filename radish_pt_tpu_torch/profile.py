@@ -14,13 +14,13 @@ device-busy time the profiler saw during a profiled frame, the share of it
 spent in each stage, each sweep kernel's time per call in launch order (for
 ``--tracer pt`` a frame's closest hits are the primaries' and bounces
 1-depth's, its shadow sweeps bounces 1-depth's), and the top kernels;
-then, timed alone with CUDA
-events on the frame's primaries, the culling stages the profiler cannot
-name (the quad engine's mask prepass; the band engine's band-mask prepass,
-which its shadow sweeps read;
-the compact engine's sphere operands, sphere kernel and work list; none
-for the Plücker engine, whose kernels cull for themselves).  Needs a CUDA
-device.
+the eager mask-prepass calls a frame makes (``cluster_mask_words``,
+``band_mask_words``); then, timed alone with CUDA events on the frame's
+primaries, the culling stages the profiler cannot name (the quad engine's
+row-mask prepass, which its closest hits read; the compact engine's sphere
+operands, sphere kernel and work list; none for the Plücker and band
+engines, whose kernels cull for themselves, nor for the quad shadow
+kernel, which votes its rows' words itself).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -63,7 +63,6 @@ def sweep_calls(prof) -> dict:
 def culling_stages(ds, cam, start, end, reps: int = 10):
     """(stage, ms per call) of the culling stages that run before each
     sweep, on the frame's primaries, each timed alone with CUDA events."""
-    from .accel import band as bnd
     from .accel import compact as cpt
     from .accel import plucker as plk
     from .render import pathtrace as pt
@@ -73,7 +72,7 @@ def culling_stages(ds, cam, start, end, reps: int = 10):
 
     if ds.cluster_bounds is None or ds.intersector not in SWEEP_ENGINES:
         return []  # no culling: every ray sweeps every triangle
-    if ds.intersector in PLUCKER_ENGINES:
+    if ds.intersector in PLUCKER_ENGINES + BAND_ENGINES:
         return []  # the sweep kernels run the slab test themselves
     idx, _ = pt._lanes(ds, cam)
     o, d, _ = pt._gen_primary(ds, cam, rng.make_sampler(0, idx), idx)
@@ -87,10 +86,7 @@ def culling_stages(ds, cam, start, end, reps: int = 10):
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    if ds.intersector in BAND_ENGINES:  # the shadow sweeps' prepass
-        return [("band-mask prepass", timed(
-            lambda: bnd.band_mask_words(ds.cluster_bounds, o, d, None, ds.band_g)))]
-    if ds.intersector not in COMPACT_ENGINES:  # the quad engine
+    if ds.intersector not in COMPACT_ENGINES:  # the quad engine's closest hits
         return [("mask prepass", timed(
             lambda: plk.cluster_mask_words(ds.cluster_bounds, o, d, None)))]
     center, cb = ds.sweep_center, ds.cluster_bounds
@@ -123,11 +119,13 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from .accel import band as bnd
+    from .accel import plucker as plk
     from .config import Settings, Tracer
     from .render import pathtrace as pt
     from .render.renderer import Renderer
     from .scene.build import load_scene
-    from .scene.device_scene import BAND_ENGINES
+    from .scene.device_scene import QUAD_ENGINES
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -152,12 +150,16 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    plk.reset_counts()
+    bnd.reset_counts()
     start.record()
     for k in range(args.frames):
         frame(2 + k)
     end.record()
     end.synchronize()
     frame_ms = start.elapsed_time(end) / args.frames
+    prepass = {k: v / args.frames for d in (plk.PREPASS_CALLS, bnd.PREPASS_CALLS)
+               for k, v in d.items()}
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for k in range(args.frames):
@@ -180,7 +182,8 @@ def main(argv=None) -> int:
           f"{frame_ms:.3f} ms/frame "
           f"(profiler off); device busy {busy:.3f} ms/frame under the profiler "
           f"({100 * (1 - busy / frame_ms):.1f}% idle against the unprofiled frame), "
-          f"{launches:.0f} device operations a frame")
+          f"{launches:.0f} device operations a frame; eager prepass calls a frame "
+          f"{prepass}")
     for stage, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"  {stage:20s} {ms / args.frames:9.3f} ms/frame  "
               f"{100 * ms / args.frames / max(busy, 1e-9):5.1f}% of busy")
@@ -190,12 +193,12 @@ def main(argv=None) -> int:
             ", ".join(f"{x:.3f}" for x in ms[k * per:(k + 1) * per])
             for k in range(args.frames)))
     # closest hits and shadow sweeps a frame (ReSTIR: the G-buffer's, the
-    # primaries' and the winners' shadow test); on the band engine the
-    # closest hits vote their words themselves: the prepass runs before
-    # the shadow sweeps alone
+    # primaries' and the winners' shadow test); on the quad engine the
+    # shadow kernel votes its words itself: the prepass runs before the
+    # closest hits alone
     sweeps = {"pt": 2 * args.depth + 1, "direct": 2, "restir": 3}[args.tracer]
-    if ds.intersector in BAND_ENGINES:
-        sweeps = {"pt": args.depth, "direct": 1, "restir": 1}[args.tracer]
+    if ds.intersector in QUAD_ENGINES:
+        sweeps = {"pt": args.depth + 1, "direct": 1, "restir": 2}[args.tracer]
     for stage, ms in culling_stages(ds, cam, start, end):
         # each runs before every one of the frame's sweeps; all but the
         # sphere kernel fall under "other" above

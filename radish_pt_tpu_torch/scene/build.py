@@ -29,7 +29,7 @@ from ..accel.band import word_bounds
 from ..accel.bvh import build_bvh
 from ..accel.compact import unit_spheres
 from ..accel.plucker import numpy_coeffs, numpy_packed_coeffs
-from ..accel.quad import numpy_quad_coeffs, numpy_quad_packed
+from ..accel.quad import numpy_quad_coeffs, numpy_quad_occl_packed, numpy_quad_packed
 from ..accel.traverse import pack_tris
 from ..sampling.alias import build_alias_table
 from ..sampling.sobol import load_sobol_table
@@ -286,6 +286,7 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
         word_bounds=None if bounds is None else word_bounds(bounds),
         quad_coeffs=None if quad is None else f32(quad),
         quad_packed=None if quad is None else f32(numpy_quad_packed(quad)),
+        quad_occl_packed=None if quad is None else f32(numpy_quad_occl_packed(quad)),
         mat_type=i32([m.mtype for m in mats]),
         mat_base_color=f32([m.base_color for m in mats]),
         mat_metallic=f32([m.metallic for m in mats]),

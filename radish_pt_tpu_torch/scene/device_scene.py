@@ -112,20 +112,21 @@ class DeviceScene:
     sweep_center: torch.Tensor = None  # f32 [3]
     # the planes' 19 live coefficients, 80 aligned bytes a triangle
     # (accel/plucker.py::numpy_packed_coeffs): the operand of the Plücker
-    # kernels, the compact sweeps and the band closest hit
+    # kernels, the compact sweeps and the band sweeps
     sweep_packed: torch.Tensor = None  # f32 [T, 20]
     # bounding spheres of the compact engine's units, centred on
     # sweep_center (accel/compact.py::unit_spheres; None without clusters)
     unit_spheres: torch.Tensor = None  # f32 [U, 4]
     # per word of 32 clusters, the box of their boxes
-    # (accel/band.py::word_bounds): the first level of the band closest
-    # hit's vote (None without clusters)
+    # (accel/band.py::word_bounds): the first level of the band sweeps'
+    # vote (None without clusters)
     word_bounds: torch.Tensor = None  # f32 [W, 6]
     # quad engine: forms q1..q6 over the 27 ray monomials of
-    # accel/quad.py::quad_features, and the closest hit's 63 live
-    # coefficients packed (None on the other engines)
+    # accel/quad.py::quad_features, the closest hit's 63 live coefficients
+    # packed and the shadow sweep's 81 (None on the other engines)
     quad_coeffs: torch.Tensor = None  # f32 [T, 6, 28]
     quad_packed: torch.Tensor = None  # f32 [T, 64]
+    quad_occl_packed: torch.Tensor = None  # f32 [T, 84]
 
     # --- materials SoA ---
     mat_type: torch.Tensor = None  # i32 [M]
@@ -229,10 +230,11 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
         center = np.asarray(fields["sweep_center"], np.float32)
     else:
         coeffs, center = plk.numpy_coeffs(tri_packed)
-    quad = quad_packed = None
+    quad = quad_packed = quad_occl_packed = None
     if intersector in QUAD_ENGINES:
         quad = qd.numpy_quad_coeffs(tri_packed, center)
         quad_packed = torch.from_numpy(qd.numpy_quad_packed(quad)).to(device)
+        quad_occl_packed = torch.from_numpy(qd.numpy_quad_occl_packed(quad)).to(device)
         quad = torch.from_numpy(quad).to(device)
     bounds = t("cluster_bounds", np.float32)
     center_t = torch.from_numpy(center).to(device)
@@ -250,6 +252,7 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
         word_bounds=None if bounds is None else bnd.word_bounds(bounds),
         quad_coeffs=quad,
         quad_packed=quad_packed,
+        quad_occl_packed=quad_occl_packed,
         mat_type=t("mat_type", np.int32),
         mat_base_color=t("mat_base_color", np.float32),
         mat_metallic=t("mat_metallic", np.float32),
@@ -457,11 +460,12 @@ def test_occlusion(ds: DeviceScene, x, y):
     if ds.intersector in QUAD_ENGINES:
         return qd.occlusion_quad(
             ds.quad_coeffs, ds.sweep_center, ds.cluster_bounds, ds.cluster_sub,
-            x, y, plain=ds.intersector == "quad_plain")
+            x, y, plain=ds.intersector == "quad_plain", packed=ds.quad_occl_packed)
     if ds.intersector in BAND_ENGINES:
         return bnd.occlusion_band(
             ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, ds.band_g, x, y,
-            plain=ds.intersector == "band_plain")
+            plain=ds.intersector == "band_plain", packed=ds.sweep_packed,
+            words_box=ds.word_bounds)
     if ds.intersector in PLUCKER_ENGINES:
         return plk.occlusion_plucker(
             ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds,

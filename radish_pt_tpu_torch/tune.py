@@ -1,23 +1,24 @@
 """Time the sweep kernels' compile-time shapes on one GPU.
 
-The Plücker kernels, the compact sweeps, the quad and the band closest-hit
-kernels have compile-time shapes: lanes a block, triangles a staged tile
-and triangles a thread holds at a time (``PLUCKER_BLOCK_LANES``,
+The sweep kernels have compile-time shapes: lanes a block, triangles a
+staged tile and triangles a thread holds at a time (``PLUCKER_BLOCK_LANES``,
 ``PLUCKER_TILE``, ``PLUCKER_TRIS`` in csrc/plucker.cu); the lanes a block
 walks and the count of wanting lanes from which a warp sweeps in lockstep,
 for the closest hit and for the shadow sweep (``COMPACT_BLOCK_LANES``,
 ``COMPACT_LOCKSTEP``, ``COMPACT_OCCL_BLOCK_LANES``,
 ``COMPACT_OCCL_LOCKSTEP`` in csrc/compact.cu); rays a thread and resident
 blocks asked of the compiler (``QUAD_RAYS``, ``QUAD_MIN_BLOCKS`` in
-csrc/quad.cu); lanes a block, triangles a thread and a one- or two-level
-vote (``BAND_BLOCK_LANES``, ``BAND_TRIS``, ``BAND_TWO_LEVEL`` in
-csrc/band.cu).  This tool builds each variant as its own library
-(``-DCOMPACT_LOCKSTEP=n ...``), holds it against the plain version on the
-main path's wavefronts (800x800 primaries and the bounce-1 extension rays;
-for Plücker and the compact shadow sweep the bounce-1 shadow segments;
-teapot and teapot_hires for Plücker, teapot_hires for compact and band,
-teapot for quad, built as ``chip_smoke.py`` builds them) and times it with
-CUDA events, the variants in turns.  It prints registers and spills per
+csrc/quad.cu), and for the quad shadow sweep its resident blocks
+(``QUAD_OCCL_MIN_BLOCKS``); lanes a block, triangles a thread and a one- or
+two-level vote of both band kernels (``BAND_BLOCK_LANES``, ``BAND_TRIS``,
+``BAND_TWO_LEVEL`` in csrc/band.cu).  This tool builds each variant as its
+own library (``-DCOMPACT_LOCKSTEP=n ...``), holds it against the plain
+version on the main path's wavefronts (800x800 primaries and the bounce-1
+extension rays; for Plücker, the compact, quad and band shadow sweeps the
+bounce-1 shadow segments; teapot and teapot_hires for Plücker,
+teapot_hires for compact and band, teapot for quad, built as
+``chip_smoke.py`` builds them) and times it with CUDA events, the variants
+in turns.  It prints registers and spills per
 variant, the times, and the card's name and power limit.  The default in
 the source is the variant that won.
 
@@ -61,6 +62,7 @@ BAND_VARIANTS = (("-DBAND_BLOCK_LANES=64", "-DBAND_TRIS=2", "-DBAND_TWO_LEVEL=1"
                  ("-DBAND_BLOCK_LANES=64", "-DBAND_TRIS=2", "-DBAND_TWO_LEVEL=0"),
                  ("-DBAND_BLOCK_LANES=128", "-DBAND_TRIS=2", "-DBAND_TWO_LEVEL=1"),
                  ("-DBAND_BLOCK_LANES=64", "-DBAND_TRIS=1", "-DBAND_TWO_LEVEL=1"))
+QUAD_OCCL_VARIANTS = (("-DQUAD_OCCL_MIN_BLOCKS=4",), ("-DQUAD_OCCL_MIN_BLOCKS=1",))
 QUAD_VARIANTS = (("-DQUAD_RAYS=1", "-DQUAD_MIN_BLOCKS=1"),
                  ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=1"),
                  ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=8"),
@@ -193,7 +195,7 @@ def main(argv=None) -> int:
                                  f"compact closest hit, {r}, {what}", print)
                 assert bool((pk[~live] == -1).all())
             race("compact", libs, f"closest hit, teapot_hires {what}", kernel)
-        # the shadow sweep on the bounce-1 segments
+        # the shadow sweep on the bounce-1 segments: its layouts
         libs = variants("compact", COMPACT_OCCL_VARIANTS, "occlusion")
         x, y, live = waves["segments"]
         o, d, tm = (t.contiguous() for t in plk.segment_rays(x, y))
@@ -234,10 +236,27 @@ def main(argv=None) -> int:
                 cs.check_closest(pk, dk, pp, dp, tmax >= 0,
                                  f"quad closest hit, {r}, {what}", print)
             race("quad", libs, f"closest hit, teapot {what}", kernel)
+        # the shadow sweep on the bounce-1 segments: its register caps
+        libs = variants("quad", QUAD_OCCL_VARIANTS, "occlusion")
+        x, y, live = waves["segments"]
+        so, seg = (t.contiguous() for t in qd.quad_segments(x, y))
+        feats = qd.quad_features(so, seg, ds.sweep_center)
+        mask = plk.cluster_mask_words(ds.cluster_bounds, so, seg, torch.ones_like(so[:, 0]))
+        want = qd.occlusion_plain(ds.quad_coeffs, feats, mask, ds.cluster_sub)
+
+        def shadow():
+            return qd.occlusion_cuda(ds.quad_occl_packed, feats, ds.cluster_bounds, so, seg,
+                                     ds.cluster_sub)
+
+        for r, lib in libs.items():
+            got = run("quad", lib, shadow)
+            torch.cuda.synchronize()
+            cs.check_occlusion(got, want, live, f"quad, {r}", print)
+        race("quad", libs, "shadow, teapot segments", shadow)
 
     # ---- band, teapot_hires (8 bands a row) ----
     if "band" in engines:
-        libs = variants("band", BAND_VARIANTS)
+        libs = variants("band", BAND_VARIANTS, "_kernel")
         ds, cam = scene("teapot_hires", "band")
         waves = run("band", next(iter(libs.values())), lambda: cs.bounce_one(ds, cam))
         cb, wb, g = ds.cluster_bounds, ds.word_bounds, ds.band_g
@@ -259,6 +278,21 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
                 assert torch.equal(pk[live], pp[live]) and torch.equal(dk[live], dp[live]), r
             race("band", libs, f"closest hit, teapot_hires {what}", kernel)
+        # the shadow sweep (the same shapes) on the bounce-1 segments
+        x, y, live = waves["segments"]
+        o, d, tm = (t.contiguous() for t in plk.segment_rays(x, y))
+        feats = plk.plucker_features(o, d, ds.sweep_center)
+        want = bnd.occlusion_plain(ds.sweep_coeffs, feats, tm,
+                                   bnd.band_mask_words(cb, o, d, tm, g), g)
+
+        def shadow():
+            return bnd.occlusion_cuda(ds.sweep_packed, feats, cb, wb, o, d, tm, g)
+
+        for r, lib in libs.items():
+            got = run("band", lib, shadow)
+            torch.cuda.synchronize()
+            cs.check_occlusion(got, want, live, f"band, {r}", print)
+        race("band", libs, "shadow, teapot_hires segments", shadow)
     print(card, flush=True)
     return 0
 

@@ -343,18 +343,18 @@ def test_cpu_tensors_take_the_plain_versions(soup):
     s = soup
     coeffs, center, cb, o, d = _t(s["coeffs"], s["center"], s["cb"], s["o"], s["d"])
     feats = plk.plucker_features(o, d, center)
-    mask = bnd.band_mask_words(cb, o, d, None, 8)
+    packed, wb = _t(plk.numpy_packed_coeffs(s["coeffs"]))[0], bnd.word_bounds(cb)
     tm = torch.full((256,), 5.0)
     bnd.reset_counts()
-    bnd.closest_hit(coeffs, feats, cb, o, d, None, 8)
-    bnd.occlusion(coeffs, feats, tm, mask, 8)
+    bnd.closest_hit(coeffs, feats, cb, o, d, None, 8, packed, wb)
+    bnd.occlusion(coeffs, feats, cb, o, d, tm, 8, packed, wb)
     assert bnd.PLAIN_CALLS == {"closest_hit": 1, "occlusion": 1}
     assert bnd.LAUNCHES == {"closest_hit": 0, "occlusion": 0}
+    assert bnd.PREPASS_CALLS == {"band_mask_words": 2}  # the plain versions' words
     with pytest.raises(ValueError):  # the kernels refuse CPU tensors
-        bnd.closest_hit_cuda(_t(plk.numpy_packed_coeffs(s["coeffs"]))[0], feats, cb,
-                             bnd.word_bounds(cb), o, d, None, 8)
+        bnd.closest_hit_cuda(packed, feats, cb, wb, o, d, None, 8)
     with pytest.raises(ValueError):
-        bnd.occlusion_cuda(coeffs, feats, tm, mask, 8)
+        bnd.occlusion_cuda(packed, feats, cb, wb, o, d, tm, 8)
 
 
 def test_cli_renders_band_on_cpu(tmp_path, capsys):
@@ -377,7 +377,8 @@ def test_cli_renders_band_on_cpu(tmp_path, capsys):
 def _vote_cases(s, teapot_band):
     """(cluster boxes, ray_o, ray_d, tmax) the vote is held on: the soup's
     rays (dead and bounded lanes) and segments, and the teapot's rays with
-    and without a range (77 clusters of 64: three words)."""
+    and without a range (77 clusters of 64: three words) and its segments
+    (:func:`_teapot_segments`)."""
     from radish_pt_tpu_torch.accel import plucker as plk
 
     cb, o, d, tmax = _t(s["cb"], s["o"], s["d"], s["tmax"])
@@ -385,7 +386,19 @@ def _vote_cases(s, teapot_band):
     _, _, ds, _, to, td, ttmax = teapot_band
     to, td, ttmax = _t(to, td, ttmax)
     return [(cb, o, d, tmax), (cb, so, sd, stm), (ds.cluster_bounds, to, td, ttmax),
-            (ds.cluster_bounds, to, td, None)]
+            (ds.cluster_bounds, to, td, None),
+            (ds.cluster_bounds, *plk.segment_rays(*_teapot_segments(teapot_band)))]
+
+
+def _teapot_segments(teapot_band):
+    """Segments (x, y) on teapot: from the fixture's ray origins (camera
+    rays, rays leaving surfaces) 3 units along their rays, the dead lanes'
+    and every 7th zero-length (a negative range)."""
+    *_, o, d, tmax = teapot_band
+    y = (o + 3.0 * d).astype(np.float32)
+    y[tmax < 0] = o[tmax < 0]
+    y[::7] = o[::7]
+    return _t(o, y)
 
 
 @pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32, 64, 128])
@@ -507,3 +520,50 @@ def test_pair_counts_are_ordered(soup, teapot_band, g):
     lanes = np.minimum(128 // g, 200 - np.arange(flags.shape[0]) * (128 // g)).clip(0)
     assert c["band"] == float((t2n(flags).sum(1) * 64) @ lanes)
     assert c == bnd.pair_counts(ds.cluster_bounds, o, d, tmax, g, ds.num_triangles, dist)
+
+
+@pytest.mark.parametrize("case", ["soup", "teapot"])
+def test_lane_skip_is_conservative_on_band_segments(soup, teapot_band, case):
+    """The shadow kernel's per-segment skip on the band layout (slab_reach
+    at the segment's range, the twin of plucker.lane_skip_flags_plain):
+    every (segment, triangle) pair that blocks the segment under the f32
+    planes lies in a cluster the skip keeps at its range — 0 pairs outside
+    — and the skip passes over clusters.  Segments with a negative range
+    (zero-length) block nothing."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    if case == "soup":
+        coeffs, center, cb, x, y = _t(soup["coeffs"], soup["center"], soup["cb"],
+                                      soup["x"], soup["y"])
+    else:
+        ds = teapot_band[2]
+        coeffs, center, cb = ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds
+        x, y = _teapot_segments(teapot_band)
+    so, sd, tm = plk.segment_rays(x, y)
+    blocking = plk.blocks(coeffs, plk.plucker_features(so, sd, center), tm)  # [N, T]
+    assert int(blocking.sum()) > 20 and not bool(blocking[tm < 0].any())
+    keep = plk.lane_skip_flags_plain(cb, so, sd, tm)
+    cluster = torch.arange(coeffs.shape[0]) // 64
+    assert int((blocking & ~keep[:, cluster]).sum()) == 0
+    assert float(keep[tm >= 0].float().mean()) < 0.8
+
+
+def test_pair_counts_skip_settled_segments(teapot_band):
+    """On segments, lanes with a negative range (settled before any sweep)
+    count no pair of their own but still shape their band's and warp's
+    words, as in the kernels' vote."""
+    from radish_pt_tpu_torch.accel import band as bnd
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    ds = teapot_band[2]
+    so, sd, tm = plk.segment_rays(*_teapot_segments(teapot_band))
+    assert bool((tm < 0).any())
+    c = bnd.pair_counts(ds.cluster_bounds, so, sd, tm, 8, ds.num_triangles, tm)
+    live = tm >= 0
+    alone = bnd.pair_counts(ds.cluster_bounds, so[live], sd[live], tm[live], 8,
+                            ds.num_triangles, tm[live])
+    assert c["lane"] == alone["lane"] and c["lane_cut"] == alone["lane_cut"]
+    assert 0 < c["lane_cut"] <= c["lane"] <= min(c["band"], c["warp"])
+    flags = plk.unpack_mask(bnd.band_mask_words(ds.cluster_bounds, so, sd, tm, 8), 77)
+    lanes = np.minimum(16, 256 - np.arange(flags.shape[0]) * 16).clip(0)
+    assert c["band"] == float((t2n(flags).sum(1) * 64) @ lanes)

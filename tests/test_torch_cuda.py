@@ -420,8 +420,10 @@ def _check_closest(pk, dk, pp, dp):
 @pytest.mark.cuda
 def test_quad_kernels_match_plain(teapot_engines_cuda):
     """The quad kernels sum every form in the plain version's order with
-    one rounding a term: winners and shadow bits agree; zero-length
-    segments read as blocked in both (the reference's behaviour)."""
+    one rounding a term: winners and shadow bits agree.  The shadow kernel
+    votes its rows' words itself and passes each segment over the clusters
+    it cannot reach; zero-length segments read as blocked exactly where
+    their row sweeps a triangle (the reference's behaviour)."""
     from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.accel import quad as qd
 
@@ -451,22 +453,38 @@ def test_quad_kernels_match_plain(teapot_engines_cuda):
         # the quad sweep reads no tmax: every lane sweeps its row's clusters
         _check_mixed(pk, dk, pp, dp, torch.ones_like(mtm), dead_miss=False)
 
-    y = o + d * 3.0
-    y[::7] = o[::7]  # zero-length segments, as masked NEE lanes
-    so, seg = qd.quad_segments(o, y)
-    sf = qd.quad_features(so, seg, ds.sweep_center)
-    smask = plk.cluster_mask_words(ds.cluster_bounds, so, seg,
-                                   torch.ones_like(so[:, 0]))
-    occ_k = qd.occlusion(ds.quad_coeffs, sf, smask, ds.cluster_sub)
-    occ_p = qd.occlusion_plain(ds.quad_coeffs, sf, smask, ds.cluster_sub)
-    assert qd.LAUNCHES["occlusion"] == 1
-    assert (occ_k != occ_p).float().mean().item() <= 1e-4
-    assert 0.05 < occ_p.float().mean().item() < 0.95
-    rows_swept = plk.unpack_mask(smask, ds.cluster_bounds.shape[0]).any(1)
-    zero = torch.zeros_like(occ_k)
-    zero[::7] = True
-    swept = zero & rows_swept.repeat_interleave(plk.ROW)[:o.shape[0]]
-    assert bool(occ_k[swept].all()) and bool(swept.any())
+    # the shadow kernel votes its rows' words itself: against the plain
+    # version on the prepass's row words, with the boxes and without (every
+    # triangle), on the fixture's segments and on the mixed wavefront's
+    # (ragged last row; its dead lanes and every 7th lane zero-length)
+    cb, sub = ds.cluster_bounds, ds.cluster_sub
+    for x, ty, dead in ((o, o + d * 3.0, tmax < 0), (mo, mo + md * 3.0, mtm < 0)):
+        ty[::7] = x[::7]  # zero-length segments, as masked NEE lanes
+        ty[dead] = x[dead]
+        so, seg = qd.quad_segments(x, ty)
+        sf = qd.quad_features(so, seg, ds.sweep_center)
+        zero = qd.zero_segments(sf)
+        assert bool(zero[::7].all()) and bool(zero[dead].all())
+        ones = torch.ones_like(so[:, 0])
+        for bounds in (cb, None):
+            smask = None if bounds is None else plk.cluster_mask_words(cb, so, seg, ones)
+            launched = qd.LAUNCHES["occlusion"]
+            occ_k = qd.occlusion(ds.quad_coeffs, sf, bounds, so, seg, sub, ds.quad_occl_packed)
+            occ_p = qd.occlusion_plain(ds.quad_coeffs, sf, smask, sub)
+            assert qd.LAUNCHES["occlusion"] == launched + 1
+            assert (occ_k != occ_p).float().mean().item() <= 1e-4
+            assert 0.05 < occ_p[~zero].float().mean().item() < 0.95
+            # a zero-length segment is blocked exactly where its row sweeps a
+            # triangle: a flagged cluster, or without boxes any triangle
+            rows = (torch.ones(-(-so.shape[0] // plk.ROW), dtype=torch.bool, device=so.device)
+                    if bounds is None else plk.unpack_mask(smask, cb.shape[0]).any(1))
+            swept = rows.repeat_interleave(plk.ROW)[:so.shape[0]]
+            assert torch.equal(occ_k[zero], swept[zero]) and bool(occ_k[zero].any())
+            if bounds is not None:  # the kernel's vote, in plain torch
+                assert torch.equal(qd.occl_words_plain(cb, so, seg), smask)
+    with pytest.raises(ValueError):  # no packed shadow table: no launch, no fallback
+        qd.occlusion(ds.quad_coeffs, sf, cb, so, seg, sub)
+    assert qd.LAUNCHES["occlusion"] == 4
 
 
 @pytest.mark.cuda
@@ -482,8 +500,10 @@ def test_band_kernels_match_plain(teapot_engines_cuda, g):
     shapes its chunks take at each width and can move the last bit; the
     kernel's arithmetic does not depend on the width: where its winner is
     the one it finds at g = 8, its distance is bit-equal to that one.)
-    The shadow kernel's bits on the words agree; zero-length segments are
-    never blocked."""
+    The shadow kernel, which votes its bands' words itself too, against
+    the plain version on band_mask_words' words of the segments: <= 1e-4
+    of bits differ (the plain planes' cuBLAS rounding); zero-length and
+    dead lanes are never blocked."""
     from radish_pt_tpu_torch.accel import band as bnd
     from radish_pt_tpu_torch.accel import plucker as plk
 
@@ -518,41 +538,56 @@ def test_band_kernels_match_plain(teapot_engines_cuda, g):
     with pytest.raises(ValueError):  # no packed table: no launch, no fallback
         bnd.closest_hit(ds.sweep_coeffs, feats, cb, o, d, None, g)
 
-    y = o + d * 3.0
-    y[::7] = o[::7]
-    so, sd, stm = plk.segment_rays(o, y)
-    sf = plk.plucker_features(so, sd, ds.sweep_center)
-    smask = bnd.band_mask_words(ds.cluster_bounds, so, sd, stm, g)
-    stm = stm.contiguous()
-    occ_k = bnd.occlusion(ds.sweep_coeffs, sf, stm, smask, g)
-    occ_p = bnd.occlusion_plain(ds.sweep_coeffs, sf, stm, smask, g)
-    assert bnd.LAUNCHES["occlusion"] == 1
-    assert (occ_k != occ_p).float().mean().item() <= 1e-4
-    assert 0.05 < occ_p.float().mean().item() < 0.95
-    assert not bool(occ_k[::7].any())
+    # the shadow kernel votes its bands' words itself too: against the
+    # plain version on band_mask_words' words, on the fixture's segments
+    # and on the mixed wavefront's (ragged last row; its dead lanes and
+    # every 7th lane zero-length: a negative range, never blocked)
+    for x, ty, dead in ((o, o + d * 3.0, tmax < 0), (mo, mo + md * 3.0, mtm < 0)):
+        ty[::7] = x[::7]
+        ty[dead] = x[dead]
+        so, sd, stm = plk.segment_rays(x, ty)
+        stm = stm.contiguous()
+        assert bool((stm[::7] < 0).all()) and bool((stm[dead] < 0).all())
+        sf = plk.plucker_features(so, sd, ds.sweep_center)
+        smask = bnd.band_mask_words(cb, so, sd, stm, g)
+        occ_k = bnd.occlusion(ds.sweep_coeffs, sf, cb, so, sd, stm, g, ds.sweep_packed, wb)
+        occ_p = bnd.occlusion_plain(ds.sweep_coeffs, sf, stm, smask, g)
+        assert (occ_k != occ_p).float().mean().item() <= 1e-4
+        assert 0.05 < occ_p[stm >= 0].float().mean().item() < 0.95
+        assert not bool(occ_k[stm < 0].any())
+        # the kernels' vote, in plain torch, on the segments
+        assert torch.equal(bnd.band_words_plain(cb, wb, so, sd, stm, g), smask)
+    assert bnd.LAUNCHES["occlusion"] == 2
+    with pytest.raises(ValueError):  # no packed table: no launch, no fallback
+        bnd.occlusion(ds.sweep_coeffs, sf, cb, so, sd, stm, g)
+    assert bnd.LAUNCHES["occlusion"] == 2
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine", ["quad", "band"])
 def test_render_through_engine_kernels_matches_plain(teapot_engines_cuda, engine):
     """A 64x64 depth-5 teapot frame through the engine's kernels (6
-    closest-hit and 5 shadow launches, no plain call; on the band engine 5
-    band-mask prepass calls, for the shadow sweeps) equals the same frame
-    through its plain versions."""
+    closest-hit and 5 shadow launches, no plain call; no band-mask prepass
+    call on the band engine, the quad closest hits' 6 row-mask prepass
+    calls on the quad engine) equals the same frame through its plain
+    versions."""
     from radish_pt_tpu_torch.accel import band as bnd
+    from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.accel import quad as qd
     from radish_pt_tpu_torch.render import pathtrace as pt
 
     scenes, *_ = teapot_engines_cuda
     ds, cam = scenes[engine]
     cam = cam.replace(width=64, height=64)
+    for mod in (qd, bnd, plk):
+        mod.reset_counts()
     mod = qd if engine == "quad" else bnd
-    mod.reset_counts()
     d, i = pt.path_trace(ds, cam, 3, 5)
     assert mod.LAUNCHES == {"closest_hit": 6, "occlusion": 5}
     assert mod.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
-    if engine == "band":  # the closest hit votes its words itself
-        assert bnd.PREPASS_CALLS == {"band_mask_words": 5}
+    # the band kernels and the quad shadow kernel vote their words themselves
+    assert bnd.PREPASS_CALLS == {"band_mask_words": 0}
+    assert plk.PREPASS_CALLS == {"cluster_mask_words": 6 if engine == "quad" else 0}
     dp, ip = pt.path_trace(ds.replace(intersector=f"{engine}_plain"), cam, 3, 5)
     img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
     assert np.isfinite(img).all() and img.mean() > 0.05

@@ -280,18 +280,19 @@ def test_cpu_tensors_take_the_plain_versions(soup):
     from radish_pt_tpu_torch.accel import quad as qd
 
     coeffs, center = _port_planes(soup["tp"])
-    feats = qd.quad_features(torch.from_numpy(soup["o"]), torch.from_numpy(soup["d"]),
-                             center)
+    o, d = torch.from_numpy(soup["o"]), torch.from_numpy(soup["d"])
+    feats = qd.quad_features(o, d, center)
+    occl = torch.from_numpy(qd.numpy_quad_occl_packed(t2n(coeffs)))
     qd.reset_counts()
     qd.closest_hit(coeffs, feats, None, 64)
-    qd.occlusion(coeffs, feats, None, 64)
+    qd.occlusion(coeffs, feats, None, o, d, 64, occl)
     assert qd.PLAIN_CALLS == {"closest_hit": 1, "occlusion": 1}
     assert qd.LAUNCHES == {"closest_hit": 0, "occlusion": 0}
     packed = torch.from_numpy(qd.numpy_quad_packed(t2n(coeffs)))
     with pytest.raises(ValueError):  # the kernels refuse CPU tensors
         qd.closest_hit_cuda(packed, feats, None, 64)
     with pytest.raises(ValueError):
-        qd.occlusion_cuda(coeffs, feats, None, 64)
+        qd.occlusion_cuda(occl, feats, None, o, d, 64)
 
 
 @pytest.mark.parametrize("entry", ["load_scene", "build_device_scene", "Renderer",
@@ -324,26 +325,31 @@ def test_cli_renders_quad_on_cpu(tmp_path, capsys):
 
 
 def _forms_of(scene, soup, teapot_quad):
-    """(forms [T, 6, 28], packed [T, 64], centre) of the soup or of teapot."""
+    """(forms [T, 6, 28], packed [T, 64], packed shadow table [T, 84],
+    centre) of the soup or of teapot."""
     from radish_pt_tpu_torch.accel import quad as qd
 
     if scene == "soup":
         coeffs, center = _port_planes(soup["tp"])
-        return coeffs, torch.from_numpy(qd.numpy_quad_packed(t2n(coeffs))), center
+        c = t2n(coeffs)
+        return (coeffs, torch.from_numpy(qd.numpy_quad_packed(c)),
+                torch.from_numpy(qd.numpy_quad_occl_packed(c)), center)
     own = teapot_quad[3]
-    return own.quad_coeffs, own.quad_packed, own.sweep_center
+    return own.quad_coeffs, own.quad_packed, own.quad_occl_packed, own.sweep_center
 
 
 @pytest.mark.parametrize("scene", ["soup", "teapot"])
 def test_dropped_terms_are_structural_zeros(soup, teapot_quad, scene):
     """Of the 135 coefficients of q1..q5, the 72 the closest-hit kernel
-    leaves out are exactly 0 on every triangle (81 of q1..q6's 162), and
-    the packed [T, 64] table is the other 63, form by form in monomial
-    order, and one zero."""
+    leaves out are exactly 0 on every triangle (81 of q1..q6's 162, which
+    the shadow kernel leaves out), the packed [T, 64] table is the other
+    63, form by form in monomial order, and one zero, and the packed
+    shadow table [T, 84] is q1..q6's 81 live ones in the same order (its
+    first 63 the closest hit's), and three zeros."""
     from radish_pt_tpu_torch.accel import quad as qd
 
-    coeffs, packed, _ = _forms_of(scene, soup, teapot_quad)
-    c, packed = t2n(coeffs), t2n(packed)
+    coeffs, packed, occl, _ = _forms_of(scene, soup, teapot_quad)
+    c, packed, occl = t2n(coeffs), t2n(packed), t2n(occl)
     live = np.zeros((6, 28), bool)
     for p, terms in enumerate(qd.LIVE_TERMS):
         live[p, list(terms)] = True
@@ -359,16 +365,27 @@ def test_dropped_terms_are_structural_zeros(soup, teapot_quad, scene):
         np.testing.assert_array_equal(packed[:, lo:lo + 15], c[:, p, 0:15])
     np.testing.assert_array_equal(packed[:, 45:51], c[:, 3, 0:6])
     np.testing.assert_array_equal(packed[:, 51:63], c[:, 4, 15:27])
+    # the shadow table: q6's 18 live terms after the closest hit's 63
+    assert qd.FLOPS_PER_PAIR["occlusion"] == 3 * 29 + 11 + 23 + 35 == 156
+    assert qd.OCCL_FLOPS_ALL_TERMS == 6 * 53 == 318
+    assert occl.shape == (c.shape[0], 84) and occl.dtype == np.float32
+    assert len(qd.OCCL_SLOTS) == 81 and not occl[:, 81:].any()
+    np.testing.assert_array_equal(occl[:, :81], c.reshape(-1, 168)[:, list(qd.OCCL_SLOTS)])
+    np.testing.assert_array_equal(occl[:, :63], packed[:, :63])
+    np.testing.assert_array_equal(occl[:, 63:69], c[:, 5, 0:6])
+    np.testing.assert_array_equal(occl[:, 69:81], c[:, 5, 15:27])
 
 
 @pytest.mark.parametrize("scene", ["soup", "teapot"])
 def test_live_terms_give_the_forms_by_value(soup, teapot_quad, scene):
     """Each form summed over its live monomials only, in order, equals the
     sum over all 27 (``forms``) by value on seeded rays: a dropped term
-    adds an exact zero.  So the kernel's winners are the plain version's."""
+    adds an exact zero.  So the kernels' winners and shadow bits are the
+    plain version's: q1..q5 from the closest hit's table, q1..q6 from the
+    shadow table, also on unit-parameter segments."""
     from radish_pt_tpu_torch.accel import quad as qd
 
-    coeffs, packed, center = _forms_of(scene, soup, teapot_quad)
+    coeffs, packed, occl, center = _forms_of(scene, soup, teapot_quad)
     rng = np.random.default_rng(5)
     n = 96
     o = rng.uniform(-7, 7, size=(n, 3)).astype(np.float32)
@@ -381,3 +398,121 @@ def test_live_terms_give_the_forms_by_value(soup, teapot_quad, scene):
     assert live.shape == full.shape and live.dtype == torch.float32
     assert bool((live == full).all())
     assert float(full.abs().sum()) > 0 and bool((full.amin(-1) >= 0).any())
+    y = rng.uniform(-7, 7, size=(n, 3)).astype(np.float32)
+    y[::7] = o[::7]  # zero-length segments: all-zero features
+    so, seg = qd.quad_segments(torch.from_numpy(o), torch.from_numpy(y))
+    for f in (feats, qd.quad_features(so, seg, center)):
+        full = qd.forms(coeffs[tris], f, qd.STORED_PLANES)
+        live = qd.forms_live(occl[tris], f, qd.STORED_PLANES)
+        assert live.shape == full.shape and bool((live == full).all())
+        assert bool((full.amin(-1) >= 0).any())
+
+
+# ---------------------------------------------------------------------------
+# the shadow kernel's vote, skip and zero-length segments, in plain torch
+# ---------------------------------------------------------------------------
+
+
+def _segment_cases(scene, soup, teapot_quad):
+    """(forms, cluster boxes, sub, centre, segment origins x, ends y) the
+    shadow kernel's culling is held on: the soup's segments, or on teapot's
+    quad build segments between surface points, from surface points 3
+    units out in a random direction, and from camera-side points; every
+    11th zero-length, 200 segments (a ragged last row)."""
+    from radish_pt_tpu_torch.accel import quad as qd
+
+    rng = np.random.default_rng(21)
+    if scene == "soup":
+        coeffs, center = _port_planes(soup["tp"])
+        cb = torch.from_numpy(soup["cb"])
+        x, y = soup["x"][:200].copy(), soup["y"][:200].copy()
+        return coeffs, cb, 64, center, torch.from_numpy(x), torch.from_numpy(y)
+    own, o = teapot_quad[3], teapot_quad[4]
+    tri = t2n(own.tri_v)
+    real = np.flatnonzero(np.abs(tri).sum(axis=(1, 2)) > 0)
+
+    def surface(k):
+        w = rng.dirichlet([1, 1, 1], k).astype(np.float32)
+        return np.einsum("nk,nkc->nc", w, tri[rng.choice(real, k)]).astype(np.float32)
+
+    x, y = surface(200), surface(200)
+    away = rng.normal(size=(200, 3)).astype(np.float32)
+    away /= np.linalg.norm(away, axis=-1, keepdims=True)
+    y[1::3] = x[1::3] + 3.0 * away[1::3]
+    x[2::3] = o[:200][2::3]  # the fixture's camera rays' origins
+    y[::11] = x[::11]
+    assert qd.zero_segments(qd.quad_features(*qd.quad_segments(
+        torch.from_numpy(x), torch.from_numpy(y)), own.sweep_center))[::11].all()
+    return (own.quad_coeffs, own.cluster_bounds, own.cluster_sub, own.sweep_center,
+            torch.from_numpy(x), torch.from_numpy(y))
+
+
+@pytest.mark.parametrize("scene", ["soup", "teapot"])
+def test_lane_skip_is_conservative_on_quad_segments(soup, teapot_quad, scene):
+    """The shadow kernel's per-segment skip (slab_reach on the
+    unit-parameter segment at reach 1, the twin of
+    plucker.lane_skip_flags_plain): every (segment, triangle) pair whose
+    six forms are all >= 0 lies in a cluster the skip keeps at reach 1 —
+    0 pairs outside, on segments that are not zero-length (those are
+    settled before any sweep) — and the skip culls (segment, cluster)
+    pairs: most of them on teapot, where segments are short against the
+    scene; on the soup, whose segments cross it, some."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+    from radish_pt_tpu_torch.accel import quad as qd
+
+    coeffs, cb, sub, center, x, y = _segment_cases(scene, soup, teapot_quad)
+    so, seg = qd.quad_segments(x, y)
+    feats = qd.quad_features(so, seg, center)
+    live = ~qd.zero_segments(feats)
+    blocking = (qd.forms(coeffs, feats, qd.STORED_PLANES).amin(-1) >= 0.0)[live]
+    assert int(blocking.sum()) > 20
+    keep = plk.lane_skip_flags_plain(cb, so, seg, torch.ones(so.shape[0]))[live]
+    cluster = torch.arange(coeffs.shape[0]) // sub
+    assert int((blocking & ~keep[:, cluster]).sum()) == 0
+    assert float(keep.float().mean()) < (0.5 if scene == "teapot" else 0.8)
+
+
+@pytest.mark.parametrize("scene", ["soup", "teapot"])
+def test_shadow_vote_equals_row_words(soup, teapot_quad, scene):
+    """The shadow kernel's vote in plain torch (occl_words_plain: each
+    lane's slab test at range 1, ORed per warp and then over the row's
+    four warps, padding lanes as the prepass pads them) gives
+    cluster_mask_words(cluster_bounds, o, seg, ones) bit for bit,
+    zero-length segments and a ragged last row included."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+    from radish_pt_tpu_torch.accel import quad as qd
+
+    _, cb, _, _, x, y = _segment_cases(scene, soup, teapot_quad)
+    so, seg = qd.quad_segments(x, y)
+    want = plk.cluster_mask_words(cb, so, seg, torch.ones(so.shape[0]))
+    got = qd.occl_words_plain(cb, so, seg)
+    assert got.dtype == torch.int32 and got.shape == want.shape == (2, -(-cb.shape[0] // 32))
+    np.testing.assert_array_equal(t2n(got), t2n(want))
+    assert bool(plk.unpack_mask(want, cb.shape[0]).any(1).all())
+
+
+@pytest.mark.parametrize("culled", [False, True])
+def test_zero_length_segments_blocked_where_their_row_sweeps(soup, culled):
+    """The rule the shadow kernel settles zero-length segments by before
+    any sweep, held on the plain version: a segment whose 27 features are
+    all 0 is blocked exactly where its row's words flag a cluster (every
+    triangle without boxes); the others follow their forms."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+    from radish_pt_tpu_torch.accel import quad as qd
+
+    s = soup
+    coeffs, center = _port_planes(s["tp"])
+    cb = torch.from_numpy(s["cb"]) if culled else None
+    so, seg = qd.quad_segments(torch.from_numpy(s["x"]), torch.from_numpy(s["y"]))
+    # rows of far segments that flag no cluster, as the last row's lanes
+    so[128:] = so[128:] + 1e3
+    feats = qd.quad_features(so, seg, center)
+    zero = qd.zero_segments(feats)
+    assert int(zero.sum()) == 37 and bool(zero[::7].all())
+    occ = qd.occlusion(coeffs, feats, cb, so, seg, 64)
+    if culled:
+        rows = plk.unpack_mask(qd.occl_words_plain(cb, so, seg), 5).any(1)
+        assert rows.tolist() == [True, False]
+    else:
+        rows = torch.ones(2, dtype=torch.bool)
+    np.testing.assert_array_equal(t2n(occ[zero]), t2n(rows.repeat_interleave(128)[zero]))
