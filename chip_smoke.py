@@ -5,7 +5,10 @@ Drives the port's main paths through ``Renderer`` on the card, at
 800x800: full-MIS path-traced frames, depth 5 — cornell and teapot on the
 Plücker engine, teapot_hires on the compact work-list engine (and on the
 Plücker engine its size picks), teapot on the quad engine, teapot_hires on
-the band engine, cornell and teapot on the dense engine — and the
+the band engine, cornell and teapot on the dense engine; the other four
+shipped scenes on the Plücker engine: glass (depth 8, dielectric, a thin
+lens with a star-shaped aperture mask), env_teapot (an env map its only
+light), many_light (72 emitters) and textured (image maps) — and the
 interactive direct-lighting path on cornell's dense engine: ReSTIR DI (the
 G-buffer, 32-candidate RIS, temporal and spatial reuse; also on the
 Plücker engine, and with the camera animated), the direct tracer with SVGF,
@@ -16,10 +19,13 @@ of those paths against their plain torch versions.  Phases:
 2. cold start: the five kernel sources built with nvcc at once (seconds
    shown, and each kernel's registers and spills as ptxas reports them),
    then teapot and teapot_hires (compact) loaded and rendered once
-   at 800x800, and the quad, band and dense scenes loaded;
+   at 800x800, and the quad, band, dense and other shipped scenes loaded;
 3. kernel parity at the main paths' shapes (800x800 primaries, one bounce
    wavefront with dead lanes, its NEE shadow segments): the Plücker sweeps
-   on teapot and on teapot_hires' Plücker build, against the plain
+   on teapot, on teapot_hires' Plücker build, on glass (its primaries
+   through the masked thin lens, its bounce-1 rays refracted into the
+   glass sphere) and on env_teapot (its bounce-1 NEE segments to the env
+   map, 1e6 long), against the plain
    versions culled per 32-lane warp as the kernels cull (and, logged, the
    lanes that differ from the plain versions culled per 128-lane row); the
    quad sweeps on teapot (the shadow kernel, which votes its rows' words
@@ -32,10 +38,10 @@ of those paths against their plain torch versions.  Phases:
    also the (lane, triangle) pairs their wavefronts need when culled per
    row (group, band), per warp and per lane;
 4. the main paths, loopers 0-7, each with the launch counts of its kernels
-   set to 0 just before and read just after (a frame: 6 closest hits, 5
-   shadow sweeps, no plain call; on Plücker and band no mask prepass, on
-   quad the closest hits' 6 row-mask prepass calls), finite non-zero
-   images, and
+   set to 0 just before and read just after (a frame of depth d: d + 1
+   closest hits, d shadow sweeps, no plain call; on Plücker and band no
+   mask prepass, on quad the closest hits' 6 row-mask prepass calls),
+   finite non-zero images, and
    looper-7 mean radiance within 1% of each scene's 800x800 golden (the
    teapot_hires engines also within 0.2% of each other, band and compact
    within 0.05%); the direct-lighting paths' 8-frame means within 1% of
@@ -48,9 +54,12 @@ of those paths against their plain torch versions.  Phases:
    squared error of 8 frames of the direct tracer, of ReSTIR without reuse
    and of ReSTIR with reuse against a 256-frame direct-tracer accumulation;
 6. timing with CUDA events: ms/frame and Mrays/s per scene and engine, the
-   ReSTIR and denoised frames, each kernel against its plain version, and
+   ReSTIR and denoised frames, each kernel against its plain version (the
+   plain version's one run in phase 3, where it is the reference), and
    each kernel's least time on the card (bound) for the same work (the
-   dense kernels, which issue only unfused f32 operations, at the
+   kernels that issue only unfused f32 operations — the dense sweeps and
+   the sphere prepass, each operation ``__fmul_rn`` / ``__fadd_rn`` /
+   ``__fsub_rn`` to stay bit-equal to its plain version — at the
    instruction rate: half the f32 peak that counts an FMA as two).
 
 Prints a JSON line of per-kernel results, then the card's name and power
@@ -72,14 +81,25 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 RES = 800
 DEPTH = 5
 SMALL_RES = 128  # the kernel-path against plain-path frames (phase 5)
-# mean radiance of the looper-7 frame at 800x800, depth 5.  teapot and
-# teapot_hires: bench.py MEAN_GOLDEN, measured on the reference at f32-grade
-# precision.  cornell: the reference's exact-f32 brute-force engine on a CPU
-# (JAX_PLATFORMS=cpu; ds, cam, _ = load_scene("scenes/cornell_box.txt");
-# jax.jit(path_trace, static_argnames="max_depth")(ds, cam at 800x800, 7, 5)
-# gives 1.0424516); bench.py's 1.00752 was taken in the TPU's bf16x3 mode,
-# which drops grazing hits.
-MEAN_GOLDEN = {"cornell": 1.04245, "teapot": 0.43335, "teapot_hires": 0.43550}
+# mean radiance of the looper-7 frame at 800x800, depth 5 (glass at 8, its
+# scene file's depth).  Every scene but teapot_hires: the JAX package's
+# exact-f32 mean on a CPU, with the engine its CPU build picks (brute force
+# up to 128 triangles, the BVH walk above), over the whole frame:
+#   JAX_PLATFORMS=cpu python tests/torch_goldens.py cornell teapot many_light \
+#       textured glass env_teapot
+# (cornell 1.0424518 there, 1.0424516 as one f32 mean).  bench.py's
+# MEAN_GOLDEN are the reference's TPU runs: cornell's 1.00752 in its bf16x3
+# mode, which drops grazing hits; many_light's 0.17366 is 15% below the
+# exact mean; glass's 0.35154 is at depth 5.  teapot_hires: bench.py's
+# 0.43550 (its exact-f32 CPU mean is not computed yet; the Plücker, compact
+# and band frames are also held to each other).
+MEAN_GOLDEN = {"cornell": 1.04245, "teapot": 0.4333722, "teapot_hires": 0.43550,
+               "many_light": 0.2045663, "textured": 1.0500741, "glass": 0.3522674,
+               "env_teapot": 0.6923553}
+# glass at its scene file's depth; the others at DEPTH, as bench.py renders
+# them (many_light's file says 3)
+SCENE_DEPTH = {"glass": 8}
+ENGINE_SUFFIXES = ("_plucker", "_quad", "_band", "_dense")
 # mean of ``Renderer.current_image()`` after loopers 0-7 of cornell at
 # 800x800 on the direct-lighting paths, computed by the JAX package on a
 # CPU (its brute-force engine): JAX_PLATFORMS=cpu; ds, cam, _ =
@@ -92,7 +112,12 @@ MEAN_GOLDEN = {"cornell": 1.04245, "teapot": 0.43335, "teapot_hires": 0.43550}
 PATH_GOLDEN = {"restir": 0.1643293, "direct_svgf": 0.1584340,
                "pt_split_svgf": 0.2697894}
 SCENE_FILES = {"cornell": "cornell_box.txt", "teapot": "teapot.txt",
-               "teapot_hires": "teapot_hires.txt"}
+               "teapot_hires": "teapot_hires.txt", "glass": "glass.txt",
+               "env_teapot": "env_teapot.txt", "many_light": "many_light.txt",
+               "textured": "textured.txt"}
+# the shipped scenes first rendered on the card in this script's fourth
+# group: the Plücker engine their size picks
+OTHER_SCENES = ("glass", "env_teapot", "many_light", "textured")
 SOURCES = {"plucker": "radish_pt_tpu_torch/csrc/plucker.cu",
            "compact": "radish_pt_tpu_torch/csrc/compact.cu",
            "quad": "radish_pt_tpu_torch/csrc/quad.cu",
@@ -119,12 +144,25 @@ KERNEL_SCENE = {"plucker": "teapot", "compact": "teapot_hires", "quad": "teapot_
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # f32 instructions a second: what a kernel of unfused single operations
-# (the dense sweeps' __fmul_rn / __fadd_rn / __fsub_rn) can issue
+# (__fmul_rn / __fadd_rn / __fsub_rn: the dense sweeps, the sphere
+# prepass) can issue
 PEAK_F32_OPS_UNFUSED = PEAK_F32_FLOPS / 2
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def scene_of(name: str) -> str:
+    """The scene file key of a scene entry ("teapot_hires_band" ->
+    "teapot_hires")."""
+    for suffix in ENGINE_SUFFIXES:
+        name = name.removesuffix(suffix)
+    return name
+
+
+def depth_of(name: str) -> int:
+    return SCENE_DEPTH.get(scene_of(name), DEPTH)
 
 
 def gpu_name_and_power() -> str:
@@ -150,6 +188,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+# (kernel/wavefront key, scene) -> ms of the plain version's one run in
+# phase 3, where it is the parity reference; phase 6 reports it as plain_ms
+PLAIN_MS = {}
+
+
+def plain_run(key: str, scene: str, fn):
+    """``fn()``, the plain version's run that a kernel is held against,
+    timed with CUDA events (no warm-up) into ``PLAIN_MS[key, scene]``."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    PLAIN_MS[key, scene] = start.elapsed_time(end)
+    return out
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
@@ -193,15 +250,19 @@ def bounce_one(ds, cam):
     mat, norm = dsc.get_textured_material(ds, it.mat_id, it.uv, it.norm)
     active = (it.prim_id >= 0) & (mat.mtype != dsc.MAT_LIGHT)
     wo = -ray_d
-    norm = torch.where(((norm * wo).sum(-1) < 0)[..., None], -norm, norm)
+    delta = mat.mtype == dsc.MAT_DIELECTRIC  # no flip, no NEE
+    norm = torch.where((~delta & ((norm * wo).sum(-1) < 0))[..., None], -norm, norm)
     r4, sampler = rng.sample_4d(ds.sobol, sampler)
     _, wi, dist, pdf = dsc.sample_direct_light_no_vis(ds, it.pos, r4)
-    ok = active & (pdf > 0) & ((norm * wi).sum(-1) > 0)
+    ok = active & ~delta & (pdf > 0) & ((norm * wi).sum(-1) > 0)
     y = torch.where(ok[..., None], it.pos + wi * dist[..., None], it.pos)
     r3, sampler = rng.sample_3d(ds.sobol, sampler)
     samp = bsdf.bsdf_sample(mat, norm, wo, r3, types=ds.mat_types)
     active = active & ~bsdf.is_invalid(samp.type) & (samp.pdf >= 1e-8)
+    # rays that enter a dielectric: they start just inside its surface
+    refracted = active & delta & ((samp.dir * it.norm).sum(-1) < 0)
     return {
+        "refracted": refracted,
         "primary": (ray_o, ray_d, torch.full_like(ray_d[:, 0], plk.FLT_MAX)),
         "extension": (it.pos + samp.dir * 1e-5, samp.dir,
                       torch.where(active, plk.FLT_MAX, -plk.FLT_MAX)),
@@ -243,7 +304,8 @@ def plucker_parity(ds, waves, max_err, log, scene):
         assert pairs["lane"] <= pairs["warp"] <= pairs["row"]
         if what == "segments":
             ok_k = plk.occlusion_cuda(packed, feats, cb, o, d, tmax, sub)
-            ok_p = plk.occlusion_plain(c, feats, tmax, words[plk.GROUP], sub)
+            ok_p = plain_run("plucker_occlusion/segments", scene, lambda: plk.occlusion_plain(
+                c, feats, tmax, words[plk.GROUP], sub))
             ok_r = plk.occlusion_plain(c, feats, tmax, words[plk.ROW], sub, plk.ROW)
             torch.cuda.synchronize()
             n_diff = int((ok_k != ok_p).sum())
@@ -257,8 +319,9 @@ def plucker_parity(ds, waves, max_err, log, scene):
             max_err["plucker_occlusion"] = max(max_err["plucker_occlusion"], float(n_diff))
         else:
             pk, dk = plk.closest_hit_cuda(packed, feats, cb, o, d, tmax, sub)
-            pp, dp = plk.closest_hit_plain(c, feats, words[plk.GROUP], sub,
-                                           dead=plk.dead_lanes(tmax))
+            pp, dp = plain_run(f"plucker_closest_hit/{what}", scene,
+                               lambda: plk.closest_hit_plain(c, feats, words[plk.GROUP], sub,
+                                                             dead=plk.dead_lanes(tmax)))
             pr, _ = plk.closest_hit_plain(c, feats, words[plk.ROW], sub, plk.ROW)
             torch.cuda.synchronize()
             n_prim, n_val = int((pk != pp).sum()), int((dk != dp).sum())
@@ -299,7 +362,8 @@ def compact_parity(ds, waves, max_err, log):
             live = tmax >= 0
         sph = cpt.sphere_operands(ds.sweep_center, ds.cluster_bounds, o, d, tmax)
         fk, tk = cpt.sphere_flags_cuda(*sph)
-        fp, tp = cpt.sphere_flags_plain(*sph)
+        fp, tp = plain_run(f"compact_sphere_flags/{what}", "teapot_hires",
+                           lambda: cpt.sphere_flags_plain(*sph))
         torch.cuda.synchronize()
         both = fk & fp
         n_flag_diff = int((fk != fp).sum())
@@ -316,7 +380,8 @@ def compact_parity(ds, waves, max_err, log):
         if what == "segments":
             ok_k = cpt.occlusion_cuda(ds.sweep_packed, ds.unit_spheres, feats, tmax,
                                       items, item_tn, offsets, 1)
-            ok_p = cpt.occlusion_plain(ds.sweep_coeffs, feats, tmax, fk, 1)
+            ok_p = plain_run("compact_occlusion/segments", "teapot_hires",
+                             lambda: cpt.occlusion_plain(ds.sweep_coeffs, feats, tmax, fk, 1))
             torch.cuda.synchronize()
             err = check_occlusion(ok_k, ok_p, live, "compact", log)
             assert int((ok_k != ok_p).sum()) == 0, "compact occlusion: shadow parity"
@@ -326,7 +391,8 @@ def compact_parity(ds, waves, max_err, log):
         else:
             pk, dk = cpt.closest_hit_cuda(ds.sweep_packed, ds.unit_spheres, feats, tmax,
                                           items, item_tn, offsets, 1)
-            pp, dp = cpt.closest_hit_plain(ds.sweep_coeffs, feats, tmax, fk, 1)
+            pp, dp = plain_run(f"compact_closest_hit/{what}", "teapot_hires",
+                               lambda: cpt.closest_hit_plain(ds.sweep_coeffs, feats, tmax, fk, 1))
             torch.cuda.synchronize()
             err = check_closest(pk, dk, pp, dp, live, f"compact closest hit, {what}", log)
             # the compact kernel reads tmax: a dead lane sweeps nothing
@@ -368,7 +434,8 @@ def quad_parity(ds, waves, max_err, log):
         mask = plk.cluster_mask_words(ds.cluster_bounds, o, d,
                                       None if what == "primary" else tmax)
         pk, dk = qd.closest_hit_cuda(ds.quad_packed, feats, mask, sub)
-        pp, dp = qd.closest_hit_plain(ds.quad_coeffs, feats, mask, sub)
+        pp, dp = plain_run(f"quad_closest_hit/{what}", "teapot_quad",
+                           lambda: qd.closest_hit_plain(ds.quad_coeffs, feats, mask, sub))
         torch.cuda.synchronize()
         n_val = int(((dk != dp) & live).sum())
         log(f"[parity] quad closest hit, {what}: dist differs by value on {n_val} live "
@@ -386,7 +453,8 @@ def quad_parity(ds, waves, max_err, log):
     ones = torch.ones_like(so[:, 0])
     mask = plk.cluster_mask_words(ds.cluster_bounds, so, seg, ones)
     ok_k = qd.occlusion_cuda(ds.quad_occl_packed, feats, ds.cluster_bounds, so, seg, sub)
-    ok_p = qd.occlusion_plain(ds.quad_coeffs, feats, mask, sub)
+    ok_p = plain_run("quad_occlusion/segments", "teapot_quad",
+                     lambda: qd.occlusion_plain(ds.quad_coeffs, feats, mask, sub))
     torch.cuda.synchronize()
     max_err["quad_occlusion"] = max(max_err["quad_occlusion"],
                                     check_occlusion(ok_k, ok_p, ok, "quad", log))
@@ -443,7 +511,8 @@ def band_parity(ds, waves, max_err, log):
             f"{float(rows.sum(1).float().mean()):.2f} per 128-lane row")
         if what == "segments":
             ok_k = bnd.occlusion_cuda(ds.sweep_packed, feats, cb, wb, o, d, tmax, g)
-            ok_p = bnd.occlusion_plain(ds.sweep_coeffs, feats, tmax, mask, g)
+            ok_p = plain_run("band_occlusion/segments", "teapot_hires_band",
+                             lambda: bnd.occlusion_plain(ds.sweep_coeffs, feats, tmax, mask, g))
             torch.cuda.synchronize()
             err = check_occlusion(ok_k, ok_p, live, "band", log)
             log(f"[parity] band occlusion: {int(ok_k[~live].sum())} of {int((~live).sum())} "
@@ -462,8 +531,9 @@ def band_parity(ds, waves, max_err, log):
             inputs[what] = (feats, o, d, tmax, mask, pairs)
             continue
         pk, dk = bnd.closest_hit_cuda(ds.sweep_packed, feats, cb, wb, o, d, tmax, g)
-        pp, dp = bnd.closest_hit_plain(ds.sweep_coeffs, feats, mask, g,
-                                       dead=plk.dead_lanes(tmax))
+        pp, dp = plain_run(f"band_closest_hit/{what}", "teapot_hires_band",
+                           lambda: bnd.closest_hit_plain(ds.sweep_coeffs, feats, mask, g,
+                                                         dead=plk.dead_lanes(tmax)))
         torch.cuda.synchronize()
         n_prim, n_val = int(((pk != pp) & live).sum()), int(((dk != dp) & live).sum())
         hit = (pp >= 0) & live
@@ -513,7 +583,8 @@ def dense_parity(ds, waves, max_err, log, scene):
     for what in ("primary", "extension"):
         o, d = (t.contiguous() for t in waves[what][:2])
         pk, dk, bk = dns.closest_hit_cuda(tri, o, d)
-        pp, dp, bp = dns.closest_hit_plain(tri, o, d)
+        pp, dp, bp = plain_run(f"dense_closest_hit/{what}", f"{scene}_dense",
+                               lambda: dns.closest_hit_plain(tri, o, d))
         torch.cuda.synchronize()
         n_prim = int((pk != pp).sum())
         ulps = {"dist": max_ulps(dk, dp), "bary": max_ulps(bk, bp)}
@@ -531,7 +602,8 @@ def dense_parity(ds, waves, max_err, log, scene):
     x, y, live = waves["segments"]
     so, sd, tm = (t.contiguous() for t in trv.segment_rays(x, y))
     ok_k = dns.occlusion_cuda(tri, so, sd, tm)
-    ok_p = dns.occlusion_plain(tri, so, sd, tm)
+    ok_p = plain_run("dense_occlusion/segments", f"{scene}_dense",
+                     lambda: dns.occlusion_plain(tri, so, sd, tm))
     torch.cuda.synchronize()
     n_diff = int((ok_k != ok_p).sum())
     log(f"[parity] dense occlusion, {scene} NEE segments: {n_diff} / {ok_k.numel()} bits "
@@ -634,15 +706,16 @@ def main_path(scenes, names, counters, log):
     for name in names:
         ds, cam = scenes[name]
         r = Renderer(ds=ds, cam=cam, desc=None, device=ds.device)
-        r.settings.trace_depth = DEPTH
+        r.settings.trace_depth = depth_of(name)
         for _ in range(8):  # loopers 0-7
             r.step()
         img = r.current_image()
         torch.cuda.synchronize()
         assert bool(torch.isfinite(img).all()), f"{name}: non-finite pixels"
         assert float(img.mean()) > 0.0, f"{name}: black image"
-        log(f"[main path] {name} ({ds.intersector}): {RES}x{RES}, depth {DEPTH}, "
-            f"8 spp accumulated, mean (compressed) {float(img.mean()):.5f}")
+        log(f"[main path] {name} ({ds.intersector}): {RES}x{RES}, depth "
+            f"{depth_of(name)}, 8 spp accumulated, mean (compressed) "
+            f"{float(img.mean()):.5f}")
     launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
     log(f"[main path] {', '.join(names)}: kernel launches {launches}, "
         f"plain-version calls {plain}")
@@ -769,7 +842,19 @@ def main() -> int:
         log(f"[scene] {name} (dense): {ds.num_triangles} stored triangles, "
             f"{int((ds.tri_packed[:, 3:].abs().sum(1) == 0).sum())} of them zero "
             f"(cluster padding)")
+    for name in OTHER_SCENES:  # the engine their size picks
+        t5 = time.perf_counter()
+        ds, cam, _ = load_scene(scene_path(name), device=dev)
+        assert ds.intersector == "plucker", (name, ds.intersector)
+        scenes[name] = (ds, cam.replace(width=RES, height=RES))
+        clusters = ("no clusters" if ds.cluster_bounds is None else
+                    f"{ds.cluster_bounds.shape[0]} clusters of {ds.cluster_sub}")
+        log(f"[scene] {name} (plucker): {ds.num_triangles} stored triangles, "
+            f"{clusters}, {ds.n_area_lights} area lights, env map {ds.has_env}, "
+            f"aperture mask {ds.has_aperture} (lens radius {float(cam.lens_radius)}), "
+            f"depth {depth_of(name)}; loaded in {time.perf_counter() - t5:.2f} s")
 
+    log(f"[phase] 3 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 3. kernel parity at the main path's shapes ----
     max_err = dict.fromkeys(REPLACES, 0.0)
     ds, cam = scenes["teapot"]
@@ -784,6 +869,25 @@ def main() -> int:
     ds, cam = scenes["teapot_hires_plucker"]
     inputs["plucker"]["teapot_hires_plucker"] = plucker_parity(
         ds, bounce_one(ds, cam), max_err, log, "teapot_hires_plucker")
+    # wavefronts the Plücker pair meets only on these scenes: glass's
+    # primaries through the masked thin lens and its bounce-1 rays refracted
+    # into the glass sphere (their origins inside a cluster's box);
+    # env_teapot's bounce-1 NEE segments, 1e6 long toward the env map
+    for name in ("glass", "env_teapot"):
+        ds, cam = scenes[name]
+        waves = bounce_one(ds, cam)
+        x, y, live = waves["segments"]
+        seg_len = torch.linalg.vector_norm(y - x, dim=-1)[live]
+        log(f"[parity] {name}: primaries {waves['primary'][0].shape[0]}, extension "
+            f"rays live {int((waves['extension'][2] >= 0).sum())}, of them refracted "
+            f"into a dielectric {int(waves['refracted'].sum())}; shadow segments live "
+            f"{int(live.sum())}, length {float(seg_len.min()):.4g} to "
+            f"{float(seg_len.max()):.4g}")
+        if name == "glass":
+            assert int(waves["refracted"].sum()) > 0, "glass: no refracted rays"
+        else:
+            assert float(seg_len.min()) > 9e5, "env_teapot: NEE segments not 1e6 long"
+        inputs["plucker"][name] = plucker_parity(ds, waves, max_err, log, name)
     ds, cam = scenes["teapot_hires"]
     waves = bounce_one(ds, cam)
     log(f"[parity] teapot_hires (compact): primaries {waves['primary'][0].shape[0]},"
@@ -798,12 +902,15 @@ def main() -> int:
         inputs["dense"][name] = dense_parity(ds, waves, max_err, log, name)
     del waves
 
+    log(f"[phase] 4 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 4. the main paths ----
     def sweep_path(names, counters):
-        """6 closest hits and 5 shadow sweeps a frame, each one launch."""
+        """d + 1 closest hits and d shadow sweeps a frame of depth d, each
+        one launch."""
         n_launch, n_frames = main_path(scenes, names, counters, log)
-        assert n_launch["closest_hit"] == 6 * n_frames, n_launch
-        assert n_launch["occlusion"] == 5 * n_frames, n_launch
+        want = {"closest_hit": sum(8 * (depth_of(n) + 1) for n in names),
+                "occlusion": sum(8 * depth_of(n) for n in names)}
+        assert {k: n_launch[k] for k in want} == want, (n_launch, want)
         return n_launch, n_frames
 
     def plucker_path(names):
@@ -836,20 +943,23 @@ def main() -> int:
                 "quad": quad_path(("teapot_quad",)),
                 "band": band_path(("teapot_hires_band",))}
     launches_hires_plucker = plucker_path(("teapot_hires_plucker",))
+    # the other shipped scenes, each driven alone: glass at depth 8 (9
+    # closest hits, 8 shadow sweeps a frame), the others at 5
+    launches_other = {name: plucker_path((name,))[0] for name in OTHER_SCENES}
     main_path(scenes, ("cornell_dense", "teapot_dense"), dns, log)
     means, frames = {}, {}
     for name in ("cornell", "teapot", "teapot_quad", "teapot_hires",
                  "teapot_hires_plucker", "teapot_hires_band", "cornell_dense",
-                 "teapot_dense"):
+                 "teapot_dense") + OTHER_SCENES:
         ds, cam = scenes[name]
-        d7, i7 = pt.path_trace(ds, cam, 7, DEPTH)
+        d7, i7 = pt.path_trace(ds, cam, 7, depth_of(name))
         frames[name] = d7 + i7
         means[name] = float(frames[name].mean())
-        golden = MEAN_GOLDEN["teapot_hires" if name.startswith("teapot_hires")
-                             else name.split("_")[0]]
+        golden = MEAN_GOLDEN[scene_of(name)]
         drift = means[name] / golden - 1.0
-        log(f"[main path] {name} ({ds.intersector}) looper-7 mean radiance "
-            f"{means[name]:.5f} vs golden {golden:.5f}: drift {drift * 100:+.3f}%")
+        log(f"[main path] {name} ({ds.intersector}) depth {depth_of(name)} looper-7 "
+            f"mean radiance {means[name]:.7f} vs golden {golden:.7f}: drift "
+            f"{drift * 100:+.4f}%")
         assert abs(drift) < 0.01, f"{name} mean radiance drifted more than 1%"
 
     def compare(a, b, bound_rel, what):
@@ -915,14 +1025,16 @@ def main() -> int:
         f"neighbour; mean {float(r.current_image().mean()):.5f}")
     assert float((temporal.num > 0).sum()) > 0.5 * float(geo.sum())
 
+    log(f"[phase] 5 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 5. kernel path against plain path, 128x128 ----
     for name, plain in (("teapot", "plucker_plain"), ("teapot_hires", "compact_plain"),
                         ("teapot_quad", "quad_plain"),
-                        ("teapot_hires_band", "band_plain")):
+                        ("teapot_hires_band", "band_plain"), ("glass", "plucker_plain"),
+                        ("env_teapot", "plucker_plain")):
         ds, cam = scenes[name]
         small = cam.replace(width=SMALL_RES, height=SMALL_RES)
-        d, i = pt.path_trace(ds, small, 0, DEPTH)
-        dp, ip = pt.path_trace(ds.replace(intersector=plain), small, 0, DEPTH)
+        d, i = pt.path_trace(ds, small, 0, depth_of(name))
+        dp, ip = pt.path_trace(ds.replace(intersector=plain), small, 0, depth_of(name))
         mad = float(torch.abs((d + i) - (dp + ip)).mean())
         log(f"[kernel vs plain path] {name} ({ds.intersector}) {SMALL_RES}x{SMALL_RES} mean "
             f"|pixel diff| {mad:.3e}")
@@ -965,20 +1077,22 @@ def main() -> int:
         f" mean squared error " + ", ".join(
             f"{k} {float(((v - reference) ** 2).mean()):.4e}" for k, v in estimates.items()))
 
+    log(f"[phase] 6 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 6. timing (CUDA events) ----
     for name in ("cornell", "teapot", "teapot_quad", "teapot_hires",
                  "teapot_hires_plucker", "teapot_hires_band", "cornell_dense",
-                 "teapot_dense"):
+                 "teapot_dense") + OTHER_SCENES:
         ds, cam = scenes[name]
         loopers = iter(range(8, 10_000))
+        depth = depth_of(name)
 
         def block():  # back-to-back frames, one sync: as bench.py times
             for _ in range(4):
-                pt.path_trace(ds, cam, next(loopers), DEPTH)
+                pt.path_trace(ds, cam, next(loopers), depth)
 
         ms = cuda_ms(block, reps=3) / 4
-        mrays = RES * RES * (1 + 2 * DEPTH) / (ms * 1e-3) / 1e6
-        log(f"[timing] {name} ({ds.intersector}) {RES}x{RES} depth {DEPTH} 1 spp: "
+        mrays = RES * RES * (1 + 2 * depth) / (ms * 1e-3) / 1e6
+        log(f"[timing] {name} ({ds.intersector}) {RES}x{RES} depth {depth} 1 spp: "
             f"{ms:.3f} ms/frame (median of 3 blocks of 4 frames), {mrays:.2f} "
             f"Mrays/s ({card})")
     for name in ("cornell_dense", "cornell"):
@@ -1023,18 +1137,17 @@ def main() -> int:
     # per kernel and wavefront: (kernel ms, plain ms, flops, bytes, peak)
     timed = {}
 
-    def time_kernel(key, kernel, plain, flops, nbytes_, scene=None, peak=PEAK_F32_FLOPS):
+    def time_kernel(key, kernel, flops, nbytes_, scene=None, peak=PEAK_F32_FLOPS):
         scene = scene or KERNEL_SCENE[key.split("_")[0]]
-        # the plain version ran in phase 3: timed once, without a warm-up
-        timed[key, scene] = (cuda_ms(kernel, 5), cuda_ms(plain, 1, warmup=0), flops, nbytes_,
-                             peak)
+        # the plain version's time: its one run in phase 3 (PLAIN_MS)
+        timed[key, scene] = (cuda_ms(kernel, 5), PLAIN_MS[key, scene], flops, nbytes_, peak)
 
     # (key, scene) -> [(what a further bound is over, its ms)], logged and
     # written beside the first
     other_bounds = {}
-    for scene in ("teapot", "teapot_hires_plucker"):
+    for scene in ("teapot", "teapot_hires_plucker", "glass", "env_teapot"):
         ds = scenes[scene][0]
-        sub, cb, c, pk = ds.cluster_sub, ds.cluster_bounds, ds.sweep_coeffs, ds.sweep_packed
+        sub, cb, pk = ds.cluster_sub, ds.cluster_bounds, ds.sweep_packed
         for what in ("primary", "extension", "segments"):
             feats, o, d, tmax, words, pairs = inputs["plucker"][scene][what]
             n = feats.shape[0]
@@ -1047,13 +1160,10 @@ def main() -> int:
             if what == "segments":
                 time_kernel("plucker_occlusion/segments",
                             lambda: plk.occlusion_cuda(pk, feats, cb, o, d, tmax, sub),
-                            lambda: plk.occlusion_plain(c, feats, tmax, words, sub),
                             pairs["lane"] * plk.FLOPS_PER_PAIR[kind], nb, scene)
             else:
                 time_kernel(f"plucker_closest_hit/{what}",
                             lambda: plk.closest_hit_cuda(pk, feats, cb, o, d, tmax, sub),
-                            lambda: plk.closest_hit_plain(c, feats, words, sub,
-                                                          dead=plk.dead_lanes(tmax)),
                             pairs["lane"] * plk.FLOPS_PER_PAIR[kind], nb, scene)
             other_bounds[f"plucker_{kind}/{what}", scene] = [(
                 f"the {plk.ROW}-lane row's flagged clusters",
@@ -1069,7 +1179,6 @@ def main() -> int:
         # 5 x 27 terms (a sweep that also multiplies the structural zeros)
         time_kernel(f"quad_closest_hit/{what}",
                     lambda: qd.closest_hit_cuda(qp, feats, mask, sub),
-                    lambda: qd.closest_hit_plain(qc, feats, mask, sub),
                     pairs * qd.FLOPS_PER_PAIR["closest_hit"],
                     nbytes(qp, feats, mask) + 8 * n)
         other_bounds[f"quad_closest_hit/{what}", "teapot_quad"] = [(
@@ -1084,7 +1193,6 @@ def main() -> int:
     # at the live terms and at all 162 (the bound until this kernel)
     time_kernel("quad_occlusion/segments",
                 lambda: qd.occlusion_cuda(qo, feats, cb, so, seg, sub),
-                lambda: qd.occlusion_plain(qc, feats, mask, sub),
                 pairs["lane"] * qd.FLOPS_PER_PAIR["occlusion"], nb)
     other_bounds["quad_occlusion/segments", "teapot_quad"] = [
         ("the 128-lane row's flagged clusters",
@@ -1092,15 +1200,18 @@ def main() -> int:
         ("the row's flagged clusters, all 162 terms",
          bound(pairs["row"] * qd.OCCL_FLOPS_ALL_TERMS, nb)[0])]
     ds = scenes["teapot_hires"][0]
-    c = ds.sweep_coeffs
     for what in ("primary", "extension", "segments"):
         sph = inputs["compact"][what][-1]
         rows, units = sph[0].shape[0] // cpt.LANES, sph[1].shape[2]
+        # each operation unfused (__fmul_rn / __fadd_rn): bounded at the
+        # instruction rate; beside it the bound at the FMA-counting peak
+        flops = rows * cpt.LANES * units * cpt.FLOPS_PER_PAIR["sphere_flags"]
+        nb = nbytes(*sph) + 5 * rows * units
         time_kernel(f"compact_sphere_flags/{what}",
-                    lambda: cpt.sphere_flags_cuda(*sph),
-                    lambda: cpt.sphere_flags_plain(*sph),
-                    rows * cpt.LANES * units * cpt.FLOPS_PER_PAIR["sphere_flags"],
-                    nbytes(*sph) + 5 * rows * units)
+                    lambda: cpt.sphere_flags_cuda(*sph), flops, nb,
+                    peak=PEAK_F32_OPS_UNFUSED)
+        other_bounds[f"compact_sphere_flags/{what}", "teapot_hires"] = [
+            ("the f32 peak counting an FMA as two flops", bound(flops, nb)[0])]
     cp, us = ds.sweep_packed, ds.unit_spheres
     for what in ("primary", "extension"):
         feats, tmax, flags, items, item_tn, offsets, pairs, _ = inputs["compact"][what]
@@ -1113,7 +1224,6 @@ def main() -> int:
         time_kernel(f"compact_closest_hit/{what}",
                     lambda: cpt.closest_hit_cuda(cp, us, feats, tmax, items, item_tn,
                                                  offsets, 1),
-                    lambda: cpt.closest_hit_plain(c, feats, tmax, flags, 1),
                     pairs["lane_cut"] * cpt.FLOPS_PER_PAIR["closest_hit"], nb)
         assert pairs["row"] == group_pairs(flags, cpt.CLUSTER_SUB, cpt.LANES, n)
         other_bounds[f"compact_closest_hit/{what}", "teapot_hires"] = [(
@@ -1127,7 +1237,6 @@ def main() -> int:
     # sweeps them all); beside it the bound over the row group's units
     time_kernel("compact_occlusion/segments",
                 lambda: cpt.occlusion_cuda(cp, us, feats, tm, items, item_tn, offsets, 1),
-                lambda: cpt.occlusion_plain(c, feats, tm, flags, 1),
                 pairs["lane_cut"] * cpt.FLOPS_PER_PAIR["occlusion"], nb)
     assert pairs["row"] == group_pairs(flags, cpt.CLUSTER_SUB, cpt.LANES, n)
     other_bounds["compact_occlusion/segments", "teapot_hires"] = [(
@@ -1147,8 +1256,6 @@ def main() -> int:
         # visits)
         time_kernel(f"band_closest_hit/{what}",
                     lambda: bnd.closest_hit_cuda(bp, feats, cb, wb, o, d, tmax, g),
-                    lambda: bnd.closest_hit_plain(c, feats, mask, g,
-                                                  dead=plk.dead_lanes(tmax)),
                     pairs["lane_cut"] * bnd.FLOPS_PER_PAIR["closest_hit"], nb)
         other_bounds[f"band_closest_hit/{what}", "teapot_hires_band"] = [(
             f"the {plk.ROW // g}-lane band's flagged clusters",
@@ -1163,7 +1270,6 @@ def main() -> int:
     # (the bound until this kernel)
     time_kernel("band_occlusion/segments",
                 lambda: bnd.occlusion_cuda(bp, feats, cb, wb, o, d, tm, g),
-                lambda: bnd.occlusion_plain(c, feats, tm, mask, g),
                 pairs["lane_cut"] * bnd.FLOPS_PER_PAIR["occlusion"], nb)
     other_bounds["band_occlusion/segments", "teapot_hires_band"] = [(
         f"the {plk.ROW // g}-lane band's flagged clusters",
@@ -1182,16 +1288,14 @@ def main() -> int:
             n = o.shape[0]
             work[f"dense_closest_hit/{what}"] = (
                 lambda o=o, d=d: dns.closest_hit_cuda(tri, o, d),
-                lambda o=o, d=d: dns.closest_hit_plain(tri, o, d),
                 n * t * dns.FLOPS_PER_PAIR["closest_hit"], nbytes(tri, o, d) + 16 * n)
         so, sd, tm = inputs["dense"][name]["segments"]
         work["dense_occlusion/segments"] = (
             lambda: dns.occlusion_cuda(tri, so, sd, tm),
-            lambda: dns.occlusion_plain(tri, so, sd, tm),
             occlusion_pairs(tri, so, sd, tm) * dns.FLOPS_PER_PAIR["occlusion"],
             nbytes(tri, so, sd, tm) + 4 * so.shape[0])
-        for key, (kernel, plain, flops, nb) in work.items():
-            time_kernel(key, kernel, plain, flops, nb, f"{name}_dense", PEAK_F32_OPS_UNFUSED)
+        for key, (kernel, flops, nb) in work.items():
+            time_kernel(key, kernel, flops, nb, f"{name}_dense", PEAK_F32_OPS_UNFUSED)
             other_bounds[key, f"{name}_dense"] = [
                 ("the f32 peak counting an FMA as two flops", bound(flops, nb)[0])]
     for (key, scene), (k, p, flops, nb, peak) in timed.items():
@@ -1230,6 +1334,10 @@ def main() -> int:
                 "launches_per_frame": n_launch[kind] / n_frames, "ms": k, "plain_ms": p,
                 "bound_ms": bound(flops, nb, peak)[0], "bound_by": bound(flops, nb, peak)[1],
                 "other_bounds": other(f"{name}/{what}", scene)}
+            # the other shipped scenes' main paths (8 frames each)
+            rows[-1]["other_scenes"] = {
+                scene: {"launches": n[kind], "launches_per_frame": n[kind] / 8}
+                for scene, n in launches_other.items()}
     log(f"[done] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -60,7 +60,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils.math import cross
+from ..utils.math import addcmul_rounds_once, cross
 from .traverse import FLT_MAX, NULL_PRIMITIVE, segment_rays
 
 PLUCKER_EPS2 = 1.1920929e-07 ** 2  # det² threshold == |det| >= eps
@@ -84,6 +84,9 @@ FLOPS_PER_PAIR = {"closest_hit": 41, "occlusion": 43}
 # o x d, t·det reads o and 1
 LIVE_SLOTS = (*range(0, 3), *range(10, 16), *range(20, 26), *range(36, 40))
 PACKED_WIDTH = 20  # floats per packed triangle: the live slots and one zero
+# per plane (det, bx, by, t·det), the slots of its live coefficients, each
+# the weight of the feature of the same index, in the kernels' order
+PLANE_SLOTS = (range(0, 3), range(0, 6), range(0, 6), range(6, 10))
 
 LAUNCHES = {"closest_hit": 0, "occlusion": 0}
 PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
@@ -288,14 +291,39 @@ def unpack_coeffs(packed):
 
 def _planes(coeffs, feats):
     """(det, bx, by, t·det) [R, T] for feature rows ``feats`` [R, 10] and
-    planes ``coeffs`` [T, 4, 10] (or packed, [T, 20])."""
-    if feats.is_cuda:  # the reference planes are full f32, never TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
+    planes ``coeffs`` [T, 4, 10] (or packed, [T, 20]).
+
+    On the card, in the kernels' arithmetic (:func:`kernel_planes`): a
+    matrix product there sums in the order and with the fusion of the
+    cuBLAS kernel it picks for each chunk's shape, so its last bits would
+    follow the chunking (on env_teapot's 800x800 primaries, the chunks of
+    one cluster rounded 1,572 winners' t otherwise).  On the CPU, one
+    matrix product: its sums are the ones the parity tests against the JAX
+    package pin."""
     if coeffs.dim() == 2:
         coeffs = unpack_coeffs(coeffs)
+    if feats.is_cuda:
+        return kernel_planes(coeffs, feats)
     t = coeffs.shape[0]
     q = (feats @ coeffs.reshape(t * 4, 10).t()).view(-1, t, 4)
     return q.unbind(-1)
+
+
+def kernel_planes(coeffs, feats):
+    """(det, bx, by, t·det) [R, T] as the kernels compute them
+    (csrc/plucker_planes.cuh::planes), bit for bit: each plane over its
+    :data:`PLANE_SLOTS` in order, the first term a product and the others
+    fused multiply-adds, ``torch.addcmul`` (which rounds once on the card;
+    raises on a device where it does not).  ``coeffs`` [T, 4, 10]."""
+    if not addcmul_rounds_once(feats.device):
+        raise RuntimeError(f"torch.addcmul is not a fused multiply-add on {feats.device}")
+    out = []
+    for k, (first, *rest) in enumerate(PLANE_SLOTS):
+        acc = coeffs[None, :, k, first] * feats[:, first, None]
+        for j in rest:
+            acc = torch.addcmul(acc, coeffs[None, :, k, j], feats[:, j, None])
+        out.append(acc)
+    return tuple(out)
 
 
 def _decide(coeffs, feats):

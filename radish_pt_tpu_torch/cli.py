@@ -86,7 +86,8 @@ def main(argv=None) -> int:
         ds = ds.replace(band_g=args.band_g)
     r = Renderer(ds=ds, cam=cam, desc=desc, device=device)
     print(f"[scene loaded in {time.time() - t0:.1f}s: {ds.num_triangles} "
-          f"tris, {ds.n_area_lights} area lights, {cam.width}x{cam.height}, "
+          f"tris, {ds.n_area_lights} area lights, "
+          f"{'env map, ' if ds.has_env else ''}{cam.width}x{cam.height}, "
           f"engine {ds.intersector}, device {device}]")
 
     s = r.settings

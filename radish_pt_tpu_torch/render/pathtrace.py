@@ -23,6 +23,7 @@ import torch
 
 from ..bsdf import materials as bsdf
 from ..sampling import rng
+from ..sampling.alias import alias_sample
 from ..scene import camera as cam_mod
 from ..scene import device_scene as dsc
 from ..utils import math as m
@@ -60,11 +61,20 @@ def _lanes(ds, cam):
 
 
 def sample_aperture(ds: dsc.DeviceScene, r2):
-    """A lens point in [-1,1]^2 from the uniform disk (aperture masks are
-    not ported: the scene build refuses them)."""
-    if ds.has_aperture:
-        raise NotImplementedError("aperture masks: ROADMAP queue 1, item 2")
-    return m.concentric_sample_disk(r2[..., 0], r2[..., 1])
+    """A lens point in [-1,1]^2: the centre of a texel of the aperture mask,
+    drawn by the alias table over its luminance (scene.cpp:171-188), or the
+    uniform disk without a mask."""
+    if not ds.has_aperture:
+        return m.concentric_sample_disk(r2[..., 0], r2[..., 1])
+    pix = alias_sample(ds.aperture_alias_prob, ds.aperture_alias_idx,
+                       r2[..., 0], r2[..., 1])
+    w = ds.tex_width[ds.aperture_tex]
+    h = ds.tex_height[ds.aperture_tex]
+    y = pix // w
+    x = pix - y * w
+    u = (x.to(torch.float32) + 0.5) / w.to(torch.float32)
+    v = (y.to(torch.float32) + 0.5) / h.to(torch.float32)
+    return torch.stack([u * 2.0 - 1.0, v * 2.0 - 1.0], dim=-1)
 
 
 def _gen_primary(ds, cam, sampler, pixel_idx):
@@ -160,6 +170,14 @@ def path_trace(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper: int,
         pos = it.pos
 
         miss = active & (it.prim_id == NULL_PRIMITIVE)
+        if ds.has_env:
+            # an escaped ray sees the env map, MIS-weighted against NEE's
+            # env sampler (full weight after a delta sample)
+            env_pdf = dsc.env_map_pdf(ds, ray_d)
+            w_env = torch.where(delta_sample, torch.ones_like(env_pdf),
+                                m.power_heuristic(samp.pdf, env_pdf))
+            indirect = indirect + _mask3(
+                miss, dsc.env_radiance(ds, ray_d) * throughput * w_env[..., None])
         active = active & ~miss
 
         mat, norm = dsc.get_textured_material(ds, it.mat_id, it.uv, it.norm)

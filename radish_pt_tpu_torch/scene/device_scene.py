@@ -7,7 +7,15 @@ function over [N] wavefront lanes.
 
 Conventions (as in the reference):
 * ``[N]`` wavefront lanes; ``[T]`` triangles in stored order (BVH leaf order,
-  padded to whole culling clusters); ``[M]`` materials; ``[L]`` area lights.
+  padded to whole culling clusters); ``[M]`` materials; ``[L]`` area lights
+  (+1 alias slot for the env map, the last, when the scene has one).
+* The env map's and the area lights' pdfs are the reference package's
+  consistent ones: pdf_area = lum * 2pi / sumPower for an area light and
+  lum * W * H / (sumPower * 2pi^2) for the env map.  The reference
+  renderer drops the 1/pi^2 in ``environmentMapPdf`` (scene.h:374-378)
+  but keeps it in ``sampleEnvironmentMap`` (scene.h:397-398); the JAX
+  package uses the consistent form for NEE and MIS alike, and so does the
+  port (a kept quirk of the reference package, not a fix of the port's).
 * Lights emit into the half-space of their geometric normal when
   ``single_sided`` is set.
 
@@ -149,8 +157,12 @@ class DeviceScene:
     light_prim_ids: torch.Tensor = None  # i32 [L]
     light_radiance: torch.Tensor = None  # f32 [L, 3]
     sum_light_power_inv: torch.Tensor = None  # f32 scalar
-    light_alias_prob: torch.Tensor = None  # f32 [L]
-    light_alias_idx: torch.Tensor = None  # i32 [L]
+    light_alias_prob: torch.Tensor = None  # f32 [L(+1 env)]
+    light_alias_idx: torch.Tensor = None  # i32 [L(+1 env)]
+    env_alias_prob: torch.Tensor = None  # f32 [envW*envH] (or [1])
+    env_alias_idx: torch.Tensor = None  # i32
+    aperture_alias_prob: torch.Tensor = None  # f32 [maskW*maskH] (or [1])
+    aperture_alias_idx: torch.Tensor = None  # i32
 
     # --- sampler ---
     sobol: torch.Tensor = None  # int64 [SOBOL_NUM * SOBOL_DIM], u32 values
@@ -206,10 +218,6 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
                                 else "brute")
     kw = {k: meta[k] for k in META_FIELDS if k != "intersector"}
     kw["mat_types"] = None if meta["mat_types"] is None else tuple(meta["mat_types"])
-    if kw["has_env"] or kw["has_aperture"]:
-        raise NotImplementedError(
-            "env-map and aperture-mask scenes are not ported yet "
-            "(ROADMAP queue 1, item 2)")
 
     def t(name, dtype=None):
         a = fields.get(name)
@@ -271,6 +279,10 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
         sum_light_power_inv=t("sum_light_power_inv", np.float32),
         light_alias_prob=t("light_alias_prob", np.float32),
         light_alias_idx=t("light_alias_idx", np.int32),
+        env_alias_prob=t("env_alias_prob", np.float32),
+        env_alias_idx=t("env_alias_idx", np.int32),
+        aperture_alias_prob=t("aperture_alias_prob", np.float32),
+        aperture_alias_idx=t("aperture_alias_idx", np.int32),
         sobol=t("sobol", np.int64),
     )
 
@@ -523,11 +535,50 @@ def get_textured_material(ds: DeviceScene, mat_id, uv, norm):
                            roughness=roughness, ior=ior), norm
 
 
+# ---------------------------------------------------------------------------
+# environment map
+# ---------------------------------------------------------------------------
+
+
 def env_radiance(ds: DeviceScene, dir):
-    """Env-map radiance for a direction (zero without an env map)."""
-    if ds.has_env:
-        raise NotImplementedError("env maps: ROADMAP queue 1, item 2")
-    return torch.zeros_like(dir)
+    """Env-map radiance for a direction (equirect, bilinear;
+    pathtrace.cu:233-236); zero without an env map."""
+    if not ds.has_env:
+        return torch.zeros_like(dir)
+    tex_id = torch.full(dir.shape[:-1], ds.env_tex, dtype=torch.int32,
+                        device=dir.device)
+    return _texture_bilinear(ds, tex_id, m.to_plane(dir))
+
+
+def _env_pdf(ds: DeviceScene, radiance):
+    """The env sampler's solid-angle pdf for a texel of ``radiance``:
+    lum * W * H / (sumPower * 2pi^2), the consistent form (module
+    docstring)."""
+    w = ds.tex_width[ds.env_tex].to(torch.float32)
+    h = ds.tex_height[ds.env_tex].to(torch.float32)
+    return (m.luminance(radiance) * ds.sum_light_power_inv * w * h
+            * (m.INV_PI * m.INV_PI) * 0.5)
+
+
+def env_map_pdf(ds: DeviceScene, wi):
+    """Solid-angle pdf of the env-map light sampler in direction ``wi``
+    (``environmentMapPdf``, scene.h:374-378, in the consistent form)."""
+    return _env_pdf(ds, env_radiance(ds, wi))
+
+
+def _sample_env_map(ds: DeviceScene, r2):
+    """Alias-sample the env map (sampleEnvMapNoVisbility, scene.h:401-414):
+    returns (radiance [N, 3], wi [N, 3], pdf_solid_angle [N]) at the
+    centre of the chosen texel."""
+    pix = alias_sample(ds.env_alias_prob, ds.env_alias_idx, r2[..., 0], r2[..., 1])
+    w = ds.tex_width[ds.env_tex]
+    h = ds.tex_height[ds.env_tex]
+    y = pix // w
+    x = pix - y * w
+    radiance = ds.tex_data[(ds.tex_offset[ds.env_tex] + pix).long()]
+    uv = torch.stack([(x.to(torch.float32) + 0.5) / w.to(torch.float32),
+                      (y.to(torch.float32) + 0.5) / h.to(torch.float32)], dim=-1)
+    return radiance, m.to_sphere(uv), _env_pdf(ds, radiance)
 
 
 # ---------------------------------------------------------------------------
@@ -540,33 +591,45 @@ def sample_direct_light_no_vis(ds: DeviceScene, pos, r4):
     ``sampleDirectLightNoVisibility`` (scene.h:458-492).
 
     Returns (radiance [N,3], wi [N,3], dist [N], pdf [N]); pdf <= 0 marks an
-    invalid sample.  pdf_area = lum * 2pi / sumPower (the reference
-    package's consistent power-proportional form).
+    invalid sample.  The pdfs are the reference package's consistent forms
+    (module docstring).  The area branch runs when the scene has area
+    lights, the env branch when it has an env map (the sampler's last slot,
+    scene.h:426-427: its lanes get the texel's direction, ``dist`` 1e6 and
+    the env pdf), so an env map alone lights a scene.
     """
     n_lanes = pos.shape[0]
     zero3 = torch.zeros_like(pos)
     invalid = torch.full((n_lanes,), INVALID_PDF, device=pos.device)
-    if ds.has_env:
-        raise NotImplementedError("env maps: ROADMAP queue 1, item 2")
-    if ds.n_area_lights == 0:
-        return zero3, zero3, torch.zeros(n_lanes, device=pos.device), invalid
+    zero = torch.zeros(n_lanes, device=pos.device)
+    if not ds.has_lights:
+        return zero3, zero3, zero, invalid
 
     light_id = alias_sample(ds.light_alias_prob, ds.light_alias_idx,
                             r4[..., 0], r4[..., 1])
-    lid = torch.clamp(light_id, 0, ds.n_area_lights - 1).long()
-    tri = ds.tri_v[ds.light_prim_ids.long()][lid]  # [N, 3, 3]
-    v0, v1, v2 = tri[:, 0], tri[:, 1], tri[:, 2]
-    sampled = m.sample_triangle_uniform(v0, v1, v2, r4[..., 2], r4[..., 3])
-    normal = m.triangle_normal(v0, v1, v2)
-    radiance = ds.light_radiance[lid]
-    to_sampled = sampled - pos
-    dist = m.length(to_sampled)
-    wi = to_sampled / torch.clamp(dist, min=1e-12)[..., None]
-    pdf_area = m.luminance(radiance) * (2.0 * m.PI) * ds.sum_light_power_inv
-    pdf = m.pdf_area_to_solid_angle(pdf_area, pos, sampled, normal)
-    if ds.single_sided:
-        facing = m.dot(normal, -wi) > 1e-6
-        pdf = torch.where(facing, pdf, invalid)
+    num_area = ds.n_area_lights
+    radiance, wi, dist, pdf = zero3, zero3, zero, invalid
+    if num_area > 0:
+        lid = torch.clamp(light_id, 0, num_area - 1).long()
+        tri = ds.tri_v[ds.light_prim_ids.long()][lid]  # [N, 3, 3]
+        v0, v1, v2 = tri[:, 0], tri[:, 1], tri[:, 2]
+        sampled = m.sample_triangle_uniform(v0, v1, v2, r4[..., 2], r4[..., 3])
+        normal = m.triangle_normal(v0, v1, v2)
+        radiance = ds.light_radiance[lid]
+        to_sampled = sampled - pos
+        dist = m.length(to_sampled)
+        wi = to_sampled / torch.clamp(dist, min=1e-12)[..., None]
+        pdf_area = m.luminance(radiance) * (2.0 * m.PI) * ds.sum_light_power_inv
+        pdf = m.pdf_area_to_solid_angle(pdf_area, pos, sampled, normal)
+        if ds.single_sided:
+            facing = m.dot(normal, -wi) > 1e-6
+            pdf = torch.where(facing, pdf, invalid)
+    if ds.has_env:
+        env_rad, env_wi, env_pdf = _sample_env_map(ds, r4[..., 2:4])
+        is_env = light_id == num_area
+        radiance = torch.where(is_env[..., None], env_rad, radiance)
+        wi = torch.where(is_env[..., None], env_wi, wi)
+        dist = torch.where(is_env, torch.full_like(dist, 1e6), dist)
+        pdf = torch.where(is_env, env_pdf, pdf)
     return radiance, wi, dist, pdf
 
 

@@ -153,6 +153,25 @@ def concentric_sample_disk(rx, ry):
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
 
 
+def to_sphere(v):
+    """Equirect [0,1]^2 -> unit direction (mathUtil.h:138-142):
+    v[..., 0] * 2pi is the azimuth, v[..., 1] * pi the polar angle from +Y."""
+    phi = v[..., 0] * TWO_PI
+    theta = v[..., 1] * PI
+    sin_t = torch.sin(theta)
+    return torch.stack(
+        [torch.cos(phi) * sin_t, torch.cos(theta), torch.sin(phi) * sin_t], dim=-1)
+
+
+def to_plane(v):
+    """Unit direction -> equirect uv in [0,1]^2 (mathUtil.h:144-147): the
+    azimuth from atan2(z, x), wrapped by mod(... + 1, 1), the polar angle
+    from +Y."""
+    u = torch.remainder(torch.atan2(v[..., 2], v[..., 0]) * INV_PI * 0.5 + 1.0, 1.0)
+    w = torch.atan2(length(v[..., [0, 2]]), v[..., 1]) * INV_PI
+    return torch.stack([u, w], dim=-1)
+
+
 def local_ref_matrix(n):
     """Orthonormal frame with n as +Z; [..., 3, 3] where [..., i, :] is basis
     vector i (t, b, n).  Mirrors mathUtil.h:149-155."""
@@ -219,6 +238,27 @@ def pdf_area_to_solid_angle(pdf, x, y, ny):
     yx = x - y
     dist2 = torch.sum(yx * yx, dim=-1)
     return pdf * dist2 / torch.clamp(abs_dot(ny, normalize(yx)), min=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# fused multiply-add
+# ---------------------------------------------------------------------------
+
+_ADDCMUL_FUSED = {}  # device type -> whether torch.addcmul rounds once there
+
+
+def addcmul_rounds_once(device) -> bool:
+    """Whether ``torch.addcmul`` on ``device`` rounds ``c + a * b`` once, as
+    the card's ``fmaf`` (asked once per device type).  The probe: a * a =
+    1 + 2^-11 + 2^-24 lies halfway between two f32s, so adding ±2^-80 to it
+    rounds up or down only when the product is not rounded first."""
+    device = torch.device(device)
+    if device.type not in _ADDCMUL_FUSED:
+        a = torch.tensor(1.0 + 2.0**-12, device=device)
+        c = torch.tensor([2.0**-80, -(2.0**-80)], device=device)
+        got = torch.addcmul(c, a, a).tolist()
+        _ADDCMUL_FUSED[device.type] = got == [1.0 + 2.0**-11 + 2.0**-23, 1.0 + 2.0**-11]
+    return _ADDCMUL_FUSED[device.type]
 
 
 # ---------------------------------------------------------------------------

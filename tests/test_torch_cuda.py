@@ -3,7 +3,8 @@ csrc/compact.cu, csrc/quad.cu, csrc/band.cu and csrc/dense.cu and hold the
 Plücker closest-hit and shadow kernels, the sphere prepass, the compact,
 quad, band and dense closest-hit and shadow kernels against their plain
 torch versions on teapot geometry, then small renders through the kernels
-against the same renders through the plain versions.
+(teapot, and the other shipped scenes on the Plücker engine) against the
+same renders through the plain versions.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no jax, so it runs
 on a machine without it:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -186,6 +187,71 @@ def test_render_through_kernels_matches_plain(teapot_cuda):
     img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
     assert np.isfinite(img).all() and img.mean() > 0.05
     assert np.abs(img - ref).mean() < 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fname,depth", [("glass.txt", 8), ("env_teapot.txt", 5),
+                                         ("many_light.txt", 5), ("textured.txt", 5)])
+def test_render_shipped_scenes_through_kernels_matches_plain(fname, depth):
+    """The other shipped scenes on the Plücker engine their size picks: glass
+    (a masked thin lens, rays refracted through a glass sphere, depth 8),
+    env_teapot (NEE segments 1e6 long to its env map), many_light and
+    textured (no clusters): depth + 1 closest-hit and depth shadow launches
+    a frame, no plain call, no prepass, and the frame within 2e-3 mean
+    absolute difference of the frame through the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain sweeps in full f32
+    from radish_pt_tpu_torch.accel import plucker as plk
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    ds, cam, _ = load_scene(os.path.join(SCENES, fname), device="cuda")
+    assert ds.intersector == "plucker"
+    cam = cam.replace(width=64, height=64)
+    plk.reset_counts()
+    d, i = pt.path_trace(ds, cam, 3, depth)
+    assert plk.LAUNCHES == {"closest_hit": depth + 1, "occlusion": depth}
+    assert plk.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
+    assert plk.PREPASS_CALLS == {"cluster_mask_words": 0}
+    dp, ip = pt.path_trace(ds.replace(intersector="plucker_plain"), cam, 3, depth)
+    img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
+    assert np.isfinite(img).all() and img.mean() > 0.05
+    assert np.abs(img - ref).mean() < 2e-3
+
+
+@pytest.mark.cuda
+def test_plain_closest_hit_does_not_depend_on_its_chunks():
+    """On the card the plain sweep sums each plane in the kernels' order
+    (``plk.kernel_planes``), not through a matrix product whose rounding
+    follows the shape of each chunk: on env_teapot's primaries (warps that
+    flag one cluster, chunks of one cluster) the plain closest hit on the
+    prepass words, on every triangle and in small chunks gives the kernel's
+    winners and distances bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from radish_pt_tpu_torch.accel import plucker as plk
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.sampling import rng
+    from radish_pt_tpu_torch.scene.build import load_scene
+    from radish_pt_tpu_torch.utils.math import addcmul_rounds_once
+
+    assert addcmul_rounds_once("cuda")  # the plain planes' fused multiply-add
+    ds, cam, _ = load_scene(os.path.join(SCENES, "env_teapot.txt"), device="cuda")
+    cam = cam.replace(width=256, height=256)
+    idx, _ = pt._lanes(ds, cam)
+    o, d, _ = pt._gen_primary(ds, cam, rng.make_sampler(0, idx), idx)
+    feats = plk.plucker_features(o, d, ds.sweep_center)
+    cb, sub = ds.cluster_bounds, ds.cluster_sub
+    pk, dk = plk.closest_hit_cuda(ds.sweep_packed, feats, cb, o, d, None, sub)
+    words = plk.cluster_mask_words(cb, o, d, None, plk.GROUP)
+    flags = plk.unpack_mask(words, cb.shape[0])
+    assert bool((flags.sum(1) == 1).any())  # warps that flag one cluster
+    for mask, budget in ((words, 1 << 24), (None, 1 << 24), (words, 1 << 16)):
+        pp, dp = plk.sweep_closest(ds.sweep_coeffs, feats, plk.mask_flags(
+            mask, sub, ds.num_triangles), plk.GROUP, sub, plk.hit_t, budget)
+        assert torch.equal(pp, pk) and torch.equal(dp, dk), budget
+    assert float((pk >= 0).float().mean()) > 0.3
 
 
 def _mixed_wavefront(o, d, tmax, center):

@@ -548,3 +548,82 @@ def test_path_trace_plucker_teapot_matches_reference(teapot):
     assert plk.PREPASS_CALLS == {"cluster_mask_words": 2 * depth + 1}
     assert (jd + ji).mean() > 1e-2
     assert np.abs(t2n(d + i) - (jd + ji)).mean() < 2e-2
+
+
+def _round_f32(x):
+    """The f32 nearest the rational ``x`` (ties to even), exactly."""
+    from fractions import Fraction
+
+    r = np.float32(float(x))
+    near = (np.nextafter(r, np.float32(-np.inf)), r, np.nextafter(r, np.float32(np.inf)))
+    return min(near, key=lambda y: (abs(Fraction(float(y)) - x),
+                                    int(np.array(y, np.float32).view(np.int32)) & 1))
+
+
+def test_addcmul_rounds_once():
+    """``torch.addcmul``, the plain sweeps' fused multiply-add on the card
+    (``plk.kernel_planes``), rounds a * b + c once, as ``fmaf``: equal to
+    the exact rational sum rounded to f32 on 20,000 random triples (many of
+    them cancelling, a quarter below f32's normal range) and where an
+    unfused product or an f64 sum rounds twice (a * b an f32 midpoint, c
+    below half an f64 ulp of it).  Here on the CPU's tensors; the card's
+    by ``addcmul_rounds_once`` and by the Plücker kernels' parity."""
+    from fractions import Fraction
+
+    from radish_pt_tpu_torch.utils.math import addcmul_rounds_once
+
+    assert addcmul_rounds_once("cpu")
+    a = np.float32(1 + 2**-12)  # a * a = 1 + 2^-11 + 2^-24: an f32 midpoint
+    for c, want in ((2.0**-80, 1 + 2**-11 + 2**-23), (-(2.0**-80), 1 + 2**-11),
+                    (0.0, 1 + 2**-11)):  # the exact midpoint: ties to even
+        got = torch.addcmul(*(torch.tensor([np.float32(v)]) for v in (c, a, a)))
+        assert got.item() == want
+    assert np.float32(np.float64(a) * np.float64(a) + 2.0**-80) == np.float32(1 + 2**-11)
+    rng = np.random.default_rng(35)
+    n = 20_000
+    # exponents around 2^0 and, for the last quarter, around 2^-66: products
+    # and sums below f32's normal range (2^-126)
+    e = np.where(np.arange(n) < 3 * n // 4, 0, -66)
+    x = (rng.normal(size=n) * 2.0 ** (e + rng.integers(-20, 20, n))).astype(np.float32)
+    y = (rng.normal(size=n) * 2.0 ** (e + rng.integers(-20, 20, n))).astype(np.float32)
+    z = (-(x.astype(np.float64) * y)
+         * (1 + rng.normal(size=n) * 2.0 ** -rng.integers(1, 40, n))).astype(np.float32)
+    want = np.array([_round_f32(Fraction(float(p)) * Fraction(float(q)) + Fraction(float(r)))
+                     for p, q, r in zip(x, y, z)], np.float32)
+    assert (np.abs(want[want != 0]) < 2.0**-126).sum() > 100
+    got = t2n(torch.addcmul(*(torch.from_numpy(v) for v in (z, x, y))))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_kernel_planes_follow_the_kernels_order(case):
+    """``kernel_planes`` (the planes of the plain sweeps on the card) sums
+    each plane as the kernels do: a product, then fused multiply-adds in
+    slot order; the winners it gives equal those of the matrix product
+    (the CPU's planes), their t within 1e-5 relative."""
+    from radish_pt_tpu_torch.accel import plucker as plk
+
+    feats = plk.plucker_features(case["o"], case["d"], case["center"])
+    coeffs = case["coeffs"]
+    det, bx, by, td = plk.kernel_planes(coeffs, feats)
+    want = coeffs[None, :, 3, 6] * feats[:, 6, None]
+    for j in (7, 8, 9):
+        want = torch.addcmul(want, coeffs[None, :, 3, j], feats[:, j, None])
+    assert torch.equal(td, want)
+    q = plk._planes(coeffs, feats)  # a matrix product on CPU tensors
+    for a, b in zip((det, bx, by, td), q):
+        np.testing.assert_allclose(t2n(a), t2n(b), rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+
+    def t_of(planes):
+        det, bx, by, td = planes
+        sd, bxd, byd, tdd = det * det, bx * det, by * det, td * det
+        v = torch.minimum(torch.minimum(torch.minimum(bxd, byd), sd - bxd - byd),
+                          sd - plk.PLUCKER_EPS2)
+        return torch.where(torch.minimum(v, tdd) >= 0, tdd / sd, plk.FLT_MAX)
+
+    tk, tq = t_of((det, bx, by, td)), t_of(q)
+    bk, ik = tk.min(1)
+    bq, iq = tq.min(1)
+    np.testing.assert_array_equal(t2n(ik[bk < plk.FLT_MAX]), t2n(iq[bk < plk.FLT_MAX]))
+    np.testing.assert_allclose(t2n(bk), t2n(bq), rtol=1e-5)
+    assert float((bk < plk.FLT_MAX).float().mean()) > 0.3
