@@ -88,7 +88,7 @@ def ggx_sample_vndf(n, wo, alpha, r2):
         [alpha, alpha, torch.ones_like(alpha)], dim=-1))
     len_sq = vh[..., 0] * vh[..., 0] + vh[..., 1] * vh[..., 1]
     inv_len = 1.0 / torch.sqrt(torch.clamp(len_sq, min=1e-24))
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype, device=vh.device)
+    x_axis = m.const((1.0, 0.0, 0.0), vh.dtype, vh.device)
     t1 = torch.where(
         (len_sq > 0.0)[..., None],
         torch.stack([-vh[..., 1], vh[..., 0], torch.zeros_like(len_sq)], dim=-1)

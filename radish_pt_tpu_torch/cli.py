@@ -5,12 +5,20 @@ scene, renders the scene's ``Sample`` count (or ``--spp``) of frames on the
 device — full-MIS path tracing, direct lighting, ReSTIR DI or the G-buffer
 preview (``--tracer``), optionally denoised (``--denoiser``) — and saves
 the image: the port's form of ``python -m radish_pt_tpu``.  ``--device`` names where everything runs; it
-is never switched behind the user's back.
+is never switched behind the user's back.  ``--batch-spp N`` renders the
+path tracer or ReSTIR DI N frames a block (one CUDA graph a block on the
+card with a capturable engine); ``--checkpoint`` / ``--resume`` write and
+read the render state; ``--timing`` prints the per-pass table,
+``--preview-every N`` saves an image every N frames, ``--profile DIR``
+writes a ``torch.profiler`` trace, ``--debug-nans`` stops at the first
+non-finite tracer output, and an ``--out`` ending in ``.hdr`` writes the
+raw Radiance image.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 
@@ -64,6 +72,22 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--band-g", type=int, default=None,
                    choices=[1, 2, 4, 8, 16, 32, 64, 128],
                    help="bands per 128-lane row for the band engine (default 8)")
+    p.add_argument("--batch-spp", type=int, default=0,
+                   help="frames a block (pt and restir tracers): one CUDA graph a "
+                        "block on the card with the plucker, band, quad or dense "
+                        "engine")
+    p.add_argument("--checkpoint", default=None,
+                   help="write the render-state checkpoint here when done")
+    p.add_argument("--resume", default=None, help="resume from a checkpoint")
+    p.add_argument("--timing", action="store_true", help="print the per-pass ms table")
+    p.add_argument("--preview-every", type=int, default=0,
+                   help="save a preview image every N frames")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise at the first frame whose tracer output holds a "
+                        "non-finite value (before the scrub)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the render loop to "
+                        "DIR/trace.json")
     return p
 
 
@@ -75,6 +99,7 @@ def main(argv=None) -> int:
     from .config import Denoiser, ReservoirReuse, ToneMapping, Tracer
     from .render.renderer import Renderer
     from .scene.build import load_scene
+    from .utils.timing import profiler_trace
 
     device = torch.device(args.device)
     t0 = time.time()
@@ -84,7 +109,8 @@ def main(argv=None) -> int:
         cam = cam.replace(width=args.res[0], height=args.res[1])
     if args.band_g is not None:
         ds = ds.replace(band_g=args.band_g)
-    r = Renderer(ds=ds, cam=cam, desc=desc, device=device)
+    r = Renderer(ds=ds, cam=cam, desc=desc, device=device, timing=args.timing)
+    r.debug_nans = args.debug_nans
     print(f"[scene loaded in {time.time() - t0:.1f}s: {ds.num_triangles} "
           f"tris, {ds.n_area_lights} area lights, "
           f"{'env map, ' if ds.has_env else ''}{cam.width}x{cam.height}, "
@@ -107,22 +133,51 @@ def main(argv=None) -> int:
             s.svgf_sig_depth, s.svgf_sig_normal, s.svgf_sig_luminance = args.sigmas
     if args.depth is not None:
         s.trace_depth = args.depth
+    if args.resume:
+        r.load_checkpoint(args.resume)
+        print(f"[resumed from {args.resume}: {r.state.iteration} spp accumulated]")
     spp = args.spp or r.state.iterations
     print(f"[rendering {spp} spp, tracer={args.tracer}, denoiser={args.denoiser}, "
           f"depth={s.trace_depth}]")
 
+    batch = args.batch_spp
+    if batch > 1 and args.denoiser != "none":
+        print("[--batch-spp renders without the denoiser; using the "
+              "per-frame loop so denoising applies]")
+        batch = 0
+    if batch > 1 and args.debug_nans:
+        print("[--debug-nans checks each frame; using the per-frame loop]")
+        batch = 0
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    profile = profiler_trace(args.profile) if args.profile else contextlib.nullcontext()
+    if args.profile:
+        print(f"[profiling -> {args.profile}/trace.json]")
     t0 = time.time()
-    for i in range(spp):
-        r.step()
-        if (i + 1) % 16 == 0 or i == 0:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            dt = time.time() - t0
-            print(f"  [{i + 1}/{spp} spp, {dt / (i + 1) * 1e3:.1f} ms/frame avg]")
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    with profile:
+        if batch > 1 and args.tracer in ("pt", "restir"):
+            r.render_batched(spp, block=batch)
+            print(f"[{spp} spp in blocks of {batch}, batch mode {r.batch_mode}]")
+        else:
+            for i in range(spp):
+                r.step()
+                if args.preview_every and (i + 1) % args.preview_every == 0:
+                    p = r.save(f"{r.state.image_name}_preview_{i + 1}.png")
+                    print(f"  [{i + 1}/{spp}] preview -> {p}")
+                elif (i + 1) % 16 == 0 or i == 0:
+                    sync()
+                    dt = time.time() - t0
+                    print(f"  [{i + 1}/{spp} spp, {dt / (i + 1) * 1e3:.1f} ms/frame avg]")
+        sync()
     total = time.time() - t0
     print(f"[done: {total:.2f}s total, {total / spp * 1e3:.2f} ms/frame]")
+    if args.checkpoint:
+        print(f"[checkpoint -> {r.save_checkpoint(args.checkpoint)}]")
+    if args.timing:
+        print(r.timer.table())
     path = r.save(args.out)
     print(f"[saved {path}]")
     return 0

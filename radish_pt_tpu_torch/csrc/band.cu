@@ -288,14 +288,28 @@ size_t words_smem(int n_clusters, int g) {
   return (size_t)(kLanes / (kRow / g) + 1) * ((n_clusters + 31) >> 5) * sizeof(unsigned);
 }
 
+// Raise a kernel's dynamic shared memory limit to ``smem`` only when it
+// grows: cudaFuncSetAttribute then runs once per shape in a process, on the
+// first launch, outside any CUDA graph capture (a capture follows an eager
+// warm-up block of the same shapes), and not on every launch.  The limit
+// is kept per process: the port drives one card per process.
+template <typename Kernel>
+cudaError_t ensure_smem(Kernel kernel, size_t smem, size_t& set_to) {
+  if (smem <= set_to) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) set_to = smem;
+  return err;
+}
+
 template <int kLanes>
 int launch_closest_hit(const float* packed, int num_tris, const float* bounds,
                        const float* word_bounds, int n_clusters, const float* ray_o,
                        const float* ray_d, const float* tmax, const float* feats, int n, int g,
                        int* prim_out, float* dist_out, cudaStream_t stream) {
   const size_t smem = words_smem<kLanes>(n_clusters, g);
-  const cudaError_t err = cudaFuncSetAttribute(
-      band_closest_hit_kernel<kLanes>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static size_t smem_set = 48 * 1024;  // the limit without the attribute
+  const cudaError_t err = ensure_smem(band_closest_hit_kernel<kLanes>, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n + kLanes - 1) / kLanes;
   band_closest_hit_kernel<kLanes><<<blocks, kLanes, smem, stream>>>(
@@ -310,8 +324,8 @@ int launch_occlusion(const float* packed, int num_tris, const float* bounds,
                      const float* ray_d, const float* tm, const float* feats, int n, int g,
                      int* occ_out, cudaStream_t stream) {
   const size_t smem = words_smem<kLanes>(n_clusters, g);
-  const cudaError_t err = cudaFuncSetAttribute(
-      band_occlusion_kernel<kLanes>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static size_t smem_set = 48 * 1024;  // the limit without the attribute
+  const cudaError_t err = ensure_smem(band_occlusion_kernel<kLanes>, smem, smem_set);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (n + kLanes - 1) / kLanes;
   band_occlusion_kernel<kLanes><<<blocks, kLanes, smem, stream>>>(

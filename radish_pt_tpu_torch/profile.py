@@ -3,7 +3,7 @@ kernel time summed by stage.
 
     python -m radish_pt_tpu_torch.profile scenes/teapot.txt [--res 800] [--depth 5]
         [--intersector plucker|compact|quad|band|dense|brute] [--band-g 8]
-        [--tracer pt|direct|restir]
+        [--tracer pt|direct|restir] [--batch-spp N]
 
 The frame is one ``path_trace`` call for ``--tracer pt`` (the default), and
 one ``Renderer.step`` (G-buffer, tracer, accumulation, display) for the
@@ -20,7 +20,17 @@ primaries, the culling stages the profiler cannot name (the quad engine's
 row-mask prepass, which its closest hits read; the compact engine's sphere
 operands, sphere kernel and work list; none for the Plücker and band
 engines, whose kernels cull for themselves, nor for the quad shadow
-kernel, which votes its rows' words itself).  Needs a CUDA device.
+kernel, which votes its rows' words itself).
+
+With ``--batch-spp N`` (``--tracer pt`` or ``restir``) the frame is one
+block of N frames through ``Renderer.run_block``: one CUDA graph replay
+on the Plücker, band, quad and dense engines (``Renderer.batch_mode``),
+N eager frames on the compact engine.  It then prints the block's ms and
+ms a frame (CUDA events, profiler off), the device-busy time and idle
+share of a profiled block (and that kernel time's share of the unprofiled
+block: the profiler slows the host), the device operations a frame, and each sweep
+kernel's launches a block: from the runner's replay counters and from
+the kernel names in the trace.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -102,6 +112,61 @@ def culling_stages(ds, cam, start, end, reps: int = 10):
     return stages
 
 
+def profile_block(args, ds, cam, card) -> int:
+    """``--batch-spp``: one block of ``args.batch_spp`` frames, timed with
+    the profiler off, then profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .config import Settings, Tracer
+
+    if args.tracer == "direct":
+        raise SystemExit("--batch-spp runs the pt and restir tracers")
+    from .render.renderer import Renderer
+
+    block = args.batch_spp
+    tracer = Tracer.RESTIR_DI if args.tracer == "restir" else Tracer.STREAMED
+    r = Renderer(ds=ds, cam=cam, settings=Settings(tracer=tracer, trace_depth=args.depth),
+                 device="cuda")
+    for _ in range(2):  # build, warm up, capture
+        run = r.run_block(block)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(args.frames):
+        r.run_block(block)
+    end.record()
+    end.synchronize()
+    block_ms = start.elapsed_time(end) / args.frames
+    replays = run.replays
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        r.run_block(block)
+        end.record()
+        torch.cuda.synchronize()
+    profiled_ms = start.elapsed_time(end)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    traced = {}
+    for e in kernels:
+        stage = next((st for frag, st in STAGES if frag in e.name), None)
+        if stage is not None:
+            traced[stage] = traced.get(stage, 0) + 1
+    print(card)
+    print(f"{os.path.basename(args.scene)} {args.res}x{args.res} tracer {args.tracer} "
+          f"depth {args.depth}, blocks of {block} ({ds.intersector}, batch mode "
+          f"{r.batch_mode}, {run.replays - replays} replay(s) profiled): "
+          f"{block_ms:.3f} ms a block, {block_ms / block:.3f} ms/frame (profiler off); "
+          f"device busy {busy:.3f} ms of a {profiled_ms:.3f} ms profiled block "
+          f"({100 * (1 - busy / profiled_ms):.1f}% idle; the same kernel time is "
+          f"{100 * busy / block_ms:.1f}% of the unprofiled block), "
+          f"{len(kernels) / block:.0f} device operations a frame")
+    print(f"  sweep launches a block: replay counters {run.launches_per_replay()}, "
+          f"trace {traced}")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="radish_pt_tpu_torch.profile")
     p.add_argument("scene")
@@ -114,6 +179,8 @@ def main(argv=None) -> int:
     p.add_argument("--tracer", choices=["pt", "direct", "restir"], default="pt")
     p.add_argument("--band-g", type=int, default=None,
                    help="bands per 128-lane row for the band engine (default 8)")
+    p.add_argument("--batch-spp", type=int, default=0,
+                   help="profile one block of N frames (Renderer.run_block)")
     args = p.parse_args(argv)
 
     import torch
@@ -136,6 +203,8 @@ def main(argv=None) -> int:
     cam = cam.replace(width=args.res, height=args.res)
     if args.band_g is not None:
         ds = ds.replace(band_g=args.band_g)
+    if args.batch_spp:
+        return profile_block(args, ds, cam, card)
     if args.tracer == "pt":
         def frame(looper):
             pt.path_trace(ds, cam, looper, args.depth)

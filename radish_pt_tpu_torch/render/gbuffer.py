@@ -95,7 +95,7 @@ def render_gbuffer(ds: dsc.DeviceScene, cam: cam_mod.Camera,
     if encode_normal:
         # DENOISER_ENCODE_NORMAL (gBuffer.h:7-13): miss lanes encode +z (the
         # encoder divides by the L1 norm, so a zero vector would give NaN)
-        up = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=norm.device)
+        up = m.const((0.0, 0.0, 1.0), device=norm.device)
         normal = m.encode_normal_hemioct(torch.where(hit[..., None], norm, up))
     else:
         normal = torch.where(hit[..., None], norm, torch.zeros_like(norm))

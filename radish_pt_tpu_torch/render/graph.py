@@ -1,0 +1,131 @@
+"""A block of frames run as one CUDA graph: the port's counterpart of the
+JAX renderer's batched programs (``fori_loop`` of ``block`` frames in one
+jit, ``radish_pt_tpu/render/renderer.py``).
+
+:class:`BlockRunner` runs a block function ``body(inputs) -> outputs`` on
+flat dicts of tensors.  Which way it runs is decided from the scene's
+engine and device before anything is captured (:func:`batch_mode`):
+
+* ``"graph"``: on a CUDA device with an engine of
+  :data:`CAPTURABLE_ENGINES`.  The first call runs one eager warm-up block
+  on a side stream (it builds the kernels and the cached constants, and
+  changes no state), then captures the block once on static copies of the
+  inputs; every call copies its inputs into them (``copy_``, or ``fill_``
+  for a Python number) and replays.  An error in the capture or the replay
+  raises: nothing falls back to the eager run.
+* ``"eager"``: the same ``body`` called directly, on every engine on the
+  CPU and on the compact engine, whose work list reads its length on the
+  host (``accel/compact.py``, ``work_list``).
+
+The kernels' launch counters count a wrapper's call, which a capture makes
+without launching anything on the card: the runner takes back what the
+capture counted and adds it again on every replay, so ``LAUNCHES`` keeps
+counting the launches the card ran.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# engines whose frame runs without a host sync: their blocks are captured
+CAPTURABLE_ENGINES = frozenset({"plucker", "band", "quad", "dense"})
+
+
+def batch_mode(ds) -> str:
+    """"graph" or "eager": how a block of frames runs on scene ``ds``."""
+    if ds.device.type == "cuda" and ds.intersector in CAPTURABLE_ENGINES:
+        return "graph"
+    return "eager"
+
+
+def _counters() -> dict:
+    """(module, counter) -> the counter dict of each capturable engine's
+    module (its launches, plain-version and prepass calls)."""
+    from ..accel import band, dense, plucker, quad
+
+    out = {}
+    for mod in (plucker, band, quad, dense):
+        for attr in ("LAUNCHES", "PLAIN_CALLS", "PREPASS_CALLS"):
+            if hasattr(mod, attr):
+                out[mod.__name__.rsplit(".", 1)[1], attr] = getattr(mod, attr)
+    return out
+
+
+def block_input(value, device) -> torch.Tensor:
+    """A block input as a tensor on ``device``: a tensor as it is, a Python
+    bool, int or float as a 0-d bool, int64 or float32 fill (no copy from
+    the host)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    dtype = (torch.bool if isinstance(value, bool) else
+             torch.int64 if isinstance(value, int) else torch.float32)
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+class BlockRunner:
+    """Runs ``body`` (flat dict name -> tensor in, flat dict out) as one
+    block, in ``mode`` (:func:`batch_mode`).  ``carry`` maps an output to
+    the input it replaces for the next block (the state a block hands on):
+    in a graph the output is written back into that input's static tensor
+    at the end of the block, and returned as that tensor."""
+
+    def __init__(self, body, mode: str, device, carry: dict | None = None):
+        if mode not in ("graph", "eager"):
+            raise ValueError(f"unknown batch mode {mode!r}")
+        self.body, self.mode, self.device = body, mode, torch.device(device)
+        self.carry = dict(carry or {})
+        self.graph = None
+        self.static: dict = {}
+        self.outputs: dict = {}
+        # (module, counter) -> {name: count} one replay adds
+        self.per_replay: dict = {}
+        self.replays = 0
+
+    def __call__(self, inputs: dict) -> dict:
+        if self.mode == "eager":
+            return self.body({k: block_input(v, self.device) for k, v in inputs.items()})
+        if self.graph is None:
+            self._capture(inputs)
+        else:
+            for name, value in inputs.items():
+                static = self.static[name]
+                if isinstance(value, torch.Tensor):
+                    if value is not static:
+                        static.copy_(value)
+                else:
+                    static.fill_(value)
+        self.graph.replay()
+        for key, delta in self.per_replay.items():
+            counter = _counters()[key]
+            for name, n in delta.items():
+                counter[name] += n
+        self.replays += 1
+        out = dict(self.outputs)
+        out.update({o: self.static[i] for o, i in self.carry.items()})
+        return out
+
+    def _capture(self, inputs: dict) -> None:
+        self.static = {k: block_input(v, self.device).clone() for k, v in inputs.items()}
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.body(self.static)  # warm-up: kernels and constants built
+        current.wait_stream(side)
+        counters = _counters()
+        before = {key: dict(c) for key, c in counters.items()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outputs = self.body(self.static)
+            for out, name in self.carry.items():
+                self.static[name].copy_(outputs[out])
+        for key, counter in counters.items():
+            self.per_replay[key] = {n: counter[n] - before[key][n] for n in counter}
+            counter.update(before[key])  # the capture launched nothing
+        self.outputs = {k: v for k, v in outputs.items() if k not in self.carry}
+        self.graph = graph
+
+    def launches_per_replay(self) -> dict:
+        """module -> {kernel: launches} of one replay (graph mode)."""
+        return {mod: dict(d) for (mod, attr), d in self.per_replay.items()
+                if attr == "LAUNCHES"}

@@ -114,7 +114,7 @@ def _big_w(res: DirectReservoir, p_hat_vec):
 
 def _pack(res: DirectReservoir, *extra):
     """Reservoir (+ extra columns) as one [N, 9+] tensor, so a neighbour
-    fetch is one gather or one roll."""
+    fetch is one gather."""
     cols = [res.li, res.wi, res.dist[:, None], res.num[:, None],
             res.weight[:, None]]
     cols += [e if e.dim() == 2 else e[:, None] for e in extra]
@@ -181,16 +181,18 @@ def _spatial_neighbor(packed, x, y, width: int, height: int, cur: GBufferFrame,
     return _mask_empty(_unpack(row), ok)
 
 
-def _shared_offset(looper: int, k: int):
+def _shared_offset(looper, k):
     """Neighbour ``k``'s disk offset (dx, dy) shared by every pixel of frame
     ``looper``: a hash of (looper, k) through the disk warp, rounded half
-    to even.  Host arithmetic in f32, as the reference's traced scalars."""
-    a = torch.tensor([(int(looper) * 31 + 2 * k + 1) & m.U32], dtype=torch.int64)
+    to even, in f32 as the reference's traced scalars.  ``looper`` is an
+    integer tensor and ``k`` an int or an integer tensor; they broadcast,
+    and (dx, dy) are int32 tensors on ``looper``'s device."""
+    a = (looper.to(torch.int64) * 31 + (2 * k + 1)) & m.U32
     h1 = m.utilhash(a)
     h2 = m.utilhash(h1 ^ 0x9E3779B9)
     p = m.concentric_sample_disk(m.u32_to_unit(h1), m.u32_to_unit(h2)) * 5.0
-    d = torch.round(p[0]).to(torch.int32)
-    return int(d[0]), int(d[1])
+    d = torch.round(p).to(torch.int32)
+    return d[..., 0], d[..., 1]
 
 
 def merge_spatial(temp: DirectReservoir, cur: GBufferFrame, width: int, height: int,
@@ -198,17 +200,21 @@ def merge_spatial(temp: DirectReservoir, cur: GBufferFrame, width: int, height: 
     """Merge 5 disk neighbours of the COMPLETED post-temporal reservoir image
     (mergeSpatialNeighborDirect, restir.cu:82-95).
 
-    With ``looper`` (the renderer's branch), each neighbour's disk offset is
-    shared by all pixels and turned per (frame, neighbour) by a hash, so the
-    fetch is a roll of the packed image; without it, each pixel draws its
-    own offsets (two draws a neighbour) and gathers."""
+    With ``looper`` (the renderer's branch: an int or an integer 0-d
+    tensor), each neighbour's disk offset is shared by all pixels and
+    turned per (frame, neighbour) by a hash; the fetch is a gather of the
+    packed image at ((y + dy) mod H) * W + (x + dx) mod W, the rows a roll
+    by (-dy, -dx) would bring, with offsets computed on the device.
+    Without it, each pixel draws its own offsets (two draws a neighbour)
+    and gathers."""
     n = temp.weight.shape[0]
-    idx = torch.arange(n, dtype=torch.int32, device=temp.weight.device)
+    dev = temp.weight.device
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
     x = idx % width
     y = idx // width
     packed = _pack(temp, gb.decoded_normal(cur), cur.depth,
                    cur.prim_id.to(torch.float32), idx.to(torch.float32))
-    out = empty_reservoir(n, device=temp.weight.device)
+    out = empty_reservoir(n, device=dev)
     if looper is None:
         for _ in range(num_neighbors):
             r2, sampler = rng.sample_2d(table, sampler)
@@ -217,25 +223,29 @@ def merge_spatial(temp: DirectReservoir, cur: GBufferFrame, width: int, height: 
             out = _merge(out, nb, r1, ~_invalid(nb) & (nb.num > 0))
         return out, sampler
 
-    img = packed.reshape(-1, width, packed.shape[1])
+    if not isinstance(looper, torch.Tensor):  # a fill, not a copy from the host
+        looper = torch.full((), int(looper), dtype=torch.int64, device=dev)
+    dxs, dys = _shared_offset(looper, torch.arange(num_neighbors, device=dev))
     for k in range(num_neighbors):
-        dx, dy = _shared_offset(looper, k)
-        row = torch.roll(img, shifts=(-dy, -dx), dims=(0, 1)).reshape(n, -1)
+        dx, dy = dxs[k], dys[k]
+        src = torch.remainder(y + dy, height) * width + torch.remainder(x + dx, width)
+        row = packed[src.long()]
         px, py = x + dx, y + dy
         ok = _neighbor_ok(row, px, py, py * width + px, width, height, cur)
-        if dx == 0 and dy == 0:
-            ok = torch.zeros_like(ok)
+        ok = ok & ~((dx == 0) & (dy == 0))
         nb = _mask_empty(_unpack(row), ok)
         r1, sampler = rng.sample_1d(table, sampler)
         out = _merge(out, nb, r1, ~_invalid(nb) & (nb.num > 0))
     return out, sampler
 
 
-def restir_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper: int,
+def restir_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper,
                   gbuf: GBufferOut, last_frame: GBufferFrame,
-                  last_reservoir: DirectReservoir, first_frame: bool, reuse: int,
+                  last_reservoir: DirectReservoir, first_frame, reuse: int,
                   reservoir_size: int = 32, temporal_clamp: int = 20):
     """The ReSTIR DI pass (ReSTIRDirectKernel, restir.cu:97-203).
+    ``looper`` is an int or an integer 0-d tensor, ``first_frame`` a bool
+    or a bool 0-d tensor, on the scene's device.
 
     Returns (direct [N, 3] shaded with white albedo and re-modulated by the
     G-buffer's, reservoir_out): ``reservoir_out`` is the post-temporal,
@@ -294,7 +304,11 @@ def restir_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper: int,
         temporal = find_temporal_neighbor(last_reservoir, gbuf.motion, gbuf.frame,
                                           last_frame)
         r1, sampler = rng.sample_1d(table, sampler)
-        ok = ~_invalid(temporal) & (temporal.num > 0) & (not first_frame)
+        ok = ~_invalid(temporal) & (temporal.num > 0)
+        if isinstance(first_frame, torch.Tensor):
+            ok = ok & ~first_frame
+        elif first_frame:
+            ok = torch.zeros_like(ok)
         res = _pre_clamped_merge(res, temporal, r1, ok, temporal_clamp)
 
     reservoir_out = _check_validity(res)

@@ -81,8 +81,7 @@ def update_camera(cam: Camera) -> Camera:
         torch.sin(yaw) * torch.cos(pitch),
     ])
     view = m.normalize(view)
-    world_up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32,
-                            device=view.device)
+    world_up = m.const((0.0, 1.0, 0.0), device=view.device)
     right = m.normalize(m.cross(view, world_up))
     up = m.normalize(m.cross(right, view))
     return cam.replace(view=view, up=up, right=right,
@@ -98,9 +97,8 @@ def sample_rays(cam: Camera, x, y, r, p_aperture=None):
     Returns (origins [N, 3], directions [N, 3]).
     """
     dev = r.device
-    aspect = torch.tensor(cam.aspect, dtype=torch.float32, device=dev)
-    pixel_size = 1.0 / torch.tensor([cam.width, cam.height],
-                                    dtype=torch.float32, device=dev)
+    aspect = m.const(cam.aspect, device=dev)
+    pixel_size = 1.0 / m.const((float(cam.width), float(cam.height)), device=dev)
     scr = torch.stack([x, y], dim=-1).to(torch.float32) * pixel_size
     ruv = scr + pixel_size * r[..., 0:2]
     ruv = 1.0 - ruv * 2.0
@@ -143,7 +141,7 @@ def raster_uv(cam: Camera, pos):
     # rotationMatInv is the transpose of [right|up|view] (orthonormal)
     px = m.dot(p, cam.right)
     py = m.dot(p, cam.up)
-    aspect = torch.tensor(cam.aspect, dtype=torch.float32, device=pos.device)
+    aspect = m.const(cam.aspect, device=pos.device)
     ndc_x = -(px / (aspect * cam.tan_fov_y))
     ndc_y = -(py / cam.tan_fov_y)
     return torch.stack([ndc_x, ndc_y], dim=-1) * 0.5 + 0.5
@@ -153,6 +151,5 @@ def raster_coord(cam: Camera, pos):
     """Integer raster coords — reference ``getRasterCoord``
     (sceneStructs.h:45-48).  May be out of bounds: callers range-check."""
     uv = raster_uv(cam, pos)
-    res = torch.tensor([cam.width, cam.height], dtype=torch.float32,
-                       device=pos.device)
+    res = m.const((float(cam.width), float(cam.height)), device=pos.device)
     return torch.floor(uv * res).to(torch.int32)

@@ -9,10 +9,16 @@ Unsigned 32-bit arithmetic (``utilhash``) runs in int64 masked to 32 bits:
 torch's ``uint32`` lacks most operators, and int64 holds every intermediate
 of the hash exactly.
 
+Constants the frame path needs as tensors come from :func:`const`, made
+once per device: the frame then copies nothing from the host, which a
+CUDA graph could not capture.
+
 Host-side helpers (transform matrices) live at the bottom and use numpy.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -23,6 +29,15 @@ INV_PI = 1.0 / PI
 
 U32 = 0xFFFFFFFF
 INV_2_32 = 2.0**-32  # exact in f32
+
+
+
+@functools.lru_cache(maxsize=None)
+def const(values, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """``torch.tensor(values, dtype, device)`` made once per (values,
+    dtype, device) and shared: callers read it and never write to it."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
 
 # ---------------------------------------------------------------------------
 # small vector helpers (last-axis = xyz)
@@ -112,7 +127,7 @@ def _calc_filmic(c):
 
 def filmic(c):
     """Uncharted-style filmic curve (mathUtil.h:110-116)."""
-    white = _calc_filmic(torch.tensor(11.2, dtype=torch.float32, device=c.device))
+    white = _calc_filmic(const(11.2, device=c.device))
     return _calc_filmic(c * 1.6) / white
 
 
@@ -168,15 +183,15 @@ def to_plane(v):
     azimuth from atan2(z, x), wrapped by mod(... + 1, 1), the polar angle
     from +Y."""
     u = torch.remainder(torch.atan2(v[..., 2], v[..., 0]) * INV_PI * 0.5 + 1.0, 1.0)
-    w = torch.atan2(length(v[..., [0, 2]]), v[..., 1]) * INV_PI
+    w = torch.atan2(length(v[..., 0::2]), v[..., 1]) * INV_PI
     return torch.stack([u, w], dim=-1)
 
 
 def local_ref_matrix(n):
     """Orthonormal frame with n as +Z; [..., 3, 3] where [..., i, :] is basis
     vector i (t, b, n).  Mirrors mathUtil.h:149-155."""
-    z_up = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
-    y_up = torch.tensor([0.0, 1.0, 0.0], dtype=n.dtype, device=n.device)
+    z_up = const((0.0, 0.0, 1.0), n.dtype, n.device)
+    y_up = const((0.0, 1.0, 0.0), n.dtype, n.device)
     up = torch.where((torch.abs(n[..., 1]) > 0.9999)[..., None], z_up, y_up)
     b = normalize(cross(n, up))
     t = cross(b, n)

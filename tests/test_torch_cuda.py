@@ -717,3 +717,40 @@ def test_render_through_dense_kernels_matches_plain(tracer):
             assert dns.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
     assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.05
     assert np.abs(imgs[0] - imgs[1]).mean() < 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,scene", [("plucker", "teapot.txt"), ("quad", "teapot.txt"),
+                                          ("dense", "cornell_box.txt"),
+                                          ("compact", "teapot.txt")])
+@pytest.mark.parametrize("tracer", ["pt", "restir"])
+def test_batched_blocks_equal_steps(engine, scene, tracer):
+    """Two blocks of 3 frames at 64x64 through ``Renderer.run_block``: one
+    CUDA graph replay a block on the capturable engines (eager on compact),
+    equal to 6 ``step()`` frames bit for bit; a replay adds its launches to
+    the kernels' counts."""
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(os.path.join(SCENES, scene), device="cuda", intersector=engine)
+    cam = cam.replace(width=64, height=64)
+    settings = Settings(tracer=Tracer.STREAMED if tracer == "pt" else Tracer.RESTIR_DI,
+                        trace_depth=3)
+    a, b = (Renderer(ds=ds, cam=cam, settings=settings, device="cuda") for _ in range(2))
+    for _ in range(6):
+        a.step()
+    for _ in range(2):
+        run = b.run_block(3)
+    assert b.batch_mode == ("eager" if engine == "compact" else "graph")
+    assert run.replays == (0 if engine == "compact" else 2)
+    for name in ("direct", "indirect"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for f in ("li", "wi", "dist", "num", "weight"):
+        assert torch.equal(getattr(a.reservoir, f), getattr(b.reservoir, f)), f
+    if engine != "compact":
+        per = run.launches_per_replay()[engine]
+        want = (3 * 4, 3 * 3) if tracer == "pt" else (3 + 1, 3)
+        assert (per["closest_hit"], per["occlusion"]) == want

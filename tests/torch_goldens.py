@@ -32,7 +32,8 @@ LOOPER = 7
 # file's 8)
 SCENES = {"cornell": ("cornell_box.txt", 5), "teapot": ("teapot.txt", 5),
           "many_light": ("many_light.txt", 5), "textured": ("textured.txt", 5),
-          "glass": ("glass.txt", 8), "env_teapot": ("env_teapot.txt", 5)}
+          "glass": ("glass.txt", 8), "env_teapot": ("env_teapot.txt", 5),
+          "teapot_hires": ("teapot_hires.txt", 5)}
 
 
 def golden(name: str, chunk: int = 40_000):
