@@ -5,21 +5,24 @@ Drives the port's main paths through ``Renderer`` on the card, at
 800x800: full-MIS path-traced frames, depth 5 — cornell and teapot on the
 Plücker engine, teapot_hires on the compact work-list engine (and on the
 Plücker engine its size picks), teapot on the quad engine, teapot_hires on
-the band engine, cornell and teapot on the dense engine; the other four
+the band engine, cornell and teapot on the dense engine, cornell, teapot
+and teapot_hires on the bvh engine (the MTBVH walk); the other four
 shipped scenes on the Plücker engine: glass (depth 8, dielectric, a thin
 lens with a star-shaped aperture mask), env_teapot (an env map its only
 light), many_light (72 emitters) and textured (image maps) — and the
 interactive direct-lighting path on cornell's dense engine: ReSTIR DI (the
 G-buffer, 32-candidate RIS, temporal and spatial reuse; also on the
 Plücker engine, and with the camera animated), the direct tracer with SVGF,
-and the path tracer with split SVGF.  Checks the hand-written CUDA kernels
-of those paths against their plain torch versions.  Phases:
+and the path tracer with split SVGF — and the BVH heatmap tracer.  Checks
+the hand-written CUDA kernels of those paths against their plain torch
+versions.  Phases:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. cold start: the five kernel sources built with nvcc at once (seconds
+2. cold start: the six kernel sources built with nvcc at once (seconds
    shown, and each kernel's registers and spills as ptxas reports them),
    then teapot and teapot_hires (compact) loaded and rendered once
-   at 800x800, and the quad, band, dense and other shipped scenes loaded;
+   at 800x800, and the quad, band, dense, bvh and other shipped scenes
+   loaded;
 3. kernel parity at the main paths' shapes (800x800 primaries, one bounce
    wavefront with dead lanes, its NEE shadow segments): the Plücker sweeps
    on teapot, on teapot_hires' Plücker build, on glass (its primaries
@@ -33,7 +36,9 @@ of those paths against their plain torch versions.  Phases:
    the sphere prepass, the compact sweeps and the band sweeps (8 bands a
    row; both kernels vote their bands' words themselves, held against the
    plain versions on the band-mask prepass's words) on teapot_hires; the
-   dense sweeps on cornell and teapot, bit for bit; for the Plücker
+   dense sweeps on cornell and teapot, bit for bit; the three BVH walks
+   (closest hit, heatmap, shadow) on teapot and teapot_hires, ids, t,
+   barycentrics, counts and shadow bits bit for bit; for the Plücker
    sweeps, the compact sweeps, the band sweeps and the quad shadow sweep
    also the (lane, triangle) pairs their wavefronts need when culled per
    row (group, band), per warp and per lane;
@@ -48,10 +53,13 @@ of those paths against their plain torch versions.  Phases:
    0.05%); the direct-lighting paths' 8-frame means within 2e-3 of the JAX
    package's 800x800 goldens (ReSTIR on Plücker within 0.2% of dense), and
    the animated ReSTIR run's share of valid motion and of accepted
-   temporal neighbours;
+   temporal neighbours; the BVH heatmap tracer (``Renderer``, 800x800) on
+   teapot and teapot_hires, one heatmap walk a frame, its image equal to
+   the plain walk's;
 5. 128x128 frames through the kernels against the plain versions (teapot
    on Plücker and quad, teapot_hires on compact and band, cornell and
-   teapot on dense, cornell ReSTIR on dense); then, logged only, the mean
+   teapot on dense, teapot on bvh, cornell ReSTIR on dense); then, logged
+   only, the mean
    squared error of 8 frames of the direct tracer, of ReSTIR without reuse
    and of ReSTIR with reuse against a 256-frame direct-tracer accumulation;
 6. timing with CUDA events: ms/frame and Mrays/s per scene and engine, the
@@ -59,14 +67,17 @@ of those paths against their plain torch versions.  Phases:
    plain version's one run in phase 3, where it is the reference), and
    each kernel's least time on the card (bound) for the same work (the
    kernels that issue only unfused f32 operations — the dense sweeps and
-   the sphere prepass, each operation ``__fmul_rn`` / ``__fadd_rn`` /
-   ``__fsub_rn`` to stay bit-equal to its plain version — at the
-   instruction rate: half the f32 peak that counts an FMA as two);
+   the sphere prepass and the BVH walks, each operation ``__fmul_rn`` /
+   ``__fadd_rn`` / ``__fsub_rn`` to stay bit-equal to its plain version —
+   at the instruction rate: half the f32 peak that counts an FMA as two;
+   a walk's operations are its node visits and leaf pairs, counted by the
+   plain walk on the same rays);
 7. batched frames (``Renderer.run_block``, ``step_batched_restir``): the
    ReSTIR spatial offsets computed on the card equal to the CPU's for all
    10,000 loopers x 5 neighbours; then per cell — the path tracer on
-   teapot (Plücker), teapot_hires (band), teapot (quad) and cornell
-   (dense), blocks of 4 (teapot_hires 2), each block one CUDA graph
+   teapot (Plücker), teapot_hires (band), teapot (quad), cornell (dense),
+   teapot and teapot_hires (bvh), blocks of 4 (teapot_hires 2), each block
+   one CUDA graph
    replay, and teapot_hires on the compact engine, eager; ReSTIR DI on
    cornell (dense), blocks of 8 with a camera move between — the launch
    counts set to 0 just before its two blocks and read just after, the
@@ -115,7 +126,7 @@ MEAN_DRIFT = 2e-3
 # glass at its scene file's depth; the others at DEPTH, as bench.py renders
 # them (many_light's file says 3)
 SCENE_DEPTH = {"glass": 8}
-ENGINE_SUFFIXES = ("_plucker", "_quad", "_band", "_dense")
+ENGINE_SUFFIXES = ("_plucker", "_quad", "_band", "_dense", "_bvh")
 # mean of ``Renderer.current_image()`` after loopers 0-7 of cornell at
 # 800x800 on the direct-lighting paths, computed by the JAX package on a
 # CPU (its brute-force engine): JAX_PLATFORMS=cpu; ds, cam, _ =
@@ -138,7 +149,8 @@ SOURCES = {"plucker": "radish_pt_tpu_torch/csrc/plucker.cu",
            "compact": "radish_pt_tpu_torch/csrc/compact.cu",
            "quad": "radish_pt_tpu_torch/csrc/quad.cu",
            "band": "radish_pt_tpu_torch/csrc/band.cu",
-           "dense": "radish_pt_tpu_torch/csrc/dense.cu"}
+           "dense": "radish_pt_tpu_torch/csrc/dense.cu",
+           "bvh": "radish_pt_tpu_torch/csrc/bvh.cu"}
 REPLACES = {
     "plucker_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:344",
     "plucker_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:463",
@@ -151,17 +163,21 @@ REPLACES = {
     "band_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:2777",
     "dense_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:37",
     "dense_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:37",
+    # XLA walks of the JAX package, not Pallas bodies
+    "bvh_closest_hit": "radish_pt_tpu/accel/traverse.py:408",
+    "bvh_occlusion": "radish_pt_tpu/accel/traverse.py:469",
+    "bvh_heatmap": "radish_pt_tpu/accel/traverse.py:570",
 }
 # the scene each engine's kernels are timed and bounded on
 KERNEL_SCENE = {"plucker": "teapot", "compact": "teapot_hires", "quad": "teapot_quad",
-                "band": "teapot_hires_band", "dense": "cornell_dense"}
+                "band": "teapot_hires_band", "dense": "cornell_dense", "bvh": "teapot_bvh"}
 # one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32 outside the
 # tensor cores (an FMA counted as two flops), and device memory
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # f32 instructions a second: what a kernel of unfused single operations
 # (__fmul_rn / __fadd_rn / __fsub_rn: the dense sweeps, the sphere
-# prepass) can issue
+# prepass, the BVH walks) can issue
 PEAK_F32_OPS_UNFUSED = PEAK_F32_FLOPS / 2
 
 
@@ -632,6 +648,90 @@ def dense_parity(ds, waves, max_err, log, scene):
     return inputs
 
 
+def bvh_parity(ds, waves, max_err, log, scene):
+    """Phase 3 on a bvh-engine scene: the three walks against their plain
+    versions on every lane (dead lanes too: a walk reads no range): prim
+    ids, dist and barycentrics bit for bit, heatmap counts and shadow bits
+    equal.  A further plain run of each wavefront counts what the walks do
+    (node visits, leaves, pairs, the rows and leaves touched), which phase
+    6 bounds the kernels by.  Returns the timing inputs."""
+    import torch
+
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    lt, lm, nodes = ds.leaf_tris, ds.leaf_map, ds.bvh_packed
+    inputs = {}
+    for what in ("primary", "extension"):
+        o, d = (t.contiguous() for t in waves[what][:2])
+        live = waves[what][2] >= 0
+        pk, dk, bk = trv.intersect_bvh_cuda(lt, lm, nodes, o, d)
+        pp, dp, bp = plain_run(f"bvh_closest_hit/{what}", scene,
+                               lambda: trv.intersect_bvh_plain(lt, lm, nodes, o, d))
+        hk = trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d)
+        hp = plain_run(f"bvh_heatmap/{what}", scene,
+                       lambda: trv.intersect_bvh_heatmap_plain(lt, nodes, o, d))
+        st = {}
+        trv.intersect_bvh_plain(lt, lm, nodes, o, d, stats=st)
+        torch.cuda.synchronize()
+        n_prim, n_steps = int((pk != pp).sum()), int((hk != hp).sum())
+        ulps = {"dist": max_ulps(dk, dp), "bary": max_ulps(bk, bp)}
+        hit = pp >= 0
+        err = max(float(torch.abs(dk - dp)[hit].max()) if bool(hit.any()) else 0.0,
+                  float(torch.abs(bk - bp).max()))
+        log(f"[parity] bvh closest hit, {scene} {what} (N = {o.shape[0]}, {int((~live).sum())} "
+            f"dead lanes walked as any ray): {n_prim} prim ids differ; hits {int(hit.sum())}, "
+            f"{int((hit & live).sum())} of them live; largest difference {ulps['dist']} ulp "
+            f"on dist, {ulps['bary']} ulp on bary; heatmap: {n_steps} counts differ (mean "
+            f"{float(hp.float().mean()):.2f}, max {int(hp.max())} descended nodes); a lane "
+            f"visits {float(st['visits'].float().mean()):.2f} nodes and "
+            f"{float(st['leaf_visits'].float().mean()):.3f} leaves, "
+            f"{int(st['rows'].sum())} of {nodes.shape[0]} node rows and "
+            f"{int(st['leaves'].sum())} of {lt.shape[0]} leaves touched")
+        assert n_prim == 0, f"bvh closest hit, {scene} {what}: prim parity"
+        assert ulps == {"dist": 0, "bary": 0}, f"bvh {scene} {what}: not bit-equal"
+        assert n_steps == 0, f"bvh heatmap, {scene} {what}: count parity"
+        max_err["bvh_closest_hit"] = max(max_err["bvh_closest_hit"], err)
+        max_err["bvh_heatmap"] = max(max_err["bvh_heatmap"], float(n_steps))
+        inputs[what] = (o, d, st)
+    x, y, live = waves["segments"]
+    so, sd, tm = (t.contiguous() for t in trv.segment_rays(x, y))
+    ok_k = trv.occlusion_bvh_cuda(lt, nodes, so, sd, tm)
+    ok_p = plain_run("bvh_occlusion/segments", scene,
+                     lambda: trv.occlusion_bvh_plain(lt, nodes, so, sd, tm))
+    st = {}
+    trv.occlusion_bvh_plain(lt, nodes, so, sd, tm, stats=st)
+    torch.cuda.synchronize()
+    n_diff = int((ok_k != ok_p).sum())
+    log(f"[parity] bvh occlusion, {scene} NEE segments: {n_diff} / {ok_k.numel()} bits "
+        f"differ; occluded {int((ok_p & live).sum())} of {int(live.sum())} live; "
+        f"{int(ok_k[~live].sum())} masked (zero-length) segments read as blocked; a lane "
+        f"visits {float(st['visits'].float().mean()):.2f} nodes, tests "
+        f"{float(st['pairs'].float().mean()):.2f} (lane, triangle) pairs")
+    assert n_diff == 0, f"bvh occlusion, {scene}: shadow parity"
+    assert not bool(ok_k[~live].any()), "a zero-length segment was blocked"
+    max_err["bvh_occlusion"] = max(max_err["bvh_occlusion"], float(n_diff))
+    inputs["segments"] = (so, sd, tm, st)
+    return inputs
+
+
+def walk_work(ds, st, n, io_bytes):
+    """(f32 operations, bytes read once, bytes at every visit) of a BVH
+    walk from the plain walk's counts ``st``: node visits and (lane,
+    triangle) pairs at csrc/bvh.cu's operations; the node rows and leaves
+    any lane touched, each once, or at every visit (32 B a row, 576 B a
+    leaf of 16), beside the rays and the outputs (``io_bytes`` a lane)."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    leaf_bytes = ds.leaf_tris.shape[1] * 4
+    flops = (float(st["visits"].sum()) * trv.FLOPS_PER_NODE
+             + float(st["pairs"].sum()) * trv.FLOPS_PER_PAIR)
+    once = (float(st["rows"].sum()) * trv.NODE_BYTES + float(st["leaves"].sum()) * leaf_bytes
+            + io_bytes * n)
+    every = (float(st["visits"].sum()) * trv.NODE_BYTES
+             + float(st["leaf_visits"].sum()) * leaf_bytes + io_bytes * n)
+    return flops, once, every
+
+
 def occlusion_pairs(tri, o, d, tm, chunk: int = 8192) -> float:
     """(ray, triangle) pairs an any-hit sweep in id order needs on these
     segments: each lane's triangles up to its first blocking one, all T
@@ -710,10 +810,11 @@ def check_occlusion(ok_k, ok_p, live, what, log) -> float:
     return n_diff / ok_k.numel()
 
 
-def main_path(scenes, names, counters, log):
+def main_path(scenes, names, counters, log, kinds=None):
     """Loopers 0-7 of each named scene through ``Renderer``, the launch and
     plain-call counts of the module ``counters`` (LAUNCHES, PLAIN_CALLS)
-    set to 0 just before and read just after.  Returns (launches, frames)."""
+    set to 0 just before and read just after; each kernel of ``kinds``
+    (None: of the module) launched.  Returns (launches, frames)."""
     import torch
 
     from radish_pt_tpu_torch.render.renderer import Renderer
@@ -735,7 +836,7 @@ def main_path(scenes, names, counters, log):
     launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
     log(f"[main path] {', '.join(names)}: kernel launches {launches}, "
         f"plain-version calls {plain}")
-    assert all(v > 0 for v in launches.values()), "a kernel was not launched"
+    assert all(launches[k] > 0 for k in kinds or launches), "a kernel was not launched"
     assert not any(plain.values()), "a plain version ran on the main path"
     return launches, 8 * len(names)
 
@@ -744,7 +845,8 @@ def main_path(scenes, names, counters, log):
 # teapot_hires 2 as bench.py times it (bench.py:225); the compact engine's
 # blocks run eagerly (its work list reads its length on the host)
 BATCH_CELLS = (("teapot", 4), ("teapot_hires_band", 2), ("teapot_quad", 4),
-               ("cornell_dense", 4), ("teapot_hires", 2))
+               ("cornell_dense", 4), ("teapot_bvh", 4), ("teapot_hires_bvh", 2),
+               ("teapot_hires", 2))
 RESTIR_BLOCK = 8
 
 
@@ -779,7 +881,7 @@ def traced_block(fn):
 def batched_phase(scenes, log, card):
     """Phase 7: blocks of frames through ``Renderer.run_block`` (the path
     tracer) and ``Renderer.step_batched_restir`` (ReSTIR), each block one
-    CUDA graph replay on the Plücker, band, quad and dense engines and
+    CUDA graph replay on the Plücker, band, quad, dense and bvh engines and
     eager on the compact engine.  Each cell: the launch counts set to 0
     just before its two blocks and read just after; both blocks equal to
     the same frames run eagerly by ``step()``, bit for bit; the launches a
@@ -793,11 +895,13 @@ def batched_phase(scenes, log, card):
     from radish_pt_tpu_torch.accel import dense as dns
     from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.accel import quad as qd
+    from radish_pt_tpu_torch.accel import traverse as trv
     from radish_pt_tpu_torch.config import Settings, Tracer
     from radish_pt_tpu_torch.render import restir as rs
     from radish_pt_tpu_torch.render.renderer import Renderer
 
-    counters = {"plucker": plk, "band": bnd, "quad": qd, "dense": dns, "compact": cpt}
+    counters = {"plucker": plk, "band": bnd, "quad": qd, "dense": dns, "compact": cpt,
+                "bvh": trv}
     # the ReSTIR offsets on the card against the CPU's: every looper of the
     # Sobol table, every neighbour
     loopers, ks = torch.arange(10_000)[:, None], torch.arange(5)
@@ -830,6 +934,16 @@ def batched_phase(scenes, log, card):
         eager_ms = cuda_ms(lambda: [eager.step() for _ in range(block)], reps=3) / block
         batch_ms = cuda_ms(lambda: batched.run_block(block), reps=3) / block
         kinds, busy, wall, ops = traced_block(lambda: batched.run_block(block))
+        # the profiler can lose a replay's records (one call traced 23 of a
+        # quad block's 24 closest hits and 73 fewer operations a frame, its
+        # replays bit-equal to step()): a short trace is taken again, at
+        # most twice, and the check below holds the last
+        for _ in range(2):
+            if batched.batch_mode != "graph" or kinds == expect:
+                break
+            log(f"[batched] {name}: a profiled block traced {kinds} sweeps (want {expect}), "
+                f"{ops / block:.0f} device operations a frame: records lost, traced again")
+            kinds, busy, wall, ops = traced_block(lambda: batched.run_block(block))
         # one eager frame: tracing a frame's thousands of host-issued
         # operations is what makes the profiler slow
         _, busy_e, wall_e, ops_e = traced_block(eager.step)
@@ -873,7 +987,8 @@ def batched_phase(scenes, log, card):
         assert not differ, f"{name}: the batched frames differ from step(): {differ}"
         assert launches == want, (name, launches, want)
         if mode == "graph":
-            assert per_replay == per, (name, per_replay, per)
+            assert {k: per_replay[k] for k in per} == per, (name, per_replay, per)
+            assert not any(v for k, v in per_replay.items() if k not in per), per_replay
         eager_ms, batch_ms, busy, ops, busy_e = timing(name, eager, batched, block, per)
         log(f"[timing] {name} ({ds.intersector}) {RES}x{RES} depth {depth}: batched "
             f"{batch_ms:.3f} ms/frame (blocks of {block}, {mode}) vs eager step() "
@@ -955,6 +1070,7 @@ def main() -> int:
     from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.accel import dense as dns
     from radish_pt_tpu_torch.accel import quad as qd
+    from radish_pt_tpu_torch.accel import traverse as trv
     from radish_pt_tpu_torch.config import Denoiser, ReservoirReuse, Settings, Tracer
     from radish_pt_tpu_torch.render import denoise as dn
     from radish_pt_tpu_torch.render import gbuffer as gb
@@ -1054,6 +1170,21 @@ def main() -> int:
         log(f"[scene] {name} (dense): {ds.num_triangles} stored triangles, "
             f"{int((ds.tri_packed[:, 3:].abs().sum(1) == 0).sum())} of them zero "
             f"(cluster padding)")
+    for name in ("cornell", "teapot", "teapot_hires"):  # the bvh engine: by name only
+        t5 = time.perf_counter()
+        if name == "teapot_hires":
+            ds, _ = build_device_scene(desc, use_sobol=desc.settings.use_sobol, device=dev,
+                                       intersector="bvh")
+            cam = scenes["teapot_hires"][1]
+            assert torch.equal(ds.tri_v, dsc_.tri_v)  # compact's 64-triangle layout
+        else:
+            ds, cam, _ = load_scene(scene_path(name), device=dev, intersector="bvh")
+            cam = cam.replace(width=RES, height=RES)
+        scenes[f"{name}_bvh"] = (ds, cam)
+        log(f"[scene] {name} (bvh): {ds.num_triangles} stored triangles, node table "
+            f"{tuple(ds.bvh_packed.shape)} ({ds.bvh_packed.shape[0] // 6} nodes a direction "
+            f"class), {ds.leaf_tris.shape[0]} leaves of {ds.leaf_tris.shape[1] // 9}; "
+            f"built in {time.perf_counter() - t5:.2f} s")
     for name in OTHER_SCENES:  # the engine their size picks
         t5 = time.perf_counter()
         ds, cam, _ = load_scene(scene_path(name), device=dev)
@@ -1112,14 +1243,19 @@ def main() -> int:
         ds, cam = scenes[f"{name}_dense"]
         waves = bounce_one(ds, cam)  # raster-order lanes: the dense engine culls nothing
         inputs["dense"][name] = dense_parity(ds, waves, max_err, log, name)
+    inputs["bvh"] = {}
+    for name in ("teapot_bvh", "teapot_hires_bvh"):
+        ds, cam = scenes[name]
+        waves = bounce_one(ds, cam)  # raster-order lanes, as the bvh engine's frame
+        inputs["bvh"][name] = bvh_parity(ds, waves, max_err, log, name)
     del waves
 
     log(f"[phase] 4 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 4. the main paths ----
-    def sweep_path(names, counters):
+    def sweep_path(names, counters, kinds=None):
         """d + 1 closest hits and d shadow sweeps a frame of depth d, each
         one launch."""
-        n_launch, n_frames = main_path(scenes, names, counters, log)
+        n_launch, n_frames = main_path(scenes, names, counters, log, kinds)
         want = {"closest_hit": sum(8 * (depth_of(n) + 1) for n in names),
                 "occlusion": sum(8 * depth_of(n) for n in names)}
         assert {k: n_launch[k] for k in want} == want, (n_launch, want)
@@ -1159,10 +1295,44 @@ def main() -> int:
     # closest hits, 8 shadow sweeps a frame), the others at 5
     launches_other = {name: plucker_path((name,))[0] for name in OTHER_SCENES}
     main_path(scenes, ("cornell_dense", "teapot_dense"), dns, log)
+    walks = ("closest_hit", "occlusion")  # the heatmap walk: the heatmap tracer's
+    launches["bvh"] = sweep_path(("cornell_bvh", "teapot_bvh"), trv, walks)
+    launches_hires_bvh = sweep_path(("teapot_hires_bvh",), trv, walks)
+    assert launches["bvh"][0]["heatmap"] == launches_hires_bvh[0]["heatmap"] == 0
+
+    # the BVH heatmap tracer (Renderer, the pinhole rays in raster order): one
+    # heatmap walk a frame through the kernel, no other launch and no plain
+    # call; its image equal to the one from the plain walk's counts
+    heat_frames = 2
+    launches_heatmap = {}
+    for name in ("teapot_bvh", "teapot_hires_bvh"):
+        ds, cam = scenes[name]
+        trv.reset_counts()
+        r = Renderer(ds=ds, cam=cam, desc=None, settings=Settings(tracer=Tracer.BVH_VISUALIZE),
+                     device=dev)
+        for _ in range(heat_frames):
+            r.step()
+        img = r.current_image()
+        torch.cuda.synchronize()
+        launches_heatmap[name] = (dict(trv.LAUNCHES), heat_frames)
+        plain = dict(trv.PLAIN_CALLS)
+        ref = Renderer(ds=ds.replace(intersector="bvh_plain"), cam=cam, desc=None,
+                       settings=Settings(tracer=Tracer.BVH_VISUALIZE), device=dev)
+        ref.step()
+        same = bool(torch.equal(img, ref.current_image()))
+        log(f"[main path] BVH heatmap tracer, {name} {RES}x{RES}: {heat_frames} frames, "
+            f"launches {launches_heatmap[name][0]}, plain-version calls {plain}; t in "
+            f"[{float(img[:, 0].min()):.4f}, {float(img[:, 0].max()):.4f}], mean "
+            f"{float(img[:, 0].mean()):.5f}; equal to the plain walk's image: {same}")
+        assert launches_heatmap[name][0] == {"closest_hit": 0, "occlusion": 0,
+                                             "heatmap": heat_frames}
+        assert not any(plain.values()), "a plain walk ran on the heatmap's path"
+        assert bool(torch.isfinite(img).all()) and float(img[:, 0].max()) == 1.0
+        assert same, f"{name}: the heatmap differs from the plain walk's"
     means, frames = {}, {}
     for name in ("cornell", "teapot", "teapot_quad", "teapot_hires",
                  "teapot_hires_plucker", "teapot_hires_band", "cornell_dense",
-                 "teapot_dense") + OTHER_SCENES:
+                 "teapot_dense", "cornell_bvh", "teapot_bvh", "teapot_hires_bvh") + OTHER_SCENES:
         ds, cam = scenes[name]
         d7, i7 = pt.path_trace(ds, cam, 7, depth_of(name))
         frames[name] = d7 + i7
@@ -1189,6 +1359,9 @@ def main() -> int:
     compare("teapot_quad", "teapot", 0.01, "teapot, quad vs plucker engine")
     compare("cornell_dense", "cornell", 0.01, "cornell, dense vs plucker engine")
     compare("teapot_dense", "teapot", 0.01, "teapot, dense vs plucker engine")
+    compare("teapot_bvh", "teapot_dense", 0.002, "teapot, bvh vs dense engine")
+    compare("cornell_bvh", "cornell_dense", 0.002, "cornell, bvh vs dense engine")
+    compare("teapot_hires_bvh", "teapot_hires", 0.002, "teapot_hires, bvh vs compact engine")
     del frames
 
     # the interactive direct-lighting path on cornell's dense engine
@@ -1251,6 +1424,14 @@ def main() -> int:
         log(f"[kernel vs plain path] {name} ({ds.intersector}) {SMALL_RES}x{SMALL_RES} mean "
             f"|pixel diff| {mad:.3e}")
         assert mad < 2e-3
+    ds, cam = scenes["teapot_bvh"]
+    small = cam.replace(width=SMALL_RES, height=SMALL_RES)
+    d, i = pt.path_trace(ds, small, 0, DEPTH)
+    dp, ip = pt.path_trace(ds.replace(intersector="bvh_plain"), small, 0, DEPTH)
+    mad = float(torch.abs((d + i) - (dp + ip)).mean())
+    log(f"[kernel vs plain path] teapot_bvh (bvh) {SMALL_RES}x{SMALL_RES} mean |pixel diff| "
+        f"{mad:.3e}, equal: {bool(torch.equal(d, dp) and torch.equal(i, ip))}")
+    assert mad < 2e-3
     for name in ("cornell_dense", "teapot_dense"):  # the brute engine: dense's plain path
         ds, cam = scenes[name]
         small = cam.replace(width=SMALL_RES, height=SMALL_RES)
@@ -1293,7 +1474,7 @@ def main() -> int:
     # ---- 6. timing (CUDA events) ----
     for name in ("cornell", "teapot", "teapot_quad", "teapot_hires",
                  "teapot_hires_plucker", "teapot_hires_band", "cornell_dense",
-                 "teapot_dense") + OTHER_SCENES:
+                 "teapot_dense", "cornell_bvh", "teapot_bvh", "teapot_hires_bvh") + OTHER_SCENES:
         ds, cam = scenes[name]
         loopers = iter(range(8, 10_000))
         depth = depth_of(name)
@@ -1510,6 +1691,41 @@ def main() -> int:
             time_kernel(key, kernel, flops, nb, f"{name}_dense", PEAK_F32_OPS_UNFUSED)
             other_bounds[key, f"{name}_dense"] = [
                 ("the f32 peak counting an FMA as two flops", bound(flops, nb)[0])]
+    # the BVH walks issue unfused single operations: bounded at the
+    # instruction rate over the node visits and leaf pairs the plain walk
+    # counted, the node rows and leaves any lane touched read once; beside
+    # it the bytes of every visit's row and leaf
+    for scene in ("teapot_bvh", "teapot_hires_bvh"):
+        ds = scenes[scene][0]
+        lt, lm, nodes = ds.leaf_tris, ds.leaf_map, ds.bvh_packed
+        work = {}
+        for what in ("primary", "extension"):
+            o, d, st = inputs["bvh"][scene][what]
+            # rays in, (prim, dist, bary) out and the winner's leaf_map entry
+            flops, once, every = walk_work(ds, st, o.shape[0], 24 + 20)
+            work[f"bvh_closest_hit/{what}"] = (
+                lambda o=o, d=d: trv.intersect_bvh_cuda(lt, lm, nodes, o, d), flops, once,
+                every)
+            flops, once, every = walk_work(ds, st, o.shape[0], 24 + 4)
+            work[f"bvh_heatmap/{what}"] = (
+                lambda o=o, d=d: trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d), flops, once,
+                every)
+        so, sd, tm, st = inputs["bvh"][scene]["segments"]
+        flops, once, every = walk_work(ds, st, so.shape[0], 28 + 4)
+        work["bvh_occlusion/segments"] = (
+            lambda: trv.occlusion_bvh_cuda(lt, nodes, so, sd, tm), flops, once, every)
+        for key, (kernel, flops, once, every) in work.items():
+            time_kernel(key, kernel, flops, once, scene, PEAK_F32_OPS_UNFUSED)
+            other_bounds[key, scene] = [
+                ("every visit's node row (32 B) and leaf (576 B) from device memory",
+                 bound(flops, every, PEAK_F32_OPS_UNFUSED)[0])]
+    ds, cam = scenes["teapot_bvh"]
+    r = Renderer(ds=ds, cam=cam, desc=None, settings=Settings(tracer=Tracer.BVH_VISUALIZE),
+                 device=dev)
+    heat_ms = cuda_ms(r.step, reps=5)
+    log(f"[timing] BVH heatmap tracer, teapot_bvh {RES}x{RES}: {heat_ms:.3f} ms a frame "
+        f"(Renderer.step: pinhole rays, the heatmap walk, colours, display; median of 5) "
+        f"({card})")
     for (key, scene), (k, p, flops, nb, peak) in timed.items():
         name, what = key.split("/")
         b_ms, b_by = bound(flops, nb, peak)
@@ -1529,7 +1745,9 @@ def main() -> int:
         what = "segments" if kind == "occlusion" else "primary"
         k, p, flops, nb, peak = timed[f"{name}/{what}", KERNEL_SCENE[lib]]
         b_ms, b_by = bound(flops, nb, peak)
-        n_launch, n_frames = launches[lib]
+        # the heatmap's main path is the heatmap tracer's frames
+        n_launch, n_frames = (launches_heatmap[KERNEL_SCENE[lib]] if kind == "heatmap"
+                              else launches[lib])
         rows.append({"name": name, "route": "cuda", "source": SOURCES[lib],
                      "replaces": REPLACES[name], "launches": n_launch[kind],
                      "launches_per_frame": n_launch[kind] / n_frames,
@@ -1537,16 +1755,20 @@ def main() -> int:
                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                      "shape": f"{KERNEL_SCENE[lib]} {what}",
                      "other_bounds": other(f"{name}/{what}", KERNEL_SCENE[lib])})
-        if lib == "plucker":  # the same kernel on the largest scene of its engine
-            scene = "teapot_hires_plucker"
+        if lib == "bvh":
+            rows[-1]["stage"] = "an XLA walk of the JAX package (no Pallas body)"
+        if lib in ("plucker", "bvh"):  # the same kernel on the largest scene of its engine
+            scene = f"teapot_hires_{lib}"
             k, p, flops, nb, peak = timed[f"{name}/{what}", scene]
-            n_launch, n_frames = launches_hires_plucker
+            n_launch, n_frames = (launches_heatmap[scene] if kind == "heatmap" else
+                                  launches_hires_plucker if lib == "plucker" else
+                                  launches_hires_bvh)
             rows[-1]["also"] = {
                 "shape": f"{scene} {what}", "launches": n_launch[kind],
                 "launches_per_frame": n_launch[kind] / n_frames, "ms": k, "plain_ms": p,
                 "bound_ms": bound(flops, nb, peak)[0], "bound_by": bound(flops, nb, peak)[1],
                 "other_bounds": other(f"{name}/{what}", scene)}
-            # the other shipped scenes' main paths (8 frames each)
+        if lib == "plucker":  # the other shipped scenes' main paths (8 frames each)
             rows[-1]["other_scenes"] = {
                 scene: {"launches": n[kind], "launches_per_frame": n[kind] / 8}
                 for scene, n in launches_other.items()}

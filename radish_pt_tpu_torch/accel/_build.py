@@ -63,6 +63,13 @@ SIGNATURES = {
         # tri_packed, T, ray_o, ray_d, tmax, N, occ, stream
         "dense_occlusion": [_P, _I, _P, _P, _P, _I, _P, _P],
     },
+    "bvh": {
+        # nodes, B, leaf_tris, L, ray_o, ray_d, N, then leaf_map, prim, dist,
+        # bary | tmax, occ | steps, stream
+        "bvh_closest_hit": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P],
+        "bvh_occlusion": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P],
+        "bvh_heatmap": [_P, _I, _P, _I, _P, _P, _I, _P, _P],
+    },
 }
 
 _libs: dict = {}

@@ -2,8 +2,9 @@
 with multi-triangle leaves laid out for dense TPU testing.
 
 Numpy copy of ``radish_pt_tpu/accel/bvh.py`` (the port builds its scenes
-without jax; tests pin both builders to identical output).  The port uses
-the BVH only for its leaf order, which is the triangle storage order.
+without jax; tests pin both builders to identical output).  Its leaf order
+is the triangle storage order of every engine, and the ``"bvh"`` engine and
+the heatmap walk it (:mod:`radish_pt_tpu_torch.accel.traverse`).
 
 Host-side re-implementation of the reference builder idea
 (``reference/src/bvh.cpp:12-183``: 16-bucket SAH binning + the 6-way
@@ -14,7 +15,7 @@ does ~10x fewer gather-bound node steps, and each leaf visit is a dense
 [rays, L] Möller–Trumbore batch — exactly the VPU's preferred shape.  With
 ``leaf_size=1`` the layout degenerates to the reference's one-prim leaves.
 
-Layout contract (shared with :mod:`radish_pt_tpu.accel.traverse`):
+Layout contract (shared with :mod:`radish_pt_tpu_torch.accel.traverse`):
 * ``node_*[6, B]`` arrays follow the per-direction-class near-to-far DFS
   preorder; ``miss[i]`` jumps over node i's whole subtree.
 * ``node_leaf`` is -1 for interior nodes, else the leaf row index into

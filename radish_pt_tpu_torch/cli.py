@@ -2,10 +2,11 @@
 
 ``python -m radish_pt_tpu_torch SCENEFILE.txt --device cuda`` loads the
 scene, renders the scene's ``Sample`` count (or ``--spp``) of frames on the
-device — full-MIS path tracing, direct lighting, ReSTIR DI or the G-buffer
-preview (``--tracer``), optionally denoised (``--denoiser``) — and saves
-the image: the port's form of ``python -m radish_pt_tpu``.  ``--device`` names where everything runs; it
-is never switched behind the user's back.  ``--batch-spp N`` renders the
+device — full-MIS path tracing, direct lighting, ReSTIR DI, the G-buffer
+preview or the BVH traversal heatmap (``--tracer``), optionally denoised
+(``--denoiser``) — and saves the image: the port's form of ``python -m
+radish_pt_tpu``.  ``--device`` names where everything runs; it is never
+switched behind the user's back.  ``--batch-spp N`` renders the
 path tracer or ReSTIR DI N frames a block (one CUDA graph a block on the
 card with a capturable engine); ``--checkpoint`` / ``--resume`` write and
 read the render state; ``--timing`` prints the per-pass table,
@@ -23,7 +24,7 @@ import time
 
 
 TRACERS = {"pt": "STREAMED", "direct": "DIRECT_LIGHT", "restir": "RESTIR_DI",
-           "gbuffer": "GBUFFER_PREVIEW"}
+           "bvh": "BVH_VISUALIZE", "gbuffer": "GBUFFER_PREVIEW"}
 DENOISERS = {"none": "NONE", "gaussian": "GAUSSIAN", "eaw": "EA_WAVELET",
              "svgf": "SVGF"}
 REUSE = {"none": "NONE", "temporal": "TEMPORAL", "spatial": "SPATIAL",
@@ -64,18 +65,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
     p.add_argument("--intersector",
-                   choices=["plucker", "compact", "quad", "band", "dense", "brute"],
+                   choices=["plucker", "compact", "quad", "band", "dense", "bvh",
+                            "brute"],
                    default=None,
                    help="intersection engine (default: plucker up to 131,072 "
-                        "triangles, compact above; quad, band and dense only "
-                        "by name)")
+                        "triangles, compact above; quad, band, dense and bvh "
+                        "only by name)")
     p.add_argument("--band-g", type=int, default=None,
                    choices=[1, 2, 4, 8, 16, 32, 64, 128],
                    help="bands per 128-lane row for the band engine (default 8)")
     p.add_argument("--batch-spp", type=int, default=0,
                    help="frames a block (pt and restir tracers): one CUDA graph a "
-                        "block on the card with the plucker, band, quad or dense "
-                        "engine")
+                        "block on the card with the plucker, band, quad, dense or "
+                        "bvh engine")
     p.add_argument("--checkpoint", default=None,
                    help="write the render-state checkpoint here when done")
     p.add_argument("--resume", default=None, help="resume from a checkpoint")

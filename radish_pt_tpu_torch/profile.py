@@ -2,7 +2,7 @@
 kernel time summed by stage.
 
     python -m radish_pt_tpu_torch.profile scenes/teapot.txt [--res 800] [--depth 5]
-        [--intersector plucker|compact|quad|band|dense|brute] [--band-g 8]
+        [--intersector plucker|compact|quad|band|dense|bvh|brute] [--band-g 8]
         [--tracer pt|direct|restir] [--batch-spp N]
 
 The frame is one ``path_trace`` call for ``--tracer pt`` (the default), and
@@ -24,7 +24,7 @@ kernel, which votes its rows' words itself).
 
 With ``--batch-spp N`` (``--tracer pt`` or ``restir``) the frame is one
 block of N frames through ``Renderer.run_block``: one CUDA graph replay
-on the Plücker, band, quad and dense engines (``Renderer.batch_mode``),
+on the Plücker, band, quad, dense and bvh engines (``Renderer.batch_mode``),
 N eager frames on the compact engine.  It then prints the block's ms and
 ms a frame (CUDA events, profiler off), the device-busy time and idle
 share of a profiled block (and that kernel time's share of the unprofiled
@@ -42,6 +42,9 @@ import subprocess
 # a kernel's stage, from the first name fragment it contains (else "other")
 # (engine-prefixed names first: "closest_hit_kernel" is part of theirs)
 STAGES = (
+    ("bvh_closest_hit_kernel", "bvh closest hit"),
+    ("bvh_occlusion_kernel", "bvh shadow"),
+    ("bvh_heatmap_kernel", "bvh heatmap"),
     ("dense_closest_hit_kernel", "dense closest hit"),
     ("dense_occlusion_kernel", "dense shadow"),
     ("quad_closest_hit_kernel", "quad closest hit"),
@@ -174,7 +177,8 @@ def main(argv=None) -> int:
     p.add_argument("--depth", type=int, default=5)
     p.add_argument("--frames", type=int, default=2)
     p.add_argument("--intersector",
-                   choices=["plucker", "compact", "quad", "band", "dense", "brute"],
+                   choices=["plucker", "compact", "quad", "band", "dense", "bvh",
+                            "brute"],
                    default=None, help="engine (default: by scene size)")
     p.add_argument("--tracer", choices=["pt", "direct", "restir"], default="pt")
     p.add_argument("--band-g", type=int, default=None,

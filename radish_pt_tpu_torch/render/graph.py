@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 # engines whose frame runs without a host sync: their blocks are captured
-CAPTURABLE_ENGINES = frozenset({"plucker", "band", "quad", "dense"})
+CAPTURABLE_ENGINES = frozenset({"plucker", "band", "quad", "dense", "bvh"})
 
 
 def batch_mode(ds) -> str:
@@ -39,15 +39,16 @@ def batch_mode(ds) -> str:
 
 
 def _counters() -> dict:
-    """(module, counter) -> the counter dict of each capturable engine's
+    """(engine, counter) -> the counter dict of each capturable engine's
     module (its launches, plain-version and prepass calls)."""
-    from ..accel import band, dense, plucker, quad
+    from ..accel import band, dense, plucker, quad, traverse
 
     out = {}
-    for mod in (plucker, band, quad, dense):
+    for engine, mod in (("plucker", plucker), ("band", band), ("quad", quad),
+                        ("dense", dense), ("bvh", traverse)):
         for attr in ("LAUNCHES", "PLAIN_CALLS", "PREPASS_CALLS"):
             if hasattr(mod, attr):
-                out[mod.__name__.rsplit(".", 1)[1], attr] = getattr(mod, attr)
+                out[engine, attr] = getattr(mod, attr)
     return out
 
 
@@ -77,7 +78,7 @@ class BlockRunner:
         self.graph = None
         self.static: dict = {}
         self.outputs: dict = {}
-        # (module, counter) -> {name: count} one replay adds
+        # (engine, counter) -> {name: count} one replay adds
         self.per_replay: dict = {}
         self.replays = 0
 
@@ -126,6 +127,6 @@ class BlockRunner:
         self.graph = graph
 
     def launches_per_replay(self) -> dict:
-        """module -> {kernel: launches} of one replay (graph mode)."""
+        """engine -> {kernel: launches} of one replay (graph mode)."""
         return {mod: dict(d) for (mod, attr), d in self.per_replay.items()
                 if attr == "LAUNCHES"}

@@ -3,7 +3,8 @@
 Per frame (reference main.cpp:163-202): optional camera animation, the
 G-buffer, the tracer — full-MIS path tracing (``STREAMED`` and its alias
 ``SINGLE_KERNEL``), one-bounce direct lighting (``DIRECT_LIGHT``), ReSTIR
-DI (``RESTIR_DI`` or ``use_reservoir``) or the G-buffer preview — then
+DI (``RESTIR_DI`` or ``use_reservoir``), the G-buffer preview or the BVH
+heatmap (``BVH_VISUALIZE``) — then
 scrub, range-compress and fold into the running mean, an optional
 denoiser (Gaussian, EAW, SVGF; the path tracer's direct and indirect
 halves through the split-SVGF pair), and tonemap for display.  All buffers
@@ -23,9 +24,6 @@ card with a capturable engine the block is one CUDA graph, captured once
 and replayed (render/graph.py); ``Renderer.batch_mode`` says which.  A
 replayed block equals the same frames run by :meth:`Renderer.step`, bit
 for bit.
-
-The BVH heatmap raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
 """
 
 from __future__ import annotations
@@ -50,11 +48,6 @@ from . import graph as gr
 from . import pathtrace as pt
 from . import post
 from . import restir as rs
-
-_NOT_PORTED = {
-    Tracer.BVH_VISUALIZE: "the BVH heatmap (ROADMAP queue 1, item 5)",
-}
-
 
 def _pt_batch(ds, cam, looper0, direct, indirect, iteration, *, max_depth: int,
               block: int):
@@ -157,11 +150,6 @@ class Renderer:
         replayed) or "eager" (render/graph.py)."""
         return gr.batch_mode(self.ds)
 
-    def _check_supported(self):
-        what = _NOT_PORTED.get(self.settings.tracer)
-        if what is not None:
-            raise NotImplementedError(f"not ported yet: {what}")
-
     def _uses_restir(self) -> bool:
         s = self.settings
         return s.tracer == Tracer.RESTIR_DI or s.use_reservoir
@@ -224,7 +212,6 @@ class Renderer:
     def step(self):
         """Render one frame; returns the uint8 display image [H, W, 3] as a
         tensor on the renderer's device."""
-        self._check_supported()
         s, st, timer = self.settings, self.state, self.timer
         if s.animate_camera:
             self._animate_camera()
@@ -249,6 +236,9 @@ class Renderer:
                 self.direct = pt.accumulate(self.direct, pt.scrub_and_compress(d),
                                             st.iteration)
             image = self.direct
+        elif s.tracer == Tracer.BVH_VISUALIZE:
+            with timer.time("bvh_heatmap"):
+                image = self._bvh_heatmap()
         elif s.tracer == Tracer.GBUFFER_PREVIEW:
             image = self._gbuffer_view()
         elif s.tracer in (Tracer.STREAMED, Tracer.SINGLE_KERNEL):
@@ -372,7 +362,6 @@ class Renderer:
         return run
 
     def _check_batchable(self):
-        self._check_supported()
         s = self.settings
         if not (self._uses_restir() or s.tracer in (Tracer.STREAMED, Tracer.SINGLE_KERNEL)):
             raise ValueError("batched frames run the path tracer and ReSTIR DI")
@@ -408,7 +397,6 @@ class Renderer:
         """``block`` ReSTIR frames as one block, then the denoiser once;
         returns the display image on the device (the JAX renderer's
         high-throughput interactive mode)."""
-        self._check_supported()
         s = self.settings
         if s.animate_camera:
             self._animate_camera()
@@ -481,6 +469,22 @@ class Renderer:
             return gb.motion_debug_image(g.motion, self.cam.width, self.cam.height)
         return g.albedo
 
+    def _bvh_heatmap(self):
+        """The BVH traversal heatmap (the reference's ``--tracer bvh``): the
+        pinhole rays in raster order go through the MTBVH walk (the kernel
+        on the card whatever the engine, the plain walk on ``"bvh_plain"``),
+        and each pixel shows t = its descended nodes over the frame's most
+        as [t, 1 - t, 0]."""
+        from ..accel import traverse as trv
+
+        ds, cam = self.ds, self.cam
+        idx = torch.arange(cam.width * cam.height, dtype=torch.int32, device=self.device)
+        ray_o, ray_d = cam_mod.pinhole_rays(cam, idx % cam.width, idx // cam.width)
+        steps = trv.intersect_bvh_heatmap(ds.leaf_tris, ds.bvh_packed, ray_o, ray_d,
+                                          plain=ds.intersector == "bvh_plain")
+        t = steps.to(torch.float32) / torch.clamp(steps.max().to(torch.float32), min=1.0)
+        return torch.stack([t, 1.0 - t, torch.zeros_like(t)], dim=-1)
+
     # ------------------------------------------------------------------
     # offline rendering, previews and saving
     # ------------------------------------------------------------------
@@ -521,14 +525,15 @@ class Renderer:
 
     def current_image(self):
         """The image on display, HDR [N, 3]: a preview AOV when one is
-        selected; the last frame's for the G-buffer preview and behind a
-        denoiser; else the accumulation (direct + indirect for the path
-        tracer)."""
+        selected; the last frame's for the G-buffer preview, the BVH
+        heatmap and behind a denoiser; else the accumulation (direct +
+        indirect for the path tracer)."""
         s = self.settings
         aov = self.preview_aov_image()
         if aov is not None:
             return aov
-        if ((s.tracer == Tracer.GBUFFER_PREVIEW or s.denoiser != Denoiser.NONE)
+        if ((s.tracer in (Tracer.GBUFFER_PREVIEW, Tracer.BVH_VISUALIZE)
+             or s.denoiser != Denoiser.NONE)
                 and self._last_image is not None):
             return self._last_image
         if s.tracer in (Tracer.STREAMED, Tracer.SINGLE_KERNEL) and not s.use_reservoir:

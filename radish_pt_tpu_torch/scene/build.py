@@ -17,7 +17,12 @@ and ``pallas_band`` engines:
   culling prepass and the light ids remapped through the padding;
 * the Plücker planes of every stored triangle, in f32, centred on the
   scene (accel/plucker.py), and for the quad engine its quadratic forms
-  (accel/quad.py).
+  (accel/quad.py);
+* for every engine, the BVH walk's tables (build.py:416-422): the packed
+  node table, the leaf-major triangles and the leaf slot map, its ids
+  mapped through the storage order and the cluster padding, so a slot
+  names its stored triangle (the ``"bvh"`` engine walks them; the
+  heatmap tracer reads them whatever the engine).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from ..accel.bvh import build_bvh
 from ..accel.compact import unit_spheres
 from ..accel.plucker import numpy_coeffs, numpy_packed_coeffs
 from ..accel.quad import numpy_quad_coeffs, numpy_quad_occl_packed, numpy_quad_packed
-from ..accel.traverse import pack_tris
+from ..accel.traverse import pack_bvh, pack_tris
 from ..sampling.alias import build_alias_table
 from ..sampling.sobol import load_sobol_table
 from .camera import Camera, make_camera
@@ -41,16 +46,17 @@ CLUSTER_SUB = 64  # default triangles per culling cluster
 BIG_SCENE_TRIS = 16384
 PLUCKER_MAX_TRIS = 131072  # above this the reference switches engines
 CLUSTER_MIN_TRIS = 1024  # below this every ray sweeps every triangle
-INTERSECTORS = ("plucker", "compact", "quad", "band", "dense", "brute")
-# engines stored in the fixed 64-triangle clusters (reference build.py:324-326)
-FIXED_CLUSTER_ENGINES = ("compact", "band")
+INTERSECTORS = ("plucker", "compact", "quad", "band", "dense", "bvh", "brute")
+# engines stored in the fixed 64-triangle clusters, as the reference stores
+# them (build.py:324-326)
+FIXED_CLUSTER_ENGINES = ("compact", "band", "bvh")
 
 
 def choose_intersector(num_tris: int, intersector: str | None = None) -> str:
     """The engine for a scene: ``intersector`` if given, else the Plücker
     sweeps up to ``PLUCKER_MAX_TRIS`` triangles and the compact work-list
-    engine above (the reference's choice, build.py:281-290; the quad, band
-    and dense engines are only ever chosen by name)."""
+    engine above (the reference's choice, build.py:281-290; the quad, band,
+    dense and bvh engines are only ever chosen by name)."""
     if intersector is None:
         return "plucker" if num_tris <= PLUCKER_MAX_TRIS else "compact"
     if intersector not in INTERSECTORS:
@@ -232,11 +238,12 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
     tri_uv = tri_uv[tri_order]
     material_ids = material_ids[tri_order]
     light_prims = [int(inv_order[p]) for p in light_prims]
+    leaf_map = np.where(lm >= 0, inv_order[np.clip(lm, 0, None)], lm)
 
     # ---- culling clusters, each padded to ``csub`` slots ----
     # (the compact engine's work list is its cull: it always has clusters;
-    # it and the band engine take the fixed 64-triangle size, as the
-    # reference's build.py:321-327)
+    # it, the band engine and the bvh engine take the fixed 64-triangle
+    # size, as the reference's build.py:321-327)
     cluster_bounds = None
     csub = CLUSTER_SUB
     if num_tris > CLUSTER_MIN_TRIS or intersector == "compact":
@@ -266,6 +273,8 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
         tri_uv = _pad(tri_uv)
         material_ids = _pad(material_ids)
         light_prims = [int(slot_of_pos[p]) for p in light_prims]
+        leaf_map = np.where(leaf_map >= 0, slot_of_pos[np.clip(leaf_map, 0, None)],
+                            leaf_map)
 
     tri_packed = pack_tris(tri_v)
     coeffs, center = numpy_coeffs(tri_packed)
@@ -300,6 +309,9 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
         tri_v=f32(tri_v),
         tri_attr=f32(tri_attr),
         tri_packed=f32(tri_packed),
+        bvh_packed=f32(pack_bvh(bvh)),
+        leaf_tris=f32(bvh.leaf_tris),
+        leaf_map=i32(leaf_map),
         cluster_bounds=bounds,
         sweep_coeffs=f32(coeffs),
         sweep_center=f32(center),

@@ -43,6 +43,12 @@ Intersection engines (``intersector``):
   :mod:`radish_pt_tpu_torch.accel.dense` (the reference's opt-in
   ``pallas_brute``); winners come with barycentrics.  Chosen only by name;
   its plain path is ``"brute"``.
+* ``"bvh"``: the MTBVH walk of :mod:`radish_pt_tpu_torch.accel.traverse`
+  over ``bvh_packed`` / ``leaf_tris`` / ``leaf_map`` — the kernels of
+  ``csrc/bvh.cu`` on the card, the lockstep torch walk on the CPU; winners
+  come with barycentrics.  Chosen only by name (the reference's fallback
+  without Pallas); ``"bvh_plain"`` is the same walk in plain torch on any
+  device.
 * ``"brute"``: exhaustive Möller–Trumbore (accel/traverse.py), the oracle.
 """
 
@@ -71,6 +77,7 @@ PLUCKER_ENGINES = ("plucker", "plucker_plain")
 COMPACT_ENGINES = ("compact", "compact_plain")
 QUAD_ENGINES = ("quad", "quad_plain")
 BAND_ENGINES = ("band", "band_plain")
+BVH_ENGINES = ("bvh", "bvh_plain")
 # engines with positional winner ids and culling by lane rows (tile order)
 SWEEP_ENGINES = PLUCKER_ENGINES + COMPACT_ENGINES + QUAD_ENGINES + BAND_ENGINES
 
@@ -113,6 +120,13 @@ class DeviceScene:
     # [v0 v1 v2 (9) | n0 n1 n2 (9) | uv0 uv1 uv2 (6) | mat id (1)]
     tri_attr: torch.Tensor = None  # f32 [T, 25]
     tri_packed: torch.Tensor = None  # f32 [T, 9] v0, e1, e2 (brute engine)
+    # the MTBVH walk's tables, kept for every engine (the heatmap reads
+    # them): per direction class and node [bmin, bmax, leaf, miss] (ints
+    # bit-cast), each leaf's L triangles (v0, e1, e2; zero padding), and
+    # slot -> stored triangle id (-1 for padding)
+    bvh_packed: torch.Tensor = None  # f32 [6B, 8]
+    leaf_tris: torch.Tensor = None  # f32 [R, L*9]
+    leaf_map: torch.Tensor = None  # i32 [R*L]
     cluster_bounds: torch.Tensor = None  # f32 [C, 6] or None (no culling)
     # Plücker decision planes over features [d, o x d, o, 1] with o centred
     # on sweep_center: plane 0 det, 1 bx, 2 by, 3 t*det
@@ -204,11 +218,14 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
     port's [T, 4, 10], other layouts (bf16 splits, the quad engine's forms,
     the band engine's transposed table) are rebuilt in f32 from
     ``tri_packed`` (the port keeps no bf16 splits), and so are the quad
-    engine's forms.  The JAX engine maps to ``"compact"``, ``"quad"``,
-    ``"band"`` and ``"dense"`` for ``pallas_compact``, ``pallas_quad``,
-    ``pallas_band`` and ``pallas_brute``, to ``"plucker"`` for the other
-    Pallas sweeps and to ``"brute"`` otherwise (the reference's BVH walk returns the brute-force winners);
-    pass ``intersector`` to choose another.
+    engine's forms.  The BVH walk's tables (``bvh_packed``, ``leaf_tris``,
+    ``leaf_map``) come across as they are.  The JAX engine maps to
+    ``"compact"``, ``"quad"``, ``"band"`` and ``"dense"`` for
+    ``pallas_compact``, ``pallas_quad``, ``pallas_band`` and
+    ``pallas_brute``, to ``"plucker"`` for the other Pallas sweeps and to
+    ``"brute"`` otherwise (the reference's BVH walk returns the brute-force
+    winners); pass ``intersector`` to choose another (``"bvh"`` walks the
+    JAX scene's own tables).
     """
     if intersector is None:
         engine = str(meta["intersector"])
@@ -251,6 +268,9 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
         tri_v=t("tri_v", np.float32),
         tri_attr=t("tri_attr", np.float32),
         tri_packed=t("tri_packed", np.float32),
+        bvh_packed=t("bvh_packed", np.float32),
+        leaf_tris=t("leaf_tris", np.float32),
+        leaf_map=t("leaf_map", np.int32),
         cluster_bounds=bounds,
         sweep_coeffs=torch.from_numpy(np.ascontiguousarray(coeffs)).to(device),
         sweep_center=center_t,
@@ -452,6 +472,9 @@ def intersect(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
         return Interaction(prim_id=prim, mat_id=mat_id, pos=pos, norm=norm, uv=uv)
     if ds.intersector == "dense":
         prim, _, bary = dns.intersect_dense(ds.tri_packed, ray_o, ray_d)
+    elif ds.intersector in BVH_ENGINES:
+        prim, _, bary = trv.intersect_bvh(ds.leaf_tris, ds.leaf_map, ds.bvh_packed,
+                                          ray_o, ray_d, plain=ds.intersector == "bvh_plain")
     elif ds.intersector == "brute":
         prim, _, bary = trv.intersect_brute(ds.tri_packed, ray_o, ray_d)
     else:
@@ -485,6 +508,9 @@ def test_occlusion(ds: DeviceScene, x, y):
             packed=ds.sweep_packed)
     if ds.intersector == "dense":
         return dns.occlusion_dense(ds.tri_packed, x, y)
+    if ds.intersector in BVH_ENGINES:
+        return trv.occlusion_bvh(ds.leaf_tris, ds.bvh_packed, x, y,
+                                 plain=ds.intersector == "bvh_plain")
     if ds.intersector != "brute":
         raise ValueError(f"unknown intersector {ds.intersector!r}")
     return trv.occlusion_brute(ds.tri_packed, x, y)

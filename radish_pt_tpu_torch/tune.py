@@ -11,11 +11,12 @@ blocks asked of the compiler (``QUAD_RAYS``, ``QUAD_MIN_BLOCKS`` in
 csrc/quad.cu), and for the quad shadow sweep its resident blocks
 (``QUAD_OCCL_MIN_BLOCKS``); lanes a block, triangles a thread and a one- or
 two-level vote of both band kernels (``BAND_BLOCK_LANES``, ``BAND_TRIS``,
-``BAND_TWO_LEVEL`` in csrc/band.cu).  This tool builds each variant as its
+``BAND_TWO_LEVEL`` in csrc/band.cu); rays a block of the three BVH walks
+(``BVH_BLOCK`` in csrc/bvh.cu).  This tool builds each variant as its
 own library (``-DCOMPACT_LOCKSTEP=n ...``), holds it against the plain
 version on the main path's wavefronts (800x800 primaries and the bounce-1
 extension rays; for Plücker, the compact, quad and band shadow sweeps the
-bounce-1 shadow segments; teapot and teapot_hires for Plücker,
+bounce-1 shadow segments; teapot and teapot_hires for Plücker and bvh,
 teapot_hires for compact and band, teapot for quad, built as
 ``chip_smoke.py`` builds them) and times it with CUDA events, the variants
 in turns.  It prints registers and spills per
@@ -23,8 +24,8 @@ variant, the times, and the card's name and power limit.  The default in
 the source is the variant that won.
 
 Run from the repository root:
-    python -m radish_pt_tpu_torch.tune [plucker] [compact] [quad] [band]
-(no argument: all four).
+    python -m radish_pt_tpu_torch.tune [plucker] [compact] [quad] [band] [bvh]
+(no argument: all five).
 """
 
 from __future__ import annotations
@@ -63,6 +64,8 @@ BAND_VARIANTS = (("-DBAND_BLOCK_LANES=64", "-DBAND_TRIS=2", "-DBAND_TWO_LEVEL=1"
                  ("-DBAND_BLOCK_LANES=128", "-DBAND_TRIS=2", "-DBAND_TWO_LEVEL=1"),
                  ("-DBAND_BLOCK_LANES=64", "-DBAND_TRIS=1", "-DBAND_TWO_LEVEL=1"))
 QUAD_OCCL_VARIANTS = (("-DQUAD_OCCL_MIN_BLOCKS=4",), ("-DQUAD_OCCL_MIN_BLOCKS=1",))
+BVH_VARIANTS = (("-DBVH_BLOCK=128",), ("-DBVH_BLOCK=64",), ("-DBVH_BLOCK=256",),
+                ("-DBVH_BLOCK=32",))
 QUAD_VARIANTS = (("-DQUAD_RAYS=1", "-DQUAD_MIN_BLOCKS=1"),
                  ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=1"),
                  ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=8"),
@@ -73,10 +76,10 @@ QUAD_VARIANTS = (("-DQUAD_RAYS=1", "-DQUAD_MIN_BLOCKS=1"),
 def main(argv=None) -> int:
     import torch
 
-    engines = (sys.argv[1:] if argv is None else argv) or ["plucker", "compact", "quad",
-                                                             "band"]
-    if set(engines) - {"plucker", "compact", "quad", "band"}:
-        print("tune: engines are plucker, compact, quad, band", file=sys.stderr)
+    all_engines = ["plucker", "compact", "quad", "band", "bvh"]
+    engines = (sys.argv[1:] if argv is None else argv) or all_engines
+    if set(engines) - set(all_engines):
+        print(f"tune: engines are {', '.join(all_engines)}", file=sys.stderr)
         return 2
 
     if not torch.cuda.is_available():
@@ -90,6 +93,7 @@ def main(argv=None) -> int:
     from .accel import compact as cpt
     from .accel import plucker as plk
     from .accel import quad as qd
+    from .accel import traverse as trv
     from .scene.build import load_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -293,6 +297,34 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             cs.check_occlusion(got, want, live, f"band, {r}", print)
         race("band", libs, "shadow, teapot_hires segments", shadow)
+
+    # ---- bvh, teapot and teapot_hires: the three walks ----
+    libs = variants("bvh", BVH_VARIANTS, "_kernel") if "bvh" in engines else {}
+    for name in ("teapot", "teapot_hires") if libs else ():
+        ds, cam = scene(name, "bvh")
+        waves = run("bvh", next(iter(libs.values())), lambda: cs.bounce_one(ds, cam))
+        lt, lm, nodes = ds.leaf_tris, ds.leaf_map, ds.bvh_packed
+        walks = {}
+        for what in ("primary", "extension"):
+            o, d, _ = (t.contiguous() for t in waves[what])
+            walks[f"closest hit, {what}"] = (
+                lambda o=o, d=d: trv.intersect_bvh_cuda(lt, lm, nodes, o, d),
+                trv.intersect_bvh_plain(lt, lm, nodes, o, d))
+        o, d, _ = (t.contiguous() for t in waves["primary"])
+        walks["heatmap, primary"] = (lambda: trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d),
+                                     trv.intersect_bvh_heatmap_plain(lt, nodes, o, d))
+        x, y, _ = waves["segments"]
+        so, sd, tm = (t.contiguous() for t in trv.segment_rays(x, y))
+        walks["shadow, segments"] = (lambda: trv.occlusion_bvh_cuda(lt, nodes, so, sd, tm),
+                                     trv.occlusion_bvh_plain(lt, nodes, so, sd, tm))
+        for what, (kernel, want) in walks.items():
+            want = want if isinstance(want, tuple) else (want,)
+            for r, lib in libs.items():
+                got = run("bvh", lib, kernel)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), (r, name, what)
+            race("bvh", libs, f"{name} {what}", kernel)
     print(card, flush=True)
     return 0
 

@@ -365,8 +365,9 @@ def test_batch_mode_is_decided_by_engine_and_device(cornell):
     from radish_pt_tpu_torch.render import graph as gr
 
     _, _, ds, _ = cornell
-    assert gr.CAPTURABLE_ENGINES == {"plucker", "band", "quad", "dense"}
-    for engine in ("plucker", "band", "quad", "dense", "compact", "plucker_plain", "brute"):
+    assert gr.CAPTURABLE_ENGINES == {"plucker", "band", "quad", "dense", "bvh"}
+    for engine in ("plucker", "band", "quad", "dense", "bvh", "compact", "plucker_plain",
+                   "bvh_plain", "brute"):
         on_card = SimpleNamespace(intersector=engine, device=torch.device("cuda"))
         want = "graph" if engine in gr.CAPTURABLE_ENGINES else "eager"
         assert gr.batch_mode(on_card) == want
@@ -410,7 +411,8 @@ class _HostSyncGuard(TorchFunctionMode):
                                           ("quad", "teapot.txt"),
                                           ("dense", "cornell_box.txt"),
                                           ("plucker", "env_teapot.txt"),
-                                          ("plucker", "glass.txt")])
+                                          ("plucker", "glass.txt"),
+                                          ("bvh", "teapot.txt")])
 def test_capturable_block_makes_no_host_sync(engine, scene, monkeypatch):
     """A block of path-traced and of ReSTIR frames on each capturable
     engine (16x16, depth 2), run once to build the cached constants, then
@@ -421,6 +423,7 @@ def test_capturable_block_makes_no_host_sync(engine, scene, monkeypatch):
     from radish_pt_tpu_torch.accel import dense as dns
     from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.accel import quad as qd
+    from radish_pt_tpu_torch.accel import traverse as trv
     from radish_pt_tpu_torch.config import Tracer
     from radish_pt_tpu_torch.scene.build import load_scene
 
@@ -435,7 +438,7 @@ def test_capturable_block_makes_no_host_sync(engine, scene, monkeypatch):
                 guard.exempt -= 1
         return run
 
-    for mod in (plk, bnd, qd, dns):
+    for mod in (plk, bnd, qd, dns, trv):
         for name in dir(mod):
             if name.endswith("_plain") and callable(getattr(mod, name)):
                 monkeypatch.setattr(mod, name, exempt(getattr(mod, name)))

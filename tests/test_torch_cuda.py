@@ -1,10 +1,11 @@
 """The port's CUDA kernels on the card: build csrc/plucker.cu,
-csrc/compact.cu, csrc/quad.cu, csrc/band.cu and csrc/dense.cu and hold the
-Plücker closest-hit and shadow kernels, the sphere prepass, the compact,
-quad, band and dense closest-hit and shadow kernels against their plain
-torch versions on teapot geometry, then small renders through the kernels
-(teapot, and the other shipped scenes on the Plücker engine) against the
-same renders through the plain versions.
+csrc/compact.cu, csrc/quad.cu, csrc/band.cu, csrc/dense.cu and csrc/bvh.cu
+and hold the Plücker closest-hit and shadow kernels, the sphere prepass,
+the compact, quad, band and dense closest-hit and shadow kernels and the
+three BVH walks against their plain torch versions on teapot geometry,
+then small renders through the kernels (teapot, and the other shipped
+scenes on the Plücker engine) against the same renders through the plain
+versions.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no jax, so it runs
 on a machine without it:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -719,8 +720,78 @@ def test_render_through_dense_kernels_matches_plain(tracer):
     assert np.abs(imgs[0] - imgs[1]).mean() < 2e-3
 
 
+
+# ---------------------------------------------------------------------------
+# the BVH walks (csrc/bvh.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_bvh_kernels_match_plain(teapot_cuda):
+    """The three walks against their plain versions on the teapot's BVH
+    tables (kept on the Plücker scene too): winners, distances and
+    barycentrics, shadow bits and heatmap counts equal bit for bit on
+    every lane, the segments' zero-length lanes never blocked."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    ds, _, o, d, _ = teapot_cuda
+    lt, lm, nodes = ds.leaf_tris, ds.leaf_map, ds.bvh_packed
+    got = trv.intersect_bvh_cuda(lt, lm, nodes, o, d)
+    want = trv.intersect_bvh_plain(lt, lm, nodes, o, d)
+    hk = trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d)
+    hp = trv.intersect_bvh_heatmap_plain(lt, nodes, o, d)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(hk, hp) and int(hk.min()) >= 1
+    assert float((want[0] >= 0).float().mean()) > 0.3
+    pb, tb, bb = trv.intersect_brute(ds.tri_packed, o, d)
+    assert torch.equal(got[0], pb) and torch.equal(got[1], tb) and torch.equal(got[2], bb)
+    y = o + d * torch.linspace(0.5, 6.0, o.shape[0], device=o.device)[:, None]
+    y[::7] = o[::7]
+    so, sd, tm = (t.contiguous() for t in trv.segment_rays(o, y))
+    ok = trv.occlusion_bvh_cuda(lt, nodes, so, sd, tm)
+    op = trv.occlusion_bvh_plain(lt, nodes, so, sd, tm)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, op) and not bool(ok[::7].any())
+    assert 0.05 < float(op.float().mean()) < 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracer", ["pt", "bvh"])
+def test_render_through_bvh_kernels_matches_plain(tracer):
+    """Teapot at 64x64 on the bvh engine through the kernels against the
+    plain walks: equal frames (the path tracer) and equal heatmaps, the
+    kernels launched and no plain call."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(os.path.join(SCENES, "teapot.txt"), device="cuda",
+                            intersector="bvh")
+    cam = cam.replace(width=64, height=64)
+    settings = Settings(tracer=Tracer.STREAMED if tracer == "pt" else Tracer.BVH_VISUALIZE,
+                        trace_depth=3)
+    imgs = []
+    for engine in ("bvh", "bvh_plain"):
+        trv.reset_counts()
+        r = Renderer(ds=ds.replace(intersector=engine), cam=cam, settings=settings,
+                     device="cuda")
+        imgs.append(r.render(spp=2))
+        if engine == "bvh":
+            kinds = ("closest_hit", "occlusion") if tracer == "pt" else ("heatmap",)
+            assert all(trv.LAUNCHES[k] > 0 for k in kinds), trv.LAUNCHES
+            if tracer == "pt":
+                assert trv.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0, "heatmap": 0}
+    assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.05
+    assert np.array_equal(imgs[0], imgs[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine,scene", [("plucker", "teapot.txt"), ("quad", "teapot.txt"),
+                                          ("bvh", "teapot.txt"),
                                           ("dense", "cornell_box.txt"),
                                           ("compact", "teapot.txt")])
 @pytest.mark.parametrize("tracer", ["pt", "restir"])

@@ -107,36 +107,24 @@ def test_renderer_matches_golden():
     assert np.abs(img - golden).mean() < 2e-2
 
 
-def _roadmap_item(message: str) -> str:
-    """The ROADMAP item a refusal names ("ROADMAP queue Q, item I"), as the
-    first line of that item in ROADMAP.md; fails if there is none."""
-    import re
-
-    q, i = re.search(r"ROADMAP queue (\d+), item (\d+)", message).groups()
-    with open(os.path.join(REPO, "ROADMAP.md")) as f:
-        text = f.read()
-    queue = re.search(rf"^### {q}\. .*?(?=^### |\Z)", text, re.S | re.M)
-    assert queue, f"ROADMAP has no queue {q}"
-    item = re.search(rf"^{i}\. (.*)$", queue.group(0), re.M)
-    assert item, f"ROADMAP queue {q} has no item {i}"
-    return item.group(1)
-
-
 def test_renderer_refuses_unported_modes():
-    """What is still refused (the BVH heatmap) raises, naming a ROADMAP
-    item that exists and is about it; the aperture-mask scene (glass),
-    refused until env maps and aperture masks were ported, loads and
-    renders."""
+    """Nothing is refused any more: every tracer of the reference's enum
+    runs a frame through the port's ``Renderer`` (the BVH heatmap, the last
+    refused, included), and the aperture-mask scene (glass), refused until
+    env maps and aperture masks were ported, loads and renders."""
     from radish_pt_tpu_torch.config import Settings, Tracer
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.scene.build import load_scene
 
     ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cpu")
     cam = cam.replace(width=16, height=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-        Renderer(ds=ds, cam=cam, settings=Settings(tracer=Tracer.BVH_VISUALIZE),
-                 device="cpu").step()
-    assert "BVH" in _roadmap_item(str(e.value))
+    for tracer in (v for k, v in vars(Tracer).items() if k.isupper()):
+        r = Renderer(ds=ds, cam=cam, settings=Settings(tracer=tracer, trace_depth=2),
+                     device="cpu")
+        disp = r.step()
+        img = t2n(r.current_image())
+        assert disp.shape == (16, 16, 3) and np.isfinite(img).all(), tracer
+        assert img.max() > 0.0, tracer
     ds, cam, _ = load_scene(os.path.join(SCENES, "glass.txt"), device="cpu")
     assert ds.has_aperture and not ds.has_env
     img = Renderer(ds=ds, cam=cam.replace(width=16, height=16),
