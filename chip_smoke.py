@@ -38,7 +38,11 @@ versions.  Phases:
    plain versions on the band-mask prepass's words) on teapot_hires; the
    dense sweeps on cornell and teapot, bit for bit; the three BVH walks
    (closest hit, heatmap, shadow) on teapot and teapot_hires, ids, t,
-   barycentrics, counts and shadow bits bit for bit; for the Plücker
+   barycentrics, counts and shadow bits bit for bit, the closest hit also
+   with the frame's dead-lane range and on a wavefront that interleaves
+   the six direction classes lane by lane, and the binning kernel's
+   classes against ``bin_by_dir_class``, with the per-thread walk's warp
+   efficiency in raster and in class-binned order; for the Plücker
    sweeps, the compact sweeps, the band sweeps and the quad shadow sweep
    also the (lane, triangle) pairs their wavefronts need when culled per
    row (group, band), per warp and per lane;
@@ -71,7 +75,10 @@ versions.  Phases:
    ``__fadd_rn`` / ``__fsub_rn`` to stay bit-equal to its plain version —
    at the instruction rate: half the f32 peak that counts an FMA as two;
    a walk's operations are its node visits and leaf pairs, counted by the
-   plain walk on the same rays);
+   plain walk on the same rays; every kernel timed one call at a time,
+   the BVH walks and the binning also as 10 calls back to back; with
+   ``--parent DIR``, the BVH walks of the checkout at DIR timed both ways
+   beside this tree's on the same rays);
 7. batched frames (``Renderer.run_block``, ``step_batched_restir``): the
    ReSTIR spatial offsets computed on the card equal to the CPU's for all
    10,000 loopers x 5 neighbours; then per cell — the path tracer on
@@ -92,7 +99,7 @@ Prints a JSON line of per-kernel results, then the card's name and power
 limit, then, as the last line, ``{"ok": true, "device": {...}}``.  Any
 failure raises (non-zero exit).  Needs one CUDA device; imports no jax.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [--parent DIR]
 """
 
 from __future__ import annotations
@@ -167,6 +174,8 @@ REPLACES = {
     "bvh_closest_hit": "radish_pt_tpu/accel/traverse.py:408",
     "bvh_occlusion": "radish_pt_tpu/accel/traverse.py:469",
     "bvh_heatmap": "radish_pt_tpu/accel/traverse.py:570",
+    # the dead-lane sort of intersect_sorted (an XLA sort)
+    "bvh_bin": "radish_pt_tpu/scene/device_scene.py:354",
 }
 # the scene each engine's kernels are timed and bounded on
 KERNEL_SCENE = {"plucker": "teapot", "compact": "teapot_hires", "quad": "teapot_quad",
@@ -204,8 +213,11 @@ def gpu_name_and_power() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events."""
+def cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events; a
+    run is ``inner`` calls back to back, and the time is per call (with
+    ``inner`` > 1 the host's launch latency hides behind the card's work,
+    as in a replayed frame)."""
     import torch
 
     for _ in range(warmup):
@@ -214,10 +226,11 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     for _ in range(reps):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     times.sort()
     return times[len(times) // 2]
 
@@ -648,51 +661,106 @@ def dense_parity(ds, waves, max_err, log, scene):
     return inputs
 
 
+def warp_efficiency(visits, order=None) -> float:
+    """Mean node visits a lane over the mean of each 32-lane warp's most,
+    the lanes taken in launch order or in ``order``: the share of a warp's
+    issue slots a walk of one thread a ray, each warp as long as its
+    longest walk, keeps busy on node visits."""
+    import torch
+
+    v = (visits if order is None else visits[order]).double()
+    if not v.numel():
+        return 1.0
+    pad = torch.zeros((-v.numel()) % 32, dtype=v.dtype, device=v.device)
+    most = torch.cat([v, pad]).view(-1, 32).max(1).values
+    return float(v.mean() / most.mean())
+
+
+def interleave_classes(d, live):
+    """Lane indices that cycle through the six direction classes lane by
+    lane: the k-th live lane of each class in turn, as many rounds as the
+    rarest class has lanes."""
+    import torch
+
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    cls = trv.get_dir_class(-d)
+    by_class = [torch.nonzero(live & (cls == k))[:, 0] for k in range(trv.DIR_CLASSES)]
+    m = min(len(b) for b in by_class)
+    return torch.stack([b[:m] for b in by_class], 1).reshape(-1)
+
+
 def bvh_parity(ds, waves, max_err, log, scene):
-    """Phase 3 on a bvh-engine scene: the three walks against their plain
-    versions on every lane (dead lanes too: a walk reads no range): prim
-    ids, dist and barycentrics bit for bit, heatmap counts and shadow bits
-    equal.  A further plain run of each wavefront counts what the walks do
-    (node visits, leaves, pairs, the rows and leaves touched), which phase
-    6 bounds the kernels by.  Returns the timing inputs."""
+    """Phase 3 on a bvh-engine scene: the walks against their plain versions
+    on every lane, prim ids, dist and barycentrics bit for bit, heatmap
+    counts and shadow bits equal: the closest hit on the primaries, on the
+    bounce-1 extension rays without a range (dead lanes walked as any ray,
+    as PR 12's kernel was timed) and with the frame's dead-lane range
+    (-FLT_MAX: settled as misses by the binning kernel), and on a
+    wavefront that interleaves the six direction classes lane by lane; the
+    heatmap on the primaries and the extension rays; the shadow walk on the
+    NEE segments; the binning kernel's class counts and queue against
+    ``bin_by_dir_class``.  Further plain runs count what the walks do (node
+    visits, leaves, pairs, the rows and leaves touched), which phase 6
+    bounds the kernels by, and give each wavefront's warp efficiency in
+    raster and in class-binned order.  Returns the timing inputs."""
     import torch
 
     from radish_pt_tpu_torch.accel import traverse as trv
 
     lt, lm, nodes = ds.leaf_tris, ds.leaf_map, ds.bvh_packed
+    o_e, d_e, t_e = (t.contiguous() for t in waves["extension"])
+    live_e = t_e >= 0
+    idx = interleave_classes(d_e, live_e)
+    walks = {"primary": (*(t.contiguous() for t in waves["primary"][:2]), None),
+             "extension": (o_e, d_e, None), "extension_ranged": (o_e, d_e, t_e),
+             "interleaved": (o_e[idx].contiguous(), d_e[idx].contiguous(), None)}
     inputs = {}
-    for what in ("primary", "extension"):
-        o, d = (t.contiguous() for t in waves[what][:2])
-        live = waves[what][2] >= 0
-        pk, dk, bk = trv.intersect_bvh_cuda(lt, lm, nodes, o, d)
+    for what, (o, d, tmax) in walks.items():
+        pk, dk, bk = trv.intersect_bvh_cuda(lt, lm, nodes, o, d, tmax)
         pp, dp, bp = plain_run(f"bvh_closest_hit/{what}", scene,
-                               lambda: trv.intersect_bvh_plain(lt, lm, nodes, o, d))
-        hk = trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d)
-        hp = plain_run(f"bvh_heatmap/{what}", scene,
-                       lambda: trv.intersect_bvh_heatmap_plain(lt, nodes, o, d))
+                               lambda: trv.intersect_bvh_plain(lt, lm, nodes, o, d, tmax))
         st = {}
-        trv.intersect_bvh_plain(lt, lm, nodes, o, d, stats=st)
+        trv.intersect_bvh_plain(lt, lm, nodes, o, d, tmax, stats=st)
         torch.cuda.synchronize()
-        n_prim, n_steps = int((pk != pp).sum()), int((hk != hp).sum())
+        n_prim = int((pk != pp).sum())
         ulps = {"dist": max_ulps(dk, dp), "bary": max_ulps(bk, bp)}
         hit = pp >= 0
         err = max(float(torch.abs(dk - dp)[hit].max()) if bool(hit.any()) else 0.0,
                   float(torch.abs(bk - bp).max()))
-        log(f"[parity] bvh closest hit, {scene} {what} (N = {o.shape[0]}, {int((~live).sum())} "
-            f"dead lanes walked as any ray): {n_prim} prim ids differ; hits {int(hit.sum())}, "
-            f"{int((hit & live).sum())} of them live; largest difference {ulps['dist']} ulp "
-            f"on dist, {ulps['bary']} ulp on bary; heatmap: {n_steps} counts differ (mean "
-            f"{float(hp.float().mean()):.2f}, max {int(hp.max())} descended nodes); a lane "
-            f"visits {float(st['visits'].float().mean()):.2f} nodes and "
+        cls_order, _ = trv.bin_by_dir_class(d, tmax)
+        eff = (warp_efficiency(st["visits"]), warp_efficiency(st["visits"], cls_order))
+        settled = 0 if tmax is None else int((~(tmax > 0)).sum())
+        log(f"[parity] bvh closest hit, {scene} {what} (N = {o.shape[0]}, {settled} lanes "
+            f"settled up front): {n_prim} prim ids differ; hits {int(hit.sum())}; largest "
+            f"difference {ulps['dist']} ulp on dist, {ulps['bary']} ulp on bary; a lane visits "
+            f"{float(st['visits'].float().mean()):.2f} nodes and "
             f"{float(st['leaf_visits'].float().mean()):.3f} leaves, "
             f"{int(st['rows'].sum())} of {nodes.shape[0]} node rows and "
-            f"{int(st['leaves'].sum())} of {lt.shape[0]} leaves touched")
+            f"{int(st['leaves'].sum())} of {lt.shape[0]} leaves touched; warp efficiency "
+            f"of a thread a ray (mean visits / mean warp-maximum visits): raster order "
+            f"{eff[0]:.3f}, class-binned live lanes {eff[1]:.3f}")
         assert n_prim == 0, f"bvh closest hit, {scene} {what}: prim parity"
         assert ulps == {"dist": 0, "bary": 0}, f"bvh {scene} {what}: not bit-equal"
-        assert n_steps == 0, f"bvh heatmap, {scene} {what}: count parity"
+        if tmax is not None:
+            dead = ~(tmax > 0)
+            assert bool((pk[dead] == -1).all()) and bool((dk[dead] == trv.FLT_MAX).all())
+            assert not bool(st["visits"][dead].any())
         max_err["bvh_closest_hit"] = max(max_err["bvh_closest_hit"], err)
+        inputs[what] = (o, d, tmax, st)
+    assert torch.equal(inputs["extension_ranged"][3]["visits"][live_e],
+                       inputs["extension"][3]["visits"][live_e])
+    for what in ("primary", "extension"):
+        o, d, _, _ = inputs[what]
+        hk = trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d)
+        hp = plain_run(f"bvh_heatmap/{what}", scene,
+                       lambda: trv.intersect_bvh_heatmap_plain(lt, nodes, o, d))
+        torch.cuda.synchronize()
+        n_steps = int((hk != hp).sum())
+        log(f"[parity] bvh heatmap, {scene} {what}: {n_steps} counts differ (mean "
+            f"{float(hp.float().mean()):.2f}, max {int(hp.max())} descended nodes)")
+        assert n_steps == 0, f"bvh heatmap, {scene} {what}: count parity"
         max_err["bvh_heatmap"] = max(max_err["bvh_heatmap"], float(n_steps))
-        inputs[what] = (o, d, st)
     x, y, live = waves["segments"]
     so, sd, tm = (t.contiguous() for t in trv.segment_rays(x, y))
     ok_k = trv.occlusion_bvh_cuda(lt, nodes, so, sd, tm)
@@ -702,16 +770,92 @@ def bvh_parity(ds, waves, max_err, log, scene):
     trv.occlusion_bvh_plain(lt, nodes, so, sd, tm, stats=st)
     torch.cuda.synchronize()
     n_diff = int((ok_k != ok_p).sum())
+    live_s = tm > 0
+    seg_order, _ = trv.bin_by_dir_class(sd, tm)
     log(f"[parity] bvh occlusion, {scene} NEE segments: {n_diff} / {ok_k.numel()} bits "
         f"differ; occluded {int((ok_p & live).sum())} of {int(live.sum())} live; "
-        f"{int(ok_k[~live].sum())} masked (zero-length) segments read as blocked; a lane "
-        f"visits {float(st['visits'].float().mean()):.2f} nodes, tests "
-        f"{float(st['pairs'].float().mean()):.2f} (lane, triangle) pairs")
+        f"{int(ok_k[~live].sum())} masked (zero-length) segments read as blocked, "
+        f"{int((~live_s).sum())} segments settled up front; a lane visits "
+        f"{float(st['visits'].float().mean()):.2f} nodes, tests "
+        f"{float(st['pairs'].float().mean()):.2f} (lane, triangle) pairs; warp efficiency: "
+        f"raster order {warp_efficiency(st['visits']):.3f}, class-binned live lanes "
+        f"{warp_efficiency(st['visits'], seg_order):.3f}")
     assert n_diff == 0, f"bvh occlusion, {scene}: shadow parity"
     assert not bool(ok_k[~live].any()), "a zero-length segment was blocked"
     max_err["bvh_occlusion"] = max(max_err["bvh_occlusion"], float(n_diff))
     inputs["segments"] = (so, sd, tm, st)
+    # the binning kernel on the frame's two ranged wavefronts
+    for what, (d, tmax) in {"extension_ranged": (d_e, t_e), "segments": (sd, tm)}.items():
+        queue, counts = trv.bin_by_dir_class_cuda(d, tmax)
+        order, want = plain_run(f"bvh_bin/{what}", scene,
+                                lambda: trv.bin_by_dir_class(d, tmax))
+        torch.cuda.synchronize()
+        bounds = [0, *torch.cumsum(want, 0).tolist()]
+        n_bad = int((counts.long() != want).sum()) + sum(
+            int((torch.sort(queue[a:b].long()).values != order[a:b]).sum())
+            for a, b in zip(bounds, bounds[1:]))
+        log(f"[parity] bvh binning, {scene} {what}: class counts {counts.tolist()} (plain "
+            f"{want.tolist()}), {int(tmax.numel() - want.sum())} lanes settled; {n_bad} counts "
+            f"or queue entries differ from bin_by_dir_class's classes")
+        assert n_bad == 0 and queue.numel() == order.numel(), f"bvh binning, {scene} {what}"
+        max_err["bvh_bin"] = max(max_err["bvh_bin"], float(n_bad))
     return inputs
+
+
+# (kernel/wavefront key, scene) -> ms of the parent checkout's kernel on the
+# same inputs, (one call, a call of 10 back to back) (phase 6, --parent)
+PARENT_MS = {}
+# (kernel/wavefront key, scene) -> ms a call of 10 calls back to back: the
+# BVH walks and the binning, beside the one-call time of every kernel
+BACK_TO_BACK_MS = {}
+
+
+def parent_library(parent: str):
+    """The BVH walks of the checkout at ``parent``: its csrc/bvh.cu built
+    with this tree's nvcc flags into the build directory and loaded with
+    the C interface of the walks before the binning kernel (one thread a
+    ray; no range for the closest hit, no workspace)."""
+    import ctypes
+
+    from radish_pt_tpu_torch.accel import _build
+
+    src = os.path.join(os.path.abspath(parent), "radish_pt_tpu_torch", "csrc", "bvh.cu")
+    out = os.path.join(_build.BUILD_DIR, "libbvh_parent.so")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, src], check=True,
+                   capture_output=True, timeout=300)
+    lib = ctypes.CDLL(out)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bvh_closest_hit.argtypes = [p, i, p, i, p, p, i, p, p, p, p, p]
+    lib.bvh_occlusion.argtypes = [p, i, p, i, p, p, i, p, p, p]
+    return lib
+
+
+def parent_walk(lib, ds, o, d, tm=None):
+    """The parent's closest hit on rays ``o``, ``d`` (prim, dist, bary) or,
+    with the range ``tm``, its shadow walk (bool)."""
+    import ctypes
+
+    import torch
+
+    p = ctypes.c_void_p
+    n, dev = o.shape[0], o.device
+    args = [p(ds.bvh_packed.data_ptr()), ds.bvh_packed.shape[0] // 6,
+            p(ds.leaf_tris.data_ptr()), ds.leaf_tris.shape[1] // 9, p(o.data_ptr()),
+            p(d.data_ptr()), n]
+    stream = p(torch.cuda.current_stream(dev).cuda_stream)
+    if tm is None:
+        out = (torch.empty((n,), dtype=torch.int32, device=dev),
+               torch.empty((n,), dtype=torch.float32, device=dev),
+               torch.empty((n, 2), dtype=torch.float32, device=dev))
+        err = lib.bvh_closest_hit(*args, p(ds.leaf_map.data_ptr()),
+                                  *(p(t.data_ptr()) for t in out), stream)
+    else:
+        out = torch.empty((n,), dtype=torch.int32, device=dev)
+        err = lib.bvh_occlusion(*args, p(tm.data_ptr()), p(out.data_ptr()), stream)
+        out = out.bool()
+    assert err == 0, f"the parent's walk: CUDA error {err}"
+    return out
 
 
 def walk_work(ds, st, n, io_bytes):
@@ -867,13 +1011,15 @@ def traced_block(fn):
         end.record()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kinds = {"closest_hit": 0, "occlusion": 0}
+    kinds = {"closest_hit": 0, "occlusion": 0, "bin": 0}
     for e in kernels:  # the sweep kernels by name; the sphere prepass is neither
         stage = next((st for frag, st in STAGES if frag in e.name), "")
         if "closest" in stage:
             kinds["closest_hit"] += 1
         elif "shadow" in stage:
             kinds["occlusion"] += 1
+        elif stage == "bvh binning":
+            kinds["bin"] += 1
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     return kinds, busy_ms, start.elapsed_time(end), len(kernels)
 
@@ -931,6 +1077,7 @@ def batched_phase(scenes, log, card):
         summed time over the block's CUDA-event time under the profiler
         (which slows the host: the eager frames' share reads low); beside
         it, logged, the same kernel time over the unprofiled block."""
+        expect = {"bin": 0, **expect}  # the binning kernel: the bvh engine's alone
         eager_ms = cuda_ms(lambda: [eager.step() for _ in range(block)], reps=3) / block
         batch_ms = cuda_ms(lambda: batched.run_block(block), reps=3) / block
         kinds, busy, wall, ops = traced_block(lambda: batched.run_block(block))
@@ -971,12 +1118,14 @@ def batched_phase(scenes, log, card):
         for _ in range(2):
             run = batched.run_block(block)
         torch.cuda.synchronize()
-        launches = {k: module.LAUNCHES[k] for k in ("closest_hit", "occlusion")}
+        per = {"closest_hit": block * (depth + 1), "occlusion": block * depth}
+        if ds.intersector == "bvh":  # the binning kernel's two passes before each walk
+            per["bin"] = 2 * (per["closest_hit"] + per["occlusion"])
+        launches = {k: module.LAUNCHES[k] for k in per}
         for _ in range(2 * block):
             eager.step()
         torch.cuda.synchronize()
         differ = states_equal(eager, batched)
-        per = {"closest_hit": block * (depth + 1), "occlusion": block * depth}
         # graph: the warm-up block and two replays; eager: two blocks
         want = {k: (3 if mode == "graph" else 2) * v for k, v in per.items()}
         per_replay = run.launches_per_replay().get(ds.intersector)
@@ -1051,8 +1200,15 @@ def batched_phase(scenes, log, card):
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    ap.add_argument("--parent", help="a checkout of the parent commit: its BVH walks are "
+                    "built and timed beside this tree's in phase 6")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1295,10 +1451,13 @@ def main() -> int:
     # closest hits, 8 shadow sweeps a frame), the others at 5
     launches_other = {name: plucker_path((name,))[0] for name in OTHER_SCENES}
     main_path(scenes, ("cornell_dense", "teapot_dense"), dns, log)
-    walks = ("closest_hit", "occlusion")  # the heatmap walk: the heatmap tracer's
+    walks = ("closest_hit", "occlusion", "bin")  # the heatmap walk: the heatmap tracer's
     launches["bvh"] = sweep_path(("cornell_bvh", "teapot_bvh"), trv, walks)
     launches_hires_bvh = sweep_path(("teapot_hires_bvh",), trv, walks)
-    assert launches["bvh"][0]["heatmap"] == launches_hires_bvh[0]["heatmap"] == 0
+    for n_launch, _ in (launches["bvh"], launches_hires_bvh):
+        assert n_launch["heatmap"] == 0
+        # the binning kernel's two passes before each closest hit and shadow walk
+        assert n_launch["bin"] == 2 * (n_launch["closest_hit"] + n_launch["occlusion"]), n_launch
 
     # the BVH heatmap tracer (Renderer, the pinhole rays in raster order): one
     # heatmap walk a frame through the kernel, no other launch and no plain
@@ -1325,7 +1484,7 @@ def main() -> int:
             f"[{float(img[:, 0].min()):.4f}, {float(img[:, 0].max()):.4f}], mean "
             f"{float(img[:, 0].mean()):.5f}; equal to the plain walk's image: {same}")
         assert launches_heatmap[name][0] == {"closest_hit": 0, "occlusion": 0,
-                                             "heatmap": heat_frames}
+                                             "heatmap": heat_frames, "bin": 0}
         assert not any(plain.values()), "a plain walk ran on the heatmap's path"
         assert bool(torch.isfinite(img).all()) and float(img[:, 0].max()) == 1.0
         assert same, f"{name}: the heatmap differs from the plain walk's"
@@ -1530,10 +1689,13 @@ def main() -> int:
     # per kernel and wavefront: (kernel ms, plain ms, flops, bytes, peak)
     timed = {}
 
-    def time_kernel(key, kernel, flops, nbytes_, scene=None, peak=PEAK_F32_FLOPS):
+    def time_kernel(key, kernel, flops, nbytes_, scene=None, peak=PEAK_F32_FLOPS,
+                    back_to_back=False):
         scene = scene or KERNEL_SCENE[key.split("_")[0]]
         # the plain version's time: its one run in phase 3 (PLAIN_MS)
         timed[key, scene] = (cuda_ms(kernel, 5), PLAIN_MS[key, scene], flops, nbytes_, peak)
+        if back_to_back:
+            BACK_TO_BACK_MS[key, scene] = cuda_ms(kernel, 5, inner=10)
 
     # (key, scene) -> [(what a further bound is over, its ms)], logged and
     # written beside the first
@@ -1693,32 +1855,60 @@ def main() -> int:
                 ("the f32 peak counting an FMA as two flops", bound(flops, nb)[0])]
     # the BVH walks issue unfused single operations: bounded at the
     # instruction rate over the node visits and leaf pairs the plain walk
-    # counted, the node rows and leaves any lane touched read once; beside
-    # it the bytes of every visit's row and leaf
+    # counted (on the ranged wavefronts, with the dead lanes settled), the
+    # node rows and leaves any lane touched read once; beside it the bytes
+    # of every visit's row and leaf.  The binning kernel: the rays'
+    # directions and ranges read once, the queue written once.  With
+    # --parent, the parent checkout's walks on the same rays (its closest
+    # hit unranged: it walked every lane of the frame's wavefronts).  Each
+    # timed one call at a time, as every kernel of the line, and as 10 calls
+    # back to back (the host's launch latency hidden: the binning makes a
+    # walk's wrapper a memset, three launches and a workspace)
+    parent = parent_library(args.parent) if args.parent else None
+
+    def both_ms(fn):
+        return cuda_ms(fn, 5), cuda_ms(fn, 5, inner=10)
+
     for scene in ("teapot_bvh", "teapot_hires_bvh"):
         ds = scenes[scene][0]
         lt, lm, nodes = ds.leaf_tris, ds.leaf_map, ds.bvh_packed
         work = {}
-        for what in ("primary", "extension"):
-            o, d, st = inputs["bvh"][scene][what]
-            # rays in, (prim, dist, bary) out and the winner's leaf_map entry
-            flops, once, every = walk_work(ds, st, o.shape[0], 24 + 20)
+        for what in ("primary", "extension", "extension_ranged", "interleaved"):
+            o, d, tmax, st = inputs["bvh"][scene][what]
+            # rays (and ranges) in, (prim, dist, bary) out and the winner's
+            # leaf_map entry
+            flops, once, every = walk_work(ds, st, o.shape[0], 24 + 20 + 4 * (tmax is not None))
             work[f"bvh_closest_hit/{what}"] = (
-                lambda o=o, d=d: trv.intersect_bvh_cuda(lt, lm, nodes, o, d), flops, once,
-                every)
-            flops, once, every = walk_work(ds, st, o.shape[0], 24 + 4)
-            work[f"bvh_heatmap/{what}"] = (
-                lambda o=o, d=d: trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d), flops, once,
-                every)
+                lambda o=o, d=d, tmax=tmax: trv.intersect_bvh_cuda(lt, lm, nodes, o, d, tmax),
+                flops, once, every)
+            if parent is not None:
+                same = torch.equal(parent_walk(parent, ds, o, d)[0],
+                                   trv.intersect_bvh_cuda(lt, lm, nodes, o, d)[0])
+                assert same, f"the parent's closest hit differs, {scene} {what}"
+                PARENT_MS[f"bvh_closest_hit/{what}", scene] = both_ms(
+                    lambda o=o, d=d: parent_walk(parent, ds, o, d))
+            if what in ("primary", "extension"):
+                flops, once, every = walk_work(ds, st, o.shape[0], 24 + 4)
+                work[f"bvh_heatmap/{what}"] = (
+                    lambda o=o, d=d: trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d), flops,
+                    once, every)
         so, sd, tm, st = inputs["bvh"][scene]["segments"]
         flops, once, every = walk_work(ds, st, so.shape[0], 28 + 4)
         work["bvh_occlusion/segments"] = (
             lambda: trv.occlusion_bvh_cuda(lt, nodes, so, sd, tm), flops, once, every)
+        if parent is not None:
+            PARENT_MS["bvh_occlusion/segments", scene] = both_ms(
+                lambda: parent_walk(parent, ds, so, sd, tm))
         for key, (kernel, flops, once, every) in work.items():
-            time_kernel(key, kernel, flops, once, scene, PEAK_F32_OPS_UNFUSED)
+            time_kernel(key, kernel, flops, once, scene, PEAK_F32_OPS_UNFUSED, back_to_back=True)
             other_bounds[key, scene] = [
                 ("every visit's node row (32 B) and leaf (576 B) from device memory",
                  bound(flops, every, PEAK_F32_OPS_UNFUSED)[0])]
+        for what, (d, tmax) in {"extension_ranged": inputs["bvh"][scene]["extension_ranged"][1:3],
+                                "segments": (sd, tm)}.items():
+            live = int((tmax > 0).sum())
+            time_kernel(f"bvh_bin/{what}", lambda d=d, tmax=tmax: trv.bin_cuda(d, tmax), 0.0,
+                        nbytes(d, tmax) + 4 * live, scene, back_to_back=True)
     ds, cam = scenes["teapot_bvh"]
     r = Renderer(ds=ds, cam=cam, desc=None, settings=Settings(tracer=Tracer.BVH_VISUALIZE),
                  device=dev)
@@ -1731,8 +1921,16 @@ def main() -> int:
         b_ms, b_by = bound(flops, nb, peak)
         also = "".join(f"; bound over {o_name} {o_ms:.3f} ms"
                        for o_name, o_ms in other_bounds.get((key, scene), ()))
+        if (key, scene) in BACK_TO_BACK_MS:
+            also += f"; 10 calls back to back {BACK_TO_BACK_MS[key, scene]:.3f} ms a call"
+        if (key, scene) in PARENT_MS:
+            one, b2b = PARENT_MS[key, scene]
+            also += (f"; the parent's kernel {one:.3f} ms one call ({one / k:.2f}x this one's), "
+                     f"{b2b:.3f} ms back to back ({b2b / BACK_TO_BACK_MS[key, scene]:.2f}x)")
+        elif name.startswith("bvh_") and name != "bvh_bin":
+            also += "; the parent's kernel: not timed (no --parent)"
         log(f"[timing] {name}, {scene} {what}: kernel "
-            f"{k:.3f} ms, plain {p:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
+            f"{k:.3f} ms one call, plain {p:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
             f"{flops / 1e9:.2f} G operations at {peak / 1e12:.1f} T/s, {nb / 1e6:.2f} MB), "
             f"kernel at {100 * b_ms / k:.1f}% of it{also} ({card})")
 
@@ -1742,7 +1940,7 @@ def main() -> int:
     rows = []
     for name in REPLACES:
         lib, kind = name.split("_", 1)
-        what = "segments" if kind == "occlusion" else "primary"
+        what = {"occlusion": "segments", "bin": "extension_ranged"}.get(kind, "primary")
         k, p, flops, nb, peak = timed[f"{name}/{what}", KERNEL_SCENE[lib]]
         b_ms, b_by = bound(flops, nb, peak)
         # the heatmap's main path is the heatmap tracer's frames
@@ -1756,7 +1954,16 @@ def main() -> int:
                      "shape": f"{KERNEL_SCENE[lib]} {what}",
                      "other_bounds": other(f"{name}/{what}", KERNEL_SCENE[lib])})
         if lib == "bvh":
-            rows[-1]["stage"] = "an XLA walk of the JAX package (no Pallas body)"
+            rows[-1]["stage"] = (f"an XLA {'sort' if kind == 'bin' else 'walk'} of the JAX "
+                                 f"package (no Pallas body)")
+            # every wavefront it was timed on, with the parent's kernel (--parent)
+            rows[-1]["wavefronts"] = {
+                f"{scene} {key.split('/')[1]}": {
+                    "ms": t[0], "ms_back_to_back": BACK_TO_BACK_MS.get((key, scene)),
+                    "plain_ms": t[1], "bound_ms": bound(t[2], t[3], t[4])[0],
+                    "parent_ms": PARENT_MS.get((key, scene), (None, None))[0],
+                    "parent_ms_back_to_back": PARENT_MS.get((key, scene), (None, None))[1]}
+                for (key, scene), t in timed.items() if key.split("/")[0] == name}
         if lib in ("plucker", "bvh"):  # the same kernel on the largest scene of its engine
             scene = f"teapot_hires_{lib}"
             k, p, flops, nb, peak = timed[f"{name}/{what}", scene]

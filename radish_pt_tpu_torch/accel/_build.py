@@ -64,10 +64,13 @@ SIGNATURES = {
         "dense_occlusion": [_P, _I, _P, _P, _P, _I, _P, _P],
     },
     "bvh": {
-        # nodes, B, leaf_tris, L, ray_o, ray_d, N, then leaf_map, prim, dist,
-        # bary | tmax, occ | steps, stream
-        "bvh_closest_hit": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P],
-        "bvh_occlusion": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P],
+        # ray_d, tmax (or NULL), N, dead lanes' output kind, (prim, dist, bary
+        # | occ | NULL), ws (queue and counters), stream
+        "bvh_bin": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+        # nodes, B, leaf_tris, L, ray_o, ray_d, N, then tmax (or NULL),
+        # leaf_map, prim, dist, bary, ws | tmax, occ, ws | steps, stream
+        "bvh_closest_hit": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+        "bvh_occlusion": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P],
         "bvh_heatmap": [_P, _I, _P, _I, _P, _P, _I, _P, _P],
     },
 }

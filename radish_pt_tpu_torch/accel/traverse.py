@@ -18,13 +18,19 @@ Port of ``radish_pt_tpu/accel/traverse.py``:
   compaction that work round XLA's gathers; the port has no such stages.
   Each walk has two implementations with one contract: ``*_plain``, a
   lockstep torch walk that tests a leaf the step it reaches it, and
-  ``*_cuda``, the hand-written kernels of ``csrc/bvh.cu`` (one thread a
-  ray, every operation rounded as the plain version rounds it, so ids,
-  distances, barycentrics, shadow bits and counts are its bits).  The
-  entry points ``intersect_bvh`` / ``occlusion_bvh`` /
+  ``*_cuda``, the hand-written kernels of ``csrc/bvh.cu`` (every
+  operation rounded as the plain version rounds it, so ids, distances,
+  barycentrics, shadow bits and counts are its bits): the closest hit and
+  the any-hit walk run as persistent warps over a class-major queue of the
+  live lanes, which the binning kernel (``bin_by_dir_class_cuda``; plain
+  version :func:`bin_by_dir_class`) builds first; the heatmap walks one
+  thread a ray.  A lane whose range is not above 0 can meet no triangle
+  (a pair counts only at 0 < t < range) and is settled before its walk, by
+  either version.  The entry points ``intersect_bvh`` / ``occlusion_bvh`` /
   ``intersect_bvh_heatmap`` take the plain version for CPU tensors and
-  launch the kernel (or raise) for CUDA tensors; ``LAUNCHES`` counts
-  kernel launches and ``PLAIN_CALLS`` plain-version calls, per walk.
+  launch the kernels (or raise) for CUDA tensors; ``LAUNCHES`` counts
+  kernel launches (two a binning: its count and scatter passes) and
+  ``PLAIN_CALLS`` plain-version calls, per walk and for the binning.
 """
 
 from __future__ import annotations
@@ -188,8 +194,10 @@ def _slab_core(bminx, bminy, bminz, bmaxx, bmaxy, bmaxz, ox, oy, oz, ix, iy, iz)
 FLOPS_PER_NODE = 31
 FLOPS_PER_PAIR = 55
 NODE_BYTES = 32  # a row of the node table
-LAUNCHES = {"closest_hit": 0, "occlusion": 0, "heatmap": 0}
-PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0, "heatmap": 0}
+LAUNCHES = {"closest_hit": 0, "occlusion": 0, "heatmap": 0, "bin": 0}
+PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0, "heatmap": 0, "bin": 0}
+DIR_CLASSES = 6
+WS_COUNTERS = 16  # int32 counters after the binning kernel's queue (csrc/bvh.cu)
 
 
 def reset_counts() -> None:
@@ -198,21 +206,25 @@ def reset_counts() -> None:
             d[k] = 0
 
 
-def _walk(leaf_tris, bvh_packed, ray_o, ray_d, max_dist=None, stats=None):
+def _walk(leaf_tris, bvh_packed, ray_o, ray_d, tmax=None, any_hit=False, stats=None):
     """The stackless MTBVH walk (scene.h:262-372) of every lane in
     lockstep, one node a step: a lane descends (``node + 1``) where the
-    node's box is hit nearer than its current best (or its range
-    ``max_dist``), else it jumps to ``miss``, and it is done at node B.  A
-    leaf it descends into is tested at once, all L slots by Möller–Trumbore
-    (``_mt_core``), and the first minimum in slot order replaces the best
-    when strictly nearer.  With ``max_dist`` (any-hit) a lane is done at
-    its first leaf with a hit below its range.
+    node's box is hit nearer than its current best (at first its range
+    ``tmax``, else FLT_MAX), else it jumps to ``miss``, and it is done at
+    node B.  A leaf it descends into is tested at once, all L slots by
+    Möller–Trumbore (``_mt_core``), and the first minimum in slot order
+    replaces the best when strictly nearer.  With ``any_hit`` a lane is
+    done at its first leaf with a hit below its range.  A lane whose range
+    is not above 0 (or NaN) is settled before its walk, with no visit: a
+    pair counts only at 0 < t < range, so it can meet no triangle (a
+    closest hit's dead lane, ``tmax = -FLT_MAX``, is a miss).
 
-    Returns (slot i64 [N] (-1: none), dist, bx, by, steps i32 [N]: the
-    nodes each lane descended into, blocked bool [N]).  ``stats`` (a
-    dict) receives per lane the node visits, the leaves tested and the
-    (lane, triangle) pairs tested (an any-hit lane's last leaf up to its
-    blocking slot), and which node rows and leaves any lane touched."""
+    Returns (slot i64 [N] (-1: none), dist (the best hit's t, FLT_MAX
+    without one), bx, by, steps i32 [N]: the nodes each lane descended
+    into, blocked bool [N]).  ``stats`` (a dict) receives per lane the node
+    visits, the leaves tested and the (lane, triangle) pairs tested (an
+    any-hit lane's last leaf up to its blocking slot), and which node rows
+    and leaves any lane touched."""
     size = bvh_packed.shape[0] // 6
     L = leaf_tris.shape[1] // 9
     n, dev = ray_o.shape[0], ray_o.device
@@ -222,8 +234,7 @@ def _walk(leaf_tris, bvh_packed, ray_o, ray_d, max_dist=None, stats=None):
     d = [ray_d[:, k] for k in range(3)]
     inv = [1.0 / c for c in d]
     node = torch.zeros(n, dtype=torch.int64, device=dev)
-    any_hit = max_dist is not None
-    c_dist = (max_dist.clone() if any_hit
+    c_dist = (tmax.clone() if tmax is not None
               else torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev))
     slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
     bx = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -237,6 +248,8 @@ def _walk(leaf_tris, bvh_packed, ray_o, ray_d, max_dist=None, stats=None):
         rows_seen = torch.zeros(rows_i.shape[0], dtype=torch.bool, device=dev)
         leaves_seen = torch.zeros(leaf_tris.shape[0], dtype=torch.bool, device=dev)
     act = torch.arange(n, device=dev)
+    if tmax is not None:
+        act = act[c_dist > 0]
     while act.numel():
         r = base[act] + node[act]
         row = rows_i[r]
@@ -257,7 +270,7 @@ def _walk(leaf_tris, bvh_packed, ray_o, ray_d, max_dist=None, stats=None):
             h, t, b0, b1 = _mt_core(*tri.unbind(-1), *(c[la, None] for c in o),
                                     *(c[la, None] for c in d))
             if any_hit:
-                blk = h & (t < max_dist[la, None])
+                blk = h & (t < tmax[la, None])
                 newly = blk.any(1)
                 blocked[la] = newly
                 if stats is not None:
@@ -285,20 +298,24 @@ def _walk(leaf_tris, bvh_packed, ray_o, ray_d, max_dist=None, stats=None):
     if stats is not None:
         stats.update(visits=visits, leaf_visits=leaf_visits, pairs=pairs, rows=rows_seen,
                      leaves=leaves_seen)
-    return slot, c_dist, bx, by, steps, blocked
+    return slot, torch.where(slot >= 0, c_dist, FLT_MAX), bx, by, steps, blocked
 
 
-def intersect_bvh_plain(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d, stats=None):
+def intersect_bvh_plain(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d, tmax=None,
+                        stats=None):
     """Closest hit by the MTBVH walk (``DevScene::intersect``, scene.h:262-301)
     over the packed node table ``bvh_packed`` f32 [6B, 8] and the padded
     leaf-major triangles ``leaf_tris`` f32 [R, L*9]; ``leaf_map`` i32 [R*L]
-    maps a slot to its stored triangle.  Returns (prim i32 [N], dist f32
+    maps a slot to its stored triangle.  ``tmax`` (f32 [N], optional) is
+    each lane's range: only hits below it count, and a lane whose range is
+    not above 0 (a dead lane: ``-FLT_MAX``, as the sweeps take it) is
+    settled as a miss before its walk.  Returns (prim i32 [N], dist f32
     [N], bary f32 [N, 2]); a miss is (-1, FLT_MAX, (0, 0)).  The JAX
     package's ``intersect_bvh`` visits more nodes (its deferred leaves
     prune with a stale best) but tests the same leaves in the same order,
     so it returns the same winners."""
     PLAIN_CALLS["closest_hit"] += 1
-    slot, dist, bx, by, _, _ = _walk(leaf_tris, bvh_packed, ray_o, ray_d, stats=stats)
+    slot, dist, bx, by, _, _ = _walk(leaf_tris, bvh_packed, ray_o, ray_d, tmax, stats=stats)
     prim = torch.where(slot >= 0, leaf_map[torch.clamp(slot, min=0)], NULL_PRIMITIVE)
     return prim.to(torch.int32), dist, torch.stack([bx, by], dim=-1)
 
@@ -307,9 +324,10 @@ def occlusion_bvh_plain(leaf_tris, bvh_packed, ray_o, ray_d, tmax, stats=None):
     """Any-hit by the MTBVH walk (``DevScene::testOcclusion``,
     scene.h:303-334): True where some triangle is hit at t < ``tmax`` f32
     [N]; a lane descends into boxes entered before ``tmax`` and stops at
-    its first blocking leaf."""
+    its first blocking leaf.  A lane whose range is not above 0 (or NaN) is
+    never blocked and walks nothing."""
     PLAIN_CALLS["occlusion"] += 1
-    return _walk(leaf_tris, bvh_packed, ray_o, ray_d, max_dist=tmax, stats=stats)[5]
+    return _walk(leaf_tris, bvh_packed, ray_o, ray_d, tmax, any_hit=True, stats=stats)[5]
 
 
 def intersect_bvh_heatmap_plain(leaf_tris, bvh_packed, ray_o, ray_d, stats=None):
@@ -317,6 +335,21 @@ def intersect_bvh_heatmap_plain(leaf_tris, bvh_packed, ray_o, ray_d, stats=None)
     (``DevScene::visualizedIntersect``, scene.h:336-372)."""
     PLAIN_CALLS["heatmap"] += 1
     return _walk(leaf_tris, bvh_packed, ray_o, ray_d, stats=stats)[4]
+
+
+def bin_by_dir_class(ray_d, tmax=None):
+    """The live lanes (range above 0; every lane without ``tmax``) in a
+    stable class-major order: (order i64 [live], counts i64 [6]), the
+    classes ``get_dir_class(-ray_d)``, the threaded order each lane walks.
+    The plain version of the binning kernel (``bvh_bin_kernel``), whose
+    order within a class may differ: it keeps launch order only within a
+    warp's and a block's share of a class."""
+    PLAIN_CALLS["bin"] += 1
+    cls = get_dir_class(-ray_d).long()
+    live = torch.ones_like(cls, dtype=torch.bool) if tmax is None else tmax > 0
+    key = torch.where(live, cls, DIR_CLASSES)
+    order = torch.argsort(key, stable=True)[: int(live.sum())]
+    return order, torch.bincount(cls[live], minlength=DIR_CLASSES)
 
 
 # ---------------------------------------------------------------------------
@@ -345,50 +378,112 @@ def _check_walk_inputs(leaf_tris, bvh_packed, ray_o, ray_d, *extra):
                          f"{tuple(ray_d.shape)}")
 
 
-def _walk_launch(fn, what, leaf_tris, bvh_packed, ray_o, ray_d, *args):
+def _ptr(t):
+    import ctypes
+
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _launch(fn, device, *args):
+    """C entry point ``fn`` of csrc/bvh.cu on the current stream of
+    ``device``; raises on a refused launch."""
     import ctypes
 
     from ._build import load_library
     from .dense import _raise_on
 
     lib = load_library("bvh")
-    stream = torch.cuda.current_stream(ray_o.device).cuda_stream
-    ptr = [ctypes.c_void_p(a.data_ptr()) for a in args]
-    with torch.cuda.device(ray_o.device):
-        err = getattr(lib, fn)(
-            ctypes.c_void_p(bvh_packed.data_ptr()), ctypes.c_int(bvh_packed.shape[0] // 6),
-            ctypes.c_void_p(leaf_tris.data_ptr()), ctypes.c_int(leaf_tris.shape[1] // 9),
-            ctypes.c_void_p(ray_o.data_ptr()), ctypes.c_void_p(ray_d.data_ptr()),
-            ctypes.c_int(ray_o.shape[0]), *ptr, ctypes.c_void_p(stream))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
     _raise_on(err, fn)
+
+
+# what the binning kernel writes for a dead lane (csrc/bvh.cu DeadOut)
+MISS_OUT, UNBLOCKED_OUT, NO_OUT = 0, 1, 2
+
+
+def bin_cuda(ray_d, tmax, dead_out=NO_OUT, outs=(None, None, None)):
+    """The binning kernel (``bvh_bin`` in csrc/bvh.cu, two passes) on
+    ``ray_d`` and ``tmax`` (None: every lane live), no host sync: returns
+    its workspace, i32 [N + WS_COUNTERS]: the live lanes' queue, then the
+    counters (lanes per class, dead lanes); a dead lane's result goes to
+    ``outs`` as ``dead_out`` says (MISS_OUT: (prim, dist, bary);
+    UNBLOCKED_OUT: (occ, None, None))."""
+    import ctypes
+
+    n = ray_d.shape[0]
+    ws = torch.empty((n + WS_COUNTERS,), dtype=torch.int32, device=ray_d.device)
+    _launch("bvh_bin", ray_d.device, _ptr(ray_d), _ptr(tmax), ctypes.c_int(n),
+            ctypes.c_int(dead_out), *(_ptr(t) for t in outs), _ptr(ws))
+    LAUNCHES["bin"] += 2 if n else 0  # the kernel's two passes (count, scatter)
+    return ws
+
+
+def _walk_launch(fn, what, leaf_tris, bvh_packed, ray_o, ray_d, *args):
+    import ctypes
+
+    _launch(fn, ray_o.device, _ptr(bvh_packed), ctypes.c_int(bvh_packed.shape[0] // 6),
+            _ptr(leaf_tris), ctypes.c_int(leaf_tris.shape[1] // 9), _ptr(ray_o), _ptr(ray_d),
+            ctypes.c_int(ray_o.shape[0]), *(_ptr(a) for a in args))
     LAUNCHES[what] += 1
 
 
-def intersect_bvh_cuda(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d):
-    """The closest-hit kernel (``bvh_closest_hit`` in csrc/bvh.cu); same
-    contract as :func:`intersect_bvh_plain`."""
-    _check_walk_inputs(leaf_tris, bvh_packed, ray_o, ray_d, ("leaf_map", leaf_map, torch.int32))
+def _check_range(tmax, n):
+    if tmax is None:
+        return ()
+    if tmax.shape != (n,):
+        raise ValueError(f"tmax must be [N], got {tuple(tmax.shape)}")
+    return (("tmax", tmax, torch.float32),)
+
+
+def bin_by_dir_class_cuda(ray_d, tmax=None):
+    """The binning kernel (``bvh_bin`` in csrc/bvh.cu) alone: (queue i32
+    [live]: the live lanes class-major, counts i32 [6]); the same classes
+    and counts as :func:`bin_by_dir_class`, the order within a class as
+    the kernel's warps and blocks ran (reads ``live`` on the host)."""
+    n = ray_d.shape[0]
+    extra = _check_range(tmax, n)
+    if not all(t.is_cuda for t in (ray_d, *(x for _, x, _ in extra))):
+        raise ValueError("the binning kernel takes CUDA tensors")
+    for name, t, dtype in (("ray_d", ray_d, torch.float32), *extra):
+        if not t.is_contiguous() or t.dtype != dtype:
+            raise ValueError(f"{name} must be contiguous {dtype}")
+    if ray_d.dim() != 2 or ray_d.shape[1] != 3:
+        raise ValueError(f"ray_d must be [N, 3], got {tuple(ray_d.shape)}")
+    ws = bin_cuda(ray_d, tmax, NO_OUT)
+    counts = ws[n:n + DIR_CLASSES]
+    return ws[: int(counts.sum())], counts
+
+
+def intersect_bvh_cuda(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d, tmax=None):
+    """The binning kernel, then the closest-hit kernel (``bvh_closest_hit``
+    in csrc/bvh.cu); same contract as :func:`intersect_bvh_plain`."""
     n, dev = ray_o.shape[0], ray_o.device
+    _check_walk_inputs(leaf_tris, bvh_packed, ray_o, ray_d, ("leaf_map", leaf_map, torch.int32),
+                       *_check_range(tmax, n))
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     dist = torch.empty((n,), dtype=torch.float32, device=dev)
     bary = torch.empty((n, 2), dtype=torch.float32, device=dev)
     if n:
+        ws = bin_cuda(ray_d, tmax, MISS_OUT, (prim, dist, bary))
         _walk_launch("bvh_closest_hit", "closest_hit", leaf_tris, bvh_packed, ray_o, ray_d,
-                     leaf_map, prim, dist, bary)
+                     tmax, leaf_map, prim, dist, bary, ws)
     return prim, dist, bary
 
 
 def occlusion_bvh_cuda(leaf_tris, bvh_packed, ray_o, ray_d, tmax):
-    """The shadow kernel (``bvh_occlusion`` in csrc/bvh.cu); same contract
-    as :func:`occlusion_bvh_plain`."""
-    _check_walk_inputs(leaf_tris, bvh_packed, ray_o, ray_d, ("tmax", tmax, torch.float32))
+    """The binning kernel, then the shadow kernel (``bvh_occlusion`` in
+    csrc/bvh.cu); same contract as :func:`occlusion_bvh_plain`."""
     n = ray_o.shape[0]
-    if tmax.shape != (n,):
-        raise ValueError(f"tmax must be [N], got {tuple(tmax.shape)}")
+    if tmax is None:
+        raise ValueError("the shadow walk takes a range")
+    _check_walk_inputs(leaf_tris, bvh_packed, ray_o, ray_d, *_check_range(tmax, n))
     occ = torch.empty((n,), dtype=torch.int32, device=ray_o.device)
     if n:
+        ws = bin_cuda(ray_d, tmax, UNBLOCKED_OUT, (occ, None, None))
         _walk_launch("bvh_occlusion", "occlusion", leaf_tris, bvh_packed, ray_o, ray_d,
-                     tmax, occ)
+                     tmax, occ, ws)
     return occ.bool()
 
 
@@ -409,21 +504,26 @@ def intersect_bvh_heatmap_cuda(leaf_tris, bvh_packed, ray_o, ray_d):
 # ---------------------------------------------------------------------------
 
 
-def intersect_bvh(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d, plain: bool = False):
+def intersect_bvh(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d, tmax=None,
+                  plain: bool = False):
     """Closest hit of rays ``ray_o``/``ray_d`` f32 [N, 3] by the MTBVH
-    walk: (prim i32 [N], dist f32 [N], bary f32 [N, 2]).  ``plain`` takes
-    the plain version on any device."""
+    walk: (prim i32 [N], dist f32 [N], bary f32 [N, 2]); ``tmax`` f32 [N]
+    (optional) each lane's range, ``-FLT_MAX`` for a dead lane, which
+    misses without a walk.  ``plain`` takes the plain version on any
+    device."""
     ray_o, ray_d = ray_o.contiguous(), ray_d.contiguous()
+    if tmax is not None:
+        tmax = tmax.contiguous()
     if ray_o.is_cuda and not plain:
-        return intersect_bvh_cuda(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d)
-    return intersect_bvh_plain(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d)
+        return intersect_bvh_cuda(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d, tmax)
+    return intersect_bvh_plain(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d, tmax)
 
 
 def occlusion_bvh(leaf_tris, bvh_packed, x, y, plain: bool = False):
     """True where segment x -> y is blocked (bool [N]): the origin inset by
     1e-5 along the segment, the range ending 1e-4 short of y
     (``occlusion_bvh``, :func:`segment_rays`).  A zero-length segment has a
-    zero direction and a negative range: never blocked."""
+    zero direction and a negative range: never blocked, and not walked."""
     ray_o, ray_d, tmax = (t.contiguous() for t in segment_rays(x, y))
     if ray_o.is_cuda and not plain:
         return occlusion_bvh_cuda(leaf_tris, bvh_packed, ray_o, ray_d, tmax)

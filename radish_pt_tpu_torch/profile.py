@@ -45,6 +45,7 @@ STAGES = (
     ("bvh_closest_hit_kernel", "bvh closest hit"),
     ("bvh_occlusion_kernel", "bvh shadow"),
     ("bvh_heatmap_kernel", "bvh heatmap"),
+    ("bvh_bin_kernel", "bvh binning"),
     ("dense_closest_hit_kernel", "dense closest hit"),
     ("dense_occlusion_kernel", "dense shadow"),
     ("quad_closest_hit_kernel", "quad closest hit"),

@@ -440,7 +440,10 @@ def intersect(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
 
     ``active`` (bool [N], optional): lanes marked False are DEAD — the
     sweeps' culling gets ``tmax = -FLT_MAX`` for them so they flag no
-    clusters — and return prim_id -1.
+    clusters, and the BVH walks the same range, so they are settled as
+    misses without a walk — and return prim_id -1.  Nothing reads a dead
+    lane's pos / norm / uv (the path tracer masks them), which differ by
+    engine.
     """
     if ds.intersector in SWEEP_ENGINES:
         tmax = None
@@ -473,8 +476,10 @@ def intersect(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
     if ds.intersector == "dense":
         prim, _, bary = dns.intersect_dense(ds.tri_packed, ray_o, ray_d)
     elif ds.intersector in BVH_ENGINES:
+        tmax = None if active is None else torch.where(active, trv.FLT_MAX, -trv.FLT_MAX)
         prim, _, bary = trv.intersect_bvh(ds.leaf_tris, ds.leaf_map, ds.bvh_packed,
-                                          ray_o, ray_d, plain=ds.intersector == "bvh_plain")
+                                          ray_o, ray_d, tmax,
+                                          plain=ds.intersector == "bvh_plain")
     elif ds.intersector == "brute":
         prim, _, bary = trv.intersect_brute(ds.tri_packed, ray_o, ray_d)
     else:

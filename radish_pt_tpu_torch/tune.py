@@ -11,12 +11,17 @@ blocks asked of the compiler (``QUAD_RAYS``, ``QUAD_MIN_BLOCKS`` in
 csrc/quad.cu), and for the quad shadow sweep its resident blocks
 (``QUAD_OCCL_MIN_BLOCKS``); lanes a block, triangles a thread and a one- or
 two-level vote of both band kernels (``BAND_BLOCK_LANES``, ``BAND_TRIS``,
-``BAND_TWO_LEVEL`` in csrc/band.cu); rays a block of the three BVH walks
-(``BVH_BLOCK`` in csrc/bvh.cu).  This tool builds each variant as its
+``BAND_TWO_LEVEL`` in csrc/band.cu); for the persistent BVH walks (closest
+hit and shadow) warps a block, blocks a SM (0: as many as the registers
+allow), the free lanes at which a warp refills and node steps between the
+warp's votes (``BVH_WARPS``, ``BVH_BLOCKS_PER_SM``, ``BVH_REFILL``,
+``BVH_VOTE_EVERY`` in csrc/bvh.cu), and rays a block of the heatmap walk
+(``BVH_BLOCK``).  This tool builds each variant as its
 own library (``-DCOMPACT_LOCKSTEP=n ...``), holds it against the plain
 version on the main path's wavefronts (800x800 primaries and the bounce-1
-extension rays; for Plücker, the compact, quad and band shadow sweeps the
-bounce-1 shadow segments; teapot and teapot_hires for Plücker and bvh,
+extension rays, for bvh also with the frame's dead-lane range; for
+Plücker, the compact, quad, band and bvh shadow sweeps the bounce-1
+shadow segments; teapot and teapot_hires for Plücker and bvh,
 teapot_hires for compact and band, teapot for quad, built as
 ``chip_smoke.py`` builds them) and times it with CUDA events, the variants
 in turns.  It prints registers and spills per
@@ -64,8 +69,16 @@ BAND_VARIANTS = (("-DBAND_BLOCK_LANES=64", "-DBAND_TRIS=2", "-DBAND_TWO_LEVEL=1"
                  ("-DBAND_BLOCK_LANES=128", "-DBAND_TRIS=2", "-DBAND_TWO_LEVEL=1"),
                  ("-DBAND_BLOCK_LANES=64", "-DBAND_TRIS=1", "-DBAND_TWO_LEVEL=1"))
 QUAD_OCCL_VARIANTS = (("-DQUAD_OCCL_MIN_BLOCKS=4",), ("-DQUAD_OCCL_MIN_BLOCKS=1",))
-BVH_VARIANTS = (("-DBVH_BLOCK=128",), ("-DBVH_BLOCK=64",), ("-DBVH_BLOCK=256",),
-                ("-DBVH_BLOCK=32",))
+# the persistent walks: the defaults first, then one shape changed at a time
+_BVH_DEFAULTS = {"BVH_WARPS": 4, "BVH_BLOCKS_PER_SM": 0, "BVH_REFILL": 16, "BVH_VOTE_EVERY": 4}
+BVH_VARIANTS = tuple(
+    tuple(f"-D{k}={v}" for k, v in {**_BVH_DEFAULTS, **change}.items())
+    for change in ({}, {"BVH_WARPS": 2}, {"BVH_WARPS": 8}, {"BVH_BLOCKS_PER_SM": 4},
+                   {"BVH_BLOCKS_PER_SM": 8}, {"BVH_REFILL": 4}, {"BVH_REFILL": 8},
+                   {"BVH_REFILL": 24}, {"BVH_REFILL": 32}, {"BVH_VOTE_EVERY": 1},
+                   {"BVH_VOTE_EVERY": 2}, {"BVH_VOTE_EVERY": 8}))
+BVH_HEATMAP_VARIANTS = (("-DBVH_BLOCK=128",), ("-DBVH_BLOCK=64",), ("-DBVH_BLOCK=256",),
+                        ("-DBVH_BLOCK=32",))
 QUAD_VARIANTS = (("-DQUAD_RAYS=1", "-DQUAD_MIN_BLOCKS=1"),
                  ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=1"),
                  ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=8"),
@@ -129,11 +142,12 @@ def main(argv=None) -> int:
                                 device=dev, intersector=engine)
         return ds, cam.replace(width=cs.RES, height=cs.RES)
 
-    def race(lib, libs, what, kernel):
-        """The variants of ``lib`` timed on ``kernel`` in turns, twice."""
+    def race(lib, libs, what, kernel, inner=1):
+        """The variants of ``lib`` timed on ``kernel`` in turns, twice (each
+        run ``inner`` launches back to back)."""
         for turn in range(2):
             for r, variant in libs.items():
-                ms = run(lib, variant, lambda: cs.cuda_ms(kernel, 5))
+                ms = run(lib, variant, lambda: cs.cuda_ms(kernel, 5, inner=inner))
                 print(f"[timing] {lib}, {what}, {r}, turn {turn}: {ms:.3f} ms ({card})",
                       flush=True)
 
@@ -298,33 +312,36 @@ def main(argv=None) -> int:
             cs.check_occlusion(got, want, live, f"band, {r}", print)
         race("band", libs, "shadow, teapot_hires segments", shadow)
 
-    # ---- bvh, teapot and teapot_hires: the three walks ----
+    # ---- bvh, teapot and teapot_hires: the persistent walks, the heatmap ----
     libs = variants("bvh", BVH_VARIANTS, "_kernel") if "bvh" in engines else {}
+    heat_libs = variants("bvh", BVH_HEATMAP_VARIANTS, "heatmap") if libs else {}
     for name in ("teapot", "teapot_hires") if libs else ():
         ds, cam = scene(name, "bvh")
         waves = run("bvh", next(iter(libs.values())), lambda: cs.bounce_one(ds, cam))
         lt, lm, nodes = ds.leaf_tris, ds.leaf_map, ds.bvh_packed
         walks = {}
-        for what in ("primary", "extension"):
-            o, d, _ = (t.contiguous() for t in waves[what])
+        for what in ("primary", "extension", "extension, ranged"):
+            o, d, tmax = (t.contiguous() for t in waves[what.split(",")[0]])
+            tmax = tmax if what.endswith("ranged") else None
             walks[f"closest hit, {what}"] = (
-                lambda o=o, d=d: trv.intersect_bvh_cuda(lt, lm, nodes, o, d),
-                trv.intersect_bvh_plain(lt, lm, nodes, o, d))
-        o, d, _ = (t.contiguous() for t in waves["primary"])
-        walks["heatmap, primary"] = (lambda: trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d),
-                                     trv.intersect_bvh_heatmap_plain(lt, nodes, o, d))
+                lambda o=o, d=d, tmax=tmax: trv.intersect_bvh_cuda(lt, lm, nodes, o, d, tmax),
+                trv.intersect_bvh_plain(lt, lm, nodes, o, d, tmax))
         x, y, _ = waves["segments"]
         so, sd, tm = (t.contiguous() for t in trv.segment_rays(x, y))
         walks["shadow, segments"] = (lambda: trv.occlusion_bvh_cuda(lt, nodes, so, sd, tm),
                                      trv.occlusion_bvh_plain(lt, nodes, so, sd, tm))
-        for what, (kernel, want) in walks.items():
+        o, d, _ = (t.contiguous() for t in waves["primary"])
+        heatmap = (lambda: trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d),
+                   trv.intersect_bvh_heatmap_plain(lt, nodes, o, d))
+        for what, (kernel, want), group in [*((w, k, libs) for w, k in walks.items()),
+                                            ("heatmap, primary", heatmap, heat_libs)]:
             want = want if isinstance(want, tuple) else (want,)
-            for r, lib in libs.items():
+            for r, lib in group.items():
                 got = run("bvh", lib, kernel)
                 torch.cuda.synchronize()
                 got = got if isinstance(got, tuple) else (got,)
                 assert all(torch.equal(g, w) for g, w in zip(got, want)), (r, name, what)
-            race("bvh", libs, f"{name} {what}", kernel)
+            race("bvh", group, f"{name} {what}", kernel, inner=10)
     print(card, flush=True)
     return 0
 

@@ -141,8 +141,8 @@ def test_intersect_bvh_plain_matches_jax(teapot, what):
                               jnp.asarray(t2n(o)), jnp.asarray(t2n(d)))
     trv.reset_counts()
     got = trv.intersect_bvh_plain(ds.leaf_tris, ds.leaf_map, ds.bvh_packed, o, d)
-    assert trv.PLAIN_CALLS == {"closest_hit": 1, "occlusion": 0, "heatmap": 0}
-    assert trv.LAUNCHES == {"closest_hit": 0, "occlusion": 0, "heatmap": 0}
+    assert trv.PLAIN_CALLS == {"closest_hit": 1, "occlusion": 0, "heatmap": 0, "bin": 0}
+    assert trv.LAUNCHES == {"closest_hit": 0, "occlusion": 0, "heatmap": 0, "bin": 0}
     exact = _exact_bary(t2n(ds.tri_packed), t2n(got[0]), t2n(o), t2n(d))
     _check_closest(tuple(t2n(x) for x in got), want, exact, max_off=1)
     hits = t2n(got[0]) >= 0
@@ -302,7 +302,7 @@ def test_path_trace_bvh_matches_jax(teapot):
         db, ib = pt.path_trace(ds.replace(intersector="brute"), cam, looper, depth)
         assert torch.equal(d, db) and torch.equal(i, ib)
     assert trv.PLAIN_CALLS == {"closest_hit": 2 * (depth + 1), "occlusion": 2 * depth,
-                               "heatmap": 0}
+                               "heatmap": 0, "bin": 0}
 
 
 def test_renderer_heatmap_matches_jax(teapot):
@@ -351,7 +351,9 @@ def test_wrappers_refuse_cpu_tensors(teapot):
 def test_engine_routes_through_walk(teapot):
     """``intersect`` and ``test_occlusion`` on the bvh engine go through the
     walk (counted) and give the brute engine's interactions, dead lanes
-    masked; "bvh_plain" is the same walk on any device."""
+    masked (the walk settles them without a walk, so their unread pos /
+    norm / uv are the brute engine's on live lanes only); "bvh_plain" is
+    the same walk on any device."""
     from radish_pt_tpu_torch.accel import traverse as trv
     from radish_pt_tpu_torch.scene import device_scene as dsc
 
@@ -362,13 +364,14 @@ def test_engine_routes_through_walk(teapot):
     b = dsc.intersect(ds.replace(intersector="brute"), o, d, active=live)
     c = dsc.intersect(ds.replace(intersector="bvh_plain"), o, d, active=live)
     for name in ("prim_id", "mat_id", "pos", "norm", "uv"):
-        assert torch.equal(getattr(a, name), getattr(b, name)), name
+        assert torch.equal(getattr(a, name)[live], getattr(b, name)[live]), name
         assert torch.equal(getattr(a, name), getattr(c, name)), name
+    assert torch.equal(a.prim_id, b.prim_id) and torch.equal(a.mat_id, b.mat_id)
     assert bool((a.prim_id[~live] == -1).all())
     y = o + d * 3.0
     assert torch.equal(dsc.test_occlusion(ds, o, y),
                        dsc.test_occlusion(ds.replace(intersector="brute"), o, y))
-    assert trv.PLAIN_CALLS == {"closest_hit": 2, "occlusion": 1, "heatmap": 0}
+    assert trv.PLAIN_CALLS == {"closest_hit": 2, "occlusion": 1, "heatmap": 0, "bin": 0}
 
 
 def test_walk_stats_count_what_the_walk_does(teapot):

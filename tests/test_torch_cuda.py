@@ -756,6 +756,143 @@ def test_bvh_kernels_match_plain(teapot_cuda):
     assert 0.05 < float(op.float().mean()) < 0.95
 
 
+def _bvh_wavefront(ds, o, d, case):
+    """A wavefront for the persistent walks from the teapot rays: lanes
+    interleaving all six direction classes lane by lane, N = 0, 1 and
+    1,000 + 7, all lanes dead, half dead in a checkerboard, or origins on
+    node boxes' slab planes with that direction component +-0 (the NaN
+    rule).  Returns (o, d, the closest hit's range)."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    n = o.shape[0]
+    ar = torch.arange(n, device=o.device)
+    live = torch.full((n,), FLT_MAX, device=o.device)
+    if case == "interleaved":
+        cls = trv.get_dir_class(-d)
+        by_class = [torch.nonzero(cls == k)[:, 0] for k in range(6)]
+        m = min(len(b) for b in by_class)
+        assert m > 100
+        idx = torch.stack([b[:m] for b in by_class], 1).reshape(-1)
+        return o[idx].contiguous(), d[idx].contiguous(), live[idx]
+    if case in ("empty", "one", "ragged"):
+        k = {"empty": 0, "one": 1, "ragged": 1007}[case]
+        return o[:k].contiguous(), d[:k].contiguous(), live[:k]
+    if case == "all_dead":
+        return o, d, torch.full_like(live, -FLT_MAX)
+    if case == "checkerboard":
+        return o, d, torch.where(ar % 2 == 0, live, -FLT_MAX)
+    rng = np.random.default_rng(11)
+    pick = torch.from_numpy(rng.integers(0, ds.bvh_packed.shape[0], n)).to(o.device)
+    lo, hi = ds.bvh_packed[pick, 0:3], ds.bvh_packed[pick, 3:6]
+    u = torch.from_numpy(rng.uniform(size=(n, 3)).astype(np.float32)).to(o.device)
+    o2 = lo + (hi - lo) * u
+    axis = ar % 3
+    o2[ar, axis] = torch.where(ar % 2 == 0, lo[ar, axis], hi[ar, axis])
+    d2 = d.clone()
+    d2[ar, axis] = torch.where(ar % 4 < 2, 0.0, -0.0)
+    d2 = torch.nn.functional.normalize(d2, dim=-1)
+    return o2.contiguous(), d2.contiguous(), live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["interleaved", "empty", "one", "ragged", "all_dead",
+                                  "checkerboard", "slab_planes"])
+def test_bvh_persistent_walks_match_plain(teapot_cuda, case):
+    """The persistent walks against the plain walk, bit for bit on every
+    lane: the closest hit without a range and with the case's range (a
+    dead lane's miss, (-1, FLT_MAX, (0, 0)), written by the binning
+    kernel), and the shadow walk on segments from the same origins (a
+    dead lane's segment zero-length: unblocked), launches counted."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    ds, _, o0, d0, _ = teapot_cuda
+    o, d, tmax = _bvh_wavefront(ds, o0, d0, case)
+    lt, lm, nodes = ds.leaf_tris, ds.leaf_map, ds.bvh_packed
+    n = o.shape[0]
+    trv.reset_counts()
+    for rng_ in (None, tmax):
+        got = trv.intersect_bvh_cuda(lt, lm, nodes, o, d, rng_)
+        want = trv.intersect_bvh_plain(lt, lm, nodes, o, d, rng_)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), case
+    dead = ~(tmax > 0)
+    assert bool((got[0][dead] == -1).all()) and bool((got[1][dead] == FLT_MAX).all())
+    lengths = torch.linspace(0.5, 6.0, n, device=o.device)
+    y = torch.where(dead[:, None], o, o + d * lengths[:, None])
+    so, sd, tm = (t.contiguous() for t in trv.segment_rays(o, y))
+    ok = trv.occlusion_bvh_cuda(lt, nodes, so, sd, tm)
+    op = trv.occlusion_bvh_plain(lt, nodes, so, sd, tm)
+    torch.cuda.synchronize()
+    assert torch.equal(ok, op) and not bool(ok[dead].any()), case
+    k = 0 if n == 0 else 1
+    assert trv.LAUNCHES == {"closest_hit": 2 * k, "occlusion": k, "heatmap": 0, "bin": 6 * k}
+    if case == "interleaved":
+        assert float((want[0] >= 0).float().mean()) > 0.3 and bool(op.any())
+
+
+@pytest.mark.cuda
+def test_bvh_queue_resets_between_launches_and_replays(teapot_cuda):
+    """The queue counters start from zero on every launch: two launches in
+    a row, and a CUDA graph of the closest hit and the shadow walk
+    captured once and replayed twice, each equal to the plain walk."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    ds, _, o, d, tmax = teapot_cuda
+    lt, lm, nodes = ds.leaf_tris, ds.leaf_map, ds.bvh_packed
+    y = o + d * 3.0
+    so, sd, tm = (t.contiguous() for t in trv.segment_rays(o, y))
+    want = (*trv.intersect_bvh_plain(lt, lm, nodes, o, d, tmax),
+            trv.occlusion_bvh_plain(lt, nodes, so, sd, tm))
+
+    def walks():
+        return (*trv.intersect_bvh_cuda(lt, lm, nodes, o, d, tmax),
+                trv.occlusion_bvh_cuda(lt, nodes, so, sd, tm))
+
+    for _ in range(2):
+        got = walks()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        walks()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = walks()
+    for _ in range(2):
+        for t in out:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranged", [False, True])
+def test_bvh_bin_kernel_matches_plain(teapot_cuda, ranged):
+    """The binning kernel's class counts equal ``bin_by_dir_class``'s, its
+    queue holds exactly the live lanes, class-major, each class the plain
+    version's lanes (the order within a class may differ)."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    _, _, _, d, tmax = teapot_cuda
+    tmax = tmax if ranged else None
+    trv.reset_counts()
+    queue, counts = trv.bin_by_dir_class_cuda(d, tmax)
+    assert trv.LAUNCHES["bin"] == 2  # the count and the scatter pass
+    order, want_counts = trv.bin_by_dir_class(d, tmax)
+    torch.cuda.synchronize()
+    assert torch.equal(counts.long(), want_counts)
+    assert torch.equal(torch.sort(queue.long()).values, torch.sort(order).values)
+    cls = trv.get_dir_class(-d)
+    bounds = [0, *torch.cumsum(want_counts, 0).tolist()]
+    for k in range(6):
+        part = queue[bounds[k]:bounds[k + 1]].long()
+        assert bool((cls[part] == k).all())
+        assert torch.equal(torch.sort(part).values, order[bounds[k]:bounds[k + 1]])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tracer", ["pt", "bvh"])
 def test_render_through_bvh_kernels_matches_plain(tracer):
@@ -784,7 +921,8 @@ def test_render_through_bvh_kernels_matches_plain(tracer):
             kinds = ("closest_hit", "occlusion") if tracer == "pt" else ("heatmap",)
             assert all(trv.LAUNCHES[k] > 0 for k in kinds), trv.LAUNCHES
             if tracer == "pt":
-                assert trv.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0, "heatmap": 0}
+                assert trv.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0, "heatmap": 0,
+                                           "bin": 0}
     assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.05
     assert np.array_equal(imgs[0], imgs[1])
 
