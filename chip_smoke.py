@@ -13,12 +13,14 @@ light), many_light (72 emitters) and textured (image maps) — and the
 interactive direct-lighting path on cornell's dense engine: ReSTIR DI (the
 G-buffer, 32-candidate RIS, temporal and spatial reuse; also on the
 Plücker engine, and with the camera animated), the direct tracer with SVGF,
-and the path tracer with split SVGF — and the BVH heatmap tracer.  Checks
-the hand-written CUDA kernels of those paths against their plain torch
-versions.  Phases:
+and the path tracer with split SVGF — and the BVH heatmap tracer.  The
+path tracer's frames run the sliced bounce loop on the scenes with
+clusters and at least 2,000 triangles, their divergent wavefronts sorted on
+the cluster-signature key (``csrc/sort_key.cu``).  Checks the hand-written
+CUDA kernels of those paths against their plain torch versions.  Phases:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. cold start: the six kernel sources built with nvcc at once (seconds
+2. cold start: the seven kernel sources built with nvcc at once (seconds
    shown, and each kernel's registers and spills as ptxas reports them),
    then teapot and teapot_hires (compact) loaded and rendered once
    at 800x800, and the quad, band, dense, bvh and other shipped scenes
@@ -45,7 +47,11 @@ versions.  Phases:
    efficiency in raster and in class-binned order; for the Plücker
    sweeps, the compact sweeps, the band sweeps and the quad shadow sweep
    also the (lane, triangle) pairs their wavefronts need when culled per
-   row (group, band), per warp and per lane;
+   row (group, band), per warp and per lane; the sort-key kernel equal to
+   its plain version on every lane of teapot's and teapot_hires'
+   (Plücker: 115 super-clusters; compact: 1,755 clusters paired to 220)
+   primaries, bounce-1 extension rays (the dead bit) and NEE segments
+   (bounded at their end), and in the band engine's count-major form;
 4. the main paths, loopers 0-7, each with the launch counts of its kernels
    set to 0 just before and read just after (a frame of depth d: d + 1
    closest hits, d shadow sweeps, no plain call; on Plücker and band no
@@ -59,7 +65,13 @@ versions.  Phases:
    the animated ReSTIR run's share of valid motion and of accepted
    temporal neighbours; the BVH heatmap tracer (``Renderer``, 800x800) on
    teapot and teapot_hires, one heatmap walk a frame, its image equal to
-   the plain walk's;
+   the plain walk's; on the Plücker paths 2d + 1 sort-key launches a frame
+   of depth d on a scene with clusters; then loopers 0-7 of teapot,
+   env_teapot and glass through the sliced loop (as ``step()`` runs them)
+   equal to the dense loop (``n_slices=0``, as a captured block runs
+   them) bit for bit, with the live share of each bounce's extension
+   wavefront, the looper-7 mean against its golden, and the key kernel's
+   and the sorts' and permutations' device ms in a profiled frame;
 5. 128x128 frames through the kernels against the plain versions (teapot
    on Plücker and quad, teapot_hires on compact and band, cornell and
    teapot on dense, teapot on bvh, cornell ReSTIR on dense); then, logged
@@ -76,9 +88,12 @@ versions.  Phases:
    at the instruction rate: half the f32 peak that counts an FMA as two;
    a walk's operations are its node visits and leaf pairs, counted by the
    plain walk on the same rays; every kernel timed one call at a time,
-   the BVH walks and the binning also as 10 calls back to back; with
-   ``--parent DIR``, the BVH walks of the checkout at DIR timed both ways
-   beside this tree's on the same rays);
+   the BVH walks and the binning also as 10 calls back to back; the path
+   tracer at 4, 8 and 16 slices a wavefront beside the dense loop (wall
+   and device ms, in turns); the Plücker pair on the
+   bounce-1 wavefronts sorted on their key beside the unsorted; the key
+   kernel one call and 10 back to back against its instruction-rate
+   bound;
 7. batched frames (``Renderer.run_block``, ``step_batched_restir``): the
    ReSTIR spatial offsets computed on the card equal to the CPU's for all
    10,000 loopers x 5 neighbours; then per cell — the path tracer on
@@ -93,13 +108,18 @@ versions.  Phases:
    (block x (d + 1) closest hits and block x d shadow sweeps) from the
    replay counters and from a ``torch.profiler`` trace of one replay,
    and, timed with CUDA events, the batched ms/frame beside the eager
-   ``step()`` frame and the device-busy share of a profiled block.
+   ``step()`` frame and the device-busy share of a profiled block;
+8. with ``--parent DIR``: eager ``step()`` and replayed-block ms/frame of
+   teapot, teapot_hires, glass, env_teapot and cornell ReSTIR for the
+   checkout at DIR and for this tree, each in a subprocess of its own
+   (``--frame-times``), in turns: parent, this, this, parent.
 
 Prints a JSON line of per-kernel results, then the card's name and power
 limit, then, as the last line, ``{"ok": true, "device": {...}}``.  Any
 failure raises (non-zero exit).  Needs one CUDA device; imports no jax.
 
 Run from the repository root:  python3 chip_smoke.py [--parent DIR]
+(DIR: a ``git archive`` of the parent commit unpacked into ``_checkout/``)
 """
 
 from __future__ import annotations
@@ -157,7 +177,8 @@ SOURCES = {"plucker": "radish_pt_tpu_torch/csrc/plucker.cu",
            "quad": "radish_pt_tpu_torch/csrc/quad.cu",
            "band": "radish_pt_tpu_torch/csrc/band.cu",
            "dense": "radish_pt_tpu_torch/csrc/dense.cu",
-           "bvh": "radish_pt_tpu_torch/csrc/bvh.cu"}
+           "bvh": "radish_pt_tpu_torch/csrc/bvh.cu",
+           "sort_key": "radish_pt_tpu_torch/csrc/sort_key.cu"}
 REPLACES = {
     "plucker_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:344",
     "plucker_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:463",
@@ -177,6 +198,11 @@ REPLACES = {
     # the dead-lane sort of intersect_sorted (an XLA sort)
     "bvh_bin": "radish_pt_tpu/scene/device_scene.py:354",
 }
+# the sort-key kernel: an XLA slab test of the JAX package (no Pallas body)
+KEY_REPLACES = "radish_pt_tpu/scene/device_scene.py:547"
+# (scene entry, wavefront) the key kernel's row reports; every wavefront it
+# was held and timed on goes beside it
+KEY_ROW = ("teapot", "extension")
 # the scene each engine's kernels are timed and bounded on
 KERNEL_SCENE = {"plucker": "teapot", "compact": "teapot_hires", "quad": "teapot_quad",
                 "band": "teapot_hires_band", "dense": "cornell_dense", "bvh": "teapot_bvh"}
@@ -802,60 +828,9 @@ def bvh_parity(ds, waves, max_err, log, scene):
     return inputs
 
 
-# (kernel/wavefront key, scene) -> ms of the parent checkout's kernel on the
-# same inputs, (one call, a call of 10 back to back) (phase 6, --parent)
-PARENT_MS = {}
 # (kernel/wavefront key, scene) -> ms a call of 10 calls back to back: the
 # BVH walks and the binning, beside the one-call time of every kernel
 BACK_TO_BACK_MS = {}
-
-
-def parent_library(parent: str):
-    """The BVH walks of the checkout at ``parent``: its csrc/bvh.cu built
-    with this tree's nvcc flags into the build directory and loaded with
-    the C interface of the walks before the binning kernel (one thread a
-    ray; no range for the closest hit, no workspace)."""
-    import ctypes
-
-    from radish_pt_tpu_torch.accel import _build
-
-    src = os.path.join(os.path.abspath(parent), "radish_pt_tpu_torch", "csrc", "bvh.cu")
-    out = os.path.join(_build.BUILD_DIR, "libbvh_parent.so")
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, src], check=True,
-                   capture_output=True, timeout=300)
-    lib = ctypes.CDLL(out)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bvh_closest_hit.argtypes = [p, i, p, i, p, p, i, p, p, p, p, p]
-    lib.bvh_occlusion.argtypes = [p, i, p, i, p, p, i, p, p, p]
-    return lib
-
-
-def parent_walk(lib, ds, o, d, tm=None):
-    """The parent's closest hit on rays ``o``, ``d`` (prim, dist, bary) or,
-    with the range ``tm``, its shadow walk (bool)."""
-    import ctypes
-
-    import torch
-
-    p = ctypes.c_void_p
-    n, dev = o.shape[0], o.device
-    args = [p(ds.bvh_packed.data_ptr()), ds.bvh_packed.shape[0] // 6,
-            p(ds.leaf_tris.data_ptr()), ds.leaf_tris.shape[1] // 9, p(o.data_ptr()),
-            p(d.data_ptr()), n]
-    stream = p(torch.cuda.current_stream(dev).cuda_stream)
-    if tm is None:
-        out = (torch.empty((n,), dtype=torch.int32, device=dev),
-               torch.empty((n,), dtype=torch.float32, device=dev),
-               torch.empty((n, 2), dtype=torch.float32, device=dev))
-        err = lib.bvh_closest_hit(*args, p(ds.leaf_map.data_ptr()),
-                                  *(p(t.data_ptr()) for t in out), stream)
-    else:
-        out = torch.empty((n,), dtype=torch.int32, device=dev)
-        err = lib.bvh_occlusion(*args, p(tm.data_ptr()), p(out.data_ptr()), stream)
-        out = out.bool()
-    assert err == 0, f"the parent's walk: CUDA error {err}"
-    return out
 
 
 def walk_work(ds, st, n, io_bytes):
@@ -952,6 +927,73 @@ def check_occlusion(ok_k, ok_p, live, what, log) -> float:
         f"bits differ; occluded {int((ok_p & live).sum())} of {int(live.sum())} live")
     assert n_diff <= 1e-4 * ok_k.numel(), f"{what} occlusion parity"
     return n_diff / ok_k.numel()
+
+
+def key_parity(ds, waves, scene, max_err, log):
+    """Phase 3 for the sort-key kernel on a scene's wavefronts: the
+    primaries, the bounce-1 extension rays with their dead lanes (the key's
+    dead bit) and the NEE segments bounded at their end (``tmax`` 1 on the
+    unnormalised segment, masked lanes dead), as ``intersect_primary``,
+    ``intersect_sorted`` and ``test_occlusion_sorted`` key them; the band
+    engine's count-major form on a band scene.  The kernel's key equals
+    the plain version's on every lane.  Returns {wavefront: the kernel's
+    arguments} for phase 6."""
+    import torch
+
+    from radish_pt_tpu_torch.accel import sort_key as sk
+    from radish_pt_tpu_torch.scene.device_scene import BAND_ENGINES
+
+    band = ds.intersector in BAND_ENGINES
+    boxes = ds.key_bounds
+    o, d, _ = waves["primary"]
+    eo, ed, etm = waves["extension"]
+    x, y, ok = waves["segments"]
+    out = {}
+    for what, args in (("primary", (o, d, None, None)),
+                       ("extension", (eo, ed, None, etm > 0)),
+                       ("segments", (x, y - x, 1.0, ok))):
+        args = tuple(a.contiguous() if isinstance(a, torch.Tensor) else a for a in args)
+        got = sk.signature_key_cuda(boxes, *args, band=band)
+        want = plain_run(f"signature_key/{what}", scene,
+                         lambda args=args: sk.signature_key_plain(boxes, *args, band=band))
+        n_bad = int((got != want).sum())
+        live = got < sk.DEAD_KEY_BIT
+        miss_key = sk.miss_key(boxes.shape[0], band)
+        log(f"[parity] signature_key, {scene} {what} ({boxes.shape[0]} super-clusters of "
+            f"{ds.cluster_bounds.shape[0]} clusters, {'count-major' if band else 'signature'} "
+            f"form): {n_bad} of {got.numel()} keys differ from the plain version's; live "
+            f"lanes {int(live.sum())}, distinct live keys {int(torch.unique(got[live]).numel())}, "
+            f"live lanes that reach no box {int((live & (got == miss_key)).sum())}")
+        assert n_bad == 0, f"signature_key, {scene} {what}: keys differ"
+        max_err["signature_key"] = max(max_err["signature_key"], float(n_bad))
+        out[what] = args
+    return out
+
+
+def frame_stages(fn) -> dict:
+    """One ``fn()`` (a frame, after one warm-up call) under
+    ``torch.profiler``: stage -> its kernels' summed device ms, the stages
+    of ``radish_pt_tpu_torch.profile.STAGES`` ("sort key", "sort +
+    permute", the sweeps; "other" for the rest), and "busy", the sum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from radish_pt_tpu_torch.profile import STAGES
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"busy": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        stage = next((st for frag, st in STAGES if frag in e.name), "other")
+        ms = e.time_range.elapsed_us() / 1e3
+        out[stage] = out.get(stage, 0.0) + ms
+        out["busy"] += ms
+    return out
 
 
 def main_path(scenes, names, counters, log, kinds=None):
@@ -1200,15 +1242,108 @@ def batched_phase(scenes, log, card):
     return out
 
 
+# (scene, frames a block) whose frames are timed beside the parent
+# checkout's (--parent): the path tracer at its engine by size, eager step()
+# and replayed blocks; then cornell's ReSTIR DI on the dense engine
+FRAME_TIME_CELLS = (("teapot", 4), ("teapot_hires", 2), ("glass", 4), ("env_teapot", 4))
+RESTIR_TIME_CELL = ("cornell", RESTIR_BLOCK, "dense")
+
+
+def frame_times(root: str) -> dict:
+    """ms/frame of eager ``step()`` frames and of replayed blocks
+    (``run_block``; eager on an engine that is not captured) of the package
+    in the checkout at ``root``, at 800x800 on the cells of
+    :data:`FRAME_TIME_CELLS` and :data:`RESTIR_TIME_CELL` (CUDA events,
+    median of 3 runs of a block).  Runs in a process of its own
+    (``--frame-times``): two versions of the package cannot share one."""
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    import radish_pt_tpu_torch
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(radish_pt_tpu_torch.__file__)))
+    assert pkg_root == os.path.abspath(root), (pkg_root, root)
+    assert "jax" not in sys.modules
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cells = [(name, block, Tracer.STREAMED, None) for name, block in FRAME_TIME_CELLS]
+    cells.append((RESTIR_TIME_CELL[0], RESTIR_TIME_CELL[1], Tracer.RESTIR_DI,
+                  RESTIR_TIME_CELL[2]))
+    out = {}
+    for name, block, tracer, engine in cells:
+        ds, cam, _ = load_scene(os.path.join(REPO, "scenes", SCENE_FILES[name]),
+                                device="cuda", intersector=engine)
+        cam = cam.replace(width=RES, height=RES)
+        settings = Settings(tracer=tracer, trace_depth=depth_of(name))
+        eager, batched = (Renderer(ds=ds, cam=cam, desc=None, settings=settings, device="cuda")
+                          for _ in range(2))
+        eager_ms = cuda_ms(lambda: [eager.step() for _ in range(block)], reps=3) / block
+        for _ in range(2):  # build, warm up, capture
+            batched.run_block(block)
+        batch_ms = cuda_ms(lambda: batched.run_block(block), reps=3) / block
+        key = name if tracer == Tracer.STREAMED else f"{name}_restir"
+        out[key] = {"engine": ds.intersector, "mode": batched.batch_mode, "block": block,
+                    "eager_ms_per_frame": eager_ms, "batched_ms_per_frame": batch_ms}
+    return out
+
+
+def parent_frame_times(parent: str, log, card) -> dict:
+    """The frame times of :func:`frame_times` for the parent checkout and
+    this tree, each in a subprocess of its own, in turns: parent, this
+    tree, this tree, parent.  Returns {cell: {"parent": [ms, ms], "this":
+    [ms, ms]} for eager and batched}."""
+    runs = []
+    for root in (parent, REPO, REPO, parent):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--frame-times",
+                              os.path.abspath(root)], capture_output=True, text=True,
+                             timeout=900)
+        assert res.returncode == 0, f"frame times of {root}: {res.stderr[-4000:]}"
+        line = [ln for ln in res.stdout.splitlines() if ln.startswith("FRAME_TIMES ")][-1]
+        runs.append(("parent" if root == parent else "this",
+                     json.loads(line.removeprefix("FRAME_TIMES "))))
+        log(f"[parent] frame times of {'the parent' if root == parent else 'this tree'} "
+            f"({root}) in a subprocess: {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for cell in runs[0][1]:
+        rec = out.setdefault(cell, {"engine": runs[1][1][cell]["engine"],
+                                    "mode": runs[1][1][cell]["mode"],
+                                    "block": runs[1][1][cell]["block"]})
+        for who, times in runs:
+            for kind in ("eager_ms_per_frame", "batched_ms_per_frame"):
+                rec.setdefault(f"{who}_{kind}", []).append(times[cell][kind])
+        log(f"[parent] {cell} ({rec['engine']}, blocks of {rec['block']}, {rec['mode']}) "
+            f"{RES}x{RES}: eager step() ms/frame parent "
+            f"{' / '.join(f'{x:.3f}' for x in rec['parent_eager_ms_per_frame'])}, this tree "
+            f"{' / '.join(f'{x:.3f}' for x in rec['this_eager_ms_per_frame'])}; replayed "
+            f"block ms/frame parent "
+            f"{' / '.join(f'{x:.3f}' for x in rec['parent_batched_ms_per_frame'])}, this tree "
+            f"{' / '.join(f'{x:.3f}' for x in rec['this_batched_ms_per_frame'])} "
+            f"(in turns: parent, this, this, parent) ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
-    ap.add_argument("--parent", help="a checkout of the parent commit: its BVH walks are "
-                    "built and timed beside this tree's in phase 6")
+    ap.add_argument("--parent", help="a checkout of the parent commit: its frames are "
+                    "timed beside this tree's in phase 8")
+    ap.add_argument("--frame-times", metavar="DIR",
+                    help="print the frame times of the package in the checkout DIR and "
+                    "exit (the subprocess of phase 8)")
     args = ap.parse_args(argv)
+    if args.frame_times:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 1
+        print("FRAME_TIMES " + json.dumps(frame_times(args.frame_times)), flush=True)
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1226,6 +1361,7 @@ def main(argv=None) -> int:
     from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.accel import dense as dns
     from radish_pt_tpu_torch.accel import quad as qd
+    from radish_pt_tpu_torch.accel import sort_key as sk
     from radish_pt_tpu_torch.accel import traverse as trv
     from radish_pt_tpu_torch.config import Denoiser, ReservoirReuse, Settings, Tracer
     from radish_pt_tpu_torch.render import denoise as dn
@@ -1363,11 +1499,16 @@ def main(argv=None) -> int:
         f"{waves['primary'][0].shape[0]}, extension rays live "
         f"{int((waves['extension'][2] >= 0).sum())}, shadow segments live "
         f"{int(waves['segments'][2].sum())}")
+    max_err["signature_key"] = 0.0
     inputs = {"plucker": {"teapot": plucker_parity(ds, waves, max_err, log, "teapot")},
-              "quad": quad_parity(dsq, waves, max_err, log)}
+              "quad": quad_parity(dsq, waves, max_err, log),
+              "signature_key": {"teapot": key_parity(ds, waves, "teapot", max_err, log)}}
     ds, cam = scenes["teapot_hires_plucker"]
+    waves = bounce_one(ds, cam)
     inputs["plucker"]["teapot_hires_plucker"] = plucker_parity(
-        ds, bounce_one(ds, cam), max_err, log, "teapot_hires_plucker")
+        ds, waves, max_err, log, "teapot_hires_plucker")
+    inputs["signature_key"]["teapot_hires_plucker"] = key_parity(
+        ds, waves, "teapot_hires_plucker", max_err, log)
     # wavefronts the Plücker pair meets only on these scenes: glass's
     # primaries through the masked thin lens and its bounce-1 rays refracted
     # into the glass sphere (their origins inside a cluster's box);
@@ -1394,6 +1535,12 @@ def main(argv=None) -> int:
         f"segments live {int(waves['segments'][2].sum())}")
     inputs["compact"] = compact_parity(ds, waves, max_err, log)
     inputs["band"] = band_parity(dsb, waves, max_err, log)
+    # the key on the compact layout (1,755 clusters paired to 220) and, on
+    # the same rays, the band engine's count-major form
+    inputs["signature_key"]["teapot_hires"] = key_parity(ds, waves, "teapot_hires", max_err,
+                                                         log)
+    inputs["signature_key"]["teapot_hires_band"] = key_parity(dsb, waves, "teapot_hires_band",
+                                                              max_err, log)
     inputs["dense"] = {}
     for name in ("cornell", "teapot"):
         ds, cam = scenes[f"{name}_dense"]
@@ -1417,10 +1564,23 @@ def main(argv=None) -> int:
         assert {k: n_launch[k] for k in want} == want, (n_launch, want)
         return n_launch, n_frames
 
+    key_launches = {}
+
     def plucker_path(names):
-        """A Plücker frame's sweeps cull for themselves: no mask prepass."""
+        """A Plücker frame's sweeps cull for themselves: no mask prepass.
+        A frame on a scene with clusters launches the sort-key kernel 2d +
+        1 times (the primaries, then each bounce's shadow segments and
+        extension rays), in the sliced bounce loop where ``path_trace``
+        gates it and in the dense loop alike; no plain key."""
+        sk.reset_counts()
         n_launch, n_frames = sweep_path(names, plk)
         assert not any(plk.PREPASS_CALLS.values()), "the mask prepass ran on the card path"
+        want = sum(8 * (2 * depth_of(n) + 1) for n in names
+                   if scenes[n][0].cluster_bounds is not None)
+        key_launches[names] = (dict(sk.LAUNCHES), n_frames)
+        log(f"[main path] {', '.join(names)}: sort-key launches {dict(sk.LAUNCHES)} (want "
+            f"{want}), plain keys {dict(sk.PLAIN_CALLS)}")
+        assert sk.LAUNCHES["signature_key"] == want and not any(sk.PLAIN_CALLS.values())
         return n_launch, n_frames
 
     def band_path(names):
@@ -1522,6 +1682,46 @@ def main(argv=None) -> int:
     compare("cornell_bvh", "cornell_dense", 0.002, "cornell, bvh vs dense engine")
     compare("teapot_hires_bvh", "teapot_hires", 0.002, "teapot_hires, bvh vs compact engine")
     del frames
+
+    # the sliced bounce loop against the dense loop: loopers 0-7 of teapot,
+    # env_teapot (its env-miss term) and glass (delta BSDFs, depth 8): the
+    # default path_trace (the sliced loop, as step() runs it) equal to the
+    # dense loop (n_slices=0, as a captured block runs it) bit for bit; the
+    # live share of each extension wavefront, the looper-7 mean against its
+    # golden, and one profiled sliced frame's device time in the key kernel
+    # and in the sorts and permutations of the lanes
+    sliced_record = {}
+    for name in ("teapot", "env_teapot", "glass"):
+        ds, cam = scenes[name]
+        depth = depth_of(name)
+        differ = []
+        for lp in range(8):
+            st = {}
+            got = pt.path_trace(ds, cam, lp, depth, stats=st)
+            want = pt.path_trace(ds, cam, lp, depth, n_slices=0)
+            assert st["loop"] == "sliced", (name, st)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                off = torch.cat([a != b for a, b in zip(got, want)], 1).any(1)
+                differ.append((lp, int(off.sum()), float(max(
+                    (a - b).abs().max() for a, b in zip(got, want)))))
+        mean = float((got[0] + got[1]).mean())
+        drift = mean / MEAN_GOLDEN[name] - 1.0
+        stages = frame_stages(lambda: pt.path_trace(ds, cam, 8, depth))
+        share = [n / (RES * RES) for n in st["live"]]
+        log(f"[sliced] {name} {RES}x{RES} depth {depth}, loopers 0-7: the sliced loop "
+            f"(slices of {st['slice']} lanes) equal to the dense loop bit for bit: "
+            f"{not differ} {differ or ''}; live share of the extension wavefronts at "
+            f"looper 7, bounce 1 first: {', '.join(f'{x:.4f}' for x in share)}; looper-7 "
+            f"mean {mean:.7f} vs golden {MEAN_GOLDEN[name]:.7f}: drift {drift * 100:+.4f}%; "
+            f"a profiled frame: sort key {stages.get('sort key', 0.0):.3f} ms, sort + "
+            f"permute {stages.get('sort + permute', 0.0):.3f} ms of {stages['busy']:.3f} ms "
+            f"busy ({card})")
+        assert not differ, f"{name}: the sliced loop differs from the dense loop"
+        assert abs(drift) < MEAN_DRIFT, f"{name}: the sliced frame's mean drifted"
+        sliced_record[name] = {"live_share": share, "slice": st["slice"],
+                               "sort_key_ms": stages.get("sort key", 0.0),
+                               "sort_permute_ms": stages.get("sort + permute", 0.0),
+                               "busy_ms": stages["busy"]}
 
     # the interactive direct-lighting path on cornell's dense engine
     restir = Settings(tracer=Tracer.RESTIR_DI)  # T+S reuse, 32 candidates, clamp 20
@@ -1647,6 +1847,25 @@ def main(argv=None) -> int:
         log(f"[timing] {name} ({ds.intersector}) {RES}x{RES} depth {depth} 1 spp: "
             f"{ms:.3f} ms/frame (median of 3 blocks of 4 frames), {mrays:.2f} "
             f"Mrays/s ({card})")
+    # the sliced loop's slice count: path_trace at 4, 8 and 16 slices a
+    # wavefront beside the dense loop (0), the same frames each time, in
+    # turns (0 first and last): the wall ms of a frame (host-bound, as
+    # every eager frame) and the device ms of a profiled frame
+    slice_ms = {}
+    for name in ("teapot", "teapot_hires_plucker", "glass", "env_teapot"):
+        ds, cam = scenes[name]
+        depth = depth_of(name)
+        for n_slices in (0, 4, 8, 16, 0):
+            wall = cuda_ms(lambda: [pt.path_trace(ds, cam, 8 + k, depth, n_slices=n_slices)
+                                    for k in range(4)], reps=3) / 4
+            busy = frame_stages(lambda: pt.path_trace(ds, cam, 8, depth,
+                                                      n_slices=n_slices))["busy"]
+            slice_ms.setdefault(name, {}).setdefault(n_slices, []).append((wall, busy))
+        log(f"[timing] {name} {RES}x{RES} depth {depth}, by slices a wavefront (0: the dense "
+            f"loop), ms/frame wall (median of 3 blocks of 4 frames) | device (a profiled "
+            f"frame): " + ", ".join(
+                f"{k}: " + " / ".join(f"{w:.3f} | {b:.3f}" for w, b in v)
+                for k, v in slice_ms[name].items()) + f" ({card})")
     for name in ("cornell_dense", "cornell"):
         ds, cam = scenes[name]
         state = {"res": rs.empty_reservoir(RES * RES, device=dev), "first": True}
@@ -1723,6 +1942,38 @@ def main(argv=None) -> int:
             other_bounds[f"plucker_{kind}/{what}", scene] = [(
                 f"the {plk.ROW}-lane row's flagged clusters",
                 bound(pairs["row"] * plk.FLOPS_PER_PAIR[kind], nb)[0])]
+    # the Plücker pair on the same wavefronts sorted on their key (as
+    # intersect_sorted and test_occlusion_sorted sweep them): the winners
+    # put back in lane order equal the unsorted sweep's; beside the
+    # unsorted kernel's ms
+    sorted_ms = {}
+    for scene in ("teapot", "teapot_hires_plucker"):
+        ds = scenes[scene][0]
+        sub, cb, pk = ds.cluster_sub, ds.cluster_bounds, ds.sweep_packed
+        for what in ("extension", "segments"):
+            feats, o, d, tmax, _, _ = inputs["plucker"][scene][what]
+            ko, kd, ktm, kact = inputs["signature_key"][scene][what]
+            order = torch.sort(sk.signature_key_cuda(ds.key_bounds, ko, kd, ktm, kact),
+                               stable=True)[1]
+            fs, os_, ds_ = (t.index_select(0, order).contiguous() for t in (feats, o, d))
+            ts = None if tmax is None else tmax.index_select(0, order).contiguous()
+            if what == "segments":
+                run_u = lambda: plk.occlusion_cuda(pk, feats, cb, o, d, tmax, sub)  # noqa: E731
+                run_s = lambda: plk.occlusion_cuda(pk, fs, cb, os_, ds_, ts, sub)  # noqa: E731
+                same = torch.equal(run_u(), torch.empty_like(run_u()).index_copy_(
+                    0, order, run_s()))
+            else:
+                run_u = lambda: plk.closest_hit_cuda(pk, feats, cb, o, d, tmax, sub)  # noqa: E731
+                run_s = lambda: plk.closest_hit_cuda(pk, fs, cb, os_, ds_, ts, sub)  # noqa: E731
+                pu, ps = run_u()[0], run_s()[0]
+                same = torch.equal(pu, torch.empty_like(pu).index_copy_(0, order, ps))
+            sorted_ms[scene, what] = (cuda_ms(run_u, 5), cuda_ms(run_s, 5), cuda_ms(run_u, 5))
+            u1, s1, u2 = sorted_ms[scene, what]
+            log(f"[timing] plucker {'occlusion' if what == 'segments' else 'closest_hit'}, "
+                f"{scene} bounce-1 {what}: unsorted {u1:.3f} / {u2:.3f} ms (before and "
+                f"after), sorted on the key {s1:.3f} ms; results in lane order equal: {same} "
+                f"({card})")
+            assert same, f"{scene} {what}: the sorted sweep's results differ"
     ds = scenes["teapot_quad"][0]
     sub, n_c, cb = ds.cluster_sub, ds.cluster_bounds.shape[0], ds.cluster_bounds
     qc, qp, qo = ds.quad_coeffs, ds.quad_packed, ds.quad_occl_packed
@@ -1858,17 +2109,30 @@ def main(argv=None) -> int:
     # counted (on the ranged wavefronts, with the dead lanes settled), the
     # node rows and leaves any lane touched read once; beside it the bytes
     # of every visit's row and leaf.  The binning kernel: the rays'
-    # directions and ranges read once, the queue written once.  With
-    # --parent, the parent checkout's walks on the same rays (its closest
-    # hit unranged: it walked every lane of the frame's wavefronts).  Each
-    # timed one call at a time, as every kernel of the line, and as 10 calls
-    # back to back (the host's launch latency hidden: the binning makes a
-    # walk's wrapper a memset, three launches and a workspace)
-    parent = parent_library(args.parent) if args.parent else None
-
-    def both_ms(fn):
-        return cuda_ms(fn, 5), cuda_ms(fn, 5, inner=10)
-
+    # directions and ranges read once, the queue written once.  Each timed
+    # one call at a time, as every kernel of the line, and as 10 calls back
+    # to back (the host's launch latency hidden: the binning makes a walk's
+    # wrapper a memset, three launches and a workspace).
+    # The sort-key kernel: unfused single operations (__fsub_rn, __fmul_rn,
+    # compares), bounded at the instruction rate over every (ray, box) pair
+    # of its slab test; the rays, ranges and dead flags read once, the keys
+    # written once, the boxes once.  Timed one call at a time and as 10
+    # calls back to back
+    for scene, waves in inputs["signature_key"].items():
+        ds = scenes[scene][0]
+        boxes = ds.key_bounds
+        band = ds.intersector in ("band", "band_plain")
+        for what, (o, d, tmax, active) in waves.items():
+            n = o.shape[0]
+            ranged = tmax is not None
+            ops = (n * boxes.shape[0] * (sk.OPS_PER_BOX + ranged)
+                   + n * sk.OPS_PER_RAY)
+            nb = (nbytes(boxes, o, d) + 4 * n + (0 if active is None else nbytes(active))
+                  + (nbytes(tmax) if isinstance(tmax, torch.Tensor) else 0))
+            time_kernel(f"signature_key/{what}",
+                        lambda o=o, d=d, tmax=tmax, active=active, band=band, boxes=boxes:
+                        sk.signature_key_cuda(boxes, o, d, tmax, active, band),
+                        ops, nb, scene, PEAK_F32_OPS_UNFUSED, back_to_back=True)
     for scene in ("teapot_bvh", "teapot_hires_bvh"):
         ds = scenes[scene][0]
         lt, lm, nodes = ds.leaf_tris, ds.leaf_map, ds.bvh_packed
@@ -1881,12 +2145,6 @@ def main(argv=None) -> int:
             work[f"bvh_closest_hit/{what}"] = (
                 lambda o=o, d=d, tmax=tmax: trv.intersect_bvh_cuda(lt, lm, nodes, o, d, tmax),
                 flops, once, every)
-            if parent is not None:
-                same = torch.equal(parent_walk(parent, ds, o, d)[0],
-                                   trv.intersect_bvh_cuda(lt, lm, nodes, o, d)[0])
-                assert same, f"the parent's closest hit differs, {scene} {what}"
-                PARENT_MS[f"bvh_closest_hit/{what}", scene] = both_ms(
-                    lambda o=o, d=d: parent_walk(parent, ds, o, d))
             if what in ("primary", "extension"):
                 flops, once, every = walk_work(ds, st, o.shape[0], 24 + 4)
                 work[f"bvh_heatmap/{what}"] = (
@@ -1896,9 +2154,6 @@ def main(argv=None) -> int:
         flops, once, every = walk_work(ds, st, so.shape[0], 28 + 4)
         work["bvh_occlusion/segments"] = (
             lambda: trv.occlusion_bvh_cuda(lt, nodes, so, sd, tm), flops, once, every)
-        if parent is not None:
-            PARENT_MS["bvh_occlusion/segments", scene] = both_ms(
-                lambda: parent_walk(parent, ds, so, sd, tm))
         for key, (kernel, flops, once, every) in work.items():
             time_kernel(key, kernel, flops, once, scene, PEAK_F32_OPS_UNFUSED, back_to_back=True)
             other_bounds[key, scene] = [
@@ -1923,12 +2178,6 @@ def main(argv=None) -> int:
                        for o_name, o_ms in other_bounds.get((key, scene), ()))
         if (key, scene) in BACK_TO_BACK_MS:
             also += f"; 10 calls back to back {BACK_TO_BACK_MS[key, scene]:.3f} ms a call"
-        if (key, scene) in PARENT_MS:
-            one, b2b = PARENT_MS[key, scene]
-            also += (f"; the parent's kernel {one:.3f} ms one call ({one / k:.2f}x this one's), "
-                     f"{b2b:.3f} ms back to back ({b2b / BACK_TO_BACK_MS[key, scene]:.2f}x)")
-        elif name.startswith("bvh_") and name != "bvh_bin":
-            also += "; the parent's kernel: not timed (no --parent)"
         log(f"[timing] {name}, {scene} {what}: kernel "
             f"{k:.3f} ms one call, plain {p:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
             f"{flops / 1e9:.2f} G operations at {peak / 1e12:.1f} T/s, {nb / 1e6:.2f} MB), "
@@ -1956,13 +2205,11 @@ def main(argv=None) -> int:
         if lib == "bvh":
             rows[-1]["stage"] = (f"an XLA {'sort' if kind == 'bin' else 'walk'} of the JAX "
                                  f"package (no Pallas body)")
-            # every wavefront it was timed on, with the parent's kernel (--parent)
+            # every wavefront it was timed on
             rows[-1]["wavefronts"] = {
                 f"{scene} {key.split('/')[1]}": {
                     "ms": t[0], "ms_back_to_back": BACK_TO_BACK_MS.get((key, scene)),
-                    "plain_ms": t[1], "bound_ms": bound(t[2], t[3], t[4])[0],
-                    "parent_ms": PARENT_MS.get((key, scene), (None, None))[0],
-                    "parent_ms_back_to_back": PARENT_MS.get((key, scene), (None, None))[1]}
+                    "plain_ms": t[1], "bound_ms": bound(t[2], t[3], t[4])[0]}
                 for (key, scene), t in timed.items() if key.split("/")[0] == name}
         if lib in ("plucker", "bvh"):  # the same kernel on the largest scene of its engine
             scene = f"teapot_hires_{lib}"
@@ -1979,10 +2226,40 @@ def main(argv=None) -> int:
             rows[-1]["other_scenes"] = {
                 scene: {"launches": n[kind], "launches_per_frame": n[kind] / 8}
                 for scene, n in launches_other.items()}
+    # the sort-key kernel, launched on the Plücker main path (cornell has no
+    # clusters and no key); every wavefront it was timed on beside
+    k, p, flops, nb, peak = timed["signature_key/" + KEY_ROW[1], KEY_ROW[0]]
+    b_ms, b_by = bound(flops, nb, peak)
+    n_launch, n_frames = key_launches["cornell", "teapot"]
+    rows.append({"name": "signature_key", "route": "cuda", "source": SOURCES["sort_key"],
+                 "replaces": KEY_REPLACES, "launches": n_launch["signature_key"],
+                 "launches_per_frame": n_launch["signature_key"] / n_frames,
+                 "max_abs_err": max_err["signature_key"], "ms": k, "plain_ms": p,
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "shape": f"{KEY_ROW[0]} {KEY_ROW[1]}",
+                 "stage": "an XLA slab test of the JAX package (no Pallas body)",
+                 "other_scenes": {
+                     ", ".join(names): {"launches": n["signature_key"],
+                                        "launches_per_frame": n["signature_key"] / f}
+                     for names, (n, f) in key_launches.items()},
+                 "wavefronts": {
+                     f"{scene} {key.split('/')[1]}": {
+                         "ms": t[0], "ms_back_to_back": BACK_TO_BACK_MS.get((key, scene)),
+                         "plain_ms": t[1], "bound_ms": bound(t[2], t[3], t[4])[0]}
+                     for (key, scene), t in timed.items()
+                     if key.split("/")[0] == "signature_key"}})
     log(f"[phase] 7 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 7. batched frames: one CUDA graph a block ----
     batched = batched_phase(scenes, log, card)
     log(f"[batched] {json.dumps(batched)}")
+    log(f"[sliced] {json.dumps(sliced_record)}")
+    log(f"[phase] 8 starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- 8. frame times beside the parent checkout's (--parent) ----
+    if args.parent:
+        torch.cuda.empty_cache()  # the subprocesses load their own scenes
+        log(f"[parent] {json.dumps(parent_frame_times(args.parent, log, card))}")
+    else:
+        log("[parent] frame times beside the parent's: not timed (no --parent)")
     log(f"[done] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -73,6 +73,11 @@ SIGNATURES = {
         "bvh_occlusion": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P],
         "bvh_heatmap": [_P, _I, _P, _I, _P, _P, _I, _P, _P],
     },
+    "sort_key": {
+        # boxes, C, ray_o, ray_d, tmax (or NULL), every lane's range, range
+        # mode, active (or NULL), N, band form, miss_extra, key, stream
+        "signature_key": [_P, _I, _P, _P, _P, ctypes.c_float, _I, _P, _I, _I, _I, _P, _P],
+    },
 }
 
 _libs: dict = {}

@@ -5,9 +5,13 @@ kernel time summed by stage.
         [--intersector plucker|compact|quad|band|dense|bvh|brute] [--band-g 8]
         [--tracer pt|direct|restir] [--batch-spp N]
 
-The frame is one ``path_trace`` call for ``--tracer pt`` (the default), and
-one ``Renderer.step`` (G-buffer, tracer, accumulation, display) for the
-direct-light tracer and for ReSTIR DI (T+S reuse, 32 candidates).
+The frame is one ``path_trace`` call for ``--tracer pt`` (the default; the
+sliced bounce loop where it is gated, with the live lanes of each
+extension wavefront printed), and one ``Renderer.step`` (G-buffer, tracer,
+accumulation, display) for the direct-light tracer and for ReSTIR DI (T+S
+reuse, 32 candidates).  Besides the sweeps, the stages name the sort-key
+kernel ("sort key") and the sorts and permutations of the lanes ("sort +
+permute").
 
 Prints the card, the frame's wall time (CUDA events, profiler off), the
 device-busy time the profiler saw during a profiled frame, the share of it
@@ -57,6 +61,15 @@ STAGES = (
     ("compact_occlusion_kernel", "compact shadow"),
     ("closest_hit_kernel", "closest-hit kernel"),
     ("occlusion_kernel", "shadow kernel"),
+    ("signature_key_kernel", "sort key"),
+    # the sorts of the wavefront's keys (any kernel named for sorting:
+    # cub's radix sort, torch's small-segment sorts) and the gathers and
+    # scatters that permute its lanes (index_select, index_copy_; the
+    # sampler's one-element Sobol fetch is an index_select too)
+    ("Sort", "sort + permute"),
+    ("sort", "sort + permute"),
+    ("indexSelect", "sort + permute"),
+    ("index_copy", "sort + permute"),
 )
 
 
@@ -210,9 +223,10 @@ def main(argv=None) -> int:
         ds = ds.replace(band_g=args.band_g)
     if args.batch_spp:
         return profile_block(args, ds, cam, card)
+    loop_stats: dict = {}
     if args.tracer == "pt":
         def frame(looper):
-            pt.path_trace(ds, cam, looper, args.depth)
+            pt.path_trace(ds, cam, looper, args.depth, stats=loop_stats)
     else:
         tracer = Tracer.RESTIR_DI if args.tracer == "restir" else Tracer.DIRECT_LIGHT
         r = Renderer(ds=ds, cam=cam, settings=Settings(tracer=tracer), device="cuda")
@@ -258,6 +272,12 @@ def main(argv=None) -> int:
           f"({100 * (1 - busy / frame_ms):.1f}% idle against the unprofiled frame), "
           f"{launches:.0f} device operations a frame; eager prepass calls a frame "
           f"{prepass}")
+    if loop_stats:
+        live = loop_stats.get("live")
+        print(f"  bounce loop: {loop_stats['loop']}" + ("" if live is None else (
+            f", slices of {loop_stats['slice']} lanes; live lanes of the extension "
+            f"wavefronts, bounce 1 first: " + ", ".join(
+                f"{n} ({100 * n / (args.res * args.res):.1f}%)" for n in live))))
     for stage, ms in sorted(stages.items(), key=lambda kv: -kv[1]):
         print(f"  {stage:20s} {ms / args.frames:9.3f} ms/frame  "
               f"{100 * ms / args.frames / max(busy, 1e-9):5.1f}% of busy")

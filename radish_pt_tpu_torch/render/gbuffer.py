@@ -79,7 +79,7 @@ def render_gbuffer(ds: dsc.DeviceScene, cam: cam_mod.Camera,
     y = idx // cam.width
 
     ray_o, ray_d = cam_mod.pinhole_rays(cam, x, y)
-    it = dsc.intersect(ds, ray_o, ray_d)
+    it = dsc.intersect_primary(ds, ray_o, ray_d)
     hit = it.prim_id != NULL_PRIMITIVE
 
     mat, norm = dsc.get_textured_material(ds, it.mat_id, it.uv, it.norm)

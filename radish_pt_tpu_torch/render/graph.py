@@ -40,12 +40,14 @@ def batch_mode(ds) -> str:
 
 def _counters() -> dict:
     """(engine, counter) -> the counter dict of each capturable engine's
-    module (its launches, plain-version and prepass calls)."""
-    from ..accel import band, dense, plucker, quad, traverse
+    module (its launches, plain-version and prepass calls), and of the
+    sort-key kernel's (``"sort_key"``), which every engine's sorted sweeps
+    launch."""
+    from ..accel import band, dense, plucker, quad, sort_key, traverse
 
     out = {}
     for engine, mod in (("plucker", plucker), ("band", band), ("quad", quad),
-                        ("dense", dense), ("bvh", traverse)):
+                        ("dense", dense), ("bvh", traverse), ("sort_key", sort_key)):
         for attr in ("LAUNCHES", "PLAIN_CALLS", "PREPASS_CALLS"):
             if hasattr(mod, attr):
                 out[engine, attr] = getattr(mod, attr)

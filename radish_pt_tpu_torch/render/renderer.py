@@ -54,9 +54,16 @@ def _pt_batch(ds, cam, looper0, direct, indirect, iteration, *, max_depth: int,
     """``block`` full-PT samples accumulated: frame k at looper ``looper0 +
     k`` (no wrap inside a block, as the JAX batch) and iteration
     ``iteration + k``; ``looper0`` int64 and ``iteration`` f32 0-d tensors.
-    Returns (direct, indirect)."""
+    Returns (direct, indirect).  On an engine whose blocks are captured as
+    a CUDA graph (``graph.CAPTURABLE_ENGINES``, on any device, so that the
+    CPU runs the body the card captures) the frames run the dense bounce
+    loop with the sorted sweeps (``n_slices=0``): the sliced loop reads its
+    live count on the host.  The compact engine's eager blocks run the
+    sliced loop where ``path_trace`` gates it; both loops give the same
+    bits."""
+    n_slices = 0 if ds.intersector in gr.CAPTURABLE_ENGINES else None
     for k in range(block):
-        d, ind = pt.path_trace(ds, cam, looper0 + k, max_depth)
+        d, ind = pt.path_trace(ds, cam, looper0 + k, max_depth, n_slices=n_slices)
         direct = pt.accumulate(direct, pt.scrub_and_compress(d), iteration + k)
         indirect = pt.accumulate(indirect, pt.scrub_and_compress(ind), iteration + k)
     return direct, indirect

@@ -259,7 +259,7 @@ def restir_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper,
     table = ds.sobol
 
     ray_o, ray_d, sampler = _gen_primary(ds, cam, sampler, idx)
-    it = dsc.intersect(ds, ray_o, ray_d)
+    it = dsc.intersect_primary(ds, ray_o, ray_d)
     hit = it.prim_id != NULL_PRIMITIVE
     direct = torch.where(hit[..., None], torch.zeros_like(ray_d),
                          dsc.env_radiance(ds, ray_d))
@@ -295,7 +295,7 @@ def restir_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper,
     # cannot shade get zero-length segments and zero weight ----
     vis = shade & (res.weight > 0.0)
     target = it.pos + res.wi * res.dist[..., None]
-    occluded = dsc.test_occlusion(ds, it.pos, torch.where(vis[..., None], target, it.pos))
+    occluded = dsc.test_occlusion_sorted(ds, it.pos, target, mask=vis)
     res = res.replace(weight=torch.where(vis & ~occluded, res.weight,
                                          torch.zeros_like(res.weight)))
 

@@ -35,11 +35,13 @@ from ..accel.bvh import build_bvh
 from ..accel.compact import unit_spheres
 from ..accel.plucker import numpy_coeffs, numpy_packed_coeffs
 from ..accel.quad import numpy_quad_coeffs, numpy_quad_occl_packed, numpy_quad_packed
+from ..accel.sort_key import key_boxes
 from ..accel.traverse import pack_bvh, pack_tris
 from ..sampling.alias import build_alias_table
 from ..sampling.sobol import load_sobol_table
 from .camera import Camera, make_camera
-from .device_scene import MAT_LIGHT, NULL_TEXTURE, DeviceScene, pack_textures
+from .device_scene import (MAT_LIGHT, NULL_TEXTURE, SWEEP_ENGINES, DeviceScene,
+                           pack_textures)
 from .parser import SceneDesc
 
 CLUSTER_SUB = 64  # default triangles per culling cluster
@@ -298,6 +300,9 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
     bounds = None if cluster_bounds is None else f32(cluster_bounds)
     ds = DeviceScene(
         intersector=intersector,
+        # the primaries sort on their cluster signature on a sweep engine
+        # with clusters (build.py:382-386)
+        sort_primaries=intersector in SWEEP_ENGINES and cluster_bounds is not None,
         n_area_lights=n_area_lights,
         has_env=has_env,
         has_aperture=has_aperture,
@@ -313,6 +318,7 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
         leaf_tris=f32(bvh.leaf_tris),
         leaf_map=i32(leaf_map),
         cluster_bounds=bounds,
+        key_bounds=None if bounds is None else f32(key_boxes(cluster_bounds)),
         sweep_coeffs=f32(coeffs),
         sweep_center=f32(center),
         sweep_packed=f32(numpy_packed_coeffs(coeffs)),

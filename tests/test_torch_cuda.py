@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: build csrc/plucker.cu,
-csrc/compact.cu, csrc/quad.cu, csrc/band.cu, csrc/dense.cu and csrc/bvh.cu
-and hold the Plücker closest-hit and shadow kernels, the sphere prepass,
-the compact, quad, band and dense closest-hit and shadow kernels and the
-three BVH walks against their plain torch versions on teapot geometry,
+csrc/compact.cu, csrc/quad.cu, csrc/band.cu, csrc/dense.cu, csrc/bvh.cu and
+csrc/sort_key.cu and hold the Plücker closest-hit and shadow kernels, the
+sphere prepass, the compact, quad, band and dense closest-hit and shadow
+kernels, the three BVH walks and the sort-key kernel against their plain
+torch versions on teapot geometry,
 then small renders through the kernels (teapot, and the other shipped
 scenes on the Plücker engine) against the same renders through the plain
 versions.
@@ -963,3 +964,101 @@ def test_batched_blocks_equal_steps(engine, scene, tracer):
         per = run.launches_per_replay()[engine]
         want = (3 * 4, 3 * 3) if tracer == "pt" else (3 + 1, 3)
         assert (per["closest_hit"], per["occlusion"]) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["teapot", "empty", "one", "ragged", "all_dead", "nan",
+                                  "one_box", "hires", "compact", "band"])
+def test_sort_key_kernel_matches_plain(teapot_cuda, case):
+    """The key kernel (csrc/sort_key.cu) equals its plain version as an
+    integer on every lane (tolerance: none): teapot's 43 boxes on the
+    fixture's 8,192 primaries and bounce rays, unranged, ranged (NEE
+    segments: ``tmax`` 1 on the unnormalised segment, and per lane) and
+    with every fifth lane dead; N = 0, 1 and 1,007; every lane dead; NaN
+    and zero directions and NaN origins; C = 1; teapot_hires' 115
+    super-clusters; the compact layout's 220 (1,755 paired); 512 boxes
+    paired to 256 (the miss bit); the band engine's count-major form."""
+    from radish_pt_tpu_torch.accel import sort_key as sk
+
+    ds, _, o, d, tmax = teapot_cuda
+    boxes, band = ds.key_bounds, False
+    active = tmax > 0
+    rng = np.random.default_rng(15)
+    dev = o.device
+    if case == "empty":
+        o, d, active = o[:0], d[:0], active[:0]
+    elif case == "one":
+        o, d, active = o[:1], d[:1], active[:1]
+    elif case == "ragged":
+        o, d, active = o[:1007], d[:1007], active[:1007]
+    elif case == "all_dead":
+        active = torch.zeros_like(active)
+    elif case == "nan":
+        o, d = o.clone(), d.clone()
+        d[0] = 0.0
+        d[1] = torch.tensor([-1e-13, 1e-13, -1.0], device=dev)
+        o[2, 1] = float("nan")
+        d[3::97, 0] = float("nan")
+    elif case == "one_box":
+        boxes = ds.cluster_bounds[:1].contiguous()
+    elif case in ("hires", "compact"):
+        from radish_pt_tpu_torch.scene.build import load_scene
+
+        hires, _, _ = load_scene(os.path.join(SCENES, "teapot_hires.txt"), device="cuda",
+                                 intersector="plucker" if case == "hires" else "compact")
+        boxes = hires.key_bounds
+        assert boxes.shape[0] == (115 if case == "hires" else 220)
+    elif case == "band":
+        band = True
+        lo = rng.uniform(-3, 3, (512, 3)).astype(np.float32)
+        cb = np.concatenate([lo, lo + rng.uniform(0.05, 1.0, (512, 3)).astype(np.float32)], 1)
+        boxes = torch.from_numpy(sk.key_boxes(cb)).to(dev)
+        assert boxes.shape[0] == 256
+    seg = d * 2.5
+    for args in ((o, d, None, None), (o, d, None, active), (o, seg, 1.0, None),
+                 (o, seg, 1.0, active), (o, d, torch.where(active, 4.0, -1.0), None)):
+        got = sk.signature_key_cuda(boxes, *args, band=band)
+        want = sk.signature_key_plain(boxes, *args, band=band)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (o.shape[0],)
+        assert torch.equal(got, want), (case, int((got != want).sum()))
+    dead = sk.signature_key_cuda(boxes, o, d, None, active, band=band) >= sk.DEAD_KEY_BIT
+    assert torch.equal(dead, ~active)
+    if case == "band":
+        assert bool((sk.signature_key_cuda(boxes, o, d, band=band) >= sk.MISS_KEY_BIT).any())
+
+
+@pytest.mark.cuda
+def test_captured_block_equals_sliced_steps():
+    """teapot 64x64, depth 4: ``step()`` runs the sliced bounce loop (its
+    live lanes read on the host) and a replayed block the dense loop with
+    the sorted sweeps; two blocks of 2 equal 4 ``step()`` frames bit for
+    bit, and each frame launched the key kernel 2d + 1 times."""
+    from radish_pt_tpu_torch.accel import sort_key as sk
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(os.path.join(SCENES, "teapot.txt"), device="cuda")
+    cam = cam.replace(width=64, height=64)
+    depth = 4
+    stats = {}
+    pt.path_trace(ds, cam, 0, depth, stats=stats)
+    assert stats["loop"] == "sliced" and stats["slice"] == pt._slice_width(
+        64 * 64, pt.DEFAULT_SLICES["cuda"])
+    settings = Settings(tracer=Tracer.STREAMED, trace_depth=depth)
+    a, b = (Renderer(ds=ds, cam=cam, settings=settings, device="cuda") for _ in range(2))
+    sk.reset_counts()
+    for _ in range(4):
+        a.step()
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["signature_key"] == 4 * (2 * depth + 1)
+    for _ in range(2):
+        run = b.run_block(2)
+    assert b.batch_mode == "graph" and run.replays == 2
+    assert run.launches_per_replay()["sort_key"] == {"signature_key": 2 * (2 * depth + 1)}
+    for name in ("direct", "indirect"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name

@@ -11,7 +11,8 @@ import numpy as np
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 
 META = ("intersector", "n_area_lights", "has_env", "has_aperture",
-        "single_sided", "mat_types", "cluster_sub", "env_tex", "aperture_tex")
+        "single_sided", "mat_types", "cluster_sub", "env_tex", "aperture_tex",
+        "sort_primaries")
 
 
 def jax_scene_parts(ds):
