@@ -93,7 +93,10 @@ CUDA kernels of those paths against their plain torch versions.  Phases:
    and device ms, in turns); the Plücker pair on the
    bounce-1 wavefronts sorted on their key beside the unsorted; the key
    kernel one call and 10 back to back against its instruction-rate
-   bound;
+   bound; with ``--parent DIR``, the sort-key and binning kernels beside
+   the parent checkout's (built from DIR's csrc into ``_build/parent``),
+   the same inputs and the same results, one call, 10 back to back and 10
+   replayed in one CUDA graph, in turns: parent, this, this, parent;
 7. batched frames (``Renderer.run_block``, ``step_batched_restir``): the
    ReSTIR spatial offsets computed on the card equal to the CPU's for all
    10,000 loopers x 5 neighbours; then per cell — the path tracer on
@@ -237,6 +240,54 @@ def gpu_name_and_power() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return res.stdout.strip().splitlines()[0]
+
+
+def restir_offsets_check(dev, log, tag: str) -> None:
+    """The ReSTIR spatial offsets (``restir._shared_offset``) computed on
+    the card equal to the CPU's for every looper of the Sobol table (0-9,999)
+    and every neighbour (0-4).  On a difference: each step of the hash and
+    disk chain on both devices for the first differing components, whether
+    the card gives the same offsets a second time, and the offsets in f64,
+    then the failure."""
+    import torch
+
+    from radish_pt_tpu_torch.render import restir as rs
+    from radish_pt_tpu_torch.utils import math as m
+
+    loopers, ks = torch.arange(10_000)[:, None], torch.arange(5)
+    off_cpu = torch.stack(rs._shared_offset(loopers, ks), -1)
+    off_dev = torch.stack(rs._shared_offset(loopers.to(dev), ks.to(dev)), -1).cpu()
+    n_diff = int((off_cpu != off_dev).sum())
+    log(f"{tag} ReSTIR spatial offsets, 10000 loopers x 5 neighbours: {n_diff} of "
+        f"100000 components differ between the card and the CPU")
+    if n_diff == 0:
+        return
+
+    def chain(looper, k, dtype=torch.float32):
+        a = (looper.to(torch.int64) * 31 + (2 * k + 1)) & m.U32
+        h1 = m.utilhash(a)
+        h2 = m.utilhash(h1 ^ 0x9E3779B9)
+        u1, u2 = h1.to(dtype) * m.INV_2_32, h2.to(dtype) * m.INV_2_32
+        r, theta = torch.sqrt(u1), m.TWO_PI * u2
+        cos, sin = torch.cos(theta), torch.sin(theta)
+        p = torch.stack([r * cos, r * sin], -1) * 5.0
+        return {"a": a, "h1": h1, "h2": h2, "u1": u1, "u2": u2, "r": r, "theta": theta,
+                "cos": cos, "sin": sin, "p": p}
+
+    again = torch.stack(rs._shared_offset(loopers.to(dev), ks.to(dev)), -1).cpu()
+    log(f"{tag} the card a second time: {int((again != off_dev).sum())} components differ "
+        f"from its first result, {int((again != off_cpu).sum())} from the CPU's")
+    where = (off_cpu != off_dev).any(-1).nonzero()[:8]
+    lp, kk = loopers[where[:, 0], 0], ks[where[:, 1]]
+    on_cpu, on_dev = chain(lp, kk), chain(lp.to(dev), kk.to(dev))
+    in_f64 = torch.round(chain(lp, kk, torch.float64)["p"]).to(torch.int32)
+    for i in range(len(lp)):
+        steps = [f"{s} cpu {on_cpu[s][i].tolist()} card {on_dev[s][i].cpu().tolist()}"
+                 for s in on_cpu if not torch.equal(on_cpu[s][i], on_dev[s][i].cpu())]
+        log(f"{tag} looper {int(lp[i])} neighbour {int(kk[i])}: offset cpu "
+            f"{off_cpu[lp[i], kk[i]].tolist()} card {off_dev[lp[i], kk[i]].tolist()} f64 "
+            f"{in_f64[i].tolist()}; steps that differ: {'; '.join(steps) or 'none'}")
+    raise AssertionError("the card's ReSTIR offsets differ from the CPU's")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
@@ -1085,21 +1136,12 @@ def batched_phase(scenes, log, card):
     from radish_pt_tpu_torch.accel import quad as qd
     from radish_pt_tpu_torch.accel import traverse as trv
     from radish_pt_tpu_torch.config import Settings, Tracer
-    from radish_pt_tpu_torch.render import restir as rs
     from radish_pt_tpu_torch.render.renderer import Renderer
 
     counters = {"plucker": plk, "band": bnd, "quad": qd, "dense": dns, "compact": cpt,
                 "bvh": trv}
-    # the ReSTIR offsets on the card against the CPU's: every looper of the
-    # Sobol table, every neighbour
-    loopers, ks = torch.arange(10_000)[:, None], torch.arange(5)
     dev = scenes["teapot"][0].device
-    off_cpu = rs._shared_offset(loopers, ks)
-    off_dev = rs._shared_offset(loopers.to(dev), ks.to(dev))
-    n_diff = sum(int((a != b.cpu()).sum()) for a, b in zip(off_cpu, off_dev))
-    log(f"[batched] ReSTIR spatial offsets, 10000 loopers x 5 neighbours: {n_diff} of "
-        f"100000 components differ between the card and the CPU")
-    assert n_diff == 0, "the card's ReSTIR offsets differ from the CPU's"
+    restir_offsets_check(dev, log, "[batched]")
 
     def renderers(name, settings):
         ds, cam = scenes[name]
@@ -1161,8 +1203,8 @@ def batched_phase(scenes, log, card):
             run = batched.run_block(block)
         torch.cuda.synchronize()
         per = {"closest_hit": block * (depth + 1), "occlusion": block * depth}
-        if ds.intersector == "bvh":  # the binning kernel's two passes before each walk
-            per["bin"] = 2 * (per["closest_hit"] + per["occlusion"])
+        if ds.intersector == "bvh":  # one binning launch before each walk
+            per["bin"] = per["closest_hit"] + per["occlusion"]
         launches = {k: module.LAUNCHES[k] for k in per}
         for _ in range(2 * block):
             eager.step()
@@ -1326,14 +1368,103 @@ def parent_frame_times(parent: str, log, card) -> dict:
     return out
 
 
+def parent_kernel_times(parent: str, scenes, inputs, log, card) -> dict:
+    """With ``--parent``: this tree's sort-key and binning kernels beside
+    the parent checkout's, built from its ``radish_pt_tpu_torch/csrc`` into
+    ``_build/parent`` and called through this tree's wrappers (the C entry
+    points take the same arguments; the binning's workspace is this tree's
+    larger one), on phase 3's wavefronts.  The parent's keys equal this
+    tree's on every lane and its binning counts this tree's classes; each
+    kernel timed one call, 10 calls back to back, and 10 calls captured in
+    one CUDA graph and replayed (the card's time alone: no host issue
+    between the calls), in turns: parent, this tree, this tree, parent.
+    Returns {"kernel/wavefront scene": {"parent_ms": [ms, ms], "this_ms":
+    [...], "parent_ms_back_to_back": [...], "this_ms_back_to_back": [...],
+    "parent_ms_replayed": [...], "this_ms_replayed": [...]}}."""
+    import torch
+
+    from radish_pt_tpu_torch.accel import _build
+    from radish_pt_tpu_torch.accel import sort_key as sk
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    csrc = os.path.join(os.path.abspath(parent), "radish_pt_tpu_torch", "csrc")
+    build_dir = os.path.join(_build.BUILD_DIR, "parent")
+    t0 = time.perf_counter()
+    _build.build_all(("sort_key", "bvh"), csrc=csrc, build_dir=build_dir)
+    theirs = {lib: _build.load_library(lib, csrc=csrc, build_dir=build_dir)
+              for lib in ("sort_key", "bvh")}
+    ours = {lib: _build.load_library(lib) for lib in theirs}
+    log(f"[parent] the parent's csrc/sort_key.cu and csrc/bvh.cu built into "
+        f"{os.path.relpath(build_dir, REPO)} in {time.perf_counter() - t0:.2f} s")
+
+    def as_parent(lib, fn):
+        _build._libs[lib] = theirs[lib]
+        try:
+            return fn()
+        finally:
+            _build._libs[lib] = ours[lib]
+
+    cases = {}
+    for scene, waves in inputs["signature_key"].items():
+        ds = scenes[scene][0]
+        band = ds.intersector in ("band", "band_plain")
+        for what, (o, d, tmax, active) in waves.items():
+            def key(ds=ds, o=o, d=d, tmax=tmax, active=active, band=band):
+                return sk.signature_key_cuda(ds.key_bounds, o, d, tmax, active, band)
+            cases[f"signature_key/{what} {scene}"] = ("sort_key", key)
+    for scene in ("teapot_bvh", "teapot_hires_bvh"):
+        for what in ("extension_ranged", "segments"):
+            _, d, tmax, _ = inputs["bvh"][scene][what]
+            cases[f"bvh_bin/{what} {scene}"] = (
+                "bvh", lambda d=d, tmax=tmax: trv.bin_cuda(d, tmax))
+    out = {}
+    for case, (lib, fn) in cases.items():
+        ours_out, theirs_out = fn(), as_parent(lib, fn)
+        torch.cuda.synchronize()
+        if lib == "sort_key":
+            same = torch.equal(ours_out, theirs_out)
+        else:  # this tree's counts after its six regions, the parent's after its queue
+            n = (ours_out.numel() - trv.WS_COUNTERS) // trv.DIR_CLASSES
+            same = torch.equal(ours_out[trv.DIR_CLASSES * n:][:7], theirs_out[n:n + 7])
+        assert same, f"{case}: the parent's kernel disagrees with this tree's"
+        rec = out[case] = {}
+
+        def three(fn=fn):  # one call, 10 back to back, 10 in a replayed graph
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(10):
+                    fn()
+            return cuda_ms(fn, 5), cuda_ms(fn, 5, inner=10), cuda_ms(graph.replay, 5) / 10
+
+        for who in ("parent", "this", "this", "parent"):
+            times = as_parent(lib, three) if who == "parent" else three()
+            for kind, ms in zip(("ms", "ms_back_to_back", "ms_replayed"), times):
+                rec.setdefault(f"{who}_{kind}", []).append(ms)
+
+        def pair(kind):
+            return (f"parent {' / '.join(f'{x:.4f}' for x in rec[f'parent_{kind}'])}, this tree "
+                    f"{' / '.join(f'{x:.4f}' for x in rec[f'this_{kind}'])} ms")
+
+        log(f"[parent] {case}: one call {pair('ms')}; 10 back to back {pair('ms_back_to_back')} "
+            f"a call; replayed (10 calls in one CUDA graph) {pair('ms_replayed')} a call (in "
+            f"turns: parent, this, this, parent; results equal) ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
-    ap.add_argument("--parent", help="a checkout of the parent commit: its frames are "
-                    "timed beside this tree's in phase 8")
+    ap.add_argument("--parent", help="a checkout of the parent commit: its sort-key and "
+                    "binning kernels are timed beside this tree's in phase 6, its frames in "
+                    "phase 8")
     ap.add_argument("--frame-times", metavar="DIR",
                     help="print the frame times of the package in the checkout DIR and "
                     "exit (the subprocess of phase 8)")
@@ -1384,6 +1515,9 @@ def main(argv=None) -> int:
     log(card)  # name, power limit: the figure every timing below rests on
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    # the ReSTIR offsets before any kernel of the port ran (phase 7 checks
+    # them again after every other phase)
+    restir_offsets_check(dev, log, "[device]")
 
     # ---- 2. cold start: kernel builds (one nvcc per source, in parallel),
     # scene load, first frame ----
@@ -1616,8 +1750,8 @@ def main(argv=None) -> int:
     launches_hires_bvh = sweep_path(("teapot_hires_bvh",), trv, walks)
     for n_launch, _ in (launches["bvh"], launches_hires_bvh):
         assert n_launch["heatmap"] == 0
-        # the binning kernel's two passes before each closest hit and shadow walk
-        assert n_launch["bin"] == 2 * (n_launch["closest_hit"] + n_launch["occlusion"]), n_launch
+        # one binning launch before each closest hit and shadow walk
+        assert n_launch["bin"] == n_launch["closest_hit"] + n_launch["occlusion"], n_launch
 
     # the BVH heatmap tracer (Renderer, the pinhole rays in raster order): one
     # heatmap walk a frame through the kernel, no other launch and no plain
@@ -2112,7 +2246,7 @@ def main(argv=None) -> int:
     # directions and ranges read once, the queue written once.  Each timed
     # one call at a time, as every kernel of the line, and as 10 calls back
     # to back (the host's launch latency hidden: the binning makes a walk's
-    # wrapper a memset, three launches and a workspace).
+    # wrapper a memset, two launches and a workspace).
     # The sort-key kernel: unfused single operations (__fsub_rn, __fmul_rn,
     # compares), bounded at the instruction rate over every (ray, box) pair
     # of its slab test; the rays, ranges and dead flags read once, the keys
@@ -2164,6 +2298,9 @@ def main(argv=None) -> int:
             live = int((tmax > 0).sum())
             time_kernel(f"bvh_bin/{what}", lambda d=d, tmax=tmax: trv.bin_cuda(d, tmax), 0.0,
                         nbytes(d, tmax) + 4 * live, scene, back_to_back=True)
+    # the redesigned sort-key and binning kernels beside the parent's (--parent)
+    parent_kernels = (parent_kernel_times(args.parent, scenes, inputs, log, card)
+                      if args.parent else {})
     ds, cam = scenes["teapot_bvh"]
     r = Renderer(ds=ds, cam=cam, desc=None, settings=Settings(tracer=Tracer.BVH_VISUALIZE),
                  device=dev)
@@ -2211,6 +2348,9 @@ def main(argv=None) -> int:
                     "ms": t[0], "ms_back_to_back": BACK_TO_BACK_MS.get((key, scene)),
                     "plain_ms": t[1], "bound_ms": bound(t[2], t[3], t[4])[0]}
                 for (key, scene), t in timed.items() if key.split("/")[0] == name}
+            if kind == "bin" and parent_kernels:
+                rows[-1]["parent"] = {k: v for k, v in parent_kernels.items()
+                                      if k.startswith("bvh_bin/")}
         if lib in ("plucker", "bvh"):  # the same kernel on the largest scene of its engine
             scene = f"teapot_hires_{lib}"
             k, p, flops, nb, peak = timed[f"{name}/{what}", scene]
@@ -2248,6 +2388,9 @@ def main(argv=None) -> int:
                          "plain_ms": t[1], "bound_ms": bound(t[2], t[3], t[4])[0]}
                      for (key, scene), t in timed.items()
                      if key.split("/")[0] == "signature_key"}})
+    if parent_kernels:
+        rows[-1]["parent"] = {k: v for k, v in parent_kernels.items()
+                              if k.startswith("signature_key/")}
     log(f"[phase] 7 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 7. batched frames: one CUDA graph a block ----
     batched = batched_phase(scenes, log, card)

@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` is compiled at first use with ``nvcc`` for
 ``ctypes``.  The library lands in ``radish_pt_tpu_torch/_build/``
 (git-ignored) under a name keyed by a hash of its source, the shared
 headers and the flags, so an edited kernel rebuilds and an unchanged one is
-reused.  :func:`build_all` starts one ``nvcc`` per source at once.  Nothing
+reused.  :func:`build_all` starts one ``nvcc`` per source at once.  A
+build may take its sources from another ``csrc`` directory into another
+build directory (another checkout's kernels, timed beside these).  Nothing
 here runs at import time.
 """
 
@@ -93,32 +95,34 @@ def find_nvcc() -> str:
                        "from csrc/ on a machine with the CUDA toolkit")
 
 
-def library_path(name: str, defines: tuple = ()) -> str:
+def library_path(name: str, defines: tuple = (), csrc: str = CSRC,
+                 build_dir: str = BUILD_DIR) -> str:
     h = hashlib.sha256(" ".join([*NVCC_FLAGS, *defines]).encode())
-    for src in [os.path.join(CSRC, f"{name}.cu"),
-                *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+    for src in [os.path.join(csrc, f"{name}.cu"),
+                *sorted(glob.glob(os.path.join(csrc, "*.cuh")))]:
         with open(src, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_all(names=tuple(SIGNATURES), verbose: bool = False,
-              defines: tuple = ()) -> dict:
-    """Compile every ``csrc/<name>.cu`` whose hashed library is missing,
-    one ``nvcc`` per source, all started together; returns name -> path.
-    ``verbose`` adds ``-Xptxas -v`` and keeps what it prints in
-    :data:`PTXAS_LOG` (registers, spills per kernel).  ``defines`` are
-    extra ``-DNAME=value`` flags (a tuning variant: its own library)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+              defines: tuple = (), csrc: str = CSRC, build_dir: str = BUILD_DIR) -> dict:
+    """Compile every ``<csrc>/<name>.cu`` whose hashed library is missing
+    from ``build_dir``, one ``nvcc`` per source, all started together;
+    returns name -> path.  ``verbose`` adds ``-Xptxas -v`` and keeps what
+    it prints in :data:`PTXAS_LOG` (registers, spills per kernel).
+    ``defines`` are extra ``-DNAME=value`` flags (a tuning variant: its own
+    library)."""
+    os.makedirs(build_dir, exist_ok=True)
     jobs = {}
     for name in names:
-        path = library_path(name, defines)
+        path = library_path(name, defines, csrc, build_dir)
         if os.path.exists(path):
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [find_nvcc(), *NVCC_FLAGS, *defines,
                *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+               "-o", tmp, os.path.join(csrc, f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, path, time.perf_counter())
@@ -134,7 +138,7 @@ def build_all(names=tuple(SIGNATURES), verbose: bool = False,
         BUILD_SECONDS[name] = time.perf_counter() - t0
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: library_path(name, defines) for name in names}
+    return {name: library_path(name, defines, csrc, build_dir) for name in names}
 
 
 def kernel_resources(name: str) -> dict:
@@ -162,16 +166,20 @@ def kernel_resources(name: str) -> dict:
     return out
 
 
-def load_library(name: str, defines: tuple = ()):
-    """The library of ``csrc/<name>.cu`` with its C entry points typed
-    (``defines``: a tuning variant, not cached)."""
-    lib = None if defines else _libs.get(name)
+def load_library(name: str, defines: tuple = (), csrc: str = CSRC,
+                 build_dir: str = BUILD_DIR):
+    """The library of ``<csrc>/<name>.cu`` with its C entry points typed
+    as :data:`SIGNATURES` types them (``defines``, another ``csrc``: a
+    tuning variant or another checkout's kernel, not cached)."""
+    own = not defines and csrc == CSRC
+    lib = _libs.get(name) if own else None
     if lib is not None:
         return lib
-    lib = ctypes.CDLL(build_all((name,), defines=defines)[name])
+    lib = ctypes.CDLL(build_all((name,), defines=defines, csrc=csrc,
+                                build_dir=build_dir)[name])
     for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _I
-    if not defines:
+    if own:
         _libs[name] = lib
     return lib

@@ -28,12 +28,16 @@ Two departures from the reference, on purpose:
 
 Two implementations with one contract: :func:`signature_key_plain`, the
 eager slab test on [N, C] tensors, and :func:`signature_key_cuda`, the
-hand-written kernel of ``csrc/sort_key.cu`` (one thread a ray, the boxes
-in shared memory, every operation rounded as the plain version rounds it):
-their keys are equal as integers on every lane.  :func:`signature_key`
+hand-written kernel of ``csrc/sort_key.cu`` (one launch a call, no
+workspace: the boxes staged in shared memory a block, ``KEY_RAYS`` rays a
+thread, every operation rounded as the plain version rounds it): their
+keys are equal as integers on every lane.  The kernel takes a finite path
+(``fminf`` / ``fmaxf``, no NaN rule) on a warp whose rays are all in
+:func:`finite_path_lanes`, with every box finite: there no product of the
+slab test is NaN, so it gives the same verdicts.  :func:`signature_key`
 takes the plain version for CPU tensors and launches the kernel (or
-raises) for CUDA tensors.  ``LAUNCHES`` counts kernel launches and
-``PLAIN_CALLS`` plain-version calls.
+raises) for CUDA tensors.  ``LAUNCHES`` counts kernel launches (one a call
+with N > 0) and ``PLAIN_CALLS`` plain-version calls.
 """
 
 from __future__ import annotations
@@ -130,6 +134,17 @@ def signature_key_plain(boxes, ray_o, ray_d, tmax=None, active=None, band=False)
     if active is not None:
         key = key + torch.where(active, 0, DEAD_KEY_BIT).to(torch.int32)
     return key
+
+
+def finite_path_lanes(ray_o, ray_d):
+    """bool [N]: the rays the kernel's finite path may take (a warp of
+    them, with every box finite): a finite origin and no zero in ``inv =
+    1 / (|d| > 1e-12 ? d : 1e-12)``, that is no infinite direction
+    component.  ``inv`` is always finite, so for a finite box ``box - o``
+    is finite or +-inf and ``(box - o) * inv`` never NaN: ``fmin`` /
+    ``fmax`` there give ``minimum`` / ``maximum``'s verdicts."""
+    inv = 1.0 / torch.where(torch.abs(ray_d) > 1e-12, ray_d, 1e-12)
+    return torch.isfinite(ray_o).all(1) & (inv != 0).all(1)
 
 
 # ---------------------------------------------------------------------------

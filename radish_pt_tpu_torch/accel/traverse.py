@@ -21,16 +21,18 @@ Port of ``radish_pt_tpu/accel/traverse.py``:
   ``*_cuda``, the hand-written kernels of ``csrc/bvh.cu`` (every
   operation rounded as the plain version rounds it, so ids, distances,
   barycentrics, shadow bits and counts are its bits): the closest hit and
-  the any-hit walk run as persistent warps over a class-major queue of the
-  live lanes, which the binning kernel (``bin_by_dir_class_cuda``; plain
-  version :func:`bin_by_dir_class`) builds first; the heatmap walks one
-  thread a ray.  A lane whose range is not above 0 can meet no triangle
-  (a pair counts only at 0 < t < range) and is settled before its walk, by
-  either version.  The entry points ``intersect_bvh`` / ``occlusion_bvh`` /
+  the any-hit walk run as persistent warps over a queue of the live lanes
+  by direction class, which the binning kernel (``bin_by_dir_class_cuda``;
+  plain version :func:`bin_by_dir_class`) builds first, in one launch, into
+  a workspace of six regions of N lanes, one a class, and
+  :data:`WS_COUNTERS` counters (int32 [6N + 16], about 15 MB at 800x800);
+  the heatmap walks one thread a ray.  A lane whose range is not above 0
+  can meet no triangle (a pair counts only at 0 < t < range) and is
+  settled before its walk, by either version.  The entry points ``intersect_bvh`` / ``occlusion_bvh`` /
   ``intersect_bvh_heatmap`` take the plain version for CPU tensors and
   launch the kernels (or raise) for CUDA tensors; ``LAUNCHES`` counts
-  kernel launches (two a binning: its count and scatter passes) and
-  ``PLAIN_CALLS`` plain-version calls, per walk and for the binning.
+  kernel launches (one a binning, before each closest hit and shadow walk)
+  and ``PLAIN_CALLS`` plain-version calls, per walk and for the binning.
 """
 
 from __future__ import annotations
@@ -197,7 +199,7 @@ NODE_BYTES = 32  # a row of the node table
 LAUNCHES = {"closest_hit": 0, "occlusion": 0, "heatmap": 0, "bin": 0}
 PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0, "heatmap": 0, "bin": 0}
 DIR_CLASSES = 6
-WS_COUNTERS = 16  # int32 counters after the binning kernel's queue (csrc/bvh.cu)
+WS_COUNTERS = 16  # int32 counters after the binning kernel's six regions (csrc/bvh.cu)
 
 
 def reset_counts() -> None:
@@ -404,19 +406,20 @@ MISS_OUT, UNBLOCKED_OUT, NO_OUT = 0, 1, 2
 
 
 def bin_cuda(ray_d, tmax, dead_out=NO_OUT, outs=(None, None, None)):
-    """The binning kernel (``bvh_bin`` in csrc/bvh.cu, two passes) on
-    ``ray_d`` and ``tmax`` (None: every lane live), no host sync: returns
-    its workspace, i32 [N + WS_COUNTERS]: the live lanes' queue, then the
-    counters (lanes per class, dead lanes); a dead lane's result goes to
-    ``outs`` as ``dead_out`` says (MISS_OUT: (prim, dist, bary);
-    UNBLOCKED_OUT: (occ, None, None))."""
+    """The binning kernel (``bvh_bin`` in csrc/bvh.cu, one launch after a
+    memset of its counters) on ``ray_d`` and ``tmax`` (None: every lane
+    live), no host sync: returns its workspace, i32 [6N + WS_COUNTERS]: the
+    live lanes of class k at [kN, kN + count_k), then the counters (lanes
+    per class, dead lanes); a dead lane's result goes to ``outs`` as
+    ``dead_out`` says (MISS_OUT: (prim, dist, bary); UNBLOCKED_OUT: (occ,
+    None, None))."""
     import ctypes
 
     n = ray_d.shape[0]
-    ws = torch.empty((n + WS_COUNTERS,), dtype=torch.int32, device=ray_d.device)
+    ws = torch.empty((DIR_CLASSES * n + WS_COUNTERS,), dtype=torch.int32, device=ray_d.device)
     _launch("bvh_bin", ray_d.device, _ptr(ray_d), _ptr(tmax), ctypes.c_int(n),
             ctypes.c_int(dead_out), *(_ptr(t) for t in outs), _ptr(ws))
-    LAUNCHES["bin"] += 2 if n else 0  # the kernel's two passes (count, scatter)
+    LAUNCHES["bin"] += 1 if n else 0
     return ws
 
 
@@ -439,9 +442,10 @@ def _check_range(tmax, n):
 
 def bin_by_dir_class_cuda(ray_d, tmax=None):
     """The binning kernel (``bvh_bin`` in csrc/bvh.cu) alone: (queue i32
-    [live]: the live lanes class-major, counts i32 [6]); the same classes
-    and counts as :func:`bin_by_dir_class`, the order within a class as
-    the kernel's warps and blocks ran (reads ``live`` on the host)."""
+    [live]: the live lanes class-major, compacted from the kernel's six
+    regions, counts i32 [6]); the same classes and counts as
+    :func:`bin_by_dir_class`, the order within a class as the kernel's
+    warps and blocks ran (reads the counts on the host)."""
     n = ray_d.shape[0]
     extra = _check_range(tmax, n)
     if not all(t.is_cuda for t in (ray_d, *(x for _, x, _ in extra))):
@@ -452,8 +456,9 @@ def bin_by_dir_class_cuda(ray_d, tmax=None):
     if ray_d.dim() != 2 or ray_d.shape[1] != 3:
         raise ValueError(f"ray_d must be [N, 3], got {tuple(ray_d.shape)}")
     ws = bin_cuda(ray_d, tmax, NO_OUT)
-    counts = ws[n:n + DIR_CLASSES]
-    return ws[: int(counts.sum())], counts
+    counts = ws[DIR_CLASSES * n:DIR_CLASSES * n + DIR_CLASSES]
+    queue = torch.cat([ws[k * n:k * n + c] for k, c in enumerate(counts.tolist())])
+    return queue, counts
 
 
 def intersect_bvh_cuda(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d, tmax=None):

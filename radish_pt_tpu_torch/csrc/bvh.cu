@@ -26,11 +26,13 @@
 //   whose range is not above 0 (or NaN) can meet no triangle, since a pair
 //   counts only at 0 < t < range: it is settled by the binning kernel
 //   (a miss, (-1, FLT_MAX, (0, 0)), or unblocked) and never walked;
-// * ws i32 [N + 16]: the binning kernel's queue of live lanes, class-major,
-//   then its counters (kCount: live lanes per class and dead lanes;
-//   kCursor: the scatter's cursors; kHead: the walk's queue head), zeroed
-//   with cudaMemsetAsync on the launch's stream, so a CUDA-graph replay
-//   starts from zero.
+// * ws i32 [6N + 16]: the binning kernel's queue of live lanes, six
+//   regions of N, one a direction class, then its counters (kCount: live
+//   lanes per class, each its region's cursor, and dead lanes; kHead: the
+//   walk's queue head), zeroed with cudaMemsetAsync on the launch's
+//   stream, so a CUDA-graph replay starts from zero.  Queue position q is
+//   lane q - prefix_k of class k's region, prefix_k the live lanes of the
+//   classes before k (about 15 MB at 800x800).
 //
 // Arithmetic, as the plain walk (accel/traverse.py::_walk) rounds it:
 // 1/d is __frcp_rn (IEEE: +-0 -> +-inf; -use_fast_math stays out of the
@@ -60,9 +62,16 @@
 // six node tables, in one warp.  The closest hit and the any-hit walk
 // answer each in turn:
 // 1. bvh_bin_kernel: dead lanes written out at once; the live lanes queued
-//    class-major (warp-aggregated counts, then a scatter; launch order kept
-//    within a warp's and a block's share of a class), so a warp's rays
-//    share one threaded order and, in raster order, their paths.
+//    by direction class (warp-aggregated counts; a block reserves its run
+//    in each class's region with one atomic and scatters; launch order
+//    kept within a warp's and a block's share of a class), so a warp's
+//    rays share one threaded order and, in raster order, their paths.
+//    One launch a binning: it reads ray_d and tmax once and takes each
+//    lane's class once.  Its bound is bytes (the directions and ranges
+//    read, the queue written: 0.004 ms at 800x800), so what it costs is
+//    the fixed cost of a launch, once a walk; the design until this one
+//    was two launches (count, then scatter into one class-major array,
+//    whose class offsets needed every block's counts first).
 // 2. Persistent warps (Aila & Laine, "Understanding the Efficiency of Ray
 //    Traversal on GPUs", HPG 2009): about as many blocks as the SMs hold;
 //    a warp takes rays from the queue with one atomicAdd by lane 0, and
@@ -109,6 +118,9 @@
 #ifndef BVH_VOTE_EVERY
 #define BVH_VOTE_EVERY 4  // node steps between the warp's votes on its walkers
 #endif
+#ifndef BIN_THREADS
+#define BIN_THREADS 256  // the binning kernel: threads (rays) per block
+#endif
 
 namespace {
 
@@ -121,16 +133,17 @@ static_assert(BVH_WARPS >= 1 && BVH_WARPS <= 32, "BVH_WARPS: 1 to 32");
 constexpr unsigned kFull = 0xffffffffu;
 
 // the binning kernel
-constexpr int kBinThreads = 256;
+constexpr int kBinThreads = BIN_THREADS;
 constexpr int kBinWarps = kBinThreads / 32;
+static_assert(kBinThreads % 32 == 0 && kBinThreads >= 32 && kBinThreads <= 1024,
+              "BIN_THREADS: whole warps, at most 1024");
 constexpr int kClasses = 6;
 constexpr int kDead = 6;  // the bin of lanes settled up front
 constexpr int kBins = 7;
-// counters after the queue (ws + N); accel/traverse.py::WS_COUNTERS
+// counters after the six regions (ws + 6N); accel/traverse.py::WS_COUNTERS
 constexpr int kCounters = 16;
-constexpr int kCount = 0;   // [kCount, kCount + 7): lanes per class, then dead
-constexpr int kCursor = 8;  // [kCursor, kCursor + 6): the scatter's cursors
-constexpr int kHead = 14;   // the walks' queue head
+constexpr int kCount = 0;  // [kCount, kCount + 7): lanes per class (each region's cursor), dead
+constexpr int kHead = 8;   // the walks' queue head
 // what the binning kernel writes for a dead lane
 enum DeadOut { kMissOut = 0, kUnblockedOut = 1, kNoOut = 2 };
 
@@ -262,7 +275,8 @@ __device__ __forceinline__ bool test_leaf(const float* __restrict__ leaves, int 
   return false;
 }
 
-// The walks of one persistent warp over the binning kernel's queue.
+// The walks of one persistent warp over the binning kernel's queue (six
+// regions of n lanes, one a class).
 // Closest hit (kAny false): prim, dist and bary of each ray at its index;
 // any-hit: 1 where a slot is hit below the ray's range, else 0.  A lane's
 // state is its node: below B it walks; kStop (or B, its walk done) it does
@@ -274,13 +288,24 @@ template <bool kAny>
 __device__ __forceinline__ void persistent_walk(
     const float4* __restrict__ nodes, int size, const float* __restrict__ leaves, int L,
     const float* __restrict__ ray_o, const float* __restrict__ ray_d,
-    const float* __restrict__ tmax, const int* __restrict__ queue, int* counters,
+    const float* __restrict__ tmax, const int* __restrict__ queue, int n, int* counters,
     const int* __restrict__ leaf_map, int* __restrict__ out_i, float* __restrict__ dist_out,
     float* __restrict__ bary_out) {
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
-  int live = 0;
-  for (int k = 0; k < kClasses; ++k) live += counters[kCount + k];
+  // the queue position of each class's first lane, then the live lanes
+  // (in shared memory: the walk's registers stay as they were)
+  __shared__ int prefix[kClasses + 1];
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int k = 0; k < kClasses; ++k) {
+      prefix[k] = sum;
+      sum += counters[kCount + k];
+    }
+    prefix[kClasses] = sum;
+  }
+  __syncthreads();
+  const int live = prefix[kClasses];
   int* head = counters + kHead;
 
   int ray = -1;  // the lane's ray (its index in the launch); -1: none
@@ -319,7 +344,15 @@ __device__ __forceinline__ void persistent_walk(
       drained = base + want >= live;
       const int q = base + __popc(free_lanes & below);
       if (free_lane && q < live) {
-        ray = __ldg(queue + q);
+        int cls = 0, start = 0;  // queue position q: lane q - start of class cls's region
+#pragma unroll
+        for (int k = 1; k < kClasses; ++k) {
+          if (q >= prefix[k]) {
+            cls = k;
+            start = prefix[k];
+          }
+        }
+        ray = __ldg(queue + (size_t)cls * n + (q - start));
         r = load_ray(ray_o, ray_d, ray, true);
         ix = __frcp_rn(r.dx);
         iy = __frcp_rn(r.dy);
@@ -327,7 +360,7 @@ __device__ __forceinline__ void persistent_walk(
         finite = isfinite(r.ox) && isfinite(r.oy) && isfinite(r.oz) && isfinite(r.dx) &&
                  isfinite(r.dy) && isfinite(r.dz) && isfinite(ix) && isfinite(iy) &&
                  isfinite(iz);
-        order = nodes + 2 * (size_t)dir_class(r) * size;
+        order = nodes + 2 * (size_t)cls * size;  // cls == dir_class(r)
         c = tmax != nullptr ? __ldg(tmax + ray) : kFltMax;
         node = 0;
         best = Best{kFltMax, -1, 0.f, 0.f};
@@ -400,9 +433,9 @@ bvh_closest_hit_kernel(const float4* __restrict__ nodes, int size,
                        const float* __restrict__ ray_o, const float* __restrict__ ray_d,
                        const float* __restrict__ tmax, const int* __restrict__ leaf_map,
                        int* __restrict__ prim_out, float* __restrict__ dist_out,
-                       float* __restrict__ bary_out, const int* __restrict__ queue,
+                       float* __restrict__ bary_out, const int* __restrict__ queue, int n,
                        int* counters) {
-  persistent_walk<false>(nodes, size, leaves, L, ray_o, ray_d, tmax, queue, counters,
+  persistent_walk<false>(nodes, size, leaves, L, ray_o, ray_d, tmax, queue, n, counters,
                          leaf_map, prim_out, dist_out, bary_out);
 }
 
@@ -411,9 +444,9 @@ bvh_occlusion_kernel(const float4* __restrict__ nodes, int size,
                      const float* __restrict__ leaves, int L,
                      const float* __restrict__ ray_o, const float* __restrict__ ray_d,
                      const float* __restrict__ tmax, int* __restrict__ occ_out,
-                     const int* __restrict__ queue, int* counters) {
-  persistent_walk<true>(nodes, size, leaves, L, ray_o, ray_d, tmax, queue, counters, nullptr,
-                        occ_out, nullptr, nullptr);
+                     const int* __restrict__ queue, int n, int* counters) {
+  persistent_walk<true>(nodes, size, leaves, L, ray_o, ray_d, tmax, queue, n, counters,
+                        nullptr, occ_out, nullptr, nullptr);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -427,20 +460,20 @@ bvh_heatmap_kernel(const float4* __restrict__ nodes, int size,
   steps_out[ray] = heatmap_walk(nodes, size, leaves, L, r);
 }
 
-// The binning of a wavefront, in two passes of one kernel.  Each lane's
-// bin: its direction class, or kDead where its range is not above 0.  A
-// warp aggregates its lanes of one bin (__match_any_sync), a block its
-// warps' in shared memory, and one thread a bin adds the block's count
-// with one atomic.  Pass 0 counts the bins and writes the dead lanes'
-// results (``dead_out``); pass 1 scatters the live lanes class-major into
-// ``queue``: the class's offset from the counts, the block's run from the
-// class's cursor, then the warps in order and each warp's lanes in order.
+// The binning of a wavefront in one pass.  Each lane's bin: its direction
+// class, or kDead where its range is not above 0.  A warp aggregates its
+// lanes of one bin (__match_any_sync), a block its warps' in shared
+// memory, and one thread a bin reserves the block's run in the bin with
+// one atomic on the bin's cursor (after the launch the cursors are the
+// counts); then each live lane is written into its class's region at the
+// block's run, its warp's place in the run and its rank in the warp, and
+// each dead lane's result is written out (``dead_out``).
 __global__ void __launch_bounds__(kBinThreads)
 bvh_bin_kernel(const float* __restrict__ ray_d, const float* __restrict__ tmax, int n,
-               int pass, int dead_out, int* __restrict__ out_i, float* __restrict__ out_f,
+               int dead_out, int* __restrict__ out_i, float* __restrict__ out_f,
                float* __restrict__ out_b, int* __restrict__ queue, int* counters) {
   __shared__ int counts[kBinWarps][kBins];
-  __shared__ int run[kClasses];
+  __shared__ int run[kBins];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * kBinThreads + threadIdx.x;
   int bin = kBins;  // beyond the wavefront: no bin
@@ -456,23 +489,7 @@ bvh_bin_kernel(const float* __restrict__ ray_d, const float* __restrict__ tmax, 
   const int rank = __popc(peers & ((1u << lane) - 1u));
   if (bin < kBins && rank == 0) counts[warp][bin] = __popc(peers);
   __syncthreads();
-  if (pass == 0) {
-    if (threadIdx.x < kBins) {
-      int total = 0;
-      for (int w = 0; w < kBinWarps; ++w) total += counts[w][threadIdx.x];
-      if (total) atomicAdd(counters + kCount + threadIdx.x, total);
-    }
-    if (bin == kDead && dead_out == kMissOut) {
-      out_i[i] = -1;
-      out_f[i] = kFltMax;
-      out_b[2 * (size_t)i] = 0.f;
-      out_b[2 * (size_t)i + 1] = 0.f;
-    } else if (bin == kDead && dead_out == kUnblockedOut) {
-      out_i[i] = 0;
-    }
-    return;
-  }
-  if (threadIdx.x < kClasses) {
+  if (threadIdx.x < kBins) {
     const int k = threadIdx.x;
     int total = 0;
     for (int w = 0; w < kBinWarps; ++w) {  // each warp's first position in the block's run
@@ -480,12 +497,19 @@ bvh_bin_kernel(const float* __restrict__ ray_d, const float* __restrict__ tmax, 
       counts[w][k] = total;
       total += m;
     }
-    int offset = 0;  // the class's first position in the queue
-    for (int j = 0; j < k; ++j) offset += counters[kCount + j];
-    run[k] = offset + (total ? atomicAdd(counters + kCursor + k, total) : 0);
+    run[k] = total ? atomicAdd(counters + kCount + k, total) : 0;
   }
   __syncthreads();
-  if (bin < kClasses) queue[run[bin] + counts[warp][bin] + rank] = i;
+  if (bin < kClasses) {
+    queue[(size_t)bin * n + run[bin] + counts[warp][bin] + rank] = i;
+  } else if (bin == kDead && dead_out == kMissOut) {
+    out_i[i] = -1;
+    out_f[i] = kFltMax;
+    out_b[2 * (size_t)i] = 0.f;
+    out_b[2 * (size_t)i + 1] = 0.f;
+  } else if (bin == kDead && dead_out == kUnblockedOut) {
+    out_i[i] = 0;
+  }
 }
 
 }  // namespace
@@ -495,14 +519,13 @@ extern "C" {
 int bvh_bin(const float* ray_d, const float* tmax, int n, int dead_out, int* out_i,
             float* out_f, float* out_b, int* ws, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  int* counters = ws + n;
+  int* counters = ws + (size_t)kClasses * n;
   const cudaError_t err = cudaMemsetAsync(counters, 0, kCounters * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
   if (n > 0) {
     const int blocks = (n + kBinThreads - 1) / kBinThreads;
-    for (int pass = 0; pass < 2; ++pass)
-      bvh_bin_kernel<<<blocks, kBinThreads, 0, s>>>(ray_d, tmax, n, pass, dead_out, out_i,
-                                                    out_f, out_b, ws, counters);
+    bvh_bin_kernel<<<blocks, kBinThreads, 0, s>>>(ray_d, tmax, n, dead_out, out_i, out_f,
+                                                  out_b, ws, counters);
   }
   return (int)cudaGetLastError();
 }
@@ -514,7 +537,7 @@ int bvh_closest_hit(const float* nodes, int size, const float* leaves, int L,
   const int blocks = walk_blocks(bvh_closest_hit_kernel, 0, n);
   bvh_closest_hit_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(nodes), size, leaves, L, ray_o, ray_d, tmax, leaf_map,
-      prim_out, dist_out, bary_out, ws, ws + n);
+      prim_out, dist_out, bary_out, ws, n, ws + (size_t)kClasses * n);
   return (int)cudaGetLastError();
 }
 
@@ -524,7 +547,7 @@ int bvh_occlusion(const float* nodes, int size, const float* leaves, int L,
   const int blocks = walk_blocks(bvh_occlusion_kernel, 1, n);
   bvh_occlusion_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(nodes), size, leaves, L, ray_o, ray_d, tmax, occ_out,
-      ws, ws + n);
+      ws, n, ws + (size_t)kClasses * n);
   return (int)cudaGetLastError();
 }
 

@@ -16,21 +16,28 @@ hit and shadow) warps a block, blocks a SM (0: as many as the registers
 allow), the free lanes at which a warp refills and node steps between the
 warp's votes (``BVH_WARPS``, ``BVH_BLOCKS_PER_SM``, ``BVH_REFILL``,
 ``BVH_VOTE_EVERY`` in csrc/bvh.cu), and rays a block of the heatmap walk
-(``BVH_BLOCK``).  This tool builds each variant as its
-own library (``-DCOMPACT_LOCKSTEP=n ...``), holds it against the plain
+(``BVH_BLOCK``); the binning kernel's threads a block (``BIN_THREADS`` in
+csrc/bvh.cu); the sort-key kernel's rays a thread and threads a block
+(``KEY_RAYS``, ``KEY_THREADS`` in csrc/sort_key.cu).  This tool builds
+each variant as its own library (``-DCOMPACT_LOCKSTEP=n ...``), holds it against the plain
 version on the main path's wavefronts (800x800 primaries and the bounce-1
 extension rays, for bvh also with the frame's dead-lane range; for
 Plücker, the compact, quad, band and bvh shadow sweeps the bounce-1
 shadow segments; teapot and teapot_hires for Plücker and bvh,
 teapot_hires for compact and band, teapot for quad, built as
-``chip_smoke.py`` builds them) and times it with CUDA events, the variants
-in turns.  It prints registers and spills per
+``chip_smoke.py`` builds them; for the key the primaries, the bounce-1
+extension rays with their dead lanes and the NEE segments of teapot (43
+boxes) and teapot_hires (115 boxes, and the compact layout's 220); for the
+binning the bounce-1 extension rays with the frame's dead-lane range and
+the NEE segments of teapot and teapot_hires on the bvh engine) and times
+it with CUDA events, the variants in turns (the walks, the key and the
+binning as 10 calls back to back).  It prints registers and spills per
 variant, the times, and the card's name and power limit.  The default in
 the source is the variant that won.
 
 Run from the repository root:
-    python -m radish_pt_tpu_torch.tune [plucker] [compact] [quad] [band] [bvh]
-(no argument: all five).
+    python -m radish_pt_tpu_torch.tune [plucker] [compact] [quad] [band] [bvh] [key] [bin]
+(no argument: all seven).
 """
 
 from __future__ import annotations
@@ -79,6 +86,15 @@ BVH_VARIANTS = tuple(
                    {"BVH_VOTE_EVERY": 2}, {"BVH_VOTE_EVERY": 8}))
 BVH_HEATMAP_VARIANTS = (("-DBVH_BLOCK=128",), ("-DBVH_BLOCK=64",), ("-DBVH_BLOCK=256",),
                         ("-DBVH_BLOCK=32",))
+# the sort-key kernel and the binning kernel: the defaults first, then one
+# macro changed at a time
+_KEY_DEFAULTS = {"KEY_RAYS": 2, "KEY_THREADS": 128}
+KEY_VARIANTS = tuple(
+    tuple(f"-D{k}={v}" for k, v in {**_KEY_DEFAULTS, **change}.items())
+    for change in ({}, {"KEY_RAYS": 1}, {"KEY_RAYS": 4}, {"KEY_THREADS": 64},
+                   {"KEY_THREADS": 256}))
+BIN_VARIANTS = (("-DBIN_THREADS=256",), ("-DBIN_THREADS=128",), ("-DBIN_THREADS=512",),
+                ("-DBIN_THREADS=1024",))
 QUAD_VARIANTS = (("-DQUAD_RAYS=1", "-DQUAD_MIN_BLOCKS=1"),
                  ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=1"),
                  ("-DQUAD_RAYS=2", "-DQUAD_MIN_BLOCKS=8"),
@@ -89,7 +105,7 @@ QUAD_VARIANTS = (("-DQUAD_RAYS=1", "-DQUAD_MIN_BLOCKS=1"),
 def main(argv=None) -> int:
     import torch
 
-    all_engines = ["plucker", "compact", "quad", "band", "bvh"]
+    all_engines = ["plucker", "compact", "quad", "band", "bvh", "key", "bin"]
     engines = (sys.argv[1:] if argv is None else argv) or all_engines
     if set(engines) - set(all_engines):
         print(f"tune: engines are {', '.join(all_engines)}", file=sys.stderr)
@@ -106,6 +122,7 @@ def main(argv=None) -> int:
     from .accel import compact as cpt
     from .accel import plucker as plk
     from .accel import quad as qd
+    from .accel import sort_key as sk
     from .accel import traverse as trv
     from .scene.build import load_scene
 
@@ -342,6 +359,50 @@ def main(argv=None) -> int:
                 got = got if isinstance(got, tuple) else (got,)
                 assert all(torch.equal(g, w) for g, w in zip(got, want)), (r, name, what)
             race("bvh", group, f"{name} {what}", kernel, inner=10)
+
+    # ---- the sort key: teapot (43 boxes), teapot_hires (115; compact's 220) ----
+    libs = variants("sort_key", KEY_VARIANTS, "signature_key") if "key" in engines else {}
+    for name, engine in (("teapot", "plucker"), ("teapot_hires", "plucker"),
+                         ("teapot_hires", "compact")) if libs else ():
+        ds, cam = scene(name, engine)
+        waves = cs.bounce_one(ds, cam)
+        boxes = ds.key_bounds
+        o, d, _ = waves["primary"]
+        eo, ed, etm = waves["extension"]
+        x, y, ok = waves["segments"]
+        for what, args in (("primary", (o, d, None, None)),
+                           ("extension", (eo, ed, None, etm > 0)),
+                           ("segments", (x, y - x, 1.0, ok))):
+            args = tuple(a.contiguous() if isinstance(a, torch.Tensor) else a for a in args)
+            want = sk.signature_key_plain(boxes, *args)
+
+            def kernel(args=args):
+                return sk.signature_key_cuda(boxes, *args)
+
+            for r, lib in libs.items():
+                got = run("sort_key", lib, kernel)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (r, name, what, int((got != want).sum()))
+            race("sort_key", libs, f"{name} ({boxes.shape[0]} boxes) {what}", kernel, inner=10)
+
+    # ---- the binning: teapot and teapot_hires on the bvh engine ----
+    libs = variants("bvh", BIN_VARIANTS, "bin") if "bin" in engines else {}
+    for name in ("teapot", "teapot_hires") if libs else ():
+        ds, cam = scene(name, "bvh")
+        waves = run("bvh", next(iter(libs.values())), lambda: cs.bounce_one(ds, cam))
+        _, d_e, t_e = (t.contiguous() for t in waves["extension"])
+        x, y, _ = waves["segments"]
+        _, sd, tm = (t.contiguous() for t in trv.segment_rays(x, y))
+        for what, (d, tmax) in (("extension, ranged", (d_e, t_e)), ("segments", (sd, tm))):
+            order, want = trv.bin_by_dir_class(d, tmax)
+            bounds = [0, *torch.cumsum(want, 0).tolist()]
+            for r, lib in libs.items():
+                queue, counts = run("bvh", lib, lambda: trv.bin_by_dir_class_cuda(d, tmax))
+                assert torch.equal(counts.long(), want), (r, name, what)
+                assert all(torch.equal(torch.sort(queue[a:b].long()).values, order[a:b])
+                           for a, b in zip(bounds, bounds[1:])), (r, name, what)
+            race("bvh", libs, f"binning, {name} {what}",
+                 lambda: trv.bin_cuda(d, tmax), inner=10)
     print(card, flush=True)
     return 0
 

@@ -826,7 +826,8 @@ def test_bvh_persistent_walks_match_plain(teapot_cuda, case):
     torch.cuda.synchronize()
     assert torch.equal(ok, op) and not bool(ok[dead].any()), case
     k = 0 if n == 0 else 1
-    assert trv.LAUNCHES == {"closest_hit": 2 * k, "occlusion": k, "heatmap": 0, "bin": 6 * k}
+    # one binning launch before each of the three walks
+    assert trv.LAUNCHES == {"closest_hit": 2 * k, "occlusion": k, "heatmap": 0, "bin": 3 * k}
     if case == "interleaved":
         assert float((want[0] >= 0).float().mean()) > 0.3 and bool(op.any())
 
@@ -881,7 +882,14 @@ def test_bvh_bin_kernel_matches_plain(teapot_cuda, ranged):
     tmax = tmax if ranged else None
     trv.reset_counts()
     queue, counts = trv.bin_by_dir_class_cuda(d, tmax)
-    assert trv.LAUNCHES["bin"] == 2  # the count and the scatter pass
+    assert trv.LAUNCHES["bin"] == 1  # one pass
+    _check_bin(queue, counts, d, tmax)
+
+
+def _check_bin(queue, counts, d, tmax):
+    """The kernel's queue and counts against ``bin_by_dir_class``."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
     order, want_counts = trv.bin_by_dir_class(d, tmax)
     torch.cuda.synchronize()
     assert torch.equal(counts.long(), want_counts)
@@ -892,6 +900,92 @@ def test_bvh_bin_kernel_matches_plain(teapot_cuda, ranged):
         part = queue[bounds[k]:bounds[k + 1]].long()
         assert bool((cls[part] == k).all())
         assert torch.equal(torch.sort(part).values, order[bounds[k]:bounds[k + 1]])
+
+
+def _bin_wavefront(d, tmax, case):
+    """(d, tmax) of a binning case from the teapot rays: every lane dead,
+    every lane of one direction class (-d along +x, each lane's other
+    components small), or the six classes interleaved lane by lane."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    if case == "all_dead":
+        return d, torch.full_like(tmax, -FLT_MAX)
+    if case == "one_class":
+        one = d.clone()
+        one[:, 0] = -1.0
+        one[:, 1:] *= 0.5
+        one = torch.nn.functional.normalize(one, dim=-1).contiguous()
+        assert bool((trv.get_dir_class(-one) == 0).all())
+        return one, tmax
+    cls = trv.get_dir_class(-d)
+    by_class = [torch.nonzero(cls == k)[:, 0] for k in range(6)]
+    m = min(len(b) for b in by_class)
+    idx = torch.stack([b[:m] for b in by_class], 1).reshape(-1)
+    return d[idx].contiguous(), tmax[idx].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_dead", "one_class", "interleaved"])
+@pytest.mark.parametrize("ranged", [False, True])
+def test_bvh_bin_kernel_cases(teapot_cuda, case, ranged):
+    """The one-pass binning kernel against ``bin_by_dir_class`` with every
+    lane dead (an empty queue, every lane counted dead), with every lane in
+    one class (one region filled, five empty) and with the six classes
+    interleaved lane by lane; one launch each."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    _, _, _, d0, tmax0 = teapot_cuda
+    d, tmax = _bin_wavefront(d0, tmax0, case)
+    tmax = tmax if ranged or case == "all_dead" else None
+    trv.reset_counts()
+    queue, counts = trv.bin_by_dir_class_cuda(d, tmax)
+    assert trv.LAUNCHES["bin"] == 1
+    _check_bin(queue, counts, d, tmax)
+    if case == "all_dead":
+        assert queue.numel() == 0
+    elif case == "one_class":
+        assert int(counts[0]) == queue.numel() and not bool(counts[1:].any())
+
+
+@pytest.mark.cuda
+def test_bvh_bin_kernel_graph_replay_equals_eager(teapot_cuda):
+    """The binning kernel captured in a CUDA graph (its counters' memset
+    on the captured stream) and replayed twice: each replay's counts,
+    class regions (as sets) and dead lanes' misses equal the eager call's."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    _, _, _, d, tmax = teapot_cuda
+    n = d.shape[0]
+    outs = (torch.empty((n,), dtype=torch.int32, device=d.device),
+            torch.empty((n,), device=d.device), torch.empty((n, 2), device=d.device))
+
+    def binned(ws):
+        counts = ws[6 * n:6 * n + 7]
+        regions = [torch.sort(ws[k * n:k * n + int(counts[k])]).values for k in range(6)]
+        return counts.clone(), regions
+
+    want_counts, want_regions = binned(trv.bin_cuda(d, tmax, trv.MISS_OUT, outs))
+    torch.cuda.synchronize()
+    dead = ~(tmax > 0)
+    assert int(want_counts[6]) == int(dead.sum())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        trv.bin_cuda(d, tmax, trv.MISS_OUT, outs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ws = trv.bin_cuda(d, tmax, trv.MISS_OUT, outs)
+    for _ in range(2):
+        for t in outs:
+            t.fill_(7)
+        graph.replay()
+        torch.cuda.synchronize()
+        counts, regions = binned(ws)
+        assert torch.equal(counts, want_counts)
+        assert all(torch.equal(a, b) for a, b in zip(regions, want_regions))
+        assert bool((outs[0][dead] == -1).all()) and bool((outs[1][dead] == FLT_MAX).all())
+        assert not bool(outs[2][dead].any())
 
 
 @pytest.mark.cuda
@@ -1026,6 +1120,72 @@ def test_sort_key_kernel_matches_plain(teapot_cuda, case):
     assert torch.equal(dead, ~active)
     if case == "band":
         assert bool((sk.signature_key_cuda(boxes, o, d, band=band) >= sk.MISS_KEY_BIT).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("odd", ["nan_origin", "inf_origin", "inf_direction"])
+def test_sort_key_kernel_mixed_warps(teapot_cuda, odd):
+    """Warps that mix finite lanes with one odd lane, at every lane
+    position (the 32-ray group g has its odd lane at g % 32, every other
+    group none): a NaN or infinite origin component, or an infinite
+    direction component (1 / d = 0).  Such a warp takes the NaN rule, its
+    neighbours the finite path; the key equals the plain version's on
+    every lane, unranged, ranged and with dead lanes."""
+    from radish_pt_tpu_torch.accel import sort_key as sk
+
+    ds, _, o, d, tmax = teapot_cuda
+    o, d = o.clone(), d.clone()
+    groups = o.shape[0] // 32
+    g = torch.arange(0, groups, 2, device=o.device)
+    lanes = 32 * g + g % 32
+    value = {"nan_origin": float("nan"), "inf_origin": float("inf"),
+             "inf_direction": float("-inf")}[odd]
+    (d if odd == "inf_direction" else o)[lanes, g % 3] = value
+    assert int((~sk.finite_path_lanes(o, d)).sum()) == lanes.numel()
+    active = tmax > 0
+    for args in ((o, d, None, None), (o, d * 2.5, 1.0, active),
+                 (o, d, torch.where(active, 4.0, -1.0), active)):
+        got = sk.signature_key_cuda(ds.key_bounds, *args)
+        want = sk.signature_key_plain(ds.key_bounds, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (odd, int((got != want).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", ["inf", "nan"])
+def test_sort_key_kernel_one_nonfinite_box(teapot_cuda, value):
+    """Finite rays and one non-finite box coordinate (every block takes
+    the NaN rule): the key equals the plain version's on every lane."""
+    from radish_pt_tpu_torch.accel import sort_key as sk
+
+    ds, _, o, d, tmax = teapot_cuda
+    boxes = ds.key_bounds.clone()
+    boxes[7, 3] = float(value)
+    boxes[20, 1] = -float(value) if value == "inf" else boxes[20, 1]
+    assert bool(sk.finite_path_lanes(o, d).all())
+    for args in ((o, d, None, None), (o, d, 1.0, tmax > 0)):
+        got = sk.signature_key_cuda(boxes, *args)
+        want = sk.signature_key_plain(boxes, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (value, int((got != want).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [31, 255, 257, 511, 513, 1023, 1025, 2047, 2049, 4095, 4097,
+                               8191])
+def test_sort_key_kernel_ragged_wavefronts(teapot_cuda, n):
+    """N not a multiple of a block's chunk of rays (threads x rays a
+    thread, for 1-4 rays and 64-256 threads): the key equals the plain
+    version's on every lane, the last chunk's lanes included."""
+    from radish_pt_tpu_torch.accel import sort_key as sk
+
+    ds, _, o, d, tmax = teapot_cuda
+    o, d, active = o[:n].contiguous(), d[:n].contiguous(), (tmax > 0)[:n].contiguous()
+    for args in ((o, d, None, active), (o, d, tmax[:n].contiguous(), None)):
+        got = sk.signature_key_cuda(ds.key_bounds, *args)
+        want = sk.signature_key_plain(ds.key_bounds, *args)
+        torch.cuda.synchronize()
+        assert got.shape == (n,) and torch.equal(got, want), n
 
 
 @pytest.mark.cuda
