@@ -42,9 +42,12 @@ CUDA kernels of those paths against their plain torch versions.  Phases:
    (closest hit, heatmap, shadow) on teapot and teapot_hires, ids, t,
    barycentrics, counts and shadow bits bit for bit, the closest hit also
    with the frame's dead-lane range and on a wavefront that interleaves
-   the six direction classes lane by lane, and the binning kernel's
+   the six direction classes lane by lane (the heatmap on the primaries,
+   the extension rays and that wavefront), and the binning kernel's
    classes against ``bin_by_dir_class``, with the per-thread walk's warp
-   efficiency in raster and in class-binned order; for the Plücker
+   efficiency in raster and in class-binned order and the heatmap
+   kernel's schedule from its plain model (a warp's steps against a
+   lane's visits); for the Plücker
    sweeps, the compact sweeps, the band sweeps and the quad shadow sweep
    also the (lane, triangle) pairs their wavefronts need when culled per
    row (group, band), per warp and per lane; the sort-key kernel equal to
@@ -93,10 +96,13 @@ CUDA kernels of those paths against their plain torch versions.  Phases:
    and device ms, in turns); the Plücker pair on the
    bounce-1 wavefronts sorted on their key beside the unsorted; the key
    kernel one call and 10 back to back against its instruction-rate
-   bound; with ``--parent DIR``, the sort-key and binning kernels beside
-   the parent checkout's (built from DIR's csrc into ``_build/parent``),
-   the same inputs and the same results, one call, 10 back to back and 10
-   replayed in one CUDA graph, in turns: parent, this, this, parent;
+   bound; the heatmap kernel also as 10 calls replayed in one CUDA graph,
+   its share of the bound and the plain model's warp steps beside it; with
+   ``--parent DIR``, the sort-key, binning and heatmap kernels beside the
+   parent checkout's (built from DIR's csrc into ``_build/parent``), the
+   same inputs and the same results, one call, 10 back to back and 10
+   replayed in one CUDA graph, and the heatmap tracer's frame through
+   either tree's kernel, in turns: parent, this, this, parent;
 7. batched frames (``Renderer.run_block``, ``step_batched_restir``): the
    ReSTIR spatial offsets computed on the card equal to the CPU's for all
    10,000 loopers x 5 neighbours; then per cell — the path tracer on
@@ -123,7 +129,11 @@ failure raises (non-zero exit).  Needs one CUDA device; imports no jax.
 
 Run from the repository root:  python3 chip_smoke.py [--parent DIR]
 (DIR: a ``git archive`` of the parent commit unpacked into ``_checkout/``)
-"""
+
+``python3 chip_smoke.py --offsets-loop RUNS`` runs only the ReSTIR offsets
+check's comparison, RUNS times alone, RUNS times after every kernel and a
+CUDA graph capture, and RUNS times alone again, and counts the runs with a
+difference (``offsets_loop``)."""
 
 from __future__ import annotations
 
@@ -290,6 +300,106 @@ def restir_offsets_check(dev, log, tag: str) -> None:
     raise AssertionError("the card's ReSTIR offsets differ from the CPU's")
 
 
+def offsets_differ(dev) -> int:
+    """The components of the ReSTIR spatial offsets (10,000 loopers x 5
+    neighbours x 2) that differ between the card and the CPU."""
+    import torch
+
+    from radish_pt_tpu_torch.render import restir as rs
+
+    loopers, ks = torch.arange(10_000)[:, None], torch.arange(5)
+    off_cpu = torch.stack(rs._shared_offset(loopers, ks), -1)
+    off_dev = torch.stack(rs._shared_offset(loopers.to(dev), ks.to(dev)), -1).cpu()
+    return int((off_cpu != off_dev).sum())
+
+
+def offsets_loop(runs: int, log, card) -> int:
+    """``--offsets-loop RUNS``: the ReSTIR offsets of the card against the
+    CPU's (:func:`offsets_differ`) ``runs`` times with nothing else on the
+    card (the control), then ``runs`` times after the card ran every kernel
+    of the port as phases 3, 6 and 7 run them: an eager frame of each
+    engine's main path (teapot on Plücker, quad and bvh, teapot_hires on
+    compact and band, cornell on dense and its ReSTIR frame), a heatmap
+    frame, the sort-key, binning and heatmap kernels captured in a CUDA
+    graph after a side-stream warm-up and replayed, and a fresh renderer's
+    captured block (its warm-up on a side stream, then its capture and a
+    replay); then the control again.  Counts the runs in which some
+    component differs; after a difference, runs ``restir_offsets_check``
+    (which prints the chain on both devices and fails).  Returns 0 when
+    no run differed."""
+    import torch
+
+    from radish_pt_tpu_torch.accel import _build
+    from radish_pt_tpu_torch.accel import sort_key as sk
+    from radish_pt_tpu_torch.accel import traverse as trv
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import build_device_scene, load_scene
+    from radish_pt_tpu_torch.scene.parser import parse_scene
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.build_all()
+    scenes = {}
+    for name, engine in (("teapot", None), ("teapot_quad", "quad"), ("teapot_bvh", "bvh"),
+                         ("cornell_dense", "dense")):
+        ds, cam, _ = load_scene(os.path.join(REPO, "scenes", SCENE_FILES[scene_of(name)]),
+                                device=dev, intersector=engine)
+        scenes[name] = (ds, cam.replace(width=RES, height=RES))
+    desc = parse_scene(os.path.join(REPO, "scenes", SCENE_FILES["teapot_hires"]))
+    for name, engine in (("teapot_hires", "compact"), ("teapot_hires_band", "band")):
+        ds, cam = build_device_scene(desc, use_sobol=desc.settings.use_sobol, device=dev,
+                                     intersector=engine)
+        scenes[name] = (ds, cam.replace(width=RES, height=RES))
+    ds, cam = scenes["teapot"]
+    o, d, _ = (t.contiguous() for t in bounce_one(ds, cam)["primary"])
+    dsb, camb = scenes["teapot_bvh"]
+    wb = bounce_one(dsb, camb)
+    ob, db, _ = (t.contiguous() for t in wb["primary"])
+    _, de, te = (t.contiguous() for t in wb["extension"])
+    graphed = (lambda: sk.signature_key_cuda(ds.key_bounds, o, d),
+               lambda: trv.bin_cuda(de, te),
+               lambda: trv.intersect_bvh_heatmap_cuda(dsb.leaf_tris, dsb.bvh_packed, ob, db))
+    heat = Renderer(ds=dsb, cam=camb, desc=None, settings=Settings(tracer=Tracer.BVH_VISUALIZE),
+                    device=dsb.device)
+    dsr, camr = scenes["cornell_dense"]
+    restir = Renderer(ds=dsr, cam=camr, desc=None, settings=Settings(tracer=Tracer.RESTIR_DI),
+                      device=dsr.device)
+    log(f"[offsets] kernels built and scenes loaded in {time.perf_counter() - t0:.1f} s")
+
+    def control():
+        return offsets_differ(dev)
+
+    def loaded(k):
+        for name, (ds_, cam_) in scenes.items():
+            pt.path_trace(ds_, cam_, k % 10_000, depth_of(name))
+        heat.step()
+        restir.step()
+        for fn in graphed:
+            replayed_ms(fn, reps=1)
+        block = Renderer(ds=ds, cam=cam, desc=None,
+                         settings=Settings(tracer=Tracer.STREAMED, trace_depth=DEPTH),
+                         device=ds.device)
+        block.run_block(2)
+        block.run_block(2)
+        return offsets_differ(dev)
+
+    failed = {}
+    for what, fn in (("control", lambda k: control()), ("after the kernels", loaded),
+                     ("control again", lambda k: control())):
+        t1 = time.perf_counter()
+        diffs = [fn(k) for k in range(runs)]
+        failed[what] = sum(x > 0 for x in diffs)
+        log(f"[offsets] {what}: {failed[what]} of {runs} runs with a difference (components "
+            f"differing, the most in one run: {max(diffs)}), {time.perf_counter() - t1:.1f} s "
+            f"({card})")
+    if any(failed.values()):
+        restir_offsets_check(dev, log, "[offsets]")
+        return 1
+    return 0
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events; a
     run is ``inner`` calls back to back, and the time is per call (with
@@ -310,6 +420,25 @@ def cuda_ms(fn, reps: int, warmup: int = 1, inner: int = 1) -> float:
         times.append(start.elapsed_time(end) / inner)
     times.sort()
     return times[len(times) // 2]
+
+
+def replayed_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """ms a call of ``calls`` calls of ``fn`` captured in one CUDA graph
+    and replayed (median of ``reps`` replays): the card's time alone, no
+    host issue between the calls.  ``fn`` runs once first on a side stream
+    (its kernels built, its constants made)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, reps) / calls
 
 
 # (kernel/wavefront key, scene) -> ms of the plain version's one run in
@@ -784,6 +913,7 @@ def bvh_parity(ds, waves, max_err, log, scene):
     import torch
 
     from radish_pt_tpu_torch.accel import traverse as trv
+    from radish_pt_tpu_torch.profile import heatmap_schedule, schedule_line
 
     lt, lm, nodes = ds.leaf_tris, ds.leaf_map, ds.bvh_packed
     o_e, d_e, t_e = (t.contiguous() for t in waves["extension"])
@@ -827,8 +957,9 @@ def bvh_parity(ds, waves, max_err, log, scene):
         inputs[what] = (o, d, tmax, st)
     assert torch.equal(inputs["extension_ranged"][3]["visits"][live_e],
                        inputs["extension"][3]["visits"][live_e])
-    for what in ("primary", "extension"):
-        o, d, _, _ = inputs[what]
+    sched = inputs["heatmap_schedule"] = {}
+    for what in ("primary", "extension", "interleaved"):
+        o, d, _, st = inputs[what]
         hk = trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d)
         hp = plain_run(f"bvh_heatmap/{what}", scene,
                        lambda: trv.intersect_bvh_heatmap_plain(lt, nodes, o, d))
@@ -838,6 +969,13 @@ def bvh_parity(ds, waves, max_err, log, scene):
             f"{float(hp.float().mean()):.2f}, max {int(hp.max())} descended nodes)")
         assert n_steps == 0, f"bvh heatmap, {scene} {what}: count parity"
         max_err["bvh_heatmap"] = max(max_err["bvh_heatmap"], float(n_steps))
+        if what == "interleaved":
+            continue
+        # the kernel's schedule from its plain model: a warp's steps (the
+        # rows its lanes visit between them) against a lane's visits and
+        # the per-thread walk's warp (as long as its longest lane)
+        sched[what] = heatmap_schedule(lt, nodes, o, d)
+        log(f"[schedule] bvh heatmap, {scene} {what}: {schedule_line(sched[what])}")
     x, y, live = waves["segments"]
     so, sd, tm = (t.contiguous() for t in trv.segment_rays(x, y))
     ok_k = trv.occlusion_bvh_cuda(lt, nodes, so, sd, tm)
@@ -882,6 +1020,9 @@ def bvh_parity(ds, waves, max_err, log, scene):
 # (kernel/wavefront key, scene) -> ms a call of 10 calls back to back: the
 # BVH walks and the binning, beside the one-call time of every kernel
 BACK_TO_BACK_MS = {}
+# (kernel/wavefront key, scene) -> ms a call of 10 calls replayed in one
+# CUDA graph: the heatmap kernel
+REPLAYED_MS = {}
 
 
 def walk_work(ds, st, n, io_bytes):
@@ -1369,18 +1510,23 @@ def parent_frame_times(parent: str, log, card) -> dict:
 
 
 def parent_kernel_times(parent: str, scenes, inputs, log, card) -> dict:
-    """With ``--parent``: this tree's sort-key and binning kernels beside
-    the parent checkout's, built from its ``radish_pt_tpu_torch/csrc`` into
-    ``_build/parent`` and called through this tree's wrappers (the C entry
-    points take the same arguments; the binning's workspace is this tree's
-    larger one), on phase 3's wavefronts.  The parent's keys equal this
-    tree's on every lane and its binning counts this tree's classes; each
-    kernel timed one call, 10 calls back to back, and 10 calls captured in
-    one CUDA graph and replayed (the card's time alone: no host issue
-    between the calls), in turns: parent, this tree, this tree, parent.
-    Returns {"kernel/wavefront scene": {"parent_ms": [ms, ms], "this_ms":
-    [...], "parent_ms_back_to_back": [...], "this_ms_back_to_back": [...],
-    "parent_ms_replayed": [...], "this_ms_replayed": [...]}}."""
+    """With ``--parent``: this tree's sort-key, binning and heatmap kernels
+    beside the parent checkout's, built from its ``radish_pt_tpu_torch/csrc``
+    into ``_build/parent`` and called through this tree's wrappers (the C
+    entry points take the same arguments; the binning's workspace is this
+    tree's larger one), on phase 3's wavefronts (the heatmap's: the bvh
+    scenes' primaries and bounce-1 extension rays).  The parent's keys and
+    heatmap counts equal this tree's on every lane and its binning counts
+    this tree's classes; each kernel timed one call, 10 calls back to back,
+    and 10 calls captured in one CUDA graph and replayed (the card's time
+    alone: no host issue between the calls), in turns: parent, this tree,
+    this tree, parent.  Then the heatmap tracer's frame (``Renderer.step``,
+    teapot and teapot_hires on the bvh engine) through either tree's
+    kernel, its image equal, in the same turns.  Returns {"kernel/wavefront
+    scene": {"parent_ms": [ms, ms], "this_ms": [...],
+    "parent_ms_back_to_back": [...], "this_ms_back_to_back": [...],
+    "parent_ms_replayed": [...], "this_ms_replayed": [...]}, "heatmap
+    frame scene": {"parent_ms": [...], "this_ms": [...]}}."""
     import torch
 
     from radish_pt_tpu_torch.accel import _build
@@ -1417,29 +1563,26 @@ def parent_kernel_times(parent: str, scenes, inputs, log, card) -> dict:
             _, d, tmax, _ = inputs["bvh"][scene][what]
             cases[f"bvh_bin/{what} {scene}"] = (
                 "bvh", lambda d=d, tmax=tmax: trv.bin_cuda(d, tmax))
+        lt, nodes = scenes[scene][0].leaf_tris, scenes[scene][0].bvh_packed
+        for what in ("primary", "extension"):
+            o, d, _, _ = inputs["bvh"][scene][what]
+            cases[f"bvh_heatmap/{what} {scene}"] = (
+                "bvh", lambda lt=lt, nodes=nodes, o=o, d=d:
+                trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d))
     out = {}
     for case, (lib, fn) in cases.items():
         ours_out, theirs_out = fn(), as_parent(lib, fn)
         torch.cuda.synchronize()
-        if lib == "sort_key":
+        if lib == "sort_key" or case.startswith("bvh_heatmap/"):
             same = torch.equal(ours_out, theirs_out)
-        else:  # this tree's counts after its six regions, the parent's after its queue
-            n = (ours_out.numel() - trv.WS_COUNTERS) // trv.DIR_CLASSES
-            same = torch.equal(ours_out[trv.DIR_CLASSES * n:][:7], theirs_out[n:n + 7])
+        else:  # the binning's counts, after its six regions in either tree
+            k = (ours_out.numel() - trv.WS_COUNTERS) // trv.DIR_CLASSES * trv.DIR_CLASSES
+            same = torch.equal(ours_out[k:k + 7], theirs_out[k:k + 7])
         assert same, f"{case}: the parent's kernel disagrees with this tree's"
         rec = out[case] = {}
 
         def three(fn=fn):  # one call, 10 back to back, 10 in a replayed graph
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                fn()
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for _ in range(10):
-                    fn()
-            return cuda_ms(fn, 5), cuda_ms(fn, 5, inner=10), cuda_ms(graph.replay, 5) / 10
+            return cuda_ms(fn, 5), cuda_ms(fn, 5, inner=10), replayed_ms(fn)
 
         for who in ("parent", "this", "this", "parent"):
             times = as_parent(lib, three) if who == "parent" else three()
@@ -1453,6 +1596,25 @@ def parent_kernel_times(parent: str, scenes, inputs, log, card) -> dict:
         log(f"[parent] {case}: one call {pair('ms')}; 10 back to back {pair('ms_back_to_back')} "
             f"a call; replayed (10 calls in one CUDA graph) {pair('ms_replayed')} a call (in "
             f"turns: parent, this, this, parent; results equal) ({card})")
+    # the heatmap tracer's frame through either tree's heatmap kernel
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render.renderer import Renderer
+
+    for scene in ("teapot_bvh", "teapot_hires_bvh"):
+        ds, cam = scenes[scene]
+        r = Renderer(ds=ds, cam=cam, desc=None, settings=Settings(tracer=Tracer.BVH_VISUALIZE),
+                     device=ds.device)
+        same = torch.equal(r._bvh_heatmap(), as_parent("bvh", r._bvh_heatmap))
+        assert same, f"{scene}: the parent's heatmap image differs from this tree's"
+        rec = out[f"heatmap frame {scene}"] = {}
+        for who in ("parent", "this", "this", "parent"):
+            ms = (as_parent("bvh", lambda: cuda_ms(r.step, reps=5)) if who == "parent"
+                  else cuda_ms(r.step, reps=5))
+            rec.setdefault(f"{who}_ms", []).append(ms)
+        log(f"[parent] BVH heatmap tracer, {scene} {RES}x{RES}, ms a frame (Renderer.step, "
+            f"median of 5): parent {' / '.join(f'{x:.3f}' for x in rec['parent_ms'])}, this "
+            f"tree {' / '.join(f'{x:.3f}' for x in rec['this_ms'])} (in turns: parent, this, "
+            f"this, parent; images equal) ({card})")
     return out
 
 
@@ -1468,6 +1630,9 @@ def main(argv=None) -> int:
     ap.add_argument("--frame-times", metavar="DIR",
                     help="print the frame times of the package in the checkout DIR and "
                     "exit (the subprocess of phase 8)")
+    ap.add_argument("--offsets-loop", type=int, metavar="RUNS",
+                    help="count the runs in which the card's ReSTIR offsets differ from the "
+                    "CPU's, alone and after every kernel, RUNS times each, and exit")
     args = ap.parse_args(argv)
     if args.frame_times:
         if not torch.cuda.is_available():
@@ -1485,6 +1650,10 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain sweeps: full f32
+    if args.offsets_loop:
+        card = gpu_name_and_power()
+        log(card)
+        return offsets_loop(args.offsets_loop, log, card)
 
     from radish_pt_tpu_torch.accel import _build
     from radish_pt_tpu_torch.accel import band as bnd
@@ -2293,6 +2462,17 @@ def main(argv=None) -> int:
             other_bounds[key, scene] = [
                 ("every visit's node row (32 B) and leaf (576 B) from device memory",
                  bound(flops, every, PEAK_F32_OPS_UNFUSED)[0])]
+            if key.startswith("bvh_heatmap/"):  # the heatmap's device time alone
+                REPLAYED_MS[key, scene] = replayed_ms(kernel)
+        for what, sc in inputs["bvh"][scene]["heatmap_schedule"].items():
+            b_ms = bound(*timed[f"bvh_heatmap/{what}", scene][2:4], PEAK_F32_OPS_UNFUSED)[0]
+            t_one, t_rep = timed[f"bvh_heatmap/{what}", scene][0], REPLAYED_MS[
+                f"bvh_heatmap/{what}", scene]
+            log(f"[timing] bvh heatmap, {scene} {what}: bound {b_ms:.4f} ms; one call "
+                f"{t_one:.4f} ms ({100 * b_ms / t_one:.1f}% of the bound), 10 replayed in one "
+                f"CUDA graph {t_rep:.4f} ms a call ({100 * b_ms / t_rep:.1f}%); the plain "
+                f"model's {sc['warp_steps']:.2f} warp steps against {sc['lane_visits']:.2f} "
+                f"visits a lane ({sc['warp_steps'] / sc['lane_visits']:.3f} x) ({card})")
         for what, (d, tmax) in {"extension_ranged": inputs["bvh"][scene]["extension_ranged"][1:3],
                                 "segments": (sd, tm)}.items():
             live = int((tmax > 0).sum())
@@ -2315,6 +2495,8 @@ def main(argv=None) -> int:
                        for o_name, o_ms in other_bounds.get((key, scene), ()))
         if (key, scene) in BACK_TO_BACK_MS:
             also += f"; 10 calls back to back {BACK_TO_BACK_MS[key, scene]:.3f} ms a call"
+        if (key, scene) in REPLAYED_MS:
+            also += f"; 10 replayed in one CUDA graph {REPLAYED_MS[key, scene]:.4f} ms a call"
         log(f"[timing] {name}, {scene} {what}: kernel "
             f"{k:.3f} ms one call, plain {p:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
             f"{flops / 1e9:.2f} G operations at {peak / 1e12:.1f} T/s, {nb / 1e6:.2f} MB), "
@@ -2346,11 +2528,16 @@ def main(argv=None) -> int:
             rows[-1]["wavefronts"] = {
                 f"{scene} {key.split('/')[1]}": {
                     "ms": t[0], "ms_back_to_back": BACK_TO_BACK_MS.get((key, scene)),
+                    "ms_replayed": REPLAYED_MS.get((key, scene)),
                     "plain_ms": t[1], "bound_ms": bound(t[2], t[3], t[4])[0]}
                 for (key, scene), t in timed.items() if key.split("/")[0] == name}
-            if kind == "bin" and parent_kernels:
+            if kind in ("bin", "heatmap") and parent_kernels:
                 rows[-1]["parent"] = {k: v for k, v in parent_kernels.items()
-                                      if k.startswith("bvh_bin/")}
+                                      if k.startswith(f"bvh_{kind}/")
+                                      or (kind == "heatmap" and k.startswith("heatmap frame"))}
+            if kind == "heatmap":
+                rows[-1]["schedule"] = {scene: inputs["bvh"][scene]["heatmap_schedule"]
+                                        for scene in inputs["bvh"]}
         if lib in ("plucker", "bvh"):  # the same kernel on the largest scene of its engine
             scene = f"teapot_hires_{lib}"
             k, p, flops, nb, peak = timed[f"{name}/{what}", scene]

@@ -26,7 +26,9 @@ Port of ``radish_pt_tpu/accel/traverse.py``:
   plain version :func:`bin_by_dir_class`) builds first, in one launch, into
   a workspace of six regions of N lanes, one a class, and
   :data:`WS_COUNTERS` counters (int32 [6N + 16], about 15 MB at 800x800);
-  the heatmap walks one thread a ray.  A lane whose range is not above 0
+  the heatmap walks as warps of 32 rays that visit, a step at a time, the
+  least node row any of their lanes is at (its plain model:
+  :func:`heatmap_warp_model`).  A lane whose range is not above 0
   can meet no triangle (a pair counts only at 0 < t < range) and is
   settled before its walk, by either version.  The entry points ``intersect_bvh`` / ``occlusion_bvh`` /
   ``intersect_bvh_heatmap`` take the plain version for CPU tensors and
@@ -199,6 +201,7 @@ NODE_BYTES = 32  # a row of the node table
 LAUNCHES = {"closest_hit": 0, "occlusion": 0, "heatmap": 0, "bin": 0}
 PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0, "heatmap": 0, "bin": 0}
 DIR_CLASSES = 6
+WARP = 32  # the lanes of a warp: the heatmap kernel's unit of coherence
 WS_COUNTERS = 16  # int32 counters after the binning kernel's six regions (csrc/bvh.cu)
 
 
@@ -337,6 +340,70 @@ def intersect_bvh_heatmap_plain(leaf_tris, bvh_packed, ray_o, ray_d, stats=None)
     (``DevScene::visualizedIntersect``, scene.h:336-372)."""
     PLAIN_CALLS["heatmap"] += 1
     return _walk(leaf_tris, bvh_packed, ray_o, ray_d, stats=stats)[4]
+
+
+def heatmap_warp_model(leaf_tris, bvh_packed, ray_o, ray_d, warp: int = WARP, stats=None):
+    """The plain model of the heatmap kernel's warp-coherent walk
+    (``bvh_heatmap_kernel`` in csrc/bvh.cu).  Lanes go ``warp`` at a time in
+    launch order.  A lane's key is the row of ``bvh_packed`` it is at, class
+    x B + node, and a lane that is done is past every row.  Each step a
+    warp takes its least key m; only its lanes at m visit row m, with the
+    plain walk's slab test and leaf test, then move to node + 1 (descended)
+    or the node's miss link.  Each lane walks its own threaded order, so the
+    counts are :func:`intersect_bvh_heatmap_plain`'s; a warp's steps are
+    the rows its lanes visit between them.
+
+    Returns (descended nodes i32 [N], steps i64 [ceil(N / warp)]: the rows
+    each warp loaded).  ``stats`` (a dict) receives "leaf_steps" i64 [W],
+    the steps at which some lane of the warp tested a leaf, and "visits"
+    i64 [N], each lane's node visits."""
+    size = bvh_packed.shape[0] // 6
+    L = leaf_tris.shape[1] // 9
+    n, dev = ray_o.shape[0], ray_o.device
+    n_w = -(-n // warp)
+    done = DIR_CLASSES * size  # past every row (INT_MAX in the kernel)
+    rows_i = bvh_packed.view(torch.int32)
+    base = get_dir_class(-ray_d).long() * size
+    o = [ray_o[:, k] for k in range(3)]
+    d = [ray_d[:, k] for k in range(3)]
+    inv = [1.0 / c for c in d]
+    # the lanes' keys by warp, the last warp padded with lanes that are done
+    key = torch.full((n_w * warp,), done, dtype=torch.int64, device=dev)
+    key[:n] = base
+    c_dist = torch.full((n,), FLT_MAX, dtype=torch.float32, device=dev)
+    steps = torch.zeros(n, dtype=torch.int32, device=dev)
+    visits = torch.zeros(n, dtype=torch.int64, device=dev)
+    warp_steps = torch.zeros(n_w, dtype=torch.int64, device=dev)
+    leaf_steps = torch.zeros_like(warp_steps)
+    while n:
+        least = key.view(n_w, warp).min(1).values
+        walking = least < done
+        if not bool(walking.any()):
+            break
+        warp_steps += walking
+        act = torch.nonzero((key.view(n_w, warp) == least[:, None]).view(-1)
+                            & (key < done))[:, 0]
+        r = key[act]
+        row = rows_i[r]
+        hit, t_near = _slab_core(*row.view(torch.float32)[:, :6].unbind(1),
+                                 *(c[act] for c in o), *(c[act] for c in inv))
+        desc = hit & (t_near < c_dist[act])
+        steps[act] += desc.to(torch.int32)
+        visits[act] += 1
+        at_leaf = desc & (row[:, 6] != NULL_PRIMITIVE)
+        la = act[at_leaf]
+        if la.numel():
+            leaf_steps[torch.unique(la // warp)] += 1
+            tri = leaf_tris[row[at_leaf, 6].long()].view(-1, L, 9)
+            h, t, _, _ = _mt_core(*tri.unbind(-1), *(c[la, None] for c in o),
+                                  *(c[la, None] for c in d))
+            lt = torch.min(torch.where(h, t, FLT_MAX), dim=1).values
+            c_dist[la] = torch.where(lt < c_dist[la], lt, c_dist[la])
+        nxt = torch.where(desc, r - base[act] + 1, row[:, 7].long())
+        key[act] = torch.where(nxt < size, base[act] + nxt, done)
+    if stats is not None:
+        stats.update(leaf_steps=leaf_steps, visits=visits)
+    return steps, warp_steps
 
 
 def bin_by_dir_class(ray_d, tmax=None):

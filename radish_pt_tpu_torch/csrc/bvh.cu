@@ -1,7 +1,7 @@
 // MTBVH walks for Hopper (sm_90a): closest hit and any-hit as persistent,
-// class-binned warps that refill finished lanes; the traversal heatmap one
-// thread a ray; and the binning kernel that orders the rays for the first
-// two.
+// class-binned warps that refill finished lanes; the traversal heatmap as a
+// warp-coherent walk of the least row its lanes are at; and the binning
+// kernel that orders the rays for the first two.
 //
 // Replaces three XLA stages of the JAX package (not Pallas bodies):
 // intersect_bvh, occlusion_bvh and intersect_bvh_heatmap
@@ -53,14 +53,14 @@
 // minima and maxima, t_near, t_far, the verdict's three comparisons) and a
 // leaf 16 x 55; the node table and the leaves fit the 50 MB L2
 // (teapot_hires: 8.1 MB and 12.2 MB), so device memory sees little more
-// than the rays.  The per-ray walk (the design until this one, kept by the
-// heatmap) issues ~52 instructions a visit (ptxas' SASS: the two loads,
-// their address, the NaN rule's tests, selects and constants, the loop),
-// and a warp runs as long as its longest walk, its lanes test their leaves
-// at different steps while the others wait, and a bounce wavefront in
-// raster order mixes up to six direction classes, six threaded orders over
-// six node tables, in one warp.  The closest hit and the any-hit walk
-// answer each in turn:
+// than the rays.  The per-ray walk (the design until this one, and the
+// heatmap's until the warp-coherent walk below) issued ~52 instructions a
+// visit (ptxas' SASS: the two loads, their address, the NaN rule's tests,
+// selects and constants, the loop), and a warp runs as long as its longest
+// walk, its lanes test their leaves at different steps while the others
+// wait, and a bounce wavefront in raster order mixes up to six direction
+// classes, six threaded orders over six node tables, in one warp.  The
+// closest hit and the any-hit walk answer each in turn:
 // 1. bvh_bin_kernel: dead lanes written out at once; the live lanes queued
 //    by direction class (warp-aggregated counts; a block reserves its run
 //    in each class's region with one atomic and scatters; launch order
@@ -103,8 +103,17 @@
 
 #include "mt_pair.cuh"
 
-#ifndef BVH_BLOCK
-#define BVH_BLOCK 128  // the heatmap: threads (rays) per block
+#ifndef BVH_HEAT_THREADS
+#define BVH_HEAT_THREADS 64  // the heatmap: threads (rays) a block, whole warps
+#endif
+#ifndef BVH_HEAT_ROWS
+#define BVH_HEAT_ROWS 1  // the heatmap: node rows a warp fetches a load (1, 2, 4, 8, 16)
+#endif
+#ifndef BVH_HEAT_LEAF
+#define BVH_HEAT_LEAF 2  // the heatmap's leaves: 0 broadcast, 1 staged, 2 spread (see below)
+#endif
+#ifndef BVH_HEAT_SPREAD
+#define BVH_HEAT_SPREAD 8  // BVH_HEAT_LEAF 2: spread below L x this / 16 rounds
 #endif
 #ifndef BVH_WARPS
 #define BVH_WARPS 4  // the persistent walks: warps per block
@@ -124,8 +133,14 @@
 
 namespace {
 
-constexpr int kBlock = BVH_BLOCK;
 constexpr int kThreads = 32 * BVH_WARPS;
+constexpr int kHeatThreads = BVH_HEAT_THREADS;
+constexpr int kHeatRows = BVH_HEAT_ROWS;
+static_assert(kHeatThreads % 32 == 0 && kHeatThreads >= 32 && kHeatThreads <= 1024,
+              "BVH_HEAT_THREADS: whole warps, at most 1024");
+static_assert(kHeatRows >= 1 && kHeatRows <= 16 && (kHeatRows & (kHeatRows - 1)) == 0,
+              "BVH_HEAT_ROWS: 1, 2, 4, 8 or 16");
+static_assert(BVH_HEAT_LEAF >= 0 && BVH_HEAT_LEAF <= 2, "BVH_HEAT_LEAF: 0, 1 or 2");
 constexpr int kRefill = BVH_REFILL;
 constexpr int kMinBlocks = BVH_BLOCKS_PER_SM > 0 ? BVH_BLOCKS_PER_SM : 1;
 static_assert(kRefill >= 1 && kRefill <= 32, "BVH_REFILL: 1 to 32 lanes");
@@ -177,43 +192,6 @@ struct Best {
   int slot;
   float bx, by;
 };
-
-// The heatmap's walk of one ray (the per-ray design of the closest hit
-// before the persistent walks, unchanged): the count of descended nodes.
-__device__ __forceinline__ int heatmap_walk(const float4* __restrict__ nodes, int size,
-                                            const float* __restrict__ leaves, int L,
-                                            const Ray& r) {
-  const float ix = __frcp_rn(r.dx), iy = __frcp_rn(r.dy), iz = __frcp_rn(r.dz);
-  const float4* __restrict__ order = nodes + 2 * (size_t)dir_class(r) * size;
-  float c = kFltMax;  // a box must be entered before c to be descended into
-  int node = 0, steps = 0;
-  while (node < size) {
-    const float4 a = __ldg(order + 2 * node);      // bmin.xyz, bmax.x
-    const float4 b = __ldg(order + 2 * node + 1);  // bmax.yz, leaf, miss
-    float lx, hx, ly, hy, lz, hz;
-    slab_axis(a.x, a.w, r.ox, ix, lx, hx);
-    slab_axis(a.y, b.x, r.oy, iy, ly, hy);
-    slab_axis(a.z, b.y, r.oz, iz, lz, hz);
-    const float t_near = fmaxf(lx, fmaxf(ly, lz));
-    const float t_far = fminf(hx, fminf(hy, hz));
-    if (!(t_far >= 0.f && t_far >= t_near && t_near < c)) {
-      node = __float_as_int(b.w);
-      continue;
-    }
-    ++steps;
-    const int leaf = __float_as_int(b.z);
-    if (leaf >= 0) {
-      const float* t9 = leaves + (size_t)leaf * L * 9;
-      for (int j = 0; j < L; ++j, t9 += 9) {
-        float t, u, v, inv_det;
-        if (!mt_pair(t9, r, t, u, v, inv_det) || !(t < c)) continue;
-        c = t;
-      }
-    }
-    ++node;
-  }
-  return steps;
-}
 
 // slab_axis for a ray whose origin, direction and 1/d are finite: no
 // product is 0 * inf, so no NaN to write out (the same lo and hi)
@@ -449,15 +427,214 @@ bvh_occlusion_kernel(const float4* __restrict__ nodes, int size,
                         nullptr, occ_out, nullptr, nullptr);
 }
 
-__global__ void __launch_bounds__(kBlock)
+// The traversal heatmap: a warp-coherent walk.  The heatmap's only caller
+// (render/renderer.py::_bvh_heatmap) gives pinhole primaries in raster
+// order, so a warp's 32 rays are 32 pixels of one row.  Every miss link of
+// the threaded tables is larger than its node (each class of teapot's and
+// of the test soups' tables: tests/test_torch_heatmap_sched.py), so a ray
+// visits its class's rows in increasing order, and a warp can walk "the
+// least row any of its lanes is at":
+// * a lane's key is its row, class x B + node (kNoKey once done);
+// * each step the warp takes m = __reduce_min_sync(key) and reads row m
+//   once for every lane (a warp-uniform address: one load, or a shuffle of
+//   rows fetched before, BVH_HEAT_ROWS); the lanes whose key is m take the
+//   slab test, the others idle on it;
+// * a lane that descends counts a step and moves to node + 1, any other
+//   lane at m to the miss link; a leaf that some lane descended into (a
+//   vote) is tested for those lanes at once (BVH_HEAT_LEAF).
+// Each lane visits exactly its own sequence, with the per-ray walk's
+// arithmetic, so its count is the plain walk's; for any table, since the
+// least key always moves on, the order only costs steps: a warp takes as
+// many as the rows its lanes visit between them (the plain model:
+// accel/traverse.py::heatmap_warp_model).  While no lane holds a ray with
+// a zero or non-finite component, the warp takes the slab test without
+// the NaN rule's tests (slab_axis_finite: the same verdicts).  Every
+// branch of a step is warp-uniform, so no lane's walk waits on another
+// lane's divergent path, and the loads of a step are one row (32 B) and,
+// at a leaf, one leaf (576 B) for the warp.
+// The leaves (BVH_HEAT_LEAF): a lane's best only falls to the least t < c
+// of a hit slot, and that least value is the same in any order, so
+// 2: the warp spreads the (descending lane, slot) pairs over its lanes, L
+//    lanes a ray (32 / L rays a round; L a power of 2 up to 32), takes each
+//    ray's least t with a butterfly of shuffles and hands it back:
+//    ceil(k / (32 / L)) rounds of one pair test a lane for k descending
+//    lanes, where that is fewer than L x BVH_HEAT_SPREAD / 16 (a round
+//    issues ~1.4 times the instructions of a slot in order; tune heat:
+//    half of L was best), else as 1;
+// 1: the leaf's L x 9 floats staged in shared memory by the warp, each
+//    descending lane testing the L slots in order from there;
+// 0: each descending lane tests the L slots in order at the leaf's
+//    warp-uniform address (broadcast loads).
+// On an H100 (800x800 primaries, PERF.md) teapot runs near 40% of the
+// instruction-rate bound, teapot_hires near 25%: its node rows come mostly
+// from L2, and its walk without the leaf tests takes nearly as long.
+// Slower there, and left out: loading row m + 1 ahead (72 registers), an
+// L1 prefetch of the miss link's row, persistent warps taking 32 rays at a
+// time, and one-warp blocks.
+constexpr int kNoKey = 0x7fffffff;  // the key of a lane done or without a ray
+
+// Rows of the node table fetched by the warp: lane j holds float4 j of rows
+// [first, first + BVH_HEAT_ROWS) (first warp-uniform).
+struct HeatRows {
+  float4 held;
+  int first;
+};
+
+__device__ __forceinline__ float4 shfl4(float4 v, int src) {
+  return make_float4(__shfl_sync(kFull, v.x, src), __shfl_sync(kFull, v.y, src),
+                     __shfl_sync(kFull, v.z, src), __shfl_sync(kFull, v.w, src));
+}
+
+// Row m (warp-uniform) for every lane: bmin.xyz, bmax.x in a; bmax.yz,
+// leaf, miss in b.  BVH_HEAT_ROWS 1: two loads at the row's address; else
+// the rows from m on fetched in one coalesced load whenever m is not among
+// the held rows, row m read with shuffles.
+__device__ __forceinline__ void heat_row(const float4* __restrict__ nodes, int rows, int m,
+                                         HeatRows& held, float4& a, float4& b) {
+  if (kHeatRows == 1) {
+    a = __ldg(nodes + 2 * (size_t)m);
+    b = __ldg(nodes + 2 * (size_t)m + 1);
+    return;
+  }
+  if (m < held.first || m >= held.first + kHeatRows) {
+    const int lane = threadIdx.x & 31;
+    held.first = m;
+    if (lane < 2 * kHeatRows && m + (lane >> 1) < rows)
+      held.held = __ldg(nodes + 2 * (size_t)m + lane);
+  }
+  const int j = 2 * (m - held.first);
+  a = shfl4(held.held, j);
+  b = shfl4(held.held, j + 1);
+}
+
+// A leaf's L slots in order against a descending lane's ray: c falls to a
+// hit slot's t below it (strict), as in the per-ray walk.
+__device__ __forceinline__ void heat_leaf_in_order(const float* t9, int L, const Ray& r,
+                                                   bool desc, float& c) {
+  if (!desc) return;
+  for (int j = 0; j < L; ++j, t9 += 9) {
+    float t, u, v, inv_det;
+    if (mt_pair(t9, r, t, u, v, inv_det) && t < c) c = t;
+  }
+}
+
+// The (descending lane, slot) pairs of a leaf spread over the warp, L lanes
+// a ray: lane g * L + s tests slot s for the g-th ray of the round; the L
+// lanes of a ray take the least hit t below its c, which the ray's own lane
+// reads back.  L a power of 2 up to 32.
+__device__ __forceinline__ void heat_leaf_spread(const float* __restrict__ leaf, int L,
+                                                 const Ray& r, bool desc, float& c) {
+  const int lane = threadIdx.x & 31;
+  const unsigned want = __ballot_sync(kFull, desc);
+  const int shift = __ffs(L) - 1;        // L = 1 << shift
+  const int per_round = 32 >> shift;     // rays a round
+  const int group = lane >> shift;       // the ray of the round this lane serves
+  const float* t9 = leaf + 9 * (lane & (L - 1));
+  const int rank = __popc(want & ((1u << lane) - 1u));  // a descending lane's place
+  const int my_round = rank >> (5 - shift);
+  const int my_group = (rank & (per_round - 1)) << shift;  // the lane that holds its least t
+  float tri[9];  // this lane's slot, the same every round
+#pragma unroll
+  for (int k = 0; k < 9; ++k) tri[k] = __ldg(t9 + k);
+  unsigned left = want;
+  for (int round = 0; left; ++round) {
+    unsigned mine = left;  // the group's ray: the group-th of the rays left
+    for (int g = 0; g < group; ++g) mine &= mine - 1u;
+    const int src = __ffs(mine) - 1;  // -1: no ray for this group
+    for (int g = 0; g < per_round; ++g) left &= left - 1u;
+    const int s = src & 31;
+    const Ray q{__shfl_sync(kFull, r.ox, s), __shfl_sync(kFull, r.oy, s),
+                __shfl_sync(kFull, r.oz, s), __shfl_sync(kFull, r.dx, s),
+                __shfl_sync(kFull, r.dy, s), __shfl_sync(kFull, r.dz, s)};
+    const float cq = __shfl_sync(kFull, c, s);
+    float best = kFltMax;
+    float t, u, v, inv_det;
+    if (src >= 0 && mt_pair(tri, q, t, u, v, inv_det) && t < cq) best = t;
+    for (int off = L >> 1; off > 0; off >>= 1)
+      best = fminf(best, __shfl_xor_sync(kFull, best, off));
+    const float got = __shfl_sync(kFull, best, my_group);
+    if (desc && my_round == round && got < c) c = got;
+  }
+}
+
+// One ray's heatmap count, its lane walking with the warp from key (its
+// class's first row, or kNoKey).  kNan: the slab test with the NaN rule.
+template <bool kNan>
+__device__ __forceinline__ int heat_walk(const float4* __restrict__ nodes, int size,
+                                         const float* __restrict__ leaves, int L,
+                                         float* stage, const Ray& r, float ix, float iy,
+                                         float iz, int base, int key) {
+  const int rows = kClasses * size;
+  HeatRows held{make_float4(0.f, 0.f, 0.f, 0.f), -kHeatRows};
+  const int end = base + size;  // past the lane's class's rows
+  float c = kFltMax;  // a box must be entered before c to be descended into
+  int steps = 0;
+  int m = __reduce_min_sync(kFull, key);
+  while (m != kNoKey) {
+    const bool here = key == m;
+    float4 a, b;
+    heat_row(nodes, rows, m, held, a, b);
+    float lx, hx, ly, hy, lz, hz;
+    if (kNan) {
+      slab_axis(a.x, a.w, r.ox, ix, lx, hx);
+      slab_axis(a.y, b.x, r.oy, iy, ly, hy);
+      slab_axis(a.z, b.y, r.oz, iz, lz, hz);
+    } else {
+      slab_axis_finite(a.x, a.w, r.ox, ix, lx, hx);
+      slab_axis_finite(a.y, b.x, r.oy, iy, ly, hy);
+      slab_axis_finite(a.z, b.y, r.oz, iz, lz, hz);
+    }
+    const float t_near = fmaxf(lx, fmaxf(ly, lz));
+    const float t_far = fminf(hx, fminf(hy, hz));
+    const bool desc = here && t_far >= 0.f && t_far >= t_near && t_near < c;
+    steps += desc;
+    const bool any_desc = __any_sync(kFull, desc);
+    const int leaf = __float_as_int(b.z);
+    if (leaf >= 0 && any_desc) {  // warp-uniform
+      const float* t9 = leaves + (size_t)leaf * L * 9;
+      if (BVH_HEAT_LEAF == 2 && L > 0 && L <= 32 && (L & (L - 1)) == 0 &&
+          16 * ((__popc(__ballot_sync(kFull, desc)) * L + 31) / 32) < L * BVH_HEAT_SPREAD) {
+        heat_leaf_spread(t9, L, r, desc, c);
+      } else if (BVH_HEAT_LEAF >= 1) {  // 1, and 2 with many descending lanes
+        __syncwarp();  // the warp's reads of the last leaf staged are done
+        for (int k = threadIdx.x & 31; k < 9 * L; k += 32) stage[k] = __ldg(t9 + k);
+        __syncwarp();
+        heat_leaf_in_order(stage, L, r, desc, c);
+      } else {
+        heat_leaf_in_order(t9, L, r, desc, c);
+      }
+    }
+    if (here) {  // node + 1 or the miss link, as a key: done past the class's rows
+      const int next = desc ? m + 1 : base + __float_as_int(b.w);
+      key = next < end ? next : kNoKey;
+    }
+    m = __reduce_min_sync(kFull, key);
+  }
+  return steps;
+}
+
+__global__ void __launch_bounds__(kHeatThreads)
 bvh_heatmap_kernel(const float4* __restrict__ nodes, int size,
                    const float* __restrict__ leaves, int L,
                    const float* __restrict__ ray_o, const float* __restrict__ ray_d, int n,
                    int* __restrict__ steps_out) {
-  const int ray = blockIdx.x * kBlock + threadIdx.x;
-  if (ray >= n) return;
-  const Ray r = load_ray(ray_o, ray_d, ray, true);
-  steps_out[ray] = heatmap_walk(nodes, size, leaves, L, r);
+  extern __shared__ float heat_stage[];  // BVH_HEAT_LEAF 1 and 2: L * 9 floats a warp
+  const int ray = blockIdx.x * kHeatThreads + threadIdx.x;
+  const bool live = ray < n;
+  const Ray r = load_ray(ray_o, ray_d, ray, live);
+  const float ix = __frcp_rn(r.dx), iy = __frcp_rn(r.dy), iz = __frcp_rn(r.dz);
+  const bool finite = isfinite(r.ox) && isfinite(r.oy) && isfinite(r.oz) && isfinite(r.dx) &&
+                      isfinite(r.dy) && isfinite(r.dz) && isfinite(ix) && isfinite(iy) &&
+                      isfinite(iz);
+  const int base = dir_class(r) * size;
+  const int key = live && size > 0 ? base : kNoKey;
+  float* stage = heat_stage + (size_t)(threadIdx.x >> 5) * 9 * L;
+  // warp-uniform: the finite path while no lane's ray can meet 0 * inf
+  const int steps =
+      __all_sync(kFull, finite || !live)
+          ? heat_walk<false>(nodes, size, leaves, L, stage, r, ix, iy, iz, base, key)
+          : heat_walk<true>(nodes, size, leaves, L, stage, r, ix, iy, iz, base, key);
+  if (live) steps_out[ray] = steps;
 }
 
 // The binning of a wavefront in one pass.  Each lane's bin: its direction
@@ -554,8 +731,10 @@ int bvh_occlusion(const float* nodes, int size, const float* leaves, int L,
 int bvh_heatmap(const float* nodes, int size, const float* leaves, int L,
                 const float* ray_o, const float* ray_d, int n, int* steps_out,
                 void* stream) {
-  const int blocks = (n + kBlock - 1) / kBlock;
-  bvh_heatmap_kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+  const int blocks = (n + kHeatThreads - 1) / kHeatThreads;
+  const size_t stage =
+      BVH_HEAT_LEAF >= 1 ? (size_t)(kHeatThreads / 32) * 9 * L * sizeof(float) : 0;
+  bvh_heatmap_kernel<<<blocks, kHeatThreads, stage, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(nodes), size, leaves, L, ray_o, ray_d, n, steps_out);
   return (int)cudaGetLastError();
 }

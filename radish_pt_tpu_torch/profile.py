@@ -4,6 +4,7 @@ kernel time summed by stage.
     python -m radish_pt_tpu_torch.profile scenes/teapot.txt [--res 800] [--depth 5]
         [--intersector plucker|compact|quad|band|dense|bvh|brute] [--band-g 8]
         [--tracer pt|direct|restir] [--batch-spp N]
+        [--schedule [--rows A B] [--device cpu|cuda]]
 
 The frame is one ``path_trace`` call for ``--tracer pt`` (the default; the
 sliced bounce loop where it is gated, with the live lanes of each
@@ -25,6 +26,13 @@ row-mask prepass, which its closest hits read; the compact engine's sphere
 operands, sphere kernel and work list; none for the Plücker and band
 engines, whose kernels cull for themselves, nor for the quad shadow
 kernel, which votes its rows' words itself).
+
+With ``--schedule`` it prints instead the heatmap kernel's schedule from
+its plain model (``accel/traverse.py::heatmap_warp_model``) on the
+heatmap's pinhole primaries in raster order (``--rows A B``: rows A to
+B - 1 of the frame, default all): a warp's steps against a lane's node
+visits and a thread-a-ray warp's longest lane, and a warp's leaf steps
+against a lane's leaves.  It runs on the CPU too (``--device cpu``).
 
 With ``--batch-spp N`` (``--tracer pt`` or ``restir``) the frame is one
 block of N frames through ``Renderer.run_block``: one CUDA graph replay
@@ -129,6 +137,56 @@ def culling_stages(ds, cam, start, end, reps: int = 10):
     return stages
 
 
+def heatmap_schedule(leaf_tris, bvh_packed, ray_o, ray_d) -> dict:
+    """The heatmap kernel's schedule on rays ``ray_o`` / ``ray_d`` from the
+    plain model, whose counts must equal the plain walk's: means of a
+    warp's steps ("warp_steps"), a lane's node visits ("lane_visits"), a
+    32-lane warp's longest lane ("longest_lane"), a warp's leaf steps
+    ("leaf_steps") and a lane's leaves ("lane_leaves")."""
+    import torch
+
+    from .accel import traverse as trv
+
+    st, ms = {}, {}
+    want = trv.intersect_bvh_heatmap_plain(leaf_tris, bvh_packed, ray_o, ray_d, stats=st)
+    counts, warp_steps = trv.heatmap_warp_model(leaf_tris, bvh_packed, ray_o, ray_d, stats=ms)
+    assert torch.equal(counts, want), "the warp model's counts differ from the plain walk's"
+    visits = st["visits"].double()
+    pad = torch.zeros((-visits.numel()) % trv.WARP, dtype=visits.dtype, device=visits.device)
+    longest = torch.cat([visits, pad]).view(-1, trv.WARP).max(1).values
+    return {"warp_steps": float(warp_steps.double().mean()),
+            "lane_visits": float(visits.mean()), "longest_lane": float(longest.mean()),
+            "leaf_steps": float(ms["leaf_steps"].double().mean()),
+            "lane_leaves": float(st["leaf_visits"].double().mean())}
+
+
+def schedule_line(sc: dict) -> str:
+    return (f"the warp-coherent walk's plain model takes {sc['warp_steps']:.2f} steps a warp "
+            f"against {sc['lane_visits']:.2f} visits a lane "
+            f"({sc['warp_steps'] / sc['lane_visits']:.3f} x) and a thread-a-ray warp's "
+            f"{sc['longest_lane']:.2f} (its longest lane); {sc['leaf_steps']:.2f} leaf steps a "
+            f"warp against {sc['lane_leaves']:.3f} leaves a lane")
+
+
+def profile_schedule(args) -> int:
+    """``--schedule``: the heatmap kernel's schedule on the frame's
+    primaries (see the module's docstring)."""
+    import torch
+
+    from .scene import camera as cam_mod
+    from .scene.build import load_scene
+
+    ds, cam, _ = load_scene(args.scene, device=args.device, intersector="bvh")
+    cam = cam.replace(width=args.res, height=args.res)
+    y0, y1 = args.rows or (0, args.res)
+    idx = torch.arange(y0 * args.res, y1 * args.res, dtype=torch.int32, device=args.device)
+    ray_o, ray_d = cam_mod.pinhole_rays(cam, idx % args.res, idx // args.res)
+    sc = heatmap_schedule(ds.leaf_tris, ds.bvh_packed, ray_o, ray_d)
+    print(f"{args.scene} (bvh) {args.res}x{args.res}, rows {y0}-{y1 - 1}, {idx.numel()} "
+          f"pinhole primaries in raster order: {schedule_line(sc)}")
+    return 0
+
+
 def profile_block(args, ds, cam, card) -> int:
     """``--batch-spp``: one block of ``args.batch_spp`` frames, timed with
     the profiler off, then profiled."""
@@ -199,7 +257,14 @@ def main(argv=None) -> int:
                    help="bands per 128-lane row for the band engine (default 8)")
     p.add_argument("--batch-spp", type=int, default=0,
                    help="profile one block of N frames (Renderer.run_block)")
+    p.add_argument("--schedule", action="store_true",
+                   help="print the heatmap kernel's schedule from its plain model")
+    p.add_argument("--rows", type=int, nargs=2, metavar=("A", "B"),
+                   help="--schedule: rows A to B - 1 of the frame")
+    p.add_argument("--device", default="cuda", help="--schedule: cuda or cpu")
     args = p.parse_args(argv)
+    if args.schedule:
+        return profile_schedule(args)
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function

@@ -15,8 +15,11 @@ two-level vote of both band kernels (``BAND_BLOCK_LANES``, ``BAND_TRIS``,
 hit and shadow) warps a block, blocks a SM (0: as many as the registers
 allow), the free lanes at which a warp refills and node steps between the
 warp's votes (``BVH_WARPS``, ``BVH_BLOCKS_PER_SM``, ``BVH_REFILL``,
-``BVH_VOTE_EVERY`` in csrc/bvh.cu), and rays a block of the heatmap walk
-(``BVH_BLOCK``); the binning kernel's threads a block (``BIN_THREADS`` in
+``BVH_VOTE_EVERY`` in csrc/bvh.cu); for the heatmap's warp-coherent walk
+threads a block, node rows a warp fetches in one load, how a leaf is
+tested and up to how many rounds its pairs are spread
+(``BVH_HEAT_THREADS``, ``BVH_HEAT_ROWS``, ``BVH_HEAT_LEAF``,
+``BVH_HEAT_SPREAD``); the binning kernel's threads a block (``BIN_THREADS`` in
 csrc/bvh.cu); the sort-key kernel's rays a thread and threads a block
 (``KEY_RAYS``, ``KEY_THREADS`` in csrc/sort_key.cu).  This tool builds
 each variant as its own library (``-DCOMPACT_LOCKSTEP=n ...``), holds it against the plain
@@ -29,15 +32,18 @@ teapot_hires for compact and band, teapot for quad, built as
 extension rays with their dead lanes and the NEE segments of teapot (43
 boxes) and teapot_hires (115 boxes, and the compact layout's 220); for the
 binning the bounce-1 extension rays with the frame's dead-lane range and
-the NEE segments of teapot and teapot_hires on the bvh engine) and times
+the NEE segments of teapot and teapot_hires on the bvh engine; for the
+heatmap the primaries and the bounce-1 extension rays of teapot and
+teapot_hires on the bvh engine, in raster order) and times
 it with CUDA events, the variants in turns (the walks, the key and the
-binning as 10 calls back to back).  It prints registers and spills per
+binning as 10 calls back to back, the heatmap as 10 calls replayed in one
+CUDA graph).  It prints registers and spills per
 variant, the times, and the card's name and power limit.  The default in
 the source is the variant that won.
 
 Run from the repository root:
-    python -m radish_pt_tpu_torch.tune [plucker] [compact] [quad] [band] [bvh] [key] [bin]
-(no argument: all seven).
+    python -m radish_pt_tpu_torch.tune [plucker] [compact] [quad] [band] [bvh] [heat] [key] [bin]
+(no argument: all eight).
 """
 
 from __future__ import annotations
@@ -84,8 +90,18 @@ BVH_VARIANTS = tuple(
                    {"BVH_BLOCKS_PER_SM": 8}, {"BVH_REFILL": 4}, {"BVH_REFILL": 8},
                    {"BVH_REFILL": 24}, {"BVH_REFILL": 32}, {"BVH_VOTE_EVERY": 1},
                    {"BVH_VOTE_EVERY": 2}, {"BVH_VOTE_EVERY": 8}))
-BVH_HEATMAP_VARIANTS = (("-DBVH_BLOCK=128",), ("-DBVH_BLOCK=64",), ("-DBVH_BLOCK=256",),
-                        ("-DBVH_BLOCK=32",))
+# the heatmap's warp-coherent walk: the defaults first, then one macro
+# changed at a time (threads a block; node rows a warp fetches a load; how
+# a leaf is tested: 0 broadcast, 1 staged, 2 spread below a number of
+# rounds)
+_HEAT_DEFAULTS = {"BVH_HEAT_THREADS": 64, "BVH_HEAT_ROWS": 1, "BVH_HEAT_LEAF": 2,
+                  "BVH_HEAT_SPREAD": 8}
+BVH_HEATMAP_VARIANTS = tuple(
+    tuple(f"-D{k}={v}" for k, v in {**_HEAT_DEFAULTS, **change}.items())
+    for change in ({}, {"BVH_HEAT_THREADS": 128}, {"BVH_HEAT_THREADS": 256},
+                   {"BVH_HEAT_ROWS": 4}, {"BVH_HEAT_ROWS": 16}, {"BVH_HEAT_LEAF": 0},
+                   {"BVH_HEAT_LEAF": 1}, {"BVH_HEAT_SPREAD": 5}, {"BVH_HEAT_SPREAD": 11},
+                   {"BVH_HEAT_SPREAD": 32}))
 # the sort-key kernel and the binning kernel: the defaults first, then one
 # macro changed at a time
 _KEY_DEFAULTS = {"KEY_RAYS": 2, "KEY_THREADS": 128}
@@ -105,7 +121,7 @@ QUAD_VARIANTS = (("-DQUAD_RAYS=1", "-DQUAD_MIN_BLOCKS=1"),
 def main(argv=None) -> int:
     import torch
 
-    all_engines = ["plucker", "compact", "quad", "band", "bvh", "key", "bin"]
+    all_engines = ["plucker", "compact", "quad", "band", "bvh", "heat", "key", "bin"]
     engines = (sys.argv[1:] if argv is None else argv) or all_engines
     if set(engines) - set(all_engines):
         print(f"tune: engines are {', '.join(all_engines)}", file=sys.stderr)
@@ -159,12 +175,14 @@ def main(argv=None) -> int:
                                 device=dev, intersector=engine)
         return ds, cam.replace(width=cs.RES, height=cs.RES)
 
-    def race(lib, libs, what, kernel, inner=1):
+    def race(lib, libs, what, kernel, inner=1, replayed=False):
         """The variants of ``lib`` timed on ``kernel`` in turns, twice (each
-        run ``inner`` launches back to back)."""
+        run ``inner`` launches back to back, or ``replayed``: 10 launches
+        captured in one CUDA graph and replayed)."""
         for turn in range(2):
             for r, variant in libs.items():
-                ms = run(lib, variant, lambda: cs.cuda_ms(kernel, 5, inner=inner))
+                ms = run(lib, variant, (lambda: cs.replayed_ms(kernel)) if replayed else
+                         (lambda: cs.cuda_ms(kernel, 5, inner=inner)))
                 print(f"[timing] {lib}, {what}, {r}, turn {turn}: {ms:.3f} ms ({card})",
                       flush=True)
 
@@ -329,9 +347,8 @@ def main(argv=None) -> int:
             cs.check_occlusion(got, want, live, f"band, {r}", print)
         race("band", libs, "shadow, teapot_hires segments", shadow)
 
-    # ---- bvh, teapot and teapot_hires: the persistent walks, the heatmap ----
+    # ---- bvh, teapot and teapot_hires: the persistent walks ----
     libs = variants("bvh", BVH_VARIANTS, "_kernel") if "bvh" in engines else {}
-    heat_libs = variants("bvh", BVH_HEATMAP_VARIANTS, "heatmap") if libs else {}
     for name in ("teapot", "teapot_hires") if libs else ():
         ds, cam = scene(name, "bvh")
         waves = run("bvh", next(iter(libs.values())), lambda: cs.bounce_one(ds, cam))
@@ -347,18 +364,33 @@ def main(argv=None) -> int:
         so, sd, tm = (t.contiguous() for t in trv.segment_rays(x, y))
         walks["shadow, segments"] = (lambda: trv.occlusion_bvh_cuda(lt, nodes, so, sd, tm),
                                      trv.occlusion_bvh_plain(lt, nodes, so, sd, tm))
-        o, d, _ = (t.contiguous() for t in waves["primary"])
-        heatmap = (lambda: trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d),
-                   trv.intersect_bvh_heatmap_plain(lt, nodes, o, d))
-        for what, (kernel, want), group in [*((w, k, libs) for w, k in walks.items()),
-                                            ("heatmap, primary", heatmap, heat_libs)]:
+        for what, (kernel, want) in walks.items():
             want = want if isinstance(want, tuple) else (want,)
-            for r, lib in group.items():
+            for r, lib in libs.items():
                 got = run("bvh", lib, kernel)
                 torch.cuda.synchronize()
                 got = got if isinstance(got, tuple) else (got,)
                 assert all(torch.equal(g, w) for g, w in zip(got, want)), (r, name, what)
-            race("bvh", group, f"{name} {what}", kernel, inner=10)
+            race("bvh", libs, f"{name} {what}", kernel, inner=10)
+
+    # ---- the heatmap, teapot and teapot_hires: primaries, bounce 1 ----
+    libs = variants("bvh", BVH_HEATMAP_VARIANTS, "heatmap") if "heat" in engines else {}
+    for name in ("teapot", "teapot_hires") if libs else ():
+        ds, cam = scene(name, "bvh")
+        waves = run("bvh", next(iter(libs.values())), lambda: cs.bounce_one(ds, cam))
+        lt, nodes = ds.leaf_tris, ds.bvh_packed
+        for what in ("primary", "extension"):
+            o, d, _ = (t.contiguous() for t in waves[what])
+            want = trv.intersect_bvh_heatmap_plain(lt, nodes, o, d)
+
+            def kernel(o=o, d=d):
+                return trv.intersect_bvh_heatmap_cuda(lt, nodes, o, d)
+
+            for r, lib in libs.items():
+                got = run("bvh", lib, kernel)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (r, name, what, int((got != want).sum()))
+            race("bvh", libs, f"heatmap, {name} {what} (replayed)", kernel, replayed=True)
 
     # ---- the sort key: teapot (43 boxes), teapot_hires (115; compact's 220) ----
     libs = variants("sort_key", KEY_VARIANTS, "signature_key") if "key" in engines else {}

@@ -268,19 +268,41 @@ def _bvh_macros():
     return dict(re.findall(r"#ifndef (BVH_\w+)\n#define \1 (\d+)", src))
 
 
+def _heat_macros(macros):
+    """The heatmap walk's macros among csrc/bvh.cu's: ``BVH_HEAT_*``."""
+    return {m for m in macros if m.startswith("BVH_HEAT_")}
+
+
 @pytest.mark.parametrize("k", range(12))
 def test_tune_variants_name_the_walks_macros(k):
     """``tune bvh``'s walk variants set only macros csrc/bvh.cu defines,
-    each of the walks' four (the heatmap's BVH_BLOCK apart); the first
-    is the source's defaults and every other changes one of them, no two
-    alike."""
+    each of the walks' four (the heatmap's apart); the first is the
+    source's defaults and every other changes one of them, no two alike."""
     from radish_pt_tpu_torch import tune
 
     macros = _bvh_macros()
+    heat = _heat_macros(macros)
+    assert len(heat) >= 3
     assert len(tune.BVH_VARIANTS) == 12
     as_dict = [dict(f[2:].split("=") for f in v) for v in tune.BVH_VARIANTS]
     variant = as_dict[k]
-    assert set(variant) == set(macros) - {"BVH_BLOCK"}
+    assert set(variant) == set(macros) - heat
     changed = {m for m in variant if variant[m] != macros[m]}
     assert len(changed) == (0 if k == 0 else 1), (k, changed)
     assert as_dict.count(variant) == 1
+
+
+def test_tune_heatmap_variants_name_its_macros():
+    """``tune heat``'s variants set every macro of the heatmap's
+    (``BVH_HEAT_*``) and no other; the first is the source's defaults and
+    every other changes one of them, no two alike."""
+    from radish_pt_tpu_torch import tune
+
+    macros = _bvh_macros()
+    as_dict = [dict(f[2:].split("=") for f in v) for v in tune.BVH_HEATMAP_VARIANTS]
+    assert len(as_dict) > 1
+    for k, variant in enumerate(as_dict):
+        assert set(variant) == _heat_macros(macros)
+        changed = {m for m in variant if variant[m] != macros[m]}
+        assert len(changed) == (0 if k == 0 else 1), (k, changed)
+        assert as_dict.count(variant) == 1

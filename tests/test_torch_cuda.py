@@ -988,6 +988,92 @@ def test_bvh_bin_kernel_graph_replay_equals_eager(teapot_cuda):
         assert not bool(outs[2][dead].any())
 
 
+def _heatmap_warps(o, d, case):
+    """A heatmap wavefront from the teapot rays (the first 4,096 the
+    camera's, the rest from the surface in random directions): 32 warps of
+    camera rays, warp p with its lane p made odd, for p = 0..31 — a ray of
+    another direction class ("class"), a NaN origin ("nan"), an infinite
+    direction component ("inf") or a zero one ("zero"); or the camera rays
+    cut to N = 0, 1, 31, 33 or 1,007; or every lane of one direction class."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    if case.isdigit():
+        k = int(case)
+        return o[:k].contiguous(), d[:k].contiguous()
+    if case == "one_class":
+        one = d.clone()
+        one[:, 0] = -1.0
+        one[:, 1:] *= 0.5
+        one = torch.nn.functional.normalize(one, dim=-1).contiguous()
+        assert bool((trv.get_dir_class(-one) == 0).all())
+        return o, one
+    n = 32 * 32
+    oo, dd = o[:n].clone(), d[:n].clone()
+    ar = torch.arange(n, device=o.device)
+    odd = ar % 32 == ar // 32  # warp p's lane p
+    if case == "class":
+        cls = trv.get_dir_class(-d)
+        main = int(torch.mode(cls[:n]).values)
+        other = 4096 + torch.nonzero(cls[4096:] != main)[:32, 0]
+        oo[odd], dd[odd] = o[other], d[other]
+        assert bool((trv.get_dir_class(-dd[odd]) != main).all())
+    elif case == "nan":
+        oo[odd] = float("nan")
+    elif case == "inf":
+        dd[odd, 0] = float("inf")
+    else:
+        dd[odd, 1] = torch.where(ar[odd] % 2 == 0, 0.0, -0.0)
+    return oo.contiguous(), dd.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["class", "nan", "inf", "zero", "0", "1", "31", "33",
+                                  "1007", "one_class"])
+def test_bvh_heatmap_kernel_warps_match_plain(teapot_cuda, case):
+    """The warp-coherent heatmap walk against the plain walk, count for
+    count on every lane: warps that mix a ray of another direction class
+    into each lane position in turn, or a NaN, infinite or zero-direction
+    lane (the warp leaves the finite path for the NaN rule) at each
+    position; ragged wavefronts and one class.  One launch a call (none
+    for N = 0)."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    ds, _, o0, d0, _ = teapot_cuda
+    o, d = _heatmap_warps(o0, d0, case)
+    trv.reset_counts()
+    got = trv.intersect_bvh_heatmap_cuda(ds.leaf_tris, ds.bvh_packed, o, d)
+    want = trv.intersect_bvh_heatmap_plain(ds.leaf_tris, ds.bvh_packed, o, d)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want), (
+        case, int((got != want).sum()))
+    assert trv.LAUNCHES["heatmap"] == (1 if o.shape[0] else 0)
+    if o.shape[0] > 32:
+        assert int(want.max()) > 2
+
+
+@pytest.mark.cuda
+def test_bvh_heatmap_kernel_graph_replay(teapot_cuda):
+    """The heatmap kernel captured in a CUDA graph and replayed twice, its
+    output cleared before each replay: both equal the plain walk."""
+    from radish_pt_tpu_torch.accel import traverse as trv
+
+    ds, _, o, d, _ = teapot_cuda
+    want = trv.intersect_bvh_heatmap_plain(ds.leaf_tris, ds.bvh_packed, o, d)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        trv.intersect_bvh_heatmap_cuda(ds.leaf_tris, ds.bvh_packed, o, d)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = trv.intersect_bvh_heatmap_cuda(ds.leaf_tris, ds.bvh_packed, o, d)
+    for _ in range(2):
+        out.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tracer", ["pt", "bvh"])
 def test_render_through_bvh_kernels_matches_plain(tracer):
