@@ -121,7 +121,25 @@ CUDA kernels of those paths against their plain torch versions.  Phases:
 8. with ``--parent DIR``: eager ``step()`` and replayed-block ms/frame of
    teapot, teapot_hires, glass, env_teapot and cornell ReSTIR for the
    checkout at DIR and for this tree, each in a subprocess of its own
-   (``--frame-times``), in turns: parent, this, this, parent.
+   (``--frame-times``), in turns: parent, this, this, parent;
+9. the multi-device path (parallel/sharding.py), each tile of a mesh on
+   this card (``make_mesh(devices=[cuda:0] * n)``), each path driven with
+   its kernels' launch counts set to 0 just before and read just after:
+   teapot (Plücker, the sliced loop on each tile) and cornell on 4 tiles
+   against the single-device frame (cornell bit for bit, teapot under the
+   JAX package's frames rule, its flipped pixels counted), the launches
+   4 x (d + 1) closest hits, 4 x d shadow sweeps and 4 x (2d + 1) keys on
+   teapot; a (2 tiles x 2 samples) ``pt_step_sharded`` against the mean of
+   the two loopers' frames; cornell ReSTIR (dense) through
+   ``Renderer(mesh=2 tiles)``, 2 frames, the rows more than 5 from the
+   seam equal to one device and the seam band showing rejections; SVGF in
+   mesh mode equal to SVGF on the single-device inputs; teapot's
+   ``render_batched`` on 4 tiles (one CUDA graph a tile) equal to its
+   ``step()`` frames; a world of one on NCCL (tcp on 127.0.0.1, a free
+   port) equal to the in-process mesh; ``dryrun_multichip(4, [cuda:0] *
+   4)``; teapot's ``frame_pair_stats`` and ``utilization``; the webviewer
+   serving a card ``Renderer`` on port 0, one ``/stream`` JPEG fetched.
+   The mesh frame times are printed beside the single-device ones.
 
 Prints a JSON line of per-kernel results, then the card's name and power
 limit, then, as the last line, ``{"ok": true, "device": {...}}``.  Any
@@ -227,6 +245,17 @@ PEAK_BYTES_PER_S = 3.35e12
 # (__fmul_rn / __fadd_rn / __fsub_rn: the dense sweeps, the sphere
 # prepass, the BVH walks) can issue
 PEAK_F32_OPS_UNFUSED = PEAK_F32_FLOPS / 2
+# the mesh path (phase 9): tiles a mesh, the tile count of its frames
+MESH_TILES = 4
+# the JAX package's frames rule for teapot's tiles against the full frame
+# (tests/test_sharding.py::_assert_frames_match): a pixel off by more than
+# 1e-4 in a channel is a flip; a tile takes its lanes in raster order and
+# the full frame in tile order, so the 32-lane groups that share a culling
+# decision differ, and a grazing ray's discrete decision may go the other
+# way (PERF.md section 6); the bound is 0.01% of the 800x800 frame's pixels
+FLIP_ATOL = 1e-4
+FLIP_MAX = 64
+FLIP_MEAN = 5e-5
 
 
 def log(msg: str) -> None:
@@ -1618,6 +1647,214 @@ def parent_kernel_times(parent: str, scenes, inputs, log, card) -> dict:
     return out
 
 
+def mesh_phase(scenes, log, card) -> dict:
+    """Phase 9: the multi-device path on one card, each tile of a mesh
+    over ``[cuda:0] * n`` (parallel/sharding.py).  Each path is driven
+    through its entry point with the launch counts of its kernels set to 0
+    just before and read just after; every check raises.  Returns the
+    phase's record."""
+    import socket
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from radish_pt_tpu_torch import webviewer as wv
+    from radish_pt_tpu_torch.accel import dense as dns
+    from radish_pt_tpu_torch.accel import plucker as plk
+    from radish_pt_tpu_torch.accel import sort_key as sk
+    from radish_pt_tpu_torch.config import Denoiser, ReservoirReuse, Settings, Tracer
+    from radish_pt_tpu_torch.parallel import dryrun
+    from radish_pt_tpu_torch.parallel import multihost as mh
+    from radish_pt_tpu_torch.parallel import sharding as sh
+    from radish_pt_tpu_torch.render import denoise as dn
+    from radish_pt_tpu_torch.render import gbuffer as gb
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.utils import pairstats as ps
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    rec = {"card": card}
+
+    def mesh(n_tile, n_sample=1):
+        return sh.make_mesh(n_tile, n_sample, devices=[dev] * (n_tile * n_sample))
+
+    def counted(fn, mods):
+        """``fn()`` with the launch and plain-call counts of ``mods`` set
+        to 0 just before and read just after: (result, launches)."""
+        for mod in mods.values():
+            mod.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = {k: dict(mod.LAUNCHES) for k, mod in mods.items()}
+        plain = {k: dict(mod.PLAIN_CALLS) for k, mod in mods.items()}
+        assert not any(v for p in plain.values() for v in p.values()), \
+            f"a plain version ran on the mesh path: {plain}"
+        return out, launches
+
+    # ---- tile-sharded frames against the single-device frame ----
+    m4 = mesh(MESH_TILES)
+    for name, mods in (("teapot", {"plucker": plk, "sort_key": sk}),
+                       ("cornell", {"plucker": plk, "sort_key": sk})):
+        ds, cam = scenes[name]
+        d = DEPTH
+        got, launches = counted(lambda: sh.render_frame_sharded(m4, ds, cam, 7, d), mods)
+        want = sum(pt.path_trace(ds, cam, 7, d))
+        keys = 2 * d + 1 if ds.cluster_bounds is not None else 0
+        expect = {"plucker": {"closest_hit": MESH_TILES * (d + 1),
+                              "occlusion": MESH_TILES * d},
+                  "sort_key": {"signature_key": MESH_TILES * keys}}
+        assert launches == expect, (name, launches, expect)
+        if name == "cornell":  # no clusters: no lane shares a culling decision
+            assert torch.equal(got, want), "cornell: the mesh frame differs"
+            flips = 0
+        else:
+            flips = dryrun.frames_match(got.cpu().numpy(), want.cpu().numpy(),
+                                        atol=FLIP_ATOL, max_flips=FLIP_MAX,
+                                        mean_atol=FLIP_MEAN)
+        mesh_ms = cuda_ms(lambda: sh.render_frame_sharded(m4, ds, cam, 8, d), reps=3)
+        single_ms = cuda_ms(lambda: pt.path_trace(ds, cam, 8, d), reps=3)
+        rec[name] = {"tiles": MESH_TILES, "flips": flips, "mesh_ms": mesh_ms,
+                     "single_ms": single_ms, "launches": launches}
+        log(f"[mesh] {name} ({ds.intersector}) {RES}x{RES} depth {d}: {MESH_TILES} tiles "
+            f"on one card, {flips} pixels off by > {FLIP_ATOL} against the single-device "
+            f"frame (bound {FLIP_MAX}); frame {mesh_ms:.3f} ms on the mesh, {single_ms:.3f} "
+            f"ms on one device ({card}); launches {launches}")
+
+    # ---- the sample axis: (2 tiles x 2 samples) against two frames ----
+    ds, cam = scenes["cornell"]
+    m22 = mesh(2, 2)
+    zeros = sh.shard_image(m22, torch.zeros((RES * RES, 3), device=dev))
+    got = sh.gather(sh.pt_step_sharded(m22, ds, cam, zeros, 3, 0, max_depth=DEPTH))
+    a, b = (sum(pt.path_trace(ds, cam, lp, DEPTH)) for lp in (3, 3 + sh.SAMPLE_STRIDE))
+    want = pt.accumulate(torch.zeros_like(a), pt.scrub_and_compress((a + b) / 2.0), 0)
+    assert torch.equal(got, want), "the sample axis is not the mean of its replicas"
+    log("[mesh] cornell (2 tiles x 2 samples) pt_step_sharded: equal to the mean of the "
+        "looper 3 and 40 frames, scrubbed and accumulated")
+
+    # ---- ReSTIR on 2 tiles (dense engine): the seam rule ----
+    ds, cam = scenes["cornell_dense"]
+    m2 = mesh(2)
+    settings = Settings(tracer=Tracer.RESTIR_DI)
+    r = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=dev, mesh=m2)
+    _, launches = counted(lambda: [r.step() for _ in range(2)], {"dense": dns})
+    assert all(v > 0 for v in launches["dense"].values()), launches
+    tiled, single, seams = dryrun.seam_check(m2, ds, cam)
+    rejected = dryrun.seam_rule(tiled, single, seams)
+    assert np.array_equal(r.current_image().cpu().numpy().reshape(tiled.shape), tiled)
+    r1 = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=dev)
+    restir_mesh_ms = cuda_ms(r.step, reps=3)
+    restir_single_ms = cuda_ms(r1.step, reps=3)
+    rec["restir"] = {"tiles": 2, "seam_rejections": rejected, "mesh_ms": restir_mesh_ms,
+                     "single_ms": restir_single_ms, "launches": launches}
+    log(f"[mesh] cornell ReSTIR (dense) on 2 tiles, 2 frames: rows > 5 from the seam "
+        f"equal to one device, {rejected} seam-band pixels rejected cross-tile "
+        f"candidates; Renderer.step {restir_mesh_ms:.3f} ms on the mesh, "
+        f"{restir_single_ms:.3f} ms on one device; launches {launches}")
+
+    # ---- SVGF in mesh mode against the single-device filter ----
+    ds, cam = scenes["cornell"]
+    r = Renderer(ds=ds, cam=cam, desc=None, device=dev, mesh=m4,
+                 settings=Settings(tracer=Tracer.STREAMED, trace_depth=DEPTH,
+                                   denoiser=Denoiser.SVGF))
+    acc = torch.zeros((RES * RES, 3), device=dev)
+    state, last = dn.empty_svgf_state(RES * RES, device=dev), None
+    for i in range(2):
+        r.step()
+        acc = pt.accumulate(acc, pt.scrub_and_compress(sum(pt.path_trace(ds, cam, i, DEPTH))),
+                            i)
+        g = gb.render_gbuffer(ds, cam, cam)
+        last = g.frame if last is None else last
+        want, state = dn.svgf_filter(acc, state, g, last, cam, i == 0)
+        last = g.frame
+    assert torch.equal(r.current_image(), want), "mesh-mode SVGF differs"
+    log("[mesh] cornell pt + SVGF on 4 tiles, 2 frames: equal to SVGF on the "
+        "single-device accumulation and G-buffer")
+
+    # ---- batched blocks, one CUDA graph a tile, against step() ----
+    ds, cam = scenes["teapot"]
+    settings = Settings(tracer=Tracer.STREAMED, trace_depth=DEPTH)
+    a = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=dev, mesh=m4)
+    b = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=dev, mesh=m4)
+    img, launches = counted(lambda: a.render_batched(4, block=2),
+                            {"plucker": plk, "sort_key": sk})
+    runners = [held[1] for held in a._runners.values()]
+    assert len(runners) == MESH_TILES and {run.mode for run in runners} == {"graph"}
+    per_replay = {"closest_hit": 2 * (DEPTH + 1), "occlusion": 2 * DEPTH}
+    for run in runners:  # a tile's replay: its block's sweeps
+        assert run.replays == 2 and run.launches_per_replay()["plucker"] == per_replay
+    # each tile: its eager warm-up block (2 frames) and two replays (4)
+    expect = {k: MESH_TILES * 3 * v for k, v in per_replay.items()}
+    assert launches["plucker"] == expect, (launches, expect)
+    assert np.array_equal(img, b.render(4)), "mesh blocks differ from step()"
+    batched_ms = cuda_ms(lambda: a.run_block(2), reps=3) / 2
+    rec["batched"] = {"tiles": MESH_TILES, "block": 2, "ms_per_frame": batched_ms,
+                      "launches": launches}
+    log(f"[mesh] teapot render_batched on 4 tiles (one graph a tile, blocks of 2): equal "
+        f"to 4 step() frames; {batched_ms:.3f} ms/frame; launches {launches}")
+
+    # ---- a world of one on NCCL against the in-process mesh ----
+    ds, cam = scenes["cornell"]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mh.initialize(f"127.0.0.1:{port}", 1, 0, "cuda")
+    try:
+        gm = mh.make_global_mesh()
+        n_pad = sh._padded_pixel_count(cam, gm.shape["tile"])
+        tiles = sh.pt_step_sharded(gm, mh.replicate_scene_global(gm, ds), cam,
+                                   mh.make_sharded_zeros(gm, (n_pad, 3)), 0, 0,
+                                   max_depth=DEPTH)
+        img = mh.gather_image(tiles)
+    finally:
+        mh.shutdown()
+    m1 = mesh(1)
+    want = sh.gather(sh.pt_step_sharded(m1, ds, cam, sh.shard_image(m1, torch.zeros(
+        (RES * RES, 3), device=dev)), 0, 0, max_depth=DEPTH)).cpu().numpy()
+    assert np.array_equal(img, want), "the NCCL world of one differs from the mesh"
+    log("[mesh] multihost: a world of one on NCCL (tcp 127.0.0.1), one accumulate step "
+        "gathered with all_gather: equal to the in-process mesh")
+
+    # ---- the dry run ----
+    rec["dryrun"] = dryrun.dryrun_multichip(MESH_TILES, devices=[dev] * MESH_TILES,
+                                            log=log)
+
+    # ---- pair accounting of teapot's frame ----
+    ds, cam = scenes["teapot"]
+    stats = ps.frame_pair_stats(ds, cam, 7, DEPTH)
+    util = ps.utilization(stats, rec["teapot"]["single_ms"])
+    rec["pairstats"] = {**stats, **util}
+    log(f"[mesh] teapot frame pairs (replayed, depth {DEPTH}): {stats}; at the "
+        f"single-device frame's {rec['teapot']['single_ms']:.3f} ms: {util}")
+    assert 0 < stats["pairs_floor"] <= stats["pairs_swept"] <= stats["pairs_row"]
+
+    # ---- the webviewer serving a card renderer ----
+    ds, cam = scenes["cornell"]
+    r = Renderer(ds=ds, cam=cam, desc=None, device=dev)
+    stop, ports = threading.Event(), []
+    th = threading.Thread(target=wv.serve, args=(r,), daemon=True,
+                          kwargs=dict(port=0, stop=stop, host="127.0.0.1",
+                                      on_ready=ports.append))
+    th.start()
+    try:
+        deadline = time.time() + 60
+        while not ports and time.time() < deadline:
+            time.sleep(0.01)
+        head = urllib.request.urlopen(f"http://127.0.0.1:{ports[0]}/stream",
+                                      timeout=60).read(4096)
+    finally:
+        stop.set()
+        th.join(60)
+    assert b"image/jpeg" in head and b"\xff\xd8" in head and not th.is_alive()
+    log(f"[mesh] webviewer: a cuda Renderer served on port {ports[0]}, one /stream JPEG "
+        f"fetched, {r.state.iteration} frames rendered, stopped")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[mesh] phase 9 took {rec['seconds']:.1f} s")
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2590,6 +2827,9 @@ def main(argv=None) -> int:
         log(f"[parent] {json.dumps(parent_frame_times(args.parent, log, card))}")
     else:
         log("[parent] frame times beside the parent's: not timed (no --parent)")
+    log(f"[phase] 9 starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- 9. the multi-device path: tiles of a mesh on the one card ----
+    log(f"[mesh] {json.dumps(mesh_phase(scenes, log, card))}")
     log(f"[done] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

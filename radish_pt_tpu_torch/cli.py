@@ -13,7 +13,9 @@ read the render state; ``--timing`` prints the per-pass table,
 ``--preview-every N`` saves an image every N frames, ``--profile DIR``
 writes a ``torch.profiler`` trace, ``--debug-nans`` stops at the first
 non-finite tracer output, and an ``--out`` ending in ``.hdr`` writes the
-raw Radiance image.
+raw Radiance image.  ``--mesh TILE[xSAMPLE]`` renders the pt or restir
+tracer tile-sharded over the visible CUDA devices (parallel/sharding.py)
+and raises when there are too few.
 """
 
 from __future__ import annotations
@@ -78,6 +80,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="frames a block (pt and restir tracers): one CUDA graph a "
                         "block on the card with the plucker, band, quad, dense or "
                         "bvh engine")
+    p.add_argument("--mesh", default=None, metavar="TILE[xSAMPLE]",
+                   help="device mesh over the visible CUDA devices, e.g. '4' (4 pixel "
+                        "tiles) or '4x2' (4 tiles x 2 decorrelated sample streams); "
+                        "pt and restir tracers")
     p.add_argument("--checkpoint", default=None,
                    help="write the render-state checkpoint here when done")
     p.add_argument("--resume", default=None, help="resume from a checkpoint")
@@ -104,6 +110,14 @@ def main(argv=None) -> int:
     from .utils.timing import profiler_trace
 
     device = torch.device(args.device)
+    mesh = None
+    if args.mesh:
+        from .parallel.sharding import make_mesh, parse_mesh
+
+        n_tile, n_sample = parse_mesh(args.mesh)
+        mesh = make_mesh(n_tile=n_tile, n_sample=n_sample)
+        print(f"[mesh: {n_tile} tile x {n_sample} sample over "
+              f"{[str(d) for row in mesh.devices for d in row]}]")
     t0 = time.time()
     ds, cam, desc = load_scene(args.scene, device=device,
                                intersector=args.intersector)
@@ -111,7 +125,7 @@ def main(argv=None) -> int:
         cam = cam.replace(width=args.res[0], height=args.res[1])
     if args.band_g is not None:
         ds = ds.replace(band_g=args.band_g)
-    r = Renderer(ds=ds, cam=cam, desc=desc, device=device, timing=args.timing)
+    r = Renderer(ds=ds, cam=cam, desc=desc, device=device, timing=args.timing, mesh=mesh)
     r.debug_nans = args.debug_nans
     print(f"[scene loaded in {time.time() - t0:.1f}s: {ds.num_triangles} "
           f"tris, {ds.n_area_lights} area lights, "

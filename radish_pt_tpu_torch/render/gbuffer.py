@@ -70,11 +70,16 @@ def camera_get_position(cam: cam_mod.Camera, x, y, dist):
 
 def render_gbuffer(ds: dsc.DeviceScene, cam: cam_mod.Camera,
                    last_cam: cam_mod.Camera, encode_normal: bool = False,
-                   extra_motion_cam=None):
+                   pixel_idx=None, extra_motion_cam=None):
     """The G-buffer of ``cam``'s frame, motion reprojected through
-    ``last_cam``.  With ``extra_motion_cam`` returns ``(GBufferOut,
-    motion2)``: a second motion field through that camera (same hits)."""
-    idx = torch.arange(cam.width * cam.height, dtype=torch.int32, device=ds.device)
+    ``last_cam``.  ``pixel_idx`` (i32 [n] global flat pixel indices, on the
+    scene's device): only those pixels, a tile of a mesh; motion stays a
+    global index into the last frame.  With ``extra_motion_cam`` returns
+    ``(GBufferOut, motion2)``: a second motion field through that camera
+    (same hits)."""
+    idx = pixel_idx
+    if idx is None:
+        idx = torch.arange(cam.width * cam.height, dtype=torch.int32, device=ds.device)
     x = idx % cam.width
     y = idx // cam.width
 

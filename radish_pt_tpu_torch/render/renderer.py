@@ -24,6 +24,15 @@ card with a capturable engine the block is one CUDA graph, captured once
 and replayed (render/graph.py); ``Renderer.batch_mode`` says which.  A
 replayed block equals the same frames run by :meth:`Renderer.step`, bit
 for bit.
+
+Mesh mode (``Renderer(mesh=...)``, parallel/sharding.py): the pixel
+buffers are padded to the tile count and held one tensor a tile on the
+tiles' devices, the scene is replicated, and :meth:`Renderer.step` runs
+the path tracer or ReSTIR DI tile by tile; the denoiser, the display and
+the saved image gather the tiles on the renderer's ``device`` (the
+denoiser's result is the single-device filter's, exactly).  Batched path
+tracer blocks run one block a tile, each its own block runner (one CUDA
+graph a tile on the card).
 """
 
 from __future__ import annotations
@@ -69,6 +78,18 @@ def _pt_batch(ds, cam, looper0, direct, indirect, iteration, *, max_depth: int,
     return direct, indirect
 
 
+def _pt_tile_batch(ds, cam, looper0, direct, iteration, pixel_idx, *, max_depth: int,
+                   block: int):
+    """``block`` full-PT samples of one tile of a mesh (``pixel_idx``),
+    accumulated as the mesh's :meth:`Renderer.step` accumulates them: the
+    frame's direct + indirect, scrubbed, into ``direct``."""
+    n_slices = 0 if ds.intersector in gr.CAPTURABLE_ENGINES else None
+    for k in range(block):
+        d, ind = pt.path_trace(ds, cam, looper0 + k, max_depth, pixel_idx, n_slices=n_slices)
+        direct = pt.accumulate(direct, pt.scrub_and_compress(d + ind), iteration + k)
+    return direct
+
+
 def _restir_batch(ds, cam, last_cam, looper0, gbuf_last, reservoir, first_frame, direct,
                   iteration, *, reuse: int, reservoir_size: int, clamp: int,
                   encode_normal: bool, block: int):
@@ -91,6 +112,10 @@ def _restir_batch(ds, cam, last_cam, looper0, gbuf_last, reservoir, first_frame,
         direct = pt.accumulate(direct, pt.scrub_and_compress(d), iteration + k)
     return direct, reservoir, gbuf
 
+
+MESH_RESTIR_BATCH = ("batched ReSTIR on a mesh needs a halo exchange of the packed "
+                     "reservoir image across the tiles (the JAX renderer's partitioned "
+                     "batch): not ported yet, see ROADMAP.md queue 1")
 
 _CAM_FIELDS = tuple(f.name for f in dataclasses.fields(cam_mod.Camera)
                     if f.name not in ("width", "height"))
@@ -119,7 +144,10 @@ class Renderer:
 
     def __init__(self, scene_path: str | None = None, ds=None, cam=None,
                  desc=None, settings: Settings | None = None, device="cuda",
-                 timing: bool = False):
+                 timing: bool = False, mesh=None):
+        """``mesh`` (a ``parallel.sharding.Mesh``): render tile-sharded over
+        its devices; ``device`` is where the tiles are gathered for the
+        denoiser and the display."""
         self.device = torch.device(device)
         if scene_path is not None:
             ds, cam, desc = load_scene(scene_path, device=self.device)
@@ -132,7 +160,14 @@ class Renderer:
         # raise on the first frame whose tracer output holds a non-finite
         # value before the scrub (the CLI's --debug-nans)
         self.debug_nans = False
-        n = cam.width * cam.height
+        n = self.n_pixels = cam.width * cam.height
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel import sharding as sh
+
+            n = sh._padded_pixel_count(cam, mesh.shape["tile"])
+            self._scenes = sh.replicate_scene(mesh, self.ds)
+            self._tile_idx = sh.tile_pixels(mesh, cam)
         self.n_alloc = n  # pixel rows of the buffers (checkpoint layout)
         self.direct = torch.zeros((n, 3), dtype=torch.float32, device=self.device)
         self.indirect = torch.zeros_like(self.direct)
@@ -140,8 +175,13 @@ class Renderer:
         self.gbuf_last = gb.empty_frame(n, encode_normal=self.settings.encode_normal,
                                         device=self.device)
         self.reservoir = rs.empty_reservoir(n, device=self.device)
-        self.svgf_direct = dn.empty_svgf_state(n, device=self.device)
-        self.svgf_indirect = dn.empty_svgf_state(n, device=self.device)
+        # the denoisers' histories stay whole on ``device`` in mesh mode
+        self.svgf_direct = dn.empty_svgf_state(self.n_pixels, device=self.device)
+        self.svgf_indirect = dn.empty_svgf_state(self.n_pixels, device=self.device)
+        if mesh is not None:  # one tensor a tile, on the tiles' devices
+            self.direct, self.indirect, self.gbuf_last, self.reservoir = (
+                sh.shard_image(mesh, x) for x in (self.direct, self.indirect,
+                                                  self.gbuf_last, self.reservoir))
         self.first_frame = True
         self._orig_cam_pos = self.cam.position.cpu().numpy()
         self._time = 0.0
@@ -211,14 +251,32 @@ class Renderer:
 
     def _ensure_gbuf_last(self):
         """The G-buffer of ``last_cam`` when the last frame rendered none."""
-        if self.gbuf_last is None:
+        if self.gbuf_last is not None:
+            return
+        enc = self.settings.encode_normal
+        if self.mesh is None:
             self.gbuf_last = gb.render_gbuffer(self.ds, self.last_cam, self.last_cam,
-                                               encode_normal=self.settings.encode_normal
-                                               ).frame
+                                               encode_normal=enc).frame
+        else:
+            from ..parallel import sharding as sh
+
+            self.gbuf_last = [g.frame for g in sh.gbuffer_sharded(
+                self.mesh, self._scenes, self.last_cam, self.last_cam, enc)]
+
+    def _full(self, x):
+        """A mesh renderer's tile-sharded state (a list of tiles) gathered
+        on ``device``, the padding dropped; anything else as it is."""
+        if not isinstance(x, list):
+            return x
+        from ..parallel import sharding as sh
+
+        return sh.gather(x, self.device, self.n_pixels)
 
     def step(self):
         """Render one frame; returns the uint8 display image [H, W, 3] as a
         tensor on the renderer's device."""
+        if self.mesh is not None:
+            return self._step_sharded()
         s, st, timer = self.settings, self.state, self.timer
         if s.animate_camera:
             self._animate_camera()
@@ -285,6 +343,57 @@ class Renderer:
         self.first_frame = False
         return disp
 
+    def _step_sharded(self):
+        """One frame over ``self.mesh``: the path tracer
+        (``pt_step_sharded``: direct + indirect accumulated into ``direct``,
+        as the JAX renderer's mesh mode does) or ReSTIR DI
+        (``restir_step_sharded``) tile by tile, the state staying on the
+        tiles; the G-buffer the denoiser reads, the denoiser and the
+        display on ``device``, gathered."""
+        from ..parallel import sharding as sh
+
+        s, st, timer, mesh = self.settings, self.state, self.timer, self.mesh
+        if not (self._uses_restir() or s.tracer in (Tracer.STREAMED, Tracer.SINGLE_KERNEL)):
+            raise NotImplementedError("mesh mode runs the pt and restir tracers")
+        if s.animate_camera:
+            self._animate_camera()
+        if not s.accumulate:
+            self.reset_accumulation()
+        tiles = None  # this frame's G-buffer tiles
+        if self._uses_restir():
+            with timer.time("restir_sharded"):
+                self._ensure_gbuf_last()
+                self.direct, self.reservoir, tiles = sh.restir_step_sharded(
+                    mesh, self._scenes, self.cam, self.last_cam, st.looper, self.gbuf_last,
+                    self.reservoir, self.first_frame, self.direct, st.iteration,
+                    reuse=s.reservoir_reuse, reservoir_size=s.reservoir_size,
+                    temporal_clamp=s.temporal_clamp, encode_normal=s.encode_normal)
+        else:
+            if self._needs_gbuffer():
+                with timer.time("gbuffer"):
+                    self._ensure_gbuf_last()
+                    tiles = sh.gbuffer_sharded(mesh, self._scenes, self.cam,
+                                               self.last_cam, s.encode_normal)
+            with timer.time("pathtrace_sharded"):
+                self.direct = sh.pt_step_sharded(mesh, self._scenes, self.cam, self.direct,
+                                                 st.looper, st.iteration,
+                                                 max_depth=s.trace_depth)
+        self.gbuf = None
+        if tiles is not None and s.denoiser in (Denoiser.EA_WAVELET, Denoiser.SVGF):
+            self.gbuf = self._full(tiles)
+        with timer.time("denoise"):
+            image = self._apply_denoiser(self._full(self.direct))
+        self._last_image = image
+        with timer.time("display"):
+            disp = post.to_display(image.reshape(self.cam.height, self.cam.width, 3),
+                                   tone_mapping=s.tone_mapping)
+        st.iteration += 1
+        st.looper = (st.looper + 1) % SOBOL_SAMPLE_NUM
+        self.last_cam = self.cam
+        self.gbuf_last = None if tiles is None else [g.frame for g in tiles]
+        self.first_frame = False
+        return disp
+
     def step_device(self):
         """:meth:`step`: the display image stays on the device, so a caller
         can overlap its fetch with the next frame (the JAX renderer's
@@ -296,14 +405,16 @@ class Renderer:
     # batched frames (render/graph.py)
     # ------------------------------------------------------------------
 
-    def _runner(self, key, body, carry):
+    def _runner(self, key, body, carry, ds=None):
         """The block runner of ``key``, made on first use (and again for a
         new scene): a CUDA graph per (tracer settings, depth, block,
-        engine) on the card."""
-        key = (*key, self.ds.intersector)
+        engine) on the card.  ``ds``: the scene the block runs on, on its
+        device (None: the renderer's)."""
+        ds = self.ds if ds is None else ds
+        key = (*key, ds.intersector)
         held = self._runners.get(key)
-        if held is None or held[0] is not self.ds:
-            held = (self.ds, gr.BlockRunner(body, self.batch_mode, self.device, carry))
+        if held is None or held[0] is not ds:
+            held = (ds, gr.BlockRunner(body, gr.batch_mode(ds), ds.device, carry))
             self._runners[key] = held
         self.last_runner = held[1]
         return held[1]
@@ -328,10 +439,39 @@ class Renderer:
         st.looper = (st.looper + block) % SOBOL_SAMPLE_NUM
         return run
 
+    def _pt_tile_blocks(self, block: int):
+        """One block of ``block`` full-PT frames on each tile of the mesh
+        (:func:`_pt_tile_batch`), each tile its own block runner; returns
+        the last tile's runner.  The sample axis is not used: every tile's
+        block runs on its sample-0 device, as the JAX renderer's batched
+        program runs on the tile-sharded buffers."""
+        s, st, cam = self.settings, self.state, self.cam
+        direct = []
+        for t, dev in enumerate(self.mesh.tile_devices):
+            ds, idx = self._scenes[dev], self._tile_idx[t]
+
+            def body(x, ds=ds, idx=idx):
+                return {"direct": _pt_tile_batch(
+                    ds, _unflat("cam", x, cam.replace, _CAM_FIELDS), x["looper0"],
+                    x["direct"], x["iteration"], idx, max_depth=s.trace_depth,
+                    block=block)}
+
+            run = self._runner(("pt_tile", t, s.trace_depth, block), body,
+                               {"direct": "direct"}, ds=ds)
+            out = run({**_flat("cam", cam.to(dev), _CAM_FIELDS), "looper0": st.looper,
+                       "iteration": float(st.iteration), "direct": self.direct[t]})
+            direct.append(out["direct"])
+        self.direct = direct
+        st.iteration += block
+        st.looper = (st.looper + block) % SOBOL_SAMPLE_NUM
+        return run
+
     def _restir_block(self, block: int):
         """One block of ``block`` ReSTIR frames (:func:`_restir_batch`), and
         its bookkeeping; the batch's G-buffer becomes ``self.gbuf``."""
         s, st, cam = self.settings, self.state, self.cam
+        if self.mesh is not None:
+            raise NotImplementedError(MESH_RESTIR_BATCH)
         self._ensure_gbuf_last()
 
         def body(x):
@@ -379,9 +519,14 @@ class Renderer:
         returns the :class:`~.graph.BlockRunner` that ran it (a CUDA graph
         when ``batch_mode`` is "graph")."""
         self._check_batchable()
+        if self.mesh is not None and self.n_alloc != self.n_pixels:
+            raise NotImplementedError("mesh-mode batching needs W*H divisible by the "
+                                      "tile count")
         with self.timer.time(f"block of {block}"):
             if self._uses_restir():
                 return self._restir_block(block)
+            if self.mesh is not None:
+                return self._pt_tile_blocks(block)
             return self._pt_block(block)
 
     def render_batched(self, spp: int, block: int = 8):
@@ -404,6 +549,8 @@ class Renderer:
         """``block`` ReSTIR frames as one block, then the denoiser once;
         returns the display image on the device (the JAX renderer's
         high-throughput interactive mode)."""
+        if self.mesh is not None:
+            raise NotImplementedError(MESH_RESTIR_BATCH)
         s = self.settings
         if s.animate_camera:
             self._animate_camera()
@@ -431,7 +578,7 @@ class Renderer:
         if indirect is not None and s.denoiser == Denoiser.SVGF and s.denoiser_split:
             out_d, out_i, self.svgf_direct, self.svgf_indirect = dn.svgf_filter_pair(
                 image, indirect, self.svgf_direct, self.svgf_indirect, self.gbuf,
-                self.gbuf_last, self.cam, self.first_frame, levels=s.svgf_levels,
+                self._full(self.gbuf_last), self.cam, self.first_frame, levels=s.svgf_levels,
                 sig_depth=sig_d, sig_normal=sig_n, sig_luminance=sig_l)
             self._split_out = (out_d, out_i)
             self._svgf_indirect_live = True
@@ -448,7 +595,7 @@ class Renderer:
                                         sig_luminance=s.eaw_sig_luminance)
         elif s.denoiser == Denoiser.SVGF:
             out, self.svgf_direct = dn.svgf_filter(
-                image, self.svgf_direct, self.gbuf, self.gbuf_last, self.cam,
+                image, self.svgf_direct, self.gbuf, self._full(self.gbuf_last), self.cam,
                 self.first_frame, levels=s.svgf_levels, sig_depth=sig_d,
                 sig_normal=sig_n, sig_luminance=sig_l)
         else:
@@ -512,9 +659,9 @@ class Renderer:
         if view == "composed":
             return None
         if view == "input_direct":
-            return self.direct
+            return self._full(self.direct)
         if view == "input_indirect":
-            return self.indirect
+            return self._full(self.indirect)
         if view in ("output_direct", "output_indirect"):
             if self._split_out is None:
                 return None
@@ -544,8 +691,8 @@ class Renderer:
                 and self._last_image is not None):
             return self._last_image
         if s.tracer in (Tracer.STREAMED, Tracer.SINGLE_KERNEL) and not s.use_reservoir:
-            return post.add_image(self.direct, self.indirect)
-        return self.direct
+            return post.add_image(self._full(self.direct), self._full(self.indirect))
+        return self._full(self.direct)
 
     def save(self, path: str | None = None, jpg: bool = False) -> str:
         """Tonemap + gamma + save, X-mirrored like the reference

@@ -1308,3 +1308,48 @@ def test_captured_block_equals_sliced_steps():
     assert run.launches_per_replay()["sort_key"] == {"signature_key": 2 * (2 * depth + 1)}
     for name in ("direct", "indirect"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.cuda
+def test_mesh_frame_on_one_card_equals_single_device():
+    """Cornell 64x64 on a mesh of 2 tiles over ``[cuda:0] * 2`` (the
+    kernels on each tile's lanes): the gathered frame equals the
+    single-device frame bit for bit (cornell has no clusters, so no lane
+    shares a culling decision across the tile's edge)."""
+    from radish_pt_tpu_torch.parallel import sharding as sh
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cuda")
+    cam = cam.replace(width=64, height=64)
+    mesh = sh.make_mesh(2, devices=[torch.device("cuda", 0)] * 2)
+    got = sh.render_frame_sharded(mesh, ds, cam, 3, 4)
+    d, i = pt.path_trace(ds, cam, 3, 4)
+    assert got.is_cuda and torch.equal(got, d + i)
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_gather_image():
+    """A world of one on NCCL (tcp on 127.0.0.1, a free port): the global
+    mesh is this card's one tile, and ``gather_image`` returns it."""
+    import socket
+
+    from radish_pt_tpu_torch.parallel import multihost as mh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mh.initialize(f"127.0.0.1:{port}", 1, 0, "cuda")
+    try:
+        mesh = mh.make_global_mesh()
+        assert mesh.shape == {"tile": 1, "sample": 1} and mesh.tile_offset == 0
+        tiles = mh.make_sharded_zeros(mesh, (1000, 3))
+        tiles[0] += torch.arange(3000, dtype=torch.float32, device="cuda").view(1000, 3)
+        img = mh.gather_image(tiles)
+        assert isinstance(img, np.ndarray) and np.array_equal(img, np.arange(3000.0).reshape(1000, 3))
+    finally:
+        mh.shutdown()
