@@ -20,9 +20,10 @@ the cluster-signature key (``csrc/sort_key.cu``).  Checks the hand-written
 CUDA kernels of those paths against their plain torch versions.  Phases:
 
 1. device: the card's name and power limit, torch and CUDA versions;
-2. cold start: the seven kernel sources built with nvcc at once (seconds
-   shown, and each kernel's registers and spills as ptxas reports them),
-   then teapot and teapot_hires (compact) loaded and rendered once
+2. cold start: the seven kernel sources built with nvcc at once, and the
+   native host library (``radish_pt_tpu_torch/native``) with g++ beside
+   them (seconds shown, and each kernel's registers and spills as ptxas
+   reports them), then teapot and teapot_hires (compact) loaded and rendered once
    at 800x800, and the quad, band, dense, bvh and other shipped scenes
    loaded;
 3. kernel parity at the main paths' shapes (800x800 primaries, one bounce
@@ -135,11 +136,21 @@ CUDA kernels of those paths against their plain torch versions.  Phases:
    seam equal to one device and the seam band showing rejections; SVGF in
    mesh mode equal to SVGF on the single-device inputs; teapot's
    ``render_batched`` on 4 tiles (one CUDA graph a tile) equal to its
-   ``step()`` frames; a world of one on NCCL (tcp on 127.0.0.1, a free
+   ``step()`` frames; cornell ReSTIR (dense) through
+   ``step_batched_restir(8)`` on 2 and on 4 tiles, a camera move between
+   two blocks, the frames, reservoir and last G-buffer equal to one
+   device's bit for bit (the seams exchanged), one CUDA graph over all
+   tiles, its launches counted, and teapot ReSTIR (Plücker) on 4 tiles
+   under the frames rule, each mesh's ms/frame beside the single-device
+   replay; a world of one on NCCL (tcp on 127.0.0.1, a free
    port) equal to the in-process mesh; ``dryrun_multichip(4, [cuda:0] *
    4)``; teapot's ``frame_pair_stats`` and ``utilization``; the webviewer
    serving a card ``Renderer`` on port 0, one ``/stream`` JPEG fetched.
-   The mesh frame times are printed beside the single-device ones.
+   The mesh frame times are printed beside the single-device ones;
+10. the native host build: every shipped scene loaded on the card with
+   the C++ builders and with ``RADISH_NATIVE=0`` (the numpy builders),
+   every tensor of the two scenes equal bit for bit, both load times and
+   teapot's and teapot_hires' cold start either way.
 
 Prints a JSON line of per-kernel results, then the card's name and power
 limit, then, as the last line, ``{"ok": true, "device": {...}}``.  Any
@@ -159,6 +170,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1671,6 +1683,7 @@ def mesh_phase(scenes, log, card) -> dict:
     from radish_pt_tpu_torch.render import denoise as dn
     from radish_pt_tpu_torch.render import gbuffer as gb
     from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import restir as rs
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.utils import pairstats as ps
 
@@ -1795,6 +1808,93 @@ def mesh_phase(scenes, log, card) -> dict:
     log(f"[mesh] teapot render_batched on 4 tiles (one graph a tile, blocks of 2): equal "
         f"to 4 step() frames; {batched_ms:.3f} ms/frame; launches {launches}")
 
+    # ---- batched ReSTIR on a mesh: the seams exchanged, equal to one device ----
+    def restir_state(r):
+        return {"direct": r._full(r.direct).clone(),
+                **{f"res.{k}": v.clone() for k, v in
+                   vars(r._full(r.reservoir)).items()},
+                **{f"gbuf_last.{k}": v.clone() for k, v in
+                   vars(r._full(r.gbuf_last)).items()}}
+
+    def two_blocks(r, moved):
+        """``step_batched_restir(RESTIR_BLOCK)``, the camera moved, again:
+        the state after each block."""
+        r.step_batched_restir(RESTIR_BLOCK)
+        first = restir_state(r)
+        r.update_camera(position=moved)
+        r.step_batched_restir(RESTIR_BLOCK)
+        return [first, restir_state(r)]
+
+    ds, cam = scenes["cornell_dense"]
+    settings = Settings(tracer=Tracer.RESTIR_DI)
+    moved = (cam.position + torch.tensor([0.05, 0.0, 0.0], device=dev)).tolist()
+    one = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=dev)
+    want = two_blocks(one, moved)
+    single_ms = cuda_ms(lambda: one.run_block(RESTIR_BLOCK), reps=3) / RESTIR_BLOCK
+    n_px = RES * RES
+    rec["restir_batched"] = {}
+    for n_tile in (2, MESH_TILES):
+        r = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=dev,
+                     mesh=mesh(n_tile))
+        got, launches = counted(lambda: two_blocks(r, moved), {"dense": dns})
+        differ = [f"block {b}: {k}" for b in range(2) for k in want[b]
+                  if not torch.equal(got[b][k], want[b][k])]
+        run = r.last_runner
+        per = {"closest_hit": n_tile * (RESTIR_BLOCK + 1), "occlusion": n_tile * RESTIR_BLOCK}
+        assert r.batch_mode == "graph" and run.mode == "graph" and len(r._runners) == 1
+        assert not differ, f"mesh ReSTIR on {n_tile} tiles differs from one device: {differ}"
+        # the warm-up block and two replays
+        assert launches["dense"] == {k: 3 * v for k, v in per.items()}, launches
+        assert run.launches_per_replay()["dense"] == per and run.replays == 2
+        replays = run.replays
+        h = rs.HALO * RES + rs.HALO
+        halo_px = sum(min(hi + h, n_px) - max(lo - h, 0)
+                      for lo, hi in sh.tile_bounds(r.mesh, n_px))
+        exchange = {"temporal_bytes": 13 * 4 * n_px, "spatial_bytes": 15 * 4 * halo_px}
+        mesh_ms = cuda_ms(lambda: r.run_block(RESTIR_BLOCK), reps=3) / RESTIR_BLOCK
+        rec["restir_batched"][n_tile] = {"ms_per_frame": mesh_ms, "single_ms": single_ms,
+                                         "launches": launches, "per_replay": per,
+                                         **exchange}
+        log(f"[mesh] cornell ReSTIR (dense) batched on {n_tile} tiles over one card, "
+            f"step_batched_restir({RESTIR_BLOCK}) twice with a camera move between: the "
+            f"frames, reservoir and last G-buffer equal to one device's bit for bit, seams "
+            f"included; batch mode {r.batch_mode}, one CUDA graph over all tiles, "
+            f"{replays} replays; launches {launches} (a replay {per}); exchanged a frame "
+            f"{exchange['temporal_bytes']:,} B of temporal rows (the whole image, one "
+            f"concatenation) and {exchange['spatial_bytes']:,} B of tiles with their halos; "
+            f"{mesh_ms:.3f} ms/frame on the mesh against {single_ms:.3f} on one device "
+            f"({card})")
+
+    # teapot (Plücker): a tile's lanes in raster order, its culling groups
+    # differ from the full frame's, so a grazing pixel may flip
+    ds, cam = scenes["teapot"]
+    one = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=dev)
+    r = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=dev,
+                 mesh=mesh(MESH_TILES))
+    one.step_batched_restir(RESTIR_BLOCK)
+    _, launches = counted(lambda: r.step_batched_restir(RESTIR_BLOCK),
+                          {"plucker": plk, "sort_key": sk})
+    flips = dryrun.frames_match(r.current_image().cpu().numpy(),
+                                one.current_image().cpu().numpy(), atol=FLIP_ATOL,
+                                max_flips=FLIP_MAX, mean_atol=FLIP_MEAN)
+    per = {"plucker": {"closest_hit": MESH_TILES * (RESTIR_BLOCK + 1),
+                       "occlusion": MESH_TILES * RESTIR_BLOCK},
+           "sort_key": {"signature_key": MESH_TILES * (2 * RESTIR_BLOCK + 1)}}
+    replay = {m: {k: v for k, v in d.items() if v}
+              for m, d in r.last_runner.launches_per_replay().items() if any(d.values())}
+    assert r.batch_mode == "graph" and replay == per, (replay, per)
+    # the warm-up block and one replay
+    assert launches == {m: {k: 2 * v for k, v in d.items()} for m, d in per.items()}, launches
+    mesh_ms = cuda_ms(lambda: r.run_block(RESTIR_BLOCK), reps=3) / RESTIR_BLOCK
+    single_ms = cuda_ms(lambda: one.run_block(RESTIR_BLOCK), reps=3) / RESTIR_BLOCK
+    rec["restir_batched_teapot"] = {"tiles": MESH_TILES, "flips": flips,
+                                    "ms_per_frame": mesh_ms, "single_ms": single_ms,
+                                    "launches": launches}
+    log(f"[mesh] teapot ReSTIR (Plücker) batched on {MESH_TILES} tiles, one block of "
+        f"{RESTIR_BLOCK}: {flips} pixels off by > {FLIP_ATOL} against one device (bound "
+        f"{FLIP_MAX}); launches {launches}; {mesh_ms:.3f} ms/frame on the mesh against "
+        f"{single_ms:.3f} ms/frame replayed on one device ({card})")
+
     # ---- a world of one on NCCL against the in-process mesh ----
     ds, cam = scenes["cornell"]
     with socket.socket() as s:
@@ -1855,6 +1955,81 @@ def mesh_phase(scenes, log, card) -> dict:
     return rec
 
 
+def host_phase(dev, cold: dict, log) -> dict:
+    """Phase 10: every shipped scene loaded on the card through
+    ``load_scene`` with the native host build (the C++ BVH, cluster cuts
+    and OBJ parser) and with ``RADISH_NATIVE=0`` (the numpy builders), the
+    mesh memo cleared before each load: every tensor of the two
+    ``DeviceScene`` objects equal bit for bit, and both load times (the card
+    machine's CPU); then teapot's and teapot_hires' cold start either way
+    (phase 2's kernel builds + the load + the first frame).  Returns the
+    phase's record."""
+    import dataclasses
+
+    import torch
+
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.scene.build import load_scene
+    from radish_pt_tpu_torch.scene.parser import Resource
+
+    t0 = time.perf_counter()
+
+    def load(name, flag):
+        os.environ["RADISH_NATIVE"] = flag
+        Resource.clear()
+        try:
+            t = time.perf_counter()
+            ds, cam, _ = load_scene(os.path.join(REPO, "scenes", SCENE_FILES[name]),
+                                    device=dev)
+            torch.cuda.synchronize()
+            return ds, cam, time.perf_counter() - t
+        finally:
+            os.environ.pop("RADISH_NATIVE")
+            Resource.clear()
+
+    def same(x, y):  # bit for bit: packed tables hold integers bit-cast to f32
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        return x.numel() == 0 or torch.equal(x.reshape(-1).contiguous().view(torch.uint8),
+                                             y.reshape(-1).contiguous().view(torch.uint8))
+
+    rec = {}
+    for name in SCENE_FILES:
+        a, cam, t_native = load(name, "1")
+        b, _, t_numpy = load(name, "0")
+        differ, n = [], 0
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(x, torch.Tensor):
+                n += 1
+                if not same(x, y):
+                    differ.append(f.name)
+            elif type(x) is not type(y) or not (x == y if not hasattr(x, "shape")
+                                                else bool((x == y).all())):
+                differ.append(f.name)
+        rec[name] = {"native_s": t_native, "numpy_s": t_numpy, "tensors": n,
+                     "triangles": a.num_triangles}
+        log(f"[host] {name}: load_scene native {t_native:.3f} s, RADISH_NATIVE=0 "
+            f"{t_numpy:.3f} s (the card machine's CPU); {n} tensors of the DeviceScene "
+            f"equal bit for bit: {not differ} {differ or ''}")
+        assert not differ, f"{name}: the native build differs from the numpy build: {differ}"
+        if name in ("teapot", "teapot_hires"):
+            c = cam.replace(width=RES, height=RES)
+            t = time.perf_counter()
+            pt.path_trace(a, c, 0, DEPTH)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t
+            rec[name]["cold_start_native_s"] = cold["build_s"] + t_native + first
+            rec[name]["cold_start_numpy_s"] = cold["build_s"] + t_numpy + first
+            log(f"[host] {name} cold start (phase 2's kernel builds {cold['build_s']:.2f} s + "
+                f"load + first {RES}x{RES} frame, its kernels loaded, {first:.3f} s): native "
+                f"{rec[name]['cold_start_native_s']:.2f} s, numpy "
+                f"{rec[name]['cold_start_numpy_s']:.2f} s")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[host] phase 10 took {rec['seconds']:.1f} s")
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1892,6 +2067,7 @@ def main(argv=None) -> int:
         log(card)
         return offsets_loop(args.offsets_loop, log, card)
 
+    from radish_pt_tpu_torch import native
     from radish_pt_tpu_torch.accel import _build
     from radish_pt_tpu_torch.accel import band as bnd
     from radish_pt_tpu_torch.accel import compact as cpt
@@ -1929,8 +2105,18 @@ def main(argv=None) -> int:
     # scene load, first frame ----
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    # the native host library (g++) builds beside the kernels (nvcc)
+    host_build = {}
+    th = threading.Thread(target=lambda: host_build.update(path=native.build()))
+    th.start()
     _build.build_all(verbose=True)
+    th.join()
     t_build = time.perf_counter() - t0
+    assert "path" in host_build, "the native host library did not build"
+    log(f"[build] native host library (g++ {' '.join(native.CXX_FLAGS)}) -> "
+        f"{os.path.relpath(host_build['path'], REPO)} in "
+        f"{native.BUILD_SECONDS if native.BUILD_SECONDS is None else round(native.BUILD_SECONDS, 2)}"
+        f" s (None: reused), beside the kernels")
     for lib in SOURCES:
         s = _build.BUILD_SECONDS.get(lib)
         log(f"[build] csrc/{lib}.cu -> "
@@ -1951,8 +2137,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     scenes["teapot"] = (ds, cam)
-    log(f"[cold start] teapot: scene load {t_load:.2f} s, build + load + first "
-        f"{RES}x{RES} frame {cold_s:.2f} s")
+    log(f"[cold start] teapot: scene load {t_load:.2f} s (native host build), build + "
+        f"load + first {RES}x{RES} frame {cold_s:.2f} s")
+    cold = {"build_s": t_build}
     ds, cam, _ = load_scene(scene_path("cornell"), device=dev)
     scenes["cornell"] = (ds, cam.replace(width=RES, height=RES))
     t1 = time.perf_counter()
@@ -2830,6 +3017,9 @@ def main(argv=None) -> int:
     log(f"[phase] 9 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 9. the multi-device path: tiles of a mesh on the one card ----
     log(f"[mesh] {json.dumps(mesh_phase(scenes, log, card))}")
+    log(f"[phase] 10 starts at {time.perf_counter() - t_start:.1f} s")
+    # ---- 10. the native host build against the numpy build ----
+    log(f"[host] {json.dumps(host_phase(dev, cold, log))}")
     log(f"[done] chip_smoke ran {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

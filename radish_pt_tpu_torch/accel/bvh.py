@@ -2,7 +2,8 @@
 with multi-triangle leaves laid out for dense TPU testing.
 
 Numpy copy of ``radish_pt_tpu/accel/bvh.py`` (the port builds its scenes
-without jax; tests pin both builders to identical output).  Its leaf order
+without jax; tests pin both builders to identical output), and the entry
+point of its native twin (``radish_pt_tpu_torch/native``).  Its leaf order
 is the triangle storage order of every engine, and the ``"bvh"`` engine and
 the heatmap walk it (:mod:`radish_pt_tpu_torch.accel.traverse`).
 
@@ -29,6 +30,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from .. import native
 
 NULL_PRIMITIVE = -1
 NUM_BUCKETS = 16
@@ -61,14 +64,19 @@ class BVH:
 def build_bvh(vertices: np.ndarray, leaf_size: int = DEFAULT_LEAF_SIZE) -> BVH:
     """Build the SAH BVH with <=leaf_size-triangle leaves + 6 threaded orders.
 
-    ``vertices``: float32 [3T, 3] flat triangle soup.  Numpy only: the
-    reference's native C++ twin produces the same tree (tests/test_native.py).
+    ``vertices``: float32 [3T, 3] flat triangle soup.  The native C++
+    builder (``radish_pt_tpu_torch/native``), equal to
+    :func:`build_bvh_numpy` array for array; ``RADISH_NATIVE=0`` selects
+    the numpy builder.
     """
+    if native.enabled():
+        return BVH(**native.build_bvh(vertices, leaf_size))
     return build_bvh_numpy(vertices, leaf_size)
 
 
 def build_bvh_numpy(vertices: np.ndarray, leaf_size: int = DEFAULT_LEAF_SIZE) -> BVH:
-    """Pure-numpy builder (reference implementation for the native twin)."""
+    """Pure-numpy builder: the plain version the native twin equals.  Its
+    SAH cost runs in float64 (``count_prefix / n_sub``), its areas in f32."""
     v = np.asarray(vertices, dtype=np.float32).reshape(-1, 3, 3)
     num_prims = v.shape[0]
     assert num_prims > 0

@@ -15,7 +15,8 @@ writes a ``torch.profiler`` trace, ``--debug-nans`` stops at the first
 non-finite tracer output, and an ``--out`` ending in ``.hdr`` writes the
 raw Radiance image.  ``--mesh TILE[xSAMPLE]`` renders the pt or restir
 tracer tile-sharded over the visible CUDA devices (parallel/sharding.py)
-and raises when there are too few.
+and raises when there are too few; with ``--batch-spp`` ReSTIR's blocks
+exchange the reservoirs across the tiles' seams and equal one device's.
 """
 
 from __future__ import annotations

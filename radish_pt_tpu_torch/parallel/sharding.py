@@ -21,10 +21,16 @@ inside a frame's trace.  Several tiles may share a device
 (``make_mesh(devices=[dev] * n)``): the port's counterpart of XLA's
 virtual host devices, which tests and the dry run use.
 
-The ReSTIR state shards with its pixels, so temporal and spatial reuse
-stay within a tile: a candidate in another tile is rejected, as at an
-image border (``restir_direct(pixel_idx=...)``).  The sample axis is not
-used by the ReSTIR step (the reservoirs are a per-pixel history).
+The ReSTIR state shards with its pixels.  In the eager step
+(:func:`restir_step_sharded`) temporal and spatial reuse stay within a
+tile: a candidate in another tile is rejected, as at an image border
+(``restir_direct(pixel_idx=...)``).  The batched block
+(:func:`restir_batch_sharded`) exchanges what reuse reads across the seams
+instead, so its frames equal one device's bit for bit: every tile gathers
+its temporal neighbours from last frame's whole packed image, and its
+spatial neighbours from its own rows plus a halo of ``HALO * W + HALO``
+rows on either side (:func:`whole_image`, :func:`halo_rows`).  The sample
+axis is not used by ReSTIR (the reservoirs are a per-pixel history).
 
 Tiles run one after another from the calling thread; their kernels are
 queued asynchronously, so tiles on different devices overlap on the cards
@@ -37,6 +43,7 @@ import dataclasses
 
 import torch
 
+from ..config import ReservoirReuse
 from ..render import gbuffer as gb
 from ..render import pathtrace as pt
 from ..render import restir as rs
@@ -292,3 +299,125 @@ def restir_step_sharded(mesh: Mesh, ds, cam, last_cam, looper, gbuf_last: list,
         out_r.append(res)
         out_g.append(g)
     return out_d, out_r, out_g
+
+
+def tile_bounds(mesh: Mesh, n: int) -> list:
+    """The global pixel range [lo, hi) of each of the mesh's tiles, when
+    ``n`` pixels split into them without padding."""
+    per = n // mesh.shape["tile"]
+    return [(t * per, (t + 1) * per) for t in range(mesh.shape["tile"])]
+
+
+def whole_image(rows: list, devices: list) -> list:
+    """Each tile's packed rows (one tensor a tile, in tile order)
+    assembled into the whole image on each tile's device: one
+    concatenation a distinct device, copies to the others."""
+    held = {}
+    for dev in devices:
+        if dev not in held:
+            held[dev] = torch.cat([r.to(dev) for r in rows])
+    return [held[dev] for dev in devices]
+
+
+def halo_rows(rows: list, bounds: list, t: int, width: int, device):
+    """Tile t's rows and its spatial halo, (rows, base): the global rows
+    [lo - h, hi + h) clipped to the image, h = ``HALO * width + HALO``
+    (restir.merge_spatial's reach), from whichever tiles hold them (a small
+    tile's halo can span several), on ``device``; ``base`` the first row's
+    global index."""
+    h = rs.HALO * width + rs.HALO
+    a, b = max(bounds[t][0] - h, 0), min(bounds[t][1] + h, bounds[-1][1])
+    pieces = [r[max(a, lo) - lo:min(b, hi) - lo].to(device)
+              for r, (lo, hi) in zip(rows, bounds) if max(a, lo) < min(b, hi)]
+    return torch.cat(pieces), a
+
+
+def restir_batch_sharded(mesh: Mesh, ds, idx: list, cam, last_cam, looper0, gbuf_last: list,
+                         reservoir: list, first_frame, direct: list, iteration, *, reuse: int,
+                         reservoir_size: int, clamp: int, encode_normal: bool, block: int,
+                         segment=None):
+    """``block`` ReSTIR frames with a static camera on every tile of
+    ``mesh`` (``render/renderer.py::_restir_batch`` on tiles), equal to the
+    single-device block bit for bit, seams included.  ``ds``: a scene or
+    :func:`replicate_scene`'s dict; ``idx``: :func:`tile_pixels`;
+    ``gbuf_last``, ``reservoir`` and ``direct`` tile-sharded;
+    ``looper0``, ``first_frame`` and ``iteration`` 0-d tensors.  W * H must
+    split into the tiles without padding.
+
+    Each tile renders its G-buffer once (frame 0's motion through
+    ``last_cam``, later frames' through ``cam``).  A frame then runs, on
+    every tile: the exchange of last frame's packed temporal rows
+    (:func:`whole_image`), stage "front" (candidates, shadow test, temporal
+    reuse on the whole image, the packed spatial rows), the exchange of the
+    spatial halos (:func:`halo_rows`), and stage "back" (spatial reuse,
+    shade, scrub, accumulate, this frame's temporal rows).
+
+    ``segment(key, fn, *args)`` runs a tile's stage, ``key`` = (stage,
+    tile): None calls ``fn(*args)`` (all of it inside the caller's one
+    capture when the tiles share a device); the renderer passes a captured
+    segment a (stage, tile) when the tiles span devices, the exchanges'
+    copies running between the segments.  Returns (direct, reservoir,
+    gbuf) as lists, ``gbuf`` each tile's ``GBufferOut`` (frame 0's
+    motion)."""
+    run = segment or (lambda key, fn, *args: fn(*args))
+    devs = mesh.tile_devices
+    bounds = tile_bounds(mesh, cam.width * cam.height)[mesh.tile_offset:][:len(devs)]
+    if len(bounds) != mesh.shape["tile"]:
+        raise NotImplementedError("batched ReSTIR on a mesh runs every tile in one "
+                                  "process")
+    temporal = bool(reuse & ReservoirReuse.TEMPORAL)
+    spatial = bool(reuse & ReservoirReuse.SPATIAL)
+    scene = [_scene(ds, dev) for dev in devs]
+    cams = [cam.to(dev) for dev in devs]
+
+    def gbuffer(t):
+        def fn(cam, last_cam, res, last):
+            g, motion = gb.render_gbuffer(scene[t], cam, last_cam, encode_normal=encode_normal,
+                                          pixel_idx=idx[t], extra_motion_cam=cam)
+            return g, motion, rs.temporal_rows(res, last)
+        return fn
+
+    def front(t):
+        def fn(cam, looper, g, first, rows):
+            lanes, res = rs.restir_candidates(scene[t], cam, looper, idx[t], reservoir_size)
+            if temporal:
+                lanes, res = rs.restir_temporal(lanes, res, rows, g, first, clamp,
+                                                scene[t].sobol)
+            out = rs._check_validity(res)
+            return lanes, res, out, rs.spatial_rows(out, g.frame, idx[t])
+        return fn
+
+    def back(t):
+        def fn(cam, looper, lanes, res, out, g, halo, acc, it):
+            d = rs.restir_shade(scene[t], cam, looper, lanes, res, out, g, spatial, idx[t],
+                                halo=(halo, halo_base[t]))
+            return pt.accumulate(acc, pt.scrub_and_compress(d), it), rs.temporal_rows(out, g.frame)
+        return fn
+
+    h = rs.HALO * cam.width + rs.HALO
+    halo_base = [max(lo - h, 0) for lo, _ in bounds]
+    gbufs, steady, rows = [], [], []
+    for t, dev in enumerate(devs):
+        g, motion, r = run(("gbuffer", t), gbuffer(t), cams[t], last_cam.to(dev),
+                           reservoir[t], gbuf_last[t])
+        gbufs.append(g)
+        steady.append(dataclasses.replace(g, motion=motion))
+        rows.append(r)
+    direct, out = list(direct), list(reservoir)
+    for k in range(block):
+        whole = whole_image(rows, devs) if temporal else [None] * len(devs)
+        fronts, spat = [], []
+        for t, dev in enumerate(devs):
+            first = first_frame.to(dev) if k == 0 else torch.zeros((), dtype=torch.bool,
+                                                                    device=dev)
+            f = run(("front", t), front(t), cams[t], looper0.to(dev) + k,
+                    gbufs[t] if k == 0 else steady[t], first, whole[t])
+            fronts.append(f)
+            spat.append(f[3])
+        for t, dev in enumerate(devs):
+            lanes, res, out[t], _ = fronts[t]
+            halo = halo_rows(spat, bounds, t, cam.width, dev)[0] if spatial else None
+            direct[t], rows[t] = run(("back", t), back(t), cams[t], looper0.to(dev) + k,
+                                     lanes, res, out[t], gbufs[t] if k == 0 else steady[t],
+                                     halo, direct[t], iteration.to(dev) + k)
+    return direct, out, gbufs

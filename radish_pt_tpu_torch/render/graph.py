@@ -2,18 +2,18 @@
 JAX renderer's batched programs (``fori_loop`` of ``block`` frames in one
 jit, ``radish_pt_tpu/render/renderer.py``).
 
-:class:`BlockRunner` runs a block function ``body(inputs) -> outputs`` on
-flat dicts of tensors.  Which way it runs is decided from the scene's
-engine and device before anything is captured (:func:`batch_mode`):
+:class:`BlockRunner` runs a block function ``fn(*args)`` whose arguments
+and result are nested dataclasses, lists and tuples of tensors, flattened
+to dicts of tensors keyed by path.  Which way it runs is decided from the
+scene's engine and device before anything is captured (:func:`batch_mode`):
 
 * ``"graph"``: on a CUDA device with an engine of
   :data:`CAPTURABLE_ENGINES`.  The first call runs one eager warm-up block
   on a side stream (it builds the kernels and the cached constants, and
   changes no state), then captures the block once on static copies of the
-  inputs; every call copies its inputs into them (``copy_``, or ``fill_``
-  for a Python number) and replays.  An error in the capture or the replay
+  inputs; every call copies its inputs into them (``copy_``) and replays.  An error in the capture or the replay
   raises: nothing falls back to the eager run.
-* ``"eager"``: the same ``body`` called directly, on every engine on the
+* ``"eager"``: the same ``fn`` called directly, on every engine on the
   CPU and on the compact engine, whose work list reads its length on the
   host (``accel/compact.py``, ``work_list``).
 
@@ -24,6 +24,8 @@ counting the launches the card ran.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -65,18 +67,59 @@ def block_input(value, device) -> torch.Tensor:
     return torch.full((), value, dtype=dtype, device=device)
 
 
-class BlockRunner:
-    """Runs ``body`` (flat dict name -> tensor in, flat dict out) as one
-    block, in ``mode`` (:func:`batch_mode`).  ``carry`` maps an output to
-    the input it replaces for the next block (the state a block hands on):
-    in a graph the output is written back into that input's static tensor
-    at the end of the block, and returned as that tensor."""
+def flatten(tree, prefix: str = "") -> dict:
+    """The tensor leaves of ``tree`` (nested dataclasses, lists, tuples and
+    tensors) as a flat dict, keyed by their path ("1.0.frame.depth"); a
+    leaf that is not a tensor is static and left out."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    if dataclasses.is_dataclass(tree):
+        items = [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return {}
+    out = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
 
-    def __init__(self, body, mode: str, device, carry: dict | None = None):
+
+def unflatten(flat: dict, like, prefix: str = ""):
+    """``like``'s structure with its tensor leaves taken from ``flat``
+    (:func:`flatten`'s keys); its other leaves as they are in ``like``."""
+    if isinstance(like, torch.Tensor):
+        return flat[prefix]
+    if dataclasses.is_dataclass(like):
+        return dataclasses.replace(like, **{
+            f.name: unflatten(flat, getattr(like, f.name), f"{prefix}.{f.name}" if prefix
+                              else f.name) for f in dataclasses.fields(like)})
+    if isinstance(like, (list, tuple)):
+        return type(like)(unflatten(flat, v, f"{prefix}.{k}" if prefix else str(k))
+                          for k, v in enumerate(like))
+    return like
+
+
+class BlockRunner:
+    """Runs ``fn(*args)`` as one block, in ``mode`` (:func:`batch_mode`).
+    The arguments and the result are nested dataclasses, lists and tuples
+    of tensors (:func:`flatten`): their structure and their leaves that
+    are not tensors are those of the first call (a scalar that changes
+    from call to call is passed as a tensor, :func:`block_input`).
+    ``carry``: (result path, argument path) pairs, paths as
+    :func:`flatten`'s keys; a part of the result that replaces a part of
+    the arguments for the next block (the state a block hands on), e.g.
+    ("0", "6"): the result's first item replaces the seventh argument.  In
+    a graph the carried result is written back into that argument's static
+    tensors at the end of the block, and returned as those tensors."""
+
+    def __init__(self, fn, mode: str, device, carry=()):
         if mode not in ("graph", "eager"):
             raise ValueError(f"unknown batch mode {mode!r}")
-        self.body, self.mode, self.device = body, mode, torch.device(device)
-        self.carry = dict(carry or {})
+        self.fn, self.mode, self.device = fn, mode, torch.device(device)
+        self.tree_carry = tuple(carry)
+        self.carry: dict = {}  # flat result key -> flat argument key
+        self._like = self._out = None
         self.graph = None
         self.static: dict = {}
         self.outputs: dict = {}
@@ -84,19 +127,25 @@ class BlockRunner:
         self.per_replay: dict = {}
         self.replays = 0
 
-    def __call__(self, inputs: dict) -> dict:
+    def _body(self, x: dict) -> dict:
+        out = self.fn(*unflatten(x, self._like))
+        self._out = out
+        return flatten(out)
+
+    def __call__(self, *args):
+        inputs = flatten(args)
+        if self._like is None:
+            self._like = args
+            self.carry = {o + k[len(i):]: k for o, i in self.tree_carry
+                          for k in inputs if k == i or k.startswith(i + ".")}
         if self.mode == "eager":
-            return self.body({k: block_input(v, self.device) for k, v in inputs.items()})
+            return unflatten(self._body(inputs), self._out)
         if self.graph is None:
             self._capture(inputs)
         else:
             for name, value in inputs.items():
-                static = self.static[name]
-                if isinstance(value, torch.Tensor):
-                    if value is not static:
-                        static.copy_(value)
-                else:
-                    static.fill_(value)
+                if value is not self.static[name]:
+                    self.static[name].copy_(value)
         self.graph.replay()
         for key, delta in self.per_replay.items():
             counter = _counters()[key]
@@ -105,21 +154,21 @@ class BlockRunner:
         self.replays += 1
         out = dict(self.outputs)
         out.update({o: self.static[i] for o, i in self.carry.items()})
-        return out
+        return unflatten(out, self._out)
 
     def _capture(self, inputs: dict) -> None:
-        self.static = {k: block_input(v, self.device).clone() for k, v in inputs.items()}
+        self.static = {k: v.clone() for k, v in inputs.items()}
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.body(self.static)  # warm-up: kernels and constants built
+            self._body(self.static)  # warm-up: kernels and constants built
         current.wait_stream(side)
         counters = _counters()
         before = {key: dict(c) for key, c in counters.items()}
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            outputs = self.body(self.static)
+            outputs = self._body(self.static)
             for out, name in self.carry.items():
                 self.static[name].copy_(outputs[out])
         for key, counter in counters.items():

@@ -32,7 +32,10 @@ the path tracer or ReSTIR DI tile by tile; the denoiser, the display and
 the saved image gather the tiles on the renderer's ``device`` (the
 denoiser's result is the single-device filter's, exactly).  Batched path
 tracer blocks run one block a tile, each its own block runner (one CUDA
-graph a tile on the card).
+graph a tile on the card).  Batched ReSTIR blocks exchange the reservoirs
+across the seams and equal one device's frames bit for bit
+(``sharding.restir_batch_sharded``): one runner over all tiles when they
+share a device, a runner a (stage, tile) when they span devices.
 """
 
 from __future__ import annotations
@@ -113,24 +116,6 @@ def _restir_batch(ds, cam, last_cam, looper0, gbuf_last, reservoir, first_frame,
     return direct, reservoir, gbuf
 
 
-MESH_RESTIR_BATCH = ("batched ReSTIR on a mesh needs a halo exchange of the packed "
-                     "reservoir image across the tiles (the JAX renderer's partitioned "
-                     "batch): not ported yet, see ROADMAP.md queue 1")
-
-_CAM_FIELDS = tuple(f.name for f in dataclasses.fields(cam_mod.Camera)
-                    if f.name not in ("width", "height"))
-_RES_FIELDS = tuple(f.name for f in dataclasses.fields(rs.DirectReservoir))
-_FRAME_FIELDS = tuple(f.name for f in dataclasses.fields(gb.GBufferFrame))
-
-
-def _flat(prefix: str, obj, fields) -> dict:
-    return {f"{prefix}.{f}": getattr(obj, f) for f in fields}
-
-
-def _unflat(prefix: str, inputs: dict, make, fields):
-    return make(**{f: inputs[f"{prefix}.{f}"] for f in fields})
-
-
 class Renderer:
     """Stateful frame driver around the render passes."""
 
@@ -178,10 +163,15 @@ class Renderer:
         # the denoisers' histories stay whole on ``device`` in mesh mode
         self.svgf_direct = dn.empty_svgf_state(self.n_pixels, device=self.device)
         self.svgf_indirect = dn.empty_svgf_state(self.n_pixels, device=self.device)
+        # the mesh's batched ReSTIR: one captured segment a (stage, tile),
+        # the exchanges' copies between them (parallel/sharding.py), when the
+        # tiles span devices; else the whole block is one runner
+        self.mesh_segments = False
         if mesh is not None:  # one tensor a tile, on the tiles' devices
             self.direct, self.indirect, self.gbuf_last, self.reservoir = (
                 sh.shard_image(mesh, x) for x in (self.direct, self.indirect,
                                                   self.gbuf_last, self.reservoir))
+            self.mesh_segments = len(set(mesh.tile_devices)) > 1
         self.first_frame = True
         self._orig_cam_pos = self.cam.position.cpu().numpy()
         self._time = 0.0
@@ -405,7 +395,7 @@ class Renderer:
     # batched frames (render/graph.py)
     # ------------------------------------------------------------------
 
-    def _runner(self, key, body, carry, ds=None):
+    def _runner(self, key, fn, carry=(), ds=None):
         """The block runner of ``key``, made on first use (and again for a
         new scene): a CUDA graph per (tracer settings, depth, block,
         engine) on the card.  ``ds``: the scene the block runs on, on its
@@ -414,27 +404,30 @@ class Renderer:
         key = (*key, ds.intersector)
         held = self._runners.get(key)
         if held is None or held[0] is not ds:
-            held = (ds, gr.BlockRunner(body, gr.batch_mode(ds), ds.device, carry))
+            held = (ds, gr.BlockRunner(fn, gr.batch_mode(ds), ds.device, carry))
             self._runners[key] = held
         self.last_runner = held[1]
         return held[1]
 
+    def _scalars(self, device):
+        """The block's looper, iteration and first-frame flag as 0-d device
+        fills."""
+        st = self.state
+        return (gr.block_input(st.looper, device), gr.block_input(float(st.iteration), device),
+                gr.block_input(bool(self.first_frame), device))
+
     def _pt_block(self, block: int):
         """One block of ``block`` full-PT frames, and its bookkeeping."""
-        s, st, cam = self.settings, self.state, self.cam
+        s, st = self.settings, self.state
 
-        def body(x):
-            d, i = _pt_batch(self.ds, _unflat("cam", x, cam.replace, _CAM_FIELDS),
-                             x["looper0"], x["direct"], x["indirect"], x["iteration"],
+        def batch(cam, looper0, iteration, direct, indirect):
+            return _pt_batch(self.ds, cam, looper0, direct, indirect, iteration,
                              max_depth=s.trace_depth, block=block)
-            return {"direct": d, "indirect": i}
 
-        run = self._runner(("pt", s.trace_depth, block), body,
-                           {"direct": "direct", "indirect": "indirect"})
-        out = run({**_flat("cam", cam, _CAM_FIELDS), "looper0": st.looper,
-                   "iteration": float(st.iteration), "direct": self.direct,
-                   "indirect": self.indirect})
-        self.direct, self.indirect = out["direct"], out["indirect"]
+        run = self._runner(("pt", s.trace_depth, block), batch, (("0", "3"), ("1", "4")))
+        looper0, iteration, _ = self._scalars(self.device)
+        self.direct, self.indirect = run(self.cam, looper0, iteration, self.direct,
+                                         self.indirect)
         st.iteration += block
         st.looper = (st.looper + block) % SOBOL_SAMPLE_NUM
         return run
@@ -445,73 +438,92 @@ class Renderer:
         the last tile's runner.  The sample axis is not used: every tile's
         block runs on its sample-0 device, as the JAX renderer's batched
         program runs on the tile-sharded buffers."""
-        s, st, cam = self.settings, self.state, self.cam
+        s, st = self.settings, self.state
+        self._check_mesh_batch()
         direct = []
         for t, dev in enumerate(self.mesh.tile_devices):
             ds, idx = self._scenes[dev], self._tile_idx[t]
 
-            def body(x, ds=ds, idx=idx):
-                return {"direct": _pt_tile_batch(
-                    ds, _unflat("cam", x, cam.replace, _CAM_FIELDS), x["looper0"],
-                    x["direct"], x["iteration"], idx, max_depth=s.trace_depth,
-                    block=block)}
+            def batch(cam, looper0, iteration, direct, ds=ds, idx=idx):
+                return _pt_tile_batch(ds, cam, looper0, direct, iteration, idx,
+                                      max_depth=s.trace_depth, block=block)
 
-            run = self._runner(("pt_tile", t, s.trace_depth, block), body,
-                               {"direct": "direct"}, ds=ds)
-            out = run({**_flat("cam", cam.to(dev), _CAM_FIELDS), "looper0": st.looper,
-                       "iteration": float(st.iteration), "direct": self.direct[t]})
-            direct.append(out["direct"])
+            run = self._runner(("pt_tile", t, s.trace_depth, block), batch, (("", "3"),),
+                               ds=ds)
+            looper0, iteration, _ = self._scalars(dev)
+            direct.append(run(self.cam.to(dev), looper0, iteration, self.direct[t]))
         self.direct = direct
         st.iteration += block
         st.looper = (st.looper + block) % SOBOL_SAMPLE_NUM
         return run
 
     def _restir_block(self, block: int):
-        """One block of ``block`` ReSTIR frames (:func:`_restir_batch`), and
-        its bookkeeping; the batch's G-buffer becomes ``self.gbuf``."""
-        s, st, cam = self.settings, self.state, self.cam
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_RESTIR_BATCH)
+        """One block of ``block`` ReSTIR frames (:func:`_restir_batch`; on a
+        mesh ``sharding.restir_batch_sharded``, the same frames bit for
+        bit), and its bookkeeping; the batch's G-buffer becomes
+        ``self.gbuf`` (on a mesh gathered when the denoiser reads it, as
+        :meth:`_step_sharded` gathers it).  On a mesh whose tiles share a
+        device the whole block over all tiles is one runner (one CUDA graph
+        on the card), the exchanges device copies inside it; tiles on
+        several devices (``mesh_segments``) run a runner a (stage, tile),
+        the exchanges' copies between them."""
+        s, st, cam, mesh = self.settings, self.state, self.cam, self.mesh
         self._ensure_gbuf_last()
+        key = ("restir", s.reservoir_reuse, s.reservoir_size, s.temporal_clamp,
+               s.encode_normal)
+        kw = dict(reuse=s.reservoir_reuse, reservoir_size=s.reservoir_size,
+                  clamp=s.temporal_clamp, encode_normal=s.encode_normal, block=block)
+        dev = self.device if mesh is None else mesh.tile_devices[0]
+        looper0, iteration, first = self._scalars(dev)
+        args = (cam, self.last_cam, looper0, self.gbuf_last, self.reservoir, first,
+                self.direct, iteration)
+        if mesh is None:
+            run = self._runner((*key, block), lambda *a: _restir_batch(self.ds, *a, **kw),
+                               (("0", "6"), ("1", "4"), ("2.frame", "3")))
+            self.direct, self.reservoir, self.gbuf = run(*args)
+            self.gbuf_last = self.gbuf.frame
+        else:
+            from ..parallel import sharding as sh
 
-        def body(x):
-            direct, res, gbuf = _restir_batch(
-                self.ds, _unflat("cam", x, cam.replace, _CAM_FIELDS),
-                _unflat("last_cam", x, cam.replace, _CAM_FIELDS), x["looper0"],
-                _unflat("gbuf_last", x, gb.GBufferFrame, _FRAME_FIELDS),
-                _unflat("res", x, rs.DirectReservoir, _RES_FIELDS), x["first_frame"],
-                x["direct"], x["iteration"], reuse=s.reservoir_reuse,
-                reservoir_size=s.reservoir_size, clamp=s.temporal_clamp,
-                encode_normal=s.encode_normal, block=block)
-            return {"direct": direct, **_flat("res", res, _RES_FIELDS),
-                    **_flat("gbuf_last", gbuf.frame, _FRAME_FIELDS),
-                    "albedo": gbuf.albedo, "motion": gbuf.motion}
+            self._check_mesh_batch()
 
-        carry = {k: k for k in ("direct", *(f"res.{f}" for f in _RES_FIELDS),
-                                *(f"gbuf_last.{f}" for f in _FRAME_FIELDS))}
-        run = self._runner(("restir", s.reservoir_reuse, s.reservoir_size,
-                            s.temporal_clamp, s.encode_normal, block), body, carry)
-        out = run({**_flat("cam", cam, _CAM_FIELDS),
-                   **_flat("last_cam", self.last_cam, _CAM_FIELDS),
-                   **_flat("gbuf_last", self.gbuf_last, _FRAME_FIELDS),
-                   **_flat("res", self.reservoir, _RES_FIELDS),
-                   "looper0": st.looper, "first_frame": bool(self.first_frame),
-                   "direct": self.direct, "iteration": float(st.iteration)})
-        self.direct = out["direct"]
-        self.reservoir = _unflat("res", out, rs.DirectReservoir, _RES_FIELDS)
-        frame = _unflat("gbuf_last", out, gb.GBufferFrame, _FRAME_FIELDS)
-        self.gbuf = gb.GBufferOut(frame=frame, albedo=out["albedo"], motion=out["motion"])
+            def batch(*a, segment=None):
+                return sh.restir_batch_sharded(mesh, self._scenes, self._tile_idx, *a,
+                                               segment=segment, **kw)
+
+            if self.mesh_segments:
+                def segment(name, fn, *a):
+                    ds = self._scenes[mesh.tile_devices[name[1]]]
+                    return self._runner((*key, *name), fn, ds=ds)(*a)
+
+                direct, res, tiles = batch(*args, segment=segment)
+            else:
+                carry = (("0", "6"), ("1", "4"),
+                         *((f"2.{t}.frame", f"3.{t}") for t in range(len(mesh.tile_devices))))
+                direct, res, tiles = self._runner((*key, block), batch, carry,
+                                                  ds=self._scenes[dev])(*args)
+            self.direct, self.reservoir = list(direct), list(res)
+            self.gbuf = None
+            if s.denoiser in (Denoiser.EA_WAVELET, Denoiser.SVGF):
+                self.gbuf = self._full(list(tiles))
+            self.gbuf_last = [g.frame for g in tiles]
         st.iteration += block
         st.looper = (st.looper + block) % SOBOL_SAMPLE_NUM
         self.last_cam = cam
-        self.gbuf_last = frame
         self.first_frame = False
-        return run
+        return self.last_runner
 
     def _check_batchable(self):
         s = self.settings
         if not (self._uses_restir() or s.tracer in (Tracer.STREAMED, Tracer.SINGLE_KERNEL)):
             raise ValueError("batched frames run the path tracer and ReSTIR DI")
+
+    def _check_mesh_batch(self):
+        """A mesh's batched blocks need W*H divisible by the tile count (no
+        pad lanes), as the JAX renderer's."""
+        if self.n_alloc != self.n_pixels:
+            raise NotImplementedError("mesh-mode batching needs W*H divisible by the "
+                                      "tile count")
 
     def run_block(self, block: int):
         """Accumulate one block of ``block`` frames of the path tracer or
@@ -519,9 +531,6 @@ class Renderer:
         returns the :class:`~.graph.BlockRunner` that ran it (a CUDA graph
         when ``batch_mode`` is "graph")."""
         self._check_batchable()
-        if self.mesh is not None and self.n_alloc != self.n_pixels:
-            raise NotImplementedError("mesh-mode batching needs W*H divisible by the "
-                                      "tile count")
         with self.timer.time(f"block of {block}"):
             if self._uses_restir():
                 return self._restir_block(block)
@@ -549,8 +558,6 @@ class Renderer:
         """``block`` ReSTIR frames as one block, then the denoiser once;
         returns the display image on the device (the JAX renderer's
         high-throughput interactive mode)."""
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_RESTIR_BATCH)
         s = self.settings
         if s.animate_camera:
             self._animate_camera()
@@ -558,7 +565,7 @@ class Renderer:
             self.reset_accumulation()
         with self.timer.time(f"block of {block}"):
             self._restir_block(block)
-        image = self._apply_denoiser(self.direct)
+        image = self._apply_denoiser(self._full(self.direct))
         self._last_image = image
         return post.to_display(image.reshape(self.cam.height, self.cam.width, 3),
                                tone_mapping=s.tone_mapping)

@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..accel.band import word_bounds
 from ..accel.bvh import build_bvh
 from ..accel.compact import unit_spheres
@@ -88,15 +89,31 @@ def _box_area(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
                   + d[..., 0] * d[..., 2])
 
 
+def _cluster_lambda(pmin: np.ndarray, pmax: np.ndarray, lam_frac: float):
+    """The cuts' cost a cluster: ``lam_frac`` of the scene box's area."""
+    return lam_frac * _box_area(pmin.min(axis=0), pmax.max(axis=0))
+
+
 def _cluster_cuts(pmin: np.ndarray, pmax: np.ndarray, sub: int = 64,
                   lam_frac: float = 0.005, chunk: int = 4096) -> np.ndarray:
     """Area-optimal segmentation of the leaf-ordered triangles into culling
-    clusters of <= ``sub`` triangles — the numpy DP of the reference's
-    ``_cluster_cuts`` (build.py:97): minimizes sum(segment AABB area) +
-    lambda * n_segments over windows of ``sub``, exactly per ``chunk``.
-    Returns the cut positions, int64 [n_segments + 1] from 0 to T."""
+    clusters of <= ``sub`` triangles: the native C++ DP
+    (``radish_pt_tpu_torch/native``), equal to :func:`_cluster_cuts_numpy`
+    cut for cut; ``RADISH_NATIVE=0`` selects the numpy DP.  Returns the cut
+    positions, int64 [n_segments + 1] from 0 to T."""
+    if native.enabled():
+        return native.cluster_cuts(pmin, pmax, sub, _cluster_lambda(pmin, pmax, lam_frac),
+                                   chunk)
+    return _cluster_cuts_numpy(pmin, pmax, sub, lam_frac, chunk)
+
+
+def _cluster_cuts_numpy(pmin: np.ndarray, pmax: np.ndarray, sub: int = 64,
+                        lam_frac: float = 0.005, chunk: int = 4096) -> np.ndarray:
+    """The numpy DP of the reference's ``_cluster_cuts`` (build.py:97):
+    minimizes sum(segment AABB area) + lambda * n_segments over windows of
+    ``sub``, exactly per ``chunk``, the last chunk padded to a whole one."""
     T = pmin.shape[0]
-    lam = lam_frac * _box_area(pmin.min(axis=0), pmax.max(axis=0))
+    lam = _cluster_lambda(pmin, pmax, lam_frac)
 
     n_chunks = -(-T // chunk)
     T_pad = n_chunks * chunk

@@ -172,12 +172,12 @@ def compute_frame(r, spp_per_frame: int = 1):
     (uint8 display image [H, W, 3] on the device, frames advanced).  ReSTIR
     with ``spp_per_frame`` > 1 and no denoiser runs the batched path
     (``step_batched_restir``: one block of frames, a CUDA graph on the
-    card; not in mesh mode)."""
+    card; on a mesh when W*H splits into its tiles)."""
     from .config import Denoiser, Tracer
 
     s = r.settings
     if (s.tracer == Tracer.RESTIR_DI and spp_per_frame > 1
-            and s.denoiser == Denoiser.NONE and r.mesh is None):
+            and s.denoiser == Denoiser.NONE and r.n_alloc == r.n_pixels):
         return r.step_batched_restir(spp_per_frame), spp_per_frame
     disp = None
     for _ in range(spp_per_frame):

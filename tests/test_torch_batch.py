@@ -450,3 +450,26 @@ def test_capturable_block_makes_no_host_sync(engine, scene, monkeypatch):
         with guard:
             r.run_block(2)
         assert guard.seen == [], (tracer, guard.seen)
+
+
+def test_capturable_mesh_restir_block_makes_no_host_sync():
+    """The mesh's batched ReSTIR block over 3 tiles on one device (24x16,
+    tiles of 128 pixels, the dense engine): the whole block, exchanges
+    included, is what the card captures as one graph, and it makes no host
+    sync once its constants are built."""
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.parallel import sharding as sh
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cpu",
+                            intersector="dense")
+    cam = cam.replace(width=24, height=16)
+    mesh = sh.make_mesh(3, devices=[torch.device("cpu")] * 3)
+    r = Renderer(ds=ds, cam=cam, desc=None, device="cpu", mesh=mesh,
+                 settings=Settings(tracer=Tracer.RESTIR_DI, reservoir_size=4))
+    r.run_block(2)
+    guard = _HostSyncGuard()
+    with guard:
+        r.run_block(2)
+    assert guard.seen == [] and len(r._runners) == 1

@@ -1331,6 +1331,47 @@ def test_mesh_frame_on_one_card_equals_single_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("segments", [False, True], ids=["one_graph", "segments"])
+def test_mesh_batched_restir_equals_single_device(segments):
+    """Cornell ReSTIR (dense) 64x48 on 3 tiles of ``[cuda:0]`` (1,024
+    pixels a tile, not whole rows): ``step_batched_restir(3)``, a camera
+    move, again; the frames, reservoir and last G-buffer equal the
+    single-device renderer's bit for bit, as one CUDA graph over all tiles
+    and as one captured graph a (stage, tile) with the exchanges between
+    (what tiles on several cards run)."""
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.parallel import sharding as sh
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cuda",
+                            intersector="dense")
+    cam = cam.replace(width=64, height=48)
+    settings = Settings(tracer=Tracer.RESTIR_DI)
+    one = Renderer(ds=ds, cam=cam, settings=settings, device="cuda")
+    r = Renderer(ds=ds, cam=cam, settings=settings, device="cuda",
+                 mesh=sh.make_mesh(3, devices=[torch.device("cuda", 0)] * 3))
+    r.mesh_segments = segments
+    moved = (cam.position + torch.tensor([0.05, 0.0, 0.0], device="cuda")).tolist()
+    for k in range(2):
+        for x in (one, r):
+            x.step_batched_restir(3)
+        assert torch.equal(r._full(r.direct), one.direct)
+        for got, want in ((r._full(r.reservoir), one.reservoir),
+                          (r._full(r.gbuf_last), one.gbuf_last)):
+            for f, v in vars(want).items():
+                assert torch.equal(getattr(got, f), v), f
+        if k == 0:
+            for x in (one, r):
+                x.update_camera(position=moved)
+    runs = [held[1] for held in r._runners.values()]
+    assert r.batch_mode == "graph" and {run.mode for run in runs} == {"graph"}
+    assert len(runs) == (9 if segments else 1)
+
+
+@pytest.mark.cuda
 def test_nccl_world_of_one_gather_image():
     """A world of one on NCCL (tcp on 127.0.0.1, a free port): the global
     mesh is this card's one tile, and ``gather_image`` returns it."""

@@ -16,9 +16,13 @@ Tolerances, each with its reason:
   frames (tests/test_torch_restir.py: <= 2% of the pixels off, mean
   difference < 2e-3);
 * the denoiser in mesh mode: none (``torch.equal``) against SVGF on the
-  single-device inputs.
+  single-device inputs;
+* batched ReSTIR on a mesh, and ``merge_spatial`` on a tile with its halo,
+  against the single-device renderer and the full frame: none
+  (``torch.equal``), seam rows included (cornell, the plain sweeps).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -312,7 +316,8 @@ def test_renderer_mesh_steps(scenes):
 def test_renderer_mesh_batched_equals_step(scenes):
     """The path tracer's ``render_batched`` on 2 tiles (one block runner a
     tile), blocks of 2, equals four ``step()`` frames bit for bit;
-    ReSTIR's batched frames on a mesh raise, naming the roadmap."""
+    ReSTIR's batched frames on a mesh (``step_batched_restir``,
+    ``render_batched``) equal the single-device renderer's."""
     from radish_pt_tpu_torch.config import Settings, Tracer
     from radish_pt_tpu_torch.render.renderer import Renderer
 
@@ -327,10 +332,119 @@ def test_renderer_mesh_batched_equals_step(scenes):
     assert len(a._runners) == 2 and a.state.iteration == 4
     assert np.array_equal(got, b.render(4))
     r = make(Tracer.RESTIR_DI)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.step_batched_restir(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        r.render_batched(2, block=2)
+    one = Renderer(ds=ds, cam=cam, settings=Settings(tracer=Tracer.RESTIR_DI, trace_depth=2),
+                   device="cpu")
+    assert torch.equal(r.step_batched_restir(2), one.step_batched_restir(2))
+    assert np.array_equal(r.render_batched(2, block=2), one.render_batched(2, block=2))
+
+
+def _assert_restir_state_equal(mesh_r, one):
+    """The mesh renderer's accumulation, reservoir and last G-buffer,
+    gathered, equal the single-device renderer's bit for bit."""
+    assert torch.equal(mesh_r._full(mesh_r.direct), one.direct)
+    for got, want in ((mesh_r._full(mesh_r.reservoir), one.reservoir),
+                      (mesh_r._full(mesh_r.gbuf_last), one.gbuf_last)):
+        for f in dataclasses.fields(want):
+            assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+
+
+@pytest.mark.parametrize("segments", [False, True], ids=["one_runner", "segments"])
+@pytest.mark.parametrize("w,h,n_tile", [(16, 16, 2), (24, 16, 3)])
+def test_renderer_mesh_batched_restir_equals_one_device(scenes, w, h, n_tile, segments):
+    """Batched ReSTIR (T+S reuse) on a mesh equals the single-device
+    renderer running the same sequence bit for bit, seam rows included:
+    ``step_batched_restir(2)``, a camera move, ``step_batched_restir(2)``,
+    then ``render_batched(4, block=2)``.  16x16 on 2 tiles; 24x16 on 3
+    tiles of 128 pixels, not whole rows, so a halo spans a tile boundary
+    mid-row.  The tiles share the CPU: the whole block as one runner, and
+    (``mesh_segments``) as the runner a (stage, tile) that tiles on several
+    devices take.  The eager mesh ``step()`` keeps its seam rule and
+    differs."""
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render.renderer import Renderer
+
+    ds, cam = scenes("cornell_box.txt")
+    cam = cam.replace(width=w, height=h)
+
+    def make(mesh=None):
+        return Renderer(ds=ds, cam=cam, settings=Settings(tracer=Tracer.RESTIR_DI),
+                        device="cpu", mesh=mesh)
+    one, r = make(), make(_mesh(n_tile))
+    r.mesh_segments = segments
+    for k in range(2):
+        assert torch.equal(r.step_batched_restir(2), one.step_batched_restir(2))
+        _assert_restir_state_equal(r, one)
+        if k == 0:
+            for x in (r, one):
+                x.update_camera(position=t2n(x.cam.position) + np.float32([0.4, 0.2, 0.0]))
+    assert np.array_equal(r.render_batched(4, block=2), one.render_batched(4, block=2))
+    _assert_restir_state_equal(r, one)
+    assert r.state.iteration == one.state.iteration == 6 and r.batch_mode == "eager"
+    assert len(r._runners) == (3 * n_tile if segments else 1)
+    eager = make(_mesh(n_tile))
+    for x in (eager, one):
+        x.step()
+    assert not torch.equal(eager._full(eager.direct), one.direct)
+
+
+def test_webviewer_batched_restir_on_a_mesh(scenes):
+    """The webviewer's batched mode on a mesh renderer (ReSTIR, no
+    denoiser, 2 frames a display): one block through the mesh's runner,
+    the display equal to the single-device renderer's."""
+    from radish_pt_tpu_torch import webviewer as wv
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render.renderer import Renderer
+
+    ds, cam = scenes("cornell_box.txt")
+    cam = cam.replace(width=16, height=16)
+    r, one = (Renderer(ds=ds, cam=cam, settings=Settings(tracer=Tracer.RESTIR_DI),
+                       device="cpu", mesh=m) for m in (_mesh(2), None))
+    disp, n = wv.compute_frame(r, 2)
+    assert n == 2 and r.state.iteration == 2 and len(r._runners) == 1
+    assert torch.equal(disp, wv.compute_frame(one, 2)[0])
+
+
+@pytest.mark.parametrize("looper", [0, 3, 9998])
+def test_merge_spatial_halo_equals_full_frame(scenes, looper):
+    """``merge_spatial`` on each of 3 tiles of a 24x16 frame (128 pixels,
+    not whole rows), given its halo from ``halo_rows``, equals the full
+    frame's rows for the tile bit for bit, the sampler included; the tile
+    on its own rows alone (the eager step's seam rule) does not."""
+    from radish_pt_tpu_torch.parallel import sharding as sh
+    from radish_pt_tpu_torch.render import restir as rs
+    from radish_pt_tpu_torch.sampling import rng as trng
+    from torch_port_util import gbuffer_frame_arrays, gbuffer_frame_pair, reservoir_arrays
+    from torch_port_util import reservoir_pair
+
+    w, h = 24, 16
+    n = w * h
+    gen = np.random.default_rng(11)
+    temp = reservoir_pair(reservoir_arrays(gen, n))[1]
+    cur = gbuffer_frame_pair(gbuffer_frame_arrays(gen, n, n_ids=2, spread=0.3,
+                                                  depth=5.0))[1]
+    table = scenes("cornell_box.txt")[0].sobol
+    idx = torch.arange(n, dtype=torch.int32)
+    full, fs = rs.merge_spatial(temp, cur, w, h, trng.make_sampler(2, idx), table,
+                                looper=looper)
+    mesh = _mesh(3)
+    bounds = sh.tile_bounds(mesh, n)
+    part = [slice(lo, hi) for lo, hi in bounds]
+
+    def tile(x, sl):
+        return dataclasses.replace(x, **{f.name: getattr(x, f.name)[sl]
+                                         for f in dataclasses.fields(x)})
+    rows = [rs.spatial_rows(tile(temp, sl), tile(cur, sl), idx[sl]) for sl in part]
+    alone = 0
+    for t, sl in enumerate(part):
+        args = (tile(temp, sl), tile(cur, sl), w, h, trng.make_sampler(2, idx[sl]), table)
+        got, gs = rs.merge_spatial(*args, looper=looper, pixel_idx=idx[sl],
+                                   halo=sh.halo_rows(rows, bounds, t, w, CPU))
+        for f in dataclasses.fields(got):
+            assert torch.equal(getattr(got, f.name), getattr(full, f.name)[sl]), (t, f.name)
+        assert int(gs.ptr) == int(fs.ptr)
+        own, _ = rs.merge_spatial(*args, looper=looper, pixel_idx=idx[sl])
+        alone += int((own.num != full.num[sl]).sum())
+    assert alone > 0 and float((full.num > 0).float().mean()) > 0.3
 
 
 def test_renderer_mesh_checkpoint_roundtrip(scenes, tmp_path):
@@ -362,7 +476,9 @@ def test_renderer_mesh_checkpoint_roundtrip(scenes, tmp_path):
 
 def test_cli_mesh(tmp_path, monkeypatch):
     """``--mesh`` builds its mesh over the visible CUDA devices: too few
-    raise with the count; two visible devices (here the CPU, twice) render."""
+    raise with the count; two visible devices (here the CPU, twice) render,
+    the path tracer frame by frame and ReSTIR in batched blocks
+    (``--tracer restir --batch-spp 2``)."""
     from radish_pt_tpu_torch.cli import main
     from radish_pt_tpu_torch.parallel import sharding as sh
 
@@ -373,6 +489,9 @@ def test_cli_mesh(tmp_path, monkeypatch):
         main(args + ["--mesh", "2"])
     monkeypatch.setattr(sh, "visible_devices", lambda: [CPU, CPU])
     assert main(args + ["--mesh", "2"]) == 0
+    assert (tmp_path / "m.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    (tmp_path / "m.png").unlink()
+    assert main(args + ["--mesh", "2", "--tracer", "restir", "--batch-spp", "2"]) == 0
     assert (tmp_path / "m.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
     with pytest.raises(RuntimeError, match="needs 4 devices"):
         main(args + ["--mesh", "2x2"])
