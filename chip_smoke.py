@@ -118,7 +118,12 @@ CUDA kernels of those paths against their plain torch versions.  Phases:
    (block x (d + 1) closest hits and block x d shadow sweeps) from the
    replay counters and from a ``torch.profiler`` trace of one replay,
    and, timed with CUDA events, the batched ms/frame beside the eager
-   ``step()`` frame and the device-busy share of a profiled block;
+   ``step()`` frame and the device-busy share of a profiled block; then
+   the benchmark's two entries on cornell at 800x800 (``run_block(4)`` of
+   the path tracer, ``step_batched_restir(1)`` with the camera orbiting):
+   the tracing's ``host_syncs`` a call equal to the synchronizing
+   operations ``torch.cuda.set_sync_debug_mode("warn")`` reports, over 3
+   calls after the first (0 and 1 a call);
 8. with ``--parent DIR``: eager ``step()`` and replayed-block ms/frame of
    teapot, teapot_hires, glass, env_teapot and cornell ReSTIR for the
    checkout at DIR and for this tree, each in a subprocess of its own
@@ -1659,6 +1664,41 @@ def parent_kernel_times(parent: str, scenes, inputs, log, card) -> dict:
     return out
 
 
+def sync_counts(scenes, log) -> dict:
+    """Phase 7's last check: on cornell at the benchmark's size, the
+    tracing's ``host_syncs`` a call against the synchronizing operations
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports for the same call,
+    on the benchmark's two entries (3 calls after the first, which warms
+    up and captures).  Returns {entry: [(counted, reported)] a call}."""
+    import torch
+
+    from radish_pt_tpu_torch.config import Denoiser, ReservoirReuse, Settings, Tracer
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.utils import timing
+
+    ds, cam = scenes["cornell"]
+    pt_r = Renderer(ds=ds, cam=cam, desc=None, device=ds.device, settings=Settings(
+        tracer=Tracer.STREAMED, trace_depth=DEPTH, denoiser=Denoiser.NONE))
+    rs_r = Renderer(ds=ds, cam=cam, desc=None, device=ds.device, settings=Settings(
+        tracer=Tracer.RESTIR_DI, reservoir_reuse=ReservoirReuse.TEMPORAL_SPATIAL,
+        reservoir_size=32, temporal_clamp=20, denoiser=Denoiser.NONE,
+        animate_camera=True, animate_radius=2.0, animate_speed=1.0))
+    out = {}
+    for entry, call, want in (("run_block(4)", lambda: pt_r.run_block(4), 0),
+                              ("step_batched_restir(1)", lambda: rs_r.step_batched_restir(1), 1)):
+        call()
+        torch.cuda.synchronize()
+        out[entry] = []
+        for _ in range(3):
+            counted, reported = timing.sync_check(call)
+            out[entry].append((counted, len(reported)))
+            assert counted == len(reported) == want, (entry, counted, reported)
+        torch.cuda.synchronize()
+        log(f"[syncs] cornell {cam.width}x{cam.height} {entry}: host_syncs a call "
+            f"{[c for c, _ in out[entry]]}, sync debug mode {[n for _, n in out[entry]]}")
+    return out
+
+
 def mesh_phase(scenes, log, card) -> dict:
     """Phase 9: the multi-device path on one card, each tile of a mesh
     over ``[cuda:0] * n`` (parallel/sharding.py).  Each path is driven
@@ -2084,6 +2124,7 @@ def main(argv=None) -> int:
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.scene.build import build_device_scene, load_scene
     from radish_pt_tpu_torch.scene.parser import parse_scene
+    from radish_pt_tpu_torch.utils import timing
 
     assert "jax" not in sys.modules
     t_start = time.perf_counter()
@@ -2113,17 +2154,18 @@ def main(argv=None) -> int:
     th.join()
     t_build = time.perf_counter() - t0
     assert "path" in host_build, "the native host library did not build"
+    built = timing.counters()
     log(f"[build] native host library (g++ {' '.join(native.CXX_FLAGS)}) -> "
-        f"{os.path.relpath(host_build['path'], REPO)} in "
-        f"{native.BUILD_SECONDS if native.BUILD_SECONDS is None else round(native.BUILD_SECONDS, 2)}"
-        f" s (None: reused), beside the kernels")
+        f"{os.path.relpath(host_build['path'], REPO)} "
+        f"({'built' if built.get('native.built') else 'reused'}), beside the kernels")
     for lib in SOURCES:
-        s = _build.BUILD_SECONDS.get(lib)
-        log(f"[build] csrc/{lib}.cu -> "
-            f"{os.path.relpath(_build.library_path(lib), REPO)} in "
-            f"{s if s is None else round(s, 2)} s (None: reused a library built "
-            f"before this run)")
-    log(f"[build] all {len(SOURCES)} sources, in parallel: {t_build:.2f} s wall")
+        log(f"[build] csrc/{lib}.cu -> {os.path.relpath(_build.library_path(lib), REPO)}")
+    spans = timing.snapshot()["unprofiled"]
+    log(f"[build] {built.get('kernels.built', 0)} of {len(_build.SIGNATURES)} libraries "
+        f"compiled (the rest reused from before this run); set-up spans: kernel libraries "
+        f"{spans.get('setup.kernel_libs', {}).get('total_s', 0.0):.2f} s, native "
+        f"{spans.get('setup.native', {}).get('total_s', 0.0):.2f} s (the two in parallel)")
+    log(f"[build] all {len(_build.SIGNATURES)} sources, in parallel: {t_build:.2f} s wall")
     for lib in SOURCES:  # ptxas -v: empty when the library was built before
         for kernel, use in _build.kernel_resources(lib).items():
             log(f"[build] {lib}: {kernel}: {use['registers']} registers, spills "
@@ -3006,6 +3048,7 @@ def main(argv=None) -> int:
     # ---- 7. batched frames: one CUDA graph a block ----
     batched = batched_phase(scenes, log, card)
     log(f"[batched] {json.dumps(batched)}")
+    log(f"[syncs] {json.dumps(sync_counts(scenes, log))}")
     log(f"[sliced] {json.dumps(sliced_record)}")
     log(f"[phase] 8 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 8. frame times beside the parent checkout's (--parent) ----

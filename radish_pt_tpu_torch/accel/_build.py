@@ -8,7 +8,9 @@ headers and the flags, so an edited kernel rebuilds and an unchanged one is
 reused.  :func:`build_all` starts one ``nvcc`` per source at once.  A
 build may take its sources from another ``csrc`` directory into another
 build directory (another checkout's kernels, timed beside these).  Nothing
-here runs at import time.
+here runs at import time.  Builds and loads are the set-up span
+``setup.kernel_libs`` (utils/timing.py); counter ``kernels.built``, one an
+nvcc run.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import os
 import re
 import shutil
 import subprocess
-import time
+
+from ..utils import timing
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -80,10 +83,13 @@ SIGNATURES = {
         # mode, active (or NULL), N, band form, miss_extra, key, stream
         "signature_key": [_P, _I, _P, _P, _P, ctypes.c_float, _I, _P, _I, _I, _I, _P, _P],
     },
+    "stage_mark": {
+        # stage index (utils/timing.py STAGES), stream
+        "stage_mark": [_I, _P],
+    },
 }
 
 _libs: dict = {}
-BUILD_SECONDS: dict = {}  # library name -> seconds spent compiling
 PTXAS_LOG: dict = {}  # library name -> nvcc's output of a verbose build
 
 
@@ -113,29 +119,30 @@ def build_all(names=tuple(SIGNATURES), verbose: bool = False,
     it prints in :data:`PTXAS_LOG` (registers, spills per kernel).
     ``defines`` are extra ``-DNAME=value`` flags (a tuning variant: its own
     library)."""
-    os.makedirs(build_dir, exist_ok=True)
-    jobs = {}
-    for name in names:
-        path = library_path(name, defines, csrc, build_dir)
-        if os.path.exists(path):
-            continue
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [find_nvcc(), *NVCC_FLAGS, *defines,
-               *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, os.path.join(csrc, f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, path, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, path, t0) in jobs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}:\n{out}")
-            continue
-        if verbose:
-            PTXAS_LOG[name] = out
-        os.replace(tmp, path)
-        BUILD_SECONDS[name] = time.perf_counter() - t0
+    with timing.span("setup.kernel_libs"):
+        os.makedirs(build_dir, exist_ok=True)
+        jobs = {}
+        for name in names:
+            path = library_path(name, defines, csrc, build_dir)
+            if os.path.exists(path):
+                continue
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = [find_nvcc(), *NVCC_FLAGS, *defines,
+                   *(["-Xptxas", "-v"] if verbose else []),
+                   "-o", tmp, os.path.join(csrc, f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, tmp, path)
+        failed = []
+        for name, (proc, tmp, path) in jobs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}:\n{out}")
+                continue
+            if verbose:
+                PTXAS_LOG[name] = out
+            os.replace(tmp, path)
+            timing.count("kernels.built")
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: library_path(name, defines, csrc, build_dir) for name in names}
@@ -175,11 +182,12 @@ def load_library(name: str, defines: tuple = (), csrc: str = CSRC,
     lib = _libs.get(name) if own else None
     if lib is not None:
         return lib
-    lib = ctypes.CDLL(build_all((name,), defines=defines, csrc=csrc,
-                                build_dir=build_dir)[name])
-    for fn, argtypes in SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _I
+    path = build_all((name,), defines=defines, csrc=csrc, build_dir=build_dir)[name]
+    with timing.span("setup.kernel_libs"):
+        lib = ctypes.CDLL(path)
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
     if own:
         _libs[name] = lib
     return lib

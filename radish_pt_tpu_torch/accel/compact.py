@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
 from .plucker import (PACKED_WIDTH, ROW, blocks, hit_t, plucker_features,
                       sweep_any, sweep_closest)
 from .traverse import FLT_MAX, NULL_PRIMITIVE, segment_rays
@@ -369,6 +370,7 @@ def work_list(flags, tn):
     exact int64 key ``row << 32 | bits(tn)``: tn >= 0, so its f32 bits
     order like the floats.  ``nonzero`` costs a host sync."""
     rows = flags.shape[0]
+    timing.host_sync()
     row, unit = torch.nonzero(flags, as_tuple=True)
     t = tn[row, unit].abs()  # -0.0 -> +0.0, whose bits sort first
     key = (row << 32) | t.view(torch.int32).to(torch.int64)

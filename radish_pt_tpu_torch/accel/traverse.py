@@ -42,6 +42,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import timing
+
 NULL_PRIMITIVE = -1
 RAY_OFFSET = 1e-5  # reference makeOffsetedRay (intersections.h:16-18)
 SHADOW_EPS = 1e-4  # shadow segments stop this short of their end
@@ -524,6 +526,7 @@ def bin_by_dir_class_cuda(ray_d, tmax=None):
         raise ValueError(f"ray_d must be [N, 3], got {tuple(ray_d.shape)}")
     ws = bin_cuda(ray_d, tmax, NO_OUT)
     counts = ws[DIR_CLASSES * n:DIR_CLASSES * n + DIR_CLASSES]
+    timing.host_sync()
     queue = torch.cat([ws[k * n:k * n + c] for k, c in enumerate(counts.tolist())])
     return queue, counts
 

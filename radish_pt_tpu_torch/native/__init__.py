@@ -14,7 +14,9 @@ The library is compiled with ``g++`` at first use into
 hash of the sources and the flags, and written under a temporary name and
 then renamed, so processes that build it at once each see a whole file.  A
 failed build or load raises with the compiler's output: nothing falls back
-to numpy in silence.  Nothing here runs at import time.
+to numpy in silence.  Nothing here runs at import time.  The build and the
+load are the set-up span ``setup.native`` (utils/timing.py), a compile
+counted as ``native.built``.
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 
 import numpy as np
+
+from ..utils import timing
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(_HERE, "src")
@@ -38,7 +41,6 @@ CXX_FLAGS = ["-O2", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC"]
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 _lib = None
-BUILD_SECONDS = None  # seconds this process spent compiling the library
 
 
 def enabled() -> bool:
@@ -56,26 +58,25 @@ def library_path() -> str:
 
 def build() -> str:
     """Compile the library if its hashed file is missing; returns its path."""
-    global BUILD_SECONDS
-    path = library_path()
-    if os.path.exists(path):
+    with timing.span("setup.native"):
+        path = library_path()
+        if os.path.exists(path):
+            return path
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError("the native host build needs g++ (RADISH_NATIVE=0 selects "
+                               "the numpy builders)")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp,
+                               *(os.path.join(SRC, s) for s in SOURCES)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed to build the native host library:\n"
+                               f"{proc.stderr}{proc.stdout}")
+        os.replace(tmp, path)
+        timing.count("native.built")
         return path
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError("the native host build needs g++ (RADISH_NATIVE=0 selects "
-                           "the numpy builders)")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp,
-                           *(os.path.join(SRC, s) for s in SOURCES)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed to build the native host library:\n"
-                           f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, path)
-    BUILD_SECONDS = time.perf_counter() - t0
-    return path
 
 
 def load_library():
@@ -83,7 +84,9 @@ def load_library():
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(build())
+    path = build()
+    with timing.span("setup.native"):
+        lib = ctypes.CDLL(path)
     lib.radish_build_bvh.restype = ctypes.c_int
     lib.radish_build_bvh.argtypes = [_P, ctypes.c_int, ctypes.c_int] + [_P] * 10
     lib.radish_cluster_cuts.restype = _I64

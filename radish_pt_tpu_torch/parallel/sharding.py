@@ -47,6 +47,7 @@ from ..config import ReservoirReuse
 from ..render import gbuffer as gb
 from ..render import pathtrace as pt
 from ..render import restir as rs
+from ..utils import timing
 
 # looper stride between the sample axis' replicas (the JAX package's 37)
 SAMPLE_STRIDE = 37
@@ -374,24 +375,32 @@ def restir_batch_sharded(mesh: Mesh, ds, idx: list, cam, last_cam, looper0, gbuf
         def fn(cam, last_cam, res, last):
             g, motion = gb.render_gbuffer(scene[t], cam, last_cam, encode_normal=encode_normal,
                                           pixel_idx=idx[t], extra_motion_cam=cam)
-            return g, motion, rs.temporal_rows(res, last)
+            rows = rs.temporal_rows(res, last)
+            timing.mark("end", scene[t].device)
+            return g, motion, rows
         return fn
 
     def front(t):
         def fn(cam, looper, g, first, rows):
             lanes, res = rs.restir_candidates(scene[t], cam, looper, idx[t], reservoir_size)
             if temporal:
+                timing.mark("temporal", scene[t].device)
                 lanes, res = rs.restir_temporal(lanes, res, rows, g, first, clamp,
                                                 scene[t].sobol)
             out = rs._check_validity(res)
-            return lanes, res, out, rs.spatial_rows(out, g.frame, idx[t])
+            rows = rs.spatial_rows(out, g.frame, idx[t])
+            timing.mark("end", scene[t].device)
+            return lanes, res, out, rows
         return fn
 
     def back(t):
         def fn(cam, looper, lanes, res, out, g, halo, acc, it):
             d = rs.restir_shade(scene[t], cam, looper, lanes, res, out, g, spatial, idx[t],
                                 halo=(halo, halo_base[t]))
-            return pt.accumulate(acc, pt.scrub_and_compress(d), it), rs.temporal_rows(out, g.frame)
+            acc = pt.accumulate(acc, pt.scrub_and_compress(d), it)
+            rows = rs.temporal_rows(out, g.frame)
+            timing.mark("end", scene[t].device)
+            return acc, rows
         return fn
 
     h = rs.HALO * cam.width + rs.HALO

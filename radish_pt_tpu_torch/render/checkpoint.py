@@ -20,11 +20,14 @@ import os
 import numpy as np
 import torch
 
+from ..utils import timing
+
 FORMAT_VERSION = 1
 
 
 def _np(t: torch.Tensor, rows: int | None = None) -> np.ndarray:
     """``t`` on the host, zero rows appended up to ``rows``."""
+    timing.host_sync()
     a = t.detach().cpu().numpy()
     if rows is not None and a.shape[0] < rows:
         a = np.concatenate([a, np.zeros((rows - a.shape[0], *a.shape[1:]), a.dtype)])

@@ -20,6 +20,7 @@ import torch
 from ..scene import camera as cam_mod
 from ..scene import device_scene as dsc
 from ..utils import math as m
+from ..utils import timing
 
 NULL_PRIMITIVE = -1
 LIGHT_ID = NULL_PRIMITIVE - 1  # lights in the id channel (gBuffer.cu:36)
@@ -76,7 +77,8 @@ def render_gbuffer(ds: dsc.DeviceScene, cam: cam_mod.Camera,
     scene's device): only those pixels, a tile of a mesh; motion stays a
     global index into the last frame.  With ``extra_motion_cam`` returns
     ``(GBufferOut, motion2)``: a second motion field through that camera
-    (same hits)."""
+    (same hits).  Device stage ``gbuffer`` (utils/timing.py)."""
+    timing.mark("gbuffer", ds.device)
     idx = pixel_idx
     if idx is None:
         idx = torch.arange(cam.width * cam.height, dtype=torch.int32, device=ds.device)

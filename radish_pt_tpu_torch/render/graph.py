@@ -20,14 +20,23 @@ scene's engine and device before anything is captured (:func:`batch_mode`):
 The kernels' launch counters count a wrapper's call, which a capture makes
 without launching anything on the card: the runner takes back what the
 capture counted and adds it again on every replay, so ``LAUNCHES`` keeps
-counting the launches the card ran.
+counting the launches the card ran; so too the tracing registry's
+counters (utils/timing.py: the stage marks, ``marks.<stage>``).
+
+Spans (utils/timing.py): ``graph.build`` (the first call: ``graph.warmup``,
+the eager block on a side stream, and ``graph.capture``), then on every
+later call ``block.inputs`` (the ``copy_`` into the static inputs) and
+``block.replay``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import torch
+
+from ..utils import timing
 
 # engines whose frame runs without a host sync: their blocks are captured
 CAPTURABLE_ENGINES = frozenset({"plucker", "band", "quad", "dense", "bvh"})
@@ -123,8 +132,9 @@ class BlockRunner:
         self.graph = None
         self.static: dict = {}
         self.outputs: dict = {}
-        # (engine, counter) -> {name: count} one replay adds
-        self.per_replay: dict = {}
+        # ((engine, counter), counter dict, {name: count} one replay adds)
+        self._replay_adds: list = []
+        self.counts_per_replay: dict = {}  # tracing counter (marks.*) -> count a replay adds
         self.replays = 0
 
     def _body(self, x: dict) -> dict:
@@ -141,16 +151,20 @@ class BlockRunner:
         if self.mode == "eager":
             return unflatten(self._body(inputs), self._out)
         if self.graph is None:
-            self._capture(inputs)
+            with timing.span("graph.build"):
+                self._capture(inputs)
         else:
-            for name, value in inputs.items():
-                if value is not self.static[name]:
-                    self.static[name].copy_(value)
-        self.graph.replay()
-        for key, delta in self.per_replay.items():
-            counter = _counters()[key]
-            for name, n in delta.items():
-                counter[name] += n
+            with timing.span("block.inputs"):
+                for name, value in inputs.items():
+                    if value is not self.static[name]:
+                        self.static[name].copy_(value)
+        with timing.span("block.replay"):
+            self.graph.replay()
+            for _, counter, delta in self._replay_adds:
+                for name, n in delta.items():
+                    counter[name] += n
+            for name, n in self.counts_per_replay.items():
+                timing.count(name, n)
         self.replays += 1
         out = dict(self.outputs)
         out.update({o: self.static[i] for o, i in self.carry.items()})
@@ -161,23 +175,40 @@ class BlockRunner:
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
-        with torch.cuda.stream(side):
+        with timing.span("graph.warmup"), torch.cuda.stream(side):
             self._body(self.static)  # warm-up: kernels and constants built
         current.wait_stream(side)
-        counters = _counters()
-        before = {key: dict(c) for key, c in counters.items()}
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            outputs = self._body(self.static)
-            for out, name in self.carry.items():
-                self.static[name].copy_(outputs[out])
-        for key, counter in counters.items():
-            self.per_replay[key] = {n: counter[n] - before[key][n] for n in counter}
-            counter.update(before[key])  # the capture launched nothing
+        with timing.span("graph.capture") as sp:
+            counters = _counters()
+            before = {key: dict(c) for key, c in counters.items()}
+            graph = torch.cuda.CUDAGraph()
+            # no garbage collection while capturing: a dead reference cycle
+            # that holds another block's CUDA graph (a renderer and its
+            # runners) would free that graph mid-capture, which CUDA does
+            # not permit on a capturing stream, and the capture fails
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    outputs = self._body(self.static)
+                    for out, name in self.carry.items():
+                        self.static[name].copy_(outputs[out])
+            finally:
+                if collecting:
+                    gc.enable()
+            self._replay_adds = [
+                (key, counter, {n: counter[n] - before[key][n] for n in counter})
+                for key, counter in counters.items()]
+            for key, counter in counters.items():
+                counter.update(before[key])  # the capture launched nothing
+            # what the capture counted on this thread (the marks), taken back
+            self.counts_per_replay = {n: c for n, c in sp.counts.items() if c}
+            for name, n in self.counts_per_replay.items():
+                timing.count(name, -n)
         self.outputs = {k: v for k, v in outputs.items() if k not in self.carry}
         self.graph = graph
 
     def launches_per_replay(self) -> dict:
         """engine -> {kernel: launches} of one replay (graph mode)."""
-        return {mod: dict(d) for (mod, attr), d in self.per_replay.items()
+        return {mod: dict(d) for (mod, attr), _, d in self._replay_adds
                 if attr == "LAUNCHES"}

@@ -57,6 +57,7 @@ from ..sampling.alias import alias_sample
 from ..scene import camera as cam_mod
 from ..scene import device_scene as dsc
 from ..utils import math as m
+from ..utils import timing
 
 NULL_PRIMITIVE = -1
 TILE_W, TILE_H = 16, 8  # 128 lanes = one 8x16 pixel tile
@@ -167,7 +168,12 @@ def path_trace(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, max_depth: int,
     order for a shard) — the reference's split: ``direct`` holds
     primary-visible emission + first-vertex NEE, everything else lands in
     ``indirect`` (pathtrace.cu:203,244,269).
+
+    Device stages (utils/timing.py): ``primary``, then a bounce's ``nee``,
+    ``bsdf``, ``extend`` and ``hit``, then ``accumulate`` at the end (the
+    caller's scrub and accumulation).
     """
+    timing.mark("primary", ds.device)
     idx, untile = _lanes(ds, cam, pixel_idx)
     sampler = rng.make_sampler(looper, idx)
 
@@ -199,6 +205,7 @@ def path_trace(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, max_depth: int,
         direct, indirect = _dense_bounce_loop(*state)
     if untile is not None:  # back to pixel order (pure transpose)
         direct, indirect = untile(direct), untile(indirect)
+    timing.mark("accumulate", ds.device)
     return direct, indirect
 
 
@@ -239,7 +246,8 @@ def _bsdf_advance(ds, sampler, active, mat, norm, wo, throughput):
 def _vertex(ds, sampler, active, mat, norm, ray_d, pos, throughput, lane=None):
     """One path vertex (pathtrace.cu:187-223): two-sided shading normal,
     NEE, BSDF sample.  Returns (NEE contrib, sampler, active, throughput,
-    new_dir, pdf, delta_sample)."""
+    new_dir, pdf, delta_sample).  Device stages ``nee``, then ``bsdf``."""
+    timing.mark("nee", ds.device)
     wo = -ray_d
     is_delta_bsdf = mat.mtype == dsc.MAT_DIELECTRIC
     # two-sided shading for non-delta materials (pathtrace.cu:190-193)
@@ -247,6 +255,7 @@ def _vertex(ds, sampler, active, mat, norm, ray_d, pos, throughput, lane=None):
     norm = torch.where(flip[..., None], -norm, norm)
     contrib, sampler = _nee_contrib(ds, sampler, active, mat, norm, wo, pos, throughput,
                                     lane)
+    timing.mark("bsdf", ds.device)
     return (contrib, *_bsdf_advance(ds, sampler, active, mat, norm, wo, throughput))
 
 
@@ -289,7 +298,9 @@ def _dense_bounce_loop(ds, sampler, active, throughput, direct, indirect, pos, n
         else:
             indirect = indirect + contrib
         # ---- extend ray (pathtrace.cu:225-228) ----
+        timing.mark("extend", ds.device)
         it = dsc.intersect_sorted(ds, pos + new_dir * 1e-5, new_dir, active=active)
+        timing.mark("hit", ds.device)
         indirect, active, mat, norm = _shade_hit(
             ds, indirect, active, throughput, it.prim_id, it.pos, it.norm, it.uv,
             it.mat_id, new_dir, pdf, delta, pos)
@@ -328,6 +339,7 @@ def _advance(ds, ptr, key, fcol, icol, with_vertex: bool):
     delta = (icol[:, _LANE] & 1) == 1
     prim, bary = dsc.intersect_ids(ds, o, d, act)
     pos, norm, uv, mat_id = dsc.surface_from_ids(ds, prim, bary, o, d)
+    timing.mark("hit", ds.device)
     acc, act, mat, norm = _shade_hit(ds, acc, act, thr, prim, pos, norm, uv, mat_id, d,
                                      pdf, delta, prev)
     if not with_vertex:
@@ -372,6 +384,7 @@ def _sliced_bounce_loop(ds, sampler, active, throughput, direct, indirect, pos, 
                         (lane << 1) | delta.to(torch.int64), sampler.scramble)
     ptr, extent, live_counts = sampler.ptr, n, []
     for bounce in range(1, max_depth + 1):
+        timing.mark("extend", ds.device)
         # compact and order the pending rays on (key, lane id), as the
         # dense loop's sorted sweeps order them; lanes at or past
         # ``extent`` are dead since an earlier bounce
@@ -380,6 +393,7 @@ def _sliced_bounce_loop(ds, sampler, active, throughput, direct, indirect, pos, 
         fcol[:extent] = fcol[:extent].index_select(0, order)
         icol[:extent] = icol[:extent].index_select(0, order)
         live = int((key_s < sk.DEAD_KEY_BIT).sum())  # the bounce's one host read
+        timing.host_sync()
         live_counts.append(live)
         extent = min(n, -(-live // width) * width)
         if extent == 0:
@@ -400,7 +414,9 @@ def path_trace_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper,
                       pixel_idx=None):
     """One-bounce direct lighting — ``PTDirectKernel`` (pathtrace.cu:293-345):
     primary-visible emission plus one NEE sample per pixel.  Returns
-    direct [N, 3] in raster order (``pixel_idx`` as :func:`path_trace`)."""
+    direct [N, 3] in raster order (``pixel_idx`` as :func:`path_trace`).
+    Device stages ``primary``, ``nee``, ``accumulate``."""
+    timing.mark("primary", ds.device)
     idx, untile = _lanes(ds, cam, pixel_idx)
     sampler = rng.make_sampler(looper, idx)
 
@@ -420,6 +436,7 @@ def path_trace_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper,
     norm = torch.where(flip[..., None], -norm, norm)
 
     shade = hit & ~is_light & ~is_delta_bsdf
+    timing.mark("nee", ds.device)
     r4, sampler = rng.sample_4d(ds.sobol, sampler)
     li, wi, light_pdf = dsc.sample_direct_light(ds, it.pos, r4, mask=shade,
                                                 shade_normal=norm)
@@ -430,6 +447,7 @@ def path_trace_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper,
     direct = direct + _mask3(ok, contrib)
     if untile is not None:
         direct = untile(direct)
+    timing.mark("accumulate", ds.device)
     return direct
 
 

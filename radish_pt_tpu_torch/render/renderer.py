@@ -53,6 +53,7 @@ from ..scene import camera as cam_mod
 from ..scene.build import load_scene
 from ..scene.image_io import save_image, write_hdr
 from ..utils import math as m
+from ..utils import timing as tracing
 from ..utils.timing import PassTimer
 from . import denoise as dn
 from . import gbuffer as gb
@@ -78,6 +79,7 @@ def _pt_batch(ds, cam, looper0, direct, indirect, iteration, *, max_depth: int,
         d, ind = pt.path_trace(ds, cam, looper0 + k, max_depth, n_slices=n_slices)
         direct = pt.accumulate(direct, pt.scrub_and_compress(d), iteration + k)
         indirect = pt.accumulate(indirect, pt.scrub_and_compress(ind), iteration + k)
+    tracing.mark("end", ds.device)
     return direct, indirect
 
 
@@ -90,6 +92,7 @@ def _pt_tile_batch(ds, cam, looper0, direct, iteration, pixel_idx, *, max_depth:
     for k in range(block):
         d, ind = pt.path_trace(ds, cam, looper0 + k, max_depth, pixel_idx, n_slices=n_slices)
         direct = pt.accumulate(direct, pt.scrub_and_compress(d + ind), iteration + k)
+    tracing.mark("end", ds.device)
     return direct
 
 
@@ -113,6 +116,7 @@ def _restir_batch(ds, cam, last_cam, looper0, gbuf_last, reservoir, first_frame,
             gbuf_last if k == 0 else gbuf.frame, reservoir,
             first_frame if k == 0 else False, reuse, reservoir_size, clamp)
         direct = pt.accumulate(direct, pt.scrub_and_compress(d), iteration + k)
+    tracing.mark("end", ds.device)
     return direct, reservoir, gbuf
 
 
@@ -173,6 +177,7 @@ class Renderer:
                                                   self.gbuf_last, self.reservoir))
             self.mesh_segments = len(set(mesh.tile_devices)) > 1
         self.first_frame = True
+        tracing.host_sync()
         self._orig_cam_pos = self.cam.position.cpu().numpy()
         self._time = 0.0
         self._last_image = None
@@ -207,22 +212,31 @@ class Renderer:
     def update_camera(self, **kwargs):
         """Set camera parameters (position, rotation, ...) and reset the
         accumulation — the State::camChanged path (main.cpp:177-182)."""
-        cam = self.cam
-        for k, v in kwargs.items():
-            cam = cam.replace(**{k: torch.as_tensor(np.asarray(v, np.float32),
-                                                    device=self.device)})
-        self.cam = cam_mod.update_camera(cam)
-        self._orig_cam_pos = self.cam.position.cpu().numpy()
+        with tracing.span("frame.camera"):
+            cam = self.cam
+            with tracing.span("frame.camera_upload"):
+                for k, v in kwargs.items():  # copies from pageable memory: the host waits
+                    tracing.host_sync()
+                    cam = cam.replace(**{k: torch.as_tensor(np.asarray(v, np.float32),
+                                                            device=self.device)})
+            self.cam = cam_mod.update_camera(cam)
+            tracing.host_sync()
+            self._orig_cam_pos = self.cam.position.cpu().numpy()
         self.reset_accumulation()
 
     def _animate_camera(self, dt: float = 1.0 / 60.0):
-        """Circle the camera about its start (Settings::animateCamera)."""
+        """Circle the camera about its start (Settings::animateCamera).
+        The new eye is copied from pageable host memory, which waits for
+        the card: one host sync a call (span ``frame.camera_upload``)."""
         s = self.settings
-        self._time += dt * s.animate_speed
-        offset = np.array([np.cos(self._time), 0.0, np.sin(self._time)],
-                          np.float32) * s.animate_radius
-        pos = torch.from_numpy(self._orig_cam_pos + offset).to(self.device)
-        self.cam = cam_mod.update_camera(self.cam.replace(position=pos))
+        with tracing.span("frame.camera"):
+            self._time += dt * s.animate_speed
+            offset = np.array([np.cos(self._time), 0.0, np.sin(self._time)],
+                              np.float32) * s.animate_radius
+            with tracing.span("frame.camera_upload"):
+                tracing.host_sync()
+                pos = torch.from_numpy(self._orig_cam_pos + offset).to(self.device)
+            self.cam = cam_mod.update_camera(self.cam.replace(position=pos))
         self.reset_accumulation()
 
     # ------------------------------------------------------------------
@@ -234,6 +248,7 @@ class Renderer:
         value (before the scrub zeroes it)."""
         if self.debug_nans:
             for img in images:
+                tracing.host_sync()
                 if not bool(torch.isfinite(img).all()):
                     raise FloatingPointError(
                         f"non-finite {what} output at iteration {self.state.iteration}, "
@@ -265,8 +280,18 @@ class Renderer:
     def step(self):
         """Render one frame; returns the uint8 display image [H, W, 3] as a
         tensor on the renderer's device."""
-        if self.mesh is not None:
-            return self._step_sharded()
+        with tracing.call("call.step"):
+            if self.mesh is not None:
+                return self._step_sharded()
+            return self._step()
+
+    def _display(self, image):
+        """The uint8 display image of the HDR ``image`` [N, 3]."""
+        with tracing.span("frame.display"):
+            return post.to_display(image.reshape(self.cam.height, self.cam.width, 3),
+                                   tone_mapping=self.settings.tone_mapping)
+
+    def _step(self):
         s, st, timer = self.settings, self.state, self.timer
         if s.animate_camera:
             self._animate_camera()
@@ -307,6 +332,7 @@ class Renderer:
             # direct and indirect go through the denoiser apart: the
             # reference filters each with its own SpatioTemporalFilter
             # (main.cpp:95-97, DENOISER_SPLIT_DIRECT_INDIRECT common.h:10)
+            tracing.mark("end", self.device)
             with timer.time("denoise"):
                 image = self._apply_denoiser(self.direct, self.indirect)
             denoised = True
@@ -318,12 +344,12 @@ class Renderer:
                                             st.iteration)
             image = self.direct
         if not denoised:
+            tracing.mark("end", self.device)
             with timer.time("denoise"):
                 image = self._apply_denoiser(image)
         self._last_image = image
         with timer.time("display"):
-            disp = post.to_display(image.reshape(self.cam.height, self.cam.width, 3),
-                                   tone_mapping=s.tone_mapping)
+            disp = self._display(image)
 
         # frame bookkeeping (main.cpp:199-200, pathtrace.cu:380-384)
         st.iteration += 1
@@ -371,12 +397,12 @@ class Renderer:
         self.gbuf = None
         if tiles is not None and s.denoiser in (Denoiser.EA_WAVELET, Denoiser.SVGF):
             self.gbuf = self._full(tiles)
+        tracing.mark("end", self.device)
         with timer.time("denoise"):
             image = self._apply_denoiser(self._full(self.direct))
         self._last_image = image
         with timer.time("display"):
-            disp = post.to_display(image.reshape(self.cam.height, self.cam.width, 3),
-                                   tone_mapping=s.tone_mapping)
+            disp = self._display(image)
         st.iteration += 1
         st.looper = (st.looper + 1) % SOBOL_SAMPLE_NUM
         self.last_cam = self.cam
@@ -531,7 +557,7 @@ class Renderer:
         returns the :class:`~.graph.BlockRunner` that ran it (a CUDA graph
         when ``batch_mode`` is "graph")."""
         self._check_batchable()
-        with self.timer.time(f"block of {block}"):
+        with tracing.call("call.run_block"), self.timer.time(f"block of {block}"):
             if self._uses_restir():
                 return self._restir_block(block)
             if self.mesh is not None:
@@ -552,6 +578,7 @@ class Renderer:
         # frame so current_image() returns the fresh accumulation
         self._last_image = None
         img = self.current_image()
+        tracing.host_sync()
         return img.cpu().numpy().reshape(self.cam.height, self.cam.width, 3)
 
     def step_batched_restir(self, block: int):
@@ -559,16 +586,16 @@ class Renderer:
         returns the display image on the device (the JAX renderer's
         high-throughput interactive mode)."""
         s = self.settings
-        if s.animate_camera:
-            self._animate_camera()
-        if not s.accumulate:
-            self.reset_accumulation()
-        with self.timer.time(f"block of {block}"):
-            self._restir_block(block)
-        image = self._apply_denoiser(self._full(self.direct))
-        self._last_image = image
-        return post.to_display(image.reshape(self.cam.height, self.cam.width, 3),
-                               tone_mapping=s.tone_mapping)
+        with tracing.call("call.step_batched_restir"):
+            if s.animate_camera:
+                self._animate_camera()
+            if not s.accumulate:
+                self.reset_accumulation()
+            with self.timer.time(f"block of {block}"):
+                self._restir_block(block)
+            image = self._apply_denoiser(self._full(self.direct))
+            self._last_image = image
+            return self._display(image)
 
     def _apply_denoiser(self, image, indirect=None):
         """Denoise ``image``, or the (direct, indirect) pair when
@@ -581,6 +608,11 @@ class Renderer:
         self._split_out = None
         if s.denoiser == Denoiser.NONE:
             return image if indirect is None else post.add_image(image, indirect)
+        with tracing.span("frame.denoise"):
+            return self._denoise(image, indirect)
+
+    def _denoise(self, image, indirect):
+        s = self.settings
         sig_d, sig_n, sig_l = self._svgf_sigmas()
         if indirect is not None and s.denoiser == Denoiser.SVGF and s.denoiser_split:
             out_d, out_i, self.svgf_direct, self.svgf_indirect = dn.svgf_filter_pair(
@@ -656,6 +688,7 @@ class Renderer:
         for _ in range(spp or self.state.iterations):
             self.step()
         img = self.current_image()
+        tracing.host_sync()
         return img.cpu().numpy().reshape(self.cam.height, self.cam.width, 3)
 
     def preview_aov_image(self):
@@ -707,6 +740,7 @@ class Renderer:
         spp (``.jpg`` with ``jpg``).  A ``.hdr`` path gets the raw Radiance
         RGBE image: no tonemap, no gamma, the same mirror."""
         img = self.current_image().reshape(self.cam.height, self.cam.width, 3)
+        tracing.host_sync()
         if path is not None and path.lower().endswith(".hdr"):
             write_hdr(path, np.ascontiguousarray(img.cpu().numpy()[:, ::-1]))
             return os.path.abspath(path)

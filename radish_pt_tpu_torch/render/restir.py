@@ -27,6 +27,7 @@ from ..sampling import rng
 from ..scene import camera as cam_mod
 from ..scene import device_scene as dsc
 from ..utils import math as m
+from ..utils import timing
 from . import gbuffer as gb
 from .gbuffer import NULL_PRIMITIVE, GBufferFrame, GBufferOut
 
@@ -306,9 +307,11 @@ def restir_candidates(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, idx,
                       reservoir_size: int = 32):
     """Stage 1 of a ReSTIR frame on the lanes of global pixels ``idx``: the
     primary hit, candidate RIS over ``reservoir_size`` light samples and
-    the winner's shadow test.  Returns (:class:`Lanes`, reservoir)."""
+    the winner's shadow test.  Returns (:class:`Lanes`, reservoir).  Device
+    stages (utils/timing.py) ``primary``, ``ris``, ``shadow``."""
     from .pathtrace import _gen_primary
 
+    timing.mark("primary", ds.device)
     n = idx.shape[0]
     sampler = rng.make_sampler(looper, idx)
     table = ds.sobol
@@ -335,6 +338,7 @@ def restir_candidates(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, idx,
 
     # ---- candidate RIS over ``reservoir_size`` light samples without
     # visibility ----
+    timing.mark("ris", ds.device)
     res = empty_reservoir(n, device=ds.device)
     for _ in range(reservoir_size):
         r4, sampler = rng.sample_4d(table, sampler)
@@ -348,6 +352,7 @@ def restir_candidates(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, idx,
 
     # ---- one shadow test, on the winner (restir.cu:158-163); lanes that
     # cannot shade get zero-length segments and zero weight ----
+    timing.mark("shadow", ds.device)
     vis = shade & (res.weight > 0.0)
     target = it.pos + res.wi * res.dist[..., None]
     occluded = dsc.test_occlusion_sorted(ds, it.pos, target, mask=vis)
@@ -364,7 +369,9 @@ def restir_temporal(lanes: Lanes, res: DirectReservoir, rows, gbuf: GBufferOut, 
     merged with the history clamp.  ``first_frame`` a bool or a bool 0-d
     tensor; ``pixel_offset`` as :func:`temporal_neighbor`.  Returns
     (lanes, reservoir); ``_check_validity`` of the reservoir is what the
-    next frame reuses."""
+    next frame reuses.  The caller marks device stage ``temporal`` before
+    it (utils/timing.py), and before packing ``rows`` where it packs them
+    in the same block."""
     temporal = temporal_neighbor(rows, gbuf.motion, gbuf.frame, pixel_offset)
     r1, sampler = rng.sample_1d(table, lanes.sampler)
     ok = ~_invalid(temporal) & (temporal.num > 0)
@@ -382,9 +389,12 @@ def restir_shade(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, lanes: Lanes,
     """Stage 3: spatial reuse on the completed post-temporal image
     ``reservoir_out`` (with ``spatial``; ``pixel_idx`` and ``halo`` as
     :func:`merge_spatial`), then shading (restir.cu:189-194).  Returns the
-    direct light [N, 3], re-modulated by the G-buffer's albedo."""
+    direct light [N, 3], re-modulated by the G-buffer's albedo.  Device
+    stages ``spatial`` (with ``spatial``), ``shade``, then ``accumulate`` at
+    the end (the caller's scrub and accumulation)."""
     sampler = lanes.sampler
     if spatial:
+        timing.mark("spatial", ds.device)
         nb, sampler = merge_spatial(reservoir_out, gbuf.frame, cam.width, cam.height,
                                     sampler, ds.sobol, looper=looper, pixel_idx=pixel_idx,
                                     halo=halo)
@@ -392,13 +402,16 @@ def restir_shade(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, lanes: Lanes,
         ok = ~_invalid(nb) & (nb.num > 0) & ~_invalid(res)
         res = _merge(res, nb, r1, ok)
 
+    timing.mark("shade", ds.device)
     p_hat = _p_hat(res, lanes.mat, lanes.norm, lanes.wo, types=ds.mat_types)
     contrib = p_hat * _big_w(res, p_hat)[..., None]
     ok = lanes.shade & ~_invalid(res) & (res.num > 0)
     contrib = torch.where(ok[..., None], contrib, torch.zeros_like(contrib))
     bad = torch.any(~torch.isfinite(contrib), dim=-1, keepdim=True)
     direct = lanes.direct + torch.where(bad, torch.zeros_like(contrib), contrib)
-    return direct * gbuf.albedo
+    direct = direct * gbuf.albedo
+    timing.mark("accumulate", ds.device)
+    return direct
 
 
 def restir_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper,
@@ -424,6 +437,7 @@ def restir_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper,
         idx, pixel_offset = pixel_idx, pixel_idx[:1]
     lanes, res = restir_candidates(ds, cam, looper, idx, reservoir_size)
     if reuse & ReservoirReuse.TEMPORAL:
+        timing.mark("temporal", ds.device)
         lanes, res = restir_temporal(lanes, res, temporal_rows(last_reservoir, last_frame),
                                      gbuf, first_frame, temporal_clamp, ds.sobol,
                                      pixel_offset)

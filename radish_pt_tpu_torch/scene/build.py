@@ -40,6 +40,7 @@ from ..accel.sort_key import key_boxes
 from ..accel.traverse import pack_bvh, pack_tris
 from ..sampling.alias import build_alias_table
 from ..sampling.sobol import load_sobol_table
+from ..utils import timing
 from .camera import Camera, make_camera
 from .device_scene import (MAT_LIGHT, NULL_TEXTURE, SWEEP_ENGINES, DeviceScene,
                            pack_textures)
@@ -246,7 +247,8 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
         ap_prob, ap_idx = ap_table.prob, ap_table.alias
 
     # ---- storage order: BVH leaf (DFS) order ----
-    bvh = build_bvh(tri_v.reshape(-1, 3))
+    with timing.span("setup.bvh"):
+        bvh = build_bvh(tri_v.reshape(-1, 3))
     lm = np.asarray(bvh.leaf_map)
     tri_order = lm[lm >= 0].astype(np.int32)
     assert tri_order.size == num_tris, "leaf_map must cover every triangle"
@@ -304,76 +306,83 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
 
     mats = scene.materials if scene.materials else [HostMaterial()]
 
+    with timing.span("setup.sobol"):
+        sobol = load_sobol_table().astype(np.int64) if use_sobol else None
+
+    def upload(a):  # a copy from pageable host memory: the host waits
+        timing.host_sync()
+        return torch.as_tensor(a, device=device)
+
     def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return upload(np.asarray(a, np.float32))
 
     def i32(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+        return upload(np.asarray(a, np.int32))
 
     tri_attr = np.concatenate(
         [tri_v.reshape(-1, 9), tri_n.reshape(-1, 9), tri_uv.reshape(-1, 6),
          # material id as f32 col 24 (exact to 2^24)
          material_ids.reshape(-1, 1).astype(np.float32)], axis=1)
-    bounds = None if cluster_bounds is None else f32(cluster_bounds)
-    ds = DeviceScene(
-        intersector=intersector,
-        # the primaries sort on their cluster signature on a sweep engine
-        # with clusters (build.py:382-386)
-        sort_primaries=intersector in SWEEP_ENGINES and cluster_bounds is not None,
-        n_area_lights=n_area_lights,
-        has_env=has_env,
-        has_aperture=has_aperture,
-        single_sided=scene.settings.scene_light_single_sided,
-        mat_types=tuple(sorted({m.mtype for m in mats})),
-        cluster_sub=csub,
-        env_tex=int(scene.env_tex_id),
-        aperture_tex=int(scene.aperture_tex_id),
-        tri_v=f32(tri_v),
-        tri_attr=f32(tri_attr),
-        tri_packed=f32(tri_packed),
-        bvh_packed=f32(pack_bvh(bvh)),
-        leaf_tris=f32(bvh.leaf_tris),
-        leaf_map=i32(leaf_map),
-        cluster_bounds=bounds,
-        key_bounds=None if bounds is None else f32(key_boxes(cluster_bounds)),
-        sweep_coeffs=f32(coeffs),
-        sweep_center=f32(center),
-        sweep_packed=f32(numpy_packed_coeffs(coeffs)),
-        unit_spheres=None if bounds is None else unit_spheres(bounds, f32(center)),
-        word_bounds=None if bounds is None else word_bounds(bounds),
-        quad_coeffs=None if quad is None else f32(quad),
-        quad_packed=None if quad is None else f32(numpy_quad_packed(quad)),
-        quad_occl_packed=None if quad is None else f32(numpy_quad_occl_packed(quad)),
-        mat_type=i32([m.mtype for m in mats]),
-        mat_base_color=f32([m.base_color for m in mats]),
-        mat_metallic=f32([m.metallic for m in mats]),
-        mat_roughness=f32([m.roughness for m in mats]),
-        mat_ior=f32([m.ior for m in mats]),
-        mat_color_map=i32([m.color_map for m in mats]),
-        mat_normal_map=i32([m.normal_map for m in mats]),
-        mat_metallic_map=i32([m.metallic_map for m in mats]),
-        mat_roughness_map=i32([m.roughness_map for m in mats]),
-        tex_data=f32(tex_data),
-        tex_offset=i32(tex_off),
-        tex_width=i32(tex_w),
-        tex_height=i32(tex_h),
-        light_prim_ids=i32(light_prims if light_prims else [0]),
-        light_radiance=f32(np.asarray(light_radiance, np.float32).reshape(-1, 3)
-                           if light_radiance else np.zeros((1, 3))),
-        sum_light_power_inv=f32(sum_power_inv),
-        light_alias_prob=f32(la_prob),
-        light_alias_idx=i32(la_idx),
-        env_alias_prob=f32(env_prob),
-        env_alias_idx=i32(env_alias),
-        aperture_alias_prob=f32(ap_prob),
-        aperture_alias_idx=i32(ap_idx),
-        sobol=(torch.as_tensor(load_sobol_table().astype(np.int64), device=device)
-               if use_sobol else None),
-    )
-    cam = make_camera(scene.width, scene.height, scene.cam_position,
-                      scene.cam_rotation, fov_y=scene.fov_y,
-                      lens_radius=scene.lens_radius,
-                      focal_dist=scene.focal_dist, device=device)
+    with timing.span("setup.upload"):
+        bounds = None if cluster_bounds is None else f32(cluster_bounds)
+        ds = DeviceScene(
+            intersector=intersector,
+            # the primaries sort on their cluster signature on a sweep engine
+            # with clusters (build.py:382-386)
+            sort_primaries=intersector in SWEEP_ENGINES and cluster_bounds is not None,
+            n_area_lights=n_area_lights,
+            has_env=has_env,
+            has_aperture=has_aperture,
+            single_sided=scene.settings.scene_light_single_sided,
+            mat_types=tuple(sorted({m.mtype for m in mats})),
+            cluster_sub=csub,
+            env_tex=int(scene.env_tex_id),
+            aperture_tex=int(scene.aperture_tex_id),
+            tri_v=f32(tri_v),
+            tri_attr=f32(tri_attr),
+            tri_packed=f32(tri_packed),
+            bvh_packed=f32(pack_bvh(bvh)),
+            leaf_tris=f32(bvh.leaf_tris),
+            leaf_map=i32(leaf_map),
+            cluster_bounds=bounds,
+            key_bounds=None if bounds is None else f32(key_boxes(cluster_bounds)),
+            sweep_coeffs=f32(coeffs),
+            sweep_center=f32(center),
+            sweep_packed=f32(numpy_packed_coeffs(coeffs)),
+            unit_spheres=None if bounds is None else unit_spheres(bounds, f32(center)),
+            word_bounds=None if bounds is None else word_bounds(bounds),
+            quad_coeffs=None if quad is None else f32(quad),
+            quad_packed=None if quad is None else f32(numpy_quad_packed(quad)),
+            quad_occl_packed=None if quad is None else f32(numpy_quad_occl_packed(quad)),
+            mat_type=i32([m.mtype for m in mats]),
+            mat_base_color=f32([m.base_color for m in mats]),
+            mat_metallic=f32([m.metallic for m in mats]),
+            mat_roughness=f32([m.roughness for m in mats]),
+            mat_ior=f32([m.ior for m in mats]),
+            mat_color_map=i32([m.color_map for m in mats]),
+            mat_normal_map=i32([m.normal_map for m in mats]),
+            mat_metallic_map=i32([m.metallic_map for m in mats]),
+            mat_roughness_map=i32([m.roughness_map for m in mats]),
+            tex_data=f32(tex_data),
+            tex_offset=i32(tex_off),
+            tex_width=i32(tex_w),
+            tex_height=i32(tex_h),
+            light_prim_ids=i32(light_prims if light_prims else [0]),
+            light_radiance=f32(np.asarray(light_radiance, np.float32).reshape(-1, 3)
+                               if light_radiance else np.zeros((1, 3))),
+            sum_light_power_inv=f32(sum_power_inv),
+            light_alias_prob=f32(la_prob),
+            light_alias_idx=i32(la_idx),
+            env_alias_prob=f32(env_prob),
+            env_alias_idx=i32(env_alias),
+            aperture_alias_prob=f32(ap_prob),
+            aperture_alias_idx=i32(ap_idx),
+            sobol=None if sobol is None else upload(sobol),
+        )
+        cam = make_camera(scene.width, scene.height, scene.cam_position,
+                          scene.cam_rotation, fov_y=scene.fov_y,
+                          lens_radius=scene.lens_radius,
+                          focal_dist=scene.focal_dist, device=device)
     return ds, cam
 
 
@@ -382,7 +391,9 @@ def load_scene(path: str, device="cuda", intersector: str | None = None):
     ``intersector`` as :func:`build_device_scene`."""
     from .parser import parse_scene
 
-    desc = parse_scene(path)
-    ds, cam = build_device_scene(desc, use_sobol=desc.settings.use_sobol,
-                                 device=device, intersector=intersector)
+    with timing.span("setup.load_scene"):
+        with timing.span("setup.parse"):
+            desc = parse_scene(path)
+        ds, cam = build_device_scene(desc, use_sobol=desc.settings.use_sobol,
+                                     device=device, intersector=intersector)
     return ds, cam, desc

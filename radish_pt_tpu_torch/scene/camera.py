@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..utils import math as m
+from ..utils import timing
 
 
 @dataclass
@@ -56,7 +57,10 @@ def make_camera(
     focal_dist: float = 1.0,
     device="cuda",
 ) -> Camera:
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+    def f32(v):  # a copy from pageable host memory: the host waits
+        timing.host_sync()
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
     cam = Camera(
         width=int(width),
         height=int(height),

@@ -190,12 +190,14 @@ def display_image(r, disp) -> np.ndarray:
     one is live (the reference's Preview combo drives the display too),
     else ``disp``."""
     from .render import post
+    from .utils import timing
 
     if r.settings.preview_aov != "composed":
         aov = r.preview_aov_image()
         if aov is not None:
             disp = post.to_display(aov.reshape(r.cam.height, r.cam.width, 3),
                                    tone_mapping=r.settings.tone_mapping)
+    timing.host_sync()
     return disp.cpu().numpy()
 
 

@@ -1394,3 +1394,78 @@ def test_nccl_world_of_one_gather_image():
         assert isinstance(img, np.ndarray) and np.array_equal(img, np.arange(3000.0).reshape(1000, 3))
     finally:
         mh.shutdown()
+
+
+def _traced_renderer(entry):
+    """A 64x64 cornell renderer on the card and its call: ``run_block(4)``
+    of the path tracer at depth 3, or ``step_batched_restir(1)`` with the
+    camera orbiting (the benchmark's two entries)."""
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the stage marks are kernels)")
+    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cuda")
+    cam = cam.replace(width=64, height=64)
+    if entry == "run_block":
+        r = Renderer(ds=ds, cam=cam, settings=Settings(tracer=Tracer.STREAMED, trace_depth=3),
+                     device="cuda")
+        return r, lambda: r.run_block(4)
+    r = Renderer(ds=ds, cam=cam, device="cuda",
+                 settings=Settings(tracer=Tracer.RESTIR_DI, animate_camera=True,
+                                   animate_radius=2.0))
+    return r, lambda: r.step_batched_restir(1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["run_block", "step_batched_restir"])
+def test_host_syncs_match_sync_debug_mode(entry):
+    """The tracing's ``host_syncs`` a call equals the synchronizing
+    operations ``torch.cuda.set_sync_debug_mode("warn")`` reports for the
+    same call (after the first call, which warms up and captures): none a
+    path-traced block, one a ReSTIR call (the camera's upload)."""
+    from radish_pt_tpu_torch.utils import timing
+
+    _, call = _traced_renderer(entry)
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        counted, syncs = timing.sync_check(call)
+        assert counted == len(syncs), syncs
+        assert len(syncs) == (0 if entry == "run_block" else 1), syncs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["run_block", "step_batched_restir"])
+def test_stage_marks_replay_in_stream_order(entry):
+    """The stage marks are captured into the block's graph: a replay counts
+    them (``counts_per_replay``, the capture's own taken back) and runs
+    their kernels in the frame's order among its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from radish_pt_tpu_torch.utils import timing
+
+    r, call = _traced_renderer(entry)
+    call()
+    run = r.last_runner
+    assert run.mode == "graph"
+    if entry == "run_block":
+        frame = ["primary", *["nee", "bsdf", "extend", "hit"] * 3, "accumulate"]
+        want = frame * 4 + ["end"]
+    else:
+        want = ["gbuffer", "primary", "ris", "shadow", "temporal", "spatial", "shade",
+                "accumulate", "end"]
+    per = {f"marks.{s}": want.count(s) for s in set(want)}
+    assert run.counts_per_replay == per
+    torch.cuda.synchronize()
+    timing.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    marks = {k: n for k, n in timing.counters().items() if k.startswith("marks.")}
+    assert marks == per
+    kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.name.startswith("stage_mark_"))
+    assert [n[len("stage_mark_"):] for _, n in kernels] == want
