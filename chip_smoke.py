@@ -56,10 +56,15 @@ CUDA kernels of those paths against their plain torch versions.  Phases:
    (Plücker: 115 super-clusters; compact: 1,755 clusters paired to 220)
    primaries, bounce-1 extension rays (the dead bit) and NEE segments
    (bounded at their end), and in the band engine's count-major form;
+   ReSTIR's candidate RIS kernel against its plain loop, bit for bit, on
+   cornell (32 and 16 candidates, the hash sampler), teapot, env_teapot,
+   many_light and glass, timed beside it with its bound, and its one launch
+   a replayed ReSTIR frame;
 4. the main paths, loopers 0-7, each with the launch counts of its kernels
    set to 0 just before and read just after (a frame of depth d: d + 1
    closest hits, d shadow sweeps, no plain call; on Plücker and band no
-   mask prepass, on quad the closest hits' 6 row-mask prepass calls),
+   mask prepass, on quad the closest hits' 6 row-mask prepass calls; a
+   ReSTIR frame one candidate RIS launch),
    finite non-zero images, and
    looper-7 mean radiance within 2e-3 (bench.py's bound) of each scene's
    800x800 golden, the JAX package's exact-f32 CPU mean (the teapot_hires
@@ -115,7 +120,8 @@ CUDA kernels of those paths against their plain torch versions.  Phases:
    counts set to 0 just before its two blocks and read just after, the
    blocks equal to the same frames run eagerly by ``step()`` bit for bit,
    ``batch_mode`` "graph" on the capturable engines, the sweeps a replay
-   (block x (d + 1) closest hits and block x d shadow sweeps) from the
+   (block x (d + 1) closest hits and block x d shadow sweeps; on ReSTIR
+   also block candidate RIS launches) from the
    replay counters and from a ``torch.profiler`` trace of one replay,
    and, timed with CUDA events, the batched ms/frame beside the eager
    ``step()`` frame and the device-busy share of a profiled block; then
@@ -226,7 +232,8 @@ SOURCES = {"plucker": "radish_pt_tpu_torch/csrc/plucker.cu",
            "band": "radish_pt_tpu_torch/csrc/band.cu",
            "dense": "radish_pt_tpu_torch/csrc/dense.cu",
            "bvh": "radish_pt_tpu_torch/csrc/bvh.cu",
-           "sort_key": "radish_pt_tpu_torch/csrc/sort_key.cu"}
+           "sort_key": "radish_pt_tpu_torch/csrc/sort_key.cu",
+           "ris": "radish_pt_tpu_torch/csrc/ris.cu"}
 REPLACES = {
     "plucker_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:344",
     "plucker_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:463",
@@ -273,6 +280,17 @@ MESH_TILES = 4
 FLIP_ATOL = 1e-4
 FLIP_MAX = 64
 FLIP_MEAN = 5e-5
+
+
+# ReSTIR's candidate RIS kernel (csrc/ris.cu), held against its plain loop
+# (render/restir.py::ris_plain, eager on the card) and timed at 800x800:
+# (scene entry, candidates, hash sampler); the first is the main path's, the
+# row of the kernels line
+RIS_CASES = (("cornell", 32, False), ("cornell", 16, False), ("cornell", 32, True),
+             ("teapot", 32, False), ("env_teapot", 32, False), ("many_light", 32, False),
+             ("glass", 16, False))
+RIS_REPLACES = ("radish_pt_tpu/render/restir.py:348, the candidate loop of restir_direct "
+                "(XLA, no Pallas body)")
 
 
 def log(msg: str) -> None:
@@ -866,6 +884,116 @@ def max_ulps(a, b) -> int:
     return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
 
 
+def ris_args(ds, cam, reservoir_size: int, looper: int = 5) -> tuple:
+    """What ``restir_candidates`` hands the candidate RIS on the frame's
+    lanes: (scene, pos, material, normal, wo, sampler, candidates)."""
+    import torch
+
+    from radish_pt_tpu_torch.render import restir as rs
+
+    seen = {}
+    orig = rs.candidate_ris
+
+    def spy(*args):
+        seen["args"] = args
+        return orig(*args)
+
+    rs.candidate_ris = spy
+    try:
+        idx = torch.arange(cam.width * cam.height, dtype=torch.int32, device=ds.device)
+        rs.restir_candidates(ds, cam, torch.tensor(looper, device=ds.device), idx,
+                             reservoir_size)
+    finally:
+        rs.candidate_ris = orig
+    return seen["args"]
+
+
+def ris_phase(scenes, log, card) -> dict:
+    """ReSTIR's candidate RIS kernel on :data:`RIS_CASES` at 800x800: the
+    kernel's reservoir and sampler state against the plain loop's (the
+    lanes whose winner, weight or count differ, the largest ulp distance,
+    the scramble and pointer exactly), then its time (one call, 10 back to
+    back, 10 replayed in one CUDA graph) beside the plain loop's one run and
+    its bound (render/ris.py's operations a candidate at the f32
+    instruction rate; the lanes' bytes at the memory rate), and the launches
+    a replayed ReSTIR frame of ``Renderer.step_batched_restir``.  Returns
+    the kernels line's row."""
+    import torch
+
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render import restir as rs
+    from radish_pt_tpu_torch.render import ris
+    from radish_pt_tpu_torch.render.renderer import Renderer
+
+    cases = {}
+    for name, size, hash_mode in RIS_CASES:
+        ds, cam = scenes[name]
+        if hash_mode:
+            ds = ds.replace(sobol=None)
+        args = ris_args(ds, cam, size)
+        key = f"{name} R={size}{' hash' if hash_mode else ''}"
+        got = rs.candidate_ris(*args)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = rs.ris_plain(*args)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        (res, smp), (pres, psmp) = got, want
+        ulps, err, differ = 0, 0.0, torch.zeros_like(res.num, dtype=torch.bool)
+        for f in ("li", "wi", "dist", "weight"):
+            a, b = getattr(res, f), getattr(pres, f)
+            same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+            differ |= ~same if a.dim() == 1 else ~same.all(-1)
+            both = torch.isfinite(a) & torch.isfinite(b)
+            if both.any():
+                ulps = max(ulps, max_ulps(a[both], b[both]))
+                err = max(err, float((a[both] - b[both]).abs().max()))
+        assert torch.equal(res.num, pres.num) and torch.equal(smp.scramble, psmp.scramble)
+        assert int(smp.ptr) == int(psmp.ptr)
+        n = res.num.shape[0]
+        ms = cuda_ms(lambda: rs.candidate_ris(*args), 5)
+        b2b = cuda_ms(lambda: rs.candidate_ris(*args), 5, inner=10)
+        replayed = replayed_ms(lambda: rs.candidate_ris(*args))
+        ops = n * size * ris.OPS_PER_CANDIDATE
+        io = n * ris.BYTES_PER_LANE
+        b_ms, b_by = bound(ops, io, PEAK_F32_OPS_UNFUSED)
+        cases[key] = {"lanes": n, "lanes_differ": int(differ.sum()), "max_ulps": ulps,
+                      "max_abs_err": err,
+                      "ms": ms, "ms_back_to_back": b2b, "ms_replayed": replayed,
+                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        log(f"[ris] {key} ({ds.n_area_lights} area lights, env {ds.has_env}, types "
+            f"{ds.mat_types}): lanes differing from the plain loop {int(differ.sum())} of "
+            f"{n}, largest ulp distance {ulps}, largest |difference| {err:.3e}; kernel {ms:.4f} ms one call, "
+            f"{b2b:.4f} back to back, {replayed:.4f} replayed; plain {plain_ms:.3f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}: {ops / 1e9:.2f} G operations at "
+            f"{PEAK_F32_OPS_UNFUSED / 1e12:.1f} T/s, {io / 1e6:.1f} MB), the kernel at "
+            f"{100 * b_ms / replayed:.1f}% of it replayed ({card})")
+        assert int(differ.sum()) == 0 and ulps == 0, key
+    # the main path: one launch a replayed ReSTIR frame
+    ds, cam = scenes["cornell"]
+    r = Renderer(ds=ds, cam=cam, device="cuda",
+                 settings=Settings(tracer=Tracer.RESTIR_DI, animate_camera=True,
+                                   animate_radius=2.0))
+    r.step_batched_restir(1)
+    ris.reset_counts()
+    r.step_batched_restir(1)
+    torch.cuda.synchronize()
+    per = r.last_runner.launches_per_replay()["ris"]
+    log(f"[ris] cornell step_batched_restir(1): {per['ris']} launch(es) a replay, counted "
+        f"{ris.LAUNCHES['ris']}, plain calls {ris.PLAIN_CALLS['ris']}")
+    assert per == {"ris": 1} and ris.LAUNCHES == {"ris": 1} and ris.PLAIN_CALLS == {"ris": 0}
+    main = cases[f"{RIS_CASES[0][0]} R={RIS_CASES[0][1]}"]
+    return {"name": "ris_candidates", "route": "cuda", "source": SOURCES["ris"],
+            "replaces": RIS_REPLACES, "launches": per["ris"], "launches_per_frame": per["ris"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "lanes_differ": main["lanes_differ"], "max_ulps": main["max_ulps"],
+            "ms": main["ms"], "ms_replayed": main["ms_replayed"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "shape": "cornell 800x800, 32 candidates", "cases": cases}
+
+
 def dense_parity(ds, waves, max_err, log, scene):
     """Phase 3 on a dense-engine scene: each kernel against its plain
     version, which rounds the same operations: prim ids, dist and
@@ -1323,6 +1451,7 @@ def batched_phase(scenes, log, card):
     from radish_pt_tpu_torch.accel import quad as qd
     from radish_pt_tpu_torch.accel import traverse as trv
     from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render import ris
     from radish_pt_tpu_torch.render.renderer import Renderer
 
     counters = {"plucker": plk, "band": bnd, "quad": qd, "dense": dns, "compact": cpt,
@@ -1428,6 +1557,7 @@ def batched_phase(scenes, log, card):
     assert batched.batch_mode == "graph"
     moved = (scenes[name][1].position + torch.tensor([0.05, 0.0, 0.0], device=dev)).tolist()
     dns.reset_counts()
+    ris.reset_counts()
     batched.step_batched_restir(block)
     first = {"direct": batched.direct.clone(),
              **{f: getattr(batched.reservoir, f).clone()
@@ -1436,6 +1566,7 @@ def batched_phase(scenes, log, card):
     batched.step_batched_restir(block)
     torch.cuda.synchronize()
     launches = dict(dns.LAUNCHES)
+    ris_launches, ris_plain = dict(ris.LAUNCHES), dict(ris.PLAIN_CALLS)
     run = batched.last_runner
     for _ in range(block):
         eager.step()
@@ -1453,9 +1584,13 @@ def batched_phase(scenes, log, card):
     log(f"[batched] ReSTIR DI, {name} {RES}x{RES}, step_batched_restir({block}) twice, "
         f"the camera moved between: equal to {2 * block} eager step() frames bit for "
         f"bit: {not differ} {differ or ''}; launches {launches} (want {want}), a replay "
-        f"{run.launches_per_replay().get('dense')}")
+        f"{run.launches_per_replay().get('dense')}; RIS launches {ris_launches} (want "
+        f"{3 * block}), plain calls {ris_plain}, a replay {run.launches_per_replay()['ris']}")
     assert not differ, f"ReSTIR: the batched frames differ from step(): {differ}"
     assert launches == want and run.launches_per_replay()["dense"] == per
+    # one candidate RIS launch a frame, as the dense sweeps count theirs
+    assert ris_launches == {"ris": 3 * block} and ris_plain == {"ris": 0}
+    assert run.launches_per_replay()["ris"] == {"ris": block}
     eager_ms, batch_ms, busy, ops, busy_e = timing(f"{name} ReSTIR", eager, batched, block,
                                                    per)
     log(f"[timing] {name} ReSTIR DI {RES}x{RES}: batched {batch_ms:.3f} ms/frame (blocks "
@@ -1922,7 +2057,9 @@ def mesh_phase(scenes, log, card) -> dict:
            "sort_key": {"signature_key": MESH_TILES * (2 * RESTIR_BLOCK + 1)}}
     replay = {m: {k: v for k, v in d.items() if v}
               for m, d in r.last_runner.launches_per_replay().items() if any(d.values())}
-    assert r.batch_mode == "graph" and replay == per, (replay, per)
+    # besides the sweeps, one candidate RIS launch a tile a frame
+    assert r.batch_mode == "graph" and replay == {
+        **per, "ris": {"ris": MESH_TILES * RESTIR_BLOCK}}, (replay, per)
     # the warm-up block and one replay
     assert launches == {m: {k: 2 * v for k, v in d.items()} for m, d in per.items()}, launches
     mesh_ms = cuda_ms(lambda: r.run_block(RESTIR_BLOCK), reps=3) / RESTIR_BLOCK
@@ -2121,6 +2258,7 @@ def main(argv=None) -> int:
     from radish_pt_tpu_torch.render import gbuffer as gb
     from radish_pt_tpu_torch.render import pathtrace as pt
     from radish_pt_tpu_torch.render import restir as rs
+    from radish_pt_tpu_torch.render import ris
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.scene.build import build_device_scene, load_scene
     from radish_pt_tpu_torch.scene.parser import parse_scene
@@ -2321,6 +2459,7 @@ def main(argv=None) -> int:
         waves = bounce_one(ds, cam)  # raster-order lanes, as the bvh engine's frame
         inputs["bvh"][name] = bvh_parity(ds, waves, max_err, log, name)
     del waves
+    ris_row = ris_phase(scenes, log, card)
 
     log(f"[phase] 4 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 4. the main paths ----
@@ -2501,9 +2640,19 @@ def main(argv=None) -> int:
                                Settings(tracer=Tracer.STREAMED, denoiser=Denoiser.SVGF,
                                         trace_depth=DEPTH))}
     renderers, path_means = {}, {}
+
+    def ris_launched(what, frames):
+        """ReSTIR's candidate RIS since the last reset: one kernel launch a
+        frame, no plain call."""
+        log(f"[main path] {what}: candidate RIS launches {dict(ris.LAUNCHES)}, plain calls "
+            f"{dict(ris.PLAIN_CALLS)} over {frames} frames")
+        assert ris.LAUNCHES == {"ris": frames} and ris.PLAIN_CALLS == {"ris": 0}, what
+
     for key, (what, settings) in paths.items():
+        ris.reset_counts()
         r, path_means[key], n_launch = drive(scenes, "cornell_dense", settings, dns, log,
                                              what)
+        ris_launched(what, 8 if key == "restir" else 0)
         renderers[key] = r
         if key == "restir":
             launches["dense"] = (n_launch, 8)
@@ -2511,7 +2660,9 @@ def main(argv=None) -> int:
         log(f"[main path] {what}: 8-frame mean {path_means[key]:.5f} vs the JAX "
             f"package's {PATH_GOLDEN[key]:.5f}: drift {drift * 100:+.3f}%")
         assert abs(drift) < MEAN_DRIFT, f"{what}: mean drifted more than 2e-3 from its golden"
+    ris.reset_counts()
     _, m_plk, _ = drive(scenes, "cornell", restir, plk, log, "ReSTIR DI on the Plücker engine")
+    ris_launched("ReSTIR DI on the Plücker engine", 8)
     rel = m_plk / path_means["restir"] - 1.0
     log(f"[main path] ReSTIR DI, Plücker vs dense engine: means {m_plk:.5f} vs "
         f"{path_means['restir']:.5f}, differ by {rel * 100:+.4f}%")
@@ -2519,15 +2670,19 @@ def main(argv=None) -> int:
 
     # ReSTIR with the camera animated: the G-buffer's motion reprojection
     # feeds the temporal reuse; the counts are read after the 8th frame
+    ris.reset_counts()
     r, _, _ = drive(scenes, "cornell_dense", Settings(tracer=Tracer.RESTIR_DI,
                                                       animate_camera=True), dns, log,
                     "ReSTIR DI, camera animated (frames 0-6)", frames=7)
+    ris_launched("ReSTIR DI, camera animated (frames 0-6)", 7)
     dns.reset_counts()
+    ris.reset_counts()
     last_res, last_frame = r.reservoir, r.gbuf_last
     r.step()
     temporal = rs.find_temporal_neighbor(last_res, r.gbuf.motion, r.gbuf.frame, last_frame)
     torch.cuda.synchronize()
     assert all(v > 0 for v in dns.LAUNCHES.values()) and not any(dns.PLAIN_CALLS.values())
+    ris_launched("ReSTIR DI, camera animated, frame 7", 1)
     geo = r.gbuf.frame.prim_id > gb.NULL_PRIMITIVE
     moved = r.gbuf.motion != torch.arange(RES * RES, device=dev)
     log(f"[main path] ReSTIR DI, camera animated, frame 7: launches {dict(dns.LAUNCHES)}, "
@@ -3044,6 +3199,7 @@ def main(argv=None) -> int:
     if parent_kernels:
         rows[-1]["parent"] = {k: v for k, v in parent_kernels.items()
                               if k.startswith("signature_key/")}
+    rows.append(ris_row)
     log(f"[phase] 7 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 7. batched frames: one CUDA graph a block ----
     batched = batched_phase(scenes, log, card)

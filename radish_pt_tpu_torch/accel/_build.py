@@ -83,6 +83,12 @@ SIGNATURES = {
         # mode, active (or NULL), N, band form, miss_extra, key, stream
         "signature_key": [_P, _I, _P, _P, _P, ctypes.c_float, _I, _P, _I, _I, _I, _P, _P],
     },
+    "ris": {
+        # the launch's arguments (render/ris.py::RisArgs), stream
+        "ris_candidates": [_P, _P],
+        # the area lights a block stages in shared memory
+        "ris_smem_lights": [],
+    },
     "stage_mark": {
         # stage index (utils/timing.py STAGES), stream
         "stage_mark": [_I, _P],

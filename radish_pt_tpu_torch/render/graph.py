@@ -51,14 +51,16 @@ def batch_mode(ds) -> str:
 
 def _counters() -> dict:
     """(engine, counter) -> the counter dict of each capturable engine's
-    module (its launches, plain-version and prepass calls), and of the
+    module (its launches, plain-version and prepass calls), of the
     sort-key kernel's (``"sort_key"``), which every engine's sorted sweeps
-    launch."""
+    launch, and of ReSTIR's candidate RIS kernel (``"ris"``)."""
     from ..accel import band, dense, plucker, quad, sort_key, traverse
+    from . import ris
 
     out = {}
     for engine, mod in (("plucker", plucker), ("band", band), ("quad", quad),
-                        ("dense", dense), ("bvh", traverse), ("sort_key", sort_key)):
+                        ("dense", dense), ("bvh", traverse), ("sort_key", sort_key),
+                        ("ris", ris)):
         for attr in ("LAUNCHES", "PLAIN_CALLS", "PREPASS_CALLS"):
             if hasattr(mod, attr):
                 out[engine, attr] = getattr(mod, attr)

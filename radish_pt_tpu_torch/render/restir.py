@@ -29,6 +29,7 @@ from ..scene import device_scene as dsc
 from ..utils import math as m
 from ..utils import timing
 from . import gbuffer as gb
+from . import ris
 from .gbuffer import NULL_PRIMITIVE, GBufferFrame, GBufferOut
 
 
@@ -303,6 +304,42 @@ class Lanes:
     sampler: rng.SamplerState
 
 
+def ris_plain(ds: dsc.DeviceScene, pos, mat: dsc.SurfaceMaterial, norm, wo, sampler,
+              reservoir_size: int):
+    """Candidate RIS in eager torch operations, the plain version of
+    csrc/ris.cu: each lane draws ``reservoir_size`` light samples without
+    visibility from ``pos`` and keeps one in a weighted reservoir, weighed
+    by p^ = Li * f * cos over the light pdf (ReSTIRDirectKernel's candidate
+    loop, before the winner's shadow test at restir.cu:158).  Returns
+    (reservoir, sampler after the 5 x ``reservoir_size`` draws)."""
+    ris.PLAIN_CALLS["ris"] += 1
+    table = ds.sobol
+    res = empty_reservoir(pos.shape[0], device=pos.device)
+    for _ in range(reservoir_size):
+        r4, sampler = rng.sample_4d(table, sampler)
+        li, wi, dist, pdf = dsc.sample_direct_light_no_vis(ds, pos, r4)
+        f = bsdf.bsdf_eval(mat, norm, wo, wi, types=ds.mat_types)
+        p_hat = li * f * m.sat_dot(norm, wi)[..., None]
+        w = m.length(p_hat) / torch.clamp(pdf, min=1e-12)
+        w = torch.where(torch.isfinite(w) & (pdf > 0.0), w, torch.zeros_like(w))
+        r1, sampler = rng.sample_1d(table, sampler)
+        res = _update(res, li, wi, dist, w, r1)
+    return res, sampler
+
+
+def candidate_ris(ds: dsc.DeviceScene, pos, mat: dsc.SurfaceMaterial, norm, wo, sampler,
+                  reservoir_size: int):
+    """:func:`ris_plain` on CPU tensors; on CUDA tensors one launch of the
+    kernel of csrc/ris.cu (render/ris.py), the same reservoir and sampler
+    state.  ``mat`` has the white base colour the kernel shades with."""
+    if not pos.is_cuda:
+        return ris_plain(ds, pos, mat, norm, wo, sampler, reservoir_size)
+    li, wi, dist, num, weight, scramble = ris.ris_cuda(ds, pos, mat, norm, wo, sampler,
+                                                       reservoir_size)
+    return (DirectReservoir(li=li, wi=wi, dist=dist, num=num, weight=weight),
+            rng.SamplerState(scramble=scramble, ptr=sampler.ptr + 5 * reservoir_size))
+
+
 def restir_candidates(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, idx,
                       reservoir_size: int = 32):
     """Stage 1 of a ReSTIR frame on the lanes of global pixels ``idx``: the
@@ -312,9 +349,7 @@ def restir_candidates(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, idx,
     from .pathtrace import _gen_primary
 
     timing.mark("primary", ds.device)
-    n = idx.shape[0]
     sampler = rng.make_sampler(looper, idx)
-    table = ds.sobol
 
     ray_o, ray_d, sampler = _gen_primary(ds, cam, sampler, idx)
     it = dsc.intersect_primary(ds, ray_o, ray_d)
@@ -339,16 +374,7 @@ def restir_candidates(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, idx,
     # ---- candidate RIS over ``reservoir_size`` light samples without
     # visibility ----
     timing.mark("ris", ds.device)
-    res = empty_reservoir(n, device=ds.device)
-    for _ in range(reservoir_size):
-        r4, sampler = rng.sample_4d(table, sampler)
-        li, wi, dist, pdf = dsc.sample_direct_light_no_vis(ds, it.pos, r4)
-        f = bsdf.bsdf_eval(mat, norm, wo, wi, types=ds.mat_types)
-        p_hat = li * f * m.sat_dot(norm, wi)[..., None]
-        w = m.length(p_hat) / torch.clamp(pdf, min=1e-12)
-        w = torch.where(torch.isfinite(w) & (pdf > 0.0), w, torch.zeros_like(w))
-        r1, sampler = rng.sample_1d(table, sampler)
-        res = _update(res, li, wi, dist, w, r1)
+    res, sampler = candidate_ris(ds, it.pos, mat, norm, wo, sampler, reservoir_size)
 
     # ---- one shadow test, on the winner (restir.cu:158-163); lanes that
     # cannot shade get zero-length segments and zero weight ----

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: build csrc/plucker.cu,
-csrc/compact.cu, csrc/quad.cu, csrc/band.cu, csrc/dense.cu, csrc/bvh.cu and
-csrc/sort_key.cu and hold the Plücker closest-hit and shadow kernels, the
-sphere prepass, the compact, quad, band and dense closest-hit and shadow
-kernels, the three BVH walks and the sort-key kernel against their plain
-torch versions on teapot geometry,
+csrc/compact.cu, csrc/quad.cu, csrc/band.cu, csrc/dense.cu, csrc/bvh.cu,
+csrc/sort_key.cu and csrc/ris.cu and hold the Plücker closest-hit and shadow
+kernels, the sphere prepass, the compact, quad, band and dense closest-hit
+and shadow kernels, the three BVH walks and the sort-key kernel against
+their plain torch versions on teapot geometry, ReSTIR's candidate RIS
+kernel against its plain loop on the shipped scenes,
 then small renders through the kernels (teapot, and the other shipped
 scenes on the Plücker engine) against the same renders through the plain
 versions.
@@ -1457,7 +1458,8 @@ def test_stage_marks_replay_in_stream_order(entry):
         want = ["gbuffer", "primary", "ris", "shadow", "temporal", "spatial", "shade",
                 "accumulate", "end"]
     per = {f"marks.{s}": want.count(s) for s in set(want)}
-    assert run.counts_per_replay == per
+    # besides the marks, a ReSTIR replay counts its one RIS kernel launch
+    assert run.counts_per_replay == (per if entry == "run_block" else {**per, "ris.kernel": 1})
     torch.cuda.synchronize()
     timing.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1469,3 +1471,190 @@ def test_stage_marks_replay_in_stream_order(entry):
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and e.name.startswith("stage_mark_"))
     assert [n[len("stage_mark_"):] for _, n in kernels] == want
+
+
+# ---------------------------------------------------------------------------
+# ReSTIR's candidate RIS kernel (csrc/ris.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+RIS_RES = 800
+
+
+def _ordered(t):
+    """f32 bits as integers ordered like the values (ulp distances)."""
+    bits = t.contiguous().view(torch.int32).long()
+    return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+
+def _ris_args(monkeypatch, scene, reservoir_size=32, hash_mode=False, looper=5):
+    """What ``restir_candidates`` hands the candidate RIS on an 800x800
+    frame of ``scene`` on the card (the lanes after the primary hit, the
+    demodulated material, the sampler after the primaries' draws)."""
+    from radish_pt_tpu_torch.render import restir as rs
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(os.path.join(SCENES, scene), device="cuda")
+    if hash_mode:
+        ds = ds.replace(sobol=None)
+    cam = cam.replace(width=RIS_RES, height=RIS_RES)
+    seen = {}
+    orig = rs.candidate_ris
+
+    def spy(*args):
+        seen["args"] = args
+        return orig(*args)
+
+    monkeypatch.setattr(rs, "candidate_ris", spy)
+    idx = torch.arange(RIS_RES * RIS_RES, dtype=torch.int32, device="cuda")
+    rs.restir_candidates(ds, cam, torch.tensor(looper, device="cuda"), idx, reservoir_size)
+    monkeypatch.undo()
+    return seen["args"]
+
+
+def _check_ris(got, want):
+    """The kernel's (reservoir, sampler) against the plain version's: the
+    count M, the scramble and the pointer exactly; the winner (li, wi,
+    dist) and the weight bit for bit.  Both run the same operations in the
+    same order, each rounded once (csrc/ris.cu), with torch.sum's order
+    over a vec3 (test_vec3_sum_order_is_the_kernels), so no tolerance:
+    0 lanes with another winner, 0 ulps."""
+    (res, smp), (pres, psmp) = got, want
+    assert torch.equal(res.num, pres.num)
+    assert torch.equal(smp.scramble, psmp.scramble)
+    assert int(smp.ptr) == int(psmp.ptr)
+    for f in ("li", "wi", "dist", "weight"):
+        a, b = getattr(res, f), getattr(pres, f)
+        nan = torch.isnan(a)
+        assert torch.equal(nan, torch.isnan(b)), f
+        ulps = (_ordered(a) - _ordered(b)).abs()[~nan]
+        assert ulps.numel() == 0 or int(ulps.max()) == 0, (f, int((ulps > 0).sum()),
+                                                           int(ulps.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,size,hash_mode", [
+    ("cornell_box.txt", 32, False),  # Lambertian, area lights
+    ("cornell_box.txt", 16, False),
+    ("cornell_box.txt", 32, True),  # the hash sampler (no Sobol table)
+    ("teapot.txt", 32, False),  # MetallicWorkflow
+    ("env_teapot.txt", 32, False),  # the env map its only light, metallic
+    ("many_light.txt", 32, False),  # 72 emitters
+    ("glass.txt", 16, False),  # a dielectric's zero lobe
+], ids=["cornell", "cornell_r16", "cornell_hash", "teapot", "env_teapot", "many_light",
+        "glass"])
+def test_ris_kernel_matches_plain(monkeypatch, scene, size, hash_mode):
+    """One launch of the candidate RIS kernel at 800x800 against the plain
+    loop (``ris_plain``, eager on the card) on the same lanes."""
+    from radish_pt_tpu_torch.render import restir as rs
+    from radish_pt_tpu_torch.render import ris
+
+    args = _ris_args(monkeypatch, scene, size, hash_mode)
+    ris.reset_counts()
+    got = rs.candidate_ris(*args)
+    want = rs.ris_plain(*args)
+    torch.cuda.synchronize()
+    assert ris.LAUNCHES == {"ris": 1} and ris.PLAIN_CALLS == {"ris": 1}
+    assert float(want[0].weight.sum()) > 0
+    _check_ris(got, want)
+
+
+@pytest.mark.cuda
+def test_ris_kernel_lights_past_shared_memory(monkeypatch):
+    """many_light's 72 emitters read through the read-only cache (a build
+    that stages at most 16 lights a block) equal the shared-memory build's
+    and the plain loop's bit for bit."""
+    from radish_pt_tpu_torch.accel import _build
+    from radish_pt_tpu_torch.render import restir as rs
+    from radish_pt_tpu_torch.render import ris
+
+    args = _ris_args(monkeypatch, "many_light.txt")
+    ds = args[0]
+    shared = rs.candidate_ris(*args)
+    assert _build.load_library("ris").ris_smem_lights() >= ds.n_area_lights
+    small = _build.load_library("ris", defines=("-DRIS_SMEM_LIGHTS=16",))
+    assert small.ris_smem_lights() == 16 < ds.n_area_lights == 72
+    monkeypatch.setitem(_build._libs, "ris", small)  # the variant stands in for the build
+    ris.reset_counts()
+    got = rs.candidate_ris(*args)
+    assert ris.LAUNCHES == {"ris": 1}
+    _check_ris(got, shared)
+    _check_ris(got, rs.ris_plain(*args))
+
+
+@pytest.mark.cuda
+def test_ris_kernel_graph_replay_equals_eager(monkeypatch):
+    """The kernel captured in a CUDA graph reads the sampler's pointer on
+    the card: replays with new loopers (one at the Sobol table's clamped
+    end) equal eager calls bit for bit, one launch a replay."""
+    from radish_pt_tpu_torch.render import restir as rs
+    from radish_pt_tpu_torch.render import ris
+    from radish_pt_tpu_torch.sampling import rng
+    from radish_pt_tpu_torch.sampling.sobol import SOBOL_SAMPLE_DIM
+
+    ds, pos, mat, norm, wo, sampler, size = _ris_args(monkeypatch, "cornell_box.txt")
+    static = rng.SamplerState(scramble=sampler.scramble.clone(), ptr=sampler.ptr.clone())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rs.candidate_ris(ds, pos, mat, norm, wo, static, size)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rs.candidate_ris(ds, pos, mat, norm, wo, static, size)
+    for looper in (7, 4321, 9999):
+        static.ptr.fill_(looper * SOBOL_SAMPLE_DIM + 3)
+        ris.reset_counts()
+        graph.replay()
+        assert ris.LAUNCHES == {"ris": 0}  # a replay runs the launch the capture recorded
+        want = rs.candidate_ris(ds, pos, mat, norm, wo,
+                                rng.SamplerState(scramble=static.scramble,
+                                                 ptr=static.ptr.clone()), size)
+        torch.cuda.synchronize()
+        _check_ris(out, want)
+
+
+@pytest.mark.cuda
+def test_ris_kernel_one_launch_a_frame():
+    """``step_batched_restir`` blocks of 3 frames at 64x64: the replay adds
+    one RIS launch a frame (the runner's counters and the tracing's
+    ``ris.kernel``), and no plain call."""
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render import ris
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+    from radish_pt_tpu_torch.utils import timing
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cuda")
+    r = Renderer(ds=ds, cam=cam.replace(width=64, height=64), device="cuda",
+                 settings=Settings(tracer=Tracer.RESTIR_DI))
+    r.step_batched_restir(3)
+    run = r.last_runner
+    assert run.mode == "graph" and run.launches_per_replay()["ris"] == {"ris": 3}
+    ris.reset_counts()
+    before = timing.counters().get("ris.kernel", 0)
+    r.step_batched_restir(3)
+    torch.cuda.synchronize()
+    assert ris.LAUNCHES == {"ris": 3} and ris.PLAIN_CALLS == {"ris": 0}
+    assert timing.counters()["ris.kernel"] - before == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 31, 1024, 640_000])
+def test_vec3_sum_order_is_the_kernels(n):
+    """torch.sum over the last axis of a contiguous [n, 3] f32 tensor on
+    the card adds (x + z) + y, and never gives -0: the order csrc/ris.cu's
+    sum3 takes.  Values of mixed signs and magnitudes, so the orders
+    differ in their last bits on many rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    g = torch.Generator(device="cpu").manual_seed(n)
+    x = (torch.randn(n, 3, generator=g) * torch.exp(3 * torch.randn(n, 3, generator=g)))
+    x[0] = torch.tensor([-0.0, -0.0, -0.0])
+    x = x.cuda()
+    got = torch.sum(x, dim=-1)
+    want = (x[:, 0] + x[:, 2]) + x[:, 1] + 0.0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

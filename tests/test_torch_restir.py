@@ -262,3 +262,60 @@ def test_renderer_animated_restir_matches_reference(cornell):
     for name in ("position", "view", "up", "right"):
         np.testing.assert_allclose(t2n(getattr(r.cam, name)),
                                    np.asarray(getattr(jr.cam, name)), atol=1e-6)
+
+
+def _ris_call(ds, cam, monkeypatch, reservoir_size, looper=5):
+    """The arguments ``restir_candidates`` hands the candidate RIS on the
+    32x32 frame's lanes, and what it returned: (args, (reservoir,
+    sampler))."""
+    import torch as th
+
+    from radish_pt_tpu_torch.render import restir as rs
+
+    seen = {}
+    orig = rs.candidate_ris
+
+    def spy(*args):
+        seen["args"], seen["out"] = args, orig(*args)
+        return seen["out"]
+
+    monkeypatch.setattr(rs, "candidate_ris", spy)
+    idx = th.arange(RES * RES, dtype=th.int32)
+    rs.restir_candidates(ds, cam, looper, idx, reservoir_size)
+    return seen["args"], seen["out"]
+
+
+def test_candidate_ris_on_cpu_runs_the_plain_loop(cornell, monkeypatch):
+    """On CPU tensors the candidate RIS is ``ris_plain``, the eager loop:
+    one plain call a frame and no kernel launch."""
+    from radish_pt_tpu_torch.render import ris
+
+    _, _, ds, cam = cornell
+    ris.reset_counts()
+    _ris_call(ds, cam, monkeypatch, 32)
+    assert ris.LAUNCHES == {"ris": 0}
+    assert ris.PLAIN_CALLS == {"ris": 1}
+
+
+@pytest.mark.parametrize("reservoir_size", [4, 32])
+@pytest.mark.parametrize("table", ["sobol", "hash"])
+def test_candidate_ris_is_the_candidate_loop(cornell, monkeypatch, table, reservoir_size):
+    """The candidate RIS ``restir_candidates`` runs fills every lane's
+    reservoir with ``reservoir_size`` candidates and leaves the sampler 5
+    draws a candidate further on: ptr + 5 x ``reservoir_size`` and the
+    scramble hashed 5 x ``reservoir_size`` times, in both sampler modes.
+    The kernel reproduces this state, so the temporal and spatial stages
+    draw the numbers they drew before."""
+    from radish_pt_tpu_torch.utils import math as m
+
+    _, _, ds, cam = cornell
+    if table == "hash":
+        ds = ds.replace(sobol=None)
+    (*_, sampler, size), (res, after) = _ris_call(ds, cam, monkeypatch, reservoir_size)
+    assert size == reservoir_size
+    assert (res.num == reservoir_size).all() and (res.weight > 0).any()
+    scramble = sampler.scramble
+    for _ in range(5 * reservoir_size):
+        scramble = m.utilhash(scramble)
+    assert after.scramble.equal(scramble)
+    assert int(after.ptr) == int(sampler.ptr) + 5 * reservoir_size
