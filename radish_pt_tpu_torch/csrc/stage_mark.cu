@@ -7,7 +7,9 @@
 //
 // The kernels do nothing.  Their names (stage_mark_<stage>, C linkage so
 // the trace shows them as they are written here) are what a trace reader
-// matches; the order below is utils/timing.py's STAGES.
+// matches; the order below is utils/timing.py's STAGES, then its
+// INNER_MARKS, which bracket work inside a stage (the sorted sweeps'
+// wavefront reordering) and start no stage.
 
 #include <cuda_runtime.h>
 
@@ -24,7 +26,9 @@
   X(bsdf)              \
   X(extend)            \
   X(hit)               \
-  X(end)
+  X(end)               \
+  X(reorder)           \
+  X(reorder_end)
 
 #define DEFINE_MARK(name) \
   extern "C" __global__ void stage_mark_##name() {}
@@ -33,7 +37,7 @@ STAGE_MARKS(DEFINE_MARK)
 
 extern "C" {
 
-// Launches the mark of stage index ``stage`` (STAGES' order) on ``stream``;
+// Launches the mark of index ``stage`` (STAGES + INNER_MARKS) on ``stream``;
 // returns cudaGetLastError(), or cudaErrorInvalidValue for an unknown index.
 int stage_mark(int stage, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;

@@ -69,6 +69,7 @@ from ..accel import sort_key as sk
 from ..accel import traverse as trv
 from ..sampling.alias import alias_sample
 from ..utils import math as m
+from ..utils import timing
 
 NULL_TEXTURE = -1
 PROCEDURAL_TEXTURE = -2
@@ -551,15 +552,24 @@ def intersect_sorted(ds: DeviceScene, ray_o, ray_d, active=None) -> Interaction:
     gets the winner its group's flags allow, so it may differ from the
     unsorted sweep's.  The live lanes in (key, lane) order are the sliced
     bounce loop's order too, so both loops give every lane the same bits.
-    A scene without clusters has no key: :func:`intersect` as it is."""
+    A scene without clusters has no key: :func:`intersect` as it is.
+
+    Tracing: counter ``isect.sorted_wavefronts``; the reordering, the key
+    through the gathers and then the scatter, between the inner marks
+    ``reorder`` and ``reorder_end`` (utils/timing.py)."""
     if ds.cluster_bounds is None:
         return intersect(ds, ray_o, ray_d, active=active)
+    timing.count("isect.sorted_wavefronts")
+    timing.mark("reorder", ds.device)
     order = lane_order(_sort_key(ds, ray_o, ray_d, active=active))
     act_s = None if active is None else active.index_select(0, order)
-    prim_s, bary_s = intersect_ids(ds, ray_o.index_select(0, order),
-                                   ray_d.index_select(0, order), act_s)
+    o_s, d_s = ray_o.index_select(0, order), ray_d.index_select(0, order)
+    timing.mark("reorder_end", ds.device)
+    prim_s, bary_s = intersect_ids(ds, o_s, d_s, act_s)
+    timing.mark("reorder", ds.device)
     prim = _scatter(order, prim_s)
     bary = None if bary_s is None else _scatter(order, bary_s)
+    timing.mark("reorder_end", ds.device)
     pos, norm, uv, mat_id = surface_from_ids(ds, prim, bary, ray_o, ray_d)
     return Interaction(prim_id=prim, mat_id=mat_id, pos=pos, norm=norm, uv=uv)
 
@@ -587,7 +597,8 @@ def test_occlusion_sorted(ds: DeviceScene, x, y, mask=None, lane=None):
     lane id; None for lanes in lane order), and a masked lane becomes a
     zero-length segment beyond every cluster box, which flags no cluster:
     a segment then shares its group with the same segments whatever else
-    the wavefront holds, and gets the same bit."""
+    the wavefront holds, and gets the same bit.  Tracing as
+    :func:`intersect_sorted`'s."""
     if ds.cluster_bounds is None:
         if mask is not None:
             y = torch.where(mask[..., None], y, x)
@@ -597,9 +608,15 @@ def test_occlusion_sorted(ds: DeviceScene, x, y, mask=None, lane=None):
             far = ds.key_bounds[:, 3:6].amax(0) + 1.0
             x = torch.where(mask[..., None], x, far)
             y = torch.where(mask[..., None], y, far)
+        timing.count("isect.sorted_wavefronts")
+        timing.mark("reorder", ds.device)
         order = lane_order(_sort_key(ds, x, y - x, tmax=1.0, active=mask), lane)
-        occ = _scatter(order, test_occlusion(ds, x.index_select(0, order),
-                                             y.index_select(0, order)))
+        x_s, y_s = x.index_select(0, order), y.index_select(0, order)
+        timing.mark("reorder_end", ds.device)
+        occ_s = test_occlusion(ds, x_s, y_s)
+        timing.mark("reorder", ds.device)
+        occ = _scatter(order, occ_s)
+        timing.mark("reorder_end", ds.device)
     return occ if mask is None else occ & mask
 
 

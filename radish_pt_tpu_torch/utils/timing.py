@@ -22,8 +22,9 @@ per-pass timer built on them (``--timing``).
   current stream it launches an empty one-thread kernel named
   ``stage_mark_<stage>`` (``csrc/stage_mark.cu``); a CUDA graph capture
   records it, so every replay runs it in stream order among the stage's
-  kernels.  A stage runs from its mark to the next mark on the stream.
-  On every device it counts ``marks.<stage>``.
+  kernels.  A stage runs from its mark to the next mark on the stream;
+  an inner mark (:data:`INNER_MARKS`) brackets work inside a stage and
+  starts none.  On every device it counts ``marks.<stage>``.
 * :func:`snapshot` returns the tables and counters as plain dicts;
   :func:`reset` clears them.
 
@@ -50,7 +51,13 @@ import torch
 # hit, then accumulate), and "end", which closes a block function
 STAGES = ("gbuffer", "primary", "ris", "shadow", "temporal", "spatial", "shade",
           "accumulate", "nee", "bsdf", "extend", "hit", "end")
-_STAGE_INDEX = {s: i for i, s in enumerate(STAGES)}
+# marks inside a stage, which start none (their kernels follow the stages'
+# in csrc/stage_mark.cu): the sorted sweeps' wavefront reordering
+# (scene/device_scene.py), "reorder" where it starts and "reorder_end"
+# where it stops, once around the sort key, the sort and the gathers into
+# key order and once around the scatter back to lane order
+INNER_MARKS = ("reorder", "reorder_end")
+_STAGE_INDEX = {s: i for i, s in enumerate(STAGES + INNER_MARKS)}
 
 
 class Registry:
@@ -201,10 +208,10 @@ def reset() -> None:
 
 
 def mark(stage: str, device) -> None:
-    """Mark the start of device stage ``stage`` (:data:`STAGES`) on the
-    current stream of ``device`` (a ``torch.device``): on a CUDA device the
-    empty kernel ``stage_mark_<stage>``; on every device the counter
-    ``marks.<stage>``."""
+    """Mark the start of device stage ``stage`` (:data:`STAGES`), or an
+    inner mark (:data:`INNER_MARKS`), on the current stream of ``device``
+    (a ``torch.device``): on a CUDA device the empty kernel
+    ``stage_mark_<stage>``; on every device the counter ``marks.<stage>``."""
     idx = _STAGE_INDEX[stage]
     if device.type == "cuda":
         from ..accel import _build

@@ -1473,6 +1473,74 @@ def test_stage_marks_replay_in_stream_order(entry):
     assert [n[len("stage_mark_"):] for _, n in kernels] == want
 
 
+@pytest.mark.cuda
+def test_cornell_teapot_replay_equals_eager_frames_and_counts_its_reorders(monkeypatch):
+    """The benchmark's ``cornell_teapot`` scene (Newell's teapot at 42
+    segments, 112,572 triangles, Plücker with clusters of 512) at 800x800,
+    depth 5: one replayed ``run_block(4)`` equals the same four frames run
+    eagerly, bit for bit; a replay counts ``isect.sorted_wavefronts`` and
+    the reorder marks as often as the eager frames do (2d + 1 sorted
+    wavefronts a frame, each marked twice) and runs that many
+    ``stage_mark_reorder`` kernels; cornell, without clusters, counts none
+    of either."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render import graph as gr
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+    from radish_pt_tpu_torch.utils import timing
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    path = os.path.join(os.path.dirname(__file__), "..", "benchmark", "configs",
+                        "cornell_teapot", "scene.txt")
+    ds, cam, _ = load_scene(path, device="cuda")
+    assert (ds.intersector, ds.cluster_sub, ds.sort_primaries) == ("plucker", 512, True)
+    assert (cam.width, cam.height) == (800, 800)
+    depth = 5
+    settings = Settings(tracer=Tracer.STREAMED, trace_depth=depth)
+    replayed = Renderer(ds=ds, cam=cam, settings=settings, device="cuda")
+    replayed.run_block(4)  # warm-up, capture, one replay
+    run = replayed.last_runner
+    assert run.mode == "graph" and run.replays == 1
+    per_block = 4 * (2 * depth + 1)
+    want = {"isect.sorted_wavefronts": per_block, "marks.reorder": 2 * per_block,
+            "marks.reorder_end": 2 * per_block}
+    assert {k: run.counts_per_replay.get(k) for k in want} == want
+
+    with monkeypatch.context() as m:
+        m.setattr(gr, "batch_mode", lambda ds: "eager")
+        eager = Renderer(ds=ds, cam=cam, settings=settings, device="cuda")
+        timing.reset()
+        eager.run_block(4)
+        torch.cuda.synchronize()
+        counted = timing.counters()
+    assert eager.last_runner.mode == "eager"
+    assert {k: counted.get(k) for k in want} == want
+    for name in ("direct", "indirect"):
+        assert torch.equal(getattr(replayed, name), getattr(eager, name)), name
+
+    timing.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        replayed.run_block(4)
+        torch.cuda.synchronize()
+    assert {k: timing.counters().get(k) for k in want} == want
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names.count("stage_mark_reorder") == names.count("stage_mark_reorder_end") \
+        == 2 * per_block
+
+    box, bcam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cuda")
+    r = Renderer(ds=box, cam=bcam.replace(width=64, height=64), settings=settings,
+                 device="cuda")
+    timing.reset()
+    r.run_block(4)
+    r.run_block(4)
+    assert r.last_runner.mode == "graph"
+    assert not any(k in r.last_runner.counts_per_replay or k in timing.counters()
+                   for k in want)
+
+
 # ---------------------------------------------------------------------------
 # ReSTIR's candidate RIS kernel (csrc/ris.cu) against its plain version
 # ---------------------------------------------------------------------------

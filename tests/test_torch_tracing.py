@@ -131,8 +131,8 @@ def test_marks_count_on_the_cpu(fresh):
 
 
 def test_stage_marks_match_the_kernel_source():
-    """``STAGES`` is the order of the kernels in csrc/stage_mark.cu, whose
-    entry point takes the index."""
+    """``STAGES`` then ``INNER_MARKS`` is the order of the kernels in
+    csrc/stage_mark.cu, whose entry point takes the index."""
     import re
 
     import radish_pt_tpu_torch
@@ -141,7 +141,7 @@ def test_stage_marks_match_the_kernel_source():
     with open(src, encoding="utf-8") as f:
         body = f.read()
     listed = re.findall(r"^\s+X\((\w+)\)", body, re.M)
-    assert tuple(listed) == timing.STAGES
+    assert tuple(listed) == timing.STAGES + timing.INNER_MARKS
 
 
 def test_pass_timer_is_a_view_over_spans(clock):
@@ -255,6 +255,31 @@ def test_mesh_restir_block_marks_every_tile(cornell, fresh):
     r.step_batched_restir(1)
     marks = _marks(timing.counters())
     assert marks == {**{s: 2 for s in RESTIR_STAGES}, "end": 6}
+
+
+@pytest.mark.parametrize("scene, sorted_per_frame", [("teapot.txt", 2 * 2 + 1),
+                                                     ("cornell_box.txt", 0)])
+def test_sorted_sweeps_count_and_mark_their_reordering(scene, sorted_per_frame, fresh):
+    """``run_block(2)`` at depth 2: on a scene with clusters a frame sorts
+    2d + 1 wavefronts (the primaries, each bounce's extension rays and
+    shadow segments), each counting ``isect.sorted_wavefronts`` once and
+    marking ``reorder`` and ``reorder_end`` twice (around the key, the sort
+    and the gathers; around the scatter back); cornell, without clusters,
+    none of either."""
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    ds, cam, _ = load_scene(os.path.join(SCENES, scene), device="cpu")
+    r = Renderer(ds=ds, cam=cam.replace(width=16, height=16), desc=None, device="cpu",
+                 settings=Settings(tracer=Tracer.STREAMED, trace_depth=2))
+    timing.reset()
+    r.run_block(2)
+    counts = timing.snapshot()["unprofiled"]["call.run_block"]["counts"]
+    n = 2 * sorted_per_frame
+    assert counts.get("isect.sorted_wavefronts", 0) == n
+    assert counts.get("marks.reorder", 0) == counts.get("marks.reorder_end", 0) == 2 * n
+    assert _marks(counts)["extend"] == 2 * 2
 
 
 def test_load_scene_spans(fresh):
