@@ -59,7 +59,13 @@ CUDA kernels of those paths against their plain torch versions.  Phases:
    ReSTIR's candidate RIS kernel against its plain loop, bit for bit, on
    cornell (32 and 16 candidates, the hash sampler), teapot, env_teapot,
    many_light and glass, timed beside it with its bound, and its one launch
-   a replayed ReSTIR frame;
+   a replayed ReSTIR frame; the path tracer's vertex kernel against its
+   plain version, every output bit for bit, on the bounce-1 and bounce-3
+   wavefronts of cornell (also with the hash sampler), the benchmark's
+   cornell_teapot, glass, env_teapot, many_light and textured, timed beside
+   it with its bound (and the whole vertex, its sorted shadow test and
+   resolve included, replayed), and its one launch a bounce of a replayed
+   block;
 4. the main paths, loopers 0-7, each with the launch counts of its kernels
    set to 0 just before and read just after (a frame of depth d: d + 1
    closest hits, d shadow sweeps, no plain call; on Plücker and band no
@@ -233,7 +239,8 @@ SOURCES = {"plucker": "radish_pt_tpu_torch/csrc/plucker.cu",
            "dense": "radish_pt_tpu_torch/csrc/dense.cu",
            "bvh": "radish_pt_tpu_torch/csrc/bvh.cu",
            "sort_key": "radish_pt_tpu_torch/csrc/sort_key.cu",
-           "ris": "radish_pt_tpu_torch/csrc/ris.cu"}
+           "ris": "radish_pt_tpu_torch/csrc/ris.cu",
+           "vertex": "radish_pt_tpu_torch/csrc/vertex.cu"}
 REPLACES = {
     "plucker_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:344",
     "plucker_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:463",
@@ -291,6 +298,20 @@ RIS_CASES = (("cornell", 32, False), ("cornell", 16, False), ("cornell", 32, Tru
              ("glass", 16, False))
 RIS_REPLACES = ("radish_pt_tpu/render/restir.py:348, the candidate loop of restir_direct "
                 "(XLA, no Pallas body)")
+
+
+# the path tracer's vertex kernel (csrc/vertex.cu), held against its plain
+# version (render/pathtrace.py::vertex_plain, eager on the card) on the
+# bounce-1 and bounce-3 wavefronts of an 800x800 frame and timed on them:
+# (scene entry, hash sampler); the first is the main path's, the row of the
+# kernels line; cornell_teapot is the benchmark's scene file
+VERTEX_CASES = (("cornell", False), ("cornell", True), ("cornell_teapot", False),
+                ("glass", False), ("env_teapot", False), ("many_light", False),
+                ("textured", False))
+VERTEX_BOUNCES = (1, 3)
+VERTEX_REPLACES = ("radish_pt_tpu/render/pathtrace.py:316 _nee_contrib and :345 "
+                   "_bsdf_advance, but the shadow test (XLA, no Pallas body)")
+CORNELL_TEAPOT = "benchmark/configs/cornell_teapot/scene.txt"
 
 
 def log(msg: str) -> None:
@@ -992,6 +1013,129 @@ def ris_phase(scenes, log, card) -> dict:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
             "shape": "cornell 800x800, 32 candidates", "cases": cases}
+
+
+def vertex_waves(ds, cam, bounces, looper: int = 5) -> dict:
+    """What the dense bounce loop hands the vertex at ``bounces`` of a
+    frame: {bounce: (scene, sampler, active, material, normal, ray
+    direction, position, throughput)}."""
+    import torch
+
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import vertex as vx
+
+    seen = []
+    orig = vx.vertex
+
+    def spy(*args):
+        seen.append(args)
+        return orig(*args)
+
+    vx.vertex = spy
+    try:
+        pt.path_trace(ds, cam, torch.tensor(looper, device=ds.device), max(bounces),
+                      n_slices=0)
+    finally:
+        vx.vertex = orig
+    return {b: seen[b - 1] for b in bounces}
+
+
+def vertex_phase(scenes, log, card) -> dict:
+    """The path tracer's vertex kernel on :data:`VERTEX_CASES`' bounce-1 and
+    bounce-3 wavefronts at 800x800: every field of its output against the
+    plain version's, bit for bit (the lanes differing, each field), then its
+    time (one call, 10 back to back, 10 replayed in one CUDA graph) beside
+    the plain version's one run, the whole vertex's (kernel, sorted shadow
+    test, resolve) replayed, and its bound (render/vertex.py's bytes over
+    the wavefront's material types at the memory rate); then the launches
+    a replayed ``run_block(4)`` of cornell and cornell_teapot at depth 5.
+    Returns the kernels line's row."""
+    import torch
+
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import vertex as vx
+    from radish_pt_tpu_torch.render.renderer import Renderer
+
+    def same_bits(a, b):
+        if a.dtype != torch.float32:
+            return a == b
+        return (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+
+    cases = {}
+    for name, hash_mode in VERTEX_CASES:
+        ds, cam = scenes[name]
+        if hash_mode:
+            ds = ds.replace(sobol=None)
+        for bounce, args in vertex_waves(ds, cam, VERTEX_BOUNCES).items():
+            key = f"{name}{' hash' if hash_mode else ''} bounce {bounce}"
+            got = vx.vertex_cuda(*args)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            want = pt.vertex_plain(*args)
+            end.record()
+            end.synchronize()
+            plain_ms = start.elapsed_time(end)
+            differ = {}
+            for f in ("seg_end", "ok", "contrib", "active", "throughput", "new_dir", "pdf",
+                      "delta"):
+                same = same_bits(getattr(got, f), getattr(want, f))
+                differ[f] = int((~(same if same.dim() == 1 else same.all(-1))).sum())
+            differ["scramble"] = int((got.sampler.scramble != want.sampler.scramble).sum())
+            differ["ptr"] = int(int(got.sampler.ptr) != int(want.sampler.ptr))
+            err = 0.0
+            for f in ("seg_end", "contrib", "throughput", "new_dir", "pdf"):
+                a, b = getattr(got, f), getattr(want, f)
+                both = torch.isfinite(a) & torch.isfinite(b)
+                if both.any():
+                    err = max(err, float((a[both] - b[both]).abs().max()))
+            n = args[4].shape[0]
+            ms = cuda_ms(lambda: vx.vertex_cuda(*args), 5)
+            b2b = cuda_ms(lambda: vx.vertex_cuda(*args), 5, inner=10)
+            replayed = replayed_ms(lambda: vx.vertex_cuda(*args))
+            whole = replayed_ms(lambda: pt._vertex(*args))
+            io = vx.bytes_moved(args[3].mtype)
+            b_ms, b_by = bound(0.0, io)
+            live, ok = int(args[2].sum()), int(want.ok.sum())
+            cases[key] = {"lanes": n, "active": live, "ok": ok, "lanes_differ": differ,
+                          "max_abs_err": err, "ms": ms, "ms_back_to_back": b2b, "ms_replayed": replayed,
+                          "vertex_ms_replayed": whole, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by}
+            log(f"[vertex] {key} ({ds.n_area_lights} area lights, env {ds.has_env}, types "
+                f"{ds.mat_types}; {live} of {n} lanes active, {ok} light samples ok): lanes "
+                f"differing from the plain version {differ}, largest |difference| {err:.3e}; "
+                f"kernel {ms:.4f} ms one call, "
+                f"{b2b:.4f} back to back, {replayed:.4f} replayed; the whole vertex (kernel, "
+                f"sorted shadow test, resolve) {whole:.4f} replayed; plain {plain_ms:.3f} ms; "
+                f"bound {b_ms:.4f} ms ({b_by}: {io / 1e6:.1f} MB), the kernel at "
+                f"{100 * b_ms / replayed:.1f}% of it replayed ({card})")
+            assert not any(differ.values()), (key, differ)
+    # the main path: one launch a bounce of a replayed block, no plain call
+    launches = {}
+    for name in ("cornell", "cornell_teapot"):
+        ds, cam = scenes[name]
+        r = Renderer(ds=ds, cam=cam, device="cuda",
+                     settings=Settings(tracer=Tracer.STREAMED, trace_depth=DEPTH))
+        r.run_block(4)
+        vx.reset_counts()
+        r.run_block(4)
+        torch.cuda.synchronize()
+        per = r.last_runner.launches_per_replay()["vertex"]
+        log(f"[vertex] {name} run_block(4), depth {DEPTH}: {per['vertex']} launch(es) a "
+            f"replay, counted {vx.LAUNCHES['vertex']}, plain calls {vx.PLAIN_CALLS['vertex']}")
+        assert r.last_runner.mode == "graph"
+        assert per == {"vertex": 4 * DEPTH} and vx.LAUNCHES == per
+        assert vx.PLAIN_CALLS == {"vertex": 0}
+        launches[name] = per["vertex"]
+    main = cases[f"{VERTEX_CASES[0][0]} bounce 1"]
+    return {"name": "vertex_kernel", "route": "cuda", "source": SOURCES["vertex"],
+            "replaces": VERTEX_REPLACES, "launches": launches["cornell"],
+            "launches_per_frame": launches["cornell"] / 4,
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "lanes_differ": sum(main["lanes_differ"].values()), "ms": main["ms"],
+            "ms_replayed": main["ms_replayed"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+            "shape": "cornell 800x800, bounce 1", "cases": cases}
 
 
 def dense_parity(ds, waves, max_err, log, scene):
@@ -2395,6 +2539,13 @@ def main(argv=None) -> int:
             f"{clusters}, {ds.n_area_lights} area lights, env map {ds.has_env}, "
             f"aperture mask {ds.has_aperture} (lens radius {float(cam.lens_radius)}), "
             f"depth {depth_of(name)}; loaded in {time.perf_counter() - t5:.2f} s")
+    # the benchmark's teapot in the Cornell box: the vertex phase's GGX case
+    t5 = time.perf_counter()
+    ds, cam, _ = load_scene(os.path.join(REPO, CORNELL_TEAPOT), device=dev)
+    scenes["cornell_teapot"] = (ds, cam.replace(width=RES, height=RES))
+    log(f"[scene] cornell_teapot ({ds.intersector}): {ds.num_triangles} stored triangles, "
+        f"{ds.cluster_bounds.shape[0]} clusters of {ds.cluster_sub}; loaded in "
+        f"{time.perf_counter() - t5:.2f} s")
 
     log(f"[phase] 3 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 3. kernel parity at the main path's shapes ----
@@ -2460,6 +2611,7 @@ def main(argv=None) -> int:
         inputs["bvh"][name] = bvh_parity(ds, waves, max_err, log, name)
     del waves
     ris_row = ris_phase(scenes, log, card)
+    vertex_row = vertex_phase(scenes, log, card)
 
     log(f"[phase] 4 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 4. the main paths ----
@@ -3200,6 +3352,7 @@ def main(argv=None) -> int:
         rows[-1]["parent"] = {k: v for k, v in parent_kernels.items()
                               if k.startswith("signature_key/")}
     rows.append(ris_row)
+    rows.append(vertex_row)
     log(f"[phase] 7 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 7. batched frames: one CUDA graph a block ----
     batched = batched_phase(scenes, log, card)

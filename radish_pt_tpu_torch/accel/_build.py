@@ -89,6 +89,10 @@ SIGNATURES = {
         # the area lights a block stages in shared memory
         "ris_smem_lights": [],
     },
+    "vertex": {
+        # the launch's arguments (render/vertex.py::VertexArgs), stream
+        "vertex_shade": [_P, _P],
+    },
     "stage_mark": {
         # stage index (utils/timing.py STAGES), stream
         "stage_mark": [_I, _P],

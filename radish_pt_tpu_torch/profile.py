@@ -71,6 +71,7 @@ STAGES = (
     ("occlusion_kernel", "shadow kernel"),
     ("signature_key_kernel", "sort key"),
     ("ris_candidates_kernel", "ReSTIR candidate RIS"),
+    ("vertex_kernel", "path vertex (NEE, BSDF sample)"),
     # the sorts of the wavefront's keys (any kernel named for sorting:
     # cub's radix sort, torch's small-segment sorts) and the gathers and
     # scatters that permute its lanes (index_select, index_copy_; the

@@ -53,14 +53,15 @@ def _counters() -> dict:
     """(engine, counter) -> the counter dict of each capturable engine's
     module (its launches, plain-version and prepass calls), of the
     sort-key kernel's (``"sort_key"``), which every engine's sorted sweeps
-    launch, and of ReSTIR's candidate RIS kernel (``"ris"``)."""
+    launch, of ReSTIR's candidate RIS kernel (``"ris"``) and of the path
+    tracer's vertex kernel (``"vertex"``)."""
     from ..accel import band, dense, plucker, quad, sort_key, traverse
-    from . import ris
+    from . import ris, vertex
 
     out = {}
     for engine, mod in (("plucker", plucker), ("band", band), ("quad", quad),
                         ("dense", dense), ("bvh", traverse), ("sort_key", sort_key),
-                        ("ris", ris)):
+                        ("ris", ris), ("vertex", vertex)):
         for attr in ("LAUNCHES", "PLAIN_CALLS", "PREPASS_CALLS"):
             if hasattr(mod, attr):
                 out[engine, attr] = getattr(mod, attr)

@@ -20,9 +20,9 @@ import ctypes
 
 import torch
 
-from ..sampling.sobol import SOBOL_SAMPLE_DIM, SOBOL_SAMPLE_NUM
 from ..scene import device_scene as dsc
 from ..utils import timing
+from .shading_args import lane_tensor, scene_fields
 
 LAUNCHES = {"ris": 0}
 PLAIN_CALLS = {"ris": 0}
@@ -72,17 +72,6 @@ class RisArgs(ctypes.Structure):
     ]
 
 
-def _lane(t: torch.Tensor, name: str, dtype, shape) -> torch.Tensor:
-    if not t.is_cuda or t.dtype != dtype or tuple(t.shape) != shape:
-        raise ValueError(f"{name} must be a {dtype} CUDA tensor of shape {shape}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    return t.contiguous()
-
-
-def _has(types, ty) -> int:
-    return int(types is None or ty in types)
-
-
 def ris_cuda(ds: dsc.DeviceScene, pos, mat: dsc.SurfaceMaterial, norm, wo, sampler,
              reservoir_size: int):
     """The candidate RIS kernel on the lanes ``pos``, ``norm``, ``wo`` f32
@@ -97,14 +86,14 @@ def ris_cuda(ds: dsc.DeviceScene, pos, mat: dsc.SurfaceMaterial, norm, wo, sampl
     if not 0 < reservoir_size <= MAX_RESERVOIR_SIZE:
         raise ValueError(f"reservoir_size must be in 1..{MAX_RESERVOIR_SIZE}, got "
                          f"{reservoir_size}")
-    pos = _lane(pos, "pos", torch.float32, (n, 3))
-    norm = _lane(norm, "norm", torch.float32, (n, 3))
-    wo = _lane(wo, "wo", torch.float32, (n, 3))
-    mtype = _lane(mat.mtype, "mtype", torch.int32, (n,))
-    metallic = _lane(mat.metallic, "metallic", torch.float32, (n,))
-    roughness = _lane(mat.roughness, "roughness", torch.float32, (n,))
-    scramble = _lane(sampler.scramble, "scramble", torch.int64, (n,))
-    ptr = _lane(sampler.ptr, "ptr", torch.int64, ())
+    pos = lane_tensor(pos, "pos", torch.float32, (n, 3))
+    norm = lane_tensor(norm, "norm", torch.float32, (n, 3))
+    wo = lane_tensor(wo, "wo", torch.float32, (n, 3))
+    mtype = lane_tensor(mat.mtype, "mtype", torch.int32, (n,))
+    metallic = lane_tensor(mat.metallic, "metallic", torch.float32, (n,))
+    roughness = lane_tensor(mat.roughness, "roughness", torch.float32, (n,))
+    scramble = lane_tensor(sampler.scramble, "scramble", torch.int64, (n,))
+    ptr = lane_tensor(sampler.ptr, "ptr", torch.int64, ())
     dev = pos.device
     li = torch.empty((n, 3), dtype=torch.float32, device=dev)
     wi = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -113,34 +102,14 @@ def ris_cuda(ds: dsc.DeviceScene, pos, mat: dsc.SurfaceMaterial, norm, wo, sampl
     scramble_out = torch.empty((n,), dtype=torch.int64, device=dev)
     if n == 0:
         return li, wi, dist, num, weight, scramble_out
-    scene = [t.contiguous() for t in (
-        ds.tri_v, ds.light_prim_ids, ds.light_radiance, ds.light_alias_prob,
-        ds.light_alias_idx, ds.sum_light_power_inv, ds.env_alias_prob, ds.env_alias_idx,
-        ds.tex_data, ds.tex_offset, ds.tex_width, ds.tex_height)]
-    for t in scene:
-        if t.device != dev:
-            raise ValueError(f"the scene's tables must be on {dev}, got {t.device}")
-    tri_v, prim, rad, prob, alias, slpi, env_prob, env_alias, tex, off, tw, th = scene
-    sobol = ds.sobol
-    if sobol is not None and (sobol.device != dev or sobol.dtype != torch.int64):
-        raise ValueError("the Sobol table must be an int64 tensor on the lanes' device")
+    fields, _tables = scene_fields(ds, dev)
     args = RisArgs(
         pos=pos.data_ptr(), norm=norm.data_ptr(), wo=wo.data_ptr(), mtype=mtype.data_ptr(),
         metallic=metallic.data_ptr(), roughness=roughness.data_ptr(),
         scramble=scramble.data_ptr(), n=n, reservoir_size=reservoir_size,
-        ptr=ptr.data_ptr(), sobol=None if sobol is None else sobol.data_ptr(),
-        sobol_len=SOBOL_SAMPLE_NUM * SOBOL_SAMPLE_DIM,
-        tri_v=tri_v.data_ptr(), light_prim=prim.data_ptr(), light_radiance=rad.data_ptr(),
-        light_prob=prob.data_ptr(), light_alias=alias.data_ptr(),
-        sum_light_power_inv=slpi.data_ptr(), n_area=ds.n_area_lights, n_alias=prob.shape[0],
-        has_env=int(ds.has_env), single_sided=int(ds.single_sided),
-        lambertian=_has(ds.mat_types, dsc.MAT_LAMBERTIAN),
-        metallic_lobe=_has(ds.mat_types, dsc.MAT_METALLIC_WORKFLOW),
-        env_prob=env_prob.data_ptr(), env_alias=env_alias.data_ptr(), tex_data=tex.data_ptr(),
-        tex_offset=off.data_ptr(), tex_width=tw.data_ptr(), tex_height=th.data_ptr(),
-        n_env=env_prob.shape[0], env_tex=max(ds.env_tex, 0),
-        li=li.data_ptr(), wi=wi.data_ptr(), dist=dist.data_ptr(), num=num.data_ptr(),
-        weight=weight.data_ptr(), scramble_out=scramble_out.data_ptr())
+        ptr=ptr.data_ptr(), li=li.data_ptr(), wi=wi.data_ptr(), dist=dist.data_ptr(),
+        num=num.data_ptr(), weight=weight.data_ptr(), scramble_out=scramble_out.data_ptr(),
+        **fields)
     lib = load_library("ris")
     with torch.cuda.device(dev):
         err = lib.ris_candidates(ctypes.addressof(args),

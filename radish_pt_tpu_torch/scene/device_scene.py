@@ -797,22 +797,21 @@ def sample_direct_light_no_vis(ds: DeviceScene, pos, r4):
     return radiance, wi, dist, pdf
 
 
-def sample_direct_light(ds: DeviceScene, pos, r4, mask=None, shade_normal=None,
-                        lane=None):
+def sample_direct_light(ds: DeviceScene, pos, r4, mask=None, shade_normal=None):
     """Light sample WITH a shadow test (sampleDirectLight, scene.h:419-456).
     Returns (radiance, wi, pdf); pdf <= 0 when invalid or occluded.
 
     Lanes that cannot use the sample (``mask`` False, or the sample below
     the horizon of ``shade_normal``) are masked in the shadow test, which
-    is :func:`test_occlusion_sorted` (``lane``: the lanes' ids, None for
-    lanes in lane order); their pdf is invalid."""
+    is :func:`test_occlusion_sorted` on lanes in lane order; their pdf is
+    invalid."""
     radiance, wi, dist, pdf = sample_direct_light_no_vis(ds, pos, r4)
     ok = pdf > 0.0
     if mask is not None:
         ok = ok & mask
     if shade_normal is not None:
         ok = ok & (m.dot(shade_normal, wi) > 0.0)
-    occ = test_occlusion_sorted(ds, pos, pos + wi * dist[..., None], mask=ok, lane=lane)
+    occ = test_occlusion_sorted(ds, pos, pos + wi * dist[..., None], mask=ok)
     pdf = torch.where(ok & ~occ, pdf, torch.full_like(pdf, INVALID_PDF))
     return radiance, wi, pdf
 

@@ -1,13 +1,14 @@
 """The port's CUDA kernels on the card: build csrc/plucker.cu,
 csrc/compact.cu, csrc/quad.cu, csrc/band.cu, csrc/dense.cu, csrc/bvh.cu,
-csrc/sort_key.cu and csrc/ris.cu and hold the Plücker closest-hit and shadow
-kernels, the sphere prepass, the compact, quad, band and dense closest-hit
-and shadow kernels, the three BVH walks and the sort-key kernel against
-their plain torch versions on teapot geometry, ReSTIR's candidate RIS
-kernel against its plain loop on the shipped scenes,
-then small renders through the kernels (teapot, and the other shipped
-scenes on the Plücker engine) against the same renders through the plain
-versions.
+csrc/sort_key.cu, csrc/ris.cu and csrc/vertex.cu and hold the Plücker
+closest-hit and shadow kernels, the sphere prepass, the compact, quad, band
+and dense closest-hit and shadow kernels, the three BVH walks and the
+sort-key kernel against their plain torch versions on teapot geometry,
+ReSTIR's candidate RIS kernel against its plain loop on the shipped scenes,
+the path tracer's vertex kernel against its plain version on their
+wavefronts, then small renders through the kernels (teapot, and the other
+shipped scenes on the Plücker engine) against the same renders through the
+plain versions.
 
 Needs an NVIDIA GPU and nvcc; skips elsewhere.  Imports no jax, so it runs
 on a machine without it:  python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1458,8 +1459,10 @@ def test_stage_marks_replay_in_stream_order(entry):
         want = ["gbuffer", "primary", "ris", "shadow", "temporal", "spatial", "shade",
                 "accumulate", "end"]
     per = {f"marks.{s}": want.count(s) for s in set(want)}
-    # besides the marks, a ReSTIR replay counts its one RIS kernel launch
-    assert run.counts_per_replay == (per if entry == "run_block" else {**per, "ris.kernel": 1})
+    # besides the marks, a path-traced replay counts its vertex kernel's
+    # launches (one a bounce) and a ReSTIR replay its one RIS kernel launch
+    assert run.counts_per_replay == ({**per, "vertex.kernel": 4 * 3} if entry == "run_block"
+                                     else {**per, "ris.kernel": 1})
     torch.cuda.synchronize()
     timing.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1726,3 +1729,192 @@ def test_vec3_sum_order_is_the_kernels(n):
     got = torch.sum(x, dim=-1)
     want = (x[:, 0] + x[:, 2]) + x[:, 1] + 0.0
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The path tracer's vertex kernel (csrc/vertex.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+VERTEX_RES = 800
+CORNELL_TEAPOT = os.path.join(os.path.dirname(__file__), "..", "benchmark", "configs",
+                              "cornell_teapot", "scene.txt")
+
+
+def _scene_file(scene):
+    return CORNELL_TEAPOT if scene == "cornell_teapot" else os.path.join(SCENES, scene)
+
+
+def _vertex_waves(monkeypatch, scene, bounces, hash_mode=False, looper=5):
+    """What the dense bounce loop hands the vertex at the given bounces of
+    an 800x800 frame of ``scene`` on the card: {bounce: (scene, sampler,
+    active, material, normal, ray direction, position, throughput)}."""
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import vertex as vx
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(_scene_file(scene), device="cuda")
+    if hash_mode:
+        ds = ds.replace(sobol=None)
+    cam = cam.replace(width=VERTEX_RES, height=VERTEX_RES)
+    seen = []
+    orig = vx.vertex
+
+    def spy(*args):
+        seen.append(args)
+        return orig(*args)
+
+    monkeypatch.setattr(vx, "vertex", spy)
+    pt.path_trace(ds, cam, torch.tensor(looper, device="cuda"), max(bounces), n_slices=0)
+    monkeypatch.undo()
+    return {b: seen[b - 1] for b in bounces}
+
+
+def _same_bits(a, b) -> torch.Tensor:
+    """Per element: equal bit for bit, or both NaN (the card's NaN is one
+    pattern, but a NaN is a NaN)."""
+    if a.dtype != torch.float32:
+        return a == b
+    same = a.view(torch.int32) == b.view(torch.int32)
+    return same | (torch.isnan(a) & torch.isnan(b))
+
+
+def _check_vertex(got, want, mtype):
+    """The kernel's :class:`Vertex` against the plain version's, every
+    field on every lane bit for bit: both round the same operations in the
+    same order (csrc/shading.cuh), so no tolerance.  A failure names the
+    field, how many lanes differ and their material types."""
+    fields = {f: (getattr(got, f), getattr(want, f)) for f in (
+        "seg_end", "ok", "contrib", "active", "throughput", "new_dir", "pdf", "delta")}
+    fields["scramble"] = (got.sampler.scramble, want.sampler.scramble)
+    assert int(got.sampler.ptr) == int(want.sampler.ptr)
+    bad = {}
+    for f, (a, b) in fields.items():
+        assert a.shape == b.shape and a.dtype == b.dtype, f
+        same = _same_bits(a, b)
+        lanes = ~(same if same.dim() == 1 else same.all(-1))
+        if lanes.any():
+            types = torch.unique(mtype[lanes]).tolist()
+            first = int(torch.nonzero(lanes)[0])
+            bad[f] = (int(lanes.sum()), types, a[first].tolist(), b[first].tolist())
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene,hash_mode", [
+    ("cornell_box.txt", False),  # Lambertian, two area lights
+    ("cornell_box.txt", True),  # the hash sampler (no Sobol table)
+    ("cornell_teapot", False),  # MetallicWorkflow (GGX), clusters, sorted shadows
+    ("glass.txt", False),  # Dielectric, reflection and refraction
+    ("env_teapot.txt", False),  # the env map its only light
+    ("many_light.txt", False),  # 72 emitter triangles
+    ("textured.txt", False),  # textured base colours
+], ids=["cornell", "cornell_hash", "cornell_teapot", "glass", "env_teapot", "many_light",
+        "textured"])
+def test_vertex_kernel_matches_plain(monkeypatch, scene, hash_mode):
+    """One launch of the vertex kernel on the bounce-1 and bounce-3
+    wavefronts of an 800x800 frame against the plain vertex
+    (``vertex_plain``, eager on the card) on the same lanes: the sampler
+    state, the shadow segment, ``ok``, the contribution, ``active``, the
+    throughput and the BSDF sample, bit for bit on every lane."""
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import vertex as vx
+
+    waves = _vertex_waves(monkeypatch, scene, (1, 3), hash_mode)
+    for bounce, args in waves.items():
+        vx.reset_counts()
+        got = vx.vertex(*args)
+        want = pt.vertex_plain(*args)
+        torch.cuda.synchronize()
+        assert vx.LAUNCHES == {"vertex": 1} and vx.PLAIN_CALLS == {"vertex": 1}
+        assert bool(want.ok.any()) and bool(want.active.any()), bounce
+        _check_vertex(got, want, args[3].mtype)
+
+
+@pytest.mark.cuda
+def test_vertex_kernel_empty_and_malformed():
+    """No lane: no launch, the sampler's pointer 7 draws on; an input off
+    the card or of another type raises (nothing falls back to the plain
+    version)."""
+    from radish_pt_tpu_torch.render import vertex as vx
+    from radish_pt_tpu_torch.sampling import rng
+    from radish_pt_tpu_torch.scene import device_scene as dsc
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, _, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cuda")
+
+    def lanes(n, dev="cuda"):
+        f3 = torch.zeros((n, 3), device="cuda")
+        mat = dsc.SurfaceMaterial(mtype=torch.zeros(n, dtype=torch.int32, device="cuda"),
+                                  base_color=f3, metallic=f3[:, 0], roughness=f3[:, 0],
+                                  ior=f3[:, 0])
+        smp = rng.SamplerState(scramble=torch.zeros(n, dtype=torch.int64, device="cuda"),
+                               ptr=torch.tensor(35, device="cuda"))
+        return (ds, smp, torch.ones(n, dtype=torch.bool, device="cuda"), mat, f3, f3, f3,
+                torch.ones((n, 3), device=dev))
+
+    vx.reset_counts()
+    out = vx.vertex(*lanes(0))
+    assert vx.LAUNCHES == {"vertex": 0} and int(out.sampler.ptr) == 42
+    assert out.contrib.shape == (0, 3) and out.ok.shape == (0,)
+    with pytest.raises(ValueError, match="throughput"):
+        vx.vertex(*lanes(4, dev="cpu"))
+    args = list(lanes(4))
+    args[2] = args[2].to(torch.int32)
+    with pytest.raises(ValueError, match="active"):
+        vx.vertex(*args)
+    assert vx.LAUNCHES == {"vertex": 0} and vx.PLAIN_CALLS == {"vertex": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["cornell_box.txt", "cornell_teapot"],
+                         ids=["cornell", "cornell_teapot"])
+def test_vertex_kernel_block_equals_plain_frames(monkeypatch, scene):
+    """The benchmark's two path-traced scenes at 800x800, depth 5: a
+    replayed ``run_block(4)`` (the vertex kernel, captured) equals four
+    eager frames whose vertices run the plain version, bit for bit; a
+    replay counts one vertex launch a bounce (``vertex.LAUNCHES`` and the
+    tracing's ``vertex.kernel``, 20 a block) and no plain call."""
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render import graph as gr
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import vertex as vx
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+    from radish_pt_tpu_torch.utils import timing
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(_scene_file(scene), device="cuda")
+    cam = cam.replace(width=VERTEX_RES, height=VERTEX_RES)
+    depth = 5
+    settings = Settings(tracer=Tracer.STREAMED, trace_depth=depth)
+    replayed = Renderer(ds=ds, cam=cam, settings=settings, device="cuda")
+    replayed.run_block(4)  # warm-up, capture, one replay
+    run = replayed.last_runner
+    assert run.mode == "graph"
+    assert run.launches_per_replay()["vertex"] == {"vertex": 4 * depth}
+    assert run.counts_per_replay["vertex.kernel"] == 4 * depth
+    vx.reset_counts()
+    before = timing.counters().get("vertex.kernel", 0)
+    replayed.run_block(4)
+    torch.cuda.synchronize()
+    assert vx.LAUNCHES == {"vertex": 4 * depth} and vx.PLAIN_CALLS == {"vertex": 0}
+    assert timing.counters()["vertex.kernel"] - before == 4 * depth
+
+    with monkeypatch.context() as m:
+        m.setattr(gr, "batch_mode", lambda ds: "eager")
+        m.setattr(vx, "vertex", pt.vertex_plain)
+        eager = Renderer(ds=ds, cam=cam, settings=settings, device="cuda")
+        vx.reset_counts()
+        eager.run_block(4)
+        eager.run_block(4)
+        torch.cuda.synchronize()
+    assert eager.last_runner.mode == "eager"
+    assert vx.LAUNCHES == {"vertex": 0} and vx.PLAIN_CALLS == {"vertex": 8 * depth}
+    for name in ("direct", "indirect"):
+        a, b = getattr(replayed, name), getattr(eager, name)
+        assert bool(_same_bits(a, b).all()), (name, int((~_same_bits(a, b)).sum()))
