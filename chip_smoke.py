@@ -945,6 +945,7 @@ def ris_phase(scenes, log, card) -> dict:
     from radish_pt_tpu_torch.render import restir as rs
     from radish_pt_tpu_torch.render import ris
     from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.utils import timing
 
     cases = {}
     for name, size, hash_mode in RIS_CASES:
@@ -997,13 +998,13 @@ def ris_phase(scenes, log, card) -> dict:
                  settings=Settings(tracer=Tracer.RESTIR_DI, animate_camera=True,
                                    animate_radius=2.0))
     r.step_batched_restir(1)
-    ris.reset_counts()
+    tally = timing.Tally()
     r.step_batched_restir(1)
     torch.cuda.synchronize()
-    per = r.last_runner.launches_per_replay()["ris"]
+    per = timing.under(r.last_runner.counts_per_replay, "launch.ris")
     log(f"[ris] cornell step_batched_restir(1): {per['ris']} launch(es) a replay, counted "
-        f"{ris.LAUNCHES['ris']}, plain calls {ris.PLAIN_CALLS['ris']}")
-    assert per == {"ris": 1} and ris.LAUNCHES == {"ris": 1} and ris.PLAIN_CALLS == {"ris": 0}
+        f"{tally('launch.ris')}, plain calls {tally('plain.ris')}")
+    assert per == {"ris": 1} and tally("launch.ris") == per and tally("plain.ris") == {}
     main = cases[f"{RIS_CASES[0][0]} R={RIS_CASES[0][1]}"]
     return {"name": "ris_candidates", "route": "cuda", "source": SOURCES["ris"],
             "replaces": RIS_REPLACES, "launches": per["ris"], "launches_per_frame": per["ris"],
@@ -1056,6 +1057,7 @@ def vertex_phase(scenes, log, card) -> dict:
     from radish_pt_tpu_torch.render import pathtrace as pt
     from radish_pt_tpu_torch.render import vertex as vx
     from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.utils import timing
 
     def same_bits(a, b):
         if a.dtype != torch.float32:
@@ -1117,15 +1119,15 @@ def vertex_phase(scenes, log, card) -> dict:
         r = Renderer(ds=ds, cam=cam, device="cuda",
                      settings=Settings(tracer=Tracer.STREAMED, trace_depth=DEPTH))
         r.run_block(4)
-        vx.reset_counts()
+        tally = timing.Tally()
         r.run_block(4)
         torch.cuda.synchronize()
-        per = r.last_runner.launches_per_replay()["vertex"]
+        per = timing.under(r.last_runner.counts_per_replay, "launch.vertex")
         log(f"[vertex] {name} run_block(4), depth {DEPTH}: {per['vertex']} launch(es) a "
-            f"replay, counted {vx.LAUNCHES['vertex']}, plain calls {vx.PLAIN_CALLS['vertex']}")
+            f"replay, counted {tally('launch.vertex')}, plain calls {tally('plain.vertex')}")
         assert r.last_runner.mode == "graph"
-        assert per == {"vertex": 4 * DEPTH} and vx.LAUNCHES == per
-        assert vx.PLAIN_CALLS == {"vertex": 0}
+        assert per == {"vertex": 4 * DEPTH} and tally("launch.vertex") == per
+        assert tally("plain.vertex") == {}
         launches[name] = per["vertex"]
     main = cases[f"{VERTEX_CASES[0][0]} bounce 1"]
     return {"name": "vertex_kernel", "route": "cuda", "source": SOURCES["vertex"],
@@ -1382,30 +1384,31 @@ def occlusion_pairs(tri, o, d, tm, chunk: int = 8192) -> float:
     return float(total)
 
 
-def drive(scenes, name, settings, counters, log, what, frames: int = 8):
+def drive(scenes, name, settings, module, log, what, frames: int = 8):
     """Loopers 0-``frames - 1`` of scene ``name`` through ``Renderer`` with
-    ``settings``, the launch and plain-call counts of the module
-    ``counters`` set to 0 just before and read just after.  Returns (the
+    ``settings``, the launches and plain calls of the sweep module
+    ``module`` ("plucker", "dense") counted across them.  Returns (the
     renderer, the mean of its current image, the launches)."""
     import torch
 
     from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.utils import timing
 
     ds, cam = scenes[name]
-    counters.reset_counts()
+    tally = timing.Tally()
     r = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=ds.device)
     for _ in range(frames):
         r.step()
     img = r.current_image()
     torch.cuda.synchronize()
-    launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
+    launches, plain = tally(f"launch.{module}"), tally(f"plain.{module}")
     mean = float(img.mean())
     log(f"[main path] {what}, {name} ({ds.intersector}) {RES}x{RES}: {frames} frames, "
         f"mean {mean:.5f}; kernel launches {launches}, plain-version calls {plain}")
     assert bool(torch.isfinite(img).all()), f"{what}: non-finite pixels"
     assert mean > 0.0, f"{what}: black image"
-    assert all(v > 0 for v in launches.values()), f"{what}: a kernel was not launched"
-    assert not any(plain.values()), f"{what}: a plain version ran on the main path"
+    assert set(launches) == {"closest_hit", "occlusion"}, f"{what}: a kernel was not launched"
+    assert not plain, f"{what}: a plain version ran on the main path"
     return r, mean, launches
 
 
@@ -1451,9 +1454,9 @@ def key_parity(ds, waves, scene, max_err, log):
     import torch
 
     from radish_pt_tpu_torch.accel import sort_key as sk
-    from radish_pt_tpu_torch.scene.device_scene import BAND_ENGINES
+    from radish_pt_tpu_torch.scene import engines
 
-    band = ds.intersector in BAND_ENGINES
+    band = engines.of(ds).group == "band"
     boxes = ds.key_bounds
     o, d, _ = waves["primary"]
     eo, ed, etm = waves["extension"]
@@ -1506,16 +1509,17 @@ def frame_stages(fn) -> dict:
     return out
 
 
-def main_path(scenes, names, counters, log, kinds=None):
-    """Loopers 0-7 of each named scene through ``Renderer``, the launch and
-    plain-call counts of the module ``counters`` (LAUNCHES, PLAIN_CALLS)
-    set to 0 just before and read just after; each kernel of ``kinds``
-    (None: of the module) launched.  Returns (launches, frames)."""
+def main_path(scenes, names, module, log, kinds=("closest_hit", "occlusion")):
+    """Loopers 0-7 of each named scene through ``Renderer``, the launches
+    and plain calls of the kernel module ``module`` ("plucker", "traverse")
+    counted across them; each kernel of ``kinds`` launched.  Returns
+    (launches, frames)."""
     import torch
 
     from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.utils import timing
 
-    counters.reset_counts()
+    tally = timing.Tally()
     for name in names:
         ds, cam = scenes[name]
         r = Renderer(ds=ds, cam=cam, desc=None, device=ds.device)
@@ -1529,11 +1533,11 @@ def main_path(scenes, names, counters, log, kinds=None):
         log(f"[main path] {name} ({ds.intersector}): {RES}x{RES}, depth "
             f"{depth_of(name)}, 8 spp accumulated, mean (compressed) "
             f"{float(img.mean()):.5f}")
-    launches, plain = dict(counters.LAUNCHES), dict(counters.PLAIN_CALLS)
+    launches, plain = tally(f"launch.{module}"), tally(f"plain.{module}")
     log(f"[main path] {', '.join(names)}: kernel launches {launches}, "
         f"plain-version calls {plain}")
-    assert all(launches[k] > 0 for k in kinds or launches), "a kernel was not launched"
-    assert not any(plain.values()), "a plain version ran on the main path"
+    assert all(launches.get(k, 0) > 0 for k in kinds), "a kernel was not launched"
+    assert not plain, "a plain version ran on the main path"
     return launches, 8 * len(names)
 
 
@@ -1588,18 +1592,10 @@ def batched_phase(scenes, log, card):
     and the device-busy share of a replayed block.  Returns {cell: record}."""
     import torch
 
-    from radish_pt_tpu_torch.accel import band as bnd
-    from radish_pt_tpu_torch.accel import compact as cpt
-    from radish_pt_tpu_torch.accel import dense as dns
-    from radish_pt_tpu_torch.accel import plucker as plk
-    from radish_pt_tpu_torch.accel import quad as qd
-    from radish_pt_tpu_torch.accel import traverse as trv
     from radish_pt_tpu_torch.config import Settings, Tracer
-    from radish_pt_tpu_torch.render import ris
     from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.utils.timing import Tally, under
 
-    counters = {"plucker": plk, "band": bnd, "quad": qd, "dense": dns, "compact": cpt,
-                "bvh": trv}
     dev = scenes["teapot"][0].device
     restir_offsets_check(dev, log, "[batched]")
 
@@ -1657,22 +1653,22 @@ def batched_phase(scenes, log, card):
         eager, batched = renderers(name, Settings(tracer=Tracer.STREAMED, trace_depth=depth))
         mode = "eager" if ds.intersector == "compact" else "graph"
         assert batched.batch_mode == mode, (name, batched.batch_mode)
-        module = counters[ds.intersector]
-        module.reset_counts()
+        module = "launch." + ("traverse" if ds.intersector == "bvh" else ds.intersector)
+        tally = Tally()
         for _ in range(2):
             run = batched.run_block(block)
         torch.cuda.synchronize()
         per = {"closest_hit": block * (depth + 1), "occlusion": block * depth}
         if ds.intersector == "bvh":  # one binning launch before each walk
             per["bin"] = per["closest_hit"] + per["occlusion"]
-        launches = {k: module.LAUNCHES[k] for k in per}
+        launches = {k: n for k, n in tally(module).items() if k in per}
         for _ in range(2 * block):
             eager.step()
         torch.cuda.synchronize()
         differ = states_equal(eager, batched)
         # graph: the warm-up block and two replays; eager: two blocks
         want = {k: (3 if mode == "graph" else 2) * v for k, v in per.items()}
-        per_replay = run.launches_per_replay().get(ds.intersector)
+        per_replay = under(run.counts_per_replay, module)
         log(f"[batched] {name} ({ds.intersector}) {RES}x{RES} depth {depth}, blocks of "
             f"{block}: batch mode {batched.batch_mode}; two blocks equal to {2 * block} "
             f"eager step() frames bit for bit: {not differ} {differ or ''}; launches "
@@ -1680,8 +1676,7 @@ def batched_phase(scenes, log, card):
         assert not differ, f"{name}: the batched frames differ from step(): {differ}"
         assert launches == want, (name, launches, want)
         if mode == "graph":
-            assert {k: per_replay[k] for k in per} == per, (name, per_replay, per)
-            assert not any(v for k, v in per_replay.items() if k not in per), per_replay
+            assert per_replay == per, (name, per_replay, per)
         eager_ms, batch_ms, busy, ops, busy_e = timing(name, eager, batched, block, per)
         log(f"[timing] {name} ({ds.intersector}) {RES}x{RES} depth {depth}: batched "
             f"{batch_ms:.3f} ms/frame (blocks of {block}, {mode}) vs eager step() "
@@ -1700,8 +1695,7 @@ def batched_phase(scenes, log, card):
     eager, batched = renderers(name, Settings(tracer=Tracer.RESTIR_DI))
     assert batched.batch_mode == "graph"
     moved = (scenes[name][1].position + torch.tensor([0.05, 0.0, 0.0], device=dev)).tolist()
-    dns.reset_counts()
-    ris.reset_counts()
+    tally = Tally()
     batched.step_batched_restir(block)
     first = {"direct": batched.direct.clone(),
              **{f: getattr(batched.reservoir, f).clone()
@@ -1709,9 +1703,10 @@ def batched_phase(scenes, log, card):
     batched.update_camera(position=moved)
     batched.step_batched_restir(block)
     torch.cuda.synchronize()
-    launches = dict(dns.LAUNCHES)
-    ris_launches, ris_plain = dict(ris.LAUNCHES), dict(ris.PLAIN_CALLS)
+    launches = tally("launch.dense")
+    ris_launches, ris_plain = tally("launch.ris"), tally("plain.ris")
     run = batched.last_runner
+    per_replay = {m: under(run.counts_per_replay, f"launch.{m}") for m in ("dense", "ris")}
     for _ in range(block):
         eager.step()
     differ = [k for k, v in first.items()
@@ -1728,13 +1723,13 @@ def batched_phase(scenes, log, card):
     log(f"[batched] ReSTIR DI, {name} {RES}x{RES}, step_batched_restir({block}) twice, "
         f"the camera moved between: equal to {2 * block} eager step() frames bit for "
         f"bit: {not differ} {differ or ''}; launches {launches} (want {want}), a replay "
-        f"{run.launches_per_replay().get('dense')}; RIS launches {ris_launches} (want "
-        f"{3 * block}), plain calls {ris_plain}, a replay {run.launches_per_replay()['ris']}")
+        f"{per_replay['dense']}; RIS launches {ris_launches} (want "
+        f"{3 * block}), plain calls {ris_plain}, a replay {per_replay['ris']}")
     assert not differ, f"ReSTIR: the batched frames differ from step(): {differ}"
-    assert launches == want and run.launches_per_replay()["dense"] == per
+    assert launches == want and per_replay["dense"] == per
     # one candidate RIS launch a frame, as the dense sweeps count theirs
-    assert ris_launches == {"ris": 3 * block} and ris_plain == {"ris": 0}
-    assert run.launches_per_replay()["ris"] == {"ris": block}
+    assert ris_launches == {"ris": 3 * block} and ris_plain == {}
+    assert per_replay["ris"] == {"ris": block}
     eager_ms, batch_ms, busy, ops, busy_e = timing(f"{name} ReSTIR", eager, batched, block,
                                                    per)
     log(f"[timing] {name} ReSTIR DI {RES}x{RES}: batched {batch_ms:.3f} ms/frame (blocks "
@@ -1992,9 +1987,6 @@ def mesh_phase(scenes, log, card) -> dict:
     import torch
 
     from radish_pt_tpu_torch import webviewer as wv
-    from radish_pt_tpu_torch.accel import dense as dns
-    from radish_pt_tpu_torch.accel import plucker as plk
-    from radish_pt_tpu_torch.accel import sort_key as sk
     from radish_pt_tpu_torch.config import Denoiser, ReservoirReuse, Settings, Tracer
     from radish_pt_tpu_torch.parallel import dryrun
     from radish_pt_tpu_torch.parallel import multihost as mh
@@ -2005,6 +1997,7 @@ def mesh_phase(scenes, log, card) -> dict:
     from radish_pt_tpu_torch.render import restir as rs
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.utils import pairstats as ps
+    from radish_pt_tpu_torch.utils import timing
 
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -2014,22 +2007,19 @@ def mesh_phase(scenes, log, card) -> dict:
         return sh.make_mesh(n_tile, n_sample, devices=[dev] * (n_tile * n_sample))
 
     def counted(fn, mods):
-        """``fn()`` with the launch and plain-call counts of ``mods`` set
-        to 0 just before and read just after: (result, launches)."""
-        for mod in mods.values():
-            mod.reset_counts()
+        """``fn()`` and the launches of the kernel modules ``mods`` it
+        counted: (result, {module: launches}); no plain call."""
+        tally = timing.Tally()
         out = fn()
         torch.cuda.synchronize()
-        launches = {k: dict(mod.LAUNCHES) for k, mod in mods.items()}
-        plain = {k: dict(mod.PLAIN_CALLS) for k, mod in mods.items()}
-        assert not any(v for p in plain.values() for v in p.values()), \
-            f"a plain version ran on the mesh path: {plain}"
-        return out, launches
+        plain = {m: tally(f"plain.{m}") for m in mods}
+        assert not any(plain.values()), f"a plain version ran on the mesh path: {plain}"
+        return out, {m: tally(f"launch.{m}") for m in mods}
 
     # ---- tile-sharded frames against the single-device frame ----
     m4 = mesh(MESH_TILES)
-    for name, mods in (("teapot", {"plucker": plk, "sort_key": sk}),
-                       ("cornell", {"plucker": plk, "sort_key": sk})):
+    for name, mods in (("teapot", ("plucker", "sort_key")),
+                       ("cornell", ("plucker", "sort_key"))):
         ds, cam = scenes[name]
         d = DEPTH
         got, launches = counted(lambda: sh.render_frame_sharded(m4, ds, cam, 7, d), mods)
@@ -2037,7 +2027,7 @@ def mesh_phase(scenes, log, card) -> dict:
         keys = 2 * d + 1 if ds.cluster_bounds is not None else 0
         expect = {"plucker": {"closest_hit": MESH_TILES * (d + 1),
                               "occlusion": MESH_TILES * d},
-                  "sort_key": {"signature_key": MESH_TILES * keys}}
+                  "sort_key": {"signature_key": MESH_TILES * keys} if keys else {}}
         assert launches == expect, (name, launches, expect)
         if name == "cornell":  # no clusters: no lane shares a culling decision
             assert torch.equal(got, want), "cornell: the mesh frame differs"
@@ -2071,8 +2061,8 @@ def mesh_phase(scenes, log, card) -> dict:
     m2 = mesh(2)
     settings = Settings(tracer=Tracer.RESTIR_DI)
     r = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=dev, mesh=m2)
-    _, launches = counted(lambda: [r.step() for _ in range(2)], {"dense": dns})
-    assert all(v > 0 for v in launches["dense"].values()), launches
+    _, launches = counted(lambda: [r.step() for _ in range(2)], ("dense",))
+    assert set(launches["dense"]) == {"closest_hit", "occlusion"}, launches
     tiled, single, seams = dryrun.seam_check(m2, ds, cam)
     rejected = dryrun.seam_rule(tiled, single, seams)
     assert np.array_equal(r.current_image().cpu().numpy().reshape(tiled.shape), tiled)
@@ -2111,12 +2101,13 @@ def mesh_phase(scenes, log, card) -> dict:
     a = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=dev, mesh=m4)
     b = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=dev, mesh=m4)
     img, launches = counted(lambda: a.render_batched(4, block=2),
-                            {"plucker": plk, "sort_key": sk})
+                            ("plucker", "sort_key"))
     runners = [held[1] for held in a._runners.values()]
     assert len(runners) == MESH_TILES and {run.mode for run in runners} == {"graph"}
     per_replay = {"closest_hit": 2 * (DEPTH + 1), "occlusion": 2 * DEPTH}
     for run in runners:  # a tile's replay: its block's sweeps
-        assert run.replays == 2 and run.launches_per_replay()["plucker"] == per_replay
+        assert run.replays == 2 and timing.under(run.counts_per_replay,
+                                                 "launch.plucker") == per_replay
     # each tile: its eager warm-up block (2 frames) and two replays (4)
     expect = {k: MESH_TILES * 3 * v for k, v in per_replay.items()}
     assert launches["plucker"] == expect, (launches, expect)
@@ -2155,7 +2146,7 @@ def mesh_phase(scenes, log, card) -> dict:
     for n_tile in (2, MESH_TILES):
         r = Renderer(ds=ds, cam=cam, desc=None, settings=settings, device=dev,
                      mesh=mesh(n_tile))
-        got, launches = counted(lambda: two_blocks(r, moved), {"dense": dns})
+        got, launches = counted(lambda: two_blocks(r, moved), ("dense",))
         differ = [f"block {b}: {k}" for b in range(2) for k in want[b]
                   if not torch.equal(got[b][k], want[b][k])]
         run = r.last_runner
@@ -2164,7 +2155,7 @@ def mesh_phase(scenes, log, card) -> dict:
         assert not differ, f"mesh ReSTIR on {n_tile} tiles differs from one device: {differ}"
         # the warm-up block and two replays
         assert launches["dense"] == {k: 3 * v for k, v in per.items()}, launches
-        assert run.launches_per_replay()["dense"] == per and run.replays == 2
+        assert timing.under(run.counts_per_replay, "launch.dense") == per and run.replays == 2
         replays = run.replays
         h = rs.HALO * RES + rs.HALO
         halo_px = sum(min(hi + h, n_px) - max(lo - h, 0)
@@ -2192,15 +2183,17 @@ def mesh_phase(scenes, log, card) -> dict:
                  mesh=mesh(MESH_TILES))
     one.step_batched_restir(RESTIR_BLOCK)
     _, launches = counted(lambda: r.step_batched_restir(RESTIR_BLOCK),
-                          {"plucker": plk, "sort_key": sk})
+                          ("plucker", "sort_key"))
     flips = dryrun.frames_match(r.current_image().cpu().numpy(),
                                 one.current_image().cpu().numpy(), atol=FLIP_ATOL,
                                 max_flips=FLIP_MAX, mean_atol=FLIP_MEAN)
     per = {"plucker": {"closest_hit": MESH_TILES * (RESTIR_BLOCK + 1),
                        "occlusion": MESH_TILES * RESTIR_BLOCK},
            "sort_key": {"signature_key": MESH_TILES * (2 * RESTIR_BLOCK + 1)}}
-    replay = {m: {k: v for k, v in d.items() if v}
-              for m, d in r.last_runner.launches_per_replay().items() if any(d.values())}
+    replay = {}  # module -> {kernel: launches} of a replay
+    for key, n in timing.under(r.last_runner.counts_per_replay, "launch").items():
+        module, kernel = key.split(".")
+        replay.setdefault(module, {})[kernel] = n
     # besides the sweeps, one candidate RIS launch a tile a frame
     assert r.batch_mode == "graph" and replay == {
         **per, "ris": {"ris": MESH_TILES * RESTIR_BLOCK}}, (replay, per)
@@ -2615,10 +2608,10 @@ def main(argv=None) -> int:
 
     log(f"[phase] 4 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 4. the main paths ----
-    def sweep_path(names, counters, kinds=None):
+    def sweep_path(names, module, kinds=("closest_hit", "occlusion")):
         """d + 1 closest hits and d shadow sweeps a frame of depth d, each
         one launch."""
-        n_launch, n_frames = main_path(scenes, names, counters, log, kinds)
+        n_launch, n_frames = main_path(scenes, names, module, log, kinds)
         want = {"closest_hit": sum(8 * (depth_of(n) + 1) for n in names),
                 "occlusion": sum(8 * depth_of(n) for n in names)}
         assert {k: n_launch[k] for k in want} == want, (n_launch, want)
@@ -2632,50 +2625,53 @@ def main(argv=None) -> int:
         1 times (the primaries, then each bounce's shadow segments and
         extension rays), in the sliced bounce loop where ``path_trace``
         gates it and in the dense loop alike; no plain key."""
-        sk.reset_counts()
-        n_launch, n_frames = sweep_path(names, plk)
-        assert not any(plk.PREPASS_CALLS.values()), "the mask prepass ran on the card path"
+        tally = timing.Tally()
+        n_launch, n_frames = sweep_path(names, "plucker")
+        assert not tally("prepass.plucker"), "the mask prepass ran on the card path"
         want = sum(8 * (2 * depth_of(n) + 1) for n in names
                    if scenes[n][0].cluster_bounds is not None)
-        key_launches[names] = (dict(sk.LAUNCHES), n_frames)
-        log(f"[main path] {', '.join(names)}: sort-key launches {dict(sk.LAUNCHES)} (want "
-            f"{want}), plain keys {dict(sk.PLAIN_CALLS)}")
-        assert sk.LAUNCHES["signature_key"] == want and not any(sk.PLAIN_CALLS.values())
+        keys = tally("launch.sort_key")
+        key_launches[names] = (keys, n_frames)
+        log(f"[main path] {', '.join(names)}: sort-key launches {keys} (want "
+            f"{want}), plain keys {tally('plain.sort_key')}")
+        assert keys.get("signature_key", 0) == want and not tally("plain.sort_key")
         return n_launch, n_frames
 
     def band_path(names):
         """A band frame: every sweep votes its bands' words in the kernel,
         no band-mask prepass."""
-        n_launch, n_frames = sweep_path(names, bnd)
+        tally = timing.Tally()
+        n_launch, n_frames = sweep_path(names, "band")
         log(f"[main path] {', '.join(names)}: band-mask prepass calls "
-            f"{dict(bnd.PREPASS_CALLS)}")
-        assert bnd.PREPASS_CALLS == {"band_mask_words": 0}, bnd.PREPASS_CALLS
+            f"{tally('prepass.band')}")
+        assert tally("prepass.band") == {}, tally("prepass.band")
         return n_launch, n_frames
 
     def quad_path(names):
         """A quad frame: the shadow sweeps vote their rows' words in the
         kernel; the row-mask prepass runs for the 6 closest hits only."""
-        plk.reset_counts()
-        n_launch, n_frames = sweep_path(names, qd)
-        log(f"[main path] {', '.join(names)}: row-mask prepass calls "
-            f"{dict(plk.PREPASS_CALLS)}")
-        assert plk.PREPASS_CALLS == {"cluster_mask_words": 6 * n_frames}, plk.PREPASS_CALLS
+        tally = timing.Tally()
+        n_launch, n_frames = sweep_path(names, "quad")
+        prepass = tally("prepass.plucker")
+        log(f"[main path] {', '.join(names)}: row-mask prepass calls {prepass}")
+        assert prepass == {"cluster_mask_words": 6 * n_frames}, prepass
         return n_launch, n_frames
 
     launches = {"plucker": plucker_path(("cornell", "teapot")),
-                "compact": sweep_path(("teapot_hires",), cpt),
+                "compact": sweep_path(("teapot_hires",), "compact",
+                                      ("sphere_flags", "closest_hit", "occlusion")),
                 "quad": quad_path(("teapot_quad",)),
                 "band": band_path(("teapot_hires_band",))}
     launches_hires_plucker = plucker_path(("teapot_hires_plucker",))
     # the other shipped scenes, each driven alone: glass at depth 8 (9
     # closest hits, 8 shadow sweeps a frame), the others at 5
     launches_other = {name: plucker_path((name,))[0] for name in OTHER_SCENES}
-    main_path(scenes, ("cornell_dense", "teapot_dense"), dns, log)
+    main_path(scenes, ("cornell_dense", "teapot_dense"), "dense", log)
     walks = ("closest_hit", "occlusion", "bin")  # the heatmap walk: the heatmap tracer's
-    launches["bvh"] = sweep_path(("cornell_bvh", "teapot_bvh"), trv, walks)
-    launches_hires_bvh = sweep_path(("teapot_hires_bvh",), trv, walks)
+    launches["bvh"] = sweep_path(("cornell_bvh", "teapot_bvh"), "traverse", walks)
+    launches_hires_bvh = sweep_path(("teapot_hires_bvh",), "traverse", walks)
     for n_launch, _ in (launches["bvh"], launches_hires_bvh):
-        assert n_launch["heatmap"] == 0
+        assert "heatmap" not in n_launch
         # one binning launch before each closest hit and shadow walk
         assert n_launch["bin"] == n_launch["closest_hit"] + n_launch["occlusion"], n_launch
 
@@ -2686,15 +2682,15 @@ def main(argv=None) -> int:
     launches_heatmap = {}
     for name in ("teapot_bvh", "teapot_hires_bvh"):
         ds, cam = scenes[name]
-        trv.reset_counts()
+        tally = timing.Tally()
         r = Renderer(ds=ds, cam=cam, desc=None, settings=Settings(tracer=Tracer.BVH_VISUALIZE),
                      device=dev)
         for _ in range(heat_frames):
             r.step()
         img = r.current_image()
         torch.cuda.synchronize()
-        launches_heatmap[name] = (dict(trv.LAUNCHES), heat_frames)
-        plain = dict(trv.PLAIN_CALLS)
+        launches_heatmap[name] = (tally("launch.traverse"), heat_frames)
+        plain = tally("plain.traverse")
         ref = Renderer(ds=ds.replace(intersector="bvh_plain"), cam=cam, desc=None,
                        settings=Settings(tracer=Tracer.BVH_VISUALIZE), device=dev)
         ref.step()
@@ -2703,9 +2699,8 @@ def main(argv=None) -> int:
             f"launches {launches_heatmap[name][0]}, plain-version calls {plain}; t in "
             f"[{float(img[:, 0].min()):.4f}, {float(img[:, 0].max()):.4f}], mean "
             f"{float(img[:, 0].mean()):.5f}; equal to the plain walk's image: {same}")
-        assert launches_heatmap[name][0] == {"closest_hit": 0, "occlusion": 0,
-                                             "heatmap": heat_frames, "bin": 0}
-        assert not any(plain.values()), "a plain walk ran on the heatmap's path"
+        assert launches_heatmap[name][0] == {"heatmap": heat_frames}
+        assert not plain, "a plain walk ran on the heatmap's path"
         assert bool(torch.isfinite(img).all()) and float(img[:, 0].max()) == 1.0
         assert same, f"{name}: the heatmap differs from the plain walk's"
     means, frames = {}, {}
@@ -2793,18 +2788,19 @@ def main(argv=None) -> int:
                                         trace_depth=DEPTH))}
     renderers, path_means = {}, {}
 
-    def ris_launched(what, frames):
-        """ReSTIR's candidate RIS since the last reset: one kernel launch a
+    def ris_launched(tally, what, frames):
+        """ReSTIR's candidate RIS counted by ``tally``: one kernel launch a
         frame, no plain call."""
-        log(f"[main path] {what}: candidate RIS launches {dict(ris.LAUNCHES)}, plain calls "
-            f"{dict(ris.PLAIN_CALLS)} over {frames} frames")
-        assert ris.LAUNCHES == {"ris": frames} and ris.PLAIN_CALLS == {"ris": 0}, what
+        launched, plain = tally("launch.ris"), tally("plain.ris")
+        log(f"[main path] {what}: candidate RIS launches {launched}, plain calls "
+            f"{plain} over {frames} frames")
+        assert launched == ({"ris": frames} if frames else {}) and plain == {}, what
 
     for key, (what, settings) in paths.items():
-        ris.reset_counts()
-        r, path_means[key], n_launch = drive(scenes, "cornell_dense", settings, dns, log,
+        tally = timing.Tally()
+        r, path_means[key], n_launch = drive(scenes, "cornell_dense", settings, "dense", log,
                                              what)
-        ris_launched(what, 8 if key == "restir" else 0)
+        ris_launched(tally, what, 8 if key == "restir" else 0)
         renderers[key] = r
         if key == "restir":
             launches["dense"] = (n_launch, 8)
@@ -2812,9 +2808,10 @@ def main(argv=None) -> int:
         log(f"[main path] {what}: 8-frame mean {path_means[key]:.5f} vs the JAX "
             f"package's {PATH_GOLDEN[key]:.5f}: drift {drift * 100:+.3f}%")
         assert abs(drift) < MEAN_DRIFT, f"{what}: mean drifted more than 2e-3 from its golden"
-    ris.reset_counts()
-    _, m_plk, _ = drive(scenes, "cornell", restir, plk, log, "ReSTIR DI on the Plücker engine")
-    ris_launched("ReSTIR DI on the Plücker engine", 8)
+    tally = timing.Tally()
+    _, m_plk, _ = drive(scenes, "cornell", restir, "plucker", log,
+                        "ReSTIR DI on the Plücker engine")
+    ris_launched(tally, "ReSTIR DI on the Plücker engine", 8)
     rel = m_plk / path_means["restir"] - 1.0
     log(f"[main path] ReSTIR DI, Plücker vs dense engine: means {m_plk:.5f} vs "
         f"{path_means['restir']:.5f}, differ by {rel * 100:+.4f}%")
@@ -2822,23 +2819,23 @@ def main(argv=None) -> int:
 
     # ReSTIR with the camera animated: the G-buffer's motion reprojection
     # feeds the temporal reuse; the counts are read after the 8th frame
-    ris.reset_counts()
+    tally = timing.Tally()
     r, _, _ = drive(scenes, "cornell_dense", Settings(tracer=Tracer.RESTIR_DI,
-                                                      animate_camera=True), dns, log,
+                                                      animate_camera=True), "dense", log,
                     "ReSTIR DI, camera animated (frames 0-6)", frames=7)
-    ris_launched("ReSTIR DI, camera animated (frames 0-6)", 7)
-    dns.reset_counts()
-    ris.reset_counts()
+    ris_launched(tally, "ReSTIR DI, camera animated (frames 0-6)", 7)
+    tally = timing.Tally()
     last_res, last_frame = r.reservoir, r.gbuf_last
     r.step()
     temporal = rs.find_temporal_neighbor(last_res, r.gbuf.motion, r.gbuf.frame, last_frame)
     torch.cuda.synchronize()
-    assert all(v > 0 for v in dns.LAUNCHES.values()) and not any(dns.PLAIN_CALLS.values())
-    ris_launched("ReSTIR DI, camera animated, frame 7", 1)
+    launched, plain = tally("launch.dense"), tally("plain.dense")
+    assert set(launched) == {"closest_hit", "occlusion"} and not plain
+    ris_launched(tally, "ReSTIR DI, camera animated, frame 7", 1)
     geo = r.gbuf.frame.prim_id > gb.NULL_PRIMITIVE
     moved = r.gbuf.motion != torch.arange(RES * RES, device=dev)
-    log(f"[main path] ReSTIR DI, camera animated, frame 7: launches {dict(dns.LAUNCHES)}, "
-        f"plain calls {dict(dns.PLAIN_CALLS)}; of {int(geo.sum())} pixels on geometry, "
+    log(f"[main path] ReSTIR DI, camera animated, frame 7: launches {launched}, "
+        f"plain calls {plain}; of {int(geo.sum())} pixels on geometry, "
         f"{float((geo & (r.gbuf.motion >= 0)).sum() / geo.sum()):.4f} have valid motion "
         f"({float((geo & moved).sum() / geo.sum()):.4f} reproject to another pixel) and "
         f"{float((temporal.num > 0).sum() / geo.sum()):.4f} accepted a temporal "
@@ -3324,7 +3321,7 @@ def main(argv=None) -> int:
                 "other_bounds": other(f"{name}/{what}", scene)}
         if lib == "plucker":  # the other shipped scenes' main paths (8 frames each)
             rows[-1]["other_scenes"] = {
-                scene: {"launches": n[kind], "launches_per_frame": n[kind] / 8}
+                scene: {"launches": n.get(kind, 0), "launches_per_frame": n.get(kind, 0) / 8}
                 for scene, n in launches_other.items()}
     # the sort-key kernel, launched on the Plücker main path (cornell has no
     # clusters and no key); every wavefront it was timed on beside
@@ -3339,8 +3336,8 @@ def main(argv=None) -> int:
                  "shape": f"{KEY_ROW[0]} {KEY_ROW[1]}",
                  "stage": "an XLA slab test of the JAX package (no Pallas body)",
                  "other_scenes": {
-                     ", ".join(names): {"launches": n["signature_key"],
-                                        "launches_per_frame": n["signature_key"] / f}
+                     ", ".join(names): {"launches": n.get("signature_key", 0),
+                                        "launches_per_frame": n.get("signature_key", 0) / f}
                      for names, (n, f) in key_launches.items()},
                  "wavefronts": {
                      f"{scene} {key.split('/')[1]}": {

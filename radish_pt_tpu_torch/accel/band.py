@@ -32,8 +32,8 @@ result moves), so the card path calls :func:`band_mask_words` never.
 Dead lanes (a negative ``tmax``) flag nothing, are swept by nothing and
 miss, in the kernel and in ``closest_hit_plain(..., dead=...)`` alike; a
 segment with a negative range (zero-length) is never blocked.
-``LAUNCHES`` counts kernel launches, ``PLAIN_CALLS`` plain-version calls
-and ``PREPASS_CALLS`` calls of :func:`band_mask_words`.
+It counts ``launch.band.*`` kernel launches, ``plain.band.*`` plain-version
+calls and ``prepass.band.band_mask_words`` (utils/timing.py).
 
 Not carried over from the TPU: the pass split (``_band_pass_split``), the
 16-bit SMEM words, the union guard and the concatenated [G*16, 256]
@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
 from . import compact as cpt
 # the sweeps do the Plücker engine's arithmetic, FLOPS_PER_PAIR included
 from .plucker import (FLOPS_PER_PAIR, PACKED_WIDTH, ROW, blocks,  # noqa: F401
@@ -62,15 +63,7 @@ MIN_TRIS = 1024  # at or below this the reference builds no clusters
 _PREPASS_ELEMS = 1 << 25  # (lane, cluster) pairs per prepass chunk
 _PLAIN_PAIRS = 1 << 24  # (lane, triangle) pairs per plain-sweep chunk
 
-LAUNCHES = {"closest_hit": 0, "occlusion": 0}
-PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
-PREPASS_CALLS = {"band_mask_words": 0}
 
-
-def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS, PREPASS_CALLS):
-        for k in d:
-            d[k] = 0
 
 
 def check_g(g: int) -> int:
@@ -94,7 +87,7 @@ def band_mask_words(cluster_bounds, ray_o, ray_d, tmax, g: int):
     padded to whole rows as the reference pads them (``_pad_rays``: o = 0,
     d = 1, tmax = -FLT_MAX, so padding lanes flag nothing); ``tmax`` None
     means FLT_MAX.  Chunked over bands to bound the [lanes, C] temporaries."""
-    PREPASS_CALLS["band_mask_words"] += 1
+    timing.count("prepass.band.band_mask_words")
     lanes = ROW // check_g(g)
     n_pad = -(-ray_o.shape[0] // ROW) * ROW
     o, d, tm = cpt._pad_rays(ray_o, ray_d, tmax, n_pad)
@@ -203,7 +196,7 @@ def closest_hit_plain(coeffs, feats, mask, g, dead=None):
     and so are the lanes of ``dead`` (bool [N], :func:`.plucker.dead_lanes`;
     None: a dead lane gets what its band's clusters give, as in the
     reference)."""
-    PLAIN_CALLS["closest_hit"] += 1
+    timing.count("plain.band.closest_hit")
     flags = mask_flags(mask, CLUSTER_SUB, coeffs.shape[0])
     prim, dist = sweep_closest(coeffs, feats, flags, ROW // g, CLUSTER_SUB, hit_t,
                                _PLAIN_PAIRS)
@@ -217,7 +210,7 @@ def occlusion_plain(coeffs, feats, tm, mask, g):
     """Plain torch banded any-hit: True where a triangle of a cluster the
     lane's band flags blocks the segment of range ``tm`` f32 [N].  Other
     arguments as :func:`closest_hit_plain`."""
-    PLAIN_CALLS["occlusion"] += 1
+    timing.count("plain.band.occlusion")
     flags = mask_flags(mask, CLUSTER_SUB, coeffs.shape[0])
     return sweep_any(coeffs, feats, flags, ROW // g, CLUSTER_SUB,
                      lambda c, f, lo, hi: blocks(c, f, tm[lo:hi]), _PLAIN_PAIRS)
@@ -291,7 +284,7 @@ def closest_hit_cuda(packed, feats, cluster_bounds, words_box, ray_o, ray_d, tma
         return prim, dist
     _launch("band_closest_hit", packed, packed.shape[0], cluster_bounds, words_box,
             cluster_bounds.shape[0], ray_o, ray_d, tmax, feats, n, g, prim, dist)
-    LAUNCHES["closest_hit"] += 1
+    timing.count("launch.band.closest_hit")
     return prim, dist
 
 
@@ -310,7 +303,7 @@ def occlusion_cuda(packed, feats, cluster_bounds, words_box, ray_o, ray_d, tm, g
         return occ.bool()
     _launch("band_occlusion", packed, packed.shape[0], cluster_bounds, words_box,
             cluster_bounds.shape[0], ray_o, ray_d, tm, feats, n, g, occ)
-    LAUNCHES["occlusion"] += 1
+    timing.count("launch.band.occlusion")
     return occ.bool()
 
 

@@ -35,7 +35,8 @@ this module with one contract; the dispatchers take the plain version for
 CPU tensors and launch the kernel (or raise) for CUDA tensors.  The plain
 sweeps evaluate every (lane, triangle) pair of the lane's row-group units,
 mask-gated and dense: none of the kernels' list walk or early exit.
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` plain-version calls.
+It counts ``launch.compact.*`` kernel launches and ``plain.compact.*``
+plain-version calls (utils/timing.py).
 
 Not carried over from the TPU: the ``work_per_row`` budget with its dense
 fallback, ``fan``, the ``COMPACT_MAX_LANES`` split, the bf16 operand splits
@@ -76,14 +77,7 @@ _PLAIN_PAIRS = 1 << 25  # (lane, triangle) pairs per plain-sweep chunk
 # a (lane, triangle) pair of the sweeps is the Plücker engine's
 FLOPS_PER_PAIR = {"sphere_flags": 42, "closest_hit": 41, "occlusion": 43}
 
-LAUNCHES = {"sphere_flags": 0, "closest_hit": 0, "occlusion": 0}
-PLAIN_CALLS = {"sphere_flags": 0, "closest_hit": 0, "occlusion": 0}
 
-
-def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +182,7 @@ def sphere_flags_plain(feats, planes):
     lanes of max(C - 2·rl, 0) (the sphere window's start), FLT_MAX where
     none flags.  Each plane is summed over its :data:`SPHERE_TERMS` in
     order, one multiply and one add per term, as the kernel sums it."""
-    PLAIN_CALLS["sphere_flags"] += 1
+    timing.count("plain.compact.sphere_flags")
     rows, n_c = feats.shape[0] // LANES, planes.shape[2]
     rl2 = 2.0 * torch.clamp(planes[1, 15], min=0.0)
     flags = torch.empty((rows, n_c), dtype=torch.bool, device=feats.device)
@@ -235,7 +229,7 @@ def sphere_flags_cuda(feats, planes):
         err = lib.compact_sphere_flags(p(feats), p(planes), rows, n_c, p(flags),
                                        p(tn), stream)
     _raise_on(err, "compact_sphere_flags")
-    LAUNCHES["sphere_flags"] += 1
+    timing.count("launch.compact.sphere_flags")
     return flags, tn
 
 
@@ -393,7 +387,7 @@ def closest_hit_plain(coeffs, feats, tmax, flags, g):
     clusters per unit.  Returns (prim i32 [N], dist f32 [N]): the exact
     minimum t over the lane's row-group units, ties to the lower id;
     misses and dead lanes are (-1, FLT_MAX)."""
-    PLAIN_CALLS["closest_hit"] += 1
+    timing.count("plain.compact.closest_hit")
     prim, dist = sweep_closest(coeffs, feats, flags, LANES, CLUSTER_SUB * g, hit_t,
                                _PLAIN_PAIRS)
     live = tmax >= 0.0
@@ -405,7 +399,7 @@ def occlusion_plain(coeffs, feats, tm, flags, g):
     """Plain torch compact any-hit: True where a triangle of the lane's
     row-group units blocks the segment of range ``tm`` f32 [N].  Other
     arguments as :func:`closest_hit_plain`."""
-    PLAIN_CALLS["occlusion"] += 1
+    timing.count("plain.compact.occlusion")
     return sweep_any(coeffs, feats, flags, LANES, CLUSTER_SUB * g,
                      lambda c, f, lo, hi: blocks(c, f, tm[lo:hi]), _PLAIN_PAIRS)
 
@@ -485,7 +479,7 @@ def closest_hit_cuda(packed, spheres, feats, tmax, items, item_tn, offsets, g):
     dist = torch.empty((n,), dtype=torch.float32, device=feats.device)
     _launch_sweep("compact_closest_hit", packed, spheres, feats, tmax, items, item_tn,
                   offsets, g, (prim, dist))
-    LAUNCHES["closest_hit"] += 1
+    timing.count("launch.compact.closest_hit")
     return prim, dist
 
 
@@ -499,7 +493,7 @@ def occlusion_cuda(packed, spheres, feats, tm, items, item_tn, offsets, g):
     occ = torch.empty((feats.shape[0],), dtype=torch.int32, device=feats.device)
     _launch_sweep("compact_occlusion", packed, spheres, feats, tm, items, item_tn,
                   offsets, g, (occ,))
-    LAUNCHES["occlusion"] += 1
+    timing.count("launch.compact.occlusion")
     return occ.bool()
 
 

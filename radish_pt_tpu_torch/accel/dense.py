@@ -15,8 +15,8 @@ Each sweep has two implementations with one contract:
 * ``*_plain``: the port's Möller–Trumbore oracle (:mod:`.traverse`), called
   through this module so that its calls are counted.
 ``closest_hit`` / ``occlusion`` take the plain version for CPU tensors and
-launch the kernel (or raise) for CUDA tensors.  ``LAUNCHES`` counts kernel
-launches and ``PLAIN_CALLS`` plain-version calls, per sweep kind.  The
+launch the kernel (or raise) for CUDA tensors.  They count ``launch.dense.*``
+kernel launches and ``plain.dense.*`` plain-version calls (utils/timing.py).  The
 scene-level plain path is the ``"brute"`` engine, which computes the same
 function.
 """
@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
 from . import traverse as trv
 
 # f32 operations per (ray, triangle) pair, counted from csrc/dense.cu:
@@ -35,14 +36,7 @@ from . import traverse as trv
 # barycentric products and the running minimum are not counted
 FLOPS_PER_PAIR = {"closest_hit": 55, "occlusion": 55}
 
-LAUNCHES = {"closest_hit": 0, "occlusion": 0}
-PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
 
-
-def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -55,14 +49,14 @@ def closest_hit_plain(tri_packed, ray_o, ray_d):
     against every triangle of ``tri_packed`` f32 [T, 9].  Returns (prim i32
     [N], dist f32 [N], bary f32 [N, 2]): the minimum t, ties to the lower
     id; a miss is (-1, FLT_MAX, (0, 0))."""
-    PLAIN_CALLS["closest_hit"] += 1
+    timing.count("plain.dense.closest_hit")
     return trv.intersect_brute(tri_packed, ray_o, ray_d)
 
 
 def occlusion_plain(tri_packed, ray_o, ray_d, tmax):
     """Plain torch any-hit: True where some triangle is hit at t < ``tmax``
     f32 [N] (the nearest hit is below ``tmax`` exactly when some hit is)."""
-    PLAIN_CALLS["occlusion"] += 1
+    timing.count("plain.dense.occlusion")
     prim, dist, _ = trv.intersect_brute(tri_packed, ray_o, ray_d)
     return (prim != trv.NULL_PRIMITIVE) & (dist < tmax)
 
@@ -122,7 +116,7 @@ def closest_hit_cuda(tri_packed, ray_o, ray_d):
             *args, ctypes.c_int(n), ctypes.c_void_p(prim.data_ptr()),
             ctypes.c_void_p(dist.data_ptr()), ctypes.c_void_p(bary.data_ptr()), stream)
     _raise_on(err, "dense_closest_hit")
-    LAUNCHES["closest_hit"] += 1
+    timing.count("launch.dense.closest_hit")
     return prim, dist, bary
 
 
@@ -145,7 +139,7 @@ def occlusion_cuda(tri_packed, ray_o, ray_d, tmax):
                                   ctypes.c_int(n), ctypes.c_void_p(occ.data_ptr()),
                                   stream)
     _raise_on(err, "dense_occlusion")
-    LAUNCHES["occlusion"] += 1
+    timing.count("launch.dense.occlusion")
     return occ.bool()
 
 

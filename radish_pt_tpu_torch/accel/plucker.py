@@ -42,9 +42,10 @@ Each sweep has two implementations with one contract:
   :func:`cluster_mask_words`.
 ``closest_hit`` / ``occlusion`` dispatch on the tensors' device: CPU tensors
 take the plain version, CUDA tensors launch the kernel (or raise) — there is
-no fallback between the two.  ``LAUNCHES`` counts kernel launches,
-``PLAIN_CALLS`` plain-version calls, per sweep kind, and ``PREPASS_CALLS``
-calls of :func:`cluster_mask_words`, which the kernels' path never makes.
+no fallback between the two.  They count ``launch.plucker.*`` kernel
+launches and ``plain.plucker.*`` plain-version calls, per sweep kind, and
+``prepass.plucker.cluster_mask_words`` the calls of :func:`cluster_mask_words`,
+which the kernels' path never makes (utils/timing.py).
 
 Dead lanes (a negative ``tmax``; ``intersect`` passes -FLT_MAX) flag
 nothing, are swept by nothing and return a miss, (-1, FLT_MAX), on this
@@ -60,6 +61,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils import timing
 from ..utils.math import addcmul_rounds_once, cross
 from .traverse import FLT_MAX, NULL_PRIMITIVE, segment_rays
 
@@ -88,15 +90,7 @@ PACKED_WIDTH = 20  # floats per packed triangle: the live slots and one zero
 # the weight of the feature of the same index, in the kernels' order
 PLANE_SLOTS = (range(0, 3), range(0, 6), range(0, 6), range(6, 10))
 
-LAUNCHES = {"closest_hit": 0, "occlusion": 0}
-PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
-PREPASS_CALLS = {"cluster_mask_words": 0}
 
-
-def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS, PREPASS_CALLS):
-        for k in d:
-            d[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +173,7 @@ def cluster_mask_words(cluster_bounds, ray_o, ray_d, tmax, lanes: int = ROW):
     The same f32 arithmetic as the reference prepass (which groups 128
     lanes), including its padding of the last group (o = 0, d = 1,
     tmax = 0, or FLT_MAX without tmax)."""
-    PREPASS_CALLS["cluster_mask_words"] += 1
+    timing.count("prepass.plucker.cluster_mask_words")
     n_pad = -(-ray_o.shape[0] // lanes) * lanes
     o, d, tm = _pad_rays(ray_o, ray_d, tmax, n_pad)
     hit = lane_cluster_flags_plain(cluster_bounds, o, d, tm)  # [n_pad, C]
@@ -368,7 +362,7 @@ def closest_hit_plain(coeffs, feats, mask, sub, lanes: int = GROUP, dead=None):
     lower id; misses are (-1, FLT_MAX), and so are the lanes of ``dead``
     (bool [N], :func:`dead_lanes`; None: a dead lane gets what its group's
     clusters give, as in the reference)."""
-    PLAIN_CALLS["closest_hit"] += 1
+    timing.count("plain.plucker.closest_hit")
     prim, dist = sweep_closest(coeffs, feats, mask_flags(mask, sub, coeffs.shape[0]),
                                lanes, sub, hit_t)
     if dead is not None:
@@ -380,7 +374,7 @@ def closest_hit_plain(coeffs, feats, mask, sub, lanes: int = GROUP, dead=None):
 def occlusion_plain(coeffs, feats, tm, mask, sub, lanes: int = GROUP):
     """Plain torch any-hit: True where some (flagged) triangle blocks the
     segment of range ``tm`` f32 [N].  Arguments as :func:`closest_hit_plain`."""
-    PLAIN_CALLS["occlusion"] += 1
+    timing.count("plain.plucker.occlusion")
     return sweep_any(coeffs, feats, mask_flags(mask, sub, coeffs.shape[0]),
                      lanes, sub, lambda c, f, lo, hi: blocks(c, f, tm[lo:hi]))
 
@@ -502,7 +496,7 @@ def closest_hit_cuda(packed, feats, cluster_bounds, ray_o, ray_d, tmax, sub):
         return prim, dist
     _launch("plucker_closest_hit", packed, feats, cluster_bounds, ray_o, ray_d,
             tmax, sub, (prim, dist))
-    LAUNCHES["closest_hit"] += 1
+    timing.count("launch.plucker.closest_hit")
     return prim, dist
 
 
@@ -519,7 +513,7 @@ def occlusion_cuda(packed, feats, cluster_bounds, ray_o, ray_d, tm, sub):
         return occ.bool()
     _launch("plucker_occlusion", packed, feats, cluster_bounds, ray_o, ray_d, tm,
             sub, (occ,))
-    LAUNCHES["occlusion"] += 1
+    timing.count("launch.plucker.occlusion")
     return occ.bool()
 
 

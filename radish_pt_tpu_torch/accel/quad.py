@@ -42,8 +42,9 @@ dropped term adds an exact zero, so their values are the plain version's
 sweep a segment passes over the clusters its own grown box cannot reach
 at t = 1 (:func:`.plucker.lane_skip_flags_plain`: no result moves).
 ``closest_hit`` / ``occlusion`` take the plain version for CPU tensors
-and launch the kernel (or raise) for CUDA tensors.  ``LAUNCHES`` counts
-kernel launches and ``PLAIN_CALLS`` plain-version calls.
+and launch the kernel (or raise) for CUDA tensors.  They count
+``launch.quad.*`` kernel launches and ``plain.quad.*`` plain-version calls
+(utils/timing.py).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import timing
 from ..utils.math import cross
 from .plucker import (GROUP, PLUCKER_EPS2, ROW, cluster_mask_words,
                       lane_cluster_flags_plain, mask_flags, pack_words,
@@ -90,14 +92,7 @@ FLOPS_PER_PAIR = {kind: sum(2 * len(LIVE_TERMS[p]) - 1 for p in range(planes))
 CLOSEST_FLOPS_ALL_TERMS = CLOSEST_PLANES * 53
 OCCL_FLOPS_ALL_TERMS = STORED_PLANES * 53
 
-LAUNCHES = {"closest_hit": 0, "occlusion": 0}
-PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0}
 
-
-def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +278,7 @@ def closest_hit_plain(coeffs, feats, mask, sub):
     ``sub`` triangles per cluster.  Returns (prim i32 [N], dist f32 [N]):
     the exact minimum t over the triangles of the clusters the lane's row
     flags, ties to the lower id; misses are (-1, FLT_MAX)."""
-    PLAIN_CALLS["closest_hit"] += 1
+    timing.count("plain.quad.closest_hit")
     return sweep_closest(coeffs, feats, mask_flags(mask, sub, coeffs.shape[0]), ROW,
                          sub, hit_t, _PLAIN_PAIRS)
 
@@ -292,7 +287,7 @@ def occlusion_plain(coeffs, feats, mask, sub):
     """Plain torch any-hit over unit-parameter segments: True where some
     triangle of a cluster the lane's row flags has min(q1..q6) >= 0.
     Arguments as :func:`closest_hit_plain`, ``feats`` of the segments."""
-    PLAIN_CALLS["occlusion"] += 1
+    timing.count("plain.quad.occlusion")
     return sweep_any(coeffs, feats, mask_flags(mask, sub, coeffs.shape[0]), ROW, sub,
                      lambda c, f, lo, hi: forms(c, f, STORED_PLANES).amin(-1) >= 0.0,
                      _PLAIN_PAIRS)
@@ -356,7 +351,7 @@ def closest_hit_cuda(packed, feats, mask, sub):
         return prim, dist
     _launch("quad_closest_hit", packed, packed.shape[0], sub, feats, n, mask,
             0 if mask is None else mask.shape[1], prim, dist)
-    LAUNCHES["closest_hit"] += 1
+    timing.count("launch.quad.closest_hit")
     return prim, dist
 
 
@@ -385,7 +380,7 @@ def occlusion_cuda(packed, feats, cluster_bounds, ray_o, seg, sub):
         return occ.bool()
     _launch("quad_occlusion", packed, num_tris, sub, cluster_bounds,
             0 if cluster_bounds is None else n_c, ray_o, seg, feats, n, occ)
-    LAUNCHES["occlusion"] += 1
+    timing.count("launch.quad.occlusion")
     return occ.bool()
 
 

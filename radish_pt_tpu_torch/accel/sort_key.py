@@ -36,8 +36,8 @@ keys are equal as integers on every lane.  The kernel takes a finite path
 :func:`finite_path_lanes`, with every box finite: there no product of the
 slab test is NaN, so it gives the same verdicts.  :func:`signature_key`
 takes the plain version for CPU tensors and launches the kernel (or
-raises) for CUDA tensors.  ``LAUNCHES`` counts kernel launches (one a call
-with N > 0) and ``PLAIN_CALLS`` plain-version calls.
+raises) for CUDA tensors.  It counts ``launch.sort_key.signature_key`` (one a
+call with N > 0) and ``plain.sort_key.signature_key`` (utils/timing.py).
 """
 
 from __future__ import annotations
@@ -46,6 +46,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from ..utils import timing
 
 DEAD_KEY_BIT = 1 << 24  # above every live key bit
 MISS_KEY_BIT = 1 << 22  # a ray that reaches no box when C = 256
@@ -58,14 +60,7 @@ PAIR_MIN = 64  # the first level pairs above this many clusters
 OPS_PER_BOX = 26
 OPS_PER_RAY = 3
 
-LAUNCHES = {"signature_key": 0}
-PLAIN_CALLS = {"signature_key": 0}
 
-
-def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
 
 
 def key_boxes(cluster_bounds) -> np.ndarray:
@@ -107,7 +102,7 @@ def signature_key_plain(boxes, ray_o, ray_d, tmax=None, active=None, band=False)
     ``tmax``: None, a float (every lane's range) or f32 [N]; ``active``:
     None or bool [N] (False adds :data:`DEAD_KEY_BIT`); ``band``: the
     count-major form."""
-    PLAIN_CALLS["signature_key"] += 1
+    timing.count("plain.sort_key.signature_key")
     n, n_c = ray_o.shape[0], boxes.shape[0]
     inv = 1.0 / torch.where(torch.abs(ray_d) > 1e-12, ray_d, 1e-12)
     tn = torch.full((n, n_c), -3.4e38, dtype=torch.float32, device=ray_o.device)
@@ -193,7 +188,8 @@ def signature_key_cuda(boxes, ray_o, ray_d, tmax=None, active=None, band=False):
             ctypes.c_int(mode), _ptr(active), ctypes.c_int(n), ctypes.c_int(int(band)),
             ctypes.c_int(miss_extra(n_c)), _ptr(key), ctypes.c_void_p(stream))
     _raise_on(err, "signature_key")
-    LAUNCHES["signature_key"] += 1 if n else 0
+    if n:
+        timing.count("launch.sort_key.signature_key")
     return key
 
 

@@ -32,9 +32,10 @@ Port of ``radish_pt_tpu/accel/traverse.py``:
   can meet no triangle (a pair counts only at 0 < t < range) and is
   settled before its walk, by either version.  The entry points ``intersect_bvh`` / ``occlusion_bvh`` /
   ``intersect_bvh_heatmap`` take the plain version for CPU tensors and
-  launch the kernels (or raise) for CUDA tensors; ``LAUNCHES`` counts
-  kernel launches (one a binning, before each closest hit and shadow walk)
-  and ``PLAIN_CALLS`` plain-version calls, per walk and for the binning.
+  launch the kernels (or raise) for CUDA tensors; they count
+  ``launch.traverse.*`` kernel launches (one a binning, before each
+  closest hit and shadow walk) and ``plain.traverse.*`` plain-version
+  calls, per walk and for the binning (utils/timing.py).
 """
 
 from __future__ import annotations
@@ -200,17 +201,10 @@ def _slab_core(bminx, bminy, bminz, bmaxx, bmaxy, bmaxz, ox, oy, oz, ix, iy, iz)
 FLOPS_PER_NODE = 31
 FLOPS_PER_PAIR = 55
 NODE_BYTES = 32  # a row of the node table
-LAUNCHES = {"closest_hit": 0, "occlusion": 0, "heatmap": 0, "bin": 0}
-PLAIN_CALLS = {"closest_hit": 0, "occlusion": 0, "heatmap": 0, "bin": 0}
 DIR_CLASSES = 6
 WARP = 32  # the lanes of a warp: the heatmap kernel's unit of coherence
 WS_COUNTERS = 16  # int32 counters after the binning kernel's six regions (csrc/bvh.cu)
 
-
-def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
 
 
 def _walk(leaf_tris, bvh_packed, ray_o, ray_d, tmax=None, any_hit=False, stats=None):
@@ -321,7 +315,7 @@ def intersect_bvh_plain(leaf_tris, leaf_map, bvh_packed, ray_o, ray_d, tmax=None
     package's ``intersect_bvh`` visits more nodes (its deferred leaves
     prune with a stale best) but tests the same leaves in the same order,
     so it returns the same winners."""
-    PLAIN_CALLS["closest_hit"] += 1
+    timing.count("plain.traverse.closest_hit")
     slot, dist, bx, by, _, _ = _walk(leaf_tris, bvh_packed, ray_o, ray_d, tmax, stats=stats)
     prim = torch.where(slot >= 0, leaf_map[torch.clamp(slot, min=0)], NULL_PRIMITIVE)
     return prim.to(torch.int32), dist, torch.stack([bx, by], dim=-1)
@@ -333,14 +327,14 @@ def occlusion_bvh_plain(leaf_tris, bvh_packed, ray_o, ray_d, tmax, stats=None):
     [N]; a lane descends into boxes entered before ``tmax`` and stops at
     its first blocking leaf.  A lane whose range is not above 0 (or NaN) is
     never blocked and walks nothing."""
-    PLAIN_CALLS["occlusion"] += 1
+    timing.count("plain.traverse.occlusion")
     return _walk(leaf_tris, bvh_packed, ray_o, ray_d, tmax, any_hit=True, stats=stats)[5]
 
 
 def intersect_bvh_heatmap_plain(leaf_tris, bvh_packed, ray_o, ray_d, stats=None):
     """The closest-hit walk's count of descended nodes per lane, i32 [N]
     (``DevScene::visualizedIntersect``, scene.h:336-372)."""
-    PLAIN_CALLS["heatmap"] += 1
+    timing.count("plain.traverse.heatmap")
     return _walk(leaf_tris, bvh_packed, ray_o, ray_d, stats=stats)[4]
 
 
@@ -415,7 +409,7 @@ def bin_by_dir_class(ray_d, tmax=None):
     The plain version of the binning kernel (``bvh_bin_kernel``), whose
     order within a class may differ: it keeps launch order only within a
     warp's and a block's share of a class."""
-    PLAIN_CALLS["bin"] += 1
+    timing.count("plain.traverse.bin")
     cls = get_dir_class(-ray_d).long()
     live = torch.ones_like(cls, dtype=torch.bool) if tmax is None else tmax > 0
     key = torch.where(live, cls, DIR_CLASSES)
@@ -488,7 +482,8 @@ def bin_cuda(ray_d, tmax, dead_out=NO_OUT, outs=(None, None, None)):
     ws = torch.empty((DIR_CLASSES * n + WS_COUNTERS,), dtype=torch.int32, device=ray_d.device)
     _launch("bvh_bin", ray_d.device, _ptr(ray_d), _ptr(tmax), ctypes.c_int(n),
             ctypes.c_int(dead_out), *(_ptr(t) for t in outs), _ptr(ws))
-    LAUNCHES["bin"] += 1 if n else 0
+    if n:
+        timing.count("launch.traverse.bin")
     return ws
 
 
@@ -498,7 +493,7 @@ def _walk_launch(fn, what, leaf_tris, bvh_packed, ray_o, ray_d, *args):
     _launch(fn, ray_o.device, _ptr(bvh_packed), ctypes.c_int(bvh_packed.shape[0] // 6),
             _ptr(leaf_tris), ctypes.c_int(leaf_tris.shape[1] // 9), _ptr(ray_o), _ptr(ray_d),
             ctypes.c_int(ray_o.shape[0]), *(_ptr(a) for a in args))
-    LAUNCHES[what] += 1
+    timing.count(f"launch.traverse.{what}")
 
 
 def _check_range(tmax, n):

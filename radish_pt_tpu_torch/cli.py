@@ -25,6 +25,8 @@ import argparse
 import contextlib
 import time
 
+from .scene import engines
+
 
 TRACERS = {"pt": "STREAMED", "direct": "DIRECT_LIGHT", "restir": "RESTIR_DI",
            "bvh": "BVH_VISUALIZE", "gbuffer": "GBUFFER_PREVIEW"}
@@ -68,9 +70,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
     p.add_argument("--intersector",
-                   choices=["plucker", "compact", "quad", "band", "dense", "bvh",
-                            "brute"],
-                   default=None,
+                   choices=engines.NAMES, default=None,
                    help="intersection engine (default: plucker up to 131,072 "
                         "triangles, compact above; quad, band, dense and bvh "
                         "only by name)")

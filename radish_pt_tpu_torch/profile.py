@@ -51,6 +51,9 @@ import argparse
 import os
 import subprocess
 
+from .scene import engines
+from .utils import timing
+
 # a kernel's stage, from the first name fragment it contains (else "other")
 # (engine-prefixed names first: "closest_hit_kernel" is part of theirs)
 STAGES = (
@@ -104,13 +107,10 @@ def culling_stages(ds, cam, start, end, reps: int = 10):
     from .accel import plucker as plk
     from .render import pathtrace as pt
     from .sampling import rng
-    from .scene.device_scene import (BAND_ENGINES, COMPACT_ENGINES,
-                                     PLUCKER_ENGINES, SWEEP_ENGINES)
 
-    if ds.cluster_bounds is None or ds.intersector not in SWEEP_ENGINES:
-        return []  # no culling: every ray sweeps every triangle
-    if ds.intersector in PLUCKER_ENGINES + BAND_ENGINES:
-        return []  # the sweep kernels run the slab test themselves
+    prepass = engines.of(ds).prepass
+    if ds.cluster_bounds is None or prepass is None:
+        return []  # no culling, or the sweep kernels run the slab test themselves
     idx, _ = pt._lanes(ds, cam)
     o, d, _ = pt._gen_primary(ds, cam, rng.make_sampler(0, idx), idx)
 
@@ -123,7 +123,7 @@ def culling_stages(ds, cam, start, end, reps: int = 10):
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    if ds.intersector not in COMPACT_ENGINES:  # the quad engine's closest hits
+    if prepass == "rows":  # the quad engine's closest hits
         return [("mask prepass", timed(
             lambda: plk.cluster_mask_words(ds.cluster_bounds, o, d, None)))]
     center, cb = ds.sweep_center, ds.cluster_bounds
@@ -238,8 +238,8 @@ def profile_block(args, ds, cam, card) -> int:
           f"({100 * (1 - busy / profiled_ms):.1f}% idle; the same kernel time is "
           f"{100 * busy / block_ms:.1f}% of the unprofiled block), "
           f"{len(kernels) / block:.0f} device operations a frame")
-    print(f"  sweep launches a block: replay counters {run.launches_per_replay()}, "
-          f"trace {traced}")
+    print(f"  sweep launches a block: replay counters "
+          f"{timing.under(run.counts_per_replay, 'launch')}, trace {traced}")
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
     return 0
 
@@ -251,9 +251,7 @@ def main(argv=None) -> int:
     p.add_argument("--depth", type=int, default=5)
     p.add_argument("--frames", type=int, default=2)
     p.add_argument("--intersector",
-                   choices=["plucker", "compact", "quad", "band", "dense", "bvh",
-                            "brute"],
-                   default=None, help="engine (default: by scene size)")
+                   choices=engines.NAMES, default=None, help="engine (default: by scene size)")
     p.add_argument("--tracer", choices=["pt", "direct", "restir"], default="pt")
     p.add_argument("--band-g", type=int, default=None,
                    help="bands per 128-lane row for the band engine (default 8)")
@@ -271,13 +269,10 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from .accel import band as bnd
-    from .accel import plucker as plk
     from .config import Settings, Tracer
     from .render import pathtrace as pt
     from .render.renderer import Renderer
     from .scene.build import load_scene
-    from .scene.device_scene import QUAD_ENGINES
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -305,16 +300,15 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    plk.reset_counts()
-    bnd.reset_counts()
+    tally = timing.Tally()
     start.record()
     for k in range(args.frames):
         frame(2 + k)
     end.record()
     end.synchronize()
     frame_ms = start.elapsed_time(end) / args.frames
-    prepass = {k: v / args.frames for d in (plk.PREPASS_CALLS, bnd.PREPASS_CALLS)
-               for k, v in d.items()}
+    prepass = {k: v / args.frames for k, v in tally("prepass.plucker").items()}
+    prepass.update({k: v / args.frames for k, v in tally("prepass.band").items()})
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for k in range(args.frames):
@@ -358,7 +352,7 @@ def main(argv=None) -> int:
     # shadow kernel votes its words itself: the prepass runs before the
     # closest hits alone
     sweeps = {"pt": 2 * args.depth + 1, "direct": 2, "restir": 3}[args.tracer]
-    if ds.intersector in QUAD_ENGINES:
+    if engines.of(ds).prepass == "rows":
         sweeps = {"pt": args.depth + 1, "direct": 1, "restir": 2}[args.tracer]
     for stage, ms in culling_stages(ds, cam, start, end):
         # each runs before every one of the frame's sweeps; all but the

@@ -7,8 +7,8 @@ and result are nested dataclasses, lists and tuples of tensors, flattened
 to dicts of tensors keyed by path.  Which way it runs is decided from the
 scene's engine and device before anything is captured (:func:`batch_mode`):
 
-* ``"graph"``: on a CUDA device with an engine of
-  :data:`CAPTURABLE_ENGINES`.  The first call runs one eager warm-up block
+* ``"graph"``: on a CUDA device with a capturable engine
+  (``scene/engines.py``).  The first call runs one eager warm-up block
   on a side stream (it builds the kernels and the cached constants, and
   changes no state), then captures the block once on static copies of the
   inputs; every call copies its inputs into them (``copy_``) and replays.  An error in the capture or the replay
@@ -17,11 +17,11 @@ scene's engine and device before anything is captured (:func:`batch_mode`):
   CPU and on the compact engine, whose work list reads its length on the
   host (``accel/compact.py``, ``work_list``).
 
-The kernels' launch counters count a wrapper's call, which a capture makes
-without launching anything on the card: the runner takes back what the
-capture counted and adds it again on every replay, so ``LAUNCHES`` keeps
-counting the launches the card ran; so too the tracing registry's
-counters (utils/timing.py: the stage marks, ``marks.<stage>``).
+The counters (utils/timing.py: the kernels' ``launch.*``, the stage marks'
+``marks.<stage>``) count a wrapper's call, which a capture makes without
+launching anything on the card: the runner takes back what the capture
+counted (``counts_per_replay``) and adds it again on every replay, so they
+keep counting what the card ran.
 
 Spans (utils/timing.py): ``graph.build`` (the first call: ``graph.warmup``,
 the eager block on a side stream, and ``graph.capture``), then on every
@@ -36,36 +36,15 @@ import gc
 
 import torch
 
+from ..scene import engines
 from ..utils import timing
-
-# engines whose frame runs without a host sync: their blocks are captured
-CAPTURABLE_ENGINES = frozenset({"plucker", "band", "quad", "dense", "bvh"})
 
 
 def batch_mode(ds) -> str:
     """"graph" or "eager": how a block of frames runs on scene ``ds``."""
-    if ds.device.type == "cuda" and ds.intersector in CAPTURABLE_ENGINES:
+    if ds.device.type == "cuda" and engines.of(ds).capturable:
         return "graph"
     return "eager"
-
-
-def _counters() -> dict:
-    """(engine, counter) -> the counter dict of each capturable engine's
-    module (its launches, plain-version and prepass calls), of the
-    sort-key kernel's (``"sort_key"``), which every engine's sorted sweeps
-    launch, of ReSTIR's candidate RIS kernel (``"ris"``) and of the path
-    tracer's vertex kernel (``"vertex"``)."""
-    from ..accel import band, dense, plucker, quad, sort_key, traverse
-    from . import ris, vertex
-
-    out = {}
-    for engine, mod in (("plucker", plucker), ("band", band), ("quad", quad),
-                        ("dense", dense), ("bvh", traverse), ("sort_key", sort_key),
-                        ("ris", ris), ("vertex", vertex)):
-        for attr in ("LAUNCHES", "PLAIN_CALLS", "PREPASS_CALLS"):
-            if hasattr(mod, attr):
-                out[engine, attr] = getattr(mod, attr)
-    return out
 
 
 def block_input(value, device) -> torch.Tensor:
@@ -135,9 +114,7 @@ class BlockRunner:
         self.graph = None
         self.static: dict = {}
         self.outputs: dict = {}
-        # ((engine, counter), counter dict, {name: count} one replay adds)
-        self._replay_adds: list = []
-        self.counts_per_replay: dict = {}  # tracing counter (marks.*) -> count a replay adds
+        self.counts_per_replay: dict = {}  # counter -> what a replay adds
         self.replays = 0
 
     def _body(self, x: dict) -> dict:
@@ -163,9 +140,6 @@ class BlockRunner:
                         self.static[name].copy_(value)
         with timing.span("block.replay"):
             self.graph.replay()
-            for _, counter, delta in self._replay_adds:
-                for name, n in delta.items():
-                    counter[name] += n
             for name, n in self.counts_per_replay.items():
                 timing.count(name, n)
         self.replays += 1
@@ -182,8 +156,6 @@ class BlockRunner:
             self._body(self.static)  # warm-up: kernels and constants built
         current.wait_stream(side)
         with timing.span("graph.capture") as sp:
-            counters = _counters()
-            before = {key: dict(c) for key, c in counters.items()}
             graph = torch.cuda.CUDAGraph()
             # no garbage collection while capturing: a dead reference cycle
             # that holds another block's CUDA graph (a renderer and its
@@ -199,19 +171,10 @@ class BlockRunner:
             finally:
                 if collecting:
                     gc.enable()
-            self._replay_adds = [
-                (key, counter, {n: counter[n] - before[key][n] for n in counter})
-                for key, counter in counters.items()]
-            for key, counter in counters.items():
-                counter.update(before[key])  # the capture launched nothing
-            # what the capture counted on this thread (the marks), taken back
+            # what the capture counted on this thread, taken back: it
+            # launched nothing
             self.counts_per_replay = {n: c for n, c in sp.counts.items() if c}
             for name, n in self.counts_per_replay.items():
                 timing.count(name, -n)
         self.outputs = {k: v for k, v in outputs.items() if k not in self.carry}
         self.graph = graph
-
-    def launches_per_replay(self) -> dict:
-        """engine -> {kernel: launches} of one replay (graph mode)."""
-        return {mod: dict(d) for (mod, attr), _, d in self._replay_adds
-                if attr == "LAUNCHES"}

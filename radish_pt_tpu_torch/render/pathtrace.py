@@ -56,6 +56,7 @@ from ..sampling import rng
 from ..sampling.alias import alias_sample
 from ..scene import camera as cam_mod
 from ..scene import device_scene as dsc
+from ..scene import engines
 from ..utils import math as m
 from ..utils import timing
 from . import vertex as vx
@@ -90,7 +91,7 @@ def _lanes(ds, cam, pixel_idx=None):
     dev = ds.device
     if pixel_idx is not None:
         return pixel_idx, None
-    if (ds.intersector in dsc.SWEEP_ENGINES and cam.width % TILE_W == 0
+    if (engines.of(ds).sweep and cam.width % TILE_W == 0
             and cam.height % TILE_H == 0):
         return (_tile_perm(cam.width, cam.height, dev),
                 lambda x: _untile(x, cam.width, cam.height))
@@ -251,7 +252,7 @@ def vertex_plain(ds, sampler, active, mat, norm, ray_d, pos, throughput) -> vx.V
     and unoccluded MIS contribution, the BSDF sample.  The plain version
     of csrc/vertex.cu (render/vertex.py), which gives the same
     :class:`.vertex.Vertex` bit for bit."""
-    vx.PLAIN_CALLS["vertex"] += 1
+    timing.count("plain.vertex.vertex")
     wo = -ray_d
     is_delta_bsdf = mat.mtype == dsc.MAT_DIELECTRIC
     # two-sided shading for non-delta materials (pathtrace.cu:190-193)

@@ -50,6 +50,7 @@ import torch
 from ..config import Denoiser, RenderState, Settings, Tracer
 from ..sampling.sobol import SOBOL_SAMPLE_NUM
 from ..scene import camera as cam_mod
+from ..scene import engines
 from ..scene.build import load_scene
 from ..scene.image_io import save_image, write_hdr
 from ..utils import math as m
@@ -62,38 +63,30 @@ from . import pathtrace as pt
 from . import post
 from . import restir as rs
 
-def _pt_batch(ds, cam, looper0, direct, indirect, iteration, *, max_depth: int,
-              block: int):
+def _pt_batch(ds, cam, looper0, direct, indirect, iteration, pixel_idx=None, *,
+              max_depth: int, block: int):
     """``block`` full-PT samples accumulated: frame k at looper ``looper0 +
     k`` (no wrap inside a block, as the JAX batch) and iteration
     ``iteration + k``; ``looper0`` int64 and ``iteration`` f32 0-d tensors.
-    Returns (direct, indirect).  On an engine whose blocks are captured as
-    a CUDA graph (``graph.CAPTURABLE_ENGINES``, on any device, so that the
-    CPU runs the body the card captures) the frames run the dense bounce
-    loop with the sorted sweeps (``n_slices=0``): the sliced loop reads its
-    live count on the host.  The compact engine's eager blocks run the
-    sliced loop where ``path_trace`` gates it; both loops give the same
-    bits."""
-    n_slices = 0 if ds.intersector in gr.CAPTURABLE_ENGINES else None
-    for k in range(block):
-        d, ind = pt.path_trace(ds, cam, looper0 + k, max_depth, n_slices=n_slices)
-        direct = pt.accumulate(direct, pt.scrub_and_compress(d), iteration + k)
-        indirect = pt.accumulate(indirect, pt.scrub_and_compress(ind), iteration + k)
-    tracing.mark("end", ds.device)
-    return direct, indirect
-
-
-def _pt_tile_batch(ds, cam, looper0, direct, iteration, pixel_idx, *, max_depth: int,
-                   block: int):
-    """``block`` full-PT samples of one tile of a mesh (``pixel_idx``),
-    accumulated as the mesh's :meth:`Renderer.step` accumulates them: the
-    frame's direct + indirect, scrubbed, into ``direct``."""
-    n_slices = 0 if ds.intersector in gr.CAPTURABLE_ENGINES else None
+    Returns (direct, indirect).  On one tile of a mesh (``pixel_idx``) the
+    frame's direct + indirect, scrubbed, go into ``direct``, as the mesh's
+    :meth:`Renderer.step` accumulates them, and ``indirect`` is None.  On
+    an engine whose blocks are captured as a CUDA graph (``capturable``,
+    scene/engines.py, on any device, so that the CPU runs the body the card
+    captures) the frames run the dense bounce loop with the sorted sweeps
+    (``n_slices=0``): the sliced loop reads its live count on the host.
+    The compact engine's eager blocks run the sliced loop where
+    ``path_trace`` gates it; both loops give the same bits."""
+    n_slices = 0 if engines.of(ds).capturable else None
     for k in range(block):
         d, ind = pt.path_trace(ds, cam, looper0 + k, max_depth, pixel_idx, n_slices=n_slices)
-        direct = pt.accumulate(direct, pt.scrub_and_compress(d + ind), iteration + k)
+        if pixel_idx is not None:
+            d, ind = d + ind, None
+        direct = pt.accumulate(direct, pt.scrub_and_compress(d), iteration + k)
+        if ind is not None:
+            indirect = pt.accumulate(indirect, pt.scrub_and_compress(ind), iteration + k)
     tracing.mark("end", ds.device)
-    return direct
+    return direct, indirect
 
 
 def _restir_batch(ds, cam, last_cam, looper0, gbuf_last, reservoir, first_frame, direct,
@@ -460,7 +453,7 @@ class Renderer:
 
     def _pt_tile_blocks(self, block: int):
         """One block of ``block`` full-PT frames on each tile of the mesh
-        (:func:`_pt_tile_batch`), each tile its own block runner; returns
+        (:func:`_pt_batch` on its pixels), each tile its own block runner; returns
         the last tile's runner.  The sample axis is not used: every tile's
         block runs on its sample-0 device, as the JAX renderer's batched
         program runs on the tile-sharded buffers."""
@@ -471,8 +464,8 @@ class Renderer:
             ds, idx = self._scenes[dev], self._tile_idx[t]
 
             def batch(cam, looper0, iteration, direct, ds=ds, idx=idx):
-                return _pt_tile_batch(ds, cam, looper0, direct, iteration, idx,
-                                      max_depth=s.trace_depth, block=block)
+                return _pt_batch(ds, cam, looper0, direct, None, iteration, idx,
+                                 max_depth=s.trace_depth, block=block)[0]
 
             run = self._runner(("pt_tile", t, s.trace_depth, block), batch, (("", "3"),),
                                ds=ds)
@@ -665,7 +658,7 @@ class Renderer:
     def _bvh_heatmap(self):
         """The BVH traversal heatmap (the reference's ``--tracer bvh``): the
         pinhole rays in raster order go through the MTBVH walk (the kernel
-        on the card whatever the engine, the plain walk on ``"bvh_plain"``),
+        on the card whatever the engine, the plain walk on a plain twin),
         and each pixel shows t = its descended nodes over the frame's most
         as [t, 1 - t, 0]."""
         from ..accel import traverse as trv
@@ -674,7 +667,7 @@ class Renderer:
         idx = torch.arange(cam.width * cam.height, dtype=torch.int32, device=self.device)
         ray_o, ray_d = cam_mod.pinhole_rays(cam, idx % cam.width, idx // cam.width)
         steps = trv.intersect_bvh_heatmap(ds.leaf_tris, ds.bvh_packed, ray_o, ray_d,
-                                          plain=ds.intersector == "bvh_plain")
+                                          plain=engines.of(ds).plain)
         t = steps.to(torch.float32) / torch.clamp(steps.max().to(torch.float32), min=1.0)
         return torch.stack([t, 1.0 - t, torch.zeros_like(t)], dim=-1)
 

@@ -312,7 +312,7 @@ def ris_plain(ds: dsc.DeviceScene, pos, mat: dsc.SurfaceMaterial, norm, wo, samp
     by p^ = Li * f * cos over the light pdf (ReSTIRDirectKernel's candidate
     loop, before the winner's shadow test at restir.cu:158).  Returns
     (reservoir, sampler after the 5 x ``reservoir_size`` draws)."""
-    ris.PLAIN_CALLS["ris"] += 1
+    timing.count("plain.ris.ris")
     table = ds.sobol
     res = empty_reservoir(pos.shape[0], device=pos.device)
     for _ in range(reservoir_size):

@@ -8,10 +8,8 @@ computes what :func:`.restir.ris_plain` computes with eager torch
 operations, operation for operation; ``restir.candidate_ris`` takes the
 plain version for CPU tensors and this kernel for CUDA tensors.
 
-``LAUNCHES`` counts the kernel's launches and ``PLAIN_CALLS`` the plain
-version's calls (registered in ``render/graph.py``, so a captured block's
-replays count the launches the card ran); every launch also counts
-``ris.kernel`` in the tracing registry (utils/timing.py).
+Each launch counts ``launch.ris.ris`` and each plain call ``plain.ris.ris``
+(utils/timing.py).
 """
 
 from __future__ import annotations
@@ -24,8 +22,6 @@ from ..scene import device_scene as dsc
 from ..utils import timing
 from .shading_args import lane_tensor, scene_fields
 
-LAUNCHES = {"ris": 0}
-PLAIN_CALLS = {"ris": 0}
 
 # operations of one candidate of a lane (an area light, a Lambertian lobe),
 # counted from csrc/ris.cu: five draws of 22 (the word's load and xor, the
@@ -45,11 +41,6 @@ BYTES_PER_LANE = 56 + 44
 # shared memory (a block's 48 KB without an opt-in, beside the lights)
 MAX_RESERVOIR_SIZE = 1024
 
-
-def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
 
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -116,6 +107,5 @@ def ris_cuda(ds: dsc.DeviceScene, pos, mat: dsc.SurfaceMaterial, norm, wo, sampl
                                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ris_candidates kernel launch failed: CUDA error {err}")
-    LAUNCHES["ris"] += 1
-    timing.count("ris.kernel")
+    timing.count("launch.ris.ris")
     return li, wi, dist, num, weight, scramble_out

@@ -10,10 +10,8 @@ returns a :class:`Vertex` whose contribution is NEE's as if the light
 were visible: the caller runs the shadow test on its segment and zeroes it
 where blocked (:func:`.pathtrace._vertex`).
 
-``LAUNCHES`` counts the kernel's launches and ``PLAIN_CALLS`` the plain
-version's calls (registered in ``render/graph.py``, so a captured block's
-replays count the launches the card ran); every launch also counts
-``vertex.kernel`` in the tracing registry (utils/timing.py).
+Each launch counts ``launch.vertex.vertex`` and each plain call
+``plain.vertex.vertex`` (utils/timing.py).
 """
 
 from __future__ import annotations
@@ -28,8 +26,6 @@ from ..scene import device_scene as dsc
 from ..utils import timing
 from .shading_args import has_type, lane_tensor, scene_fields
 
-LAUNCHES = {"vertex": 0}
-PLAIN_CALLS = {"vertex": 0}
 
 # bytes every lane reads (position, normal, direction, throughput, active,
 # the material's type, base colour, the scramble) and writes (segment end,
@@ -66,11 +62,6 @@ def bytes_moved(mtype: torch.Tensor) -> int:
     extra = sum(b * int((mtype == ty).sum()) for ty, b in BYTES_BY_TYPE.items())
     return mtype.numel() * BYTES_PER_LANE + extra
 
-
-def reset_counts() -> None:
-    for d in (LAUNCHES, PLAIN_CALLS):
-        for k in d:
-            d[k] = 0
 
 
 def vertex(ds: dsc.DeviceScene, sampler, active, mat: dsc.SurfaceMaterial, norm, ray_d, pos,
@@ -159,6 +150,5 @@ def vertex_cuda(ds: dsc.DeviceScene, sampler, active, mat: dsc.SurfaceMaterial, 
         err = lib.vertex_shade(ctypes.addressof(args), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"vertex kernel launch failed: CUDA error {err}")
-    LAUNCHES["vertex"] += 1
-    timing.count("vertex.kernel")
+    timing.count("launch.vertex.vertex")
     return out

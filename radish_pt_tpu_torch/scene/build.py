@@ -41,19 +41,15 @@ from ..accel.traverse import pack_bvh, pack_tris
 from ..sampling.alias import build_alias_table
 from ..sampling.sobol import load_sobol_table
 from ..utils import timing
+from . import engines
 from .camera import Camera, make_camera
-from .device_scene import (MAT_LIGHT, NULL_TEXTURE, SWEEP_ENGINES, DeviceScene,
-                           pack_textures)
+from .device_scene import MAT_LIGHT, NULL_TEXTURE, DeviceScene, pack_textures
 from .parser import SceneDesc
 
 CLUSTER_SUB = 64  # default triangles per culling cluster
 BIG_SCENE_TRIS = 16384
 PLUCKER_MAX_TRIS = 131072  # above this the reference switches engines
 CLUSTER_MIN_TRIS = 1024  # below this every ray sweeps every triangle
-INTERSECTORS = ("plucker", "compact", "quad", "band", "dense", "bvh", "brute")
-# engines stored in the fixed 64-triangle clusters, as the reference stores
-# them (build.py:324-326)
-FIXED_CLUSTER_ENGINES = ("compact", "band", "bvh")
 
 
 def choose_intersector(num_tris: int, intersector: str | None = None) -> str:
@@ -63,9 +59,9 @@ def choose_intersector(num_tris: int, intersector: str | None = None) -> str:
     dense and bvh engines are only ever chosen by name)."""
     if intersector is None:
         return "plucker" if num_tris <= PLUCKER_MAX_TRIS else "compact"
-    if intersector not in INTERSECTORS:
+    if intersector not in engines.NAMES:
         raise ValueError(f"unknown intersector {intersector!r}; "
-                         f"choose from {INTERSECTORS}")
+                         f"choose from {engines.NAMES}")
     return intersector
 
 
@@ -205,7 +201,8 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
     material_ids = np.concatenate(mat_ids)
     num_tris = tri_v.shape[0]
     intersector = choose_intersector(num_tris, intersector)
-    if intersector == "band" and num_tris <= CLUSTER_MIN_TRIS:
+    eng = engines.get(intersector)
+    if eng.group == "band" and num_tris <= CLUSTER_MIN_TRIS:
         raise ValueError(
             f"the band engine needs culling clusters, which the reference "
             f"builds only above {CLUSTER_MIN_TRIS} triangles; this scene has "
@@ -267,9 +264,8 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
     # size, as the reference's build.py:321-327)
     cluster_bounds = None
     csub = CLUSTER_SUB
-    if num_tris > CLUSTER_MIN_TRIS or intersector == "compact":
-        csub = (CLUSTER_SUB if intersector in FIXED_CLUSTER_ENGINES
-                else cluster_sub_for(num_tris))
+    if num_tris > CLUSTER_MIN_TRIS or eng.prepass == "work list":
+        csub = CLUSTER_SUB if eng.fixed_clusters else cluster_sub_for(num_tris)
         cuts = _cluster_cuts(tri_v.min(axis=1).astype(np.float32),
                              tri_v.max(axis=1).astype(np.float32), sub=csub)
         n_clusters = cuts.size - 1
@@ -299,7 +295,7 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
 
     tri_packed = pack_tris(tri_v)
     coeffs, center = numpy_coeffs(tri_packed)
-    quad = numpy_quad_coeffs(tri_packed, center) if intersector == "quad" else None
+    quad = numpy_quad_coeffs(tri_packed, center) if eng.forms else None
     tex_data, tex_off, tex_w, tex_h = pack_textures(scene.textures)
 
     from .parser import HostMaterial
@@ -329,7 +325,7 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
             intersector=intersector,
             # the primaries sort on their cluster signature on a sweep engine
             # with clusters (build.py:382-386)
-            sort_primaries=intersector in SWEEP_ENGINES and cluster_bounds is not None,
+            sort_primaries=eng.sweep and cluster_bounds is not None,
             n_area_lights=n_area_lights,
             has_env=has_env,
             has_aperture=has_aperture,

@@ -19,37 +19,9 @@ Conventions (as in the reference):
 * Lights emit into the half-space of their geometric normal when
   ``single_sided`` is set.
 
-Intersection engines (``intersector``):
-* ``"plucker"``: the Plücker closest-hit / shadow sweeps of
-  :mod:`radish_pt_tpu_torch.accel.plucker` — the CUDA kernels for tensors on
-  the card, their plain torch versions for CPU tensors.  The default up to
-  131,072 triangles.
-* ``"compact"``: the compact work-list engine of
-  :mod:`radish_pt_tpu_torch.accel.compact` (sphere prepass, work list,
-  compact sweeps) — kernels on the card, plain versions on the CPU.  The
-  default above 131,072 triangles.
-* ``"quad"``: the quadratic-form sweeps of
-  :mod:`radish_pt_tpu_torch.accel.quad` over the Plücker engine's clusters
-  and mask prepass; chosen only by name (the reference's opt-in
-  ``pallas_quad``).
-* ``"band"``: the banded Plücker sweeps of
-  :mod:`radish_pt_tpu_torch.accel.band`, culled per band of 128/``band_g``
-  lanes over fixed 64-triangle clusters; chosen only by name (the
-  reference's opt-in ``pallas_band``), for scenes above 1024 triangles.
-* ``"plucker_plain"`` / ``"compact_plain"`` / ``"quad_plain"`` /
-  ``"band_plain"``: the same engines, always in plain torch (the reference
-  the kernels are held against, on any device).
-* ``"dense"``: exhaustive Möller–Trumbore through the kernels of
-  :mod:`radish_pt_tpu_torch.accel.dense` (the reference's opt-in
-  ``pallas_brute``); winners come with barycentrics.  Chosen only by name;
-  its plain path is ``"brute"``.
-* ``"bvh"``: the MTBVH walk of :mod:`radish_pt_tpu_torch.accel.traverse`
-  over ``bvh_packed`` / ``leaf_tris`` / ``leaf_map`` — the kernels of
-  ``csrc/bvh.cu`` on the card, the lockstep torch walk on the CPU; winners
-  come with barycentrics.  Chosen only by name (the reference's fallback
-  without Pallas); ``"bvh_plain"`` is the same walk in plain torch on any
-  device.
-* ``"brute"``: exhaustive Möller–Trumbore (accel/traverse.py), the oracle.
+The intersection engine (``intersector``) is named by one of
+:mod:`.engines`' names; :func:`intersect_ids` and :func:`test_occlusion`
+call its record's closest hit and shadow test.
 """
 
 from __future__ import annotations
@@ -62,26 +34,17 @@ import torch
 
 from ..accel import band as bnd
 from ..accel import compact as cpt
-from ..accel import dense as dns
 from ..accel import plucker as plk
 from ..accel import quad as qd
 from ..accel import sort_key as sk
-from ..accel import traverse as trv
 from ..sampling.alias import alias_sample
 from ..utils import math as m
 from ..utils import timing
+from . import engines
 
 NULL_TEXTURE = -1
 PROCEDURAL_TEXTURE = -2
 INVALID_PDF = -1.0
-
-PLUCKER_ENGINES = ("plucker", "plucker_plain")
-COMPACT_ENGINES = ("compact", "compact_plain")
-QUAD_ENGINES = ("quad", "quad_plain")
-BAND_ENGINES = ("band", "band_plain")
-BVH_ENGINES = ("bvh", "bvh_plain")
-# engines with positional winner ids and culling by lane rows (tile order)
-SWEEP_ENGINES = PLUCKER_ENGINES + COMPACT_ENGINES + QUAD_ENGINES + BAND_ENGINES
 
 MAT_LAMBERTIAN = 0
 MAT_METALLIC_WORKFLOW = 1
@@ -264,7 +227,7 @@ def scene_from_jax(fields: dict, meta: dict, intersector: str | None = None,
     else:
         coeffs, center = plk.numpy_coeffs(tri_packed)
     quad = quad_packed = quad_occl_packed = None
-    if intersector in QUAD_ENGINES:
+    if engines.get(intersector).forms:
         quad = qd.numpy_quad_coeffs(tri_packed, center)
         quad_packed = torch.from_numpy(qd.numpy_quad_packed(quad)).to(device)
         quad_occl_packed = torch.from_numpy(qd.numpy_quad_occl_packed(quad)).to(device)
@@ -446,8 +409,8 @@ def surface_info_from_t(ds: DeviceScene, prim_id, ray_o, ray_d):
 
 def intersect_ids(ds: DeviceScene, ray_o, ray_d, active=None):
     """Closest hit without surface recovery: (prim i32 [N], bary f32 [N, 2]
-    | None), dispatched on the scene's engine (``intersect_ids``,
-    reference :490-519).  The sweep engines return no barycentrics (their
+    | None), from the scene's engine (``intersect_ids``, reference
+    :490-519).  The sweep engines return no barycentrics (their
     surface comes from the winner id, :func:`surface_info_from_t`); the
     dense, bvh and brute engines return theirs.
 
@@ -455,42 +418,7 @@ def intersect_ids(ds: DeviceScene, ray_o, ray_d, active=None):
     sweeps' culling gets ``tmax = -FLT_MAX`` for them so they flag no
     clusters, and the BVH walks the same range, so they are settled as
     misses without a walk — and return prim_id -1."""
-    bary = None
-    if ds.intersector in SWEEP_ENGINES:
-        tmax = None
-        if active is not None:
-            tmax = torch.where(active, plk.FLT_MAX, -plk.FLT_MAX)
-        if ds.intersector in COMPACT_ENGINES:
-            prim, _ = cpt.intersect_compact(
-                ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, ray_o,
-                ray_d, tmax=tmax, plain=ds.intersector == "compact_plain",
-                packed=ds.sweep_packed, spheres=ds.unit_spheres)
-        elif ds.intersector in QUAD_ENGINES:
-            prim, _ = qd.intersect_quad(
-                ds.quad_coeffs, ds.sweep_center, ds.cluster_bounds,
-                ds.cluster_sub, ray_o, ray_d, tmax=tmax,
-                plain=ds.intersector == "quad_plain", packed=ds.quad_packed)
-        elif ds.intersector in BAND_ENGINES:
-            prim, _ = bnd.intersect_band(
-                ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, ds.band_g,
-                ray_o, ray_d, tmax=tmax, plain=ds.intersector == "band_plain",
-                packed=ds.sweep_packed, words_box=ds.word_bounds)
-        else:
-            prim, _ = plk.intersect_plucker(
-                ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds,
-                ds.cluster_sub, ray_o, ray_d, tmax=tmax,
-                plain=ds.intersector == "plucker_plain", packed=ds.sweep_packed)
-    elif ds.intersector == "dense":
-        prim, _, bary = dns.intersect_dense(ds.tri_packed, ray_o, ray_d)
-    elif ds.intersector in BVH_ENGINES:
-        tmax = None if active is None else torch.where(active, trv.FLT_MAX, -trv.FLT_MAX)
-        prim, _, bary = trv.intersect_bvh(ds.leaf_tris, ds.leaf_map, ds.bvh_packed,
-                                          ray_o, ray_d, tmax,
-                                          plain=ds.intersector == "bvh_plain")
-    elif ds.intersector == "brute":
-        prim, _, bary = trv.intersect_brute(ds.tri_packed, ray_o, ray_d)
-    else:
-        raise ValueError(f"unknown intersector {ds.intersector!r}")
+    prim, bary = engines.of(ds).closest_hit(ds, ray_o, ray_d, active)
     if active is not None:
         prim = torch.where(active, prim, -1)
     return prim, bary
@@ -522,9 +450,9 @@ def _sort_key(ds: DeviceScene, ray_o, ray_d, tmax=None, active=None):
     (``key_bounds``), count-major on the band engine, with
     ``sk.DEAD_KEY_BIT`` on the lanes ``active`` marks dead
     (:mod:`radish_pt_tpu_torch.accel.sort_key`: the kernel on the card)."""
+    eng = engines.of(ds)
     return sk.signature_key(ds.key_bounds, ray_o, ray_d, tmax, active,
-                            band=ds.intersector in BAND_ENGINES,
-                            plain=ds.intersector.endswith("_plain"))
+                            band=eng.group == "band", plain=eng.plain)
 
 
 def _scatter(order, sorted_vals):
@@ -625,34 +553,7 @@ test_occlusion_sorted.__test__ = False  # a scene function, not a pytest test
 
 def test_occlusion(ds: DeviceScene, x, y):
     """True where segment x->y is blocked (testOcclusion, scene.h:303-334)."""
-    if ds.intersector in COMPACT_ENGINES:
-        return cpt.occlusion_compact(
-            ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, x, y,
-            plain=ds.intersector == "compact_plain", packed=ds.sweep_packed,
-            spheres=ds.unit_spheres)
-    if ds.intersector in QUAD_ENGINES:
-        return qd.occlusion_quad(
-            ds.quad_coeffs, ds.sweep_center, ds.cluster_bounds, ds.cluster_sub,
-            x, y, plain=ds.intersector == "quad_plain", packed=ds.quad_occl_packed)
-    if ds.intersector in BAND_ENGINES:
-        return bnd.occlusion_band(
-            ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds, ds.band_g, x, y,
-            plain=ds.intersector == "band_plain", packed=ds.sweep_packed,
-            words_box=ds.word_bounds)
-    if ds.intersector in PLUCKER_ENGINES:
-        return plk.occlusion_plucker(
-            ds.sweep_coeffs, ds.sweep_center, ds.cluster_bounds,
-            ds.cluster_sub, x, y, plain=ds.intersector == "plucker_plain",
-            packed=ds.sweep_packed)
-    if ds.intersector == "dense":
-        return dns.occlusion_dense(ds.tri_packed, x, y)
-    if ds.intersector in BVH_ENGINES:
-        return trv.occlusion_bvh(ds.leaf_tris, ds.bvh_packed, x, y,
-                                 plain=ds.intersector == "bvh_plain")
-    if ds.intersector != "brute":
-        raise ValueError(f"unknown intersector {ds.intersector!r}")
-    return trv.occlusion_brute(ds.tri_packed, x, y)
-
+    return engines.of(ds).occlusion(ds, x, y)
 
 test_occlusion.__test__ = False  # a scene function, not a pytest test
 

@@ -42,6 +42,7 @@ from ..bsdf import materials as bsdf
 from ..render import pathtrace as pt
 from ..sampling import rng
 from ..scene import device_scene as dsc
+from ..scene import engines
 from ..utils import math as m
 
 # one H100 SXM at its 700 W limit (NVIDIA's data sheet), as PERF.md's bounds
@@ -55,13 +56,13 @@ BYTES_PER_GROUP_TRI = plk.PACKED_WIDTH * 4  # a packed triangle, read once a gro
 def _counts(ds, o, d, tmax):
     """(swept, row, floor) pairs of one wavefront in sweep order."""
     cb, n_tris = ds.cluster_bounds, ds.num_triangles
-    if ds.intersector in dsc.BAND_ENGINES:
+    group = engines.of(ds).group
+    if group == "band":
         c = bnd.pair_counts(cb, o, d, tmax, ds.band_g, n_tris)
         return c["band"], plk.pair_counts(cb, o, d, tmax, ds.cluster_sub, n_tris)["row"], \
             c["lane"]
     c = plk.pair_counts(cb, o, d, tmax, ds.cluster_sub, n_tris)
-    swept = c["row"] if ds.intersector in dsc.QUAD_ENGINES else c["warp"]
-    return swept, c["row"], c["lane"]
+    return c["row" if group == "row" else "warp"], c["row"], c["lane"]
 
 
 def _sorted(ds, o, d, active, tmax=None):

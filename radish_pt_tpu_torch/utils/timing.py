@@ -12,7 +12,12 @@ per-pass timer built on them (``--timing``).
   profiler's clock beside the device operations.
 * :func:`count` adds to a counter.  A count is also charged to every span
   open on the thread, so a span's entry says what its calls counted
-  (``counts``): e.g. the host syncs of a renderer call.
+  (``counts``): e.g. the host syncs of a renderer call.  The kernel
+  layer counts ``launch.<module>.<kernel>`` a launch, ``plain.<module>.<kernel>``
+  a plain version's call and ``prepass.<module>.<name>`` an eager culling
+  prepass's (``<module>`` the wrapper's under accel/ or render/:
+  ``launch.plucker.closest_hit``); a CUDA graph's replay counts its
+  capture's (render/graph.py).  :func:`under` and :class:`Tally` read them.
 * :func:`host_sync` counts ``host_syncs``: a point where the port blocks
   the host on the card (a copy from pageable host memory, ``.item()``,
   ``bool(tensor)``, ``.cpu()``, an event or stream synchronize).  It is
@@ -205,6 +210,26 @@ def snapshot() -> dict:
 
 def reset() -> None:
     REGISTRY.reset()
+
+
+def under(counts: dict, prefix: str) -> dict:
+    """The counts of ``counts`` named ``<prefix>.<name>`` that are not 0,
+    keyed by ``<name>``: ``under(counters(), "launch.plucker")`` ->
+    {"closest_hit": n, "occlusion": n}."""
+    p = prefix + "."
+    return {k[len(p):]: n for k, n in counts.items() if k.startswith(p) and n}
+
+
+class Tally:
+    """What the counters count from the moment it is made:
+    ``Tally()("plain.plucker")`` is :func:`under` of the counters' moves
+    since."""
+
+    def __init__(self):
+        self.before = counters()
+
+    def __call__(self, prefix: str) -> dict:
+        return under({k: n - self.before.get(k, 0) for k, n in counters().items()}, prefix)
 
 
 def mark(stage: str, device) -> None:

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import (SCENES, jax_scene_parts, load_jax_scene,  # noqa: E402
                              t2n)
 
@@ -144,10 +145,10 @@ def test_closest_hit_matches_reference_soup(soup, ref_closest, g):
     s = soup
     coeffs, center, cb, o, d, tmax = _t(s["coeffs"], s["center"], s["cb"], s["o"],
                                         s["d"], s["tmax"])
-    bnd.reset_counts()
+    tally = Tally()
     prim, dist = (t2n(a) for a in bnd.intersect_band(coeffs, center, cb, g, o, d,
                                                      tmax=tmax))
-    assert bnd.PLAIN_CALLS["closest_hit"] == 1 and bnd.LAUNCHES["closest_hit"] == 0
+    assert tally("plain.band")["closest_hit"] == 1 and "closest_hit" not in tally("launch.band")
     p0, d0 = ref_closest[g]
     flags = t2n(plk.unpack_mask(bnd.band_mask_words(cb, o, d, tmax, g), 5))
     band = np.arange(256) // (128 // g)
@@ -174,9 +175,9 @@ def test_occlusion_matches_reference_soup(soup, g):
 
     s = soup
     coeffs, center, cb, x, y = _t(s["coeffs"], s["center"], s["cb"], s["x"], s["y"])
-    bnd.reset_counts()
+    tally = Tally()
     occ = t2n(bnd.occlusion_band(coeffs, center, cb, g, x, y))
-    assert bnd.PLAIN_CALLS["occlusion"] == 1
+    assert tally("plain.band")["occlusion"] == 1
     if g == 4:  # one width against the reference (each call ~6-10 s here)
         want = np.asarray(occlusion_plucker_band(
             jnp.asarray(s["tp"]), jnp.asarray(s["x"]), jnp.asarray(s["y"]),
@@ -298,7 +299,6 @@ def test_path_trace_band_matches_reference(teapot_band):
     Pallas inside a jitted frame is out of reach on the CPU); the bound is
     on the mean."""
     from radish_pt_tpu.render import pathtrace as jpt
-    from radish_pt_tpu_torch.accel import band as bnd
     from radish_pt_tpu_torch.render import pathtrace as pt
     from radish_pt_tpu_torch.scene.camera import make_camera
 
@@ -310,10 +310,10 @@ def test_path_trace_band_matches_reference(teapot_band):
     cam = make_camera(res, res, np.asarray(jcam.position), np.asarray(jcam.rotation),
                       fov_y=float(jcam.fov_y), lens_radius=float(jcam.lens_radius),
                       focal_dist=float(jcam.focal_dist), device="cpu")
-    bnd.reset_counts()
+    tally = Tally()
     d, i = pt.path_trace(ds, cam, 0, depth)
-    assert bnd.PLAIN_CALLS == {"closest_hit": depth + 1, "occlusion": depth}
-    assert bnd.LAUNCHES == {"closest_hit": 0, "occlusion": 0}
+    assert tally("plain.band") == {"closest_hit": depth + 1, "occlusion": depth}
+    assert tally("launch.band") == {}
     assert (jd + ji).mean() > 1e-2
     assert np.abs(t2n(d + i) - (jd + ji)).mean() < 2e-2
 
@@ -345,12 +345,12 @@ def test_cpu_tensors_take_the_plain_versions(soup):
     feats = plk.plucker_features(o, d, center)
     packed, wb = _t(plk.numpy_packed_coeffs(s["coeffs"]))[0], bnd.word_bounds(cb)
     tm = torch.full((256,), 5.0)
-    bnd.reset_counts()
+    tally = Tally()
     bnd.closest_hit(coeffs, feats, cb, o, d, None, 8, packed, wb)
     bnd.occlusion(coeffs, feats, cb, o, d, tm, 8, packed, wb)
-    assert bnd.PLAIN_CALLS == {"closest_hit": 1, "occlusion": 1}
-    assert bnd.LAUNCHES == {"closest_hit": 0, "occlusion": 0}
-    assert bnd.PREPASS_CALLS == {"band_mask_words": 2}  # the plain versions' words
+    assert tally("plain.band") == {"closest_hit": 1, "occlusion": 1}
+    assert tally("launch.band") == {}
+    assert tally("prepass.band") == {"band_mask_words": 2}  # the plain versions' words
     with pytest.raises(ValueError):  # the kernels refuse CPU tensors
         bnd.closest_hit_cuda(packed, feats, cb, wb, o, d, None, 8)
     with pytest.raises(ValueError):

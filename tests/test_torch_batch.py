@@ -37,6 +37,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 from torch.overrides import TorchFunctionMode  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import SCENES, camera_from_jax, jax_scene_parts, t2n  # noqa: E402
 
 RES, DEPTH = 32, 3
@@ -259,21 +260,20 @@ def test_render_batched_pt_matches_steps_and_reference(scene, request):
     ``step()`` calls bit for bit, with the same bookkeeping, and to the
     JAX package's ``render_batched(4, block=2)`` within the frames'
     tolerance (module docstring)."""
-    from radish_pt_tpu_torch.accel import plucker as plk
 
     jds, jcam, ds, cam = request.getfixturevalue(scene)
     a = _renderer(ds, cam, trace_depth=DEPTH)
     for _ in range(4):
         a.step()
     b = _renderer(ds, cam, trace_depth=DEPTH)
-    plk.reset_counts()
+    tally = Tally()
     img = b.render_batched(4, block=2)
     assert b.batch_mode == "eager"  # CPU tensors: no graph
     _assert_same_state(a, b)
     assert b.state.iteration == 4 and b.last_runner.replays == 0
     if scene == "teapot":  # the sweep engine's plain version ran
-        assert plk.PLAIN_CALLS == {"closest_hit": 4 * (DEPTH + 1), "occlusion": 4 * DEPTH}
-        assert plk.LAUNCHES == {"closest_hit": 0, "occlusion": 0}
+        assert tally("plain.plucker") == {"closest_hit": 4 * (DEPTH + 1), "occlusion": 4 * DEPTH}
+        assert tally("launch.plucker") == {}
 
     jr = _jax_renderer(jds, jcam, trace_depth=DEPTH)
     want = jr.render_batched(4, block=2)
@@ -358,18 +358,20 @@ def test_render_batched_refuses_other_tracers(cornell):
 
 
 def test_batch_mode_is_decided_by_engine_and_device(cornell):
-    """The graph needs the card and an engine of CAPTURABLE_ENGINES; the
-    compact engine, the plain engines and every CPU scene run eagerly."""
+    """The graph needs the card and a capturable engine (scene/engines.py);
+    the compact engine, the plain engines and every CPU scene run eagerly."""
     from types import SimpleNamespace
 
     from radish_pt_tpu_torch.render import graph as gr
+    from radish_pt_tpu_torch.scene import engines
 
     _, _, ds, _ = cornell
-    assert gr.CAPTURABLE_ENGINES == {"plucker", "band", "quad", "dense", "bvh"}
+    capturable = {n for n, e in engines.ENGINES.items() if e.capturable}
+    assert capturable == {"plucker", "band", "quad", "dense", "bvh"}
     for engine in ("plucker", "band", "quad", "dense", "bvh", "compact", "plucker_plain",
                    "bvh_plain", "brute"):
         on_card = SimpleNamespace(intersector=engine, device=torch.device("cuda"))
-        want = "graph" if engine in gr.CAPTURABLE_ENGINES else "eager"
+        want = "graph" if engine in capturable else "eager"
         assert gr.batch_mode(on_card) == want
         assert gr.batch_mode(ds.replace(intersector=engine)) == "eager"
 

@@ -30,6 +30,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import (SCENES, camera_from_jax, jax_scene_parts,  # noqa: E402
                              load_jax_scene, t2n)
 
@@ -139,10 +140,10 @@ def test_intersect_bvh_plain_matches_jax(teapot, what):
     assert o.shape[0] > 512 and (what == "primary" or 0 < int((~live).sum()) < o.shape[0])
     want = jtrv.intersect_bvh(jds.leaf_tris, jds.leaf_map, jds.bvh_packed,
                               jnp.asarray(t2n(o)), jnp.asarray(t2n(d)))
-    trv.reset_counts()
+    tally = Tally()
     got = trv.intersect_bvh_plain(ds.leaf_tris, ds.leaf_map, ds.bvh_packed, o, d)
-    assert trv.PLAIN_CALLS == {"closest_hit": 1, "occlusion": 0, "heatmap": 0, "bin": 0}
-    assert trv.LAUNCHES == {"closest_hit": 0, "occlusion": 0, "heatmap": 0, "bin": 0}
+    assert tally("plain.traverse") == {"closest_hit": 1}
+    assert tally("launch.traverse") == {}
     exact = _exact_bary(t2n(ds.tri_packed), t2n(got[0]), t2n(o), t2n(d))
     _check_closest(tuple(t2n(x) for x in got), want, exact, max_off=1)
     hits = t2n(got[0]) >= 0
@@ -168,9 +169,9 @@ def test_occlusion_bvh_plain_matches_jax(teapot):
     xs, ys = torch.cat([x, o]), torch.cat([y, o + d * reach])
     want = np.asarray(jtrv.occlusion_bvh(jds.leaf_tris, jds.leaf_map, jds.bvh_packed,
                                          jnp.asarray(t2n(xs)), jnp.asarray(t2n(ys))))
-    trv.reset_counts()
+    tally = Tally()
     got = t2n(trv.occlusion_bvh(ds.leaf_tris, ds.bvh_packed, xs, ys))
-    assert trv.PLAIN_CALLS["occlusion"] == 1
+    assert tally("plain.traverse")["occlusion"] == 1
     np.testing.assert_array_equal(got, want)
     n_seg = x.shape[0]
     assert not got[:n_seg][~t2n(ok)].any()  # zero-length: never blocked
@@ -283,13 +284,12 @@ def test_path_trace_bvh_matches_jax(teapot):
     a path meets a near-tie, XLA's FMA rounding and the port's separate
     roundings part it, as in the barycentrics above."""
     from radish_pt_tpu.render import pathtrace as jpt
-    from radish_pt_tpu_torch.accel import traverse as trv
     from radish_pt_tpu_torch.render import pathtrace as pt
 
     jds, jcam, ds, cam, _ = teapot
     depth = 3
     f = jax.jit(jpt.path_trace, static_argnames=("max_depth",))
-    trv.reset_counts()
+    tally = Tally()
     for looper in (0, 1):
         jd, ji = (np.asarray(a) for a in f(jds, jcam.replace(width=RES, height=RES),
                                            looper, depth))
@@ -301,8 +301,7 @@ def test_path_trace_bvh_matches_jax(teapot):
         assert np.abs(got - want).mean() < 1e-4
         db, ib = pt.path_trace(ds.replace(intersector="brute"), cam, looper, depth)
         assert torch.equal(d, db) and torch.equal(i, ib)
-    assert trv.PLAIN_CALLS == {"closest_hit": 2 * (depth + 1), "occlusion": 2 * depth,
-                               "heatmap": 0, "bin": 0}
+    assert tally("plain.traverse") == {"closest_hit": 2 * (depth + 1), "occlusion": 2 * depth}
 
 
 def test_renderer_heatmap_matches_jax(teapot):
@@ -312,7 +311,6 @@ def test_renderer_heatmap_matches_jax(teapot):
     from radish_pt_tpu.config import Settings as JSettings
     from radish_pt_tpu.config import Tracer as JTracer
     from radish_pt_tpu.render.renderer import Renderer as JRenderer
-    from radish_pt_tpu_torch.accel import traverse as trv
     from radish_pt_tpu_torch.config import Settings, Tracer
     from radish_pt_tpu_torch.render.renderer import Renderer
 
@@ -321,7 +319,7 @@ def test_renderer_heatmap_matches_jax(teapot):
                    settings=JSettings(tracer=JTracer.BVH_VISUALIZE))
     jr.step()
     want = np.asarray(jr.current_image())
-    trv.reset_counts()
+    tally = Tally()
     for engine in ("bvh", "plucker"):  # the heatmap walks whatever the engine
         r = Renderer(ds=ds.replace(intersector=engine), cam=cam,
                      settings=Settings(tracer=Tracer.BVH_VISUALIZE), device="cpu")
@@ -329,7 +327,7 @@ def test_renderer_heatmap_matches_jax(teapot):
         got = t2n(r.current_image())
         np.testing.assert_array_equal(got, want)
         assert disp.shape == (RES, RES, 3)
-    assert trv.PLAIN_CALLS["heatmap"] == 2
+    assert tally("plain.traverse")["heatmap"] == 2
     assert got[:, 2].max() == 0 and got[:, 0].max() == 1.0 and 0 < got[:, 0].mean() < 1
 
 
@@ -354,12 +352,11 @@ def test_engine_routes_through_walk(teapot):
     masked (the walk settles them without a walk, so their unread pos /
     norm / uv are the brute engine's on live lanes only); "bvh_plain" is
     the same walk on any device."""
-    from radish_pt_tpu_torch.accel import traverse as trv
     from radish_pt_tpu_torch.scene import device_scene as dsc
 
     ds = teapot[2]
     o, d, live = _rays(teapot, "extension")
-    trv.reset_counts()
+    tally = Tally()
     a = dsc.intersect(ds, o, d, active=live)
     b = dsc.intersect(ds.replace(intersector="brute"), o, d, active=live)
     c = dsc.intersect(ds.replace(intersector="bvh_plain"), o, d, active=live)
@@ -371,7 +368,7 @@ def test_engine_routes_through_walk(teapot):
     y = o + d * 3.0
     assert torch.equal(dsc.test_occlusion(ds, o, y),
                        dsc.test_occlusion(ds.replace(intersector="brute"), o, y))
-    assert trv.PLAIN_CALLS == {"closest_hit": 2, "occlusion": 1, "heatmap": 0, "bin": 0}
+    assert tally("plain.traverse") == {"closest_hit": 2, "occlusion": 1}
 
 
 def test_walk_stats_count_what_the_walk_does(teapot):
@@ -403,12 +400,12 @@ def test_front_ends_offer_bvh(tmp_path):
     bvh block is captured on the card."""
     from radish_pt_tpu_torch import profile, tune
     from radish_pt_tpu_torch.cli import build_arg_parser, main
-    from radish_pt_tpu_torch.render import graph as gr
-    from radish_pt_tpu_torch.scene.build import INTERSECTORS, choose_intersector
+    from radish_pt_tpu_torch.scene import engines
+    from radish_pt_tpu_torch.scene.build import choose_intersector
 
-    assert "bvh" in INTERSECTORS
+    assert "bvh" in engines.NAMES
     assert choose_intersector(4992) == "plucker" and choose_intersector(36, "bvh") == "bvh"
-    assert "bvh" in gr.CAPTURABLE_ENGINES
+    assert engines.get("bvh").capturable
     args = build_arg_parser().parse_args(["x.txt", "--intersector", "bvh", "--tracer", "bvh"])
     assert (args.intersector, args.tracer) == ("bvh", "bvh")
     assert any("bvh" in stage for _, stage in profile.STAGES)

@@ -25,6 +25,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from test_torch_bvh import RES, _check_closest, _exact_bary, _rays, teapot  # noqa: E402,F401
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import t2n  # noqa: E402
 
 FLT_MAX = np.float32(3.402823466e38)
@@ -204,9 +205,9 @@ def test_bin_by_dir_class(what, request):
     want = np.asarray(jtrv.get_dir_class(-jnp.asarray(t2n(d))))
     np.testing.assert_array_equal(t2n(trv.get_dir_class(-d)), want)
     assert len(np.unique(want[t2n(live)])) == 6
-    trv.reset_counts()
+    tally = Tally()
     order, counts = trv.bin_by_dir_class(d, tmax)
-    assert trv.PLAIN_CALLS["bin"] == 1
+    assert tally("plain.traverse")["bin"] == 1
     order = t2n(order)
     np.testing.assert_array_equal(np.sort(order), np.flatnonzero(t2n(live)))
     np.testing.assert_array_equal(t2n(counts), np.bincount(want[t2n(live)], minlength=6))

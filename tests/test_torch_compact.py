@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import (SCENES, jax_scene_parts, load_jax_scene,  # noqa: E402
                              t2n)
 
@@ -233,10 +234,10 @@ def test_intersect_compact_matches_reference(soup, variant):
     s = soup
     coeffs, center, cb, o, d, tmax = _t(s["coeffs"], s["center"], s["cb"], s["o"],
                                         s["d"], s["tmax"])
-    cpt.reset_counts()
+    tally = Tally()
     prim, dist = cpt.intersect_compact(coeffs, center, cb, o, d, tmax=tmax)
-    assert cpt.PLAIN_CALLS["closest_hit"] == 1
-    assert cpt.PLAIN_CALLS["sphere_flags"] == int(variant[0])
+    assert tally("plain.compact")["closest_hit"] == 1
+    assert tally("plain.compact").get("sphere_flags", 0) == int(variant[0])
     p0, d0 = intersect_plucker_compact(
         jnp.asarray(s["tri_packed"]), jnp.asarray(s["o"]), jnp.asarray(s["d"]),
         cluster_bounds=jnp.asarray(s["cb"]), tmax=jnp.asarray(s["tmax"]),
@@ -271,9 +272,9 @@ def test_occlusion_compact_matches_reference(soup, variant):
     s = soup
     x, y = _soup_segments(s)
     coeffs, center, cb, xt, yt = _t(s["coeffs"], s["center"], s["cb"], x, y)
-    cpt.reset_counts()
+    tally = Tally()
     occ = t2n(cpt.occlusion_compact(coeffs, center, cb, xt, yt))
-    assert cpt.PLAIN_CALLS["occlusion"] == 1
+    assert tally("plain.compact")["occlusion"] == 1
     want = np.asarray(occlusion_plucker_compact(
         jnp.asarray(s["tri_packed"]), jnp.asarray(x), jnp.asarray(y),
         cluster_bounds=jnp.asarray(s["cb"]), interpret=True, bf16x3=False))
@@ -287,10 +288,10 @@ def test_cpu_tensors_take_the_plain_versions(soup):
     from radish_pt_tpu_torch.accel import compact as cpt
 
     rows, o, d, tm, cb, center, feats, planes = _sphere_inputs(soup)
-    cpt.reset_counts()
+    tally = Tally()
     flags, tn = cpt.sphere_flags(feats, planes)
-    assert cpt.PLAIN_CALLS["sphere_flags"] == 1
-    assert cpt.LAUNCHES == {"sphere_flags": 0, "closest_hit": 0, "occlusion": 0}
+    assert tally("plain.compact")["sphere_flags"] == 1
+    assert tally("launch.compact") == {}
     with pytest.raises(ValueError):  # the kernels refuse CPU tensors
         cpt.sphere_flags_cuda(feats, planes)
     items, item_tn, offsets = cpt.work_list(flags, tn)
@@ -309,14 +310,18 @@ def test_cpu_tensors_take_the_plain_versions(soup):
 
 def test_choose_intersector_by_count():
     """(e) The reference's automatic choice (build.py:281-290), on counts."""
+    from radish_pt_tpu_torch.scene import engines
     from radish_pt_tpu_torch.scene.build import choose_intersector
 
     assert choose_intersector(131072) == "plucker"
     assert choose_intersector(131073) == "compact"
     assert choose_intersector(10, "compact") == "compact"
     assert choose_intersector(200_000, "plucker") == "plucker"
-    with pytest.raises(ValueError):
-        choose_intersector(10, "pallas_compact")
+    for name in engines.NAMES:
+        assert choose_intersector(10, name) == name
+    for name in ("pallas_compact", "plucker_plain"):  # a plain twin is not built by name
+        with pytest.raises(ValueError):
+            choose_intersector(10, name)
 
 
 @pytest.fixture(scope="module")
@@ -360,7 +365,6 @@ def test_path_trace_compact_matches_reference(teapot_compact):
     reference's brute-force frames on the same scene bytes; edge-exact
     ties may resolve differently, so the bound is on the mean."""
     from radish_pt_tpu.render import pathtrace as jpt
-    from radish_pt_tpu_torch.accel import compact as cpt
     from radish_pt_tpu_torch.render import pathtrace as pt
     from radish_pt_tpu_torch.scene.camera import make_camera
     from radish_pt_tpu_torch.scene.device_scene import scene_from_jax
@@ -374,16 +378,16 @@ def test_path_trace_compact_matches_reference(teapot_compact):
     cam = make_camera(res, res, np.asarray(jcam.position), np.asarray(jcam.rotation),
                       fov_y=float(jcam.fov_y), lens_radius=float(jcam.lens_radius),
                       focal_dist=float(jcam.focal_dist), device="cpu")
-    cpt.reset_counts()
+    tally = Tally()
     for lp in (0, 1):
         jd, ji = (np.asarray(x) for x in f(jbrute, jcam, lp, depth))
         d, i = pt.path_trace(ds, cam, lp, depth)
         err = np.abs(t2n(d + i) - (jd + ji)).mean()
         assert err < 1e-3, err
         assert (jd + ji).mean() > 1e-2
-    assert cpt.PLAIN_CALLS["closest_hit"] == 2 * (depth + 1)
-    assert cpt.PLAIN_CALLS["occlusion"] == 2 * depth
-    assert cpt.LAUNCHES["closest_hit"] == 0
+    assert tally("plain.compact")["closest_hit"] == 2 * (depth + 1)
+    assert tally("plain.compact")["occlusion"] == 2 * depth
+    assert "closest_hit" not in tally("launch.compact")
 
 
 def test_cli_renders_compact_on_cpu(tmp_path, capsys):

@@ -21,6 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from radish_pt_tpu_torch.utils.timing import Tally, under  # noqa: E402
+
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 FLT_MAX = 3.402823466e38
 
@@ -84,9 +86,9 @@ def test_kernels_match_plain(teapot_cuda, masked):
     from radish_pt_tpu_torch.accel import plucker as plk
 
     ds, _, o, d, tmax = teapot_cuda
-    plk.reset_counts()
+    tally = Tally()
     (pk, dk), (pp, dp) = _plucker_pair(ds, o, d, tmax, "scene" if masked else None)
-    assert plk.LAUNCHES["closest_hit"] == 1
+    assert tally("launch.plucker")["closest_hit"] == 1
     assert torch.equal(pk, pp) and torch.equal(dk, dp)
     live = tmax >= 0
     assert float((pp[live] >= 0).float().mean()) > 0.3
@@ -107,10 +109,10 @@ def test_kernels_match_plain(teapot_cuda, masked):
     occ_k = plk.occlusion_cuda(ds.sweep_packed, feats, cb, o, d, tm, ds.cluster_sub)
     occ_p = plk.occlusion_plain(ds.sweep_coeffs, feats, tm, words, ds.cluster_sub)
     torch.cuda.synchronize()
-    assert plk.LAUNCHES["occlusion"] == 1 and torch.equal(occ_k, occ_p)
+    assert tally("launch.plucker")["occlusion"] == 1 and torch.equal(occ_k, occ_p)
     assert 0.05 < occ_p.float().mean().item() < 0.95
     assert not bool(occ_k[::7].any())
-    assert plk.PLAIN_CALLS == {"closest_hit": 2 if masked else 1, "occlusion": 1}
+    assert tally("plain.plucker") == {"closest_hit": 2 if masked else 1, "occlusion": 1}
 
 
 @pytest.mark.cuda
@@ -177,16 +179,15 @@ def test_plucker_wrappers_refuse(teapot_cuda):
 
 @pytest.mark.cuda
 def test_render_through_kernels_matches_plain(teapot_cuda):
-    from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.render import pathtrace as pt
 
     ds, cam, *_ = teapot_cuda
     cam = cam.replace(width=64, height=64)
-    plk.reset_counts()
+    tally = Tally()
     d, i = pt.path_trace(ds, cam, 3, 5)
-    assert plk.LAUNCHES["closest_hit"] == 6 and plk.LAUNCHES["occlusion"] == 5
-    assert plk.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
-    assert plk.PREPASS_CALLS == {"cluster_mask_words": 0}  # the kernels cull
+    assert tally("launch.plucker") == {"closest_hit": 6, "occlusion": 5}
+    assert tally("plain.plucker") == {}
+    assert tally("prepass.plucker") == {}  # the kernels cull
     dp, ip = pt.path_trace(ds.replace(intersector="plucker_plain"), cam, 3, 5)
     img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
     assert np.isfinite(img).all() and img.mean() > 0.05
@@ -206,18 +207,17 @@ def test_render_shipped_scenes_through_kernels_matches_plain(fname, depth):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain sweeps in full f32
-    from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.render import pathtrace as pt
     from radish_pt_tpu_torch.scene.build import load_scene
 
     ds, cam, _ = load_scene(os.path.join(SCENES, fname), device="cuda")
     assert ds.intersector == "plucker"
     cam = cam.replace(width=64, height=64)
-    plk.reset_counts()
+    tally = Tally()
     d, i = pt.path_trace(ds, cam, 3, depth)
-    assert plk.LAUNCHES == {"closest_hit": depth + 1, "occlusion": depth}
-    assert plk.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
-    assert plk.PREPASS_CALLS == {"cluster_mask_words": 0}
+    assert tally("launch.plucker") == {"closest_hit": depth + 1, "occlusion": depth}
+    assert tally("plain.plucker") == {}
+    assert tally("prepass.plucker") == {}
     dp, ip = pt.path_trace(ds.replace(intersector="plucker_plain"), cam, 3, depth)
     img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
     assert np.isfinite(img).all() and img.mean() > 0.05
@@ -327,10 +327,10 @@ def test_sphere_flags_kernel_matches_plain(teapot_compact_cuda):
     po, pd, ptm = cpt._pad_rays(o, d, tmax, rows * cpt.LANES)
     feats = cpt._sphere_feats(po - ds.sweep_center, pd, ptm)
     planes = cpt._sphere_plane_coeffs(ds.cluster_bounds, ds.sweep_center)
-    cpt.reset_counts()
+    tally = Tally()
     fk, tk = cpt.sphere_flags(feats, planes)
     fp, tp = cpt.sphere_flags_plain(feats, planes)
-    assert cpt.LAUNCHES["sphere_flags"] == 1
+    assert tally("launch.compact")["sphere_flags"] == 1
     assert torch.equal(fk, fp) and torch.equal(tk, tp)
     assert bool(fk.any()) and not bool(fk.all())
 
@@ -347,11 +347,11 @@ def test_compact_kernels_match_plain(teapot_compact_cuda, prepass_branch):
     ds, _, o, d, tmax = teapot_compact_cuda
     flags, tn, g = cpt.prepass(ds.sweep_center, ds.cluster_bounds, o, d, tmax)
     feats = plk.plucker_features(o, d, ds.sweep_center)
-    cpt.reset_counts()
+    tally = Tally()
     pk, dk = cpt.closest_hit(ds.sweep_coeffs, feats, tmax, flags, tn, g,
                              ds.sweep_packed, ds.unit_spheres)
     pp, dp = cpt.closest_hit_plain(ds.sweep_coeffs, feats, tmax, flags, g)
-    assert cpt.LAUNCHES["closest_hit"] == 1
+    assert tally("launch.compact")["closest_hit"] == 1
     with pytest.raises(ValueError):  # no packed table: no launch, no fallback
         cpt.closest_hit(ds.sweep_coeffs, feats, tmax, flags, tn, g)
     pk, pp, dk, dp = (t.cpu().numpy() for t in (pk, pp, dk, dp))
@@ -384,7 +384,7 @@ def test_compact_kernels_match_plain(teapot_compact_cuda, prepass_branch):
     occ_k = cpt.occlusion(ds.sweep_coeffs, feats, stm.contiguous(), flags, tn, g,
                           ds.sweep_packed, ds.unit_spheres)
     occ_p = cpt.occlusion_plain(ds.sweep_coeffs, feats, stm, flags, g)
-    assert cpt.LAUNCHES["occlusion"] == 1
+    assert tally("launch.compact")["occlusion"] == 1
     assert torch.equal(occ_k, occ_p)
     assert 0.05 < occ_p.float().mean().item() < 0.95
     assert not bool(occ_k[::7].any())
@@ -441,16 +441,17 @@ def test_compact_occlusion_walks_merged_units(teapot_compact_cuda, monkeypatch):
 @pytest.mark.cuda
 def test_render_through_compact_kernels_matches_plain(teapot_compact_cuda,
                                                       prepass_branch):
-    from radish_pt_tpu_torch.accel import compact as cpt
     from radish_pt_tpu_torch.render import pathtrace as pt
 
     ds, cam, *_ = teapot_compact_cuda
     cam = cam.replace(width=64, height=64)
-    cpt.reset_counts()
+    tally = Tally()
     d, i = pt.path_trace(ds, cam, 3, 5)
-    assert cpt.LAUNCHES["closest_hit"] == 6 and cpt.LAUNCHES["occlusion"] == 5
-    assert cpt.LAUNCHES["sphere_flags"] == (11 if prepass_branch == "sphere" else 0)
-    assert cpt.PLAIN_CALLS == {"sphere_flags": 0, "closest_hit": 0, "occlusion": 0}
+    launched = tally("launch.compact")
+    assert launched["closest_hit"] == 6 and launched["occlusion"] == 5
+    assert tally("launch.compact").get("sphere_flags", 0) == (
+        11 if prepass_branch == "sphere" else 0)
+    assert tally("plain.compact") == {}
     dp, ip = pt.path_trace(ds.replace(intersector="compact_plain"), cam, 3, 5)
     img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
     assert np.isfinite(img).all() and img.mean() > 0.05
@@ -501,11 +502,11 @@ def test_quad_kernels_match_plain(teapot_engines_cuda):
     ds, _ = scenes["quad"]
     feats = qd.quad_features(o, d, ds.sweep_center)
     mask = plk.cluster_mask_words(ds.cluster_bounds, o, d, tmax)
-    qd.reset_counts()
+    tally = Tally()
     pk, dk = qd.closest_hit(ds.quad_coeffs, feats, mask, ds.cluster_sub,
                             ds.quad_packed)
     pp, dp = qd.closest_hit_plain(ds.quad_coeffs, feats, mask, ds.cluster_sub)
-    assert qd.LAUNCHES["closest_hit"] == 1
+    assert tally("launch.quad")["closest_hit"] == 1
     with pytest.raises(ValueError):  # no packed table: no launch, no fallback
         qd.closest_hit(ds.quad_coeffs, feats, mask, ds.cluster_sub)
     _check_closest(pk, dk, pp, dp)
@@ -538,10 +539,10 @@ def test_quad_kernels_match_plain(teapot_engines_cuda):
         ones = torch.ones_like(so[:, 0])
         for bounds in (cb, None):
             smask = None if bounds is None else plk.cluster_mask_words(cb, so, seg, ones)
-            launched = qd.LAUNCHES["occlusion"]
+            launched = tally("launch.quad").get("occlusion", 0)
             occ_k = qd.occlusion(ds.quad_coeffs, sf, bounds, so, seg, sub, ds.quad_occl_packed)
             occ_p = qd.occlusion_plain(ds.quad_coeffs, sf, smask, sub)
-            assert qd.LAUNCHES["occlusion"] == launched + 1
+            assert tally("launch.quad")["occlusion"] == launched + 1
             assert (occ_k != occ_p).float().mean().item() <= 1e-4
             assert 0.05 < occ_p[~zero].float().mean().item() < 0.95
             # a zero-length segment is blocked exactly where its row sweeps a
@@ -554,7 +555,7 @@ def test_quad_kernels_match_plain(teapot_engines_cuda):
                 assert torch.equal(qd.occl_words_plain(cb, so, seg), smask)
     with pytest.raises(ValueError):  # no packed shadow table: no launch, no fallback
         qd.occlusion(ds.quad_coeffs, sf, cb, so, seg, sub)
-    assert qd.LAUNCHES["occlusion"] == 4
+    assert tally("launch.quad")["occlusion"] == 4
 
 
 @pytest.mark.cuda
@@ -581,7 +582,7 @@ def test_band_kernels_match_plain(teapot_engines_cuda, g):
     ds, _ = scenes["band"]
     cb, wb = ds.cluster_bounds, ds.word_bounds
     mo, md, mtm = _mixed_wavefront(o, d, tmax, ds.sweep_center)
-    bnd.reset_counts()
+    tally = Tally()
     for ro, rd, rt in ((o, d, tmax), (mo, md, mtm), (o, d, None)):
         feats = plk.plucker_features(ro, rd, ds.sweep_center)
         pk, dk = bnd.closest_hit(ds.sweep_coeffs, feats, cb, ro, rd, rt, g,
@@ -604,7 +605,7 @@ def test_band_kernels_match_plain(teapot_engines_cuda, g):
         assert np.all(pk_[~live_] == -1) and np.all(dk_[~live_] == FLT_MAX)
         same = pk == p8
         assert torch.equal(dk[same], d8[same])
-    assert bnd.LAUNCHES["closest_hit"] == 6
+    assert tally("launch.band")["closest_hit"] == 6
     with pytest.raises(ValueError):  # no packed table: no launch, no fallback
         bnd.closest_hit(ds.sweep_coeffs, feats, cb, o, d, None, g)
 
@@ -627,10 +628,10 @@ def test_band_kernels_match_plain(teapot_engines_cuda, g):
         assert not bool(occ_k[stm < 0].any())
         # the kernels' vote, in plain torch, on the segments
         assert torch.equal(bnd.band_words_plain(cb, wb, so, sd, stm, g), smask)
-    assert bnd.LAUNCHES["occlusion"] == 2
+    assert tally("launch.band")["occlusion"] == 2
     with pytest.raises(ValueError):  # no packed table: no launch, no fallback
         bnd.occlusion(ds.sweep_coeffs, sf, cb, so, sd, stm, g)
-    assert bnd.LAUNCHES["occlusion"] == 2
+    assert tally("launch.band")["occlusion"] == 2
 
 
 @pytest.mark.cuda
@@ -641,23 +642,18 @@ def test_render_through_engine_kernels_matches_plain(teapot_engines_cuda, engine
     call on the band engine, the quad closest hits' 6 row-mask prepass
     calls on the quad engine) equals the same frame through its plain
     versions."""
-    from radish_pt_tpu_torch.accel import band as bnd
-    from radish_pt_tpu_torch.accel import plucker as plk
-    from radish_pt_tpu_torch.accel import quad as qd
     from radish_pt_tpu_torch.render import pathtrace as pt
 
     scenes, *_ = teapot_engines_cuda
     ds, cam = scenes[engine]
     cam = cam.replace(width=64, height=64)
-    for mod in (qd, bnd, plk):
-        mod.reset_counts()
-    mod = qd if engine == "quad" else bnd
+    tally = Tally()
     d, i = pt.path_trace(ds, cam, 3, 5)
-    assert mod.LAUNCHES == {"closest_hit": 6, "occlusion": 5}
-    assert mod.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
+    assert tally(f"launch.{engine}") == {"closest_hit": 6, "occlusion": 5}
+    assert tally(f"plain.{engine}") == {}
     # the band kernels and the quad shadow kernel vote their words themselves
-    assert bnd.PREPASS_CALLS == {"band_mask_words": 0}
-    assert plk.PREPASS_CALLS == {"cluster_mask_words": 6 if engine == "quad" else 0}
+    assert tally("prepass.band") == {}
+    assert tally("prepass.plucker") == ({"cluster_mask_words": 6} if engine == "quad" else {})
     dp, ip = pt.path_trace(ds.replace(intersector=f"{engine}_plain"), cam, 3, 5)
     img, ref = (d + i).cpu().numpy(), (dp + ip).cpu().numpy()
     assert np.isfinite(img).all() and img.mean() > 0.05
@@ -699,7 +695,6 @@ def test_dense_kernels_match_plain(teapot_cuda):
 def test_render_through_dense_kernels_matches_plain(tracer):
     """Cornell at 64x64 on the dense engine against the brute engine (its
     plain path): equal frames, the kernels launched and no plain call."""
-    from radish_pt_tpu_torch.accel import dense as dns
     from radish_pt_tpu_torch.config import Settings, Tracer
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.scene.build import load_scene
@@ -712,13 +707,14 @@ def test_render_through_dense_kernels_matches_plain(tracer):
     settings = Settings(tracer=Tracer.STREAMED if tracer == "pt" else Tracer.RESTIR_DI)
     imgs = []
     for engine in ("dense", "brute"):
-        dns.reset_counts()
+        tally = Tally()
         r = Renderer(ds=ds.replace(intersector=engine), cam=cam, settings=settings,
                      device="cuda")
         imgs.append(r.render(spp=2))
         if engine == "dense":
-            assert dns.LAUNCHES["closest_hit"] > 0 and dns.LAUNCHES["occlusion"] > 0
-            assert dns.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0}
+            launched = tally("launch.dense")
+            assert launched["closest_hit"] > 0 and launched["occlusion"] > 0
+            assert tally("plain.dense") == {}
     assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.05
     assert np.abs(imgs[0] - imgs[1]).mean() < 2e-3
 
@@ -812,7 +808,7 @@ def test_bvh_persistent_walks_match_plain(teapot_cuda, case):
     o, d, tmax = _bvh_wavefront(ds, o0, d0, case)
     lt, lm, nodes = ds.leaf_tris, ds.leaf_map, ds.bvh_packed
     n = o.shape[0]
-    trv.reset_counts()
+    tally = Tally()
     for rng_ in (None, tmax):
         got = trv.intersect_bvh_cuda(lt, lm, nodes, o, d, rng_)
         want = trv.intersect_bvh_plain(lt, lm, nodes, o, d, rng_)
@@ -827,9 +823,9 @@ def test_bvh_persistent_walks_match_plain(teapot_cuda, case):
     op = trv.occlusion_bvh_plain(lt, nodes, so, sd, tm)
     torch.cuda.synchronize()
     assert torch.equal(ok, op) and not bool(ok[dead].any()), case
-    k = 0 if n == 0 else 1
-    # one binning launch before each of the three walks
-    assert trv.LAUNCHES == {"closest_hit": 2 * k, "occlusion": k, "heatmap": 0, "bin": 3 * k}
+    # one binning launch before each of the three walks; none on no lanes
+    assert tally("launch.traverse") == ({"closest_hit": 2, "occlusion": 1, "bin": 3} if n
+                                        else {})
     if case == "interleaved":
         assert float((want[0] >= 0).float().mean()) > 0.3 and bool(op.any())
 
@@ -882,9 +878,9 @@ def test_bvh_bin_kernel_matches_plain(teapot_cuda, ranged):
 
     _, _, _, d, tmax = teapot_cuda
     tmax = tmax if ranged else None
-    trv.reset_counts()
+    tally = Tally()
     queue, counts = trv.bin_by_dir_class_cuda(d, tmax)
-    assert trv.LAUNCHES["bin"] == 1  # one pass
+    assert tally("launch.traverse")["bin"] == 1  # one pass
     _check_bin(queue, counts, d, tmax)
 
 
@@ -939,9 +935,9 @@ def test_bvh_bin_kernel_cases(teapot_cuda, case, ranged):
     _, _, _, d0, tmax0 = teapot_cuda
     d, tmax = _bin_wavefront(d0, tmax0, case)
     tmax = tmax if ranged or case == "all_dead" else None
-    trv.reset_counts()
+    tally = Tally()
     queue, counts = trv.bin_by_dir_class_cuda(d, tmax)
-    assert trv.LAUNCHES["bin"] == 1
+    assert tally("launch.traverse")["bin"] == 1
     _check_bin(queue, counts, d, tmax)
     if case == "all_dead":
         assert queue.numel() == 0
@@ -1042,13 +1038,13 @@ def test_bvh_heatmap_kernel_warps_match_plain(teapot_cuda, case):
 
     ds, _, o0, d0, _ = teapot_cuda
     o, d = _heatmap_warps(o0, d0, case)
-    trv.reset_counts()
+    tally = Tally()
     got = trv.intersect_bvh_heatmap_cuda(ds.leaf_tris, ds.bvh_packed, o, d)
     want = trv.intersect_bvh_heatmap_plain(ds.leaf_tris, ds.bvh_packed, o, d)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, want), (
         case, int((got != want).sum()))
-    assert trv.LAUNCHES["heatmap"] == (1 if o.shape[0] else 0)
+    assert tally("launch.traverse") == ({"heatmap": 1} if o.shape[0] else {})
     if o.shape[0] > 32:
         assert int(want.max()) > 2
 
@@ -1082,7 +1078,6 @@ def test_render_through_bvh_kernels_matches_plain(tracer):
     """Teapot at 64x64 on the bvh engine through the kernels against the
     plain walks: equal frames (the path tracer) and equal heatmaps, the
     kernels launched and no plain call."""
-    from radish_pt_tpu_torch.accel import traverse as trv
     from radish_pt_tpu_torch.config import Settings, Tracer
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.scene.build import load_scene
@@ -1096,16 +1091,16 @@ def test_render_through_bvh_kernels_matches_plain(tracer):
                         trace_depth=3)
     imgs = []
     for engine in ("bvh", "bvh_plain"):
-        trv.reset_counts()
+        tally = Tally()
         r = Renderer(ds=ds.replace(intersector=engine), cam=cam, settings=settings,
                      device="cuda")
         imgs.append(r.render(spp=2))
         if engine == "bvh":
             kinds = ("closest_hit", "occlusion") if tracer == "pt" else ("heatmap",)
-            assert all(trv.LAUNCHES[k] > 0 for k in kinds), trv.LAUNCHES
+            launched = tally("launch.traverse")
+            assert all(launched.get(k, 0) > 0 for k in kinds), launched
             if tracer == "pt":
-                assert trv.PLAIN_CALLS == {"closest_hit": 0, "occlusion": 0, "heatmap": 0,
-                                           "bin": 0}
+                assert tally("plain.traverse") == {}
     assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.05
     assert np.array_equal(imgs[0], imgs[1])
 
@@ -1143,7 +1138,7 @@ def test_batched_blocks_equal_steps(engine, scene, tracer):
     for f in ("li", "wi", "dist", "num", "weight"):
         assert torch.equal(getattr(a.reservoir, f), getattr(b.reservoir, f)), f
     if engine != "compact":
-        per = run.launches_per_replay()[engine]
+        per = under(run.counts_per_replay, "launch." + ("traverse" if engine == "bvh" else engine))
         want = (3 * 4, 3 * 3) if tracer == "pt" else (3 + 1, 3)
         assert (per["closest_hit"], per["occlusion"]) == want
 
@@ -1282,7 +1277,6 @@ def test_captured_block_equals_sliced_steps():
     live lanes read on the host) and a replayed block the dense loop with
     the sorted sweeps; two blocks of 2 equal 4 ``step()`` frames bit for
     bit, and each frame launched the key kernel 2d + 1 times."""
-    from radish_pt_tpu_torch.accel import sort_key as sk
     from radish_pt_tpu_torch.config import Settings, Tracer
     from radish_pt_tpu_torch.render import pathtrace as pt
     from radish_pt_tpu_torch.render.renderer import Renderer
@@ -1299,15 +1293,16 @@ def test_captured_block_equals_sliced_steps():
         64 * 64, pt.DEFAULT_SLICES["cuda"])
     settings = Settings(tracer=Tracer.STREAMED, trace_depth=depth)
     a, b = (Renderer(ds=ds, cam=cam, settings=settings, device="cuda") for _ in range(2))
-    sk.reset_counts()
+    tally = Tally()
     for _ in range(4):
         a.step()
     torch.cuda.synchronize()
-    assert sk.LAUNCHES["signature_key"] == 4 * (2 * depth + 1)
+    assert tally("launch.sort_key")["signature_key"] == 4 * (2 * depth + 1)
     for _ in range(2):
         run = b.run_block(2)
     assert b.batch_mode == "graph" and run.replays == 2
-    assert run.launches_per_replay()["sort_key"] == {"signature_key": 2 * (2 * depth + 1)}
+    assert under(run.counts_per_replay, "launch.sort_key") == {
+        "signature_key": 2 * (2 * depth + 1)}
     for name in ("direct", "indirect"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
 
@@ -1459,10 +1454,14 @@ def test_stage_marks_replay_in_stream_order(entry):
         want = ["gbuffer", "primary", "ris", "shadow", "temporal", "spatial", "shade",
                 "accumulate", "end"]
     per = {f"marks.{s}": want.count(s) for s in set(want)}
-    # besides the marks, a path-traced replay counts its vertex kernel's
-    # launches (one a bounce) and a ReSTIR replay its one RIS kernel launch
-    assert run.counts_per_replay == ({**per, "vertex.kernel": 4 * 3} if entry == "run_block"
-                                     else {**per, "ris.kernel": 1})
+    # besides the marks, a replay counts its launches: a path-traced block's
+    # sweeps (4 closest hits and 3 shadow sweeps a frame) and vertex kernel
+    # (one a bounce), a ReSTIR frame's G-buffer and primary closest hits,
+    # its winners' shadow sweep and its one RIS kernel launch
+    launches = ({"plucker.closest_hit": 4 * 4, "plucker.occlusion": 4 * 3,
+                 "vertex.vertex": 4 * 3} if entry == "run_block" else
+                {"plucker.closest_hit": 2, "plucker.occlusion": 1, "ris.ris": 1})
+    assert run.counts_per_replay == {**per, **{f"launch.{k}": n for k, n in launches.items()}}
     torch.cuda.synchronize()
     timing.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1622,11 +1621,11 @@ def test_ris_kernel_matches_plain(monkeypatch, scene, size, hash_mode):
     from radish_pt_tpu_torch.render import ris
 
     args = _ris_args(monkeypatch, scene, size, hash_mode)
-    ris.reset_counts()
+    tally = Tally()
     got = rs.candidate_ris(*args)
     want = rs.ris_plain(*args)
     torch.cuda.synchronize()
-    assert ris.LAUNCHES == {"ris": 1} and ris.PLAIN_CALLS == {"ris": 1}
+    assert tally("launch.ris") == {"ris": 1} and tally("plain.ris") == {"ris": 1}
     assert float(want[0].weight.sum()) > 0
     _check_ris(got, want)
 
@@ -1647,9 +1646,9 @@ def test_ris_kernel_lights_past_shared_memory(monkeypatch):
     small = _build.load_library("ris", defines=("-DRIS_SMEM_LIGHTS=16",))
     assert small.ris_smem_lights() == 16 < ds.n_area_lights == 72
     monkeypatch.setitem(_build._libs, "ris", small)  # the variant stands in for the build
-    ris.reset_counts()
+    tally = Tally()
     got = rs.candidate_ris(*args)
-    assert ris.LAUNCHES == {"ris": 1}
+    assert tally("launch.ris") == {"ris": 1}
     _check_ris(got, shared)
     _check_ris(got, rs.ris_plain(*args))
 
@@ -1676,9 +1675,9 @@ def test_ris_kernel_graph_replay_equals_eager(monkeypatch):
         out = rs.candidate_ris(ds, pos, mat, norm, wo, static, size)
     for looper in (7, 4321, 9999):
         static.ptr.fill_(looper * SOBOL_SAMPLE_DIM + 3)
-        ris.reset_counts()
+        tally = Tally()
         graph.replay()
-        assert ris.LAUNCHES == {"ris": 0}  # a replay runs the launch the capture recorded
+        assert tally("launch.ris") == {}  # a replay runs the launch the capture recorded
         want = rs.candidate_ris(ds, pos, mat, norm, wo,
                                 rng.SamplerState(scramble=static.scramble,
                                                  ptr=static.ptr.clone()), size)
@@ -1689,13 +1688,10 @@ def test_ris_kernel_graph_replay_equals_eager(monkeypatch):
 @pytest.mark.cuda
 def test_ris_kernel_one_launch_a_frame():
     """``step_batched_restir`` blocks of 3 frames at 64x64: the replay adds
-    one RIS launch a frame (the runner's counters and the tracing's
-    ``ris.kernel``), and no plain call."""
+    one RIS launch a frame (``launch.ris.ris``), and no plain call."""
     from radish_pt_tpu_torch.config import Settings, Tracer
-    from radish_pt_tpu_torch.render import ris
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.scene.build import load_scene
-    from radish_pt_tpu_torch.utils import timing
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
@@ -1704,13 +1700,11 @@ def test_ris_kernel_one_launch_a_frame():
                  settings=Settings(tracer=Tracer.RESTIR_DI))
     r.step_batched_restir(3)
     run = r.last_runner
-    assert run.mode == "graph" and run.launches_per_replay()["ris"] == {"ris": 3}
-    ris.reset_counts()
-    before = timing.counters().get("ris.kernel", 0)
+    assert run.mode == "graph" and under(run.counts_per_replay, "launch.ris") == {"ris": 3}
+    tally = Tally()
     r.step_batched_restir(3)
     torch.cuda.synchronize()
-    assert ris.LAUNCHES == {"ris": 3} and ris.PLAIN_CALLS == {"ris": 0}
-    assert timing.counters()["ris.kernel"] - before == 3
+    assert tally("launch.ris") == {"ris": 3} and tally("plain.ris") == {}
 
 
 @pytest.mark.cuda
@@ -1823,11 +1817,11 @@ def test_vertex_kernel_matches_plain(monkeypatch, scene, hash_mode):
 
     waves = _vertex_waves(monkeypatch, scene, (1, 3), hash_mode)
     for bounce, args in waves.items():
-        vx.reset_counts()
+        tally = Tally()
         got = vx.vertex(*args)
         want = pt.vertex_plain(*args)
         torch.cuda.synchronize()
-        assert vx.LAUNCHES == {"vertex": 1} and vx.PLAIN_CALLS == {"vertex": 1}
+        assert tally("launch.vertex") == {"vertex": 1} and tally("plain.vertex") == {"vertex": 1}
         assert bool(want.ok.any()) and bool(want.active.any()), bounce
         _check_vertex(got, want, args[3].mtype)
 
@@ -1856,9 +1850,9 @@ def test_vertex_kernel_empty_and_malformed():
         return (ds, smp, torch.ones(n, dtype=torch.bool, device="cuda"), mat, f3, f3, f3,
                 torch.ones((n, 3), device=dev))
 
-    vx.reset_counts()
+    tally = Tally()
     out = vx.vertex(*lanes(0))
-    assert vx.LAUNCHES == {"vertex": 0} and int(out.sampler.ptr) == 42
+    assert tally("launch.vertex") == {} and int(out.sampler.ptr) == 42
     assert out.contrib.shape == (0, 3) and out.ok.shape == (0,)
     with pytest.raises(ValueError, match="throughput"):
         vx.vertex(*lanes(4, dev="cpu"))
@@ -1866,7 +1860,7 @@ def test_vertex_kernel_empty_and_malformed():
     args[2] = args[2].to(torch.int32)
     with pytest.raises(ValueError, match="active"):
         vx.vertex(*args)
-    assert vx.LAUNCHES == {"vertex": 0} and vx.PLAIN_CALLS == {"vertex": 0}
+    assert tally("launch.vertex") == {} and tally("plain.vertex") == {}
 
 
 @pytest.mark.cuda
@@ -1876,15 +1870,14 @@ def test_vertex_kernel_block_equals_plain_frames(monkeypatch, scene):
     """The benchmark's two path-traced scenes at 800x800, depth 5: a
     replayed ``run_block(4)`` (the vertex kernel, captured) equals four
     eager frames whose vertices run the plain version, bit for bit; a
-    replay counts one vertex launch a bounce (``vertex.LAUNCHES`` and the
-    tracing's ``vertex.kernel``, 20 a block) and no plain call."""
+    replay counts one vertex launch a bounce (``launch.vertex.vertex``, 20 a
+    block) and no plain call."""
     from radish_pt_tpu_torch.config import Settings, Tracer
     from radish_pt_tpu_torch.render import graph as gr
     from radish_pt_tpu_torch.render import pathtrace as pt
     from radish_pt_tpu_torch.render import vertex as vx
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.scene.build import load_scene
-    from radish_pt_tpu_torch.utils import timing
 
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
@@ -1896,25 +1889,22 @@ def test_vertex_kernel_block_equals_plain_frames(monkeypatch, scene):
     replayed.run_block(4)  # warm-up, capture, one replay
     run = replayed.last_runner
     assert run.mode == "graph"
-    assert run.launches_per_replay()["vertex"] == {"vertex": 4 * depth}
-    assert run.counts_per_replay["vertex.kernel"] == 4 * depth
-    vx.reset_counts()
-    before = timing.counters().get("vertex.kernel", 0)
+    assert under(run.counts_per_replay, "launch.vertex") == {"vertex": 4 * depth}
+    tally = Tally()
     replayed.run_block(4)
     torch.cuda.synchronize()
-    assert vx.LAUNCHES == {"vertex": 4 * depth} and vx.PLAIN_CALLS == {"vertex": 0}
-    assert timing.counters()["vertex.kernel"] - before == 4 * depth
+    assert tally("launch.vertex") == {"vertex": 4 * depth} and tally("plain.vertex") == {}
 
     with monkeypatch.context() as m:
         m.setattr(gr, "batch_mode", lambda ds: "eager")
         m.setattr(vx, "vertex", pt.vertex_plain)
         eager = Renderer(ds=ds, cam=cam, settings=settings, device="cuda")
-        vx.reset_counts()
+        tally = Tally()
         eager.run_block(4)
         eager.run_block(4)
         torch.cuda.synchronize()
     assert eager.last_runner.mode == "eager"
-    assert vx.LAUNCHES == {"vertex": 0} and vx.PLAIN_CALLS == {"vertex": 8 * depth}
+    assert tally("launch.vertex") == {} and tally("plain.vertex") == {"vertex": 8 * depth}
     for name in ("direct", "indirect"):
         a, b = getattr(replayed, name), getattr(eager, name)
         assert bool(_same_bits(a, b).all()), (name, int((~_same_bits(a, b)).sum()))

@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import (SCENES, camera_from_jax, jax_scene_parts,  # noqa: E402
                              load_jax_scene, t2n)
 
@@ -86,10 +87,10 @@ def test_plain_closest_hit_matches_pallas(case):
 
     tp, o, d = _soup() if case == "soup" else _edge_cases()
     want = _ref_closest(tp, o, d)
-    dns.reset_counts()
+    tally = Tally()
     got = dns.closest_hit_plain(*(torch.from_numpy(a) for a in (tp, o, d)))
-    assert dns.PLAIN_CALLS == {"closest_hit": 1, "occlusion": 0}
-    assert dns.LAUNCHES == {"closest_hit": 0, "occlusion": 0}
+    assert tally("plain.dense") == {"closest_hit": 1}
+    assert tally("launch.dense") == {}
     _check_closest(tuple(t2n(x) for x in got), want)
     if case == "soup":
         assert 0.3 < (want[0] >= 0).mean() < 1.0
@@ -154,9 +155,10 @@ def test_scene_bridge_maps_pallas_brute_to_dense(cornell_dense):
 
 
 def test_build_offers_dense_by_name_only():
-    from radish_pt_tpu_torch.scene.build import INTERSECTORS, choose_intersector
+    from radish_pt_tpu_torch.scene import engines
+    from radish_pt_tpu_torch.scene.build import choose_intersector
 
-    assert "dense" in INTERSECTORS
+    assert "dense" in engines.NAMES and engines.get("dense").plain_twin == "brute"
     assert choose_intersector(36) == "plucker"
     assert choose_intersector(36, "dense") == "dense"
 
@@ -164,7 +166,6 @@ def test_build_offers_dense_by_name_only():
 def test_engine_routes_through_dense_module(cornell_dense):
     """``intersect`` and ``test_occlusion`` on the dense engine go through
     accel/dense.py (counted) and give the brute engine's interactions."""
-    from radish_pt_tpu_torch.accel import dense as dns
     from radish_pt_tpu_torch.scene import device_scene as dsc
     from radish_pt_tpu_torch.scene.camera import pinhole_rays
 
@@ -172,7 +173,7 @@ def test_engine_routes_through_dense_module(cornell_dense):
     cam = camera_from_jax(jcam, 16, 16)
     idx = torch.arange(256, dtype=torch.int32)
     o, d = pinhole_rays(cam, idx % 16, idx // 16)
-    dns.reset_counts()
+    tally = Tally()
     a = dsc.intersect(ds, o, d)
     b = dsc.intersect(ds.replace(intersector="brute"), o, d)
     for name in ("prim_id", "mat_id", "pos", "norm", "uv"):
@@ -180,7 +181,7 @@ def test_engine_routes_through_dense_module(cornell_dense):
     y = o + d * 3.0
     assert torch.equal(dsc.test_occlusion(ds, o, y),
                        dsc.test_occlusion(ds.replace(intersector="brute"), o, y))
-    assert dns.PLAIN_CALLS == {"closest_hit": 1, "occlusion": 1}
+    assert tally("plain.dense") == {"closest_hit": 1, "occlusion": 1}
 
 
 def test_path_trace_dense_equals_brute(cornell_dense):

@@ -33,6 +33,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import (SCENES, camera_from_jax, jax_scene_parts,  # noqa: E402
                              load_jax_scene, t2n)
 
@@ -206,16 +207,15 @@ def test_path_trace_matches_reference(scenes, name, depth):
     turn differently on the two sides (measured: at most 3.0e-5 on a pixel,
     mean 1.6e-7 on env_teapot and 8.5e-7 on glass)."""
     from radish_pt_tpu.render import pathtrace as jpt
-    from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.render import pathtrace as pt
 
     jds, jcam, _, ds = scenes[name]
     jcam = jcam.replace(width=RES, height=RES)
     jd, ji = _jax_frames(jpt.path_trace, jds.replace(intersector="brute"), jcam, 0,
                          max_depth=depth)
-    plk.reset_counts()
+    tally = Tally()
     d, i = pt.path_trace(ds, camera_from_jax(jcam), 0, depth)
-    assert plk.PLAIN_CALLS == {"closest_hit": depth + 1, "occlusion": depth}
+    assert tally("plain.plucker") == {"closest_hit": depth + 1, "occlusion": depth}
     assert np.isfinite(t2n(d + i)).all() and (jd + ji).mean() > 1e-2 and ji.mean() > 1e-2
     for got, want in ((t2n(d + i), jd + ji), (t2n(i), ji)):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-3, err_msg=name)

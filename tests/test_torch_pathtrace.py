@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import SCENES, jax_scene_parts, t2n  # noqa: E402
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -74,20 +75,19 @@ def test_path_trace_plucker_matches_reference(cornell_frames):
     """The port's main-path engine (the plain Plücker sweeps on CPU
     tensors) against the reference's brute-force frames: edge-exact ties
     may resolve differently, so the bound is on the mean."""
-    from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.render import pathtrace as pt
 
     jds, jcam, frames = cornell_frames
     ds, cam = _port(jds, jcam, "plucker")
-    plk.reset_counts()
+    tally = Tally()
     for lp, (jd, ji) in zip(LOOPERS, frames):
         d, i = pt.path_trace(ds, cam, lp, DEPTH)
         err = np.abs(t2n(d + i) - (jd + ji)).mean()
         assert err < 1e-3, err
-    assert plk.PLAIN_CALLS["closest_hit"] == 2 * (DEPTH + 1)
-    assert plk.PLAIN_CALLS["occlusion"] == 2 * DEPTH
+    assert tally("plain.plucker")["closest_hit"] == 2 * (DEPTH + 1)
+    assert tally("plain.plucker")["occlusion"] == 2 * DEPTH
     # cornell has no clusters: every triangle is swept, no culling prepass
-    assert plk.PREPASS_CALLS == {"cluster_mask_words": 0}
+    assert tally("prepass.plucker") == {}
 
 
 def test_renderer_matches_golden():

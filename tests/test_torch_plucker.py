@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import jax_scene_parts, load_jax_scene, t2n  # noqa: E402
 
 FLT_MAX = 3.402823466e38
@@ -296,13 +297,13 @@ def test_cpu_tensors_take_the_plain_version(soup_rays):
 
     tri_packed, o, d = soup_rays
     coeffs, center = (torch.from_numpy(a) for a in plk.numpy_coeffs(tri_packed))
-    plk.reset_counts()
+    tally = Tally()
     plk.intersect_plucker(coeffs, center, None, 64, torch.from_numpy(o),
                           torch.from_numpy(d))
     plk.occlusion_plucker(coeffs, center, None, 64, torch.from_numpy(o),
                           torch.from_numpy(o + d))
-    assert plk.PLAIN_CALLS == {"closest_hit": 1, "occlusion": 1}
-    assert plk.LAUNCHES == {"closest_hit": 0, "occlusion": 0}
+    assert tally("plain.plucker") == {"closest_hit": 1, "occlusion": 1}
+    assert tally("launch.plucker") == {}
     feats = plk.plucker_features(torch.from_numpy(o), torch.from_numpy(d), center)
     packed = torch.from_numpy(plk.numpy_packed_coeffs(t2n(coeffs)))
     with pytest.raises(ValueError):  # the kernel refuses CPU tensors
@@ -526,7 +527,6 @@ def test_path_trace_plucker_teapot_matches_reference(teapot):
     import jax
 
     from radish_pt_tpu.render import pathtrace as jpt
-    from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.render import pathtrace as pt
     from torch_port_util import camera_from_jax
 
@@ -540,12 +540,12 @@ def test_path_trace_plucker_teapot_matches_reference(teapot):
     jcam = jcam.replace(width=res, height=res)
     jd, ji = (np.asarray(a) for a in jax.jit(jpt.path_trace, static_argnames=(
         "max_depth",))(jds.replace(intersector="brute"), jcam, 0, depth))
-    plk.reset_counts()
+    tally = Tally()
     d, i = pt.path_trace(ds.replace(intersector="plucker"),
                          camera_from_jax(jcam, res, res), 0, depth)
-    assert plk.PLAIN_CALLS == {"closest_hit": depth + 1, "occlusion": depth}
-    assert plk.LAUNCHES == {"closest_hit": 0, "occlusion": 0}
-    assert plk.PREPASS_CALLS == {"cluster_mask_words": 2 * depth + 1}
+    assert tally("plain.plucker") == {"closest_hit": depth + 1, "occlusion": depth}
+    assert tally("launch.plucker") == {}
+    assert tally("prepass.plucker") == {"cluster_mask_words": 2 * depth + 1}
     assert (jd + ji).mean() > 1e-2
     assert np.abs(t2n(d + i) - (jd + ji)).mean() < 2e-2
 

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import (SCENES, jax_scene_parts, load_jax_scene,  # noqa: E402
                              t2n)
 
@@ -108,10 +109,10 @@ def test_closest_hit_matches_reference_soup(soup, culled):
     coeffs, center = _port_planes(s["tp"])
     cb = torch.from_numpy(s["cb"]) if culled else None
     tmax = torch.from_numpy(s["tmax"]) if culled else None
-    qd.reset_counts()
+    tally = Tally()
     prim, dist = qd.intersect_quad(coeffs, center, cb, 64, torch.from_numpy(s["o"]),
                                    torch.from_numpy(s["d"]), tmax=tmax)
-    assert qd.PLAIN_CALLS["closest_hit"] == 1 and qd.LAUNCHES["closest_hit"] == 0
+    assert tally("plain.quad")["closest_hit"] == 1 and "closest_hit" not in tally("launch.quad")
     kw = dict(cluster_bounds=jnp.asarray(s["cb"]), tmax=jnp.asarray(s["tmax"])) if culled else {}
     p0, d0 = _ref_isect(s["tp"], s["o"], s["d"], **kw)
     prim, dist = t2n(prim), t2n(dist)
@@ -137,9 +138,9 @@ def test_occlusion_matches_reference_soup(soup, culled):
     coeffs, center = _port_planes(s["tp"])
     cb = torch.from_numpy(s["cb"]) if culled else None
     x, y = torch.from_numpy(s["x"]), torch.from_numpy(s["y"])
-    qd.reset_counts()
+    tally = Tally()
     occ = t2n(qd.occlusion_quad(coeffs, center, cb, 64, x, y))
-    assert qd.PLAIN_CALLS["occlusion"] == 1
+    assert tally("plain.quad")["occlusion"] == 1
     kw = dict(cluster_bounds=jnp.asarray(s["cb"])) if culled else {}
     want = np.asarray(occlusion_quad_pallas(jnp.asarray(s["tp"]), jnp.asarray(s["x"]),
                                             jnp.asarray(s["y"]), interpret=True,
@@ -256,7 +257,6 @@ def test_path_trace_quad_matches_reference(teapot_quad):
     Pallas inside a jitted frame is out of reach on the CPU); edge-exact
     ties may resolve differently, so the bound is on the mean."""
     from radish_pt_tpu.render import pathtrace as jpt
-    from radish_pt_tpu_torch.accel import quad as qd
     from radish_pt_tpu_torch.render import pathtrace as pt
     from radish_pt_tpu_torch.scene.camera import make_camera
 
@@ -268,10 +268,10 @@ def test_path_trace_quad_matches_reference(teapot_quad):
     cam = make_camera(res, res, np.asarray(jcam.position), np.asarray(jcam.rotation),
                       fov_y=float(jcam.fov_y), lens_radius=float(jcam.lens_radius),
                       focal_dist=float(jcam.focal_dist), device="cpu")
-    qd.reset_counts()
+    tally = Tally()
     d, i = pt.path_trace(ds, cam, 0, depth)
-    assert qd.PLAIN_CALLS == {"closest_hit": depth + 1, "occlusion": depth}
-    assert qd.LAUNCHES == {"closest_hit": 0, "occlusion": 0}
+    assert tally("plain.quad") == {"closest_hit": depth + 1, "occlusion": depth}
+    assert tally("launch.quad") == {}
     assert (jd + ji).mean() > 1e-2
     assert np.abs(t2n(d + i) - (jd + ji)).mean() < 2e-2
 
@@ -283,11 +283,11 @@ def test_cpu_tensors_take_the_plain_versions(soup):
     o, d = torch.from_numpy(soup["o"]), torch.from_numpy(soup["d"])
     feats = qd.quad_features(o, d, center)
     occl = torch.from_numpy(qd.numpy_quad_occl_packed(t2n(coeffs)))
-    qd.reset_counts()
+    tally = Tally()
     qd.closest_hit(coeffs, feats, None, 64)
     qd.occlusion(coeffs, feats, None, o, d, 64, occl)
-    assert qd.PLAIN_CALLS == {"closest_hit": 1, "occlusion": 1}
-    assert qd.LAUNCHES == {"closest_hit": 0, "occlusion": 0}
+    assert tally("plain.quad") == {"closest_hit": 1, "occlusion": 1}
+    assert tally("launch.quad") == {}
     packed = torch.from_numpy(qd.numpy_quad_packed(t2n(coeffs)))
     with pytest.raises(ValueError):  # the kernels refuse CPU tensors
         qd.closest_hit_cuda(packed, feats, None, 64)

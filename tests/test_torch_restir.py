@@ -32,6 +32,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import (SCENES, camera_from_jax, gbuffer_frame_arrays,  # noqa: E402
                              gbuffer_frame_pair, jax_scene_parts, reservoir_arrays,
                              reservoir_pair, t2n)
@@ -291,10 +292,10 @@ def test_candidate_ris_on_cpu_runs_the_plain_loop(cornell, monkeypatch):
     from radish_pt_tpu_torch.render import ris
 
     _, _, ds, cam = cornell
-    ris.reset_counts()
+    tally = Tally()
     _ris_call(ds, cam, monkeypatch, 32)
-    assert ris.LAUNCHES == {"ris": 0}
-    assert ris.PLAIN_CALLS == {"ris": 1}
+    assert tally("launch.ris") == {}
+    assert tally("plain.ris") == {"ris": 1}
 
 
 @pytest.mark.parametrize("reservoir_size", [4, 32])

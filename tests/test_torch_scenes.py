@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import (SCENES, camera_from_jax, jax_scene_parts,  # noqa: E402
                              load_jax_scene, t2n)
 
@@ -81,7 +82,6 @@ def test_path_trace_matches_reference(small_scene):
       (measured: textured's cube, looper 0, one pixel 0.34 off, mean
       1.3e-3)."""
     from radish_pt_tpu.render import pathtrace as jpt
-    from radish_pt_tpu_torch.accel import plucker as plk
     from radish_pt_tpu_torch.render import pathtrace as pt
 
     name, jds, jcam, ds = small_scene
@@ -89,7 +89,7 @@ def test_path_trace_matches_reference(small_scene):
     jcam = jcam.replace(width=res, height=res)
     cam = camera_from_jax(jcam)
     f = jax.jit(jpt.path_trace, static_argnames=("max_depth",))
-    plk.reset_counts()
+    tally = Tally()
     for looper in (0, 1):
         jd, ji = (np.asarray(a) for a in f(jds.replace(intersector="brute"), jcam, looper,
                                            depth))
@@ -104,8 +104,8 @@ def test_path_trace_matches_reference(small_scene):
         assert np.isfinite(got).all()
         assert (np.abs(got - want) > 1e-3).any(axis=-1).sum() <= 2, name
         assert np.abs(got - want).mean() < 5e-3, name
-    assert plk.PLAIN_CALLS == {"closest_hit": 2 * (depth + 1), "occlusion": 2 * depth}
-    assert plk.PREPASS_CALLS == {"cluster_mask_words": 0}
+    assert tally("plain.plucker") == {"closest_hit": 2 * (depth + 1), "occlusion": 2 * depth}
+    assert tally("prepass.plucker") == {}
 
 
 @pytest.mark.parametrize("fname,golden,depth,spp,res", [

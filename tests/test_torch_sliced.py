@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import (SCENES, camera_from_jax, jax_scene_parts,  # noqa: E402
                              load_jax_scene, t2n)
 
@@ -193,13 +194,12 @@ def test_sorted_sweeps_equal_unsorted(teapot, bounce_rays, engine):
     engine (barycentrics put back by the scatter); ``intersect_primary``
     equals ``intersect`` on the same rays.  The key runs once a sorted
     call."""
-    from radish_pt_tpu_torch.accel import sort_key as sk
     from radish_pt_tpu_torch.scene import device_scene as dsc
 
     _, _, ds = teapot
     ds = ds.replace(intersector=engine)
     r = bounce_rays
-    sk.reset_counts()
+    tally = Tally()
     _equal_interactions(dsc.intersect_sorted(ds, r["o"], r["d"], r["active"]),
                         dsc.intersect(ds, r["o"], r["d"], r["active"]))
     _equal_interactions(dsc.intersect_sorted(ds, r["o"], r["d"]),
@@ -211,7 +211,7 @@ def test_sorted_sweeps_equal_unsorted(teapot, bounce_rays, engine):
     want = dsc.test_occlusion(ds, r["o"], torch.where(r["mask"][:, None], r["y"], r["o"]))
     assert torch.equal(occ, want)
     assert 0 < int(want.sum()) < want.numel()
-    assert sk.PLAIN_CALLS == {"signature_key": 4} and sk.LAUNCHES == {"signature_key": 0}
+    assert tally("plain.sort_key") == {"signature_key": 4} and tally("launch.sort_key") == {}
 
 
 @pytest.mark.parametrize("engine", ["plucker", "band", "quad"])

@@ -30,6 +30,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from radish_pt_tpu_torch.utils.timing import Tally  # noqa: E402
 from torch_port_util import camera_from_jax, jax_scene_parts, load_jax_scene, t2n  # noqa: E402
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -57,15 +58,15 @@ def test_vertex_on_cpu_runs_the_plain_version():
         seen.append(args)
         return orig(*args)
 
-    vx.reset_counts()
+    tally = Tally()
     vx.vertex = spy
     try:
         pt.path_trace(ds, cam, 2, 3)
     finally:
         vx.vertex = orig
-    assert vx.LAUNCHES == {"vertex": 0} and vx.PLAIN_CALLS == {"vertex": 3}
+    assert tally("launch.vertex") == {} and tally("plain.vertex") == {"vertex": 3}
     out = vx.vertex(*seen[0])
-    assert vx.LAUNCHES == {"vertex": 0} and vx.PLAIN_CALLS == {"vertex": 4}
+    assert tally("launch.vertex") == {} and tally("plain.vertex") == {"vertex": 4}
     assert isinstance(out, vx.Vertex) and int(out.sampler.ptr) == int(seen[0][1].ptr) + 7
     with pytest.raises(ValueError, match="CUDA tensor"):
         vx.vertex_cuda(*seen[0])
@@ -201,14 +202,13 @@ def test_vertex_plain_matches_reference(scenes, name, bounce):
     MetallicWorkflow (teapot), Dielectric (glass), the env map as the only
     light (env_teapot).  Tolerances in the module docstring."""
     from radish_pt_tpu_torch.render import pathtrace as pt
-    from radish_pt_tpu_torch.render import vertex as vx
 
     jds, ds, cam = scenes[name]
     lanes = _wavefront(ds, cam, bounce)
     want = _reference_vertex(jds, *lanes)
-    vx.reset_counts()
+    tally = Tally()
     got = pt._vertex(ds, *lanes)
-    assert vx.PLAIN_CALLS == {"vertex": 1}
+    assert tally("plain.vertex") == {"vertex": 1}
     contrib, smp, active, thr, new_dir, pdf, delta = got
     jcontrib, jsmp, jactive, jthr, jdir, jpdf, jdelta = want
     assert np.array_equal(t2n(smp.scramble), np.asarray(jsmp.scramble).astype(np.int64))
