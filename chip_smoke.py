@@ -65,7 +65,12 @@ CUDA kernels of those paths against their plain torch versions.  Phases:
    cornell_teapot, glass, env_teapot, many_light and textured, timed beside
    it with its bound (and the whole vertex, its sorted shadow test and
    resolve included, replayed), and its one launch a bounce of a replayed
-   block;
+   block; the closest hit's surface kernel against its plain version,
+   every output bit for bit, with the wavefront's accounting and without,
+   on the primaries and bounce-1 extension rays of cornell and the
+   benchmark's cornell_teapot, timed beside it with its bound, and its
+   launches (one for the primaries and one a bounce of a replayed block,
+   two a replayed ReSTIR frame);
 4. the main paths, loopers 0-7, each with the launch counts of its kernels
    set to 0 just before and read just after (a frame of depth d: d + 1
    closest hits, d shadow sweeps, no plain call; on Plücker and band no
@@ -139,7 +144,10 @@ CUDA kernels of those paths against their plain torch versions.  Phases:
 8. with ``--parent DIR``: eager ``step()`` and replayed-block ms/frame of
    teapot, teapot_hires, glass, env_teapot and cornell ReSTIR for the
    checkout at DIR and for this tree, each in a subprocess of its own
-   (``--frame-times``), in turns: parent, this, this, parent;
+   (``--frame-times``), in turns: parent, this, this, parent; then 16
+   replayed blocks of 4 frames of cornell and cornell_teapot (800x800,
+   depth 5, from looper 4321) by either tree, each in a subprocess of its
+   own (``--frames``), their accumulations equal bit for bit;
 9. the multi-device path (parallel/sharding.py), each tile of a mesh on
    this card (``make_mesh(devices=[cuda:0] * n)``), each path driven with
    its kernels' launch counts set to 0 just before and read just after:
@@ -240,7 +248,8 @@ SOURCES = {"plucker": "radish_pt_tpu_torch/csrc/plucker.cu",
            "bvh": "radish_pt_tpu_torch/csrc/bvh.cu",
            "sort_key": "radish_pt_tpu_torch/csrc/sort_key.cu",
            "ris": "radish_pt_tpu_torch/csrc/ris.cu",
-           "vertex": "radish_pt_tpu_torch/csrc/vertex.cu"}
+           "vertex": "radish_pt_tpu_torch/csrc/vertex.cu",
+           "surface": "radish_pt_tpu_torch/csrc/surface.cu"}
 REPLACES = {
     "plucker_closest_hit": "radish_pt_tpu/accel/pallas_kernels.py:344",
     "plucker_occlusion": "radish_pt_tpu/accel/pallas_kernels.py:463",
@@ -312,6 +321,20 @@ VERTEX_BOUNCES = (1, 3)
 VERTEX_REPLACES = ("radish_pt_tpu/render/pathtrace.py:316 _nee_contrib and :345 "
                    "_bsdf_advance, but the shadow test (XLA, no Pallas body)")
 CORNELL_TEAPOT = "benchmark/configs/cornell_teapot/scene.txt"
+# the closest hit's surface kernel (csrc/surface.cu), held against its plain
+# version (render/pathtrace.py::surface_plain, eager on the card) and timed
+# on the primaries and bounce-1 extension rays of an 800x800 frame of the
+# benchmark's two path-traced scenes; the first is the row of the kernels
+# line
+SURFACE_CASES = ("cornell", "cornell_teapot")
+SURFACE_REPLACES = ("radish_pt_tpu/scene/device_scene.py's surface recovery and "
+                    "get_textured_material, radish_pt_tpu/render/pathtrace.py's hit "
+                    "accounting (XLA, no Pallas body)")
+# the replayed frames held to the parent's bit for bit with --parent (phase
+# 8): blocks of 4 frames from this looper, 800x800, depth 5
+PARENT_FRAME_SCENES = {"cornell": "scenes/cornell_box.txt", "cornell_teapot": CORNELL_TEAPOT}
+PARENT_FRAME_BLOCKS = 16
+PARENT_FRAME_LOOPER = 4321
 
 
 def log(msg: str) -> None:
@@ -905,6 +928,33 @@ def max_ulps(a, b) -> int:
     return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
 
 
+def calls_of(module, name: str, run) -> list:
+    """The arguments of each call of ``module.<name>`` while ``run()`` runs
+    (the calls themselves go through)."""
+    seen = []
+    orig = getattr(module, name)
+
+    def spy(*args):
+        seen.append(args)
+        return orig(*args)
+
+    setattr(module, name, spy)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    return seen
+
+
+def same_bits(a, b):
+    """Per element of two tensors: equal bit for bit, or both NaN."""
+    import torch
+
+    if a.dtype != torch.float32:
+        return a == b
+    return (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+
+
 def ris_args(ds, cam, reservoir_size: int, looper: int = 5) -> tuple:
     """What ``restir_candidates`` hands the candidate RIS on the frame's
     lanes: (scene, pos, material, normal, wo, sampler, candidates)."""
@@ -912,21 +962,9 @@ def ris_args(ds, cam, reservoir_size: int, looper: int = 5) -> tuple:
 
     from radish_pt_tpu_torch.render import restir as rs
 
-    seen = {}
-    orig = rs.candidate_ris
-
-    def spy(*args):
-        seen["args"] = args
-        return orig(*args)
-
-    rs.candidate_ris = spy
-    try:
-        idx = torch.arange(cam.width * cam.height, dtype=torch.int32, device=ds.device)
-        rs.restir_candidates(ds, cam, torch.tensor(looper, device=ds.device), idx,
-                             reservoir_size)
-    finally:
-        rs.candidate_ris = orig
-    return seen["args"]
+    idx = torch.arange(cam.width * cam.height, dtype=torch.int32, device=ds.device)
+    return calls_of(rs, "candidate_ris", lambda: rs.restir_candidates(
+        ds, cam, torch.tensor(looper, device=ds.device), idx, reservoir_size))[0]
 
 
 def ris_phase(scenes, log, card) -> dict:
@@ -1025,19 +1063,8 @@ def vertex_waves(ds, cam, bounces, looper: int = 5) -> dict:
     from radish_pt_tpu_torch.render import pathtrace as pt
     from radish_pt_tpu_torch.render import vertex as vx
 
-    seen = []
-    orig = vx.vertex
-
-    def spy(*args):
-        seen.append(args)
-        return orig(*args)
-
-    vx.vertex = spy
-    try:
-        pt.path_trace(ds, cam, torch.tensor(looper, device=ds.device), max(bounces),
-                      n_slices=0)
-    finally:
-        vx.vertex = orig
+    seen = calls_of(vx, "vertex", lambda: pt.path_trace(
+        ds, cam, torch.tensor(looper, device=ds.device), max(bounces), n_slices=0))
     return {b: seen[b - 1] for b in bounces}
 
 
@@ -1058,11 +1085,6 @@ def vertex_phase(scenes, log, card) -> dict:
     from radish_pt_tpu_torch.render import vertex as vx
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.utils import timing
-
-    def same_bits(a, b):
-        if a.dtype != torch.float32:
-            return a == b
-        return (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
 
     cases = {}
     for name, hash_mode in VERTEX_CASES:
@@ -1138,6 +1160,121 @@ def vertex_phase(scenes, log, card) -> dict:
             "ms_replayed": main["ms_replayed"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
             "shape": "cornell 800x800, bounce 1", "cases": cases}
+
+
+def surface_waves(ds, cam, looper: int = 5) -> dict:
+    """What the dense bounce loop hands the surface kernel in a frame:
+    {"primary" | "bounce 1": (scene, prim, bary, ray origin, ray
+    direction, path)}."""
+    import torch
+
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import surface as sf
+
+    seen = calls_of(sf, "surface", lambda: pt.path_trace(
+        ds, cam, torch.tensor(looper, device=ds.device), 1, n_slices=0))
+    return {"primary": seen[0], "bounce 1": seen[1]}
+
+
+def surface_phase(scenes, log, card) -> dict:
+    """The closest hit's surface kernel on :data:`SURFACE_CASES`' primaries
+    and bounce-1 extension rays at 800x800, with the wavefront's accounting
+    and without: every output against the plain version's, bit for bit,
+    then its time (one call, 10 back to back, 10 replayed in one CUDA graph)
+    beside the plain version's one run and its bound (render/surface.py's
+    bytes at the memory rate); then the launches a replayed ``run_block(4)``
+    at depth 5 and a replayed ReSTIR frame count.  Returns the kernels
+    line's row."""
+    import torch
+
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import surface as sf
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.utils import timing
+
+    def outputs(x):
+        out = {"pos": x.pos, "norm": x.norm, "mat_id": x.mat_id, "acc": x.acc,
+               "active": x.active}
+        out.update({f: getattr(x.mat, f) for f in ("mtype", "base_color", "metallic",
+                                                   "roughness", "ior")})
+        return {k: v for k, v in out.items() if v is not None}
+
+    cases = {}
+    for name in SURFACE_CASES:
+        ds, cam = scenes[name]
+        for wave, (ds_, prim, bary, o, d, path) in surface_waves(ds, cam).items():
+            for mode in (path, None):
+                key = f"{name} {wave}{'' if mode is not None else ', no accounting'}"
+                args = (ds_, prim, bary, o, d, mode)
+                got = sf.surface_cuda(*args)
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                want = pt.surface_plain(*args)
+                end.record()
+                end.synchronize()
+                plain_ms = start.elapsed_time(end)
+                a, b = outputs(got), outputs(want)
+                assert a.keys() == b.keys(), key
+                differ, err = {}, 0.0
+                for f in a:
+                    same = same_bits(a[f], b[f])
+                    differ[f] = int((~(same if same.dim() == 1 else same.all(-1))).sum())
+                    if a[f].dtype == torch.float32:
+                        both = torch.isfinite(a[f]) & torch.isfinite(b[f])
+                        if both.any():
+                            err = max(err, float((a[f][both] - b[f][both]).abs().max()))
+                ms = cuda_ms(lambda: sf.surface_cuda(*args), 5)
+                b2b = cuda_ms(lambda: sf.surface_cuda(*args), 5, inner=10)
+                replayed = replayed_ms(lambda: sf.surface_cuda(*args))
+                io = sf.bytes_moved(ds_, prim, bary is not None, sf.account_mode(mode))
+                b_ms, b_by = bound(0.0, io)
+                n, hits = prim.shape[0], int((prim >= 0).sum())
+                cases[key] = {"lanes": n, "hits": hits, "lanes_differ": differ,
+                              "max_abs_err": err, "ms": ms,
+                              "ms_back_to_back": b2b, "ms_replayed": replayed,
+                              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+                log(f"[surface] {key} ({ds_.intersector}, from the "
+                    f"{'barycentrics' if bary is not None else 'winner id'}; {hits} of {n} "
+                    f"lanes hit): lanes differing from the plain version {differ}, largest "
+                    f"|difference| {err:.3e}; kernel "
+                    f"{ms:.4f} ms one call, {b2b:.4f} back to back, {replayed:.4f} replayed; "
+                    f"plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}: {io / 1e6:.1f} "
+                    f"MB), the kernel at {100 * b_ms / replayed:.1f}% of it replayed ({card})")
+                assert not any(differ.values()), (key, differ)
+    # the main paths: one launch for the primaries and one a bounce of a
+    # replayed block, two a replayed ReSTIR frame, no plain call
+    launches = {}
+    for name in SURFACE_CASES + ("cornell restir",):
+        restir = name.endswith("restir")
+        ds, cam = scenes[name.split()[0]]
+        settings = (Settings(tracer=Tracer.RESTIR_DI) if restir else
+                    Settings(tracer=Tracer.STREAMED, trace_depth=DEPTH))
+        r = Renderer(ds=ds, cam=cam, device="cuda", settings=settings)
+        call = (lambda: r.step_batched_restir(1)) if restir else (lambda: r.run_block(4))
+        call()
+        tally = timing.Tally()
+        call()
+        torch.cuda.synchronize()
+        per = timing.under(r.last_runner.counts_per_replay, "launch.surface")
+        want = {"surface": 2 if restir else 4 * (DEPTH + 1)}
+        log(f"[surface] {name} {'step_batched_restir(1)' if restir else 'run_block(4)'}: "
+            f"{per['surface']} launch(es) a replay, counted {tally('launch.surface')}, plain "
+            f"calls {tally('plain.surface')}")
+        assert r.last_runner.mode == "graph"
+        assert per == want and tally("launch.surface") == per
+        assert tally("plain.surface") == {}
+        launches[name] = per["surface"]
+    main = cases[f"{SURFACE_CASES[0]} bounce 1"]
+    return {"name": "surface_kernel", "route": "cuda", "source": SOURCES["surface"],
+            "replaces": SURFACE_REPLACES, "launches": launches["cornell"],
+            "launches_per_frame": launches["cornell"] / 4,
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "lanes_differ": sum(main["lanes_differ"].values()), "ms": main["ms"],
+            "ms_replayed": main["ms_replayed"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+            "shape": "cornell 800x800, bounce 1", "cases": cases,
+            "restir_launches_per_frame": launches["cornell restir"]}
 
 
 def dense_parity(ds, waves, max_err, log, scene):
@@ -1829,6 +1966,74 @@ def parent_frame_times(parent: str, log, card) -> dict:
     return out
 
 
+def replayed_frames(root: str, out: str) -> None:
+    """:data:`PARENT_FRAME_BLOCKS` replayed ``run_block(4)`` blocks (from
+    looper :data:`PARENT_FRAME_LOOPER`, 800x800, depth 5) of each scene of
+    :data:`PARENT_FRAME_SCENES` by the package in the checkout at ``root``,
+    their accumulated direct and indirect images saved to ``out`` (.npz).
+    Runs in a process of its own (``--frames``)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.abspath(root))
+    import radish_pt_tpu_torch
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(radish_pt_tpu_torch.__file__)))
+    assert pkg_root == os.path.abspath(root), (pkg_root, root)
+    assert "jax" not in sys.modules
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images = {}
+    for name, path in PARENT_FRAME_SCENES.items():
+        ds, cam, _ = load_scene(os.path.join(REPO, path), device="cuda")
+        r = Renderer(ds=ds, cam=cam.replace(width=RES, height=RES), desc=None, device="cuda",
+                     settings=Settings(tracer=Tracer.STREAMED, trace_depth=DEPTH))
+        r.state.looper = PARENT_FRAME_LOOPER
+        for _ in range(PARENT_FRAME_BLOCKS):
+            r.run_block(4)
+        assert r.batch_mode == "graph", (name, r.batch_mode)
+        for buf in ("direct", "indirect"):
+            images[f"{name}/{buf}"] = getattr(r, buf).cpu().numpy()
+    np.savez(out, **images)
+
+
+def parent_frames(parent: str, log, card) -> dict:
+    """The replayed frames of :func:`replayed_frames` from the parent
+    checkout and from this tree, each in a subprocess of its own, held equal
+    bit for bit.  Returns {scene/buffer: values differing}."""
+    import tempfile
+
+    import numpy as np
+
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for who, root in (("parent", parent), ("this", REPO)):
+            path = os.path.join(tmp, f"frames_{who}.npz")
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), "--frames",
+                                  os.path.abspath(root), path], capture_output=True, text=True,
+                                 timeout=900)
+            assert res.returncode == 0, f"frames of {root}: {res.stderr[-4000:]}"
+            with np.load(path) as npz:
+                got[who] = {k: npz[k] for k in npz.files}
+            log(f"[parent] {PARENT_FRAME_BLOCKS} replayed blocks of 4 of "
+                f"{', '.join(PARENT_FRAME_SCENES)} by {who} ({root}) in a subprocess: "
+                f"{time.perf_counter() - t0:.1f} s")
+    differ = {}
+    for key in got["this"]:
+        a, b = got["this"][key], got["parent"][key]
+        same = (a.view(np.int32) == b.view(np.int32)) | (np.isnan(a) & np.isnan(b))
+        differ[key] = int((~same).sum())
+        log(f"[parent] {key}: {a.size} values after {4 * PARENT_FRAME_BLOCKS} frames from "
+            f"looper {PARENT_FRAME_LOOPER} ({RES}x{RES}, depth {DEPTH}), {differ[key]} "
+            f"differing from the parent's ({card})")
+    assert not any(differ.values()), differ
+    return differ
+
+
 def parent_kernel_times(parent: str, scenes, inputs, log, card) -> dict:
     """With ``--parent``: this tree's sort-key, binning and heatmap kernels
     beside the parent checkout's, built from its ``radish_pt_tpu_torch/csrc``
@@ -2194,9 +2399,12 @@ def mesh_phase(scenes, log, card) -> dict:
     for key, n in timing.under(r.last_runner.counts_per_replay, "launch").items():
         module, kernel = key.split(".")
         replay.setdefault(module, {})[kernel] = n
-    # besides the sweeps, one candidate RIS launch a tile a frame
+    # besides the sweeps, one candidate RIS launch a tile a frame and a
+    # surface launch after each closest hit (the G-buffer's and the
+    # primaries')
     assert r.batch_mode == "graph" and replay == {
-        **per, "ris": {"ris": MESH_TILES * RESTIR_BLOCK}}, (replay, per)
+        **per, "ris": {"ris": MESH_TILES * RESTIR_BLOCK},
+        "surface": {"surface": MESH_TILES * (RESTIR_BLOCK + 1)}}, (replay, per)
     # the warm-up block and one replay
     assert launches == {m: {k: 2 * v for k, v in d.items()} for m, d in per.items()}, launches
     mesh_ms = cuda_ms(lambda: r.run_block(RESTIR_BLOCK), reps=3) / RESTIR_BLOCK
@@ -2356,6 +2564,9 @@ def main(argv=None) -> int:
     ap.add_argument("--frame-times", metavar="DIR",
                     help="print the frame times of the package in the checkout DIR and "
                     "exit (the subprocess of phase 8)")
+    ap.add_argument("--frames", nargs=2, metavar=("DIR", "OUT"),
+                    help="save the replayed frames of the package in the checkout DIR to "
+                    "OUT (.npz) and exit (the subprocess of phase 8)")
     ap.add_argument("--offsets-loop", type=int, metavar="RUNS",
                     help="count the runs in which the card's ReSTIR offsets differ from the "
                     "CPU's, alone and after every kernel, RUNS times each, and exit")
@@ -2365,6 +2576,12 @@ def main(argv=None) -> int:
             print("chip_smoke: no CUDA device", file=sys.stderr)
             return 1
         print("FRAME_TIMES " + json.dumps(frame_times(args.frame_times)), flush=True)
+        return 0
+    if args.frames:
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            return 1
+        replayed_frames(*args.frames)
         return 0
 
     if not torch.cuda.is_available():
@@ -2605,6 +2822,7 @@ def main(argv=None) -> int:
     del waves
     ris_row = ris_phase(scenes, log, card)
     vertex_row = vertex_phase(scenes, log, card)
+    surface_row = surface_phase(scenes, log, card)
 
     log(f"[phase] 4 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 4. the main paths ----
@@ -3350,6 +3568,7 @@ def main(argv=None) -> int:
                               if k.startswith("signature_key/")}
     rows.append(ris_row)
     rows.append(vertex_row)
+    rows.append(surface_row)
     log(f"[phase] 7 starts at {time.perf_counter() - t_start:.1f} s")
     # ---- 7. batched frames: one CUDA graph a block ----
     batched = batched_phase(scenes, log, card)
@@ -3361,6 +3580,7 @@ def main(argv=None) -> int:
     if args.parent:
         torch.cuda.empty_cache()  # the subprocesses load their own scenes
         log(f"[parent] {json.dumps(parent_frame_times(args.parent, log, card))}")
+        log(f"[parent] frames differing: {json.dumps(parent_frames(args.parent, log, card))}")
     else:
         log("[parent] frame times beside the parent's: not timed (no --parent)")
     log(f"[phase] 9 starts at {time.perf_counter() - t_start:.1f} s")

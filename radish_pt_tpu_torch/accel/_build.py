@@ -93,6 +93,10 @@ SIGNATURES = {
         # the launch's arguments (render/vertex.py::VertexArgs), stream
         "vertex_shade": [_P, _P],
     },
+    "surface": {
+        # the launch's arguments (render/surface.py::SurfaceArgs), stream
+        "surface_shade": [_P, _P],
+    },
     "stage_mark": {
         # stage index (utils/timing.py STAGES), stream
         "stage_mark": [_I, _P],

@@ -1,8 +1,9 @@
 // Shading for the kernels that stand in for eager torch shading code
-// (csrc/ris.cu, csrc/vertex.cu): the rounding helpers, vec3 arithmetic in
-// torch's order, the sampler's draws, the alias pick, the light sample
-// without visibility, and the pieces of the Lambertian and GGX lobes that
-// both kernels evaluate.
+// (csrc/ris.cu, csrc/vertex.cu, csrc/surface.cu): the rounding helpers,
+// vec3 arithmetic in torch's order, the shading frame, the sampler's
+// draws, the alias pick, the light sample without visibility, and the
+// pieces of the Lambertian and GGX lobes that ris.cu and vertex.cu
+// evaluate.
 //
 // Arithmetic: each operation rounded on its own as the eager ops round it
 // (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn, __fsqrt_rn: nothing is
@@ -73,6 +74,24 @@ __device__ __forceinline__ V3 cross(V3 a, V3 b) {
 }
 __device__ __forceinline__ float luminance(V3 c) {
   return add(add(mul((float)0.2126, c.x), mul((float)0.7152, c.y)), mul((float)0.0722, c.z));
+}
+
+// utils/math.py::local_ref_matrix: the frame (t, b, n)
+struct Frame {
+  V3 t, b;
+};
+
+__device__ __forceinline__ Frame local_frame(V3 n) {
+  const V3 up = fabsf(n.y) > (float)0.9999 ? V3{0.0f, 0.0f, 1.0f} : V3{0.0f, 1.0f, 0.0f};
+  Frame f;
+  f.b = normalize(cross(n, up));
+  f.t = cross(f.b, n);
+  return f;
+}
+
+// t * x + b * y + n * z
+__device__ __forceinline__ V3 to_world(const Frame& f, V3 n, float x, float y, float z) {
+  return vadd(vadd(vscale(f.t, x), vscale(f.b, y)), vscale(n, z));
 }
 
 // ---- the sampler (sampling/rng.py) ----

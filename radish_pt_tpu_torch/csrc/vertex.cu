@@ -134,24 +134,6 @@ constexpr int kReflection = 1 << 4;
 constexpr int kTransmission = 1 << 5;
 constexpr int kInvalid = 1 << 15;
 
-// utils/math.py::local_ref_matrix: the frame (t, b, n)
-struct Frame {
-  V3 t, b;
-};
-
-__device__ __forceinline__ Frame local_frame(V3 n) {
-  const V3 up = fabsf(n.y) > (float)0.9999 ? V3{0.0f, 0.0f, 1.0f} : V3{0.0f, 1.0f, 0.0f};
-  Frame f;
-  f.b = normalize(cross(n, up));
-  f.t = cross(f.b, n);
-  return f;
-}
-
-// t * x + b * y + n * z
-__device__ __forceinline__ V3 to_world(const Frame& f, V3 n, float x, float y, float z) {
-  return vadd(vadd(vscale(f.t, x), vscale(f.b, y)), vscale(n, z));
-}
-
 // MetallicWorkflow's _metallic_eval (the lane's base colour) and
 // _metallic_pdf at wi
 __device__ __forceinline__ void metal_eval_pdf(const Ggx& g, V3 n, V3 wo, V3 wi, V3 base,

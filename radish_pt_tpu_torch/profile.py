@@ -75,6 +75,7 @@ STAGES = (
     ("signature_key_kernel", "sort key"),
     ("ris_candidates_kernel", "ReSTIR candidate RIS"),
     ("vertex_kernel", "path vertex (NEE, BSDF sample)"),
+    ("surface_kernel", "hit surface, material, accounting"),
     # the sorts of the wavefront's keys (any kernel named for sorting:
     # cub's radix sort, torch's small-segment sorts) and the gathers and
     # scatters that permute its lanes (index_select, index_copy_; the

@@ -21,6 +21,7 @@ from ..scene import camera as cam_mod
 from ..scene import device_scene as dsc
 from ..utils import math as m
 from ..utils import timing
+from . import surface as sf
 
 NULL_PRIMITIVE = -1
 LIGHT_ID = NULL_PRIMITIVE - 1  # lights in the id channel (gBuffer.cu:36)
@@ -86,16 +87,17 @@ def render_gbuffer(ds: dsc.DeviceScene, cam: cam_mod.Camera,
     y = idx // cam.width
 
     ray_o, ray_d = cam_mod.pinhole_rays(cam, x, y)
-    it = dsc.intersect_primary(ds, ray_o, ray_d)
-    hit = it.prim_id != NULL_PRIMITIVE
+    prim, bary = dsc.intersect_primary_ids(ds, ray_o, ray_d)
+    hit = prim != NULL_PRIMITIVE
 
-    mat, norm = dsc.get_textured_material(ds, it.mat_id, it.uv, it.norm)
+    surf = sf.surface(ds, prim, bary, ray_o, ray_d)
+    mat, norm = surf.mat, surf.norm
     is_light = hit & (mat.mtype == dsc.MAT_LIGHT)
     if ds.single_sided:
         # a light's back face counts as a miss (gBuffer.cu:37-41)
         hit = hit & ~(is_light & (m.dot(norm, ray_d) >= 0.0))
 
-    mat_id = torch.where(is_light, LIGHT_ID, it.mat_id)
+    mat_id = torch.where(is_light, LIGHT_ID, surf.mat_id)
 
     env_albedo = dsc.env_radiance(ds, ray_d)
     albedo = torch.where(hit[..., None], mat.base_color, env_albedo)
@@ -107,15 +109,15 @@ def render_gbuffer(ds: dsc.DeviceScene, cam: cam_mod.Camera,
     else:
         normal = torch.where(hit[..., None], norm, torch.zeros_like(norm))
     prim_id = torch.where(hit, mat_id, NULL_PRIMITIVE).to(torch.int32)
-    depth = torch.where(hit, m.length(it.pos - ray_o), torch.ones_like(ray_o[:, 0]))
+    depth = torch.where(hit, m.length(surf.pos - ray_o), torch.ones_like(ray_o[:, 0]))
 
     out = GBufferOut(
         frame=GBufferFrame(normal=normal, prim_id=prim_id, depth=depth),
         albedo=albedo,
-        motion=_motion_index(cam, last_cam, it.pos, hit),
+        motion=_motion_index(cam, last_cam, surf.pos, hit),
     )
     if extra_motion_cam is not None:
-        return out, _motion_index(cam, extra_motion_cam, it.pos, hit)
+        return out, _motion_index(cam, extra_motion_cam, surf.pos, hit)
     return out
 
 

@@ -8,7 +8,7 @@ reference:
 
 * the dense loop (reference :216-313): every lane goes through every
   bounce, dead lanes masked out; its extension rays go through
-  ``intersect_sorted`` and its shadow rays through
+  ``intersect_sorted_ids`` and its shadow rays through
   ``test_occlusion_sorted`` (signature-sorted sweeps);
 * the sliced loop (:func:`_sliced_bounce_loop`, reference :533-836),
   where the scene has clusters, at least 2,000 triangles and the trace at
@@ -27,8 +27,11 @@ vertex (``prev_pos``) instead of rebuilding it from the ray.  The sweeps
 cull per group of lanes, and a ray that grazes a cluster's box gets what
 its group's flags allow: so both loops sweep the live lanes in the same
 order, (key, lane id), from the front of the wavefront, and a dead or
-masked lane flags no cluster (``scene/device_scene.py::intersect_sorted``,
-``test_occlusion_sorted``).
+masked lane flags no cluster (``scene/device_scene.py::intersect_sorted_ids``,
+``test_occlusion_sorted``).  After every closest hit one call of
+:func:`.surface.surface` (the kernel of csrc/surface.cu on the card,
+:func:`surface_plain` on the CPU) recovers the surface, fetches the
+material and does the hit's accounting.
 ``path_trace(..., n_slices=0)`` runs the dense loop; a batched block that
 is captured as a CUDA graph does (render/renderer.py).
 
@@ -59,6 +62,7 @@ from ..scene import device_scene as dsc
 from ..scene import engines
 from ..utils import math as m
 from ..utils import timing
+from . import surface as sf
 from . import vertex as vx
 
 NULL_PRIMITIVE = -1
@@ -180,18 +184,12 @@ def path_trace(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, max_depth: int,
     sampler = rng.make_sampler(looper, idx)
 
     ray_o, ray_d, sampler = _gen_primary(ds, cam, sampler, idx)
-    it = dsc.intersect_primary(ds, ray_o, ray_d)
-
-    hit = it.prim_id != NULL_PRIMITIVE
-    direct = _mask3(~hit, dsc.env_radiance(ds, ray_d))
-
-    mat, norm = dsc.get_textured_material(ds, it.mat_id, it.uv, it.norm)
-    is_light = hit & (mat.mtype == dsc.MAT_LIGHT)
-    light_vis = _light_visible_side(ds, norm, ray_d)
-    direct = direct + _mask3(is_light & light_vis, mat.base_color)
+    prim, bary = dsc.intersect_primary_ids(ds, ray_o, ray_d)
+    # the primary hit's emission or the env map into ``direct``; active: a
+    # hit that is not a light
+    hit = sf.surface(ds, prim, bary, ray_o, ray_d, sf.PRIMARY)
+    direct, active, mat, norm = hit.acc, hit.active, hit.mat, hit.norm
     indirect = torch.zeros_like(direct)
-
-    active = hit & ~is_light
     throughput = torch.ones_like(ray_d)
     if n_slices is None:
         n_slices = DEFAULT_SLICES[ds.device.type]
@@ -199,7 +197,7 @@ def path_trace(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, max_depth: int,
               and ds.num_triangles >= SLICED_MIN_TRIS)
     if stats is not None:
         stats["loop"] = "sliced" if sliced else "dense"
-    state = (ds, sampler, active, throughput, direct, indirect, it.pos, norm, ray_d, mat,
+    state = (ds, sampler, active, throughput, direct, indirect, hit.pos, norm, ray_d, mat,
              max_depth)
     if sliced:
         direct, indirect = _sliced_bounce_loop(*state, n_slices, stats)
@@ -288,7 +286,8 @@ def _shade_hit(ds, acc, active, throughput, prim, pos, norm, uv, mat_id, ray_d, 
     ray sees the env map, MIS-weighted against NEE's env sampler, and an
     emissive hit its radiance, MIS-weighted against NEE's light sampler
     (full weight after a delta sample), both into ``acc``.  Returns (acc,
-    active, material, shading normal) at the hit."""
+    active, material, shading normal) at the hit.  Part of the plain
+    version of csrc/surface.cu (:func:`surface_plain`)."""
     miss = active & (prim == NULL_PRIMITIVE)
     if ds.has_env:
         env_pdf = dsc.env_map_pdf(ds, ray_d)
@@ -308,6 +307,32 @@ def _shade_hit(ds, acc, active, throughput, prim, pos, norm, uv, mat_id, ray_d, 
     return acc, active & ~hit_light, mat, norm
 
 
+def surface_plain(ds, prim, bary, ray_o, ray_d, path=None) -> sf.Surface:
+    """The closest hit's surface (render/surface.py) as eager torch
+    operations: the surface recovered from the winners ``prim`` (from the
+    winner id, ``bary`` None, or by interpolation:
+    ``dsc.surface_from_ids``), the material (``dsc.get_textured_material``)
+    and, with ``path``, the hit's accounting (:func:`_shade_hit`; the
+    primaries', :data:`.surface.PRIMARY`, as a bounce from every lane alive
+    with throughput 1 after a delta sample and nothing accumulated).  The
+    plain version of csrc/surface.cu, which gives the same
+    :class:`.surface.Surface` bit for bit."""
+    timing.count("plain.surface.surface")
+    pos, norm, uv, mat_id = dsc.surface_from_ids(ds, prim, bary, ray_o, ray_d)
+    if path is None:
+        mat, norm = dsc.get_textured_material(ds, mat_id, uv, norm)
+        return sf.Surface(pos=pos, norm=norm, mat=mat, mat_id=mat_id)
+    if path == sf.PRIMARY:
+        ones = torch.ones_like(prim, dtype=torch.bool)
+        path = sf.PathState(acc=torch.zeros_like(ray_d), active=ones,
+                            throughput=torch.ones_like(ray_d), pdf=torch.ones_like(ray_d[:, 0]),
+                            delta=ones, prev_pos=ray_o)
+    acc, active, mat, norm = _shade_hit(ds, path.acc, path.active, path.throughput, prim, pos,
+                                        norm, uv, mat_id, ray_d, path.pdf, path.delta,
+                                        path.prev_pos)
+    return sf.Surface(pos=pos, norm=norm, mat=mat, mat_id=mat_id, acc=acc, active=active)
+
+
 def _dense_bounce_loop(ds, sampler, active, throughput, direct, indirect, pos, norm,
                        ray_d, mat, max_depth):
     """Every lane through every bounce (reference :216-313), the extension
@@ -322,12 +347,14 @@ def _dense_bounce_loop(ds, sampler, active, throughput, direct, indirect, pos, n
             indirect = indirect + contrib
         # ---- extend ray (pathtrace.cu:225-228) ----
         timing.mark("extend", ds.device)
-        it = dsc.intersect_sorted(ds, pos + new_dir * 1e-5, new_dir, active=active)
+        ray_o = pos + new_dir * 1e-5
+        prim, bary = dsc.intersect_sorted_ids(ds, ray_o, new_dir, active=active)
         timing.mark("hit", ds.device)
-        indirect, active, mat, norm = _shade_hit(
-            ds, indirect, active, throughput, it.prim_id, it.pos, it.norm, it.uv,
-            it.mat_id, new_dir, pdf, delta, pos)
-        pos, ray_d = it.pos, new_dir
+        hit = sf.surface(ds, prim, bary, ray_o, new_dir,
+                         sf.PathState(acc=indirect, active=active, throughput=throughput,
+                                      pdf=pdf, delta=delta, prev_pos=pos))
+        indirect, active, mat, norm = hit.acc, hit.active, hit.mat, hit.norm
+        pos, ray_d = hit.pos, new_dir
     return direct, indirect
 
 
@@ -361,10 +388,10 @@ def _advance(ds, ptr, key, fcol, icol, with_vertex: bool):
     o, d = fcol[:, _ORG].contiguous(), fcol[:, _DIR].contiguous()
     delta = (icol[:, _LANE] & 1) == 1
     prim, bary = dsc.intersect_ids(ds, o, d, act)
-    pos, norm, uv, mat_id = dsc.surface_from_ids(ds, prim, bary, o, d)
     timing.mark("hit", ds.device)
-    acc, act, mat, norm = _shade_hit(ds, acc, act, thr, prim, pos, norm, uv, mat_id, d,
-                                     pdf, delta, prev)
+    hit = sf.surface(ds, prim, bary, o, d, sf.PathState(acc=acc, active=act, throughput=thr,
+                                                         pdf=pdf, delta=delta, prev_pos=prev))
+    acc, act, mat, norm, pos = hit.acc, hit.active, hit.mat, hit.norm, hit.pos
     if not with_vertex:
         return acc
     smp = rng.SamplerState(scramble=icol[:, _SCRAMBLE], ptr=ptr)
@@ -444,24 +471,19 @@ def path_trace_direct(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper,
     sampler = rng.make_sampler(looper, idx)
 
     ray_o, ray_d, sampler = _gen_primary(ds, cam, sampler, idx)
-    it = dsc.intersect_primary(ds, ray_o, ray_d)
-    hit = it.prim_id != NULL_PRIMITIVE
-    direct = _mask3(~hit, dsc.env_radiance(ds, ray_d))
-
-    mat, norm = dsc.get_textured_material(ds, it.mat_id, it.uv, it.norm)
-    is_light = hit & (mat.mtype == dsc.MAT_LIGHT)
-    light_vis = _light_visible_side(ds, norm, ray_d)
-    direct = direct + _mask3(is_light & light_vis, mat.base_color)
+    prim, bary = dsc.intersect_primary_ids(ds, ray_o, ray_d)
+    hit = sf.surface(ds, prim, bary, ray_o, ray_d, sf.PRIMARY)
+    direct, mat, norm = hit.acc, hit.mat, hit.norm
 
     wo = -ray_d
     is_delta_bsdf = mat.mtype == dsc.MAT_DIELECTRIC
     flip = (~is_delta_bsdf) & (m.dot(norm, wo) < 0.0)
     norm = torch.where(flip[..., None], -norm, norm)
 
-    shade = hit & ~is_light & ~is_delta_bsdf
+    shade = hit.active & ~is_delta_bsdf
     timing.mark("nee", ds.device)
     r4, sampler = rng.sample_4d(ds.sobol, sampler)
-    li, wi, light_pdf = dsc.sample_direct_light(ds, it.pos, r4, mask=shade,
+    li, wi, light_pdf = dsc.sample_direct_light(ds, hit.pos, r4, mask=shade,
                                                 shade_normal=norm)
     ok = shade & (light_pdf > 0.0)
     f = bsdf.bsdf_eval(mat, norm, wo, wi, types=ds.mat_types)

@@ -30,6 +30,7 @@ from ..utils import math as m
 from ..utils import timing
 from . import gbuffer as gb
 from . import ris
+from . import surface as sf
 from .gbuffer import NULL_PRIMITIVE, GBufferFrame, GBufferOut
 
 
@@ -352,12 +353,13 @@ def restir_candidates(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, idx,
     sampler = rng.make_sampler(looper, idx)
 
     ray_o, ray_d, sampler = _gen_primary(ds, cam, sampler, idx)
-    it = dsc.intersect_primary(ds, ray_o, ray_d)
-    hit = it.prim_id != NULL_PRIMITIVE
+    prim, bary = dsc.intersect_primary_ids(ds, ray_o, ray_d)
+    hit = prim != NULL_PRIMITIVE
     direct = torch.where(hit[..., None], torch.zeros_like(ray_d),
                          dsc.env_radiance(ds, ray_d))
 
-    mat, norm = dsc.get_textured_material(ds, it.mat_id, it.uv, it.norm)
+    surf = sf.surface(ds, prim, bary, ray_o, ray_d)
+    mat, norm = surf.mat, surf.norm
     # demodulate: shade with white albedo; the G-buffer's albedo
     # re-modulates at the end (restir.cu:125,200)
     mat = dataclasses.replace(mat, base_color=torch.ones_like(mat.base_color))
@@ -374,14 +376,14 @@ def restir_candidates(ds: dsc.DeviceScene, cam: cam_mod.Camera, looper, idx,
     # ---- candidate RIS over ``reservoir_size`` light samples without
     # visibility ----
     timing.mark("ris", ds.device)
-    res, sampler = candidate_ris(ds, it.pos, mat, norm, wo, sampler, reservoir_size)
+    res, sampler = candidate_ris(ds, surf.pos, mat, norm, wo, sampler, reservoir_size)
 
     # ---- one shadow test, on the winner (restir.cu:158-163); lanes that
     # cannot shade get zero-length segments and zero weight ----
     timing.mark("shadow", ds.device)
     vis = shade & (res.weight > 0.0)
-    target = it.pos + res.wi * res.dist[..., None]
-    occluded = dsc.test_occlusion_sorted(ds, it.pos, target, mask=vis)
+    target = surf.pos + res.wi * res.dist[..., None]
+    occluded = dsc.test_occlusion_sorted(ds, surf.pos, target, mask=vis)
     res = res.replace(weight=torch.where(vis & ~occluded, res.weight,
                                          torch.zeros_like(res.weight)))
     return Lanes(direct=direct, mat=mat, norm=norm, wo=wo, shade=shade,

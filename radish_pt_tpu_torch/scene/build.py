@@ -331,6 +331,8 @@ def build_device_scene(scene: SceneDesc, use_sobol: bool = True,
             has_aperture=has_aperture,
             single_sided=scene.settings.scene_light_single_sided,
             mat_types=tuple(sorted({m.mtype for m in mats})),
+            textured=any(t != NULL_TEXTURE for m in mats for t in (
+                m.color_map, m.normal_map, m.metallic_map, m.roughness_map)),
             cluster_sub=csub,
             env_tex=int(scene.env_tex_id),
             aperture_tex=int(scene.aperture_tex_id),

@@ -1,12 +1,12 @@
 """The port's CUDA kernels on the card: build csrc/plucker.cu,
 csrc/compact.cu, csrc/quad.cu, csrc/band.cu, csrc/dense.cu, csrc/bvh.cu,
-csrc/sort_key.cu, csrc/ris.cu and csrc/vertex.cu and hold the Plücker
+csrc/sort_key.cu, csrc/ris.cu, csrc/vertex.cu and csrc/surface.cu and hold the Plücker
 closest-hit and shadow kernels, the sphere prepass, the compact, quad, band
 and dense closest-hit and shadow kernels, the three BVH walks and the
 sort-key kernel against their plain torch versions on teapot geometry,
 ReSTIR's candidate RIS kernel against its plain loop on the shipped scenes,
-the path tracer's vertex kernel against its plain version on their
-wavefronts, then small renders through the kernels (teapot, and the other
+the path tracer's vertex kernel and the closest hit's surface kernel
+against their plain versions on their wavefronts, then small renders through the kernels (teapot, and the other
 shipped scenes on the Plücker engine) against the same renders through the
 plain versions.
 
@@ -1455,12 +1455,14 @@ def test_stage_marks_replay_in_stream_order(entry):
                 "accumulate", "end"]
     per = {f"marks.{s}": want.count(s) for s in set(want)}
     # besides the marks, a replay counts its launches: a path-traced block's
-    # sweeps (4 closest hits and 3 shadow sweeps a frame) and vertex kernel
-    # (one a bounce), a ReSTIR frame's G-buffer and primary closest hits,
-    # its winners' shadow sweep and its one RIS kernel launch
+    # sweeps (4 closest hits and 3 shadow sweeps a frame), vertex kernel
+    # (one a bounce) and surface kernel (one a closest hit), a ReSTIR
+    # frame's G-buffer and primary closest hits and their two surfaces, its
+    # winners' shadow sweep and its one RIS kernel launch
     launches = ({"plucker.closest_hit": 4 * 4, "plucker.occlusion": 4 * 3,
-                 "vertex.vertex": 4 * 3} if entry == "run_block" else
-                {"plucker.closest_hit": 2, "plucker.occlusion": 1, "ris.ris": 1})
+                 "vertex.vertex": 4 * 3, "surface.surface": 4 * 4} if entry == "run_block" else
+                {"plucker.closest_hit": 2, "plucker.occlusion": 1, "ris.ris": 1,
+                 "surface.surface": 2})
     assert run.counts_per_replay == {**per, **{f"launch.{k}": n for k, n in launches.items()}}
     torch.cuda.synchronize()
     timing.reset()
@@ -1908,3 +1910,211 @@ def test_vertex_kernel_block_equals_plain_frames(monkeypatch, scene):
     for name in ("direct", "indirect"):
         a, b = getattr(replayed, name), getattr(eager, name)
         assert bool(_same_bits(a, b).all()), (name, int((~_same_bits(a, b)).sum()))
+
+
+# ---------------------------------------------------------------------------
+# The closest hit's surface kernel (csrc/surface.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+SURFACE_SCENES = ("cornell_box.txt", "cornell_teapot", "teapot.txt", "glass.txt",
+                  "env_teapot.txt", "many_light.txt", "textured.txt")
+
+
+def _surface_waves(monkeypatch, scene, engine):
+    """The winners the dense bounce loop hands the surface in an 800x800
+    frame of ``scene`` on ``engine`` (None: the scene's own, a sweep engine
+    that returns winner ids): {wavefront: (scene, prim, bary, ray origin,
+    ray direction, path)} for the primaries and bounces 1 and 3."""
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import surface as sf
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(_scene_file(scene), device="cuda", intersector=engine)
+    cam = cam.replace(width=VERTEX_RES, height=VERTEX_RES)
+    seen = []
+    orig = sf.surface
+
+    def spy(*args):
+        seen.append(args)
+        return orig(*args)
+
+    monkeypatch.setattr(sf, "surface", spy)
+    pt.path_trace(ds, cam, torch.tensor(5, device="cuda"), 3, n_slices=0)
+    monkeypatch.undo()
+    return {"primary": seen[0], "bounce 1": seen[1], "bounce 3": seen[3]}
+
+
+def _check_surface(got, want, what):
+    """The kernel's :class:`Surface` against the plain version's, every
+    output on every lane bit for bit (or both NaN): no tolerance."""
+    fields = {"pos": (got.pos, want.pos), "norm": (got.norm, want.norm),
+              "mat_id": (got.mat_id, want.mat_id)}
+    for f in ("mtype", "base_color", "metallic", "roughness", "ior"):
+        fields[f] = (getattr(got.mat, f), getattr(want.mat, f))
+    if want.acc is not None:
+        fields["acc"], fields["active"] = (got.acc, want.acc), (got.active, want.active)
+    else:
+        assert got.acc is None and got.active is None
+    bad = {}
+    for f, (a, b) in fields.items():
+        assert a.shape == b.shape and a.dtype == b.dtype, (what, f)
+        same = _same_bits(a, b)
+        lanes = ~(same if same.dim() == 1 else same.all(-1))
+        if lanes.any():
+            first = int(torch.nonzero(lanes)[0])
+            bad[f] = (int(lanes.sum()), first, a[first].tolist(), b[first].tolist())
+    assert not bad, (what, bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", [None, "bvh"], ids=["winner_id", "barycentric"])
+@pytest.mark.parametrize("scene", SURFACE_SCENES,
+                         ids=[s.removesuffix(".txt") for s in SURFACE_SCENES])
+def test_surface_kernel_matches_plain(monkeypatch, scene, engine):
+    """One launch of the surface kernel on the primaries and the bounce-1
+    and bounce-3 extension rays of an 800x800 frame (misses and dead lanes
+    included) against the plain version (``surface_plain``, eager on the
+    card) on the same lanes, with the wavefront's accounting (the
+    primaries' or the bounce's) and without: position, shading normal,
+    material, material id, accumulator and ``active``, bit for bit on every
+    lane.  Both forms of the surface: from the winner id (the scene's sweep
+    engine) and from the barycentrics of the BVH walk."""
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import surface as sf
+
+    waves = _surface_waves(monkeypatch, scene, engine)
+    for what, (ds, prim, bary, ray_o, ray_d, path) in waves.items():
+        assert (bary is None) == (engine is None), what
+        assert (path == sf.PRIMARY) == (what == "primary"), what
+        if what == "bounce 3":  # dead lanes and misses have no winner
+            assert not bool(path.active.all()) and bool((prim < 0).any()), what
+        assert bool((prim >= 0).any()), what
+        for mode in (path, None):
+            tally = Tally()
+            got = sf.surface(ds, prim, bary, ray_o, ray_d, mode)
+            want = pt.surface_plain(ds, prim, bary, ray_o, ray_d, mode)
+            torch.cuda.synchronize()
+            assert tally("launch.surface") == {"surface": 1}
+            assert tally("plain.surface") == {"surface": 1}
+            _check_surface(got, want, (what, "accounting" if mode is not None else "none"))
+
+
+@pytest.mark.cuda
+def test_surface_kernel_empty_and_malformed():
+    """No lane: no launch and empty outputs; an input off the card or of
+    another type raises (nothing falls back to the plain version)."""
+    from radish_pt_tpu_torch.render import surface as sf
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, _, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cuda")
+
+    def lanes(n):
+        f3 = torch.zeros((n, 3), device="cuda")
+        return ds, torch.zeros(n, dtype=torch.int32, device="cuda"), None, f3, f3
+
+    tally = Tally()
+    out = sf.surface(*lanes(0), sf.PRIMARY)
+    assert tally("launch.surface") == {} and out.pos.shape == (0, 3)
+    assert out.acc.shape == (0, 3) and out.active.shape == (0,)
+    ds_, prim, _, o, d = lanes(4)
+    with pytest.raises(ValueError, match="ray_o"):
+        sf.surface(ds_, prim, None, o.cpu(), d)
+    with pytest.raises(ValueError, match="prim"):
+        sf.surface(ds_, prim.long(), None, o, d)
+    path = sf.PathState(acc=o, active=torch.ones(4, device="cuda"), throughput=o,
+                        pdf=o[:, 0], delta=torch.ones(4, dtype=torch.bool, device="cuda"),
+                        prev_pos=o)
+    with pytest.raises(ValueError, match="active"):
+        sf.surface(ds_, prim, None, o, d, path)
+    assert tally("launch.surface") == {} and tally("plain.surface") == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["cornell_box.txt", "cornell_teapot"],
+                         ids=["cornell", "cornell_teapot"])
+def test_surface_kernel_block_equals_plain_frames(monkeypatch, scene):
+    """The benchmark's two path-traced scenes at 800x800, depth 5: a
+    replayed ``run_block(4)`` (the surface kernel, captured) equals four
+    eager frames whose surfaces run the plain version, bit for bit; a
+    replay counts one surface launch for the primaries and one a bounce
+    (``launch.surface.surface``, 24 a block) and no plain call."""
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render import graph as gr
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import surface as sf
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(_scene_file(scene), device="cuda")
+    cam = cam.replace(width=VERTEX_RES, height=VERTEX_RES)
+    depth = 5
+    settings = Settings(tracer=Tracer.STREAMED, trace_depth=depth)
+    replayed = Renderer(ds=ds, cam=cam, settings=settings, device="cuda")
+    replayed.run_block(4)  # warm-up, capture, one replay
+    run = replayed.last_runner
+    assert run.mode == "graph"
+    assert under(run.counts_per_replay, "launch.surface") == {"surface": 4 * (depth + 1)}
+    tally = Tally()
+    replayed.run_block(4)
+    torch.cuda.synchronize()
+    assert tally("launch.surface") == {"surface": 24} and tally("plain.surface") == {}
+
+    with monkeypatch.context() as m:
+        m.setattr(gr, "batch_mode", lambda ds: "eager")
+        m.setattr(sf, "surface", pt.surface_plain)
+        eager = Renderer(ds=ds, cam=cam, settings=settings, device="cuda")
+        tally = Tally()
+        eager.run_block(4)
+        eager.run_block(4)
+        torch.cuda.synchronize()
+    assert eager.last_runner.mode == "eager"
+    assert tally("launch.surface") == {} and tally("plain.surface") == {"surface": 48}
+    for name in ("direct", "indirect"):
+        a, b = getattr(replayed, name), getattr(eager, name)
+        assert bool(_same_bits(a, b).all()), (name, int((~_same_bits(a, b)).sum()))
+
+
+@pytest.mark.cuda
+def test_surface_kernel_two_launches_a_restir_frame(monkeypatch):
+    """A replayed ``step_batched_restir(1)`` at 800x800 counts two surface
+    launches (the G-buffer's primaries and ReSTIR's) and no plain call, and
+    its display equals the same frames run eagerly through the plain
+    version, bit for bit."""
+    from radish_pt_tpu_torch.config import Settings, Tracer
+    from radish_pt_tpu_torch.render import graph as gr
+    from radish_pt_tpu_torch.render import pathtrace as pt
+    from radish_pt_tpu_torch.render import surface as sf
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cuda")
+    cam = cam.replace(width=VERTEX_RES, height=VERTEX_RES)
+    settings = Settings(tracer=Tracer.RESTIR_DI)
+    replayed = Renderer(ds=ds, cam=cam, settings=settings, device="cuda")
+    replayed.step_batched_restir(1)
+    run = replayed.last_runner
+    assert run.mode == "graph"
+    assert under(run.counts_per_replay, "launch.surface") == {"surface": 2}
+    tally = Tally()
+    replayed.step_batched_restir(1)
+    torch.cuda.synchronize()
+    assert tally("launch.surface") == {"surface": 2} and tally("plain.surface") == {}
+    with monkeypatch.context() as m:
+        m.setattr(gr, "batch_mode", lambda ds: "eager")
+        m.setattr(sf, "surface", pt.surface_plain)
+        eager = Renderer(ds=ds, cam=cam, settings=settings, device="cuda")
+        tally = Tally()
+        eager.step_batched_restir(1)
+        eager.step_batched_restir(1)
+        torch.cuda.synchronize()
+    assert tally("launch.surface") == {} and tally("plain.surface") == {"surface": 4}
+    a, b = replayed.current_image(), eager.current_image()
+    assert bool(_same_bits(a, b).all()), int((~_same_bits(a, b)).sum())

@@ -33,6 +33,18 @@ def scenes():
     return out
 
 
+@pytest.mark.parametrize("name,textured", [("cornell", False), ("teapot", True)])
+def test_textured_flag_from_jax_scene(scenes, name, textured):
+    """``scene_from_jax`` derives the static ``textured`` flag from the
+    material maps as the port's build does: cornell has none, teapot's
+    floor is procedural."""
+    from radish_pt_tpu_torch.scene.device_scene import scene_from_jax
+
+    jds, _, tds, _ = scenes[name]
+    assert tds.textured is textured
+    assert scene_from_jax(*jax_scene_parts(jds)).textured is textured
+
+
 def _jax_f32_planes(jds):
     """The reference's f32 planes for jds in the port's [T, 4, 10] layout
     (its bf16x3 build of small scenes re-derived in f32 by its own code)."""

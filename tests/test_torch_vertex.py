@@ -101,7 +101,8 @@ def _c_struct_fields(source: str, name: str) -> list:
 
 
 @pytest.mark.parametrize("source,struct,module", [
-    ("vertex.cu", "VertexArgs", "vertex"), ("ris.cu", "RisArgs", "ris")])
+    ("vertex.cu", "VertexArgs", "vertex"), ("ris.cu", "RisArgs", "ris"),
+    ("surface.cu", "SurfaceArgs", "surface")])
 def test_args_mirror_the_kernels_struct(source, struct, module):
     """The ctypes structure the wrapper fills is the C struct the kernel
     reads: the same fields in the same order (ctypes lays them out with the
