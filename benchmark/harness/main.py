@@ -59,13 +59,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, t0: float,
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    problems = []
-    calls = {s.call for s in inputs["snapshots"]}
-    if not set(range(inputs["chain_calls"])) <= calls or (
-            inputs["follow_call"] is not None and inputs["follow_call"] not in calls):
-        problems.append("the window ended before a call the check follows")
-    if "pixels" in inputs and not inputs["loopers"]:
-        problems.append("no frame since the last reset")
+    problems = check.problems(inputs)
     t = time.perf_counter()
     judged = [] if problems else check.judge(check.readings(inputs, device), inputs["reference"])
     out_notes = [f"set-up {rec['setup_s']:.3f} s (load_scene {rec['load_scene_s']:.3f}, "

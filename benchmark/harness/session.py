@@ -4,6 +4,10 @@ inputs of the comparison.  Everything a mix varies is a parameter of its
 file (``traffic/<mix>.json``); everything a configuration varies, of its
 file (``configs/<name>.json``).
 
+What the comparison copies around the calls it follows and at the
+window's end is the reference stage's (``checks/<stage>.py``, the mix's
+``check.reference``): the session calls its hooks and names no stage.
+
 The port is imported here and nowhere else in the harness; the reference
 (``reference/``) imports nothing of it.
 """
@@ -67,14 +71,9 @@ class Snapshot:
     looper: int
     cam_time_before: float | None  # the animation's clock before the call (None: unmoved)
     cam_time: float | None  # the camera animation's clock after the call
-    before: dict | None  # the reservoir the call started from (the followed call only)
-    after: dict  # what the call produced
+    before: dict | None  # the stage's copies the call started from (the followed call only)
+    after: dict  # the stage's copies of what the call produced
     chain: bool  # one of the consecutive calls from set-up's first
-
-
-def _reservoir(r) -> dict:
-    res = r.reservoir
-    return {k: getattr(res, k).clone() for k in ("li", "wi", "dist", "num", "weight")}
 
 
 class Session:
@@ -107,6 +106,7 @@ class Session:
         self.snapshots: list[Snapshot] = []
         self.timings: dict = {}
         self.check = check = tr["check"]
+        self.stage = spec.stage(check["reference"])
         # the seed picks where the sample sequence starts (a whole call
         # from the wrap, so that no call straddles it) and where the orbit
         # starts; every seed renders the same sizes and the same number of
@@ -116,7 +116,7 @@ class Session:
         self.next_looper = self.looper0  # counted here, not read from the port
         self.orbit0 = (float(self.rng.uniform(0.0, 2.0 * math.pi))
                        if settings.get("animate_camera") else None)
-        self.pixels = None  # the pt check's pixels, drawn from the seed
+        self.drawn = None  # what the stage drew from the seed in set-up
         self.loopers: list[int] = []  # loopers of the frames since the last reset
         self.chain_calls = int(check.get("chain_calls", 0))
         self.follow_call = None
@@ -166,9 +166,7 @@ class Session:
         if self.orbit0 is not None:
             self.r._time = self.orbit0  # the orbit's clock (Renderer._animate_camera)
         self.cam_time = self.orbit0
-        if "pixels" in self.check:
-            n = int(self.check["pixels"])
-            self.pixels = np.sort(self.rng.choice(w * h, size=min(n, w * h), replace=False))
+        self.drawn = self.stage.draw(self)
         t = time.perf_counter()
         self.call()
         self.sync()
@@ -186,7 +184,7 @@ class Session:
         self.next_looper = (looper + self.frames_per_call) % SOBOL_SAMPLE_NUM
         chain = k < self.chain_calls
         followed = k == self.follow_call
-        before = _reservoir(r) if followed and k > 0 else None
+        before = self.stage.before(r) if followed and k > 0 else None
         cam_time_before = self.cam_time if k > 0 else None
         every = tr.get("reset_every_frames")
         if self.cam_step:  # a moving camera resets the port's accumulation itself
@@ -202,8 +200,7 @@ class Session:
         if self.cam_time is not None:
             self.cam_time += self.cam_step
         if chain or followed:
-            after = {"direct": r.direct.clone(), "display": self.display.clone(),
-                     "reservoir": _reservoir(r)}
+            after = self.stage.after(r, self.display)
             self.snapshots.append(Snapshot(call=k, looper=looper,
                                            cam_time_before=cam_time_before,
                                            cam_time=self.cam_time, before=before, after=after,
@@ -264,8 +261,8 @@ class Session:
 
     def check_inputs(self) -> dict:
         """What the comparison reads of the port's outputs, copied off the
-        renderer, whose state is then freed."""
-        r = self.r
+        renderer, whose state is then freed: the snapshots and what the
+        stage reads at the window's end."""
         cfg, tr = self.config, self.traffic
         out = {"reference": self.check["reference"],
                "scene": spec.path_in_checkout(cfg["scene"]),
@@ -273,10 +270,7 @@ class Session:
                "settings": dict(tr.get("settings", {})), "cam_radius": self.cam_radius,
                "cam_time": self.cam_time, "chain_calls": self.chain_calls,
                "follow_call": self.follow_call}
-        if self.pixels is not None:
-            pix = torch.as_tensor(self.pixels, device=self.device)
-            out.update(pixels=self.pixels, loopers=list(self.loopers),
-                       direct=r.direct[pix].cpu(), indirect=r.indirect[pix].cpu())
+        out.update(self.stage.at_end(self))
         out["snapshots"] = [dataclasses.replace(s, before=_to_cpu(s.before),
                                                 after=_to_cpu(s.after))
                             for s in self.snapshots]

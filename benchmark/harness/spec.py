@@ -1,8 +1,9 @@
 """What a run is made of, found by name: ``BENCHMARK.json`` at the root of
 the checkout, ``configs/<name>.json`` (through the config entry's
-``file``), ``traffic/<mix>.json`` and ``metrics/<metric>.py``.  Adding a
-configuration, a mix, a cell or a per-layer metric adds files and entries
-and edits none."""
+``file``), ``traffic/<mix>.json``, ``metrics/<metric>.py`` and
+``checks/<stage>.py`` (the reference stage a mix's ``check.reference``
+names).  Adding a configuration, a mix, a cell, a per-layer metric or a
+reference stage adds files and entries and edits none."""
 
 from __future__ import annotations
 
@@ -70,10 +71,22 @@ def load_cell(name: str, bench: dict | None = None) -> Cell:
                 traffic=load_traffic(w["traffic"]), end_to_end=e2e, per_layer=per_layer)
 
 
-def metric_reader(name: str):
-    """``read(rec) -> float | None`` of ``metrics/<name>.py``."""
-    path = os.path.join(BENCH_DIR, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name}", path)
+def _load(kind: str, name: str):
+    path = os.path.join(BENCH_DIR, kind, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"bench_{kind}_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str):
+    """``read(rec) -> float | None`` of ``metrics/<name>.py``."""
+    return _load("metrics", name).read
+
+
+def stage(name: str):
+    """The reference stage ``checks/<name>.py``: the module with its
+    ``LIMITS``, its hooks into the session (``draw``, ``before``, ``after``,
+    ``at_end``), its ``problems`` and ``readings``, and ``TINY_TRAFFIC``
+    (README.md, "A reference stage")."""
+    return _load("checks", name)

@@ -99,7 +99,7 @@ def test_a_small_teapot_run_is_correct_through_the_sorted_sweeps(small_scene):
 
 def test_the_control_is_not_correct_on_the_small_teapot(small_scene):
     c = spec.load_cell(CELL)
-    c.traffic = {**c.traffic, **tiny.TRAFFIC["pt"]}
+    c.traffic = {**c.traffic, **tiny.traffic("pt")}
     sess = Session(c, 2147483659, device="cpu", overrides={**tiny.TINY, "scene": small_scene})
     sess.setup()
     sess.window(0.3)

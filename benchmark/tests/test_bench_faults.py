@@ -73,7 +73,7 @@ def test_a_broken_timed_path_is_not_correct(cell, fault, monkeypatch):
 def test_the_control_is_not_correct(cell, seed):
     c = spec.load_cell(cell)
     kind = c.traffic["check"]["reference"]
-    c.traffic = {**c.traffic, **tiny.TRAFFIC[kind]}
+    c.traffic = {**c.traffic, **tiny.traffic(kind)}
     sess = Session(c, seed, device="cpu", overrides=tiny.TINY)
     sess.setup()
     sess.window(0.3)

@@ -6,7 +6,7 @@ skipped) comes out correct, each number well under its limit."""
 import pytest
 
 import tiny  # first: puts the benchmark on the path
-from harness import check
+from harness import spec
 
 
 @pytest.mark.parametrize("scene", ["cornell", "teapot"])
@@ -19,4 +19,4 @@ def test_reference_agrees_with_the_port_on_the_cpu(cell, scene):
     assert out["attempted"] > 0 and out["failed"] == 0
     for name, c in out["checks"].items():
         assert c["value"] <= 0.1 * c["limit"], (name, c)
-    assert list(out["checks"]) == list(check.LIMITS[tiny.reference_of(cell)])
+    assert list(out["checks"]) == list(spec.stage(tiny.reference_of(cell)).LIMITS)

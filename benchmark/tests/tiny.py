@@ -19,10 +19,6 @@ for _p in (ROOT, BENCH):
         sys.path.insert(0, _p)
 
 TINY = {"resolution": [32, 32], "depth": 2}
-# the check's keys at a tiny size, by the reference stage a mix names
-TRAFFIC = {"pt": {"check": {"reference": "pt", "pixels": 256}, "trace_frames": 4},
-           "restir": {"check": {"reference": "restir", "chain_calls": 2, "follow_call": [1, 1]},
-                      "trace_frames": 4}}
 
 
 def reference_of(cell: str) -> str:
@@ -31,9 +27,17 @@ def reference_of(cell: str) -> str:
     return spec.load_cell(cell).traffic["check"]["reference"]
 
 
+def traffic(stage: str) -> dict:
+    """The traffic keys replaced at a tiny size: the reference stage's own
+    (``checks/<stage>.py``, ``TINY_TRAFFIC``)."""
+    from harness import spec
+
+    return spec.stage(stage).TINY_TRAFFIC
+
+
 def run(cell: str, seed: int = 2147483659, seconds: float = 0.5, **overrides):
     from harness.main import run_cell
 
     return run_cell(cell, seed, seconds, False, time.perf_counter(), device="cpu",
                     overrides={**TINY, **overrides},
-                    traffic_overrides=TRAFFIC[reference_of(cell)])
+                    traffic_overrides=traffic(reference_of(cell)))
