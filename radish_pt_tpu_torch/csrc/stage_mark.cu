@@ -9,7 +9,7 @@
 // the trace shows them as they are written here) are what a trace reader
 // matches; the order below is utils/timing.py's STAGES, then its
 // INNER_MARKS, which bracket work inside a stage (the sorted sweeps'
-// wavefront reordering) and start no stage.
+// wavefront reordering, the denoiser after a frame) and start no stage.
 
 #include <cuda_runtime.h>
 
@@ -28,7 +28,10 @@
   X(hit)               \
   X(end)               \
   X(reorder)           \
-  X(reorder_end)
+  X(reorder_end)       \
+  X(denoise)           \
+  X(svgf_levels)       \
+  X(denoise_end)
 
 #define DEFINE_MARK(name) \
   extern "C" __global__ void stage_mark_##name() {}

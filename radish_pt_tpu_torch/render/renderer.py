@@ -21,9 +21,10 @@ Batched frames (:meth:`Renderer.render_batched`,
 tracer or of ReSTIR DI as one block (:func:`_pt_batch`,
 :func:`_restir_batch`, the JAX renderer's ``fori_loop`` programs): on the
 card with a capturable engine the block is one CUDA graph, captured once
-and replayed (render/graph.py); ``Renderer.batch_mode`` says which.  A
-replayed block equals the same frames run by :meth:`Renderer.step`, bit
-for bit.
+and replayed (render/graph.py); ``Renderer.batch_mode`` says which.
+``step_batched_restir``'s SVGF runs after the block as a block of its own
+(one more graph).  A replayed block equals the same frames run by
+:meth:`Renderer.step`, bit for bit.
 
 Mesh mode (``Renderer(mesh=...)``, parallel/sharding.py): the pixel
 buffers are padded to the tile count and held one tensor a tile on the
@@ -111,6 +112,14 @@ def _restir_batch(ds, cam, last_cam, looper0, gbuf_last, reservoir, first_frame,
         direct = pt.accumulate(direct, pt.scrub_and_compress(d), iteration + k)
     tracing.mark("end", ds.device)
     return direct, reservoir, gbuf
+
+
+def _frame_copy(frame):
+    """A copy of a G-buffer frame, or of a mesh's list of tile frames."""
+    if isinstance(frame, list):
+        return [_frame_copy(f) for f in frame]
+    return gb.GBufferFrame(normal=frame.normal.clone(), prim_id=frame.prim_id.clone(),
+                           depth=frame.depth.clone())
 
 
 class Renderer:
@@ -327,7 +336,8 @@ class Renderer:
             # (main.cpp:95-97, DENOISER_SPLIT_DIRECT_INDIRECT common.h:10)
             tracing.mark("end", self.device)
             with timer.time("denoise"):
-                image = self._apply_denoiser(self.direct, self.indirect)
+                image = self._apply_denoiser(self.direct, (self.gbuf_last, self.first_frame),
+                                             self.indirect)
             denoised = True
         else:  # the direct-light tracer (the reference demo loop's default)
             with timer.time("pt_direct"):
@@ -339,7 +349,7 @@ class Renderer:
         if not denoised:
             tracing.mark("end", self.device)
             with timer.time("denoise"):
-                image = self._apply_denoiser(image)
+                image = self._apply_denoiser(image, (self.gbuf_last, self.first_frame))
         self._last_image = image
         with timer.time("display"):
             disp = self._display(image)
@@ -392,7 +402,8 @@ class Renderer:
             self.gbuf = self._full(tiles)
         tracing.mark("end", self.device)
         with timer.time("denoise"):
-            image = self._apply_denoiser(self._full(self.direct))
+            image = self._apply_denoiser(self._full(self.direct),
+                                         (self.gbuf_last, self.first_frame))
         self._last_image = image
         with timer.time("display"):
             disp = self._display(image)
@@ -575,26 +586,46 @@ class Renderer:
         return img.cpu().numpy().reshape(self.cam.height, self.cam.width, 3)
 
     def step_batched_restir(self, block: int):
-        """``block`` ReSTIR frames as one block, then the denoiser once;
-        returns the display image on the device (the JAX renderer's
-        high-throughput interactive mode)."""
+        """``block`` ReSTIR frames as one block, then the denoiser once (SVGF
+        as a block of its own: one CUDA graph on the card, as the ReSTIR
+        block); returns the display image on the device (the JAX renderer's
+        high-throughput interactive mode).
+
+        The denoiser gets the G-buffer frame and the first-frame flag from
+        before the block, as :meth:`step` gives them: the frame that the
+        block's motion reprojects into and True on the first call
+        (temporalAccumulate, denoiser.cu:208-262).  This departs from the
+        JAX package's ``step_batched_restir``, whose denoiser reads the
+        block's own frame and a first-frame flag already cleared.  SVGF,
+        which reads that frame, gets a copy: a replayed block writes its
+        own frame into the tensors that hold ``gbuf_last`` (the runner's
+        carry, render/graph.py)."""
         s = self.settings
         with tracing.call("call.step_batched_restir"):
             if s.animate_camera:
                 self._animate_camera()
             if not s.accumulate:
                 self.reset_accumulation()
+            # the frame before must exist before it is copied (on the
+            # first call, last_cam's)
+            self._ensure_gbuf_last()
+            last_frame, first = self.gbuf_last, self.first_frame
+            if s.denoiser == Denoiser.SVGF:
+                last_frame = _frame_copy(last_frame)
             with self.timer.time(f"block of {block}"):
                 self._restir_block(block)
-            image = self._apply_denoiser(self._full(self.direct))
+            image = self._apply_denoiser(self._full(self.direct), (last_frame, first),
+                                         block=self.mesh is None)
             self._last_image = image
             return self._display(image)
 
-    def _apply_denoiser(self, image, indirect=None):
+    def _apply_denoiser(self, image, history, indirect=None, block=False):
         """Denoise ``image``, or the (direct, indirect) pair when
         ``indirect`` is given: split SVGF filters the two with independent
         histories and adds them after (main.cpp:95-97, denoiser.cu:436-448),
-        the other denoisers filter their sum."""
+        the other denoisers filter their sum.  ``history``: the last
+        G-buffer frame and the first-frame flag SVGF reads; ``block``: SVGF
+        on ``image`` runs as a block (:meth:`_svgf`)."""
         s = self.settings
         # the Output Direct/Indirect AOVs are live only while the split
         # path runs
@@ -602,15 +633,19 @@ class Renderer:
         if s.denoiser == Denoiser.NONE:
             return image if indirect is None else post.add_image(image, indirect)
         with tracing.span("frame.denoise"):
-            return self._denoise(image, indirect)
+            tracing.mark("denoise", self.device)
+            out = self._denoise(image, indirect, history, block)
+            tracing.mark("denoise_end", self.device)
+            return out
 
-    def _denoise(self, image, indirect):
+    def _denoise(self, image, indirect, history, block):
         s = self.settings
         sig_d, sig_n, sig_l = self._svgf_sigmas()
+        last_frame, first = history
         if indirect is not None and s.denoiser == Denoiser.SVGF and s.denoiser_split:
             out_d, out_i, self.svgf_direct, self.svgf_indirect = dn.svgf_filter_pair(
                 image, indirect, self.svgf_direct, self.svgf_indirect, self.gbuf,
-                self._full(self.gbuf_last), self.cam, self.first_frame, levels=s.svgf_levels,
+                self._full(last_frame), self.cam, first, levels=s.svgf_levels,
                 sig_depth=sig_d, sig_normal=sig_n, sig_luminance=sig_l)
             self._split_out = (out_d, out_i)
             self._svgf_indirect_live = True
@@ -626,13 +661,27 @@ class Renderer:
                                         sig_normal=s.eaw_sig_normal,
                                         sig_luminance=s.eaw_sig_luminance)
         elif s.denoiser == Denoiser.SVGF:
-            out, self.svgf_direct = dn.svgf_filter(
-                image, self.svgf_direct, self.gbuf, self._full(self.gbuf_last), self.cam,
-                self.first_frame, levels=s.svgf_levels, sig_depth=sig_d,
-                sig_normal=sig_n, sig_luminance=sig_l)
+            out, self.svgf_direct = self._svgf(image, self._full(last_frame), first, block,
+                                               levels=s.svgf_levels, sig_depth=sig_d,
+                                               sig_normal=sig_n, sig_luminance=sig_l)
         else:
             return image
         return post.modulate_albedo(out, self.gbuf.albedo) if s.modulate else out
+
+    def _svgf(self, image, last_frame, first, block: bool, **kw):
+        """SVGF on ``image``: (the filtered image, the new history).  With
+        ``block`` it runs as a block runner of its own, the first-frame flag
+        a device fill: on the card one CUDA graph, captured on the first
+        call and replayed, the history carried in its static tensors; the
+        same kernels as the eager filter, so the same bits."""
+        args = (image, self.svgf_direct, self.gbuf, last_frame, self.cam)
+        if not block:
+            return dn.svgf_filter(*args, first, **kw)
+        held = self.last_runner  # the ReSTIR block's, which callers read
+        run = self._runner(("svgf", *kw.values()), lambda *a: dn.svgf_filter(*a, **kw),
+                           (("1", "1"),))
+        self.last_runner = held
+        return run(*args, gr.block_input(bool(first), self.device))
 
     def _svgf_sigmas(self):
         """SVGF's (depth, normal, luminance) sigmas, live-tunable like the

@@ -60,8 +60,11 @@ STAGES = ("gbuffer", "primary", "ris", "shadow", "temporal", "spatial", "shade",
 # in csrc/stage_mark.cu): the sorted sweeps' wavefront reordering
 # (scene/device_scene.py), "reorder" where it starts and "reorder_end"
 # where it stops, once around the sort key, the sort and the gathers into
-# key order and once around the scatter back to lane order
-INNER_MARKS = ("reorder", "reorder_end")
+# key order and once around the scatter back to lane order; the denoiser
+# (render/renderer.py, render/denoise.py), "denoise" where it starts,
+# "svgf_levels" before SVGF's first variance prefilter and guided level,
+# "denoise_end" where it stops
+INNER_MARKS = ("reorder", "reorder_end", "denoise", "svgf_levels", "denoise_end")
 _STAGE_INDEX = {s: i for i, s in enumerate(STAGES + INNER_MARKS)}
 
 

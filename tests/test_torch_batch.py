@@ -349,6 +349,43 @@ def test_step_batched_restir_matches_steps(cornell):
     assert torch.equal(disp_a, disp_b) and disp_b.dtype == torch.uint8
 
 
+@pytest.mark.parametrize("start", ["first_call", "after_a_path_traced_frame"])
+def test_step_batched_restir_hands_svgf_the_frame_before(cornell, start):
+    """``step_batched_restir(1)`` with SVGF and the orbiting camera equals
+    ``step()`` call for call over four calls, bit for bit: the display,
+    the denoised image and the SVGF history.  The denoiser after a block
+    reads the G-buffer frame from before the block (the one its motion
+    reprojects into) and a first-frame flag that is True on the first
+    call, as ``step()`` gives them.  The second case starts after a
+    path-traced frame that left no G-buffer, so the frame before is the
+    one rendered for the last camera."""
+    from radish_pt_tpu_torch.config import Denoiser, Tracer
+
+    _, _, ds, cam = cornell
+    kw = dict(tracer=Tracer.RESTIR_DI, denoiser=Denoiser.SVGF, animate_camera=True,
+              animate_radius=2.0, animate_speed=1.0, trace_depth=DEPTH)
+    a, b = _renderer(ds, cam, **kw), _renderer(ds, cam, **kw)
+    if start == "after_a_path_traced_frame":
+        for r in (a, b):
+            r.settings.tracer, r.settings.denoiser = Tracer.STREAMED, Denoiser.NONE
+            r.step()
+            assert r.gbuf_last is None and not r.first_frame
+            r.settings.tracer, r.settings.denoiser = Tracer.RESTIR_DI, Denoiser.SVGF
+    tally = Tally()
+    for k in range(4):
+        disp_a, disp_b = a.step(), b.step_batched_restir(1)
+        _assert_same_state(a, b)
+        assert torch.equal(disp_a, disp_b), k
+        assert torch.equal(a._last_image, b._last_image), k
+        for f in ("accum_color", "accum_moment"):
+            assert torch.equal(getattr(a.svgf_direct, f), getattr(b.svgf_direct, f)), (k, f)
+    assert float(b.svgf_direct.accum_moment[:, 2].max()) >= 3.0  # histories grew
+    assert tally("denoise") == {"svgf": 8, "svgf_level": 40,
+                                "svgf_pixels": 8 * cam.width * cam.height}
+    marks = tally("marks")
+    assert [marks.get(s) for s in ("denoise", "svgf_levels", "denoise_end")] == [8, 8, 8]
+
+
 def test_render_batched_refuses_other_tracers(cornell):
     from radish_pt_tpu_torch.config import Tracer
 

@@ -1688,6 +1688,42 @@ def test_ris_kernel_graph_replay_equals_eager(monkeypatch):
 
 
 @pytest.mark.cuda
+def test_replayed_restir_hands_svgf_the_frame_before():
+    """``step_batched_restir(1)`` replayed as a CUDA graph, with SVGF and the
+    orbiting camera, equals the eager ``step()`` call for call over five
+    calls, bit for bit: the accumulation, the display, the denoised image
+    and the SVGF history.  A replay writes its G-buffer frame into the
+    tensors that held the frame before, so SVGF must read a copy of it.
+    SVGF runs as a CUDA graph of its own, captured on the first call (the
+    first-frame flag a device fill) and replayed on each later one."""
+    from radish_pt_tpu_torch.config import Denoiser, Settings, Tracer
+    from radish_pt_tpu_torch.render.renderer import Renderer
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (a replayed block needs CUDA graphs)")
+    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cuda")
+    cam = cam.replace(width=64, height=64)
+
+    def make():
+        return Renderer(ds=ds, cam=cam, device="cuda", settings=Settings(
+            tracer=Tracer.RESTIR_DI, denoiser=Denoiser.SVGF, animate_camera=True,
+            animate_radius=2.0))
+
+    a, b = make(), make()
+    for k in range(5):
+        disp_a, disp_b = a.step(), b.step_batched_restir(1)
+        assert b.last_runner.mode == "graph"
+        assert torch.equal(a.direct, b.direct), k
+        assert torch.equal(disp_a, disp_b), k
+        assert torch.equal(a._last_image, b._last_image), k
+        for f in ("accum_color", "accum_moment"):
+            assert torch.equal(getattr(a.svgf_direct, f), getattr(b.svgf_direct, f)), (k, f)
+        (svgf,) = [run for key, (_, run) in b._runners.items() if key[0] == "svgf"]
+        assert svgf.mode == "graph" and svgf.replays == k + 1
+
+
+@pytest.mark.cuda
 def test_ris_kernel_one_launch_a_frame():
     """``step_batched_restir`` blocks of 3 frames at 64x64: the replay adds
     one RIS launch a frame (``launch.ris.ris``), and no plain call."""

@@ -171,6 +171,68 @@ def test_svgf_filter_pair_matches(cams):
         _close(g.accum_moment, w.accum_moment)
 
 
+def _plain_reference(name: str):
+    """A module of the benchmark's plain reference (``benchmark/reference/``,
+    which imports nothing of the port), loaded as the package
+    ``bench_reference`` without putting the benchmark on the path."""
+    import importlib
+    import importlib.util
+    import sys
+
+    pkg = "bench_reference"
+    if pkg not in sys.modules:
+        init = os.path.join(os.path.dirname(__file__), "..", "benchmark", "reference",
+                            "__init__.py")
+        spec = importlib.util.spec_from_file_location(
+            pkg, init, submodule_search_locations=[os.path.dirname(init)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[pkg] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+def test_svgf_chain_matches_the_benchmarks_plain_svgf():
+    """Four chained SVGF calls of the port against the benchmark's frozen
+    plain SVGF (``benchmark/reference/denoise.py``, written from
+    denoiser.cu), each side on its own history, on seeded colours and the
+    cornell G-buffers at 32x32: the first call (every pixel reset), a call
+    with the camera still (the histories grow), a camera move that
+    disoccludes part of the image, and a call after it.  Held to 1e-5: the
+    same taps summed in the same order; the libraries' exp and pow may
+    differ by an ulp."""
+    import dataclasses
+
+    from radish_pt_tpu_torch.render import denoise as dn
+    from radish_pt_tpu_torch.render import gbuffer as gb
+    from radish_pt_tpu_torch.scene.build import load_scene
+
+    rdn, rcam = _plain_reference("denoise"), _plain_reference("camera")
+    ds, cam, _ = load_scene(os.path.join(SCENES, "cornell_box.txt"), device="cpu")
+    cam0 = cam.replace(width=32, height=32)
+    cam1 = cam0.replace(position=cam0.position + torch.tensor([0.8, 0.0, 0.0]))
+    n = 32 * 32
+    rng = np.random.default_rng(9)
+    state = dn.empty_svgf_state(n, device="cpu")
+    hist = rdn.empty_history(n, device="cpu")
+    last, last_cam = gb.empty_frame(n, device="cpu"), cam0
+    for k, c in enumerate((cam0, cam0, cam1, cam1)):
+        gbuf = gb.render_gbuffer(ds, c, last_cam)
+        color = torch.from_numpy(rng.uniform(0, 2, (n, 3)).astype(np.float32))
+        out, state = dn.svgf_filter(color, state, gbuf, last, c, k == 0)
+        plain_cam = rcam.Camera(**{f.name: getattr(c, f.name)
+                                   for f in dataclasses.fields(rcam.Camera)})
+        want, hist = rdn.svgf_filter(color, hist, gbuf, last, plain_cam, k == 0)
+        np.testing.assert_allclose(t2n(out), t2n(want), **TOL)
+        np.testing.assert_allclose(t2n(state.accum_color), t2n(hist.color), **TOL)
+        np.testing.assert_allclose(t2n(state.accum_moment), t2n(hist.moment), **TOL)
+        length = t2n(state.accum_moment[:, 2])
+        if k == 0:
+            assert (length == 0).all()
+        if k == 2:  # the move resets some histories and keeps others
+            assert (length == 0).mean() > 0.05 and (length == 2).mean() > 0.05
+        last, last_cam = gbuf.frame, c
+
+
 def _port_renderer(settings, res=32):
     from radish_pt_tpu_torch.render.renderer import Renderer
     from radish_pt_tpu_torch.scene.build import load_scene

@@ -237,8 +237,10 @@ def test_denoiser_span_where_a_denoiser_runs(cornell, fresh):
     t = timing.snapshot()["unprofiled"]
     assert t["frame.denoise"]["count"] == 2 and t["call.step"]["count"] == 1
     assert {"pass.gbuffer", "pass.restir", "pass.denoise", "pass.display"} <= set(t)
-    # the eager frame marks its stages and ends them before the denoiser
-    assert _marks(t["call.step"]["counts"]) == {s: 1 for s in (*RESTIR_STAGES, "end")}
+    # the eager frame marks its stages and ends them before the denoiser,
+    # which marks where it starts and stops (the Gaussian has no SVGF levels)
+    assert _marks(t["call.step"]["counts"]) == {
+        s: 1 for s in (*RESTIR_STAGES, "end", "denoise", "denoise_end")}
 
 
 def test_mesh_restir_block_marks_every_tile(cornell, fresh):
